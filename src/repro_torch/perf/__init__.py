@@ -1,0 +1,1 @@
+from .hw import H100, V5E, HwSpec, kernel_bound

@@ -5,11 +5,16 @@
 
 Phases, each of which raises on failure (there is no CPU fallback):
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from src/repro_torch/csrc with nvcc;
+  2. build every CUDA kernel from src/repro_torch/csrc with nvcc, one
+     process each, all at once;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     served shapes and the edge cases (ragged lengths, GQA 7:1 at hd 8, MQA,
-     window, softcap, ring cache mid-wrap, nearly full and empty caches),
-     float32 at atol/rtol 1e-4 and bfloat16 at 2e-2;
+     served shapes and the edge cases: attention at ragged lengths, GQA 7:1
+     at hd 8, MQA, window, softcap, ring cache mid-wrap, nearly full and
+     empty caches, float32 at atol/rtol 1e-4 and bfloat16 at 2e-2; the SSD
+     scan at the served chunk lengths 37/64/100/128 (one to three chunks),
+     a single group read over 80 heads, the reduced and a jamba-like size,
+     against both its chunked and its sequential plain versions, float32
+     at 2e-4 and bfloat16 at 5e-2;
   4. paper-default at full width (16 layers, d_model 1024, random weights
      from a seeded torch.Generator): prefill of a 333-token prompt and 16
      teacher-forced decode steps through the kernels and through the plain
@@ -17,9 +22,16 @@ Phases, each of which raises on failure (there is no CPU fallback):
   5. ServeEngine on paper-default at full width, 4 slots, 8 requests of
      three service levels: every request finishes, admission respects the
      levels, and the launch counters show 16 flash launches per prefill and
-     16 decode launches per decode step;
-  6. time each kernel at the served shapes with CUDA events, beside its
-     bound on an H100, its plain version and one library call.
+     16 decode launches per decode step; a profile of one decode step;
+  6. mamba2-2.7b at full width (64 layers, d_model 2560, 80 heads of P 64,
+     N 128, vocab 50280): the same check as phase 4 (logits and the ssm/conv
+     state within atol 2e-3 / rtol 1e-3);
+  7. ServeEngine on mamba2-2.7b at full width, as phase 5: 64 SSD-scan
+     launches per prefill and no attention launch; a profile of one decode
+     step;
+  8. time each kernel at the served shapes with CUDA events, beside its
+     bound on an H100, its plain version and one library call where there
+     is one.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -43,15 +55,20 @@ from repro_torch.core.sla import ServiceLevel  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,  # noqa: E402
+                                     ssd_scan_ref, ssd_sequential_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.models.params import count_params  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
 from repro_torch.perf.hw import H100, kernel_bound  # noqa: E402
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # the reference's own
 MODEL_ATOL, MODEL_RTOL = 2e-3, 1e-3
 ARCH = "paper-default"
+MAMBA = "mamba2-2.7b"
 PROMPT_LENS = (37, 64, 100, 129, 200, 255, 300, 333)
 MAX_NEW = 32
 SLOTS = 4
@@ -84,6 +101,20 @@ DECODE_CASES = [
     (2, 7, 1, 8, 200, 0, 0.0, 150),  # GQA 7:1, hd 8, ragged Smax
     (2, 8, 4, 64, 333, 0, 50.0, 250),  # softcap, ragged Smax
     (2, 4, 2, 16, 37, 0, 0.0, -1),  # empty cache: the mean of V
+]
+# SSD scan cases: B, S, H, P, N, chunk, single group (B_/C_ read over the
+# heads with head stride 0, as the model passes them)
+SSD_SLICE = (1, 384, 80, 64, 128, 128, True)  # the 333-token prompt, padded
+SSD_CASES = [
+    SSD_SLICE,
+    (1, 384, 80, 64, 128, 128, False),
+    (1, 256, 80, 64, 128, 128, True),  # prompts of 129-255 tokens: two chunks
+    (1, 37, 80, 64, 128, 37, True),  # the 37-token prompt: one chunk of 37
+    (1, 64, 80, 64, 128, 64, True),
+    (1, 100, 80, 64, 128, 100, True),
+    (1, 74, 4, 64, 128, 37, False),
+    (2, 16, 8, 16, 16, 8, False),  # mamba2-2.7b reduced
+    (1, 128, 8, 16, 16, 32, False),  # jamba-like small state
 ]
 
 
@@ -118,6 +149,19 @@ def _linear_cache(B, Smax, fill, device):
     lengths = torch.full((B,), fill, dtype=torch.int32, device=device)
     pos = torch.where(ar <= lengths[:, None], ar, torch.full_like(ar, -1))
     return pos.contiguous(), lengths
+
+
+def _ssd_inputs(gen, B, S, H, P, N, single_group, dtype, device):
+    """x, dt, A, B_, C_ drawn as the reference's kernel tests draw them."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x = rnd(B, S, H, P).to(dtype)
+    dt = F.softplus(rnd(B, S, H))
+    A = -torch.exp(rnd(H) * 0.3)
+    G = 1 if single_group else H
+    Bm, Cm = ((rnd(B, S, G, N) * 0.5).to(dtype).expand(B, S, H, N) for _ in range(2))
+    return x, dt, A, Bm, Cm
 
 
 def check_kernels(device) -> dict:
@@ -155,14 +199,26 @@ def check_kernels(device) -> dict:
             got = decode_attention(q[:, 0].contiguous(), k, v, pos, lengths, window=win)
             want = decode_attention_ref(q[:, 0], k, v, pos, lengths, window=win)
             _close(f"decode ring Smax={Smax} {dtype}", got, want, tol)
+        for case in SSD_CASES:
+            B, S, H, P, N, chunk, single = case
+            args = _ssd_inputs(gen, B, S, H, P, N, single, dtype, device)
+            y, h = ssd_scan(*args, chunk=chunk)
+            yr, hr = ssd_scan_ref(*args, chunk=chunk)
+            ys, hs = ssd_sequential_ref(*args)
+            err = _close(f"ssd {case} {dtype} y vs chunked", y, yr, SSD_TOL[dtype])
+            _close(f"ssd {case} {dtype} state vs chunked", h, hr, SSD_TOL[dtype])
+            _close(f"ssd {case} {dtype} y vs sequential", y, ys, SSD_TOL[dtype])
+            _close(f"ssd {case} {dtype} state vs sequential", h, hs, SSD_TOL[dtype])
+            if case == SSD_SLICE and dtype == torch.float32:
+                errs["ssd_scan"] = err
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return errs
 
 
 def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16) -> dict:
-    """Phase 4: the same params and tokens through the kernels and through the
-    plain versions."""
+    """Phases 4 and 6: the same params and tokens through the kernels and
+    through the plain versions."""
     cfg = get_config(arch, reduced=reduced)
     lm_k = LM(cfg, impl="cuda", device=device)
     lm_p = LM(cfg, impl="plain", device=device)
@@ -186,21 +242,29 @@ def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16) -> d
                 lp, cp = lm_p.decode_step(params, cp, forced[step], dtype=torch.float32)
     if not torch.equal(ck["lengths"], cp["lengths"]):
         raise AssertionError("model: cache lengths differ")
+    state_err = 0.0
     for sub in ck["blocks"]:
-        a, b = ck["blocks"][sub]["attn"], cp["blocks"][sub]["attn"]
-        if not torch.equal(a["pos_ids"], b["pos_ids"]):
-            raise AssertionError(f"model: {sub} pos_ids differ")
-        for name in ("k", "v"):
-            if not torch.allclose(a[name], b[name], atol=MODEL_ATOL, rtol=MODEL_RTOL):
-                raise AssertionError(f"model: {sub} cache {name} differs")
-    return {"logits_max_abs_err": worst, "steps": steps, "prompt_len": prompt_len,
-            "num_params": cfg.num_params()}
+        for kind, leaves in ck["blocks"][sub].items():
+            for name, a in leaves.items():
+                b = cp["blocks"][sub][kind][name]
+                if name == "pos_ids":
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"model: {sub} pos_ids differ")
+                    continue
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"model: {sub} cache {name} not finite")
+                if not torch.allclose(a, b, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+                    raise AssertionError(f"model: {sub} cache {name} differs")
+                state_err = max(state_err, float((a - b).abs().max()))
+    return {"logits_max_abs_err": worst, "cache_max_abs_err": state_err, "steps": steps,
+            "prompt_len": prompt_len,
+            "num_params": count_params(params)}
 
 
 def serve(device, arch=ARCH, reduced=False, prompt_lens=PROMPT_LENS,
           max_new=MAX_NEW):
-    """Phase 5: the served path. Returns the engine, and the launch counts
-    of this run with what it measured."""
+    """Phases 5 and 7: the served path. Returns the engine, and the launch
+    counts of this run with what it measured."""
     eng = ServeEngine(arch, reduced=reduced, slots=SLOTS, max_len=MAX_LEN,
                       seed=0, device=device)
     levels = [ServiceLevel.IMMEDIATE, ServiceLevel.RELAXED, ServiceLevel.BEST_EFFORT]
@@ -218,11 +282,13 @@ def serve(device, arch=ARCH, reduced=False, prompt_lens=PROMPT_LENS,
         first_token_t[req.rid] = eng.now()
 
     eng._admit = timed_admit
-    n_layers = eng.cfg.num_layers
+    kinds = eng.cfg.layer_kinds()
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
     for r in reqs:
         eng.submit(r)
     flash_attention.launches = 0
     decode_attention.launches = 0
+    ssd_scan.launches = 0
     decode_steps = 0
     t0 = time.perf_counter()
     while not all(r.finish_t is not None for r in reqs):
@@ -234,10 +300,12 @@ def serve(device, arch=ARCH, reduced=False, prompt_lens=PROMPT_LENS,
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     counts = {"flash_attention": flash_attention.launches,
-              "decode_attention": decode_attention.launches}
+              "decode_attention": decode_attention.launches,
+              "ssd_scan": ssd_scan.launches}
 
-    want = {"flash_attention": n_layers * len(reqs),
-            "decode_attention": n_layers * decode_steps}
+    want = {"flash_attention": n_attn * len(reqs),
+            "decode_attention": n_attn * decode_steps,
+            "ssd_scan": n_mamba * len(reqs)}
     if counts != want:
         raise AssertionError(f"serve: launches {counts}, expected {want}")
     for r in reqs:
@@ -316,8 +384,9 @@ def _time_ms(fn, args_list, iters):
 
 
 def time_kernels(device, n_sets=16) -> dict:
-    """Phase 6: each kernel at the served shape (float32): its time, its
-    plain version's, one library call's, and its bound on an H100."""
+    """Phase 8: each kernel at the served shape (float32): its time, its
+    plain version's, one library call's where one PyTorch call computes the
+    same function, and its bound on an H100."""
     gen = torch.Generator(device=device).manual_seed(1)
     out = {}
 
@@ -362,6 +431,23 @@ def time_kernels(device, n_sets=16) -> dict:
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
         "shape": f"q ({B},{H},{hd}) k/v ({B},{Smax},{K},{hd}) float32, lengths {fills.tolist()}",
     }
+
+    B, S, H, P, N, Q, _ = SSD_SLICE
+    ssets = [_ssd_inputs(gen, B, S, H, P, N, True, torch.float32, device) for _ in range(n_sets)]
+    nc, pairs = S // Q, Q * (Q + 1) // 2  # causal (q, k) pairs of a chunk
+    # per (batch, head, chunk): C.B^T and the decay-weighted product with x
+    # over the causal pairs, the inter-chunk term and the state update
+    flops = 2.0 * B * H * nc * (pairs * N + pairs * P + 2 * Q * N * P)
+    # x, dt, A, the single-group B and C read once; y and the state written once
+    nbytes = 4.0 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N + B * H * P * N)
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
+    out["ssd_scan"] = {
+        "ms": _time_ms(lambda *a: ssd_scan(*a, chunk=Q), ssets, 100),
+        "plain_ms": _time_ms(lambda *a: ssd_scan_ref(*a, chunk=Q), ssets, 10),
+        "library_ms": None,  # no PyTorch call computes the chunked scan
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "shape": f"x ({B},{S},{H},{P}) B_/C_ ({B},{S},1,{N}) over {H} heads, chunk {Q}, float32",
+    }
     return out
 
 
@@ -388,23 +474,28 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errs = check_kernels(device)
-    print(f"[kernels] {len(FLASH_CASES)} flash + {len(DECODE_CASES) + 2} decode cases "
-          f"x (float32, bfloat16) agree with the plain versions; float32 max abs err at "
-          f"the served shapes {json.dumps(errs)} ({time.perf_counter() - t0:.1f}s)", flush=True)
-
-    t0 = time.perf_counter()
-    model = check_model(device)
-    print(f"[model] {ARCH} full width: {json.dumps(model)} "
+    print(f"[kernels] {len(FLASH_CASES)} flash + {len(DECODE_CASES) + 2} decode + "
+          f"{len(SSD_CASES)} ssd cases x (float32, bfloat16) agree with the plain versions; "
+          f"float32 max abs err at the served shapes {json.dumps(errs)} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
-    torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    eng, served = serve(device)
-    print(f"[serve] {json.dumps(served)} ({time.perf_counter() - t0:.1f}s)", flush=True)
-    prof = profile_decode(eng, device)
-    print(f"[profile] decode step, {SLOTS} slots busy: {json.dumps(prof)}", flush=True)
-    del eng
-    torch.cuda.empty_cache()
+    served = {}
+    for arch in (ARCH, MAMBA):
+        t0 = time.perf_counter()
+        model = check_model(device, arch=arch)
+        print(f"[model] {arch} full width: {json.dumps(model)} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        eng, served[arch] = serve(device, arch=arch)
+        print(f"[serve] {arch} {json.dumps(served[arch])} ({time.perf_counter() - t0:.1f}s)",
+              flush=True)
+        prof = profile_decode(eng, device)
+        print(f"[profile] {arch} decode step, {SLOTS} slots busy: {json.dumps(prof)}",
+              flush=True)
+        del eng
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     timing = time_kernels(device)
@@ -413,18 +504,21 @@ def main() -> int:
     print(f"[time] {time.perf_counter() - t0:.1f}s; whole run "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
+    # each kernel's launches come from the served run of the path it is on
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:109"),
+                            "src/repro/kernels/flash_attention.py:109", ARCH),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                             "src/repro/kernels/decode_attention.py:87"),
+                             "src/repro/kernels/decode_attention.py:87", ARCH),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:87", MAMBA),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, arch) in meta.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": served["counts"][name], "max_abs_err": errs[name],
+            "launches": served[arch]["counts"][name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

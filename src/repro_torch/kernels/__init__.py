@@ -1,2 +1,3 @@
 """Hand-written CUDA kernels for Hopper (sources in ``../csrc``), their
-plain PyTorch versions (ref.py) and the SDPA adapter (ops.py)."""
+plain PyTorch versions (ref.py) and the adapters that route the model to
+them (ops.py)."""

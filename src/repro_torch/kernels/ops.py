@@ -1,8 +1,10 @@
-"""The SDPA adapter that sends the model's attention to the kernels.
+"""The adapters that send the model's attention and SSD scans to the kernels.
 
 ``sdpa_kernel`` registers itself as the "cuda" implementation in
-models/layers.py, so ``LM(cfg, impl="cuda")`` runs every attention of the
-served path through the hand-written kernels. It routes by call site:
+models/layers.py and ``ssd_kernel`` as the "cuda" implementation in
+models/ssd.py, so ``LM(cfg, impl="cuda")`` runs every attention and every
+mamba prefill of the served path through the hand-written kernels.
+``sdpa_kernel`` routes by call site:
 
 * "prefill" (prefill and forward: causal self-attention at arange
   positions, Sq == Sk of any length) -> ``flash_attention``;
@@ -11,13 +13,19 @@ served path through the hand-written kernels. It routes by call site:
 * anything else (cross-attention, multi-token decode) raises
   ``NotImplementedError``: there is no fallback.
 
-On CPU tensors the two wrappers compute their plain versions.
+``ssd_kernel`` sends the chunked scan from a zero state (every prefill) to
+``ssd_scan``; with an initial state (multi-token decode) ``ssd_scan``
+raises on a CUDA tensor.
+
+On CPU tensors the wrappers compute their plain versions.
 """
 from __future__ import annotations
 
 from ..models import layers as _layers
+from ..models import ssd as _ssd
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 
 
 def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
@@ -40,6 +48,13 @@ def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
     )
 
 
-_layers.SDPA_IMPL["cuda"] = sdpa_kernel
+def ssd_kernel(x, dt, A, B_, C_, chunk, h0):
+    # x is a head-split view of the conv output unless padding copied it;
+    # B_ and C_ go by strides (the single group at head stride 0)
+    return ssd_scan(x.contiguous(), dt, A, B_, C_, chunk=chunk, h0=h0)
 
-__all__ = ["flash_attention", "decode_attention", "sdpa_kernel"]
+
+_layers.SDPA_IMPL["cuda"] = sdpa_kernel
+_ssd.SSD_IMPL["cuda"] = ssd_kernel
+
+__all__ = ["flash_attention", "decode_attention", "ssd_scan", "sdpa_kernel", "ssd_kernel"]

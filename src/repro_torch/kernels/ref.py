@@ -5,6 +5,9 @@ from __future__ import annotations
 import torch
 
 from ..models.layers import _sdpa_dense
+from ..models.ssd import ssd_chunked
+
+F32 = torch.float32
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -31,3 +34,27 @@ def decode_attention_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
         softcap or None,
     )
     return out[:, 0]
+
+
+def ssd_scan_ref(x, dt, A, B_, C_, *, chunk=128, h0=None):
+    """Delegates to the model's chunked SSD (itself held against the
+    sequential recurrence below in the tests)."""
+    return ssd_chunked(x, dt, A, B_, C_, chunk, h0=h0)
+
+
+def ssd_sequential_ref(x, dt, A, B_, C_):
+    """O(S) literal recurrence from a zero state: the ground truth for
+    ``ssd_chunked`` itself. Returns (y (B,S,H,P), final state (B,H,P,N))."""
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    h = torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
+    Af = A.to(F32)
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t].to(F32)  # (B,H)
+        dA = torch.exp(dtt * Af)
+        h = h * dA[..., None, None] + dtt[..., None, None] * (
+            x[:, t, :, :, None].to(F32) * B_[:, t, :, None, :].to(F32)
+        )
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, C_[:, t].to(F32)))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -7,8 +7,9 @@ prefill on admission (slot fill), one decode step advances every active
 slot, finished requests free their slot. Requests carry the paper's
 service levels; admission order is IMMEDIATE > RELAXED (deadline-aware) >
 BEST_EFFORT, i.e. the flexible-SLA queues applied at the slot-admission
-level. On a CUDA device prefill runs the flash-attention kernel and every
-decode step the decode-attention kernel; on the CPU their plain versions.
+level. On a CUDA device prefill runs the flash-attention kernel (mamba2:
+the SSD-scan kernel) and every decode step of an attention arch the
+decode-attention kernel; on the CPU their plain versions.
 """
 from __future__ import annotations
 
@@ -97,9 +98,10 @@ class ServeEngine:
         )
         # batch is axis 0 of lengths and axis 1 of every stacked layer leaf
         self.cache["lengths"][slot] = cache1["lengths"][0]
-        for sub, big in self.cache["blocks"].items():
-            for name, leaf in big["attn"].items():
-                leaf[:, slot] = cache1["blocks"][sub]["attn"][name][:, 0]
+        for sub, mixers in self.cache["blocks"].items():
+            for kind, leaves in mixers.items():
+                for name, leaf in leaves.items():
+                    leaf[:, slot] = cache1["blocks"][sub][kind][name][:, 0]
         self.active[slot] = req
         req.out_tokens.append(int(torch.argmax(logits[0])))
 

@@ -1,17 +1,21 @@
-"""Decoder-only LM for the dense archs, on torch tensors.
+"""Decoder-only LM for the dense archs and mamba2, on torch tensors.
 
 Depth is ``n_super`` super-layers of ``period`` sublayers, as in the JAX
 package; a Python loop over the stacked layer axis takes the place of
 ``lax.scan``. Uniform archs have period 1; gemma2's local/global
-alternation gives period 2. Mamba mixers, MoE FFNs and the encoder-decoder
-stack are not ported yet: their configs raise ``NotImplementedError``.
+alternation gives period 2. Each sublayer's mixer is attention or a mamba2
+mixer by ``cfg.layer_kinds()``. MoE FFNs, the jamba hybrid (which needs
+them) and the encoder-decoder stack are not ported yet: their configs
+raise ``NotImplementedError``.
 
 Cache layout (decode-ready), leaf for leaf the JAX package's:
   {"lengths": (B,) int32,
    "blocks": {"sub<i>": {"attn": {"k", "v": (n_super,B,Smax,K,hd),
-                                  "pos_ids": (n_super,B,Smax) int32}}}}
-``decode_step`` writes the new token into that cache in place and returns
-it with ``lengths`` advanced.
+                                  "pos_ids": (n_super,B,Smax) int32}}
+                      or {"mamba": {"ssm": (n_super,B,H,P,N) float32,
+                                    "conv": (n_super,B,W-1,conv_ch)}}}}
+``decode_step`` writes the new token's K/V, or the new SSM and conv state,
+into that cache in place and returns it with ``lengths`` advanced.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from .config import ModelConfig
 from .layers import SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, rms_norm, softcap
 from .params import ParamDecl, init_tree, stacked
+from .ssd import SSD_IMPL, mamba_apply, mamba_cache_decl, mamba_decl
 
 F32 = torch.float32
 
@@ -38,7 +43,7 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 class LM:
-    """Decoder-only language model (dense archs)."""
+    """Decoder-only language model (dense archs and mamba2)."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[str] = None,
                  device="cuda", kv_quant: bool = False):
@@ -46,33 +51,38 @@ class LM:
             raise NotImplementedError("the int8 KV cache (kv_quant) is not ported")
         if cfg.is_moe:
             raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported")
-        if cfg.is_hybrid or cfg.family == "ssm":
-            raise NotImplementedError(f"{cfg.name}: mamba mixers are not ported")
+        if cfg.is_hybrid:
+            raise NotImplementedError(f"{cfg.name}: the hybrid period needs MoE FFNs, not ported")
         if cfg.is_encoder_decoder:
             raise NotImplementedError(f"{cfg.name}: encoder-decoder is not ported")
-        # registers the "cuda" SDPA impl; imported here because the kernel
-        # modules import models.layers, which imports this package
+        # registers the "cuda" SDPA and SSD impls; imported here because the
+        # kernel modules import models.layers, which imports this package
         from ..kernels import ops  # noqa: F401
 
         self.cfg = cfg
         self.device = torch.device(device)
         self.impl = impl if impl is not None else default_impl(self.device)
-        if self.impl not in SDPA_IMPL:
-            raise KeyError(f"unknown sdpa impl {self.impl!r}; known: {sorted(SDPA_IMPL)}")
+        for kind, registry in (("sdpa", SDPA_IMPL), ("ssd", SSD_IMPL)):
+            if self.impl not in registry:
+                raise KeyError(f"unknown {kind} impl {self.impl!r}; known: {sorted(registry)}")
         self.period = len(cfg.local_global_pattern) if cfg.local_global_pattern else 1
         if cfg.num_layers % self.period:
             raise ValueError(f"{cfg.num_layers} layers vs period {self.period}")
         self.n_super = cfg.num_layers // self.period
+        self.kinds = cfg.layer_kinds()[: self.period]
         self.windows = cfg.window_pattern()[: self.period]
         self.has_ffn = cfg.d_ff > 0
 
     # ------------------------------------------------------------------
     # Declarations
     # ------------------------------------------------------------------
-    def _sub_decl(self) -> dict:
+    def _sub_decl(self, i: int) -> dict:
         cfg = self.cfg
-        d = {"ln1": ParamDecl((cfg.d_model,), ("embed",), init="ones"),
-             "attn": attn_decl(cfg)}
+        d = {"ln1": ParamDecl((cfg.d_model,), ("embed",), init="ones")}
+        if self.kinds[i] == "attn":
+            d["attn"] = attn_decl(cfg)
+        else:
+            d["mamba"] = mamba_decl(cfg)
         if cfg.post_block_norms:
             d["ln1p"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
         if self.has_ffn:
@@ -84,7 +94,7 @@ class LM:
 
     def decls(self) -> dict:
         cfg = self.cfg
-        per = {f"sub{i}": self._sub_decl() for i in range(self.period)}
+        per = {f"sub{i}": self._sub_decl(i) for i in range(self.period)}
         tree = {
             "embed": ParamDecl(
                 (cfg.vocab_size, cfg.d_model), ("vocab", "fsdp"), fan_in=cfg.d_model
@@ -109,17 +119,23 @@ class LM:
     def _sub_apply(self, p, i, x, *, positions, cache, lengths, want_cache):
         cfg = self.cfg
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
-        if cache is not None:
-            c_in = cache["attn"]
-        elif want_cache:
-            c_in = {}
+        kind = self.kinds[i]
+        if kind == "attn":
+            if cache is not None:
+                c_in = cache["attn"]
+            elif want_cache:
+                c_in = {}
+            else:
+                c_in = None
+            mix, nc = attention(
+                p["attn"], h, cfg=cfg, positions=positions, window=self.windows[i],
+                cache=c_in, lengths=lengths, impl=self.impl,
+            )
         else:
-            c_in = None
-        mix, nc = attention(
-            p["attn"], h, cfg=cfg, positions=positions, window=self.windows[i],
-            cache=c_in, lengths=lengths, impl=self.impl,
-        )
-        new_cache = {"attn": nc} if nc is not None else {}
+            c_in = cache["mamba"] if cache is not None else None
+            mix, nc = mamba_apply(p["mamba"], h, cfg=cfg, cache=c_in,
+                                  want_cache=want_cache, impl=self.impl)
+        new_cache = {kind: nc} if nc is not None else {}
         if cfg.post_block_norms:
             mix = rms_norm(p["ln1p"], mix, cfg.norm_eps)
         x = x + mix
@@ -199,16 +215,23 @@ class LM:
         n = self.n_super
         blocks = {}
         for i in range(self.period):
-            smax = self._attn_cache_len(kv_len, self.windows[i])
-            blocks[f"sub{i}"] = {"attn": {
-                "k": ((n, batch, smax, K, hd), dtype),
-                "v": ((n, batch, smax, K, hd), dtype),
-                "pos_ids": ((n, batch, smax), torch.int32),
-            }}
+            if self.kinds[i] == "attn":
+                smax = self._attn_cache_len(kv_len, self.windows[i])
+                blocks[f"sub{i}"] = {"attn": {
+                    "k": ((n, batch, smax, K, hd), dtype),
+                    "v": ((n, batch, smax, K, hd), dtype),
+                    "pos_ids": ((n, batch, smax), torch.int32),
+                }}
+            else:
+                blocks[f"sub{i}"] = {"mamba": {
+                    name: ((n,) + shape, dt)
+                    for name, (shape, dt) in mamba_cache_decl(self.cfg, batch, dtype).items()
+                }}
         return {"lengths": ((batch,), torch.int32), "blocks": blocks}
 
     def init_cache(self, batch: int, kv_len: int, dtype=torch.bfloat16) -> dict:
-        """Empty cache: zero K/V, pos_ids -1 (empty slot), lengths 0."""
+        """Empty cache: zero K/V and SSM/conv state, pos_ids -1 (empty
+        slot), lengths 0."""
 
         def make(spec):
             if isinstance(spec, dict):
@@ -232,12 +255,19 @@ class LM:
         x, caches = self._run_blocks(params, x, positions=positions, want_cache=True)
         x = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         logits = self.head(params, x[:, -1:, :])[:, 0]
-        return logits, self._finalize_prefill_cache(caches, B, S, kv_len)
+        return logits, self._finalize_prefill_cache(caches, B, S, kv_len, x.device)
 
-    def _finalize_prefill_cache(self, caches, B, S, kv_len):
-        """Pad/ring-place prefill K/V into the decode-cache layout."""
+    def _finalize_prefill_cache(self, caches, B, S, kv_len, device):
+        """Pad/ring-place prefill K/V into the decode-cache layout; stack the
+        mamba state as it is."""
         blocks = {}
         for i in range(self.period):
+            if self.kinds[i] == "mamba":
+                blocks[f"sub{i}"] = {"mamba": {
+                    name: torch.stack([c[f"sub{i}"]["mamba"][name] for c in caches])
+                    for name in ("ssm", "conv")
+                }}
+                continue
             smax = self._attn_cache_len(kv_len, self.windows[i])
             sub = {}
             for name in ("k", "v", "pos_ids"):
@@ -254,14 +284,15 @@ class LM:
                     out[:, :, idx] = leaf[:, :, S - smax:]
                 sub[name] = out
             blocks[f"sub{i}"] = {"attn": sub}
-        lengths = torch.full((B,), S, dtype=torch.int32, device=out.device)
+        lengths = torch.full((B,), S, dtype=torch.int32, device=device)
         return {"lengths": lengths, "blocks": blocks}
 
     def decode_step(self, params, cache, tokens, dtype=torch.bfloat16):
         """One decode step for every sequence. tokens: (B, S_new).
 
-        Writes the new K/V into ``cache`` in place. Returns (logits (B, V)
-        for the last position, the cache with ``lengths`` advanced)."""
+        Writes the new K/V and mamba state into ``cache`` in place. Returns
+        (logits (B, V) for the last position, the cache with ``lengths``
+        advanced)."""
         lengths = cache["lengths"]
         x = self.embed(params, tokens, dtype)
         positions = self._positions(x.shape[0], tokens.shape[1], x.device, start=lengths)

@@ -38,7 +38,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_the_scan_sees_every_module_of_the_port():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
-    assert {"src/repro_torch/models/transformer.py", "src/repro_torch/kernels/ops.py",
+    assert {"src/repro_torch/models/transformer.py", "src/repro_torch/models/ssd.py",
+            "src/repro_torch/kernels/ops.py", "src/repro_torch/kernels/ssd_scan.py",
             "src/repro_torch/launch/serve.py", "chip_smoke.py"} <= names
     # relative imports resolve inside the port: none climbs above it
     for path in PORT_FILES[:-1]:
@@ -74,7 +75,8 @@ def test_serve_cli_defaults_to_cuda():
 
 @pytest.mark.parametrize("module", [
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.decode_attention",
-    "repro_torch.kernels.ref", "repro_torch.models.transformer", "repro_torch.launch.serve",
+    "repro_torch.kernels.ssd_scan", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.models.ssd", "repro_torch.models.transformer", "repro_torch.launch.serve",
 ])
 def test_each_module_imports_first_in_a_fresh_interpreter(module):
     """The kernel modules and the model import each other's packages: no

@@ -5,18 +5,22 @@ also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: atol/rtol 1e-4 in float32, 2e-2 in bfloat16 (the plain
-versions round the probabilities to bfloat16 before the product with V;
-the kernels keep them in float32).
+Tolerance: attention atol/rtol 1e-4 in float32, 2e-2 in bfloat16 (the
+plain versions round the probabilities to bfloat16 before the product with
+V; the kernels keep them in float32). The SSD scan 2e-4 in float32 and
+5e-2 in bfloat16, the reference's own tolerances for its Pallas kernel.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
+from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref, ssd_scan_ref,
+                                     ssd_sequential_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+SSD_DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 5e-2)]
 
 # B, S, H, K, hd, causal, window, softcap
 FLASH = [
@@ -34,6 +38,14 @@ DECODE = [
     (1, 8, 1, 128, 512, 0, 0.0, 511),  # nearly full
     (2, 4, 2, 16, 37, 0, 0.0, -1),  # empty: the mean of V
     (1, 8, 1, 32, 100, 16, 0.0, 99),  # window
+]
+
+# B, S, H, P, N, chunk
+SSD = [
+    (1, 384, 80, 64, 128, 128),  # mamba2-2.7b prefill of 333 tokens, padded
+    (1, 74, 4, 64, 128, 37),  # a 37-token prompt: one chunk that is not a power of two
+    (2, 16, 8, 16, 16, 8),  # mamba2-2.7b reduced
+    (1, 128, 8, 16, 16, 32),  # jamba-like small state
 ]
 
 
@@ -102,3 +114,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash_attention(q, q[:, :, ::2], q[:, :, ::2])
     with pytest.raises(TypeError):
         flash_attention(q.half(), q[:, :, :2].half(), q[:, :, :2].half())
+
+
+def _ssd_inputs(dev, B, S, H, P, N, dtype, seed=3, single_group=False):
+    """x, dt, A, B_, C_ drawn as tests/test_kernels.py draws them; with
+    ``single_group`` B_ and C_ are one (B,S,N) group viewed over the heads
+    (head stride 0), as the model passes them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = rnd(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    A = -torch.exp(rnd(H) * 0.3)
+    if single_group:
+        Bm, Cm = ((rnd(B, S, 1, N) * 0.5).to(dtype).expand(B, S, H, N) for _ in range(2))
+    else:
+        Bm, Cm = ((rnd(B, S, H, N) * 0.5).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", SSD_DTYPES)
+@pytest.mark.parametrize("case", SSD)
+def test_ssd_kernel_matches_plain(dev, case, dtype, tol):
+    B, S, H, P, N, chunk = case
+    args = _ssd_inputs(dev, B, S, H, P, N, dtype)
+    before = ssd_scan.launches
+    y, h = ssd_scan(*args, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32 and h.shape == (B, H, P, N)
+    yr, hr = ssd_scan_ref(*args, chunk=chunk)
+    ys, hs = ssd_sequential_ref(*args)
+    for got, want in ((y, yr), (h, hr), (y, ys), (h, hs)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", SSD_DTYPES)
+def test_ssd_kernel_reads_a_single_group_over_the_heads(dev, dtype, tol):
+    args = _ssd_inputs(dev, 1, 384, 80, 64, 128, dtype, single_group=True)
+    assert args[3].stride(2) == 0
+    y, h = ssd_scan(*args, chunk=128)
+    yr, hr = ssd_scan_ref(*args, chunk=128)
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, hr, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, 1, 16, 2, 16, 16, torch.float32)
+    with pytest.raises(NotImplementedError):  # an initial state
+        ssd_scan(x, dt, A, Bm, Cm, chunk=8, h0=torch.zeros((1, 2, 16, 16), device=dev))
+    with pytest.raises(TypeError):  # dt not float32
+        ssd_scan(x, dt.bfloat16(), A, Bm, Cm, chunk=8)
+    with pytest.raises(TypeError):  # mixed float types
+        ssd_scan(x, dt, A, Bm.bfloat16(), Cm, chunk=8)
+    with pytest.raises(ValueError):  # x not contiguous
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):  # B_ strided along its last dim
+        ssd_scan(x, dt, A, torch.cat([Bm, Bm], -1)[..., ::2], Cm, chunk=8)
+    with pytest.raises(ValueError):  # S not a multiple of the chunk
+        ssd_scan(x, dt, A, Bm, Cm, chunk=6)

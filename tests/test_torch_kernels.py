@@ -236,7 +236,8 @@ def test_kernel_modules_import_and_build_nothing_without_nvcc(monkeypatch, tmp_p
 
     monkeypatch.setattr(subprocess, "Popen", no_process)
     for mod in (_build, importlib.import_module("repro_torch.kernels.flash_attention"),
-                importlib.import_module("repro_torch.kernels.decode_attention")):
+                importlib.import_module("repro_torch.kernels.decode_attention"),
+                importlib.import_module("repro_torch.kernels.ssd_scan")):
         importlib.reload(mod)
     # asked to build where there is no nvcc, _build says so
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)

@@ -1,11 +1,12 @@
-"""The port's configs and dense LM (repro_torch) against the JAX package on
-the CPU. Params are drawn by the JAX ``LM.init`` and carried across with
-``repro_torch.convert.params_from_jax``; prompts come from a seeded numpy
-generator.
+"""The port's configs and LM (repro_torch) against the JAX package on the
+CPU, for the dense archs and mamba2. Params are drawn by the JAX
+``LM.init`` and carried across with ``repro_torch.convert.params_from_jax``;
+prompts come from a seeded numpy generator.
 
-Tolerance: logits and cache K/V within atol/rtol 5e-4 in float32 (same
-arithmetic in another summation order, over a few layers; the observed
-gap is ~5e-6). Greedy tokens, pos_ids and lengths must be identical.
+Tolerance: logits, cache K/V and mamba ssm/conv state within atol/rtol
+5e-4 in float32 (same arithmetic in another summation order, over a few
+layers; the observed gap is ~5e-6). Greedy tokens, pos_ids and lengths
+must be identical.
 """
 import dataclasses
 import functools
@@ -31,6 +32,7 @@ torch.set_num_threads(1)
 
 TOL = 5e-4
 DENSE = ["paper-default", "qwen2-0.5b", "internlm2-1.8b", "granite-8b", "gemma2-2b"]
+SERVED = DENSE + ["mamba2-2.7b"]
 KV_LEN = 32  # reduced gemma2's window of 8 makes its local layers a ring
 DECODE_STEPS = 8
 
@@ -71,6 +73,15 @@ def _assert_cache_equal(jc, tc):
     np.testing.assert_array_equal(jc["lengths"], tc["lengths"].numpy())
     assert sorted(jc["blocks"]) == sorted(tc["blocks"])
     for sub in jc["blocks"]:
+        assert sorted(jc["blocks"][sub]) == sorted(tc["blocks"][sub])
+        if "mamba" in jc["blocks"][sub]:
+            jm, tm = jc["blocks"][sub]["mamba"], tc["blocks"][sub]["mamba"]
+            assert sorted(jm) == sorted(tm) == ["conv", "ssm"]
+            for name in ("ssm", "conv"):
+                assert jm[name].shape == tuple(tm[name].shape)
+                assert tm[name].dtype == torch.float32
+                np.testing.assert_allclose(jm[name], tm[name].numpy(), atol=TOL, rtol=TOL)
+            continue
         ja, ta = jc["blocks"][sub]["attn"], tc["blocks"][sub]["attn"]
         assert sorted(ja) == sorted(ta) == ["k", "pos_ids", "v"]
         np.testing.assert_array_equal(ja["pos_ids"], ta["pos_ids"].numpy())
@@ -80,10 +91,11 @@ def _assert_cache_equal(jc, tc):
 
 
 @pytest.mark.parametrize("impl", ["plain", "cuda"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_prefill_and_decode_match_jax(arch, impl):
-    """impl "cuda" on CPU tensors runs the kernel adapter's routing with the
-    wrappers' plain versions."""
+    """impl "cuda" on CPU tensors runs the kernel adapters' routing with the
+    wrappers' plain versions. mamba2's 12-token prompt pads to two chunks
+    of 8."""
     _, _, jp = _jax_model(arch)
     tokens, jlogits, jgreedy, jcache0, jcache = _jax_greedy_run(arch)
     lm, tp = _port(arch, jp, impl)
@@ -100,7 +112,7 @@ def test_prefill_and_decode_match_jax(arch, impl):
     _assert_cache_equal(jcache, tc)
 
 
-@pytest.mark.parametrize("arch", ["paper-default", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["paper-default", "gemma2-2b", "mamba2-2.7b"])
 def test_forward_matches_jax(arch):
     cfg, jm, jp = _jax_model(arch, seed=1)
     lm, tp = _port(arch, jp, "plain")
@@ -122,7 +134,7 @@ def test_configs_match_jax(arch):
         assert ours.window_pattern() == ref.window_pattern()
 
 
-@pytest.mark.parametrize("arch", DENSE + ["internvl2-76b"])
+@pytest.mark.parametrize("arch", SERVED + ["internvl2-76b"])
 def test_init_declares_the_jax_param_tree(arch):
     cfg, jm, _ = _jax_model(arch)
     lm = LM(get_config(arch, reduced=True), device="cpu")
@@ -132,8 +144,13 @@ def test_init_declares_the_jax_param_tree(arch):
     ours = dict(zip(_paths(params), tree_leaves(params)))
     assert {k: tuple(v.shape) for k, v in ours.items()} == want
     # the reference's analytic num_params() leaves out gemma2's post-block
-    # norms (ln1p, ln2p); the declared trees agree leaf for leaf either way
-    if not cfg.post_block_norms:
+    # norms (ln1p, ln2p), and for a mamba layer leaves out conv_b and dt_bias
+    # while counting an ln2 that a layer without an FFN does not have; the
+    # declared trees agree leaf for leaf either way
+    if cfg.family == "ssm":
+        missing = cfg.num_layers * (cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads - cfg.d_model)
+        assert count_params(params) == cfg.num_params() + missing
+    elif not cfg.post_block_norms:
         assert count_params(params) == cfg.num_params()
     assert all(v.dtype == torch.float32 for v in ours.values())
 
@@ -165,8 +182,20 @@ def test_params_from_jax_keeps_layout_and_values():
     assert "lm_head" not in tp  # tied embeddings
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-2.7b", "jamba-v0.1-52b",
-                                  "seamless-m4t-large-v2"])
+def test_params_from_jax_carries_the_mamba_params():
+    _, _, jp = _jax_model("mamba2-2.7b")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jm, tm = jp["blocks"]["sub0"]["mamba"], tp["blocks"]["sub0"]["mamba"]
+    assert sorted(tm) == ["A_log", "D", "conv_b", "conv_w", "dt_bias", "in_proj", "norm_w",
+                          "out_proj"]
+    assert tuple(tm["in_proj"].shape) == (3, 64, 2 * 128 + 2 * 16 + 8)  # (layers, D, zxbcdt)
+    assert tuple(tm["conv_w"].shape) == (3, 4, 128 + 2 * 16)  # (layers, W, conv_ch)
+    for name in tm:
+        np.testing.assert_array_equal(np.asarray(jm[name]), tm[name].numpy())
+    assert "attn" not in tp["blocks"]["sub0"] and "lm_head" not in tp
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-v0.1-52b", "seamless-m4t-large-v2"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         LM(get_config(arch, reduced=True), device="cpu")

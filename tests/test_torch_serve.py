@@ -7,6 +7,7 @@ import sys
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.core.sla import ServiceLevel as JaxLevel
@@ -54,6 +55,25 @@ def test_serve_matches_jax():
     assert _admission(treqs) == _admission(jreqs)
 
 
+def test_serve_mamba2_matches_jax():
+    """mamba2-2.7b reduced: 5 requests on 3 slots, prompts of 6-10 tokens
+    (9 and 10 pad to two chunks of 8), every slot's SSM and conv state
+    copied on admission and advanced in place by each decode step."""
+    jeng = JaxEngine("mamba2-2.7b", slots=3, max_len=32)
+    teng = ServeEngine("mamba2-2.7b", slots=3, max_len=32, device="cpu",
+                       params=params_from_jax(jax.tree.map(np.asarray, jeng.params), device="cpu"))
+    jreqs, treqs = _requests(5, jeng.cfg.vocab_size, lens=lambda i: 6 + i,
+                             max_new=lambda i: 3 + i % 2, seed=1,
+                             levels=[ServiceLevel.RELAXED, ServiceLevel.BEST_EFFORT,
+                                     ServiceLevel.IMMEDIATE])
+    jeng.run(jreqs, max_steps=60)
+    teng.run(treqs, max_steps=60)
+    assert all(r.finish_t is not None for r in treqs)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert _admission(treqs) == _admission(jreqs)
+    assert sorted(teng.cache["blocks"]["sub0"]) == ["mamba"]
+
+
 def test_serve_admits_by_service_level_and_is_seeded():
     runs = []
     for _ in range(2):
@@ -68,8 +88,9 @@ def test_serve_admits_by_service_level_and_is_seeded():
     assert runs[0] == runs[1]
 
 
-def test_serve_cli_runs_on_cpu(monkeypatch, capsys):
-    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "paper-default", "--requests", "3",
+@pytest.mark.parametrize("arch", ["paper-default", "mamba2-2.7b"])
+def test_serve_cli_runs_on_cpu(monkeypatch, capsys, arch):
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--requests", "3",
                                       "--new-tokens", "2", "--device", "cpu"])
     serve.main()
     out = capsys.readouterr().out

@@ -29,15 +29,33 @@ Phases, each of which raises on failure (there is no CPU fallback):
   7. ServeEngine on mamba2-2.7b at full width, as phase 5: 64 SSD-scan
      launches per prefill and no attention launch; a profile of one decode
      step;
-  8. time each kernel at the served shapes with CUDA events, beside its
+  8. training, (a): flash_attention_diff's and ssd_scan_diff's gradients
+     against plain autograd of their oracles on the card: flash at S
+     37/333/2048, GQA 7:1 at hd 64 and hd 8, window, softcap; the SSD scan
+     at the served chunks; float32 at 1e-4 and bfloat16 at 2e-2 (SSD: 2e-4
+     and 5e-2) of the gradients' scale;
+  9. training, (b): qwen2-0.5b at full width (24 layers, d_model 896, 14
+     query heads over 2 KV heads, vocab 151,936, tied embeddings), the loss
+     and every grad leaf of one float32 train step through the kernels
+     against impl="plain", atol 2e-3 / rtol 1e-3, and one train_step each;
+ 10. training, (c): train() of qwen2-0.5b at full width, 20 steps of batch
+     4 x seq 2048 in bfloat16: every loss finite, the first within 5 % of
+     ln 151,936, exactly 24 flash launches a step; step ms, tokens/s, model
+     FLOP/s against 989 TFLOP/s, peak memory, the checkpoint's seconds, and
+     the device's idle share from a torch.profiler step;
+ 11. training, (d): a crash at step 7 and exact resume at reduced size on
+     the card, losses within 1e-5 of the uninterrupted run;
+ 12. time each kernel at the served shapes with CUDA events, beside its
      bound on an H100, its plain version and one library call where there
-     is one.
+     is one; flash_attention_diff forward plus backward at the shape of (c).
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -52,16 +70,21 @@ sys.path.insert(0, str(SRC))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.sla import ServiceLevel  # noqa: E402
+from repro_torch.data.batches import TokenStream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,  # noqa: E402
                                      ssd_scan_ref, ssd_sequential_ref)
+from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
-from repro_torch.models.params import count_params  # noqa: E402
+from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
+from repro_torch.models.params import count_params, tree_leaves  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.perf.hw import H100, kernel_bound  # noqa: E402
+from repro_torch.training import step as training_step  # noqa: E402
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -117,6 +140,26 @@ SSD_CASES = [
     (1, 128, 8, 16, 16, 32, False),  # jamba-like small state
 ]
 
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
+FIRST_LOSS_TOL = 0.05  # random init: the first loss within 5 % of ln V
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+# flash_attention_diff cases (B, S, H, K, hd, causal, window, softcap); the
+# first is qwen2-0.5b's attention at the training shape of phase 10, one row
+FLASH_DIFF_SLICE = (1, 2048, 14, 2, 64, True, 0, 0.0)
+FLASH_DIFF_CASES = [
+    FLASH_DIFF_SLICE,
+    (1, 37, 14, 2, 64, True, 0, 0.0),
+    (2, 333, 14, 2, 64, True, 0, 0.0),
+    (2, 333, 7, 1, 8, True, 0, 0.0),  # qwen2-0.5b reduced: GQA 7:1 at hd 8
+    (1, 2048, 7, 1, 8, True, 0, 0.0),
+    (1, 333, 14, 2, 64, True, 128, 0.0),  # window
+    (1, 333, 8, 4, 64, True, 0, 50.0),  # softcap
+]
+# ssd_scan_diff cases: the served chunks, single group over the heads
+SSD_DIFF_CASES = [SSD_SLICE, (1, 37, 80, 64, 128, 37, True), (1, 64, 80, 64, 128, 64, True),
+                  (1, 100, 80, 64, 128, 100, True)]
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -127,7 +170,7 @@ def card_line() -> str:
 
 
 def _close(name, got, want, tol):
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite output")
     err = float((got - want).abs().max())
@@ -367,6 +410,204 @@ def profile_decode(eng, device, steps=8) -> dict:
     }
 
 
+def _grads(fn, inputs, cotangents):
+    """(outputs, grads of the inputs) of fn, differentiated on copies."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    torch.autograd.backward(out, cotangents)
+    return out, [t.grad for t in leaves]
+
+
+def _grad_err(name, got, want, tol):
+    """max |got - want| over the gradient's scale (max |want|); raises above tol."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite gradient")
+    scale = float(want.abs().max().clamp(min=1e-6))
+    err = float((got - want).abs().max())
+    if err > tol * scale:
+        raise AssertionError(f"{name}: max abs err {err} beyond {tol} x scale {scale}")
+    return err
+
+
+def check_diff(device) -> float:
+    """Phase 8. Returns flash_attention_diff's max abs error (output and
+    gradients) at the training slice in float32."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    slice_err = 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for case in FLASH_DIFF_CASES:
+            B, S, H, K, hd, causal, win, cap = case
+            q, k, v = _qkv(gen, B, S, S, H, K, hd, dtype, device)
+            g = torch.randn((B, S, H, hd), generator=gen, device=device).to(dtype)
+            (out,), got = _grads(lambda *a: flash_attention_diff(*a, causal, win, cap),
+                                 (q, k, v), (g,))
+            (want_out,), want = _grads(
+                lambda *a: flash_attention_ref(*a, causal=causal, window=win, softcap=cap),
+                (q, k, v), (g,))
+            errs = [_close(f"flash_diff {case} {dtype} out", out, want_out, tol)]
+            errs += [_grad_err(f"flash_diff {case} {dtype} d{n}", a, b, tol)
+                     for n, a, b in zip("qkv", got, want)]
+            if case == FLASH_DIFF_SLICE and dtype == torch.float32:
+                slice_err = max(errs)
+        for case in SSD_DIFF_CASES:
+            B, S, H, P, N, chunk, _ = case
+            x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, N, True, dtype, device)
+            groups = (Bm[:, :, :1].contiguous(), Cm[:, :, :1].contiguous())
+            gy = torch.randn((B, S, H, P), generator=gen, device=device).to(dtype)
+            gh = torch.randn((B, H, P, N), generator=gen, device=device)
+
+            def run(fn):
+                def f(x, dt, A, b, c):  # the model's single group, broadcast over the heads
+                    return fn(x, dt, A, b.expand(B, S, H, N), c.expand(B, S, H, N))
+                return _grads(f, (x, dt, A) + groups, (gy, gh))
+
+            _, got = run(lambda *a: ssd_scan_diff(*a, chunk))
+            _, want = run(lambda *a: ssd_scan_ref(*a, chunk=chunk))
+            for n, a, b in zip(("x", "dt", "A", "B", "C"), got, want):
+                _grad_err(f"ssd_diff {case} {dtype} d{n}", a, b, SSD_TOL[dtype])
+    torch.cuda.synchronize(device)
+    return slice_err
+
+
+def check_train_step(device, batch=1, seq=512) -> dict:
+    """Phase 9: qwen2-0.5b at full width, float32 compute, one batch through
+    the kernels and through the plain versions: loss and every grad leaf,
+    then one train_step each."""
+    cfg = get_config(TRAIN_ARCH)
+    lm = {impl: LM(cfg, impl=impl, device=device) for impl in ("cuda", "plain")}
+    state = training_step.init_state(lm["cuda"], torch.Generator(device=device).manual_seed(0))
+    data = TokenStream(cfg, batch, seq, seed=0, device=device).next()
+    res = {}
+    for impl, model in lm.items():
+        flash_attention.launches = 0
+        res[impl] = training_step.loss_and_grads(model, state["params"], data, remat=None,
+                                                 compute_dtype=torch.float32)
+        if impl == "cuda" and flash_attention.launches != cfg.num_layers:
+            raise AssertionError(f"train step: {flash_attention.launches} flash launches, "
+                                 f"expected {cfg.num_layers}")
+    (lk, _, gk), (lp, _, gp) = res["cuda"], res["plain"]
+    loss_err = _close("train step loss", lk, lp, MODEL_ATOL)
+    grad_err = 0.0
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError("train step: non-finite grad")
+        if not torch.allclose(a, b, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+            raise AssertionError(f"train step: grad max abs err {float((a - b).abs().max())}")
+        grad_err = max(grad_err, float((a - b).abs().max()))
+    del res, gk, gp
+    opt = OptConfig(warmup_steps=10, total_steps=TRAIN_STEPS)
+    steps = {impl: training_step.make_train_step(model, opt, remat=None,
+                                                 compute_dtype=torch.float32)(state, data)
+             for impl, model in lm.items()}
+    (sk, mk), (sp, mp) = steps["cuda"], steps["plain"]
+    _close("train step loss", mk["loss"], mp["loss"], MODEL_ATOL)
+    _close("train step grad norm", mk["grad_norm"], mp["grad_norm"], MODEL_ATOL)
+    for a, b in zip(tree_leaves(sk), tree_leaves(sp)):
+        if not torch.allclose(a.float(), b.float(), atol=MODEL_ATOL, rtol=MODEL_RTOL):
+            raise AssertionError("train step: the new states differ")
+    return {"batch": batch, "seq": seq, "loss": float(lk), "loss_err": loss_err,
+            "grad_max_abs_err": grad_err, "grad_norm": float(mk["grad_norm"]),
+            "num_params": count_params(state["params"])}
+
+
+def _model_flops(cfg, n_params, B, S) -> float:
+    """FLOPs of one training step: 6 per parameter per token (the tied
+    embedding counts once, as the LM head), plus the attention products
+    over the causal pairs, forward and twice again backward."""
+    pairs = S * (S + 1) // 2
+    attn = 3 * cfg.num_layers * 4.0 * B * cfg.num_heads * pairs * cfg.head_dim
+    return 6.0 * n_params * B * S + attn
+
+
+def train_full(device) -> tuple[dict, dict]:
+    """Phase 10: train() at full width in bfloat16. Returns the run's
+    numbers, and the flash launches of the run."""
+    cfg = get_config(TRAIN_ARCH)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                ckpt_dir=str(CKPT_DIR / "full"), ckpt_every=10 * TRAIN_STEPS, log_every=5,
+                device=device, dtype=torch.bfloat16)
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention": flash_attention.launches,
+              "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
+    want = {"flash_attention": cfg.num_layers * TRAIN_STEPS, "decode_attention": 0, "ssd_scan": 0}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: losses {losses}")
+    if abs(losses[0] / math.log(cfg.vocab_size) - 1) > FIRST_LOSS_TOL:
+        raise AssertionError(f"train: first loss {losses[0]}, ln V {math.log(cfg.vocab_size)}")
+    peak = torch.cuda.max_memory_allocated(device)
+    n_params = count_params(out["state"]["params"])
+    step_s = float(np.median(out["step_s"][-10:]))
+    ckpt_s = out["ckpt_s"]
+    flops = _model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+
+    # one step under the profiler: the device's busy time against the step
+    model = LM(cfg, device=device)
+    fn = training_step.make_train_step(model, OptConfig(warmup_steps=10, total_steps=TRAIN_STEPS),
+                                       remat=None, compute_dtype=torch.bfloat16)
+    data = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1, device=device).next()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, m = fn(out["state"], data)
+        float(m["loss"])
+        torch.cuda.synchronize(device)
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(t for _, t, _ in rows) / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    del out, m, model, fn
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return {
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "num_params": n_params,
+        "losses_first_last": [losses[0], losses[-1]], "ln_vocab": math.log(cfg.vocab_size),
+        "step_ms_median_last10": 1e3 * step_s,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "model_flops_per_step": flops, "model_flop_per_s": flops / step_s,
+        "mfu_vs_989T_bf16": flops / step_s / H100.peak_flops_bf16,
+        "peak_memory_gb": peak / 1e9, "ckpt_s": ckpt_s,
+        "device_busy_ms_profiled_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / (1e3 * step_s) if busy_ms else "not measured",
+        "kernel_launches_profiled_step": sum(n for _, _, n in rows),
+        "top_kernels_ms": [[k[:60], round(t / 1e3, 3), n] for k, t, n in top],
+        "wall_s": wall,
+    }, counts
+
+
+def crash_resume(device) -> dict:
+    """Phase 11: crash at step 7, resume from step 4's checkpoint, at the
+    reduced size on the card: losses and params equal the uninterrupted run."""
+    kw = dict(reduced=True, steps=12, batch=4, seq=32, ckpt_every=4, log_every=100,
+              device=device)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ref = train(TRAIN_ARCH, ckpt_dir=str(CKPT_DIR / "ref"), **kw)
+    try:
+        train(TRAIN_ARCH, ckpt_dir=str(CKPT_DIR / "ft"), fail_at=7, **kw)
+        raise AssertionError("crash_resume: no failure was injected")
+    except SimulatedFailure:
+        pass
+    resumed = train(TRAIN_ARCH, ckpt_dir=str(CKPT_DIR / "ft"), **kw)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if resumed["steps_run"] != 8:
+        raise AssertionError(f"crash_resume: resumed for {resumed['steps_run']} steps")
+    err = max(abs(a - b) for a, b in zip(ref["losses"][-8:], resumed["losses"]))
+    if err > 1e-5:
+        raise AssertionError(f"crash_resume: losses differ by {err}")
+    perr = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(ref["state"]), tree_leaves(resumed["state"])))
+    if perr > 1e-5:
+        raise AssertionError(f"crash_resume: final states differ by {perr}")
+    return {"steps": 12, "resumed_from": 4, "loss_max_abs_err": err, "state_max_abs_err": perr,
+            "losses_last": resumed["losses"][-1]}
+
+
 def _time_ms(fn, args_list, iters):
     """Mean ms of fn over ``iters`` launches, rotating through ``args_list``
     (sets that together exceed the 50 MB L2, as the 16 layers of the served
@@ -384,7 +625,7 @@ def _time_ms(fn, args_list, iters):
 
 
 def time_kernels(device, n_sets=16) -> dict:
-    """Phase 8: each kernel at the served shape (float32): its time, its
+    """Phase 12: each kernel at the served shape (float32): its time, its
     plain version's, one library call's where one PyTorch call computes the
     same function, and its bound on an H100."""
     gen = torch.Generator(device=device).manual_seed(1)
@@ -448,6 +689,41 @@ def time_kernels(device, n_sets=16) -> dict:
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
         "shape": f"x ({B},{S},{H},{P}) B_/C_ ({B},{S},1,{N}) over {H} heads, chunk {Q}, float32",
     }
+
+    # flash_attention_diff forward + backward at the training shape of phase 10
+    cfg = get_config(TRAIN_ARCH)
+    B, S, H, K, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+    tsets = []
+    for _ in range(4):
+        q, k, v = (t.requires_grad_() for t in _qkv(gen, B, S, S, H, K, hd, bf, device))
+        tsets.append((q, k, v, torch.randn((B, S, H, hd), generator=gen, device=device).to(bf)))
+    tlib = []
+    for q, k, v, g in tsets:
+        tlib.append(tuple(t.detach().transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v)) + (g.transpose(1, 2).contiguous(),))
+
+    def fwd_bwd(f):
+        def run(q, k, v, g):
+            f(q, k, v).backward(g)
+        return run
+
+    pairs = S * (S + 1) // 2
+    flops = 4.0 * B * H * pairs * hd * (1 + 2.5)  # the backward: ~2.5x the forward
+    # q, k, v and the output's gradient read once; o, dq, dk, dv written once
+    nbytes = 2.0 * (4 * B * S * H * hd + 4 * B * S * K * hd)
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=False, hw=H100)
+    out["flash_attention_diff"] = {
+        "ms": _time_ms(fwd_bwd(lambda q, k, v: flash_attention_diff(q, k, v, True, 0, 0.0)),
+                       tsets, 10),
+        "plain_ms": _time_ms(fwd_bwd(lambda q, k, v: flash_attention_ref(q, k, v, causal=True)),
+                             tsets, 10),
+        "library_ms": _time_ms(fwd_bwd(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)), tlib, 10),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) bfloat16 causal, "
+                 "forward + backward",
+    }
     return out
 
 
@@ -498,6 +774,31 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    diff_err = check_diff(device)
+    print(f"[train a] {len(FLASH_DIFF_CASES)} flash_attention_diff + {len(SSD_DIFF_CASES)} "
+          f"ssd_scan_diff cases x (float32, bfloat16): gradients agree with plain autograd; "
+          f"float32 max abs err at the training slice {diff_err} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+
+    t0 = time.perf_counter()
+    step_check = check_train_step(device)
+    print(f"[train b] {TRAIN_ARCH} full width, float32, kernels against plain: "
+          f"{json.dumps(step_check)} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    trained, train_counts = train_full(device)
+    print(f"[train c] {TRAIN_ARCH} full width, bfloat16: {json.dumps(trained)} "
+          f"launches {json.dumps(train_counts)} on {card} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    resumed = crash_resume(device)
+    print(f"[train d] {TRAIN_ARCH} reduced, crash at step 7 and resume: {json.dumps(resumed)} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+
+    t0 = time.perf_counter()
     timing = time_kernels(device)
     for name, t in timing.items():
         print(f"[time] {name} {json.dumps(t)} on {card}", flush=True)
@@ -512,13 +813,18 @@ def main() -> int:
                              "src/repro/kernels/decode_attention.py:87", ARCH),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:87", MAMBA),
+        "flash_attention_diff": ("src/repro_torch/kernels/ops.py",
+                                 "src/repro/kernels/ops.py:33", TRAIN_ARCH),
     }
+    launches = {ARCH: served[ARCH]["counts"], MAMBA: served[MAMBA]["counts"],
+                TRAIN_ARCH: {"flash_attention_diff": train_counts["flash_attention"]}}
+    errs["flash_attention_diff"] = diff_err
     kernels = []
     for name, (source, replaces, arch) in meta.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": served[arch]["counts"][name], "max_abs_err": errs[name],
+            "launches": launches[arch][name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

@@ -1,0 +1,66 @@
+"""Synthetic training batches and a restartable token stream.
+
+The reference draws its tokens with ``jax.random``; the port cannot import
+it and draws from ``np.random.default_rng([seed, step, host_index])``. So
+its batches differ from the reference's in value, and keep its contract:
+deterministic, restartable at any cursor, one shard per host. The dry-run
+specs (``train_specs``, ``prefill_specs``, ``batch_axes``) wait for the
+port of the dry run (ROADMAP queue 1 item 15).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.config import ModelConfig
+
+
+def make_batch(rng: np.random.Generator, cfg: ModelConfig, *, batch: int, seq: int,
+               kind: str = "train", device="cuda") -> dict:
+    """Deterministic synthetic batch: tokens (B,S) int32 and, for training,
+    the next-token targets (B,S) int32."""
+    if cfg.frontend == "vision_patches" or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: frontend and encoder inputs are not ported (ROADMAP queue 1 item 12)")
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)).to(device)
+    out = {"tokens": toks[:, :-1]}
+    if kind == "train":
+        out["targets"] = toks[:, 1:]
+    return out
+
+
+class TokenStream:
+    """Deterministic, restartable, shardable synthetic token pipeline.
+
+    Each host pulls only its shard of the global batch (by host index), and
+    the stream position is checkpointable (``state()`` / ``seek()``), which
+    the fault-tolerant trainer relies on for exact restart.
+    """
+
+    def __init__(self, cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
+                 host_index: int = 0, host_count: int = 1, device="cuda"):
+        if batch % host_count:
+            raise ValueError(f"batch {batch} does not split over {host_count} hosts")
+        self.cfg = cfg
+        self.global_batch = batch
+        self.local_batch = batch // host_count
+        self.seq = seq
+        self.seed = seed
+        self.host_index = host_index
+        self.device = device
+        self.step = 0
+
+    def state(self) -> dict:
+        return {"step": self.step, "seed": self.seed}
+
+    def seek(self, state: dict) -> None:
+        if int(state["seed"]) != self.seed:
+            raise ValueError(f"stream seed {state['seed']} on restore, {self.seed} here")
+        self.step = int(state["step"])
+
+    def next(self) -> dict:
+        rng = np.random.default_rng([self.seed, self.step, self.host_index])
+        self.step += 1
+        return make_batch(rng, self.cfg, batch=self.local_batch, seq=self.seq,
+                          kind="train", device=self.device)

@@ -97,6 +97,18 @@ def load(name: str, argtypes: list) -> ctypes._CFuncPtr:
         return fn
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if grad mode is on and a CUDA input requires grad: the kernel's
+    output would carry no gradient. Differentiate through the
+    ``torch.autograd.Function``s in kernels/ops.py instead (their forward
+    runs with grad mode off)."""
+    if torch.is_grad_enabled() and any(
+            t.device.type == "cuda" and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a CUDA input requires grad, and the kernel's output has no "
+            f"gradient; call it through kernels/ops.py's autograd Functions")
+
+
 def check_cuda_inputs(name: str, dtype, *tensors) -> None:
     """Raise unless every tensor is contiguous, on one CUDA device, and the
     float ones share ``dtype`` (float32 or bfloat16)."""

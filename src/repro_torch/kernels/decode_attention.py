@@ -9,7 +9,9 @@ so slot order does not matter. Any Smax (the TPU kernel needs multiples of
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.decode_attention_ref``); on a CUDA tensor it launches the kernel or
-raises. ``decode_attention.launches`` counts the launches.
+raises. It raises too for a CUDA input that requires grad while grad mode
+is on, whose output would carry no gradient (no path differentiates a
+decode step). ``decode_attention.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
 def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos_ids, lengths, window=window, softcap=softcap)
+    _build.refuse_grad("decode_attention", q, k, v)
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]
     if (k.shape != (B, Smax, K, hd) or v.shape != k.shape or H % K

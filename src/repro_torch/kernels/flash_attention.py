@@ -9,7 +9,10 @@ hd in {8, 16, 32, 64, 128}; float32 or bfloat16 in, out in q's type.
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.flash_attention_ref``); on a CUDA tensor it launches the kernel or
-raises. ``flash_attention.launches`` counts the launches.
+raises. It raises too for a CUDA input that requires grad while grad mode
+is on, whose output would carry no gradient: ``ops.flash_attention_diff``
+is the differentiable form. ``flash_attention.launches`` counts the
+launches.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    _build.refuse_grad("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if k.shape != (B, Sk, K, hd) or v.shape != k.shape or H % K or Sq != Sk:

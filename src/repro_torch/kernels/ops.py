@@ -1,31 +1,91 @@
-"""The adapters that send the model's attention and SSD scans to the kernels.
+"""The adapters that send the model's attention and SSD scans to the kernels,
+and the autograd Functions that make the kernels differentiable.
 
 ``sdpa_kernel`` registers itself as the "cuda" implementation in
 models/layers.py and ``ssd_kernel`` as the "cuda" implementation in
 models/ssd.py, so ``LM(cfg, impl="cuda")`` runs every attention and every
-mamba prefill of the served path through the hand-written kernels.
+mamba prefill or training forward through the hand-written kernels.
 ``sdpa_kernel`` routes by call site:
 
 * "prefill" (prefill and forward: causal self-attention at arange
-  positions, Sq == Sk of any length) -> ``flash_attention``;
+  positions, Sq == Sk of any length) -> ``flash_attention_diff``;
 * "decode" (one new token against the cache, whose pos_ids and lengths
   decide validity) -> ``decode_attention``;
 * anything else (cross-attention, multi-token decode) raises
   ``NotImplementedError``: there is no fallback.
 
-``ssd_kernel`` sends the chunked scan from a zero state (every prefill) to
-``ssd_scan``; with an initial state (multi-token decode) ``ssd_scan``
-raises on a CUDA tensor.
+``ssd_kernel`` sends the chunked scan to ``ssd_scan_diff``; with an initial
+state (multi-token decode) ``ssd_scan`` raises on a CUDA tensor.
+
+Training differentiability, as the reference's ``ops.py:32-56``: the
+forward of ``flash_attention_diff`` is the CUDA flash kernel, and its
+backward reruns the plain oracle ``flash_attention_ref`` on the saved
+inputs and takes its vector-Jacobian product (the same math; the reference
+has no backward kernel either). ``ssd_scan_diff`` does the same for the SSD
+scan over ``ssd_chunked``. The kernels' own wrappers refuse a CUDA input
+that requires grad, so no gradient can vanish.
 
 On CPU tensors the wrappers compute their plain versions.
 """
 from __future__ import annotations
 
+import torch
+
 from ..models import layers as _layers
 from ..models import ssd as _ssd
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
+from .ref import flash_attention_ref
 from .ssd_scan import ssd_scan
+
+
+class FlashAttentionDiff(torch.autograd.Function):
+    """Counterpart of the reference's ``flash_attention_diff`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, softcap)
+        return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, softcap = ctx.opts
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_ref(*inputs, causal=causal, window=window, softcap=softcap)
+            dq, dk, dv = torch.autograd.grad(out, inputs, g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_diff(q, k, v, causal=True, window=0, softcap=0.0):
+    return FlashAttentionDiff.apply(q, k, v, causal, window, softcap)
+
+
+class SsdScanDiff(torch.autograd.Function):
+    """The SSD scan with ``ssd_chunked``'s gradient (the reference trains
+    mamba2 through ``ssd_chunked``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, h0, chunk):
+        ctx.save_for_backward(x, dt, A, B_, C_, h0)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, A, B_, C_, chunk=chunk, h0=h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        inputs = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            y, h = _ssd.ssd_chunked(*inputs[:5], ctx.chunk, h0=inputs[5])
+            grads = iter(torch.autograd.grad((y, h), wanted, (gy, gh)))
+        return tuple(next(grads) if t is not None and t.requires_grad else None
+                     for t in inputs) + (None,)
+
+
+def ssd_scan_diff(x, dt, A, B_, C_, chunk=128, h0=None):
+    return SsdScanDiff.apply(x, dt, A, B_, C_, h0, chunk)
 
 
 def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
@@ -39,10 +99,8 @@ def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
             window=win, softcap=capf,
         )[:, None]
     if site == "prefill" and Sq == k.shape[1]:
-        return flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            causal=causal, window=win, softcap=capf,
-        )
+        return flash_attention_diff(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal, win, capf)
     raise NotImplementedError(
         f"no kernel for sdpa at site {site!r} with q {tuple(q.shape)}, k {tuple(k.shape)}"
     )
@@ -51,10 +109,11 @@ def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
 def ssd_kernel(x, dt, A, B_, C_, chunk, h0):
     # x is a head-split view of the conv output unless padding copied it;
     # B_ and C_ go by strides (the single group at head stride 0)
-    return ssd_scan(x.contiguous(), dt, A, B_, C_, chunk=chunk, h0=h0)
+    return ssd_scan_diff(x.contiguous(), dt, A, B_, C_, chunk, h0)
 
 
 _layers.SDPA_IMPL["cuda"] = sdpa_kernel
 _ssd.SSD_IMPL["cuda"] = ssd_kernel
 
-__all__ = ["flash_attention", "decode_attention", "ssd_scan", "sdpa_kernel", "ssd_kernel"]
+__all__ = ["flash_attention", "decode_attention", "ssd_scan", "flash_attention_diff",
+           "ssd_scan_diff", "sdpa_kernel", "ssd_kernel"]

@@ -12,8 +12,10 @@ heads (head stride 0) is read without a copy.
 On a CPU tensor the wrapper computes the plain version
 (``ref.ssd_scan_ref``, which also takes an initial state ``h0``); on a CUDA
 tensor it launches the kernel or raises: an ``h0`` there (multi-token
-decode, off the served path) raises ``NotImplementedError``.
-``ssd_scan.launches`` counts the launches.
+decode, off the served path) raises ``NotImplementedError``, and a CUDA
+input that requires grad while grad mode is on raises ``RuntimeError``
+(the output would carry no gradient): ``ops.ssd_scan_diff`` is the
+differentiable form. ``ssd_scan.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
 def ssd_scan(x, dt, A, B_, C_, *, chunk=128, h0=None):
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B_, C_, chunk=chunk, h0=h0)
+    _build.refuse_grad("ssd_scan", x, dt, A, B_, C_)
     if h0 is not None:
         raise NotImplementedError("ssd_scan: the kernel scans from a zero state; "
                                   "an initial state h0 is not supported")

@@ -43,6 +43,13 @@ def tree_leaves(tree: dict) -> list:
     return out
 
 
+def tree_unflatten(like: dict, leaves) -> dict:
+    """The tree of ``like``'s structure whose leaves, in ``tree_leaves``
+    order, are ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def init_param(gen: torch.Generator, d: ParamDecl, dtype, device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)

@@ -50,17 +50,20 @@ def ssd_chunked(
     Cr = C_.reshape(Bsz, nc, Q, H, N).to(F32)
     Af = A.to(F32)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, :, :, None]
-    zero = torch.zeros((), dtype=F32, device=x.device)
+    neg_inf = torch.tensor(float("-inf"), dtype=F32, device=x.device)
     h = torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device) if h0 is None else h0.to(F32)
 
     ys = []
     for c in range(nc):
         x_c, dt_c, B_c, C_c = xr[:, c], dtr[:, c], Br[:, c], Cr[:, c]  # (B,Q,H,*)
         cs = torch.cumsum(dt_c * Af, dim=1)  # (B,Q,H) inclusive, negative
-        # intra: L[q,k] = exp(cs_q - cs_k) for q >= k; the upper triangle is
-        # selected away (its exp may be inf), never multiplied by 0
+        # intra: L[q,k] = exp(cs_q - cs_k) for q >= k. The upper triangle
+        # is masked to -inf before the exp (exp gives exactly 0 there): its
+        # exp may overflow to inf, which the reference's where-after-exp
+        # keeps out of the forward value but not out of the gradient
+        # (0 * inf = NaN)
         diff = cs[:, :, None, :] - cs[:, None, :, :]  # (B,Q,K,H)
-        L = torch.where(tri, torch.exp(diff), zero)
+        L = torch.exp(torch.where(tri, diff, neg_inf))
         scores = torch.einsum("bqhn,bkhn->bqkh", C_c, B_c)
         M = scores * L * dt_c[:, None, :, :]
         y = torch.einsum("bqkh,bkhp->bqhp", M, x_c)

@@ -8,6 +8,11 @@ mixer by ``cfg.layer_kinds()``. MoE FFNs, the jamba hybrid (which needs
 them) and the encoder-decoder stack are not ported yet: their configs
 raise ``NotImplementedError``.
 
+Training: ``loss`` is the mean next-token cross-entropy, with the LM head
+and CE taken in checkpointed sequence chunks above 1,024 tokens
+(``chunked_ce``); ``remat="full"`` recomputes each super-layer in the
+backward pass.
+
 Cache layout (decode-ready), leaf for leaf the JAX package's:
   {"lengths": (B,) int32,
    "blocks": {"sub<i>": {"attn": {"k", "v": (n_super,B,Smax,K,hd),
@@ -23,13 +28,51 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, rms_norm, softcap
-from .params import ParamDecl, init_tree, stacked
+from .params import ParamDecl, init_tree, stacked, tree_map
 from .ssd import SSD_IMPL, mamba_apply, mamba_cache_decl, mamba_decl
 
 F32 = torch.float32
+
+
+def _ce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logsumexp - gold logit at each position; logits (B,S,V) float32."""
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy; logits (B,S,V) float32, targets (B,S)."""
+    return torch.mean(_ce_terms(logits, targets))
+
+
+#: sequence-chunk the LM head + CE when S exceeds twice this: the full
+#: (B,S,V) logits tensor (and its gradient) never materializes.
+_CE_CHUNK = 512
+
+
+def _chunk_ce_sum(head_fn, xc, tc):
+    return torch.sum(_ce_terms(head_fn(xc), tc))
+
+
+def chunked_ce(head_fn, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """CE over head_fn(x-chunk) with each chunk recomputed in the backward
+    pass (``torch.utils.checkpoint`` in place of ``jax.checkpoint``).
+    x: (B,S,D)."""
+    B, S, D = x.shape
+    if S <= 2 * _CE_CHUNK:
+        return ce_loss(head_fn(x), targets)
+    c = _CE_CHUNK
+    while S % c:
+        c //= 2
+    acc = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(0, S, c):
+        acc = acc + checkpoint(_chunk_ce_sum, head_fn, x[:, i:i + c], targets[:, i:i + c],
+                               use_reentrant=False)
+    return acc / (B * S)
 
 
 def default_impl(device) -> str:
@@ -113,6 +156,13 @@ class LM:
         device."""
         return init_tree(gen, self.decls(), dtype, self.device)
 
+    def param_shapes(self, dtype=F32) -> dict:
+        """Every param as a tensor on the "meta" device: shape and dtype, no
+        storage (the counterpart of the reference's ShapeDtypeStructs; the
+        checkpoint restore template)."""
+        return tree_map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
+                        self.decls())
+
     # ------------------------------------------------------------------
     # Sublayer body and layer loop
     # ------------------------------------------------------------------
@@ -147,10 +197,34 @@ class LM:
             x = x + f
         return x, new_cache
 
+    def _super_apply(self, p_super, x, positions):
+        """One super-layer without a cache (the body that remat recomputes)."""
+        for i in range(self.period):
+            x, _ = self._sub_apply(p_super[f"sub{i}"], i, x, positions=positions,
+                                   cache=None, lengths=None, want_cache=False)
+        return x
+
     def _run_blocks(self, params, x, *, positions, cache=None, lengths=None,
-                    want_cache=False):
+                    want_cache=False, remat=None):
         """Every layer in order. Returns (x, per-layer caches as a list of
-        {"sub<i>": ...} dicts, one per super-layer)."""
+        {"sub<i>": ...} dicts, one per super-layer).
+
+        ``remat``: None keeps every activation for the backward pass;
+        "full" recomputes each super-layer in it (one
+        ``torch.utils.checkpoint`` per super-layer, the reference's
+        ``jax.checkpoint`` of the scan body). "dots" and "coll" are XLA
+        checkpoint policies and raise ``NotImplementedError``."""
+        if remat in ("dots", "coll"):
+            raise NotImplementedError(
+                f"remat={remat!r} is an XLA checkpoint policy, not ported "
+                "(ROADMAP queue 1 item 13)")
+        if remat not in (None, "full"):
+            raise ValueError(f"remat {remat!r} not in (None, 'full', 'dots', 'coll')")
+        if remat == "full":  # the training forward: no cache
+            for layer in range(self.n_super):
+                x = checkpoint(self._super_apply, _layer(params["blocks"], layer), x,
+                               positions, use_reentrant=False)
+            return x, []
         caches = []
         for layer in range(self.n_super):
             p_super = _layer(params["blocks"], layer)
@@ -171,7 +245,7 @@ class LM:
     # ------------------------------------------------------------------
     def embed(self, params, tokens, dtype=torch.bfloat16):
         cfg = self.cfg
-        x = params["embed"][tokens].to(dtype)
+        x = params["embed"][tokens.long()].to(dtype)
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
         return x
@@ -192,16 +266,24 @@ class LM:
     # ------------------------------------------------------------------
     # Public steps
     # ------------------------------------------------------------------
-    def forward(self, params, tokens, *, dtype=torch.bfloat16):
+    def forward(self, params, tokens, *, remat=None, dtype=torch.bfloat16):
         """Teacher-forced forward; returns logits (B, S, V) float32."""
-        return self.head(params, self.hidden(params, tokens, dtype=dtype))
+        return self.head(params, self.hidden(params, tokens, remat=remat, dtype=dtype))
 
-    def hidden(self, params, tokens, *, dtype=torch.bfloat16):
+    def hidden(self, params, tokens, *, remat=None, dtype=torch.bfloat16):
         """Embed -> blocks -> final norm."""
         x = self.embed(params, tokens, dtype)
         positions = self._positions(x.shape[0], x.shape[1], x.device)
-        x, _ = self._run_blocks(params, x, positions=positions)
+        x, _ = self._run_blocks(params, x, positions=positions, remat=remat)
         return rms_norm(params["final_norm"], x, self.cfg.norm_eps)
+
+    def loss(self, params, batch, *, remat=None, dtype=torch.bfloat16):
+        """batch: tokens (B,S), targets (B,S). Returns (total, {"ce", "aux"});
+        ``aux`` (the MoE router loss) is 0 until MoE is ported."""
+        x = self.hidden(params, batch["tokens"], remat=remat, dtype=dtype)
+        ce = chunked_ce(lambda xc: self.head(params, xc), x, batch["targets"])
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        return ce + self.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     # --- serving ---
     def _attn_cache_len(self, kv_len: int, window: Optional[int]) -> int:

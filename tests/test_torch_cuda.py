@@ -9,6 +9,10 @@ Tolerance: attention atol/rtol 1e-4 in float32, 2e-2 in bfloat16 (the
 plain versions round the probabilities to bfloat16 before the product with
 V; the kernels keep them in float32). The SSD scan 2e-4 in float32 and
 5e-2 in bfloat16, the reference's own tolerances for its Pallas kernel.
+The autograd Functions' gradients: within the same tolerance times the
+gradient's scale (max |grad|) of plain autograd through the oracles; one
+reduced qwen2-0.5b train step through the kernels within 1e-5 of the plain
+versions in float32.
 """
 import pytest
 import torch
@@ -17,6 +21,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref, ssd_scan_ref,
                                      ssd_sequential_ref)
+from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -177,3 +182,122 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ssd_scan(x, dt, A, torch.cat([Bm, Bm], -1)[..., ::2], Cm, chunk=8)
     with pytest.raises(ValueError):  # S not a multiple of the chunk
         ssd_scan(x, dt, A, Bm, Cm, chunk=6)
+
+
+# --- the autograd Functions and training ---------------------------------------
+
+def _grads_close(got, want, tol):
+    """max |got - want| within ``tol`` of the gradient's scale (max |want|)."""
+    scale = float(want.float().abs().max().clamp(min=1e-6))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, (err, scale)
+
+
+def _grads(fn, inputs, cotangents):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    torch.autograd.backward(out, cotangents)
+    return out, [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", [
+    (1, 333, 14, 2, 64, True, 0, 0.0),  # qwen2-0.5b: GQA 7:1 at hd 64
+    (2, 37, 7, 1, 8, True, 0, 0.0),  # qwen2-0.5b reduced: hd 8
+    (1, 256, 4, 2, 32, True, 64, 30.0),  # window + softcap
+])
+def test_flash_attention_diff_grads_match_plain_autograd(dev, case, dtype, tol):
+    B, S, H, K, hd, causal, win, cap = case
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
+    before = flash_attention.launches
+    (out,), got = _grads(lambda *a: flash_attention_diff(*a, causal, win, cap), (q, k, v), (g,))
+    assert flash_attention.launches == before + 1
+    (want_out,), want = _grads(
+        lambda *a: flash_attention_ref(*a, causal=causal, window=win, softcap=cap), (q, k, v), (g,))
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _grads_close(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", SSD_DTYPES)
+@pytest.mark.parametrize("case", [(1, 384, 80, 64, 128, 128), (1, 74, 4, 64, 128, 37)])
+def test_ssd_scan_diff_grads_match_plain_autograd(dev, case, dtype, tol):
+    B, S, H, P, N, chunk = case
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, B, S, H, P, N, dtype, single_group=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gy = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    gh = torch.randn((B, H, P, N), generator=gen, device=dev)
+    # the model's single group: differentiate through its broadcast over the heads
+    groups = (Bm[:, :, :1].contiguous(), Cm[:, :, :1].contiguous())
+
+    def run(fn):
+        def f(x, dt, A, b, c):
+            return fn(x, dt, A, b.expand(B, S, H, N), c.expand(B, S, H, N))
+        return _grads(f, (x, dt, A) + groups, (gy, gh))
+
+    before = ssd_scan.launches
+    _, got = run(lambda *a: ssd_scan_diff(*a, chunk))
+    assert ssd_scan.launches == before + 1
+    _, want = run(lambda *a: ssd_scan_ref(*a, chunk=chunk))
+    for a, b in zip(got, want):
+        _grads_close(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flash", "decode", "ssd"])
+def test_raw_wrappers_refuse_cuda_inputs_that_require_grad(dev, which):
+    def t(*shape):
+        return torch.zeros(shape, device=dev)
+
+    if which == "flash":
+        fn, args = flash_attention, (t(1, 8, 4, 16).requires_grad_(), t(1, 8, 2, 16), t(1, 8, 2, 16))
+    elif which == "decode":
+        pos = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+        fn, args = decode_attention, (t(1, 4, 16).requires_grad_(), t(1, 8, 2, 16),
+                                      t(1, 8, 2, 16), pos, pos[:, 0].contiguous())
+    else:
+        fn, args = (lambda *a: ssd_scan(*a, chunk=8)), (
+            t(1, 8, 2, 16), t(1, 8, 2), t(2).requires_grad_(), t(1, 8, 2, 16), t(1, 8, 2, 16))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fn(*args)
+    with torch.no_grad():
+        fn(*args)  # no gradient is asked for: the kernel runs
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_kernels_match_plain(dev):
+    """One float32 step from one state: the loss, every grad leaf and the
+    new state. (Further steps are not compared at 1e-5: Adam's first
+    update is sign(g) x lr, which amplifies a rounding of a grad near 0.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import TokenStream
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.training import step
+
+    cfg = get_config("qwen2-0.5b", reduced=True)
+    batch = TokenStream(cfg, 4, 64, device=dev).next()
+    state = step.init_state(LM(cfg, device=dev), torch.Generator(device=dev).manual_seed(0))
+    out = {}
+    for impl in ("cuda", "plain"):
+        lm = LM(cfg, impl=impl, device=dev)
+        before = flash_attention.launches
+        _, _, grads = step.loss_and_grads(lm, state["params"], batch, remat=None,
+                                          compute_dtype=torch.float32)
+        fn = step.make_train_step(lm, OptConfig(lr=1e-3, warmup_steps=1), compute_dtype=torch.float32)
+        new_state, metrics = fn(state, batch)
+        # the step's remat="full" runs each layer's forward again in the backward pass
+        assert flash_attention.launches - before == (3 * cfg.num_layers if impl == "cuda" else 0)
+        out[impl] = (metrics, grads, new_state)
+    for name in ("loss", "grad_norm"):
+        torch.testing.assert_close(out["cuda"][0][name], out["plain"][0][name], atol=1e-5, rtol=1e-5)
+    for i in (1, 2):
+        for a, b in zip(tree_leaves(out["cuda"][i]), tree_leaves(out["plain"][i])):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

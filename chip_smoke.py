@@ -5,12 +5,16 @@
 
 Phases, each of which raises on failure (there is no CPU fallback):
   1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from src/repro_torch/csrc with nvcc, one
-     process each, all at once;
+  2. build the four CUDA kernels from src/repro_torch/csrc with nvcc, one
+     process each, all at once, and print ptxas's registers and spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      served shapes and the edge cases: attention at ragged lengths, GQA 7:1
      at hd 8, MQA, window, softcap, ring cache mid-wrap, nearly full and
-     empty caches, float32 at atol/rtol 1e-4 and bfloat16 at 2e-2; the SSD
+     empty caches, gemma2-2b's hd 256 (flash at S 333, decode on a 640-slot
+     ring cache, windows 4096 and 128, softcap 50), float32 at atol/rtol
+     1e-4 and bfloat16 at 2e-2; the flash forward's log-sum-exp (1e-4,
+     bfloat16 1e-3) and the flash backward kernel against the FA2 plain
+     version (the same tolerances times the gradients' scale); the SSD
      scan at the served chunk lengths 37/64/100/128 (one to three chunks),
      a single group read over 80 heads, the reduced and a jamba-like size,
      against both its chunked and its sequential plain versions, float32
@@ -29,25 +33,29 @@ Phases, each of which raises on failure (there is no CPU fallback):
   7. ServeEngine on mamba2-2.7b at full width, as phase 5: 64 SSD-scan
      launches per prefill and no attention launch; a profile of one decode
      step;
-  8. training, (a): flash_attention_diff's and ssd_scan_diff's gradients
-     against plain autograd of their oracles on the card: flash at S
-     37/333/2048, GQA 7:1 at hd 64 and hd 8, window, softcap; the SSD scan
-     at the served chunks; float32 at 1e-4 and bfloat16 at 2e-2 (SSD: 2e-4
-     and 5e-2) of the gradients' scale;
+  8. training, (a): flash_attention_diff's gradients (the CUDA forward and
+     backward kernels) and ssd_scan_diff's against plain autograd of their
+     oracles on the card: flash at S 37/333/2048, GQA 7:1 at hd 64 and hd
+     8, window, softcap, hd 256; the SSD scan at the served chunks; float32
+     at 1e-4 and bfloat16 at 2e-2 (SSD: 2e-4 and 5e-2) of the gradients'
+     scale; two backward kernel runs bit for bit;
   9. training, (b): qwen2-0.5b at full width (24 layers, d_model 896, 14
      query heads over 2 KV heads, vocab 151,936, tied embeddings), the loss
      and every grad leaf of one float32 train step through the kernels
      against impl="plain", atol 2e-3 / rtol 1e-3, and one train_step each;
  10. training, (c): train() of qwen2-0.5b at full width, 20 steps of batch
      4 x seq 2048 in bfloat16: every loss finite, the first within 5 % of
-     ln 151,936, exactly 24 flash launches a step; step ms, tokens/s, model
-     FLOP/s against 989 TFLOP/s, peak memory, the checkpoint's seconds, and
-     the device's idle share from a torch.profiler step;
+     ln 151,936, exactly 24 flash forward and 24 flash backward launches a
+     step; step ms, tokens/s, model FLOP/s against 989 TFLOP/s, peak
+     memory, the checkpoint's seconds, and the device's idle share from a
+     torch.profiler step;
  11. training, (d): a crash at step 7 and exact resume at reduced size on
      the card, losses within 1e-5 of the uninterrupted run;
  12. time each kernel at the served shapes with CUDA events, beside its
      bound on an H100, its plain version and one library call where there
-     is one; flash_attention_diff forward plus backward at the shape of (c).
+     is one; at the training shape of (c), in bfloat16: the flash forward
+     with its log-sum-exp, the flash backward kernel, and
+     flash_attention_diff forward plus backward.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -73,8 +81,10 @@ from repro_torch.core.sla import ServiceLevel  # noqa: E402
 from repro_torch.data.batches import TokenStream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,  # noqa: E402
+                                     flash_attention_lse_ref, flash_attention_ref,
                                      ssd_scan_ref, ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -88,6 +98,7 @@ from repro_torch.training import step as training_step  # noqa: E402
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # bfloat16: tensor-core sums
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # the reference's own
 MODEL_ATOL, MODEL_RTOL = 2e-3, 1e-3
 ARCH = "paper-default"
@@ -110,6 +121,19 @@ FLASH_CASES = [
     (2, 128, 8, 8, 64, True, 0, 50.0),  # MHA + softcap
     (1, 256, 14, 2, 64, False, 0, 0.0),  # non-causal
     (2, 256, 8, 4, 32, True, 256, 30.0),  # window >= S + softcap
+    (1, 333, 8, 4, 256, True, 4096, 50.0),  # gemma2-2b: hd 256, softcap, global window
+    (1, 333, 8, 4, 256, True, 128, 50.0),  # gemma2-2b: a window that bites
+]
+# flash backward kernel cases (as FLASH_CASES)
+FLASH_BWD_CASES = [
+    (1, 333, 14, 2, 64, True, 0, 0.0),
+    (2, 37, 7, 1, 8, True, 0, 0.0),
+    (1, 256, 4, 2, 32, True, 64, 30.0),
+    (1, 200, 8, 2, 128, True, 0, 0.0),
+    (1, 256, 4, 1, 128, False, 0, 0.0),  # MQA, non-causal
+    (2, 129, 4, 1, 64, False, 48, 0.0),  # non-causal, window, ragged
+    (1, 333, 8, 4, 256, True, 4096, 50.0),  # gemma2-2b
+    (1, 333, 8, 4, 256, True, 128, 50.0),
 ]
 # decode cases: B, H, K, hd, Smax, window, softcap, fill
 # (fill = the new token's position; slots 0..fill hold positions 0..fill,
@@ -124,6 +148,13 @@ DECODE_CASES = [
     (2, 7, 1, 8, 200, 0, 0.0, 150),  # GQA 7:1, hd 8, ragged Smax
     (2, 8, 4, 64, 333, 0, 50.0, 250),  # softcap, ragged Smax
     (2, 4, 2, 16, 37, 0, 0.0, -1),  # empty cache: the mean of V
+]
+# ring caches mid-wrap: B, H, K, hd, Smax, first position, window, softcap
+RING_CASES = [
+    (2, 4, 2, 64, 128, 200, 128, 0.0),
+    (2, 4, 2, 64, 100, 250, 64, 0.0),
+    (2, 8, 4, 256, 640, 300, 4096, 50.0),  # gemma2-2b
+    (2, 8, 4, 256, 640, 300, 128, 50.0),
 ]
 # SSD scan cases: B, S, H, P, N, chunk, single group (B_/C_ read over the
 # heads with head stride 0, as the model passes them)
@@ -155,6 +186,7 @@ FLASH_DIFF_CASES = [
     (1, 2048, 7, 1, 8, True, 0, 0.0),
     (1, 333, 14, 2, 64, True, 128, 0.0),  # window
     (1, 333, 8, 4, 64, True, 0, 50.0),  # softcap
+    (1, 333, 8, 4, 256, True, 128, 50.0),  # gemma2-2b: hd 256, window, softcap
 ]
 # ssd_scan_diff cases: the served chunks, single group over the heads
 SSD_DIFF_CASES = [SSD_SLICE, (1, 37, 80, 64, 128, 37, True), (1, 64, 80, 64, 128, 64, True),
@@ -167,6 +199,28 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel of an nvcc log: its name (demangled
+    where c++filt is installed), registers, spills and shared memory."""
+    out, fn, spills = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.rsplit(" ", 1)[-1]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and fn is not None:
+            out.append((fn, f"{line.split(':', 1)[1].strip()}; {spills}"))
+            fn = None
+    names = [fn for fn, _ in out]
+    if names and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                     for n in res.stdout.splitlines()]
+    return [f"{n}: {what}" for n, (_, what) in zip(names, out)]
 
 
 def _close(name, got, want, tol):
@@ -209,7 +263,8 @@ def _ssd_inputs(gen, B, S, H, P, N, single_group, dtype, device):
 
 def check_kernels(device) -> dict:
     """Phase 3. Returns each kernel's max abs error at the served shape in
-    float32."""
+    float32, and the flash forward's and backward's in bfloat16 (their
+    tensor-core variants, which training runs)."""
     gen = torch.Generator(device=device).manual_seed(0)
     errs = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -217,10 +272,27 @@ def check_kernels(device) -> dict:
             B, S, H, K, hd, causal, win, cap = case
             q, k, v = _qkv(gen, B, S, S, H, K, hd, dtype, device)
             got = flash_attention(q, k, v, causal=causal, window=win, softcap=cap)
-            want = flash_attention_ref(q, k, v, causal=causal, window=win, softcap=cap)
+            want, want_lse = flash_attention_lse_ref(q, k, v, causal=causal, window=win,
+                                                     softcap=cap)
             err = _close(f"flash {case} {dtype}", got, want, tol)
-            if case == FLASH_SLICE and dtype == torch.float32:
-                errs["flash_attention"] = err
+            o, lse = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
+            if not torch.equal(o, got):
+                raise AssertionError(f"flash {case} {dtype}: the output differs with the LSE")
+            _close(f"flash {case} {dtype} lse", lse, want_lse, LSE_TOL[dtype])
+            if case == FLASH_SLICE:  # bfloat16: the tensor-core variant, as in training
+                errs["flash_attention" if dtype == torch.float32 else "flash_attention_bf16_fwd"] = err
+        for case in FLASH_BWD_CASES:
+            B, S, H, K, hd, causal, win, cap = case
+            q, k, v = _qkv(gen, B, S, S, H, K, hd, dtype, device)
+            g = torch.randn((B, S, H, hd), generator=gen, device=device).to(dtype)
+            o, lse = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
+            got = flash_attention_bwd(q, k, v, o, g, lse, causal=causal, window=win, softcap=cap)
+            want = flash_attention_bwd_ref(q, k, v, o, g, lse, causal=causal, window=win,
+                                           softcap=cap)
+            err = max(_grad_err(f"flash_bwd {case} {dtype} d{n}", a, b, tol)
+                      for n, a, b in zip("qkv", got, want))
+            if case == FLASH_BWD_CASES[0] and dtype == torch.bfloat16:  # as timed
+                errs["flash_attention_bwd"] = err
         for case in DECODE_CASES:
             B, H, K, hd, Smax, win, cap, fill = case
             q, k, v = _qkv(gen, B, 1, Smax, H, K, hd, dtype, device)
@@ -232,16 +304,17 @@ def check_kernels(device) -> dict:
             if case == DECODE_SLICE and dtype == torch.float32:
                 errs["decode_attention"] = err
         # ring cache mid-wrap: absolute positions p stored at slot p % Smax
-        for Smax, first, win in ((128, 200, 128), (100, 250, 64)):
-            B, H, K, hd = 2, 4, 2, 64
+        # (gemma2-2b: 8 query heads over 4, hd 256, softcap 50, a 640-slot cache)
+        for B, H, K, hd, Smax, first, win, cap in RING_CASES:
             q, k, v = _qkv(gen, B, 1, Smax, H, K, hd, dtype, device)
             abs_pos = torch.arange(first, first + Smax, dtype=torch.int32, device=device)
             pos = torch.empty((B, Smax), dtype=torch.int32, device=device)
             pos[:, abs_pos.long() % Smax] = abs_pos
             lengths = torch.full((B,), first + Smax - 1, dtype=torch.int32, device=device)
-            got = decode_attention(q[:, 0].contiguous(), k, v, pos, lengths, window=win)
-            want = decode_attention_ref(q[:, 0], k, v, pos, lengths, window=win)
-            _close(f"decode ring Smax={Smax} {dtype}", got, want, tol)
+            got = decode_attention(q[:, 0].contiguous(), k, v, pos, lengths, window=win,
+                                   softcap=cap)
+            want = decode_attention_ref(q[:, 0], k, v, pos, lengths, window=win, softcap=cap)
+            _close(f"decode ring hd={hd} Smax={Smax} window={win} {dtype}", got, want, tol)
         for case in SSD_CASES:
             B, S, H, P, N, chunk, single = case
             args = _ssd_inputs(gen, B, S, H, P, N, single, dtype, device)
@@ -451,6 +524,12 @@ def check_diff(device) -> float:
                      for n, a, b in zip("qkv", got, want)]
             if case == FLASH_DIFF_SLICE and dtype == torch.float32:
                 slice_err = max(errs)
+            if case == FLASH_DIFF_SLICE:  # the backward kernel repeats bit for bit
+                o, lse = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
+                runs = [flash_attention_bwd(q, k, v, o, g, lse, causal=causal, window=win,
+                                            softcap=cap) for _ in range(2)]
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    raise AssertionError(f"flash_bwd {case} {dtype}: two runs differ")
         for case in SSD_DIFF_CASES:
             B, S, H, P, N, chunk, _ = case
             x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, N, True, dtype, device)
@@ -523,10 +602,11 @@ def _model_flops(cfg, n_params, B, S) -> float:
 
 def train_full(device) -> tuple[dict, dict]:
     """Phase 10: train() at full width in bfloat16. Returns the run's
-    numbers, and the flash launches of the run."""
+    numbers, and the kernel launches of the run."""
     cfg = get_config(TRAIN_ARCH)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    decode_attention.launches = ssd_scan.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     out = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -534,8 +614,11 @@ def train_full(device) -> tuple[dict, dict]:
                 device=device, dtype=torch.bfloat16)
     wall = time.perf_counter() - t0
     counts = {"flash_attention": flash_attention.launches,
+              "flash_attention_bwd": flash_attention_bwd.launches,
               "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
-    want = {"flash_attention": cfg.num_layers * TRAIN_STEPS, "decode_attention": 0, "ssd_scan": 0}
+    want = {"flash_attention": cfg.num_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS,
+            "decode_attention": 0, "ssd_scan": 0}
     if counts != want:
         raise AssertionError(f"train: launches {counts}, expected {want}")
     losses = out["losses"]
@@ -690,39 +773,78 @@ def time_kernels(device, n_sets=16) -> dict:
         "shape": f"x ({B},{S},{H},{P}) B_/C_ ({B},{S},1,{N}) over {H} heads, chunk {Q}, float32",
     }
 
-    # flash_attention_diff forward + backward at the training shape of phase 10
+    # at the training shape of phase 10, bfloat16: the forward with its
+    # log-sum-exp, the backward kernel, and flash_attention_diff's forward +
+    # backward
     cfg = get_config(TRAIN_ARCH)
     B, S, H, K, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bf = torch.bfloat16
     tsets = []
     for _ in range(4):
-        q, k, v = (t.requires_grad_() for t in _qkv(gen, B, S, S, H, K, hd, bf, device))
-        tsets.append((q, k, v, torch.randn((B, S, H, hd), generator=gen, device=device).to(bf)))
-    tlib = []
-    for q, k, v, g in tsets:
-        tlib.append(tuple(t.detach().transpose(1, 2).contiguous().requires_grad_()
-                          for t in (q, k, v)) + (g.transpose(1, 2).contiguous(),))
+        q, k, v = _qkv(gen, B, S, S, H, K, hd, bf, device)
+        g = torch.randn((B, S, H, hd), generator=gen, device=device).to(bf)
+        o, lse = flash_attention_lse(q, k, v, causal=True)
+        tsets.append((q, k, v, g, o, lse))
+    tlib = [tuple(t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+            + (g.transpose(1, 2).contiguous(),) for q, k, v, g, _, _ in tsets]
+    grad_sets = [tuple(t.detach().clone().requires_grad_() for t in (q, k, v)) + (g,)
+                 for q, k, v, g, _, _ in tsets]
 
     def fwd_bwd(f):
         def run(q, k, v, g):
             f(q, k, v).backward(g)
         return run
 
-    pairs = S * (S + 1) // 2
-    flops = 4.0 * B * H * pairs * hd * (1 + 2.5)  # the backward: ~2.5x the forward
-    # q, k, v and the output's gradient read once; o, dq, dk, dv written once
-    nbytes = 2.0 * (4 * B * S * H * hd + 4 * B * S * K * hd)
-    bound_s, bound_by = kernel_bound(flops, nbytes, f32=False, hw=H100)
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    pairs = S * (S + 1) // 2  # causal (q, k) pairs a head
+    fwd_flops = 4.0 * B * H * pairs * hd  # Q K^T and P V
+    qo_bytes, kv_bytes, lse_bytes = 2.0 * B * S * H * hd, 2.0 * B * S * K * hd, 4.0 * B * H * S
+    shape = f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) bfloat16 causal"
+
+    # the forward: q, k, v read once; o and the log-sum-exp written once
+    bound_s, bound_by = kernel_bound(fwd_flops, 2 * qo_bytes + 2 * kv_bytes + lse_bytes,
+                                     f32=False, hw=H100)
+    sdpa_fwd_ms = _time_ms(lambda q, k, v, g: sdpa(q, k, v), tlib, 20)
+    out["flash_attention_bf16_fwd"] = {
+        "ms": _time_ms(lambda q, k, v, *_: flash_attention_lse(q, k, v, causal=True), tsets, 20),
+        "plain_ms": _time_ms(lambda q, k, v, *_: flash_attention_lse_ref(q, k, v, causal=True),
+                             tsets, 4),
+        "library_ms": sdpa_fwd_ms,
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "shape": shape + ", forward with the log-sum-exp (the training forward)",
+    }
+
+    # the backward: S, dV, dP, dK and dQ, 2.5x the forward's products (the
+    # kernel's dQ pass recomputes S and dP: 1.4x that, not counted); q, k, v,
+    # o, dO and the log-sum-exp read once, dq, dk, dv written once
+    bound_s, bound_by = kernel_bound(2.5 * fwd_flops, 4 * qo_bytes + 4 * kv_bytes + lse_bytes,
+                                     f32=False, hw=H100)
+    sdpa_fwd_bwd_ms = _time_ms(fwd_bwd(sdpa), tlib, 20)
+    out["flash_attention_bwd"] = {
+        "ms": _time_ms(lambda q, k, v, g, o, lse: flash_attention_bwd(q, k, v, o, g, lse),
+                       tsets, 20),
+        "plain_ms": _time_ms(lambda q, k, v, g, o, lse: flash_attention_bwd_ref(
+            q, k, v, o, g, lse), tsets, 4),
+        "library_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
+        "library_is": "SDPA forward + backward minus SDPA forward, a difference of two timings",
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "shape": shape + ", backward",
+    }
+
+    # forward + backward through the autograd Function: q, k, v and dO read
+    # once; o, dq, dk, dv written once
+    bound_s, bound_by = kernel_bound(3.5 * fwd_flops, 4 * qo_bytes + 4 * kv_bytes,
+                                     f32=False, hw=H100)
     out["flash_attention_diff"] = {
         "ms": _time_ms(fwd_bwd(lambda q, k, v: flash_attention_diff(q, k, v, True, 0, 0.0)),
-                       tsets, 10),
+                       grad_sets, 20),
         "plain_ms": _time_ms(fwd_bwd(lambda q, k, v: flash_attention_ref(q, k, v, causal=True)),
-                             tsets, 10),
-        "library_ms": _time_ms(fwd_bwd(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)), tlib, 10),
+                             grad_sets, 4),
+        "library_ms": sdpa_fwd_bwd_ms,
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) bfloat16 causal, "
-                 "forward + backward",
+        "shape": shape + ", forward + backward",
     }
     return out
 
@@ -744,15 +866,16 @@ def main() -> int:
     print(f"[build] {json.dumps({k: round(v, 3) for k, v in built.items()})} "
           f"total {time.perf_counter() - t0:.3f}s", flush=True)
     for name in _build.KERNELS:
-        for line in _build.log_path(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}", flush=True)
+        for line in ptxas_report(_build.log_path(name).read_text()):
+            print(f"[ptxas {name}] {line}", flush=True)
 
     t0 = time.perf_counter()
     errs = check_kernels(device)
-    print(f"[kernels] {len(FLASH_CASES)} flash + {len(DECODE_CASES) + 2} decode + "
+    print(f"[kernels] {len(FLASH_CASES)} flash (output and log-sum-exp) + "
+          f"{len(FLASH_BWD_CASES)} flash backward + {len(DECODE_CASES) + len(RING_CASES)} decode + "
           f"{len(SSD_CASES)} ssd cases x (float32, bfloat16) agree with the plain versions; "
-          f"float32 max abs err at the served shapes {json.dumps(errs)} "
+          f"max abs err at the served shapes (float32; the bf16_fwd and bwd entries "
+          f"bfloat16) {json.dumps(errs)} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
     served = {}
@@ -777,7 +900,8 @@ def main() -> int:
     diff_err = check_diff(device)
     print(f"[train a] {len(FLASH_DIFF_CASES)} flash_attention_diff + {len(SSD_DIFF_CASES)} "
           f"ssd_scan_diff cases x (float32, bfloat16): gradients agree with plain autograd; "
-          f"float32 max abs err at the training slice {diff_err} "
+          f"float32 max abs err at the training slice {diff_err}; the backward kernel "
+          f"repeats bit for bit "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
     t0 = time.perf_counter()
@@ -805,7 +929,9 @@ def main() -> int:
     print(f"[time] {time.perf_counter() - t0:.1f}s; whole run "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
-    # each kernel's launches come from the served run of the path it is on
+    # each kernel's launches come from the run of the path it is on: the
+    # served runs, and the training run of phase 10 (the bf16 forward's
+    # launches there are flash_attention's)
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:109", ARCH),
@@ -813,11 +939,18 @@ def main() -> int:
                              "src/repro/kernels/decode_attention.py:87", ARCH),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:87", MAMBA),
+        "flash_attention_bf16_fwd": ("src/repro_torch/csrc/flash_attention.cu",
+                                     "src/repro/kernels/flash_attention.py:109", TRAIN_ARCH),
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, no Pallas "
+                                "kernel)", TRAIN_ARCH),
         "flash_attention_diff": ("src/repro_torch/kernels/ops.py",
                                  "src/repro/kernels/ops.py:33", TRAIN_ARCH),
     }
     launches = {ARCH: served[ARCH]["counts"], MAMBA: served[MAMBA]["counts"],
-                TRAIN_ARCH: {"flash_attention_diff": train_counts["flash_attention"]}}
+                TRAIN_ARCH: {"flash_attention_bf16_fwd": train_counts["flash_attention"],
+                             "flash_attention_bwd": train_counts["flash_attention_bwd"],
+                             "flash_attention_diff": train_counts["flash_attention"]}}
     errs["flash_attention_diff"] = diff_err
     kernels = []
     for name, (source, replaces, arch) in meta.items():

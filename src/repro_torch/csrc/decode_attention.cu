@@ -6,7 +6,8 @@
 // (slot -> absolute position, -1 = empty), lengths (B,) int32 (the new token's
 // position). A slot is valid iff pos_id >= 0, pos_id <= length and, with a
 // window, length - pos_id < window, so slot order does not matter and a ring
-// cache mid-wrap works. Any Smax.
+// cache mid-wrap works. Any Smax; hd 8, 16, 32, 64, 128 and 256 (gemma2-2b:
+// a row of 32 threads, 8 rows a block, so G <= 8 there).
 //
 // What bounds it on this card: bytes. Each call reads the whole cache,
 // 2*B*Smax*K*hd*4 bytes of K/V in float32, and does ~4 FLOPs per byte read.
@@ -157,6 +158,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
     case 64: return launch<T, 64>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
     case 128: return launch<T, 128>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
+    case 256: return launch<T, 256>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exports a plain C entry point ``<name>`` and is
 compiled on its own by ``nvcc`` for ``sm_90a`` into a shared library
-under ``<repo>/build/kernels/`` (named by a hash of source and flags, so
-an edited source rebuilds), then loaded with ``ctypes``. Every pointer
-and the stream pass as ``c_void_p``. Nothing is built or loaded when this
-module is imported: the CPU never needs the libraries.
+under ``<repo>/build/kernels/`` (named by a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edit rebuilds), then
+loaded with ``ctypes``. Every pointer and the stream pass as
+``c_void_p``. Nothing is built or loaded when this module is imported:
+the CPU never needs the libraries.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
+KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,7 +43,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -5,7 +5,7 @@ One new token per sequence, q (B,H,hd), against a linear or ring KV cache
 k/v (B,Smax,K,hd). A slot is valid iff ``pos_ids >= 0``,
 ``pos_ids <= lengths`` and, with a window, ``lengths - pos_ids < window``,
 so slot order does not matter. Any Smax (the TPU kernel needs multiples of
-128); hd in {8, 16, 32, 64, 128}; float32 or bfloat16 in, out in q's type.
+128); hd in {8, 16, 32, 64, 128, 256}; float32 or bfloat16 in, out in q's type.
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.decode_attention_ref``); on a CUDA tensor it launches the kernel or
@@ -23,7 +23,7 @@ import torch
 from . import _build
 from .ref import decode_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 

@@ -5,14 +5,19 @@ Causal / sliding-window / tanh-softcapped GQA attention of q (B,Sq,H,hd)
 against k/v (B,Sk,K,hd) at implicit arange positions, with a streaming
 softmax in float32. Sq == Sk of any length (the TPU kernel needs
 multiples of 128);
-hd in {8, 16, 32, 64, 128}; float32 or bfloat16 in, out in q's type.
+hd in {8, 16, 32, 64, 128, 256}; float32 or bfloat16 in, out in q's type.
+bfloat16 at hd 64 and 128 runs on the tensor cores.
 
-On a CPU tensor the wrapper computes the plain version
-(``ref.flash_attention_ref``); on a CUDA tensor it launches the kernel or
-raises. It raises too for a CUDA input that requires grad while grad mode
-is on, whose output would carry no gradient: ``ops.flash_attention_diff``
-is the differentiable form. ``flash_attention.launches`` counts the
-launches.
+``flash_attention`` is the serving entry point; ``flash_attention_lse``
+also returns the float32 log-sum-exp of each row, (B,H,Sq), which the
+backward kernel (``flash_attention_bwd``) takes. Both launch the same
+kernel and count on ``flash_attention.launches``.
+
+On a CPU tensor the wrappers compute the plain versions
+(``ref.flash_attention_ref``, ``ref.flash_attention_lse_ref``); on a CUDA
+tensor they launch the kernel or raise. They raise too for a CUDA input
+that requires grad while grad mode is on, whose output would carry no
+gradient: ``ops.flash_attention_diff`` is the differentiable form.
 """
 from __future__ import annotations
 
@@ -22,16 +27,27 @@ import math
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_lse_ref, flash_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    return _launch(q, k, v, causal, window, softcap, with_lse=False)[0]
+
+
+def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """(output, log-sum-exp (B,H,Sq) float32), the row h = kv_head * G + g."""
+    if q.device.type == "cpu":
+        return flash_attention_lse_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    return _launch(q, k, v, causal, window, softcap, with_lse=True)
+
+
+def _launch(q, k, v, causal, window, softcap, with_lse):
     _build.refuse_grad("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -41,20 +57,22 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     _build.check_cuda_inputs("flash_attention", q.dtype, q, k, v)
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if o.numel() == 0:
-        return o
+        return o, lse
     fn = _build.load("flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(
             0 if q.dtype == torch.float32 else 1,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None,
             B, Sq, Sk, H, K, hd, int(bool(causal)), int(window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         flash_attention.launches += 1
     _build.raise_on_error("flash_attention", rc)
-    return o
+    return o, lse
 
 
 flash_attention.launches = 0

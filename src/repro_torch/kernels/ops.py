@@ -17,13 +17,15 @@ mamba prefill or training forward through the hand-written kernels.
 ``ssd_kernel`` sends the chunked scan to ``ssd_scan_diff``; with an initial
 state (multi-token decode) ``ssd_scan`` raises on a CUDA tensor.
 
-Training differentiability, as the reference's ``ops.py:32-56``: the
-forward of ``flash_attention_diff`` is the CUDA flash kernel, and its
-backward reruns the plain oracle ``flash_attention_ref`` on the saved
-inputs and takes its vector-Jacobian product (the same math; the reference
-has no backward kernel either). ``ssd_scan_diff`` does the same for the SSD
-scan over ``ssd_chunked``. The kernels' own wrappers refuse a CUDA input
-that requires grad, so no gradient can vanish.
+Training differentiability: the forward of ``flash_attention_diff`` is the
+CUDA flash kernel, which also returns each row's log-sum-exp, and its
+backward is the CUDA FlashAttention-2 backward kernel
+(``flash_attention_bwd``) on the saved q, k, v, output and log-sum-exp.
+The reference's ``ops.py:32-56`` reruns its jnp oracle in the backward
+instead; it has no backward kernel. ``ssd_scan_diff`` reruns
+``ssd_chunked`` in its backward, as the reference trains mamba2. The
+kernels' own wrappers refuse a CUDA input that requires grad, so no
+gradient can vanish.
 
 On CPU tensors the wrappers compute their plain versions.
 """
@@ -34,27 +36,29 @@ import torch
 from ..models import layers as _layers
 from ..models import ssd as _ssd
 from .decode_attention import decode_attention
-from .flash_attention import flash_attention
-from .ref import flash_attention_ref
+from .flash_attention import flash_attention, flash_attention_lse
+from .flash_attention_bwd import flash_attention_bwd
 from .ssd_scan import ssd_scan
 
 
 class FlashAttentionDiff(torch.autograd.Function):
-    """Counterpart of the reference's ``flash_attention_diff`` custom VJP."""
+    """Counterpart of the reference's ``flash_attention_diff`` custom VJP,
+    with a backward kernel. On CPU tensors both directions run their plain
+    versions (``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
-        ctx.save_for_backward(q, k, v)
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = (causal, window, softcap)
-        return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+        return o
 
     @staticmethod
     def backward(ctx, g):
         causal, window, softcap = ctx.opts
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = flash_attention_ref(*inputs, causal=causal, window=window, softcap=softcap)
-            dq, dk, dv = torch.autograd.grad(out, inputs, g)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, g.contiguous(), lse, causal=causal,
+                                         window=window, softcap=softcap)
         return dq, dk, dv, None, None, None
 
 
@@ -115,5 +119,5 @@ def ssd_kernel(x, dt, A, B_, C_, chunk, h0):
 _layers.SDPA_IMPL["cuda"] = sdpa_kernel
 _ssd.SSD_IMPL["cuda"] = ssd_kernel
 
-__all__ = ["flash_attention", "decode_attention", "ssd_scan", "flash_attention_diff",
-           "ssd_scan_diff", "sdpa_kernel", "ssd_kernel"]
+__all__ = ["flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
+           "flash_attention_diff", "ssd_scan_diff", "sdpa_kernel", "ssd_kernel"]

@@ -6,25 +6,33 @@ also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance: attention atol/rtol 1e-4 in float32, 2e-2 in bfloat16 (the
-plain versions round the probabilities to bfloat16 before the product with
-V; the kernels keep them in float32). The SSD scan 2e-4 in float32 and
+plain versions round the normalised probabilities to bfloat16 before the
+product with V; the kernels round the unnormalised ones on the tensor
+cores at hd 64 and 128, and keep them in float32 elsewhere). The forward's
+log-sum-exp 1e-4 in float32 and 1e-3 in bfloat16 (tensor-core sums). The SSD scan 2e-4 in float32 and
 5e-2 in bfloat16, the reference's own tolerances for its Pallas kernel.
-The autograd Functions' gradients: within the same tolerance times the
-gradient's scale (max |grad|) of plain autograd through the oracles; one
+The backward kernel and the autograd Functions' gradients: within the same
+tolerance times the gradient's scale (max |grad|) of the FA2 plain version
+and of plain autograd through the oracles; two backward runs bit for bit; one
 reduced qwen2-0.5b train step through the kernels within 1e-5 of the plain
 versions in float32.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as flash_module
+from repro_torch.kernels import flash_attention_bwd as flash_bwd_module
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref, ssd_scan_ref,
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,
+                                     flash_attention_lse_ref, flash_attention_ref, ssd_scan_ref,
                                      ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 SSD_DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 5e-2)]
 
 # B, S, H, K, hd, causal, window, softcap
@@ -34,6 +42,17 @@ FLASH = [
     (2, 100, 7, 1, 8, True, 0, 30.0),  # GQA 7:1 at hd 8, softcap
     (1, 333, 4, 2, 16, True, 8, 0.0),  # window, ragged
     (1, 129, 4, 1, 128, False, 0, 0.0),  # MQA, non-causal
+    (1, 333, 8, 4, 256, True, 4096, 50.0),  # gemma2-2b: hd 256, softcap, global window
+    (1, 333, 8, 4, 256, True, 128, 50.0),  # gemma2-2b: a window that bites
+]
+# flash backward: the cases of test_flash_attention_diff_grads_match_plain_autograd
+FLASH_BWD = [
+    (1, 333, 14, 2, 64, True, 0, 0.0),  # qwen2-0.5b: GQA 7:1 at hd 64
+    (2, 37, 7, 1, 8, True, 0, 0.0),  # qwen2-0.5b reduced: hd 8
+    (1, 256, 4, 2, 32, True, 64, 30.0),  # window + softcap
+    (1, 200, 8, 2, 128, True, 0, 0.0),  # hd 128
+    (1, 333, 8, 4, 256, True, 128, 50.0),  # gemma2-2b: hd 256, window, softcap
+    (2, 129, 4, 1, 64, False, 48, 0.0),  # non-causal, window, ragged
 ]
 # B, H, K, hd, Smax, window, softcap, fill (the new token's position; -1 = empty cache)
 DECODE = [
@@ -110,6 +129,80 @@ def test_decode_kernel_on_a_ring_cache_mid_wrap(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("window", [4096, 128])
+def test_decode_kernel_at_gemma2_width_on_a_ring_cache(dev, window, dtype, tol):
+    """gemma2-2b's attention: 8 query heads over 4, hd 256, softcap 50, a
+    640-slot ring cache holding positions 300..939 mid-wrap."""
+    B, H, K, hd, Smax, first = 2, 8, 4, 256, 640, 300
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, H, hd), (B, Smax, K, hd), (B, Smax, K, hd)))
+    abs_pos = torch.arange(first, first + Smax, dtype=torch.int32, device=dev)
+    pos = torch.empty((B, Smax), dtype=torch.int32, device=dev)
+    pos[:, abs_pos.long() % Smax] = abs_pos
+    lengths = torch.full((B,), first + Smax - 1, dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, pos, lengths, window=window, softcap=50.0)
+    want = decode_attention_ref(q, k, v, pos, lengths, window=window, softcap=50.0)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", FLASH)
+def test_flash_lse_matches_plain(dev, case, dtype, tol):
+    B, S, H, K, hd, causal, win, cap = case
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    before = flash_attention.launches
+    out, lse = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
+    assert flash_attention.launches == before + 1
+    want_out, want_lse = flash_attention_lse_ref(q, k, v, causal=causal, window=win, softcap=cap)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+
+
+def _bwd_inputs(dev, case, dtype, seed):
+    """q, k, v, the output's gradient, and the kernel forward's output and
+    log-sum-exp."""
+    B, S, H, K, hd, causal, win, cap = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
+    o, lse = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
+    return q, k, v, g, o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", FLASH_BWD)
+def test_flash_bwd_kernel_matches_plain(dev, case, dtype, tol):
+    *_, causal, win, cap = case
+    q, k, v, g, o, lse = _bwd_inputs(dev, case, dtype, 8)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, g, lse, causal=causal, window=win, softcap=cap)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, g, lse, causal=causal, window=win, softcap=cap)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _grads_close(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [FLASH_BWD[0], FLASH_BWD[4]])
+def test_flash_bwd_kernel_is_deterministic(dev, case, dtype):
+    *_, causal, win, cap = case
+    q, k, v, g, o, lse = _bwd_inputs(dev, case, dtype, 9)
+    first = flash_attention_bwd(q, k, v, o, g, lse, causal=causal, window=win, softcap=cap)
+    for _ in range(2):
+        again = flash_attention_bwd(q, k, v, o, g, lse, causal=causal, window=win, softcap=cap)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 8, 4, 24), device=dev)  # head_dim 24
     with pytest.raises(ValueError):
@@ -119,6 +212,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash_attention(q, q[:, :, ::2], q[:, :, ::2])
     with pytest.raises(TypeError):
         flash_attention(q.half(), q[:, :, :2].half(), q[:, :, :2].half())
+    q, kv = torch.zeros((1, 8, 4, 24), device=dev), torch.zeros((1, 8, 2, 24), device=dev)
+    lse = torch.zeros((1, 4, 8), device=dev)
+    with pytest.raises(ValueError):  # head_dim 24
+        flash_attention_bwd(q, kv, kv, q, q, lse)
+    q, kv = torch.zeros((1, 8, 4, 16), device=dev), torch.zeros((1, 8, 2, 16), device=dev)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        flash_attention_bwd(q, kv, kv, q, q, lse[:, :, :4].contiguous())
+    with pytest.raises(TypeError):  # lse not float32
+        flash_attention_bwd(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), q.bfloat16(),
+                            q.bfloat16(), lse.bfloat16())
+    with pytest.raises(TypeError):  # mixed float types
+        flash_attention_bwd(q, kv, kv, q, q.bfloat16(), lse)
+    with pytest.raises(ValueError):  # the output's gradient not contiguous
+        flash_attention_bwd(q, kv, kv, q, q.transpose(1, 2).contiguous().transpose(1, 2), lse)
+    with pytest.raises(ValueError):  # Sq != Sk
+        flash_attention_bwd(q, kv[:, :4].contiguous(), kv[:, :4].contiguous(), q, q, lse)
 
 
 def _ssd_inputs(dev, B, S, H, P, N, dtype, seed=3, single_group=False):
@@ -203,25 +312,42 @@ def _grads(fn, inputs, cotangents):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("case", [
-    (1, 333, 14, 2, 64, True, 0, 0.0),  # qwen2-0.5b: GQA 7:1 at hd 64
-    (2, 37, 7, 1, 8, True, 0, 0.0),  # qwen2-0.5b reduced: hd 8
-    (1, 256, 4, 2, 32, True, 64, 30.0),  # window + softcap
-])
+@pytest.mark.parametrize("case", FLASH_BWD)
 def test_flash_attention_diff_grads_match_plain_autograd(dev, case, dtype, tol):
     B, S, H, K, hd, causal, win, cap = case
     gen = torch.Generator(device=dev).manual_seed(4)
     q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                   for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention_bwd.launches
     (out,), got = _grads(lambda *a: flash_attention_diff(*a, causal, win, cap), (q, k, v), (g,))
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
     (want_out,), want = _grads(
         lambda *a: flash_attention_ref(*a, causal=causal, window=win, softcap=cap), (q, k, v), (g,))
     torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
     for a, b in zip(got, want):
         assert a.dtype == dtype
         _grads_close(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_diff_runs_the_kernels_and_no_plain_version(dev, dtype, monkeypatch):
+    """One forward and one backward launch, and no plain version on the way."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for mod, name in ((flash_module, "flash_attention_ref"), (flash_module, "flash_attention_lse_ref"),
+                      (flash_bwd_module, "flash_attention_bwd_ref")):
+        monkeypatch.setattr(mod, name, boom)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for shape in ((2, 200, 14, 64), (2, 200, 2, 64), (2, 200, 2, 64), (2, 200, 14, 64)))
+    before = flash_attention.launches, flash_attention_bwd.launches
+    (out,), grads = _grads(lambda *a: flash_attention_diff(*a, True, 0, 0.0), (q, k, v), (g,))
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert all(t.dtype == dtype and bool(torch.isfinite(t).all()) for t in [out, *grads])
 
 
 @pytest.mark.cuda
@@ -250,13 +376,16 @@ def test_ssd_scan_diff_grads_match_plain_autograd(dev, case, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["flash", "decode", "ssd"])
+@pytest.mark.parametrize("which", ["flash", "flash_bwd", "decode", "ssd"])
 def test_raw_wrappers_refuse_cuda_inputs_that_require_grad(dev, which):
     def t(*shape):
         return torch.zeros(shape, device=dev)
 
     if which == "flash":
         fn, args = flash_attention, (t(1, 8, 4, 16).requires_grad_(), t(1, 8, 2, 16), t(1, 8, 2, 16))
+    elif which == "flash_bwd":
+        fn, args = flash_attention_bwd, (t(1, 8, 4, 16), t(1, 8, 2, 16).requires_grad_(),
+                                         t(1, 8, 2, 16), t(1, 8, 4, 16), t(1, 8, 4, 16), t(1, 4, 8))
     elif which == "decode":
         pos = torch.zeros((1, 8), dtype=torch.int32, device=dev)
         fn, args = decode_attention, (t(1, 4, 16).requires_grad_(), t(1, 8, 2, 16),
@@ -288,13 +417,15 @@ def test_reduced_train_step_kernels_match_plain(dev):
     out = {}
     for impl in ("cuda", "plain"):
         lm = LM(cfg, impl=impl, device=dev)
-        before = flash_attention.launches
+        before = flash_attention.launches, flash_attention_bwd.launches
         _, _, grads = step.loss_and_grads(lm, state["params"], batch, remat=None,
                                           compute_dtype=torch.float32)
         fn = step.make_train_step(lm, OptConfig(lr=1e-3, warmup_steps=1), compute_dtype=torch.float32)
         new_state, metrics = fn(state, batch)
         # the step's remat="full" runs each layer's forward again in the backward pass
-        assert flash_attention.launches - before == (3 * cfg.num_layers if impl == "cuda" else 0)
+        n = cfg.num_layers if impl == "cuda" else 0
+        assert flash_attention.launches - before[0] == 3 * n
+        assert flash_attention_bwd.launches - before[1] == 2 * n
         out[impl] = (metrics, grads, new_state)
     for name in ("loss", "grad_norm"):
         torch.testing.assert_close(out["cuda"][0][name], out["plain"][0][name], atol=1e-5, rtol=1e-5)

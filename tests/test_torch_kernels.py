@@ -22,8 +22,11 @@ import torch
 from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels import ref as jax_ref
-from repro_torch.configs import get_config
+from repro_torch.configs import _MODULES, get_config
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import decode_attention as decode_module
+from repro_torch.kernels import flash_attention as flash_module
+from repro_torch.kernels import flash_attention_bwd as flash_bwd_module
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
@@ -230,12 +233,23 @@ def test_unknown_sdpa_impl_raises():
                     causal=True, cap=None, site="prefill", impl="pallas")
 
 
+def test_every_attention_head_dim_of_the_port_configs_has_a_kernel():
+    """gemma2-2b's head_dim 256 included: every arch, full and reduced, can
+    prefill, train and decode through the kernels at its own width."""
+    dims = {get_config(name, reduced=reduced).head_dim
+            for name in _MODULES for reduced in (False, True)} - {0}
+    assert 256 in dims
+    for mod in (flash_module, flash_bwd_module, decode_module):
+        assert dims <= set(mod.HEAD_DIMS), (mod.__name__, sorted(dims - set(mod.HEAD_DIMS)))
+
+
 def test_kernel_modules_import_and_build_nothing_without_nvcc(monkeypatch, tmp_path):
     def no_process(*a, **k):
         raise AssertionError("a kernel module started a process on import")
 
     monkeypatch.setattr(subprocess, "Popen", no_process)
     for mod in (_build, importlib.import_module("repro_torch.kernels.flash_attention"),
+                importlib.import_module("repro_torch.kernels.flash_attention_bwd"),
                 importlib.import_module("repro_torch.kernels.decode_attention"),
                 importlib.import_module("repro_torch.kernels.ssd_scan")):
         importlib.reload(mod)

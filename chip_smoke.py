@@ -18,7 +18,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
      scan at the served chunk lengths 37/64/100/128 (one to three chunks),
      a single group read over 80 heads, the reduced and a jamba-like size,
      against both its chunked and its sequential plain versions, float32
-     at 2e-4 and bfloat16 at 5e-2;
+     at 2e-4 and bfloat16 at 5e-2, up to 16 chunks (x (1,2048,80,64)) and
+     five chunks of 37; decode on a 4,224-slot cache and with every valid
+     slot in one split of the split-KV kernel; every kernel run twice on
+     each case, bit for bit;
   4. paper-default at full width (16 layers, d_model 1024, random weights
      from a seeded torch.Generator): prefill of a 333-token prompt and 16
      teacher-forced decode steps through the kernels and through the plain
@@ -53,9 +56,14 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the card, losses within 1e-5 of the uninterrupted run;
  12. time each kernel at the served shapes with CUDA events, beside its
      bound on an H100, its plain version and one library call where there
-     is one; at the training shape of (c), in bfloat16: the flash forward
+     is one (the serving kernels and their library calls as device time:
+     calls captured in a CUDA graph and replayed, since their device time
+     is below the host's cost of a call; the eager loop's time beside it;
+     decode and SSD also by kernel, from torch.profiler); at the training shape of (c), in bfloat16: the flash forward
      with its log-sum-exp, the flash backward kernel, and
-     flash_attention_diff forward plus backward.
+     flash_attention_diff forward plus backward; and at two longer shapes,
+     where splitting the work pays most: the SSD scan at x (1,2048,80,64)
+     (16 chunks) and decode on a 4,224-slot cache with lengths 4,000-4,100.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -148,6 +156,8 @@ DECODE_CASES = [
     (2, 7, 1, 8, 200, 0, 0.0, 150),  # GQA 7:1, hd 8, ragged Smax
     (2, 8, 4, 64, 333, 0, 50.0, 250),  # softcap, ragged Smax
     (2, 4, 2, 16, 37, 0, 0.0, -1),  # empty cache: the mean of V
+    (4, 16, 8, 64, 4224, 0, 0.0, 4000),  # a long cache: 66 splits of 64 slots
+    (2, 8, 4, 64, 640, 0, 0.0, 40),  # every valid slot in the first split
 ]
 # ring caches mid-wrap: B, H, K, hd, Smax, first position, window, softcap
 RING_CASES = [
@@ -169,6 +179,8 @@ SSD_CASES = [
     (1, 74, 4, 64, 128, 37, False),
     (2, 16, 8, 16, 16, 8, False),  # mamba2-2.7b reduced
     (1, 128, 8, 16, 16, 32, False),  # jamba-like small state
+    (1, 2048, 80, 64, 128, 128, True),  # a 2048-token prompt: 16 chunks
+    (1, 185, 4, 64, 128, 37, False),  # five chunks of 37
 ]
 
 TRAIN_ARCH = "qwen2-0.5b"
@@ -233,6 +245,16 @@ def _close(name, got, want, tol):
     return err
 
 
+def _twice(name, fn):
+    """fn's output(s), after checking that a second run gives the same bits."""
+    first, again = fn(), fn()
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{name}: two runs differ")
+    return first if len(first) > 1 else first[0]
+
+
 def _qkv(gen, B, Sq, Sk, H, K, hd, dtype, device):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -271,7 +293,8 @@ def check_kernels(device) -> dict:
         for case in FLASH_CASES:
             B, S, H, K, hd, causal, win, cap = case
             q, k, v = _qkv(gen, B, S, S, H, K, hd, dtype, device)
-            got = flash_attention(q, k, v, causal=causal, window=win, softcap=cap)
+            got = _twice(f"flash {case} {dtype}", lambda: flash_attention(
+                q, k, v, causal=causal, window=win, softcap=cap))
             want, want_lse = flash_attention_lse_ref(q, k, v, causal=causal, window=win,
                                                      softcap=cap)
             err = _close(f"flash {case} {dtype}", got, want, tol)
@@ -286,7 +309,8 @@ def check_kernels(device) -> dict:
             q, k, v = _qkv(gen, B, S, S, H, K, hd, dtype, device)
             g = torch.randn((B, S, H, hd), generator=gen, device=device).to(dtype)
             o, lse = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
-            got = flash_attention_bwd(q, k, v, o, g, lse, causal=causal, window=win, softcap=cap)
+            got = _twice(f"flash_bwd {case} {dtype}", lambda: flash_attention_bwd(
+                q, k, v, o, g, lse, causal=causal, window=win, softcap=cap))
             want = flash_attention_bwd_ref(q, k, v, o, g, lse, causal=causal, window=win,
                                            softcap=cap)
             err = max(_grad_err(f"flash_bwd {case} {dtype} d{n}", a, b, tol)
@@ -297,8 +321,8 @@ def check_kernels(device) -> dict:
             B, H, K, hd, Smax, win, cap, fill = case
             q, k, v = _qkv(gen, B, 1, Smax, H, K, hd, dtype, device)
             pos, lengths = _linear_cache(B, Smax, fill, device)
-            got = decode_attention(q[:, 0].contiguous(), k, v, pos, lengths,
-                                   window=win, softcap=cap)
+            got = _twice(f"decode {case} {dtype}", lambda: decode_attention(
+                q[:, 0].contiguous(), k, v, pos, lengths, window=win, softcap=cap))
             want = decode_attention_ref(q[:, 0], k, v, pos, lengths, window=win, softcap=cap)
             err = _close(f"decode {case} {dtype}", got, want, tol)
             if case == DECODE_SLICE and dtype == torch.float32:
@@ -311,14 +335,14 @@ def check_kernels(device) -> dict:
             pos = torch.empty((B, Smax), dtype=torch.int32, device=device)
             pos[:, abs_pos.long() % Smax] = abs_pos
             lengths = torch.full((B,), first + Smax - 1, dtype=torch.int32, device=device)
-            got = decode_attention(q[:, 0].contiguous(), k, v, pos, lengths, window=win,
-                                   softcap=cap)
+            got = _twice(f"decode ring {Smax} {dtype}", lambda: decode_attention(
+                q[:, 0].contiguous(), k, v, pos, lengths, window=win, softcap=cap))
             want = decode_attention_ref(q[:, 0], k, v, pos, lengths, window=win, softcap=cap)
             _close(f"decode ring hd={hd} Smax={Smax} window={win} {dtype}", got, want, tol)
         for case in SSD_CASES:
             B, S, H, P, N, chunk, single = case
             args = _ssd_inputs(gen, B, S, H, P, N, single, dtype, device)
-            y, h = ssd_scan(*args, chunk=chunk)
+            y, h = _twice(f"ssd {case} {dtype}", lambda: ssd_scan(*args, chunk=chunk))
             yr, hr = ssd_scan_ref(*args, chunk=chunk)
             ys, hs = ssd_sequential_ref(*args)
             err = _close(f"ssd {case} {dtype} y vs chunked", y, yr, SSD_TOL[dtype])
@@ -707,32 +731,55 @@ def _time_ms(fn, args_list, iters):
     return start.elapsed_time(stop) / iters
 
 
-def time_kernels(device, n_sets=16) -> dict:
-    """Phase 12: each kernel at the served shape (float32): its time, its
-    plain version's, one library call's where one PyTorch call computes the
-    same function, and its bound on an H100."""
-    gen = torch.Generator(device=device).manual_seed(1)
-    out = {}
+def _graph_ms(fn, args_list, calls, replays=10):
+    """Mean ms of one call of fn on the device: ``calls`` calls, rotating
+    through ``args_list``, captured in one CUDA graph and replayed, so that
+    no host work (the wrapper's checks, its allocations, the ctypes call)
+    stands between two calls. For kernels whose device time is below the
+    host's cost of a call, which an eager loop would measure instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for a in args_list[:2]:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (replays * calls)
 
-    B, S, H, K, hd, causal, _, _ = FLASH_SLICE
-    sets = [_qkv(gen, B, S, S, H, K, hd, torch.float32, device) for _ in range(n_sets)]
-    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
-    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
-    flops = 4.0 * B * H * pairs * hd
-    nbytes = 4.0 * (2 * B * S * H * hd + 2 * B * S * K * hd)  # q, o, k, v
-    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
-    out["flash_attention"] = {
-        "ms": _time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True), sets, 200),
-        "plain_ms": _time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets, 20),
-        "library_ms": _time_ms(
-            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-            lib_sets, 200),
-        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-        "shape": f"q (1,{S},{H},{hd}) k/v (1,{S},{K},{hd}) float32 causal",
-    }
 
-    B, H, K, hd, Smax, _, _, _ = DECODE_SLICE
-    fills = torch.tensor([332, 300, 255, 200], dtype=torch.int32, device=device)[:B]
+def _kernel_us(fn, args_list, calls=20) -> dict:
+    """Device µs a launch of each kernel that fn launches, from torch.profiler
+    over ``calls`` calls, with the launches the profiler kept (it may drop
+    some of a short window's events): where a multi-kernel call spends its
+    time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(calls):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]:
+            [e.self_device_time_total / e.count, e.count] for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def _time_decode(gen, device, B, H, K, hd, Smax, fills, n_sets, iters) -> dict:
+    """decode_attention (float32) on a linear cache holding positions
+    0..fills[b]: its time, its plain version's, SDPA's with the validity
+    mask, and its bound, which counts only the valid slots' K/V."""
+    fills = torch.tensor(fills, dtype=torch.int32, device=device)[:B]
     ar = torch.arange(Smax, dtype=torch.int32, device=device)[None].expand(B, Smax)
     pos = torch.where(ar <= fills[:, None], ar, torch.full_like(ar, -1)).contiguous()
     valid = pos >= 0
@@ -746,17 +793,22 @@ def time_kernels(device, n_sets=16) -> dict:
     flops = 4.0 * H * n_valid * hd  # every valid slot meets its H query heads
     nbytes = 4.0 * (2 * B * H * hd + 2 * n_valid * K * hd + B * Smax + B)
     bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
-    out["decode_attention"] = {
-        "ms": _time_ms(lambda *a: decode_attention(*a), dsets, 500),
-        "plain_ms": _time_ms(lambda *a: decode_attention_ref(*a), dsets, 50),
-        "library_ms": _time_ms(
+    return {
+        "ms": _graph_ms(lambda *a: decode_attention(*a), dsets, iters),
+        "eager_ms": _time_ms(lambda *a: decode_attention(*a), dsets, iters),
+        "plain_ms": _time_ms(lambda *a: decode_attention_ref(*a), dsets, max(10, iters // 10)),
+        "library_ms": _graph_ms(
             lambda q, k, v, m: F.scaled_dot_product_attention(q, k, v, attn_mask=m, enable_gqa=True),
-            dlib, 500),
+            dlib, iters),
+        "kernels_us": _kernel_us(lambda *a: decode_attention(*a), dsets),
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
         "shape": f"q ({B},{H},{hd}) k/v ({B},{Smax},{K},{hd}) float32, lengths {fills.tolist()}",
     }
 
-    B, S, H, P, N, Q, _ = SSD_SLICE
+
+def _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, iters) -> dict:
+    """ssd_scan (float32, the single group over the heads): its time, its
+    plain version's and its bound; no PyTorch call computes the scan."""
     ssets = [_ssd_inputs(gen, B, S, H, P, N, True, torch.float32, device) for _ in range(n_sets)]
     nc, pairs = S // Q, Q * (Q + 1) // 2  # causal (q, k) pairs of a chunk
     # per (batch, head, chunk): C.B^T and the decay-weighted product with x
@@ -765,13 +817,59 @@ def time_kernels(device, n_sets=16) -> dict:
     # x, dt, A, the single-group B and C read once; y and the state written once
     nbytes = 4.0 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N + B * H * P * N)
     bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
-    out["ssd_scan"] = {
-        "ms": _time_ms(lambda *a: ssd_scan(*a, chunk=Q), ssets, 100),
-        "plain_ms": _time_ms(lambda *a: ssd_scan_ref(*a, chunk=Q), ssets, 10),
+    return {
+        "ms": _graph_ms(lambda *a: ssd_scan(*a, chunk=Q), ssets, iters),
+        "eager_ms": _time_ms(lambda *a: ssd_scan(*a, chunk=Q), ssets, iters),
+        "kernels_us": _kernel_us(lambda *a: ssd_scan(*a, chunk=Q), ssets),
+        "plain_ms": _time_ms(lambda *a: ssd_scan_ref(*a, chunk=Q), ssets, max(4, iters // 10)),
         "library_ms": None,  # no PyTorch call computes the chunked scan
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
         "shape": f"x ({B},{S},{H},{P}) B_/C_ ({B},{S},1,{N}) over {H} heads, chunk {Q}, float32",
     }
+
+
+def time_kernels(device, n_sets=16) -> dict:
+    """Phase 12: each kernel at the served shape (float32): its time, its
+    plain version's, one library call's where one PyTorch call computes the
+    same function, and its bound on an H100. The serving kernels' and their
+    library calls' ms are device time (CUDA-graph replay, ``_graph_ms``),
+    with the eager loop's time beside them (``eager_ms``, host included);
+    the plain versions and the millisecond-scale training kernels are timed
+    in an eager loop (``_time_ms``). The decode and SSD entries also give
+    each of their kernels' device µs a launch and the launches seen
+    (``kernels_us``, profiler)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {}
+
+    B, S, H, K, hd, causal, _, _ = FLASH_SLICE
+    sets = [_qkv(gen, B, S, S, H, K, hd, torch.float32, device) for _ in range(n_sets)]
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
+    flops = 4.0 * B * H * pairs * hd
+    nbytes = 4.0 * (2 * B * S * H * hd + 2 * B * S * K * hd)  # q, o, k, v
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
+    out["flash_attention"] = {
+        "ms": _graph_ms(lambda q, k, v: flash_attention(q, k, v, causal=True), sets, 100),
+        "eager_ms": _time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True), sets, 200),
+        "plain_ms": _time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets, 20),
+        "library_ms": _graph_ms(
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            lib_sets, 100),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "shape": f"q (1,{S},{H},{hd}) k/v (1,{S},{K},{hd}) float32 causal",
+    }
+
+    B, H, K, hd, Smax, _, _, _ = DECODE_SLICE
+    out["decode_attention"] = _time_decode(gen, device, B, H, K, hd, Smax, [332, 300, 255, 200],
+                                           n_sets, 500)
+    B, S, H, P, N, Q, _ = SSD_SLICE
+    out["ssd_scan"] = _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, 100)
+    # the longer shapes, where splitting the slots and the chunks pays most
+    out["decode_attention_long"] = _time_decode(gen, device, B=4, H=16, K=8, hd=64, Smax=4224,
+                                                fills=[4000, 4033, 4066, 4100], n_sets=4,
+                                                iters=200)
+    out["ssd_scan_long"] = _time_ssd(gen, device, B=1, S=2048, H=80, P=64, N=128, Q=128,
+                                     n_sets=4, iters=40)
 
     # at the training shape of phase 10, bfloat16: the forward with its
     # log-sum-exp, the backward kernel, and flash_attention_diff's forward +

@@ -1,164 +1,363 @@
 // Decode attention for Hopper, sm_90a: one new token per sequence against a
-// linear or ring KV cache.
+// linear or ring KV cache, split over the KV axis (flash-decoding).
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::decode_attention
 // (body _decode_kernel). q (B,H,hd), k/v (B,Smax,K,hd), pos_ids (B,Smax) int32
 // (slot -> absolute position, -1 = empty), lengths (B,) int32 (the new token's
 // position). A slot is valid iff pos_id >= 0, pos_id <= length and, with a
 // window, length - pos_id < window, so slot order does not matter and a ring
-// cache mid-wrap works. Any Smax; hd 8, 16, 32, 64, 128 and 256 (gemma2-2b:
-// a row of 32 threads, 8 rows a block, so G <= 8 there).
+// cache mid-wrap works. Any Smax; hd 8, 16, 32, 64, 128 and 256; G = H/K query
+// heads a KV head with G * hd <= 2048 (gemma2-2b: G <= 8 at hd 256).
 //
-// What bounds it on this card: bytes. Each call reads the whole cache,
-// 2*B*Smax*K*hd*4 bytes of K/V in float32, and does ~4 FLOPs per byte read.
-// Design: one thread block per (batch, kv head) serves the G query heads of the
-// group, so each K/V slot is read from device memory once for all G heads (the
-// G readers of a slot hit L1). Each head's row is owned by hd/8 threads holding
-// 8 dims each; the block's remaining rows are slot groups that walk disjoint,
-// interleaved slots with their own (m, l, acc) state in float32, merged through
-// shared memory at the end. This keeps 256 threads busy at G = 2.
-// Known limit, left for a later PR: the grid is only B*K blocks (32 at 4 slots
-// and 8 kv heads, on 132 SMs); splitting the slots across blocks
-// (flash-decoding) with a second merge pass is what fills the card.
+// What bounds it on this card: bytes. A call must read the K/V rows of the
+// valid slots, 2*K*hd*4 bytes a slot in float32, and does ~4*G FLOPs per
+// 4 bytes it reads. So both products (the G x nv scores and p V) stay on
+// the CUDA cores, in float32: a 16-row tensor-core tile would be mostly
+// padding at G = 2 query rows a KV head, and would not move the bytes.
+// Design: the TPU grid walks the KV blocks of a (batch, KV head) in order and
+// carries (m, l, acc) across them. Here the slots are split across blocks:
+//  (1) split_kernel, one block per (split, KV head, batch), serving the G
+//      query heads of its KV head. A split is a run of whole tiles of kSplit
+//      slots. For each tile the block reads the pos_ids first and compacts
+//      the valid slots in slot order; a tile with none loads nothing. It
+//      then reads each valid K and V row once, with 16-byte loads, all of a
+//      thread's loads in flight before any store, into shared memory,
+//      computes the G x nv scores, and carries (m, l, acc) over its tiles
+//      with the online softmax. It writes the partial (m, l, acc[G][hd]) in
+//      float32 (l = 0 for a split with no valid slot).
+//  (2) the last split block of each (batch, KV head) to finish, found with
+//      a counter that it resets to 0, merges the splits in split order:
+//      M = max m, L = sum l exp(m - M), o = sum acc exp(m - M) /
+//      max(L, 1e-30), and writes o in q's type. One launch a call; only
+//      the counter is atomic, and every sum runs in a fixed order, so two
+//      runs give the same bits.
+// kSplit is 64 slots (32 at hd 256, to bound shared memory at 83 KB), and
+// the tiles a split takes are as few as give ~4 blocks an SM: at the served
+// shape (4 sequences, 8 KV heads, a 640-slot cache) one tile, 10 x 8 x 4 =
+// 320 blocks (one a (batch, KV head) would be 32); at a 4,224-slot
+// cache four tiles, 17 splits, so that the merge walks 17 partials, not 66.
 //
 // Masking follows the reference: masked scores are the finite -1e30 and l is
-// clamped at 1e-30, so a row with no valid slot gives the mean of V, not NaN.
+// clamped at 1e-30. Skipping an invalid slot is exact whenever the row has a
+// valid one: its weight exp(-1e30 - m) is 0 in float32. A row with no valid
+// slot at all gives, as in the reference, weight 1 to every slot: the merge
+// takes the mean of V over all Smax slots for it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
+constexpr int kTargetBlocks = 4 * 132;  // split blocks: four on each SM of an H100
+constexpr size_t kMaxSmem = 232448;  // bytes a block may have on sm_90
+
+template <int HD>
+__host__ __device__ constexpr int split_of() { return HD >= 256 ? 32 : 64; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <int HD>
-struct Tiling {
-  static constexpr int kTpr = HD >= 8 ? HD / 8 : 1;  // threads per head row
-  static constexpr int kDpt = HD / kTpr;             // dims per thread
-  static constexpr int kRows = kThreads / kTpr;      // rows per block
-};
+// 16 bytes of a row as floats: 4 float32 or 8 bfloat16
+__device__ __forceinline__ void ld16(float* dst, const float* src) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ pos_ids,
-              const int* __restrict__ lengths, T* __restrict__ o, int H, int K,
-              int Smax, int window, float cap, float scale) {
-  using Tl = Tiling<HD>;
-  constexpr int TPR = Tl::kTpr, DPT = Tl::kDpt, ROWS = Tl::kRows;
-  __shared__ float sm_m[ROWS];
-  __shared__ float sm_l[ROWS];
-  __shared__ float sm_acc[ROWS * HD];
-
-  const int G = H / K;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid % TPR;
-  const int row = tid / TPR;   // = grp * G + g
-  const int g = row % G;
-  const int grp = row / G;
-  const int ngrp = ROWS / G;   // >= 1: the host checks G <= ROWS
-  const bool active = grp < ngrp;
-  const int qpos = lengths[b];
-
-  const size_t q_off = ((size_t)b * H + (size_t)kvh * G + g) * HD;
-  float qr[DPT], acc[DPT];
+__device__ __forceinline__ void ld16(float* dst, const __nv_bfloat16* src) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = to_f(q[q_off + lane + TPR * i]);
-    acc[i] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
-  // block-uniform trip count, so the full-warp shuffles are safe
-  for (int j0 = 0; j0 < Smax; j0 += ngrp) {
-    const int j = j0 + grp;
-    const bool has = active && j < Smax;
-    const size_t off = (((size_t)b * Smax + (has ? j : 0)) * K + kvh) * HD;
-    float part = 0.f;
-    if (has) {
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) part += qr[i] * to_f(k[off + lane + TPR * i]);
-    }
-#pragma unroll
-    for (int sh = TPR / 2; sh > 0; sh >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, sh);
-    if (has) {
-      float sc = part * scale;
-      if (cap > 0.f) sc = cap * tanhf(sc / cap);
-      const int pid = pos_ids[(size_t)b * Smax + j];
-      const bool valid = pid >= 0 && pid <= qpos && (window <= 0 || qpos - pid < window);
-      sc = valid ? sc : kNegInf;
-      const float m_new = fmaxf(m, sc);
-      const float alpha = expf(m - m_new);
-      const float p = expf(sc - m_new);
-      l = l * alpha + p;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i)
-        acc[i] = acc[i] * alpha + p * to_f(v[off + lane + TPR * i]);
-      m = m_new;
-    }
-  }
-
-  // merge the slot groups of each head
-  if (lane == 0) {
-    sm_m[row] = m;
-    sm_l[row] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) sm_acc[row * HD + lane + TPR * i] = acc[i];
-  __syncthreads();
-  if (grp == 0) {
-    float mx = kNegInf;
-    for (int gg = 0; gg < ngrp; ++gg) mx = fmaxf(mx, sm_m[gg * G + g]);
-    float tot = 0.f, out[DPT];
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) out[i] = 0.f;
-    for (int gg = 0; gg < ngrp; ++gg) {
-      const int r = gg * G + g;
-      const float w = expf(sm_m[r] - mx);
-      tot += sm_l[r] * w;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) out[i] += sm_acc[r * HD + lane + TPR * i] * w;
-    }
-    const float inv = 1.f / fmaxf(tot, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) store(&o[q_off + lane + TPR * i], out[i] * inv);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
   }
 }
+
+size_t split_smem(int G, int HD, int SP) {
+  return ((size_t)2 * G * HD + 2 * (size_t)SP * (HD + 1) + (size_t)G * (SP + 1) + SP +
+          3 * (size_t)G) * sizeof(float);
+}
+
+// The merge of the nsplit partials of (b, kvh), by one block. The partials
+// were written by other blocks: read them through L2 (__ldcg), past L1.
+template <typename T>
+__device__ __forceinline__ void merge_row(const float* __restrict__ part_acc,
+                                          const float* __restrict__ part_ml,
+                                          const T* __restrict__ v, T* __restrict__ o, int H,
+                                          int K, int Smax, int HD, int nsplit, int b, int kvh) {
+  __shared__ float sm_max[kThreads], sm_sum[kThreads];  // per head; G <= 256
+  const int G = H / K;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const size_t part0 = ((size_t)b * K + kvh) * nsplit;
+  // each head's M = max m and L = sum l exp(m - M) over the splits that have
+  // a valid slot (l > 0): one warp a head, lanes over the splits in a fixed
+  // pattern, then a fixed shuffle tree
+  for (int g = warp; g < G; g += kThreads / 32) {
+    float m = kNegInf;
+    bool any = false;
+    for (int s = lane; s < nsplit; s += 32) {
+      const float* ml = part_ml + ((part0 + s) * G + g) * 2;
+      if (__ldcg(ml + 1) > 0.f) {
+        m = fmaxf(m, __ldcg(ml));
+        any = true;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    any = __any_sync(0xffffffffu, any);
+    float l = 0.f;
+    for (int s = lane; s < nsplit; s += 32) {
+      const float* ml = part_ml + ((part0 + s) * G + g) * 2;
+      const float ls = __ldcg(ml + 1);
+      if (ls > 0.f) l += ls * expf(__ldcg(ml) - m);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      sm_max[g] = m;
+      sm_sum[g] = any ? l : -1.f;  // -1: no valid slot in the row
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += kThreads) {
+    const int g = i / HD, d = i % HD;
+    const float M = sm_max[g], L = sm_sum[g];
+    float out;
+    if (L >= 0.f) {
+      float acc = 0.f;
+#pragma unroll 8
+      for (int s = 0; s < nsplit; ++s) {
+        const size_t r = (part0 + s) * G + g;
+        const float l = __ldcg(part_ml + r * 2 + 1);
+        const float a = __ldcg(part_acc + r * HD + d);
+        acc += l > 0.f ? a * expf(__ldcg(part_ml + r * 2) - M) : 0.f;
+      }
+      out = acc / fmaxf(L, 1e-30f);
+    } else {  // no valid slot: every score -1e30, every weight 1
+      float acc = 0.f;
+      for (int j = 0; j < Smax; ++j) acc += to_f(v[(((size_t)b * Smax + j) * K + kvh) * HD + d]);
+      out = acc / fmaxf((float)Smax, 1e-30f);
+    }
+    store(&o[((size_t)b * H + (size_t)kvh * G + g) * HD + d], out);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 3)
+split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const int* __restrict__ pos_ids, const int* __restrict__ lengths,
+             float* __restrict__ part_acc, float* __restrict__ part_ml, T* __restrict__ o,
+             int* __restrict__ counters, int H, int K, int Smax, int tiles_per_split, int window,
+             float cap, float scale, int vec) {
+  constexpr int SP = split_of<HD>();
+  constexpr int LD = HD + 1;  // odd: lanes on consecutive slots hit distinct banks
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = HD / E;                                // 16-byte pieces a row
+  constexpr int PER = (SP * CPR + kThreads - 1) / kThreads;  // pieces a thread
+  __shared__ int warp_count[SP / 32];
+  extern __shared__ float smem[];
+  const int G = H / K;
+  float* qs = smem;                  // G x HD     q of the group's heads
+  float* ks = qs + G * HD;           // SP x LD    K of a tile's valid slots
+  float* vs = ks + SP * LD;          // SP x LD    V of a tile's valid slots
+  float* ps = vs + SP * LD;          // G x SP+1   scores, then weights
+  int* slot = reinterpret_cast<int*>(ps + G * (SP + 1));  // SP  valid slots, in order
+  float* run_m = reinterpret_cast<float*>(slot + SP);    // G   running max
+  float* run_l = run_m + G;                               // G   running sum
+  float* alpha = run_l + G;                               // G   rescale of the running acc
+  float* acc = alpha + G;                                 // G x HD  the running acc
+
+  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int qpos = lengths[b];
+  const int ntiles = (Smax + SP - 1) / SP;
+  const int tile0 = sp * tiles_per_split, tile1 = min(ntiles, tile0 + tiles_per_split);
+  const size_t part = ((size_t)b * K + kvh) * gridDim.x + sp;  // this block's partial
+
+  const size_t qoff = ((size_t)b * H + (size_t)kvh * G) * HD;
+  for (int i = tid; i < G * HD; i += kThreads) {
+    qs[i] = to_f(q[qoff + i]);
+    acc[i] = 0.f;  // each thread keeps the same elements i throughout
+  }
+  for (int g = tid; g < G; g += kThreads) {
+    run_m[g] = kNegInf;
+    run_l[g] = 0.f;
+  }
+
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int j0 = tile * SP;
+    // 1. which slots of the tile are valid, before any K/V is read
+    bool valid = false;
+    if (tid < SP && j0 + tid < Smax) {
+      const int pid = pos_ids[(size_t)b * Smax + j0 + tid];
+      valid = pid >= 0 && pid <= qpos && (window <= 0 || qpos - pid < window);
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, valid);
+    if (tid < SP && lane == 0) warp_count[warp] = __popc(ballot);
+    __syncthreads();  // (also: the previous tile is done with every buffer)
+    int nv = 0, before = 0;
+#pragma unroll
+    for (int w = 0; w < SP / 32; ++w) {
+      before += w < warp ? warp_count[w] : 0;
+      nv += warp_count[w];
+    }
+    __syncthreads();  // every thread has read warp_count
+    if (nv == 0) continue;  // block-uniform: nothing to load
+    if (valid) slot[before + __popc(ballot & ((1u << lane) - 1u))] = j0 + tid;
+    __syncthreads();
+
+    // 2. K and V of the valid slots, each row once, in 16-byte pieces: every
+    // thread issues all of its loads before it stores any
+    float kr[PER][E], vr[PER][E];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = tid + u * kThreads, t = i / CPR, c = (i % CPR) * E;
+      if (t < nv) {
+        const size_t off = (((size_t)b * Smax + slot[t]) * K + kvh) * HD + c;
+        if (vec) {
+          ld16(kr[u], k + off);
+          ld16(vr[u], v + off);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            kr[u][e] = to_f(k[off + e]);
+            vr[u][e] = to_f(v[off + e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = tid + u * kThreads, t = i / CPR, c = (i % CPR) * E;
+      if (t < nv) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          ks[t * LD + c + e] = kr[u][e];
+          vs[t * LD + c + e] = vr[u][e];
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. the scores, scaled and capped
+    for (int i = tid; i < G * nv; i += kThreads) {
+      const int g = i / nv, t = i % nv;
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < HD; ++d) s = fmaf(qs[g * HD + d], ks[t * LD + d], s);
+      s *= scale;
+      if (cap > 0.f) s = cap * tanhf(s / cap);
+      ps[g * (SP + 1) + t] = s;
+    }
+    __syncthreads();
+
+    // 4. each head's new max, weights and running sum: one warp a head
+    for (int g = warp; g < G; g += kThreads / 32) {
+      float* pg = ps + g * (SP + 1);
+      float m = run_m[g];
+      for (int t = lane; t < nv; t += 32) m = fmaxf(m, pg[t]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      float l = 0.f;
+      for (int t = lane; t < nv; t += 32) {
+        const float p = expf(pg[t] - m);
+        pg[t] = p;
+        l += p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+      __syncwarp();
+      if (lane == 0) {
+        const float a = expf(run_m[g] - m);
+        alpha[g] = a;
+        run_l[g] = run_l[g] * a + l;
+        run_m[g] = m;
+      }
+    }
+    __syncthreads();
+
+    // 5. acc = acc * alpha + p V
+    for (int i = tid; i < G * HD; i += kThreads) {
+      const int g = i / HD, d = i % HD;
+      const float* pg = ps + g * (SP + 1);
+      float a = 0.f;
+      for (int t = 0; t < nv; ++t) a = fmaf(pg[t], vs[t * LD + d], a);
+      acc[i] = acc[i] * alpha[g] + a;
+    }
+  }
+  __syncthreads();
+  for (int g = tid; g < G; g += kThreads) {  // l = 0: no valid slot in the split
+    part_ml[(part * G + g) * 2] = run_m[g];
+    part_ml[(part * G + g) * 2 + 1] = run_l[g];
+  }
+  for (int i = tid; i < G * HD; i += kThreads) part_acc[part * G * HD + i] = acc[i];
+
+  // the last split block of (b, kvh) to finish merges them all, then resets
+  // the counter for the next call
+  __shared__ int last;
+  __threadfence();  // this block's partial is visible before it is counted
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + b * K + kvh, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  merge_row<T>(part_acc, part_ml, v, o, H, K, Smax, HD, gridDim.x, b, kvh);
+  if (tid == 0) counters[b * K + kvh] = 0;
+}
+
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
-                   const void* len, void* o, int B, int H, int K, int Smax,
-                   int window, float cap, float scale, cudaStream_t stream) {
-  if (H / K > Tiling<HD>::kRows || B > 65535)
+                   const void* len, void* o, void* work, long long work_floats, void* counters,
+                   int B, int H,
+                   int K, int Smax, int window, float cap, float scale, cudaStream_t stream) {
+  constexpr int SP = split_of<HD>();
+  const int G = H / K;
+  // as many splits of whole tiles as make about kTargetBlocks blocks, and
+  // never fewer tiles a split than needed: one tile each at the served shape
+  const int ntiles = (Smax + SP - 1) / SP;
+  const int want = std::min(ntiles, std::max(1, (kTargetBlocks + B * K - 1) / (B * K)));
+  const int per = (ntiles + want - 1) / want;
+  const int nsplit = (ntiles + per - 1) / per;
+  const size_t smem = split_smem(G, HD, SP);
+  if (G * HD > 2048 || smem > kMaxSmem || B > 65535 || K > 65535 ||
+      work_floats < (long long)B * H * nsplit * (HD + 2))
     return cudaErrorInvalidValue;
-  dim3 grid(K, B);
-  decode_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
+  auto kernel = split_kernel<T, HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int vec = ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  float* part_acc = static_cast<float*>(work);
+  float* part_ml = part_acc + (size_t)B * H * nsplit * HD;
+  kernel<<<dim3(nsplit, K, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(pos), static_cast<const int*>(len), static_cast<T*>(o),
-      H, K, Smax, window, cap, scale);
-  return cudaSuccess;
+      static_cast<const int*>(pos), static_cast<const int*>(len), part_acc, part_ml,
+      static_cast<T*>(o), static_cast<int*>(counters), H, K, Smax, per, window, cap, scale, vec);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     const void* pos, const void* len, void* o, int B, int H,
-                     int K, int Smax, int window, float cap, float scale,
-                     cudaStream_t s) {
+cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const void* pos,
+                     const void* len, void* o, void* w, long long wn, void* cnt, int B, int H, int K,
+                     int Smax, int window, float cap, float scale, cudaStream_t s) {
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
-    case 16: return launch<T, 16>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
-    case 32: return launch<T, 32>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
-    case 64: return launch<T, 64>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
-    case 128: return launch<T, 128>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
-    case 256: return launch<T, 256>(q, k, v, pos, len, o, B, H, K, Smax, window, cap, scale, s);
+    case 8: return launch<T, 8>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
+    case 16: return launch<T, 16>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
+    case 32: return launch<T, 32>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
+    case 64: return launch<T, 64>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
+    case 128: return launch<T, 128>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
+    case 256: return launch<T, 256>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -166,22 +365,22 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/o (B,H,hd), k/v (B,Smax,K,hd),
-// pos_ids (B,Smax) int32, lengths (B,) int32, all contiguous. Returns a
-// cudaError_t: the launch's, else cudaGetLastError().
-extern "C" int decode_attention(int dtype, const void* q, const void* k,
-                                const void* v, const void* pos_ids,
-                                const void* lengths, void* o, int B, int H,
-                                int K, int Smax, int hd, int window,
-                                float softcap, float scale, void* stream) {
+// pos_ids (B,Smax) int32, lengths (B,) int32, all contiguous. work: float32
+// scratch of work_floats >= B*H*ceil(Smax/split)*(hd + 2), split 64 slots
+// (32 at hd 256). counters: B*K int32, zero before the call and zero again
+// after it (the kernel resets what it counts). Returns a cudaError_t.
+extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
+                                const void* pos_ids, const void* lengths, void* o, void* work,
+                                long long work_floats, void* counters, int B, int H, int K,
+                                int Smax, int hd,
+                                int window, float softcap, float scale, void* stream) {
   if (B <= 0 || Smax <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 0)
-    err = dispatch<float>(hd, q, k, v, pos_ids, lengths, o, B, H, K, Smax, window, softcap, scale, s);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(hd, q, k, v, pos_ids, lengths, o, B, H, K, Smax, window, softcap, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+    return (int)dispatch<float>(hd, q, k, v, pos_ids, lengths, o, work, work_floats, counters, B, H, K,
+                                Smax, window, softcap, scale, s);
+  if (dtype == 1)
+    return (int)dispatch<__nv_bfloat16>(hd, q, k, v, pos_ids, lengths, o, work, work_floats, counters, B,
+                                        H, K, Smax, window, softcap, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
-// Tensor-core building blocks shared by flash_attention.cu and
-// flash_attention_bwd.cu: cp.async copies into shared memory, ldmatrix
-// fragment loads, the warp-level mma.sync.m16n8k16 bf16 product with float32
-// accumulators, and two tile products built from them. Each including source
+// Tensor-core building blocks shared by flash_attention.cu,
+// flash_attention_bwd.cu and ssd_scan.cu: cp.async copies into shared memory,
+// ldmatrix fragment loads, the warp-level mma.sync.m16n8k16 bf16 product with
+// float32 accumulators and two tile products built from it, and the
+// mma.sync.m16n8k8 tf32 product with the split of a float32 into two tf32
+// halves that keeps a product at float32 accuracy (3xTF32). Each including source
 // is compiled on its own (kernels/_build.py hashes this header into every
 // library's name, so an edit rebuilds them).
 #pragma once
@@ -107,4 +109,26 @@ __device__ __forceinline__ void mma_ab(float (&acc)[HD / 8][4], const uint32_t (
     mma16816(acc[n], a, bb[0], bb[1]);
     mma16816(acc[n + 1], a, bb[2], bb[3]);
   }
+}
+
+// d += a (16x8, row) * b (8x8, col), tf32 in, float32 accumulators. Fragments
+// (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); d as for m16n8k16.
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  // not volatile: no side effects, so the compiler may interleave products
+  // of independent accumulators
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo to ~22 bits, both tf32 (round to nearest): a product of two
+// such sums taken as lo*hi + hi*lo + hi*hi (the lo*lo term, ~2^-22 of it,
+// dropped) keeps float32 accuracy on the tensor cores
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
 }

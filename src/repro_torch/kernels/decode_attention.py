@@ -6,6 +6,11 @@ k/v (B,Smax,K,hd). A slot is valid iff ``pos_ids >= 0``,
 ``pos_ids <= lengths`` and, with a window, ``lengths - pos_ids < window``,
 so slot order does not matter. Any Smax (the TPU kernel needs multiples of
 128); hd in {8, 16, 32, 64, 128, 256}; float32 or bfloat16 in, out in q's type.
+The kernel splits the slots across blocks (whole tiles of ``split_slots(hd)``
+slots each) and the last block of each (batch, KV head) merges the splits'
+partial softmax states, in one launch; the float32 workspace of the
+partials is allocated here, and the counters that find the last block are
+kept per device.
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.decode_attention_ref``); on a CUDA tensor it launches the kernel or
@@ -24,8 +29,27 @@ from . import _build
 from .ref import decode_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
+             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+_counters: dict = {}
+
+
+def _counter_buffer(device, n: int) -> torch.Tensor:
+    """At least n int32 counters on device, kept between calls: the kernel
+    counts each (batch, KV head)'s finished splits in them and leaves them
+    at zero. Calls share them, so they run on one stream, as the port's do."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
+
+
+def split_slots(hd: int) -> int:
+    """Cache slots a tile of the kernel takes (``kSplit`` in the source); a
+    split block takes one or more whole tiles, so Smax / split_slots bounds
+    the number of partials."""
+    return 32 if hd >= 256 else 64
 
 
 def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
@@ -41,7 +65,7 @@ def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
             f"pos_ids {tuple(pos_ids.shape)} lengths {tuple(lengths.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head_dim {hd} not in {HEAD_DIMS}")
-    if H // K > 256 // max(1, hd // 8):  # a block's rows: 256 threads, hd/8 per row
+    if H // K * hd > 2048:  # a block's shared memory holds the group's G rows of q
         raise ValueError(f"decode_attention: {H // K} query heads per kv head at hd {hd}")
     if pos_ids.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("decode_attention: pos_ids and lengths must be int32")
@@ -49,12 +73,16 @@ def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    # each split's partial (acc (G, hd), m, l) for every query head
+    nsplit = -(-Smax // split_slots(hd))
+    work = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32, device=q.device)
     fn = _build.load("decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(
             0 if q.dtype == torch.float32 else 1,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ids.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), work.data_ptr(), work.numel(),
+            _counter_buffer(q.device, B * K).data_ptr(),
             B, H, K, Smax, hd, int(window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,

@@ -8,7 +8,10 @@ mamba prefill or training forward through the hand-written kernels.
 ``sdpa_kernel`` routes by call site:
 
 * "prefill" (prefill and forward: causal self-attention at arange
-  positions, Sq == Sk of any length) -> ``flash_attention_diff``;
+  positions, Sq == Sk of any length) -> ``flash_attention_diff`` when a
+  gradient is wanted (grad mode on and an input requires grad), else
+  ``flash_attention`` (served prefill: no log-sum-exp, no autograd
+  Function);
 * "decode" (one new token against the cache, whose pos_ids and lengths
   decide validity) -> ``decode_attention``;
 * anything else (cross-attention, multi-token decode) raises
@@ -103,8 +106,11 @@ def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
             window=win, softcap=capf,
         )[:, None]
     if site == "prefill" and Sq == k.shape[1]:
-        return flash_attention_diff(q.contiguous(), k.contiguous(), v.contiguous(),
-                                    causal, win, capf)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return flash_attention_diff(q, k, v, causal, win, capf)
+        # serving: no log-sum-exp, no autograd Function
+        return flash_attention(q, k, v, causal=causal, window=win, softcap=capf)
     raise NotImplementedError(
         f"no kernel for sdpa at site {site!r} with q {tuple(q.shape)}, k {tuple(k.shape)}"
     )

@@ -89,6 +89,89 @@ def decode_attention_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
     return out[:, 0]
 
 
+def decode_attention_split_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0,
+                               split=64):
+    """The split-KV decode kernel's algorithm (flash-decoding) step by step,
+    in float32: per split of ``split`` slots, the partial (m, l, acc) over
+    its valid slots only (a split with none has l = 0 and is skipped); the
+    splits merged in split order, o = sum acc exp(m - M) / max(L, 1e-30); a
+    row with no valid slot at all gives the mean of V over all Smax slots,
+    as the reference's -1e30 scores do. Returns (B,H,hd) in q's type."""
+    B, H, hd = q.shape
+    Smax, K = k.shape[1], k.shape[2]
+    G = H // K
+    qf = q.reshape(B, K, G, hd).to(F32)
+    qpos = lengths.to(torch.int64)[:, None]
+    pos = pos_ids.to(torch.int64)
+    valid = (pos >= 0) & (pos <= qpos)
+    if window:
+        valid &= (qpos - pos) < window
+    neg = torch.tensor(float("-inf"), dtype=F32, device=q.device)
+    parts = []
+    for j0 in range(0, Smax, split):
+        ok = valid[:, j0:j0 + split][:, None, None, :]  # (B,1,1,L)
+        s = torch.einsum("bkgd,blkd->bkgl", qf, k[:, j0:j0 + split].to(F32)) * (1.0 / math.sqrt(hd))
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        has = ok.any(-1).expand(B, K, G)
+        m = torch.where(ok, s, neg).amax(-1)
+        p = torch.where(ok, torch.exp(s - torch.where(has, m, 0.0)[..., None]), 0.0)
+        acc = torch.einsum("bkgl,blkd->bkgd", p, v[:, j0:j0 + split].to(F32))
+        parts.append((m, p.sum(-1), acc, has))
+    any_valid = torch.stack([h for *_, h in parts]).any(0)
+    M = torch.stack([torch.where(h, m, neg) for m, _, _, h in parts]).amax(0)
+    M = torch.where(any_valid, M, 0.0)
+    L = torch.zeros_like(M)
+    acc = torch.zeros_like(qf)
+    for m, l, a, h in parts:
+        w = torch.where(h, torch.exp(m - M), 0.0)
+        L = L + l * w
+        acc = acc + a * w[..., None]
+    out = acc / L.clamp(min=1e-30)[..., None]
+    mean = v.to(F32).mean(1)[:, :, None, :]  # (B,K,1,hd)
+    out = torch.where(any_valid[..., None], out, mean)
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def ssd_scan_split_ref(x, dt, A, B_, C_, *, chunk=128):
+    """The chunk-parallel SSD kernel's algorithm (arXiv 2405.21060, section
+    6) step by step, from a zero state: (a) each chunk's own state
+    xᵀ (B ⊙ exp(cs_last - cs) dt) and cs_last; (b) the states passed over
+    the chunks in order, state_c+1 = exp(cs_last_c) state_c + S_c; (c) each
+    chunk's output, the intra-chunk product plus (C ⊙ exp(cs)) times the
+    state entering the chunk. Returns (y (B,S,H,P) in x's type, final state
+    (B,H,P,N) float32)."""
+    Bsz, S, H, P = x.shape
+    N = B_.shape[-1]
+    assert S % chunk == 0, (S, chunk)
+    nc, Q = S // chunk, chunk
+    xr = x.reshape(Bsz, nc, Q, H, P).to(F32)
+    dtr = dt.reshape(Bsz, nc, Q, H).to(F32)
+    Br = B_.reshape(Bsz, nc, Q, H, N).to(F32)
+    Cr = C_.reshape(Bsz, nc, Q, H, N).to(F32)
+    cs = torch.cumsum(dtr * A.to(F32), dim=2)  # (B,nc,Q,H) inclusive
+    cl = cs[:, :, -1]  # (B,nc,H)
+    # (a) chunk states
+    w = torch.exp(cl[:, :, None] - cs) * dtr
+    own = torch.einsum("bcqhp,bcqhn->bchpn", xr, Br * w[..., None])
+    # (b) state passing
+    h = torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = torch.exp(cl[:, c])[..., None, None] * h + own[:, c]
+    entering = torch.stack(entering, dim=1)  # (B,nc,H,P,N)
+    # (c) chunk outputs; the upper triangle is masked before the exp
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[..., None]
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (B,nc,Q,K,H)
+    decay = torch.exp(torch.where(tri, diff, torch.tensor(float("-inf"), dtype=F32,
+                                                          device=x.device)))
+    M = torch.einsum("bcqhn,bckhn->bcqkh", Cr, Br) * decay * dtr[:, :, None]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", M, xr)
+    y = y + torch.einsum("bcqhn,bchpn->bcqhp", Cr * torch.exp(cs)[..., None], entering)
+    return y.reshape(Bsz, S, H, P).to(x.dtype), h
+
+
 def ssd_scan_ref(x, dt, A, B_, C_, *, chunk=128, h0=None):
     """Delegates to the model's chunked SSD (itself held against the
     sequential recurrence below in the tests)."""

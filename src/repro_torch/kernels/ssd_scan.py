@@ -7,7 +7,9 @@ are float32 or bfloat16 (one type), y comes out in x's type; dt and A are
 float32. S % chunk == 0 with any chunk in 1..128 (the TPU kernel is tiled
 for 128); P and N in 1..128. x and dt are contiguous; B_ and C_ need only
 a contiguous last dim, so the model's single group broadcast over the
-heads (head stride 0) is read without a copy.
+heads (head stride 0) is read without a copy. The kernel is chunk-parallel
+(the SSD paper's chunk states, state passing and chunk outputs, one C call
+launching three kernels); its float32 workspace is allocated here.
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.ssd_scan_ref``, which also takes an initial state ``h0``); on a CUDA
@@ -27,7 +29,7 @@ from . import _build
 from .ref import ssd_scan_ref
 
 MAX_DIM = 128
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
 
 
@@ -64,12 +66,15 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk=128, h0=None):
     fs = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, fs.zero_()
+    # the chunk states, then the states entering each chunk, and cs_last
+    work = torch.empty(Bsz * H * (S // chunk) * (P * N + 1), dtype=torch.float32,
+                       device=x.device)
     fn = _build.load("ssd_scan", _ARGTYPES)
     with torch.cuda.device(x.device):
         rc = fn(
             0 if x.dtype == torch.float32 else 1,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-            y.data_ptr(), fs.data_ptr(),
+            y.data_ptr(), fs.data_ptr(), work.data_ptr(),
             Bsz, S, H, P, N, chunk, *B_.stride()[:3], *C_.stride()[:3],
             torch.cuda.current_stream(x.device).cuda_stream,
         )

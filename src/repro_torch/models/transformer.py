@@ -279,7 +279,14 @@ class LM:
 
     def loss(self, params, batch, *, remat=None, dtype=torch.bfloat16):
         """batch: tokens (B,S), targets (B,S). Returns (total, {"ce", "aux"});
-        ``aux`` (the MoE router loss) is 0 until MoE is ported."""
+        ``aux`` (the MoE router loss) is 0 until MoE is ported. A vision
+        frontend or an encoder input is refused: the reference prepends the
+        patches and drops their positions before the CE, which is not ported."""
+        extra = sorted({"patch_embeds", "enc_embeds"} & set(batch))
+        if self.cfg.frontend or extra:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the loss over a frontend ({self.cfg.frontend!r}) or "
+                f"encoder inputs {extra} is not ported")
         x = self.hidden(params, batch["tokens"], remat=remat, dtype=dtype)
         ce = chunked_ce(lambda xc: self.head(params, xc), x, batch["targets"])
         aux = torch.zeros((), dtype=F32, device=x.device)

@@ -62,6 +62,8 @@ DECODE = [
     (1, 8, 1, 128, 512, 0, 0.0, 511),  # nearly full
     (2, 4, 2, 16, 37, 0, 0.0, -1),  # empty: the mean of V
     (1, 8, 1, 32, 100, 16, 0.0, 99),  # window
+    (4, 16, 8, 64, 4224, 0, 0.0, 4000),  # a long cache: 66 splits
+    (2, 8, 4, 64, 640, 0, 0.0, 40),  # every valid slot in the first split
 ]
 
 # B, S, H, P, N, chunk
@@ -70,6 +72,12 @@ SSD = [
     (1, 74, 4, 64, 128, 37),  # a 37-token prompt: one chunk that is not a power of two
     (2, 16, 8, 16, 16, 8),  # mamba2-2.7b reduced
     (1, 128, 8, 16, 16, 32),  # jamba-like small state
+]
+# B, S, H, P, N, chunk, single group (B_/C_ read over the heads at head stride 0)
+SSD_MORE = [
+    (1, 2048, 80, 64, 128, 128, True),  # mamba2-2.7b at 2048 tokens: 16 chunks
+    (1, 185, 4, 64, 128, 37, False),  # five chunks of 37
+    (2, 256, 3, 100, 20, 64, True),  # P and N that are not multiples of 16
 ]
 
 
@@ -111,6 +119,22 @@ def test_decode_kernel_matches_plain(dev, case, dtype, tol):
     assert decode_attention.launches == before + 1
     want = decode_attention_ref(q, k, v, pos, lengths, window=win, softcap=cap)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [DECODE[0], DECODE[4], DECODE[6], DECODE[7]])
+def test_decode_kernel_is_deterministic(dev, case, dtype):
+    """The splits merge in a fixed order: two runs give the same bits."""
+    B, H, K, hd, Smax, win, cap, fill = case
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, H, hd), (B, Smax, K, hd), (B, Smax, K, hd)))
+    ar = torch.arange(Smax, dtype=torch.int32, device=dev)[None].expand(B, Smax)
+    lengths = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    pos = torch.where(ar <= lengths[:, None], ar, torch.full_like(ar, -1)).contiguous()
+    first = decode_attention(q, k, v, pos, lengths, window=win, softcap=cap)
+    assert torch.equal(first, decode_attention(q, k, v, pos, lengths, window=win, softcap=cap))
 
 
 @pytest.mark.cuda
@@ -274,6 +298,31 @@ def test_ssd_kernel_reads_a_single_group_over_the_heads(dev, dtype, tol):
     yr, hr = ssd_scan_ref(*args, chunk=128)
     torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, hr, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", SSD_DTYPES)
+@pytest.mark.parametrize("case", SSD_MORE)
+def test_ssd_kernel_matches_plain_over_many_chunks(dev, case, dtype, tol):
+    B, S, H, P, N, chunk, single = case
+    args = _ssd_inputs(dev, B, S, H, P, N, dtype, single_group=single)
+    y, h = ssd_scan(*args, chunk=chunk)
+    yr, hr = ssd_scan_ref(*args, chunk=chunk)
+    ys, hs = ssd_sequential_ref(*args)
+    for got, want in ((y, yr), (h, hr), (y, ys), (h, hs)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [SSD_MORE[0], SSD_MORE[1]])
+def test_ssd_kernel_is_deterministic(dev, case, dtype):
+    """No atomics, sums in a fixed order: two runs give the same bits."""
+    B, S, H, P, N, chunk, single = case
+    args = _ssd_inputs(dev, B, S, H, P, N, dtype, seed=12, single_group=single)
+    y, h = ssd_scan(*args, chunk=chunk)
+    y2, h2 = ssd_scan(*args, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 @pytest.mark.cuda

@@ -215,6 +215,37 @@ def test_adapter_routes_the_served_shapes_to_the_wrappers(site, Sq, Sk):
     _close(got, want)
 
 
+@pytest.mark.parametrize("grad_mode,requires_grad,want", [
+    (False, True, "flash_attention"), (True, False, "flash_attention"),
+    (True, True, "FlashAttentionDiff")])
+def test_adapter_serves_prefill_without_the_autograd_function(grad_mode, requires_grad, want,
+                                                              monkeypatch):
+    """Served prefill (grad off, or no input that requires grad) reaches
+    flash_attention, the variant that is timed; only a wanted gradient goes
+    through the autograd Function and its log-sum-exp."""
+    calls = []
+    flash, apply = ops.flash_attention, ops.FlashAttentionDiff.apply
+
+    def spy_flash(*a, **kw):
+        calls.append("flash_attention")
+        return flash(*a, **kw)
+
+    def spy_apply(*a):
+        calls.append("FlashAttentionDiff")
+        return apply(*a)
+
+    monkeypatch.setattr(ops, "flash_attention", spy_flash)
+    monkeypatch.setattr(ops.FlashAttentionDiff, "apply", spy_apply)
+    q, k, v = (t.requires_grad_(requires_grad)
+               for t in _t(*_normal(10, (2, 37, 4, 16), (2, 37, 2, 16), (2, 37, 2, 16))))
+    pos = torch.arange(37, dtype=torch.int32)[None].expand(2, 37)
+    with torch.set_grad_enabled(grad_mode):
+        got = ops.sdpa_kernel(q, k, v, pos, pos, None, True, None, "prefill")
+    assert calls == [want]
+    assert (got.grad_fn is not None) == (want == "FlashAttentionDiff")
+    _close(got.detach(), layers._sdpa_dense(q, k, v, pos, pos, None, True, None).detach())
+
+
 @pytest.mark.parametrize("site,Sq,Sk", [("cross", 5, 9), ("decode", 2, 40), ("prefill", 5, 9)])
 def test_adapter_raises_for_shapes_off_the_slice(site, Sq, Sk):
     q, k, v = _t(*_normal(9, (1, Sq, 4, 16), (1, Sk, 2, 16), (1, Sk, 2, 16)))

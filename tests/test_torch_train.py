@@ -385,6 +385,35 @@ def test_make_batch_refuses_frontend_and_encoder_inputs(arch):
                    device="cpu")
 
 
+@pytest.mark.parametrize("arch,key", [("internvl2-76b", "patch_embeds"), ("internvl2-76b", None),
+                                      ("qwen2-0.5b", "patch_embeds"), ("qwen2-0.5b", "enc_embeds")])
+def test_loss_refuses_frontend_and_encoder_inputs(arch, key):
+    """The reference prepends the patches and drops their positions before
+    the CE (src/repro/models/transformer.py:390-410); the port does neither,
+    so its loss refuses rather than differ."""
+    cfg = get_config(arch, reduced=True)
+    lm = LM(cfg, device="cpu")  # the param tree builds, as the model tests check
+    params = lm.init(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    batch = {"tokens": tokens, "targets": tokens}
+    if key is not None:
+        batch[key] = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(NotImplementedError):
+        lm.loss(params, batch, dtype=F32)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "paper-default", "gemma2-2b"])
+def test_text_only_loss_of_the_dense_archs_matches_jax(arch):
+    batch, jloss, jce, _ = _jax_loss_and_grads(arch, 2, 16)
+    _, jm, jp = _jax_model(arch)
+    lm = LM(get_config(arch, reduced=True), device="cpu")
+    with torch.no_grad():
+        loss, metrics = lm.loss(params_from_jax(jp, device="cpu"),
+                                {k: torch.from_numpy(v) for k, v in batch.items()}, dtype=F32)
+    np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["ce"]), jce, rtol=1e-5)
+
+
 # --- the checkpoint ------------------------------------------------------------
 
 def _ckpt_tree():

@@ -6,13 +6,16 @@
 Phases, each of which raises on failure (there is no CPU fallback):
   1. print the card's name and power limit (nvidia-smi);
   2. build the four CUDA kernels from src/repro_torch/csrc with nvcc, one
-     process each, all at once, and print ptxas's registers and spills;
+     process each, all at once, and print ptxas's registers and spills of
+     every kernel (the float32 flash route: flash_tf32_kernel<hd>);
   3. hold each kernel against its plain PyTorch version on the card, at the
      served shapes and the edge cases: attention at ragged lengths, GQA 7:1
      at hd 8, MQA, window, softcap, ring cache mid-wrap, nearly full and
      empty caches, gemma2-2b's hd 256 (flash at S 333, decode on a 640-slot
-     ring cache, windows 4096 and 128, softcap 50), float32 at atol/rtol
-     1e-4 and bfloat16 at 2e-2; the flash forward's log-sum-exp (1e-4,
+     ring cache, windows 4096 and 128, softcap 50), internlm2-1.8b's hd 128
+     and a 2048-token prompt (flash), float32 at atol/rtol 1e-4 (float32
+     flash at hd <= 128 on the split-TF32 tensor cores) and bfloat16 at
+     2e-2; the flash forward's log-sum-exp (1e-4,
      bfloat16 1e-3) and the flash backward kernel against the FA2 plain
      version (the same tolerances times the gradients' scale); the SSD
      scan at the served chunk lengths 37/64/100/128 (one to three chunks),
@@ -51,7 +54,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
      ln 151,936, exactly 24 flash forward and 24 flash backward launches a
      step; step ms, tokens/s, model FLOP/s against 989 TFLOP/s, peak
      memory, the checkpoint's seconds, and the device's idle share from a
-     torch.profiler step;
+     torch.profiler step, with the LM head's GEMMs (the bf16 tensor-core
+     GEMMs with float32 output) picked out of it by their vocab-sized
+     operand: their share of the step and their kernels, none of them a
+     float32 GEMM;
  11. training, (d): a crash at step 7 and exact resume at reduced size on
      the card, losses within 1e-5 of the uninterrupted run;
  12. time each kernel at the served shapes with CUDA events, beside its
@@ -63,7 +69,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      with its log-sum-exp, the flash backward kernel, and
      flash_attention_diff forward plus backward; and at two longer shapes,
      where splitting the work pays most: the SSD scan at x (1,2048,80,64)
-     (16 chunks) and decode on a 4,224-slot cache with lengths 4,000-4,100.
+     (16 chunks) and decode on a 4,224-slot cache with lengths 4,000-4,100;
+     the float32 flash kernel also at q (1,2048,16,64) and at
+     internlm2-1.8b's hd 128, q (1,333,16,128), SDPA beside each; and the
+     LM head of one CE chunk of phase 10, forward + backward, the plain
+     float32 route against the bf16 tensor-core route.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -99,7 +109,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
 from repro_torch.models.params import count_params, tree_leaves  # noqa: E402
-from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.models.transformer import LM, head_logits, plain_head_logits  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.perf.hw import H100, kernel_bound  # noqa: E402
 from repro_torch.training import step as training_step  # noqa: E402
@@ -118,8 +128,12 @@ MAX_LEN = 512  # cache of MAX_LEN + 128 = 640 slots
 
 # flash cases: B, S, H, K, hd, causal, window, softcap
 FLASH_SLICE = (1, 333, 16, 8, 64, True, 0, 0.0)
+FLASH_HD128 = (1, 333, 16, 8, 128, True, 0, 0.0)  # internlm2-1.8b prefill
+FLASH_LONG = (1, 2048, 16, 8, 64, True, 0, 0.0)  # a 2048-token prompt
 FLASH_CASES = [
     FLASH_SLICE,
+    FLASH_HD128,
+    FLASH_LONG,
     (1, 37, 4, 2, 16, True, 0, 0.0),
     (2, 200, 8, 4, 32, True, 0, 0.0),
     (2, 100, 7, 1, 8, True, 0, 0.0),  # reduced qwen2-0.5b: GQA 7:1, hd 8
@@ -182,6 +196,9 @@ SSD_CASES = [
     (1, 2048, 80, 64, 128, 128, True),  # a 2048-token prompt: 16 chunks
     (1, 185, 4, 64, 128, 37, False),  # five chunks of 37
 ]
+
+#: name marks of float32 GEMM kernels (cuBLAS xmma and gemmSN, CUTLASS simt)
+F32_GEMM_MARKS = ("f32f32", "sgemm", "gemmsn")
 
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
@@ -624,6 +641,22 @@ def _model_flops(cfg, n_params, B, S) -> float:
     return 6.0 * n_params * B * S + attn
 
 
+def _head_gemms(prof, vocab) -> dict:
+    """The LM head's GEMMs in a profile taken with record_shapes: the kernels
+    of every matrix product with an operand of the vocabulary's size, by
+    name: {name: (device ms, launches)}."""
+    out = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CPU
+                or e.name not in ("aten::mm", "aten::bmm", "aten::addmm")
+                or not any(vocab in shape for shape in e.input_shapes if shape)):
+            continue
+        for k in e.kernels:
+            ms, n = out.get(k.name, (0.0, 0))
+            out[k.name] = (ms + k.duration / 1e3, n + 1)
+    return out
+
+
 def train_full(device) -> tuple[dict, dict]:
     """Phase 10: train() at full width in bfloat16. Returns the run's
     numbers, and the kernel launches of the run."""
@@ -662,7 +695,7 @@ def train_full(device) -> tuple[dict, dict]:
                                        remat=None, compute_dtype=torch.bfloat16)
     data = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1, device=device).next()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         _, m = fn(out["state"], data)
         float(m["loss"])
         torch.cuda.synchronize(device)
@@ -670,6 +703,11 @@ def train_full(device) -> tuple[dict, dict]:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(t for _, t, _ in rows) / 1e3
     top = sorted(rows, key=lambda r: -r[1])[:6]
+    head = _head_gemms(prof, cfg.vocab_size)
+    head_ms = sum(ms for ms, _ in head.values())
+    f32 = [k for k in head if any(mark in k.lower() for mark in F32_GEMM_MARKS)]
+    if not head or f32:
+        raise AssertionError(f"train: the LM head's GEMMs {sorted(head)}; float32 among them {f32}")
     del out, m, model, fn
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return {
@@ -684,6 +722,11 @@ def train_full(device) -> tuple[dict, dict]:
         "device_idle_share": 1.0 - busy_ms / (1e3 * step_s) if busy_ms else "not measured",
         "kernel_launches_profiled_step": sum(n for _, _, n in rows),
         "top_kernels_ms": [[k[:60], round(t / 1e3, 3), n] for k, t, n in top],
+        "head_gemm_ms_profiled_step": head_ms,
+        "head_gemm_share_of_busy": head_ms / busy_ms,
+        "head_gemm_launches": sum(n for _, n in head.values()),
+        "head_top_kernels_ms": [[k[:60], round(ms, 3), n] for k, (ms, n) in
+                                sorted(head.items(), key=lambda kv: -kv[1][0])[:4]],
         "wall_s": wall,
     }, counts
 
@@ -816,7 +859,8 @@ def _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, iters) -> dict:
     flops = 2.0 * B * H * nc * (pairs * N + pairs * P + 2 * Q * N * P)
     # x, dt, A, the single-group B and C read once; y and the state written once
     nbytes = 4.0 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N + B * H * P * N)
-    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
+    # its products run as split-TF32 on the tensor cores: three tf32 products each
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, split_tf32=True, hw=H100)
     return {
         "ms": _graph_ms(lambda *a: ssd_scan(*a, chunk=Q), ssets, iters),
         "eager_ms": _time_ms(lambda *a: ssd_scan(*a, chunk=Q), ssets, iters),
@@ -825,6 +869,77 @@ def _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, iters) -> dict:
         "library_ms": None,  # no PyTorch call computes the chunked scan
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
         "shape": f"x ({B},{S},{H},{P}) B_/C_ ({B},{S},1,{N}) over {H} heads, chunk {Q}, float32",
+    }
+
+
+def _time_flash(gen, device, case, n_sets, calls) -> dict:
+    """flash_attention (float32, causal) at ``case``: its device time, its
+    eager loop's, its plain version's, SDPA's device time on the same
+    inputs, its bound, and its kernels' device µs (profiler)."""
+    B, S, H, K, hd, *_ = case
+    sets = [_qkv(gen, B, S, S, H, K, hd, torch.float32, device) for _ in range(n_sets)]
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
+    flops = 4.0 * B * H * pairs * hd
+    nbytes = 4.0 * (2 * B * S * H * hd + 2 * B * S * K * hd)  # q, o, k, v
+    # float32 at hd <= 128 runs as split-TF32 on the tensor cores: three tf32
+    # products each; the CUDA-core float32 bound is kept beside it
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, split_tf32=hd <= 128, hw=H100)
+    cuda_core_bound_s, _ = kernel_bound(flops, nbytes, f32=True, hw=H100)
+
+    def run(q, k, v):
+        return flash_attention(q, k, v, causal=True)
+
+    return {
+        "ms": _graph_ms(run, sets, calls),
+        "eager_ms": _time_ms(run, sets, 2 * calls),
+        "plain_ms": _time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets,
+                             max(4, calls // 5)),
+        "library_ms": _graph_ms(
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            lib_sets, calls),
+        "kernels_us": _kernel_us(run, sets),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by, "flops": flops,
+        "cuda_core_bound_ms": cuda_core_bound_s * 1e3,
+        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) float32 causal",
+    }
+
+
+def _time_head(gen, device, iters=5) -> dict:
+    """The LM head of one CE chunk of phase 10 (qwen2-0.5b: 4 x 512 tokens of
+    d_model 896 against the tied 151,936 x 896 float32 embedding), forward
+    and backward with a float32 cotangent: the bf16 tensor-core route that
+    LM.head takes (``head_logits``: 1 GEMM forward, 4 backward, as the
+    cotangent is split into two bf16 halves) against the plain float32 route
+    (``plain_head_logits``, what LM.head ran for bf16 before), by CUDA events. The bound counts
+    the function's three products (logits, dx, dW) at the bf16 peak; a
+    training step takes 16 of them (4 chunks, the forward twice)."""
+    cfg = get_config(TRAIN_ARCH)
+    B, S, D, V = TRAIN_BATCH, 512, cfg.d_model, cfg.vocab_size
+    x = torch.randn((B, S, D), generator=gen, device=device).to(torch.bfloat16)
+    embed = torch.randn((V, D), generator=gen, device=device) * 0.02
+    g = torch.randn((B, S, V), generator=gen, device=device) * 1e-5
+
+    def fwd_bwd(head):
+        def run():
+            xx, ee = x.detach().requires_grad_(), embed.detach().requires_grad_()
+            head(xx, ee.T).backward(g)
+        return run
+
+    def bf16_route(a, w):
+        return head_logits(a, w.to(a.dtype))
+
+    flops = 3 * 2.0 * B * S * D * V
+    # x and w read, logits written, g read, dx and dW written (w, dW float32)
+    nbytes = 2.0 * B * S * D * 2 + 4.0 * V * D * 2 + 4.0 * B * S * V * 2
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=False, hw=H100)
+    return {
+        "ms": _time_ms(fwd_bwd(bf16_route), [()], iters),
+        "f32_route_ms": _time_ms(fwd_bwd(plain_head_logits), [()], iters),
+        "kernels_us": _kernel_us(fwd_bwd(bf16_route), [()], calls=2),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by, "flops": flops,
+        "shape": f"x ({B},{S},{D}) bf16, w ({D},{V}) from float32, float32 logits, "
+                 "forward + backward",
     }
 
 
@@ -841,24 +956,7 @@ def time_kernels(device, n_sets=16) -> dict:
     gen = torch.Generator(device=device).manual_seed(1)
     out = {}
 
-    B, S, H, K, hd, causal, _, _ = FLASH_SLICE
-    sets = [_qkv(gen, B, S, S, H, K, hd, torch.float32, device) for _ in range(n_sets)]
-    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
-    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
-    flops = 4.0 * B * H * pairs * hd
-    nbytes = 4.0 * (2 * B * S * H * hd + 2 * B * S * K * hd)  # q, o, k, v
-    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
-    out["flash_attention"] = {
-        "ms": _graph_ms(lambda q, k, v: flash_attention(q, k, v, causal=True), sets, 100),
-        "eager_ms": _time_ms(lambda q, k, v: flash_attention(q, k, v, causal=True), sets, 200),
-        "plain_ms": _time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets, 20),
-        "library_ms": _graph_ms(
-            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-            lib_sets, 100),
-        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-        "shape": f"q (1,{S},{H},{hd}) k/v (1,{S},{K},{hd}) float32 causal",
-    }
-
+    out["flash_attention"] = _time_flash(gen, device, FLASH_SLICE, n_sets, 100)
     B, H, K, hd, Smax, _, _, _ = DECODE_SLICE
     out["decode_attention"] = _time_decode(gen, device, B, H, K, hd, Smax, [332, 300, 255, 200],
                                            n_sets, 500)
@@ -870,6 +968,9 @@ def time_kernels(device, n_sets=16) -> dict:
                                                 iters=200)
     out["ssd_scan_long"] = _time_ssd(gen, device, B=1, S=2048, H=80, P=64, N=128, Q=128,
                                      n_sets=4, iters=40)
+    out["flash_attention_long"] = _time_flash(gen, device, FLASH_LONG, 4, 20)
+    out["flash_attention_hd128"] = _time_flash(gen, device, FLASH_HD128, n_sets, 100)
+    out["lm_head_chunk"] = _time_head(gen, device)
 
     # at the training shape of phase 10, bfloat16: the forward with its
     # log-sum-exp, the backward kernel, and flash_attention_diff's forward +

@@ -8,36 +8,74 @@
 // (B,H,Sq) contiguous with h = kv_head * G + g; the backward kernel
 // (flash_attention_bwd.cu) reads it. A null pointer skips it (serving).
 //
-// Both variants give one thread block a tile of query rows of one (batch, kv
+// Every variant gives one thread block a tile of query rows of one (batch, kv
 // head). The G query heads of the kv group are folded into the tile's rows
 // (row = q * G + g), so the G heads share every K/V tile staged in shared
 // memory. The block walks K/V tiles only up to the causal frontier of its
 // last row and from the window edge of its first row; the ragged last tile
 // is masked, so any Sq == Sk works. Masking follows the reference: masked
-// scores are the finite -1e30 and l is clamped at 1e-30.
+// scores are the finite -1e30, keys past Sk are -inf, and l is clamped at
+// 1e-30. Three variants:
 //
-// Tensor-core variant: bfloat16 at hd 64 and 128, the training path.
-// What bounds it: operations (4*hd FLOPs per causal (q, k) pair of each
-// head, ~300 per byte moved at the training shape), so the products must run
-// on the tensor cores. Design (FlashAttention-2): 4 warps, 64 folded rows
-// (16 a warp) against K/V tiles of 64 keys. S = Q K^T and O += P V are
-// mma.sync.m16n8k16 bf16 products with float32 accumulators, fed by ldmatrix
-// from shared memory whose rows are padded by 16 bytes (no bank conflicts).
-// K/V tiles stream through a double-buffered ring in dynamic shared memory by
-// cp.async, the next tile in flight while the current one is used. The
-// softmax state stays in registers; P is rounded to bf16 for P V, where the
-// oracle rounds its probabilities too (models/layers.py, probs.to(v.dtype)).
-// Blocks run the longest causal row tiles first. mma.sync, not wgmma: it is
-// a warp-level instruction that needs no shared-memory descriptors or
-// warpgroup fences, so a kernel can be checked one warp's fragment at a time;
-// wgmma with TMA and warp specialisation is the next step up (later work).
+// Split-TF32 tensor-core variant: float32 at hd 8, 16, 32, 64 and 128, the
+// serving path (paper-default and qwen2-0.5b serve at hd 64, internlm2-1.8b
+// and granite-8b at 128). What bounds it: operations, 4*hd float32 FLOPs per
+// causal (q, k) pair of each head (227.8 MFLOP at the served q (1,333,16,64),
+// 3.4 us at 67 TFLOP/s) against ~1.4 MB of inputs. The CUDA-core design
+// before it spent ~64 dependent steps a key tile per thread (8 FMAs, 3
+// shuffles and the softmax per key, K/V staged element by element between
+// two barriers, nothing in flight) on about one block an SM: 0.085 ms. This
+// design cuts that chain:
+//  - S = Q K^T and O += P V are mma.sync.m16n8k8 tf32 products, each operand
+//    split into two tf32 halves and a product taken as lo*hi + hi*lo +
+//    hi*hi (csrc/tc_mma.cuh: split_tf32, mma3), which keeps the 1e-4
+//    float32 checks that plain TF32 (10-bit mantissas) does not; P is split
+//    too (P rounded to tf32 alone costs ~1e-3 on P V). The halves are
+//    rounded by bit masking, not cvt.rna (the same rounding, a quarter less
+//    time here).
+//  - Q is split once (into registers at hd <= 64, into shared memory at hd
+//    128 to keep the registers for the accumulators). P never leaves the
+//    registers: the accumulator of S holds (g, 2t), (g, 2t + 1), and the A
+//    operand of P V wants (g, t), (g, t + 4), so the k index of each 8-key
+//    step is permuted (column t is key 2t, t + 4 is key 2t + 1) and V's
+//    rows are read in that order, as ssd_scan.cu does.
+//  - K/V stream through a two-stage ring in dynamic shared memory by
+//    cp.async, 16 bytes a copy, the next stage in flight while this one is
+//    used; shared rows of hd + 4 floats put every fragment's 32 loads in 32
+//    distinct banks.
+//  - A block is 32 folded rows and 4 warps: two row warps of 16 rows, each
+//    twice, once for each half of every ring stage's keys (32 keys a warp
+//    at hd <= 64, 16 at hd 128). The two halves' (m, l, acc) merge in a
+//    fixed order at the end. The served shape is latency-bound: its longest
+//    block walks the causal chain of 333 keys, and one warp alone on it took
+//    0.0345 ms; two warps on its keys halve that chain. 32-row tiles give
+//    666 rows x 8 kv heads = 168 blocks for the 132 SMs (a 64-row tile
+//    gives 88), the longest causal row tiles first.
+//  - A warp skips a key tile that lies wholly outside its own rows' causal
+//    or window range; that is exact (the tile's weights are 0, or are wiped
+//    by alpha = 0 later).
+// No atomics, every sum in a fixed order: two runs give the same bits.
 //
-// CUDA-core variant: float32 at every head dim (serving runs float32, and
-// TF32 would not hold its 1e-4 tolerances), and bfloat16 at hd 8, 16, 32 and
-// 256. Each row is owned by hd/8 threads holding 8 of its dims each (dims
-// lane + TPR*i); a row's dot product is a shuffle reduction over them; K/V
-// tiles are staged as float32 in static shared memory (32 KB at every hd: 64
-// keys at hd <= 64, 32 at hd 128, 16 at hd 256).
+// bf16 tensor-core variant: hd 64 and 128, the training path. What bounds
+// it: operations (~300 FLOPs per byte moved at the training shape). Design
+// (FlashAttention-2): 4 warps, 64 folded rows (16 a warp) against K/V tiles
+// of 64 keys. S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products
+// with float32 accumulators, fed by ldmatrix from shared memory whose rows
+// are padded by 16 bytes (no bank conflicts). K/V tiles stream through a
+// double-buffered cp.async ring as above. P is rounded to bf16 for P V, where
+// the oracle rounds its probabilities too (models/layers.py,
+// probs.to(v.dtype)). mma.sync, not wgmma: a warp-level instruction that
+// needs no shared-memory descriptors or warpgroup fences, so a kernel can be
+// checked one warp's fragment at a time; wgmma with TMA and warp
+// specialisation is the next step up (later work).
+//
+// CUDA-core variant: what neither tensor-core variant takes, float32 at hd
+// 256 (gemma2-2b; its split fragments and accumulators would not fit the
+// registers of a 16-row warp tile) and bfloat16 at hd 8, 16, 32 (the reduced
+// configs) and 256. Each row is owned by hd/8 threads holding 8 of its dims
+// each (dims lane + TPR*i); a row's dot product is a shuffle reduction over
+// them; K/V tiles are staged as float32 in static shared memory (32 KB at
+// every hd: 64 keys at hd <= 64, 32 at hd 128, 16 at hd 256).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -339,6 +377,283 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- split-TF32 tensor-core variant (float32, hd 8 to 128) ------------------
+
+template <int HD>
+struct Tf32Tiling {
+  static constexpr int kBM = 32;            // folded query rows per block, 16 a row warp
+  static constexpr int kRowWarps = kBM / 16;
+  static constexpr int kSplit = 2;          // warp groups that share a block's keys
+  static constexpr int kThreads = 32 * kRowWarps * kSplit;  // 4 warps
+  static constexpr int kBN = HD <= 64 ? 32 : 16;  // keys a warp takes from a stage
+  static constexpr int kStage = kSplit * kBN;      // keys a ring stage holds
+  static constexpr int kLd = HD + 4;        // shared row, floats: conflict-free fragments
+  static constexpr bool kQRegs = HD <= 64;  // Q's split fragments in registers, else shared
+  static constexpr int kQWords = (kQRegs ? 1 : 2) * kBM * kLd;  // Q (hi, then lo at hd 128)
+  static constexpr int kSmem = (kQWords + 4 * kStage * kLd) * (int)sizeof(float);  // + 2 x (K, V)
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Tf32Tiling<HD>::kThreads)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal,
+                  int window, float cap, float scale) {
+  using C = Tf32Tiling<HD>;
+  constexpr int BM = C::kBM, BN = C::kBN, SK = C::kStage, LD = C::kLd, NT = C::kThreads;
+  constexpr int RW = C::kRowWarps;
+  constexpr int KD = HD / 8;  // k-steps of Q K^T; n-blocks of O
+  constexpr int NN = BN / 8;  // n-blocks of S; k-steps of P V
+  constexpr int CH = HD / 4;  // 16-byte copies a row
+  constexpr int NV = KD < 4 ? KD : 4;  // n-blocks of V split at a time
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                 // [BM][LD]; at hd 128 the hi halves, then lo [BM][LD]
+  float* ks = fsm + C::kQWords;    // [2][SK][LD]
+  float* vs = ks + 2 * SK * LD;    // [2][SK][LD]
+
+  const int G = H / K;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;  // the longest causal rows first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp % RW, half = warp / RW;  // the warp's rows; its keys of a stage
+  const int q_first = r0 / G;
+  const int q_last = min(Sq - 1, (r0 + BM - 1) / G);
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) / SK * SK : 0;
+  // this thread's rows of the tile: qr (d[0], d[1]) and qr + 8 (d[2], d[3])
+  const int qr = rw * 16 + g;
+  const int qa = (r0 + qr) / G, qb = (r0 + qr + 8) / G;
+  const int wq_first = (r0 + rw * 16) / G;                // the warp's first query
+  const int wq_last = min(Sq - 1, (r0 + rw * 16 + 15) / G);  // and its last real one
+
+  for (int c = tid; c < BM * CH; c += NT) {
+    const int rr = c / CH, cc = (c % CH) * 4;
+    const int r = r0 + rr, qi = r / G;
+    const bool ok = qi < Sq;
+    const size_t off = ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + r % G) * HD + cc : 0;
+    cp_async16(qs + rr * LD + cc, q + off, ok);
+  }
+  cp_async_commit();
+  auto load_kv = [&](int k0, int buf) {
+    for (int c = tid; c < SK * CH; c += NT) {
+      const int j = c / CH, cc = (c % CH) * 4;
+      const int key = k0 + j;
+      const bool ok = key < Sk;
+      const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
+      cp_async16(ks + (buf * SK + j) * LD + cc, k + off, ok);
+      cp_async16(vs + (buf * SK + j) * LD + cc, v + off, ok);
+    }
+    cp_async_commit();
+  };
+  load_kv(k_begin, 0);
+  cp_async_wait<1>();  // Q is in
+  __syncthreads();
+
+  // Q split once: fragment k-step kk holds dims 8kk + t (a0, a1) and + 4 (a2, a3)
+  uint32_t qh[C::kQRegs ? KD : 1][4], ql[C::kQRegs ? KD : 1][4];
+  if constexpr (C::kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const float* a = qs + qr * LD + 8 * kk + t;
+      split_tf32(a[0], qh[kk][0], ql[kk][0]);
+      split_tf32(a[8 * LD], qh[kk][1], ql[kk][1]);
+      split_tf32(a[4], qh[kk][2], ql[kk][2]);
+      split_tf32(a[8 * LD + 4], qh[kk][3], ql[kk][3]);
+    }
+  } else {
+    // in place, hi over the tile and lo after it; the loop's first barrier
+    // orders these stores before any fragment read
+    for (int i = tid; i < BM * HD; i += NT) {
+      const int e = (i / HD) * LD + i % HD;
+      uint32_t hi, lo;
+      split_tf32(qs[e], hi, lo);
+      qs[e] = __uint_as_float(hi);
+      qs[BM * LD + e] = __uint_as_float(lo);
+    }
+  }
+
+  float acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  int buf = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += SK, buf ^= 1) {
+    if (k0 + SK < k_end) {
+      load_kv(k0 + SK, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kw = k0 + half * BN;  // this warp's keys: kw .. kw + BN - 1
+    const bool skip = wq_first >= Sq || kw >= k_end || (causal && kw > wq_last) ||
+                      (window > 0 && wq_first - (kw + BN - 1) >= window);
+    if (!skip) {
+      const float* kt = ks + (buf * SK + half * BN) * LD;
+      const float* vt = vs + (buf * SK + half * BN) * LD;
+
+      // S = Q K^T, 16 rows x BN keys a warp
+      float s[NN][4];
+#pragma unroll
+      for (int j = 0; j < NN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ah[4], al[4];
+        if constexpr (C::kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = qh[kk][e];
+            al[e] = ql[kk][e];
+          }
+        } else {
+          const float* a = qs + qr * LD + 8 * kk + t;
+          const int off[4] = {0, 8 * LD, 4, 8 * LD + 4};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = __float_as_uint(a[off[e]]);
+            al[e] = __float_as_uint(a[BM * LD + off[e]]);
+          }
+        }
+        uint32_t bh[NN][2], bl[NN][2];
+#pragma unroll
+        for (int j = 0; j < NN; ++j) {
+          const float* kb = kt + (8 * j + g) * LD + 8 * kk + t;
+          split_tf32(kb[0], bh[j][0], bl[j][0]);
+          split_tf32(kb[4], bh[j][1], bl[j][1]);
+        }
+        mma3(s, ah, al, bh, bl);
+      }
+
+      // scale, cap and mask (s[j][e]: row e < 2 ? qa : qb, key kw + 8j + 2t
+      // + (e & 1)); a tile inside every row's range of the warp skips the mask
+      const bool edge = (causal && kw + BN - 1 > wq_first) ||
+                        (window > 0 && wq_last - kw >= window) || kw + BN > Sk;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale;
+          if (cap > 0.f) x = cap * tanhf(x / cap);
+          if (edge) {
+            const int key = kw + 8 * j + 2 * t + (e & 1);
+            const int qi = e < 2 ? qa : qb;
+            if (key >= Sk) x = -INFINITY;  // not a key: no weight even in a row with none valid
+            else if ((causal && key > qi) || (window > 0 && qi - key >= window)) x = kNegInf;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float alpha = expf(m[i] - mx[i]);
+        m[i] = mx[i];
+        l[i] *= alpha;
+#pragma unroll
+        for (int n = 0; n < KD; ++n) {
+          acc[n][2 * i] *= alpha;
+          acc[n][2 * i + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[j][e] - m[e >> 1]);
+          s[j][e] = p;
+          l[e >> 1] += p;  // this thread's share; the quad sums at the end
+        }
+      }
+
+      // O += P V, P split as it sits in the accumulator: step j's column t
+      // is key 8j + 2t and t + 4 is 8j + 2t + 1, V's rows read to match
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);  // (row g, key 2t)
+        split_tf32(s[j][2], ph[1], pl[1]);  // (row g + 8, key 2t)
+        split_tf32(s[j][1], ph[2], pl[2]);  // (row g, key 2t + 1)
+        split_tf32(s[j][3], ph[3], pl[3]);  // (row g + 8, key 2t + 1)
+        const float* vb = vt + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+        for (int n0 = 0; n0 < KD; n0 += NV) {  // NV n-blocks of V at a time: fewer live registers
+          uint32_t bh[NV][2], bl[NV][2];
+#pragma unroll
+          for (int n = 0; n < NV; ++n) {
+            split_tf32(vb[8 * (n0 + n)], bh[n][0], bl[n][0]);
+            split_tf32(vb[LD + 8 * (n0 + n)], bh[n][1], bl[n][1]);
+          }
+#pragma unroll
+          for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], pl, bh[n]);  // as mma3
+#pragma unroll
+          for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], ph, bl[n]);
+#pragma unroll
+          for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], ph, bh[n]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+
+  // merge the two halves' (m, l, acc) of each row, in a fixed order: the
+  // second half's warps leave theirs in the K/V rings (free after the loop's
+  // last barrier), one float per lane and value, and the first half's combine
+  constexpr int PV = 4 + 4 * KD;  // values a lane leaves
+  float* part = ks + rw * 32 + lane;
+  if (half == 1) {
+    part[0] = m[0];
+    part[RW * 32] = m[1];
+    part[2 * RW * 32] = l[0];
+    part[3 * RW * 32] = l[1];
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[(4 + 4 * n + e) * RW * 32] = acc[n][e];
+  }
+  static_assert(PV * RW * 32 <= 4 * SK * LD, "the merge's values fit the K/V rings");
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m1 = part[i * RW * 32], l1 = part[(2 + i) * RW * 32];
+    const float mm = fmaxf(m[i], m1);
+    const float a0 = expf(m[i] - mm), a1 = expf(m1 - mm);
+    m[i] = mm;
+    l[i] = l[i] * a0 + l1 * a1;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      acc[n][2 * i] = acc[n][2 * i] * a0 + part[(4 + 4 * n + 2 * i) * RW * 32] * a1;
+      acc[n][2 * i + 1] = acc[n][2 * i + 1] * a0 + part[(5 + 4 * n + 2 * i) * RW * 32] * a1;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + qr + 8 * i, qi = r / G;
+    if (qi >= Sq) continue;
+    const int h = kvh * G + r % G;
+    const float lc = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / lc;
+    float* orow = o + (((size_t)b * Sq + qi) * H + h) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    if (lse != nullptr && t == 0) lse[((size_t)b * H + h) * Sq + qi] = m[i] + logf(lc);
+  }
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int Sq, int Sk, int H, int K, int causal, int window,
@@ -372,19 +687,23 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-                     float* lse, int B, int Sq, int Sk, int H, int K, int causal,
-                     int window, float cap, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, cap, scale, s);
-    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, cap, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, cap, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, cap, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, cap, scale, s);
-    case 256: return launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, K, causal, window, cap, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+template <int HD>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int Sq, int Sk, int H, int K, int causal, int window,
+                        float cap, float scale, cudaStream_t stream) {
+  using C = Tf32Tiling<HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const long long rows = (long long)(H / K) * Sq;
+  const long long nx = (rows + C::kBM - 1) / C::kBM;
+  if (nx > 0x7fffffffLL || K > 65535 || B > 65535) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)nx, K, B);
+  flash_tf32_kernel<HD><<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H, K, causal,
+      window, cap, scale);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -401,20 +720,31 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  const bool tc = dtype == 1 && (hd == 64 || hd == 128);
-  // the tensor-core variant copies 16-byte chunks
+  // the tensor-core variants copy 16-byte chunks
+  const bool tc = (dtype == 0 && hd <= 128) || (dtype == 1 && (hd == 64 || hd == 128));
   if (tc && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15)) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(hd, q, k, v, o, l, B, Sq, Sk, H, K, causal, window, softcap, scale, s);
-  else if (dtype == 1 && hd == 64)
-    err = launch_tc<64>(q, k, v, o, l, B, Sq, Sk, H, K, causal, window, softcap, scale, s);
-  else if (dtype == 1 && hd == 128)
-    err = launch_tc<128>(q, k, v, o, l, B, Sq, Sk, H, K, causal, window, softcap, scale, s);
-  else if (dtype == 1)
-    err = dispatch<bf16>(hd, q, k, v, o, l, B, Sq, Sk, H, K, causal, window, softcap, scale, s);
-  else
-    err = cudaErrorInvalidValue;
+#define FLASH_ARGS q, k, v, o, l, B, Sq, Sk, H, K, causal, window, softcap, scale, s
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    switch (hd) {
+      case 8: err = launch_tf32<8>(FLASH_ARGS); break;
+      case 16: err = launch_tf32<16>(FLASH_ARGS); break;
+      case 32: err = launch_tf32<32>(FLASH_ARGS); break;
+      case 64: err = launch_tf32<64>(FLASH_ARGS); break;
+      case 128: err = launch_tf32<128>(FLASH_ARGS); break;
+      case 256: err = launch<float, 256>(FLASH_ARGS); break;
+    }
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 8: err = launch<bf16, 8>(FLASH_ARGS); break;
+      case 16: err = launch<bf16, 16>(FLASH_ARGS); break;
+      case 32: err = launch<bf16, 32>(FLASH_ARGS); break;
+      case 64: err = launch_tc<64>(FLASH_ARGS); break;
+      case 128: err = launch_tc<128>(FLASH_ARGS); break;
+      case 256: err = launch<bf16, 256>(FLASH_ARGS); break;
+    }
+  }
+#undef FLASH_ARGS
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

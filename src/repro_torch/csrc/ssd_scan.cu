@@ -119,21 +119,6 @@ __device__ __forceinline__ void fill_tile(float* dst, int ld, const T* src, long
   }
 }
 
-// d[j] += a b[j] in split-TF32: lo*hi + hi*lo + hi*hi, the small terms
-// first, each term a pass over the NT independent accumulators so that no
-// product waits on the one before it
-template <int NT>
-__device__ __forceinline__ void mma3(float (&d)[NT][4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const uint32_t (&bh)[NT][2],
-                                     const uint32_t (&bl)[NT][2]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], al, bh[j]);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], ah, bl[j]);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], ah, bh[j]);
-}
-
 template <int N>
 __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll

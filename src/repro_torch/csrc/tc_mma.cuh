@@ -3,7 +3,7 @@
 // ldmatrix fragment loads, the warp-level mma.sync.m16n8k16 bf16 product with
 // float32 accumulators and two tile products built from it, and the
 // mma.sync.m16n8k8 tf32 product with the split of a float32 into two tf32
-// halves that keeps a product at float32 accuracy (3xTF32). Each including source
+// halves that keeps a product at float32 accuracy (3xTF32, mma3). Each including source
 // is compiled on its own (kernels/_build.py hashes this header into every
 // library's name, so an edit rebuilds them).
 #pragma once
@@ -124,11 +124,34 @@ __device__ __forceinline__ void mma1688_tf32(float (&d)[4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds a finite x (to nearest, ties
+// away from zero), by bit masking: half of the 13 dropped bits' range added
+// to the pattern, then the 13 bits cleared. Two integer operations; with
+// cvt.rna in their place the float32 flash kernel took 0.0454 ms instead of
+// 0.0345 ms on an H100, at q (1,333,16,64).
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
 // x = hi + lo to ~22 bits, both tf32 (round to nearest): a product of two
 // such sums taken as lo*hi + hi*lo + hi*hi (the lo*lo term, ~2^-22 of it,
 // dropped) keeps float32 accuracy on the tensor cores
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+// d[j] += a b[j] in split-TF32: lo*hi + hi*lo + hi*hi, the small terms
+// first, each term a pass over the NT independent accumulators so that no
+// product waits on the one before it
+template <int NT>
+__device__ __forceinline__ void mma3(float (&d)[NT][4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[NT][2],
+                                     const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], ah, bh[j]);
 }

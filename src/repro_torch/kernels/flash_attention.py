@@ -6,7 +6,12 @@ against k/v (B,Sk,K,hd) at implicit arange positions, with a streaming
 softmax in float32. Sq == Sk of any length (the TPU kernel needs
 multiples of 128);
 hd in {8, 16, 32, 64, 128, 256}; float32 or bfloat16 in, out in q's type.
-bfloat16 at hd 64 and 128 runs on the tensor cores.
+float32 at hd <= 128 runs on the tensor cores in split-TF32 (its algorithm
+step by step: ``ref.flash_attention_split_ref``), bfloat16 at hd 64 and
+128 on the tensor cores in bf16; the rest on the CUDA cores. The
+tensor-core routes copy 16 bytes at a time, so there q, k and v must start
+on a 16-byte boundary (a float32 view at an offset of a whole number of
+4 floats, a bfloat16 one of 8); the wrapper raises ``ValueError`` if not.
 
 ``flash_attention`` is the serving entry point; ``flash_attention_lse``
 also returns the float32 log-sum-exp of each row, (B,H,Sq), which the
@@ -56,6 +61,10 @@ def _launch(q, k, v, causal, window, softcap, with_lse):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     _build.check_cuda_inputs("flash_attention", q.dtype, q, k, v)
+    tensor_cores = hd <= 128 if q.dtype == torch.float32 else hd in (64, 128)
+    if tensor_cores and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"flash_attention: {q.dtype} at head_dim {hd} runs on the tensor cores, "
+                         "which need q, k and v to start on a 16-byte boundary")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if o.numel() == 0:

@@ -48,6 +48,105 @@ def flash_attention_lse_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     return out, lse.reshape(B, H, Sq)
 
 
+def tf32_round(x):
+    """x (float32) rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: to the
+    nearest value with 10 mantissa bits, ties away from zero (half of the
+    13 dropped bits' range added to the bit pattern, then the 13 bits
+    cleared; the sign bit stands apart, so this rounds the magnitude)."""
+    bits = x.to(F32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(F32)
+
+
+def split_tf32(x):
+    """(hi, lo): x = hi + lo to ~22 bits, both tf32, as ``csrc/tc_mma.cuh``
+    splits an operand."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(F32) - hi)
+
+
+def mm_split_tf32(a, b):
+    """a @ b in split-TF32 (3xTF32): lo·hi + hi·lo + hi·hi, the lo·lo term
+    dropped. A product of two tf32 values is exact in float32, so this is
+    the tensor cores' arithmetic up to the order of the float32 sums."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def flash_attention_split_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The float32 tensor-core flash kernel's algorithm step by step, in
+    float32, at the kernel's one tiling (``Tf32Tiling``). The G query heads
+    of a kv head are folded into the rows (row = q * G + g); each tile of 32
+    folded rows walks stages of 2 x ``keys`` keys (``keys`` 32 at hd <= 64,
+    else 16) from its first row's window edge (aligned down to a stage) to
+    its last row's causal frontier, and part h of each stage goes to
+    partial state h (the kernel's warp groups). Per key tile: S = Q Kᵀ in split-TF32, scaled,
+    capped, -1e30 where masked and -inf past Sk (the kernel's zero-filled
+    keys), the online softmax update, O += P V in split-TF32 (P split too).
+    The partial states merge in order: M = max(m_h), l = sum l_h exp(m_h -
+    M), acc likewise; l is clamped at 1e-30. (The kernel's warps also skip
+    a key tile wholly outside their rows' range; that is exact, so it is not
+    repeated here.) Returns (out in q's type, log-sum-exp (B,H,Sq) float32,
+    h = kv_head * G + g)."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G, R = H // K, (H // K) * Sq
+    rows, split, keys = 32, 2, 32 if hd <= 64 else 16  # Tf32Tiling's kBM, kSplit, kBN
+    stage = split * keys
+    dev = q.device
+    qf = q.to(F32).reshape(B, Sq, K, G, hd).permute(0, 2, 1, 3, 4).reshape(B, K, R, hd)
+    pad = (-Sk) % stage + stage  # zero keys past Sk, so that every tile is whole
+    kf, vf = (torch.nn.functional.pad(t.to(F32).permute(0, 2, 1, 3), (0, 0, 0, pad))
+              for t in (k, v))
+    scale = 1.0 / math.sqrt(hd)
+    neg = torch.tensor(NEG_INF, dtype=F32, device=dev)
+    out = torch.empty((B, K, R, hd), dtype=F32, device=dev)
+    lse = torch.empty((B, K, R), dtype=F32, device=dev)
+    for r0 in range(0, R, rows):
+        r1 = min(R, r0 + rows)
+        qi = torch.arange(r0, r1, device=dev)[:, None] // G
+        q_first, q_last = r0 // G, min(Sq - 1, (r0 + rows - 1) // G)
+        k_end = min(Sk, q_last + 1) if causal else Sk
+        k_begin = max(0, q_first - window + 1) // stage * stage if window else 0
+        parts = [(torch.full((B, K, r1 - r0), NEG_INF, dtype=F32, device=dev),
+                  torch.zeros((B, K, r1 - r0), dtype=F32, device=dev),
+                  torch.zeros((B, K, r1 - r0, hd), dtype=F32, device=dev))
+                 for _ in range(split)]
+        for k0 in range(k_begin, k_end, stage):
+            for h in range(split):
+                kw = k0 + h * keys
+                if kw >= k_end:
+                    continue
+                m, l, acc = parts[h]
+                key = torch.arange(kw, kw + keys, device=dev)[None]
+                s = mm_split_tf32(qf[:, :, r0:r1],
+                                  kf[:, :, kw:kw + keys].transpose(-1, -2)) * scale
+                if softcap:
+                    s = softcap * torch.tanh(s / softcap)
+                ok = torch.ones((r1 - r0, keys), dtype=torch.bool, device=dev)
+                if causal:
+                    ok &= key <= qi
+                if window:
+                    ok &= qi - key < window
+                s = torch.where(key >= Sk, float("-inf"), torch.where(ok, s, neg))
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                parts[h] = (m_new, l * alpha + p.sum(-1),
+                            acc * alpha[..., None] + mm_split_tf32(p, vf[:, :, kw:kw + keys]))
+        m, l, acc = parts[0]
+        for m1, l1, acc1 in parts[1:]:
+            mm = torch.maximum(m, m1)
+            a0, a1 = torch.exp(m - mm), torch.exp(m1 - mm)
+            m, l, acc = mm, l * a0 + l1 * a1, acc * a0[..., None] + acc1 * a1[..., None]
+        lc = l.clamp(min=1e-30)
+        out[:, :, r0:r1] = acc * (1.0 / lc)[..., None]
+        lse[:, :, r0:r1] = m + torch.log(lc)
+    out = out.reshape(B, K, Sq, G, hd).permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd)
+    lse = lse.reshape(B, K, Sq, G).permute(0, 1, 3, 2).reshape(B, H, Sq)
+    return out.to(q.dtype), lse
+
+
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0.0):
     """The FlashAttention-2 backward (arXiv 2307.08691, Alg. 2) written out
     in float32 from the forward's output ``o`` and log-sum-exp ``lse``

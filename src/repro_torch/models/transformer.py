@@ -75,6 +75,64 @@ def chunked_ce(head_fn, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return acc / (B * S)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(c +) a @ b of two bf16 matrices, summed and returned in float32: on the
+    card one bf16 tensor-core GEMM with float32 output (``aten::mm.dtype``,
+    ``aten::addmm.dtype`` with c in its epilogue); elsewhere the same
+    products in float32 (each exact: a product of two bf16 values fits a
+    float32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=F32) if c is None else torch.addmm(c, a, b, out_dtype=F32)
+    ab = torch.mm(a.to(F32), b.to(F32))
+    return ab if c is None else c + ab
+
+
+class HeadLogits(torch.autograd.Function):
+    """logits = x w in float32 from bf16 x (..., D) and bf16 w (D, V): the
+    reference's ``einsum(x, w.astype(bf16), preferred_element_type=F32)``,
+    on the tensor cores. The backward keeps the reference's rounding points
+    (its dot_general transposes): dx = bf16(g wᵀ) and dw = bf16(xᵀ g), with
+    the products summed in float32. g is float32, so it is split into two
+    bf16 halves, g = hi + lo to ~2^-16 of g, and each gradient is the sum of
+    two bf16 products, lo's and then hi's, the second GEMM adding the
+    first's float32 result in its epilogue."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        hi = g.to(x.dtype)
+        lo = (g - hi).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(hi, w.T, _mm_f32(lo, w.T)).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            x2 = x.reshape(-1, x.shape[-1])
+            if w.T.is_contiguous():  # the tied embedding, (V, D) in memory: dw in its layout
+                dw = _mm_f32(hi.T, x2, _mm_f32(lo.T, x2)).T
+            else:
+                dw = _mm_f32(x2.T, hi, _mm_f32(x2.T, lo))
+            dw = dw.to(w.dtype)
+        return dx, dw
+
+
+def head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 logits of bf16 x (..., D) against bf16 w (D, V) (``HeadLogits``)."""
+    return HeadLogits.apply(x, w)
+
+
+def plain_head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32 logits of x (B, S, D) against w (D, V) rounded to x's type, as
+    one float32 product: the plain version of ``head_logits``, and the head of
+    float32 x."""
+    return torch.einsum("bsd,dv->bsv", x.to(F32), w.to(x.dtype).to(F32))
+
+
 def default_impl(device) -> str:
     """The kernels on a CUDA device, the plain oracle elsewhere."""
     return "cuda" if torch.device(device).type == "cuda" else "plain"
@@ -251,10 +309,16 @@ class LM:
         return x
 
     def head(self, params, x) -> torch.Tensor:
-        """Logits in float32."""
+        """Logits in float32, from x and the weights in x's type: bf16 x on the
+        card takes the bf16 tensor-core GEMM with float32 output
+        (``head_logits``); elsewhere, and for float32 x, the same arithmetic
+        as a float32 product (``plain_head_logits``)."""
         cfg = self.cfg
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = torch.einsum("bsd,dv->bsv", x.to(F32), w.to(x.dtype).to(F32))
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            logits = head_logits(x, w.to(x.dtype))
+        else:
+            logits = plain_head_logits(x, w)
         return softcap(logits, cfg.final_logit_softcap)
 
     def _positions(self, B, S, device, start=None):

@@ -15,7 +15,18 @@ The backward kernel and the autograd Functions' gradients: within the same
 tolerance times the gradient's scale (max |grad|) of the FA2 plain version
 and of plain autograd through the oracles; two backward runs bit for bit; one
 reduced qwen2-0.5b train step through the kernels within 1e-5 of the plain
-versions in float32.
+versions in float32. The float32 flash route (split-TF32 tensor cores at
+hd <= 128) at the same 1e-4, its log-sum-exp too, and bit for bit on a
+second run. The bf16
+LM head against the plain float32 head at the qwen2-0.5b chunk shape: the
+logits within 1e-5 of their scale (the same exact products, float32 sums
+in another order), dx and dW element by element within 2^-7 |want| (one bf16
+rounding step) plus 2^-15 of the absolute products behind the element (the
+cotangent's split into two bf16 halves holds it to 2^-16), at least 95 % of
+dx's and of dW's elements equal to the plain head's bf16 values (which g's
+hi half alone does not reach; at this width the float32 sums' order alone
+moves ~2 % of dx across a rounding boundary), and no float32 GEMM among
+its kernels.
 """
 import pytest
 import torch
@@ -30,10 +41,16 @@ from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_r
                                      ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models.transformer import head_logits, plain_head_logits
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 SSD_DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 5e-2)]
+# of dx's and dW's elements equal to the plain head's: dx sums 151,936
+# products a row in float32, in another order in each route's GEMM, so ~2 %
+# of its elements straddle a bf16 rounding boundary (0.980 exact on an H100;
+# g's hi half alone, 0.575)
+HEAD_EXACT_SHARE = 0.95
 
 # B, S, H, K, hd, causal, window, softcap
 FLASH = [
@@ -44,6 +61,15 @@ FLASH = [
     (1, 129, 4, 1, 128, False, 0, 0.0),  # MQA, non-causal
     (1, 333, 8, 4, 256, True, 4096, 50.0),  # gemma2-2b: hd 256, softcap, global window
     (1, 333, 8, 4, 256, True, 128, 50.0),  # gemma2-2b: a window that bites
+    (1, 333, 16, 8, 128, True, 0, 0.0),  # internlm2-1.8b
+    (1, 2048, 16, 8, 64, True, 0, 0.0),  # a 2048-token prompt
+    (2, 100, 7, 1, 64, True, 0, 0.0),  # GQA 7:1 at hd 64
+    (1, 256, 4, 1, 128, True, 0, 0.0),  # MQA
+    (1, 384, 4, 2, 128, True, 128, 0.0),  # window
+    (2, 128, 8, 8, 64, True, 0, 50.0),  # MHA, softcap
+    (1, 256, 14, 2, 64, False, 0, 0.0),  # non-causal
+    (1, 129, 4, 2, 32, False, 48, 0.0),  # non-causal, window, ragged
+    (2, 37, 4, 2, 32, True, 256, 30.0),  # window >= S, softcap
 ]
 # flash backward: the cases of test_flash_attention_diff_grads_match_plain_autograd
 FLASH_BWD = [
@@ -182,10 +208,93 @@ def test_flash_lse_matches_plain(dev, case, dtype, tol):
     before = flash_attention.launches
     out, lse = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
     assert flash_attention.launches == before + 1
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, window=win, softcap=cap))
     want_out, want_lse = flash_attention_lse_ref(q, k, v, causal=causal, window=win, softcap=cap)
     assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
     torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [FLASH[0], FLASH[2], FLASH[7]])
+def test_flash_tf32_kernel_is_deterministic(dev, case):
+    """float32 at hd <= 128 (split-TF32 tensor cores): two key halves merge
+    in a fixed order, so two runs give the same bits."""
+    B, S, H, K, hd, causal, win, cap = case
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    first = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
+    for _ in range(2):
+        again = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _head_inputs(dev, B=4, S=512, D=896, V=151_936, seed=14):
+    """qwen2-0.5b's CE chunk: bf16 activations, the float32 tied embedding (V, D)
+    and a float32 cotangent of the logits."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    embed = torch.randn((V, D), generator=gen, device=dev) * 0.02
+    g = torch.randn((B, S, V), generator=gen, device=dev) * 1e-5
+    return x, embed, g
+
+
+def _head_grads(head, x, embed, g):
+    xx, ee = x.detach().requires_grad_(), embed.detach().requires_grad_()
+    logits = head(xx, ee.T)
+    logits.backward(g)
+    return logits.detach(), xx.grad, ee.grad
+
+
+@pytest.mark.cuda
+def test_bf16_head_matches_plain_head(dev):
+    x, embed, g = _head_inputs(dev)
+    got = _head_grads(lambda a, w: head_logits(a, w.to(a.dtype)), x, embed, g)
+    want = _head_grads(plain_head_logits, x, embed, g)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.bfloat16
+    assert got[2].dtype == torch.float32
+    scale = float(want[0].abs().max())
+    torch.testing.assert_close(got[0], want[0], atol=1e-5 * scale, rtol=1e-5)
+    ax, ag = x.float().abs().reshape(-1, x.shape[-1]), g.abs().reshape(-1, g.shape[-1])
+    aw = embed.to(torch.bfloat16).float().abs()
+    behind = {"dx": (ag @ aw).reshape(x.shape), "dW": ag.T @ ax}
+    # g's hi half alone, which the bound above does not tell from the split
+    gf = g.reshape(-1, g.shape[-1])
+    hi = gf.to(torch.bfloat16)
+    w16 = embed.to(torch.bfloat16)
+    hi_only = {"dx": torch.mm(hi, w16, out_dtype=torch.float32).to(torch.bfloat16).reshape(x.shape),
+               "dW": torch.mm(hi.T, x.reshape(-1, x.shape[-1]),
+                              out_dtype=torch.float32).to(torch.bfloat16).float()}
+    for name, a, b in (("dx", got[1], want[1]), ("dW", got[2], want[2])):
+        excess = (a.float() - b.float()).abs() - (2.0 ** -7 * b.float().abs()
+                                                  + 2.0 ** -15 * behind[name])
+        assert float(excess.max()) <= 0, f"{name}: beyond its tolerance by {float(excess.max())}"
+        exact = float((a == b).float().mean())
+        exact_hi = float((hi_only[name] == b).float().mean())
+        assert exact >= HEAD_EXACT_SHARE > exact_hi, f"{name}: exact {exact:.4f}, hi alone {exact_hi:.4f}"
+
+
+@pytest.mark.cuda
+def test_bf16_head_runs_no_float32_gemm(dev):
+    """The kernels of the bf16 route share none with the float32 route's GEMMs."""
+    x, embed, g = _head_inputs(dev, S=128)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    names = {}
+    for route, head in (("bf16", lambda a, w: head_logits(a, w.to(a.dtype))),
+                        ("f32", plain_head_logits)):
+        _head_grads(head, x, embed, g)  # warm up outside the profile
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            _head_grads(head, x, embed, g)
+            torch.cuda.synchronize()
+        names[route] = {e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.self_device_time_total > 0}
+    f32_gemms = {n for n in names["f32"] if any(w in n.lower() for w in ("gemm", "nvjet", "xmma"))}
+    assert f32_gemms, names["f32"]
+    assert not names["bf16"] & f32_gemms, names["bf16"] & f32_gemms
+    assert not [n for n in names["bf16"] if "f32f32" in n or "sgemm" in n.lower()], names["bf16"]
 
 
 def _bwd_inputs(dev, case, dtype, seed):
@@ -224,6 +333,25 @@ def test_flash_bwd_kernel_is_deterministic(dev, case, dtype):
     for _ in range(2):
         again = flash_attention_bwd(q, k, v, o, g, lse, causal=causal, window=win, softcap=cap)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64), (torch.float32, 8),
+                                      (torch.bfloat16, 128)])
+def test_flash_refuses_inputs_off_a_16_byte_boundary(dev, dtype, hd):
+    """The tensor-core routes copy 16 bytes at a time: a contiguous view one
+    element into its buffer is refused with a ValueError that says so; the
+    CUDA-core route (float32 at hd 256) takes it."""
+    def shifted(d):
+        n = 8 * 4 * d
+        return torch.randn(n + 1, device=dev).to(dtype)[1:].view(1, 8, 4, d)
+
+    q = shifted(hd)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, q, q)
+    q = torch.randn(8 * 4 * 256 + 1, device=dev)[1:].view(1, 8, 4, 256)
+    torch.testing.assert_close(flash_attention(q, q, q), flash_attention_ref(q, q, q),
+                               atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -304,3 +304,15 @@ def test_h100_spec_and_kernel_bound():
     assert (t, by) == (1.0, "bytes")
     with pytest.raises(ValueError):
         kernel_bound(1.0, 1.0, f32=True, hw=V5E)
+
+
+def test_split_tf32_bound_counts_three_tf32_products():
+    assert H100.peak_flops_tf32 == 495e12 and V5E.peak_flops_tf32 is None
+    t, by = kernel_bound(165e12, 1.0, f32=True, split_tf32=True)
+    assert (t, by) == (1.0, "operations")
+    # the served flash shape: 227.8 MFLOP is 1.38 us so, 3.4 us on the CUDA cores
+    assert kernel_bound(227.8e6, 0, f32=True, split_tf32=True)[0] < kernel_bound(227.8e6, 0, f32=True)[0]
+    with pytest.raises(ValueError):  # a float32 route only
+        kernel_bound(1.0, 1.0, f32=False, split_tf32=True)
+    with pytest.raises(ValueError):
+        kernel_bound(1.0, 1.0, f32=True, split_tf32=True, hw=V5E)

@@ -1,15 +1,19 @@
-"""The algorithms of the two redesigned kernels, written out step by step as
-plain PyTorch (repro_torch.kernels.ref.decode_attention_split_ref and
-ssd_scan_split_ref), against the JAX package's Pallas kernels in interpret
-mode, on the CPU. They are the oracles of the split-KV decode (per-split
-partials over the valid slots, the fixed-order merge, the empty-row rule)
-and of the chunk-parallel SSD scan (chunk states, state passing, chunk
-outputs): a fault in the merge or in the state passing shows here without
-a card. Inputs come from a seeded numpy generator.
+"""The algorithms of the redesigned kernels, written out step by step as
+plain PyTorch (repro_torch.kernels.ref.decode_attention_split_ref,
+ssd_scan_split_ref and flash_attention_split_ref), against the JAX
+package's Pallas kernels in interpret mode, on the CPU. They are the
+oracles of the split-KV decode (per-split partials over the valid slots,
+the fixed-order merge, the empty-row rule), of the chunk-parallel SSD scan
+(chunk states, state passing, chunk outputs) and of the float32 flash
+kernel on split-TF32 tensor cores (folded row tiles, the key-tile walk,
+operands rounded to tf32 halves, the online softmax, the masks): a fault
+in a merge, in the state passing, in a tile bound or in the rounding shows
+here without a card. Inputs come from a seeded numpy generator.
 
-Tolerance: atol/rtol 1e-4 for decode (float32 softmax sums in another
-order, as tests/test_torch_kernels.py), 2e-4 for the SSD scan (the
-reference's own for its kernel).
+Tolerance: atol/rtol 1e-4 for decode and flash (float32 softmax sums in
+another order, as tests/test_torch_kernels.py; split-TF32 keeps ~22 bits
+of each operand), 2e-4 for the SSD scan (the reference's own for its
+kernel).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,15 +21,18 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro_torch.kernels.ref import (decode_attention_ref, decode_attention_split_ref,
-                                     ssd_scan_ref, ssd_scan_split_ref)
+                                     flash_attention_lse_ref, flash_attention_split_ref,
+                                     split_tf32, ssd_scan_ref, ssd_scan_split_ref, tf32_round)
 
 # one intra-op thread: the suite runs in parallel workers beside tests that
 # time wall-clock stage walls (tests/test_live.py)
 torch.set_num_threads(1)
 
 DECODE_TOL = 1e-4
+FLASH_TOL = 1e-4
 SSD_TOL = 2e-4
 
 
@@ -122,3 +129,53 @@ def test_ssd_split_ref_matches_pallas_kernel(name):
     yr, hr = ssd_scan_ref(*t, chunk=chunk)
     _close(y, yr, SSD_TOL)
     _close(h, hr, SSD_TOL)
+
+
+# B, S, H, K, hd, causal, window, softcap; S a multiple of 128 is also held
+# against the Pallas kernel (which needs whole 128-row blocks)
+FLASH_CASES = {
+    "g2_hd64": (1, 256, 4, 2, 64, True, 0, 0.0),
+    "g7_hd8": (1, 128, 7, 1, 8, True, 0, 0.0),  # reduced qwen2-0.5b: GQA 7:1 at hd 8
+    "g2_hd128_window": (1, 256, 4, 2, 128, True, 128, 0.0),
+    "g2_hd64_softcap": (1, 128, 4, 2, 64, True, 0, 30.0),
+    "g7_hd64_non_causal": (1, 128, 7, 1, 64, False, 0, 0.0),
+    "ragged_served_shape": (1, 333, 16, 8, 64, True, 0, 0.0),  # paper-default prefill
+    "ragged_g7_hd8_narrow_window": (2, 100, 7, 1, 8, True, 8, 0.0),
+    "ragged_g2_hd128_window_softcap": (1, 37, 4, 2, 128, True, 16, 50.0),
+    "ragged_non_causal_window": (1, 129, 4, 1, 64, False, 48, 0.0),
+}
+
+
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_split_ref_matches_pallas_kernel(name):
+    B, S, H, K, hd, causal, win, cap = FLASH_CASES[name]
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    got, lse = flash_attention_split_ref(*t, causal=causal, window=win, softcap=cap)
+    assert got.shape == (B, S, H, hd) and lse.shape == (B, H, S) and lse.dtype == torch.float32
+    if S % 128 == 0:
+        want = jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal, window=win, softcap=cap,
+                         interpret=True)
+        _close(got, want, FLASH_TOL)
+    # and the plain version the wrapper runs on the CPU agrees with it, the
+    # log-sum-exp too
+    want, want_lse = flash_attention_lse_ref(*t, causal=causal, window=win, softcap=cap)
+    _close(got, want, FLASH_TOL)
+    _close(lse, want_lse, FLASH_TOL)
+
+
+def test_tf32_split_rounds_as_the_tensor_cores():
+    """hi and lo are tf32 (the low 13 bits clear), hi is x to the nearest with
+    ties away from zero, and hi + lo holds x to 2^-22."""
+    x = torch.tensor([1.0, -1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                      3.0e-30, -7.5e20], dtype=torch.float32)
+    hi = tf32_round(x)
+    assert hi.tolist()[:5] == [1.0, -1.0, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]
+    y = torch.from_numpy(np.random.default_rng(5).standard_normal(4096).astype(np.float32)) * 1e3
+    hi, lo = split_tf32(y)
+    for half in (hi, lo):
+        assert int((half.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -22
+    assert float(((hi - y).abs() / y.abs()).max()) <= 2.0 ** -11

@@ -73,7 +73,20 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the float32 flash kernel also at q (1,2048,16,64) and at
      internlm2-1.8b's hd 128, q (1,333,16,128), SDPA beside each; and the
      LM head of one CE chunk of phase 10, forward + backward, the plain
-     float32 route against the bf16 tensor-core route.
+     float32 route against the bf16 tensor-core route;
+ 13. the live engine (repro_torch.core.live) on paper-default at full
+     width: LiveConfig(reduced=False, prompt 256, 32 decode tokens in
+     stages of 8, preemption on) over the default pools (vm: one reserved
+     worker; cf: elastic, 16 threads, 0.3 s startup), 9 queries, 3 a
+     service level, a BEST_EFFORT one first and an IMMEDIATE after its
+     first stage boundary: every query done, stage indices 0..n-1 billed
+     exactly, the BEST_EFFORT query preempted and its last token and cache
+     equal bit for bit to an uninterrupted rerun, 16 flash launches a
+     prefill and 16 decode launches a decode step (warm-up included), and
+     the first prefill no outlier (build and warm-up are not billed);
+     per-query results, the price menu, compile_s, median stage walls,
+     the device's busy share over one decode stage (torch.profiler) and
+     the first and second GEMM of a fresh thread (its cuBLAS handle).
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -84,6 +97,7 @@ import math
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -95,7 +109,9 @@ SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.sla import ServiceLevel  # noqa: E402
+from repro_torch.core.live import LiveConfig, LiveEngine, _prompt_inputs, _sync  # noqa: E402
+from repro_torch.core.query import QueryWork  # noqa: E402
+from repro_torch.core.sla import ServiceLevel, SLAConfig  # noqa: E402
 from repro_torch.data.batches import TokenStream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
@@ -107,6 +123,7 @@ from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_r
 from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.launch.serve_sla import serve_traffic  # noqa: E402
 from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
 from repro_torch.models.params import count_params, tree_leaves  # noqa: E402
 from repro_torch.models.transformer import LM, head_logits, plain_head_logits  # noqa: E402
@@ -1048,6 +1065,162 @@ def time_kernels(device, n_sets=16) -> dict:
     return out
 
 
+def _stage_steps(name: str) -> int:
+    """Decode steps of a stage named "decode[a:b]" (0 for the prefill)."""
+    if not name.startswith("decode["):
+        return 0
+    a, b = name[len("decode["):-1].split(":")
+    return int(b) - int(a)
+
+
+def _leaves(tree, prefix=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def live(device, card) -> dict:
+    """Phase 13: the live engine's main path at full width (see the module
+    docstring). Returns what it measured; raises on any failed check."""
+    eng = LiveEngine(LiveConfig(
+        reduced=False, device=str(device), prompt_tokens=256, decode_tokens=32,
+        decode_chunk_tokens=8,
+        sla=SLAConfig(relaxed_deadline_s=10.0, poll_period_s=0.05,
+                      vm_overload_threshold=2, preempt_best_effort=True),
+    ))
+    last = {}
+    save = eng._save_ckpt
+
+    def recording_save(q, ck):
+        last[q.qid] = ck
+        save(q, ck)
+
+    eng._save_ckpt = recording_save
+    menu = eng.price_menu(QueryWork(arch=ARCH))
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    qs = serve_traffic(eng, ARCH, per_level=3, timeout=300.0)
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention": flash_attention.launches,
+              "decode_attention": decode_attention.launches,
+              "ssd_scan": ssd_scan.launches}
+
+    bad = [(q.qid, q.state, q.error) for q in qs if q.state != "done"]
+    if bad:
+        raise AssertionError(f"live: queries not done {bad}")
+    n_stages = 1 + 32 // 8
+    for q in qs:
+        idx = [e.index for e in q.stage_trace]
+        billed = sum(e.chip_seconds for e in q.stage_trace)
+        if idx != list(range(n_stages)) or abs(billed - q.chip_seconds) > 1e-9 * max(1.0, billed):
+            raise AssertionError(f"live: Q{q.qid} stages {idx}, billed {billed} "
+                                 f"against {q.chip_seconds}")
+    boe = qs[0]
+    if boe.sla is not ServiceLevel.BEST_EFFORT or boe.preemptions < 1:
+        raise AssertionError(f"live: the first BEST_EFFORT query was preempted "
+                             f"{boe.preemptions} times")
+    n_attn = get_config(ARCH).layer_kinds().count("attn")
+    warm = len(eng.models.compile_s)
+    prefills = warm + sum(e.stage == "prefill" for q in qs for e in q.stage_trace)
+    steps = warm + sum(_stage_steps(e.stage) for q in qs for e in q.stage_trace)
+    want = {"flash_attention": n_attn * prefills, "decode_attention": n_attn * steps,
+            "ssd_scan": 0}
+    if counts != want:
+        raise AssertionError(f"live: launches {counts}, expected {want} "
+                             f"({prefills} prefills, {steps} decode steps)")
+
+    # the preempted query against the same query decoded in one go
+    lm = eng.models.ensure(ARCH, 1)
+    with torch.no_grad():
+        tok, cache = lm.prefill(lm.params, _prompt_inputs(
+            lm.cfg.vocab_size, 1, boe.work.prompt_tokens, boe.qid, device))
+        for _ in range(boe.work.output_tokens):
+            tok, cache = lm.decode(lm.params, cache, tok)
+    ck = last[boe.qid]
+    got, ref = dict(_leaves(ck.cache)), dict(_leaves(cache))
+    if (ck.decoded != boe.work.output_tokens or not torch.equal(ck.tok, tok)
+            or got.keys() != ref.keys() or not all(torch.equal(got[k], ref[k]) for k in ref)):
+        raise AssertionError("live: the preempted query's token and cache differ from "
+                             "an uninterrupted run's")
+
+    walls = {"prefill": [], "decode": []}
+    for q in qs:
+        for e in q.stage_trace:
+            walls["prefill" if e.stage == "prefill" else "decode"].append(e.finish - e.start)
+    first = boe.stage_trace[0].finish - boe.stage_trace[0].start
+    later = float(np.median(walls["prefill"][1:]))
+    if first > 4 * later:
+        raise AssertionError(f"live: the first prefill took {first:.4f}s against a median "
+                             f"{later:.4f}s of the later ones: warm-up was billed")
+
+    # one decode stage (8 steps) of a warm query: its wall, and the
+    # device's busy time over it from torch.profiler
+    def stage():
+        nonlocal tok, cache
+        for _ in range(8):
+            tok, cache = lm.decode(lm.params, cache, tok)
+        _sync(device)
+
+    with torch.no_grad():
+        tok, cache = lm.prefill(lm.params, _prompt_inputs(lm.cfg.vocab_size, 1, 256, 7, device))
+        stage()
+        stage_s = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            stage()
+            stage_s.append(time.perf_counter() - t1)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            stage()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    stage_ms = 1e3 * float(np.median(stage_s))
+
+    # what a worker thread's first GEMM costs (its cuBLAS handle), which
+    # _ModelPool.ensure pays outside the billed window
+    gemm_ms = []
+
+    def fresh_thread():
+        a = torch.ones((1024, 1024), dtype=torch.float32, device=device)
+        for _ in range(2):
+            t1 = time.perf_counter()
+            a @ a
+            _sync(device)
+            gemm_ms.append(1e3 * (time.perf_counter() - t1))
+
+    th = threading.Thread(target=fresh_thread)
+    th.start()
+    th.join(timeout=60)
+    if th.is_alive() or len(gemm_ms) != 2:
+        raise AssertionError("live: the fresh thread's GEMMs did not finish")
+    return {
+        "card": card,
+        "queries": [{"qid": q.qid, "level": q.sla.short, "pool": q.cluster,
+                     "pending_s": q.pending_time, "exec_s": q.exec_time, "cost": q.cost,
+                     "chip_s": q.chip_seconds, "stages": len(q.stage_trace),
+                     "preemptions": q.preemptions, "spilled": q.spilled}
+                    for q in sorted(qs, key=lambda q: q.qid)],
+        "price_menu": [{"sla": m.sla, "pool": m.pool, "est_pending_s": m.est_pending_s,
+                        "est_exec_s": m.est_exec_s, "est_cost": m.est_cost} for m in menu],
+        "compile_s": {f"{a}/{b}": t for (a, b), t in eng.models.compile_s.items()},
+        "launches": counts, "prefills": prefills, "decode_steps": steps,
+        "wall_s": wall,
+        "prefill_stage_s": {"first": first, "median": float(np.median(walls["prefill"]))},
+        "decode_stage_s_median": float(np.median(walls["decode"])),
+        "decode_stage_unloaded_ms": stage_ms,
+        "decode_stage_device_busy_ms": busy_ms if busy_ms else "not measured",
+        "decode_stage_device_idle_share": 1.0 - busy_ms / stage_ms if busy_ms else "not measured",
+        "fresh_thread_gemm_ms_first_second": gemm_ms,
+        "kv_cache_mb_per_query": sum(t.numel() * t.element_size()
+                                     for _, t in _leaves(cache)) / 1e6,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -1125,7 +1298,16 @@ def main() -> int:
     timing = time_kernels(device)
     for name, t in timing.items():
         print(f"[time] {name} {json.dumps(t)} on {card}", flush=True)
-    print(f"[time] {time.perf_counter() - t0:.1f}s; whole run "
+    print(f"[time] {time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    served_live = live(device, card)
+    for q in served_live.pop("queries"):
+        print(f"[live] {json.dumps(q)}", flush=True)
+    print(f"[live] price menu {json.dumps(served_live.pop('price_menu'))}", flush=True)
+    print(f"[live] {ARCH} full width, 9 queries on vm + cf: {json.dumps(served_live)} "
+          f"({time.perf_counter() - t0:.1f}s); whole run "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     # each kernel's launches come from the run of the path it is on: the

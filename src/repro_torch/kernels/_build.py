@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 _fns: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -97,6 +98,14 @@ def load(name: str, argtypes: list) -> ctypes._CFuncPtr:
             fn.restype = ctypes.c_int
             _fns[name] = fn
         return fn
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. Locked: the live engine launches
+    from several worker threads, and ``+=`` on an attribute is a read
+    and a write that another thread can come between."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def refuse_grad(name: str, *tensors) -> None:

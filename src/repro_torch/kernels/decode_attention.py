@@ -87,7 +87,7 @@ def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-        decode_attention.launches += 1
+        _build.count_launch(decode_attention)
     _build.raise_on_error("decode_attention", rc)
     return o
 

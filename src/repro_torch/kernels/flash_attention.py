@@ -79,7 +79,7 @@ def _launch(q, k, v, causal, window, softcap, with_lse):
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-        flash_attention.launches += 1
+        _build.count_launch(flash_attention)
     _build.raise_on_error("flash_attention", rc)
     return o, lse
 

@@ -62,7 +62,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-        flash_attention_bwd.launches += 1
+        _build.count_launch(flash_attention_bwd)
     _build.raise_on_error("flash_attention_bwd", rc)
     return dq, dk, dv
 

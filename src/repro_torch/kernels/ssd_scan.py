@@ -78,7 +78,7 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk=128, h0=None):
             Bsz, S, H, P, N, chunk, *B_.stride()[:3], *C_.stride()[:3],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-        ssd_scan.launches += 1
+        _build.count_launch(ssd_scan)
     _build.raise_on_error("ssd_scan", rc)
     return y, fs
 

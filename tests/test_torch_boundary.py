@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.convert import params_from_jax
+from repro_torch.core.live import LiveConfig, LiveEngine
 from repro_torch.data.batches import TokenStream, make_batch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention
@@ -52,7 +53,8 @@ def test_the_scan_sees_every_module_of_the_port():
             "src/repro_torch/launch/serve.py", "src/repro_torch/launch/train.py",
             "src/repro_torch/checkpoint/store.py", "src/repro_torch/training/step.py",
             "src/repro_torch/optim/adamw.py", "src/repro_torch/data/batches.py",
-            "chip_smoke.py"} <= names
+            "src/repro_torch/core/live.py", "src/repro_torch/core/scheduler.py",
+            "src/repro_torch/launch/serve_sla.py", "chip_smoke.py"} <= names
     # relative imports resolve inside the port: none climbs above it
     for path in PORT_FILES[:-1]:
         depth = len(path.relative_to(REPO / "src" / "repro_torch").parts) - 1
@@ -70,7 +72,8 @@ def test_port_calls_no_library_attention_or_compile(path):
 
 @pytest.mark.parametrize("fn", [ServeEngine.__init__, LM.__init__, build_model,
                                 params_from_jax, init_tree, train, init_state,
-                                TokenStream.__init__, make_batch, CheckpointStore.restore])
+                                TokenStream.__init__, make_batch, CheckpointStore.restore,
+                                LiveConfig.__init__])
 def test_entry_points_default_to_cuda(fn):
     params = inspect.signature(fn).parameters
     if "device" not in params:
@@ -96,6 +99,19 @@ def test_serve_cli_defaults_to_cuda():
 
 def test_train_cli_defaults_to_cuda():
     assert _cli_defaults("train.py")["--device"] == "cuda"
+
+
+def test_serve_sla_cli_defaults_to_cuda():
+    assert _cli_defaults("serve_sla.py")["--device"] == "cuda"
+
+
+def test_live_engine_asks_for_cuda_and_raises_without_it(monkeypatch):
+    """LiveEngine(LiveConfig()) serves on the card; where there is none it
+    raises before it starts a thread, rather than run on the CPU."""
+    assert LiveConfig().device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LiveEngine(LiveConfig())
 
 
 def _inputs(device, requires_grad):
@@ -145,6 +161,8 @@ def test_the_grad_guard_refuses_cuda_inputs_that_require_grad_under_grad_mode():
     "repro_torch.models.ssd", "repro_torch.models.transformer", "repro_torch.launch.serve",
     "repro_torch.launch.train", "repro_torch.training.step", "repro_torch.optim.adamw",
     "repro_torch.data.batches", "repro_torch.checkpoint.store", "repro_torch.convert",
+    "repro_torch.core", "repro_torch.core.live", "repro_torch.core.calibration",
+    "repro_torch.launch.serve_sla",
 ])
 def test_each_module_imports_first_in_a_fresh_interpreter(module):
     """The kernel modules and the model import each other's packages: no

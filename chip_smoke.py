@@ -66,7 +66,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      calls captured in a CUDA graph and replayed, since their device time
      is below the host's cost of a call; the eager loop's time beside it;
      decode and SSD also by kernel, from torch.profiler); at the training shape of (c), in bfloat16: the flash forward
-     with its log-sum-exp, the flash backward kernel, and
+     with its log-sum-exp, the flash backward kernel (held against its
+     plain version at bfloat16's tolerance, and two runs bit for bit; each
+     of its kernels' device µs a launch; the registers and spilled bytes of
+     its tensor-core dK/dV and dQ kernels from the ptxas report, with the
+     blocks an SM they allow; and the dK/dV pass's blocks), and
      flash_attention_diff forward plus backward; and at two longer shapes,
      where splitting the work pays most: the SSD scan at x (1,2048,80,64)
      (16 chunks) and decode on a 4,224-slot cache with lengths 4,000-4,100;
@@ -94,6 +98,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -116,7 +121,8 @@ from repro_torch.data.batches import TokenStream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse  # noqa: E402
-from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import (cached_schedule, flash_attention_bwd,  # noqa: E402
+                                                     workspace_numel)
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_lse_ref, flash_attention_ref,
                                      ssd_scan_ref, ssd_sequential_ref)
@@ -173,6 +179,8 @@ FLASH_BWD_CASES = [
     (2, 129, 4, 1, 64, False, 48, 0.0),  # non-causal, window, ragged
     (1, 333, 8, 4, 256, True, 4096, 50.0),  # gemma2-2b
     (1, 333, 8, 4, 256, True, 128, 50.0),
+    (2, 1024, 14, 2, 64, True, 0, 0.0),  # long causal GQA: key tiles cut into many segments
+    (1, 777, 8, 1, 128, True, 200, 0.0),  # ragged, windowed MQA at hd 128
 ]
 # decode cases: B, H, K, hd, Smax, window, softcap, fill
 # (fill = the new token's position; slots 0..fill hold positions 0..fill,
@@ -269,6 +277,29 @@ def ptxas_report(log: str) -> list[str]:
     return [f"{n}: {what}" for n, (_, what) in zip(names, out)]
 
 
+def tc_kernel_report(hd: int) -> dict:
+    """Registers, stack and spill bytes a thread of the flash backward's
+    tensor-core dK/dV and dQ kernels at head dim ``hd``, from the build's
+    ptxas report (phase 2), and the blocks an SM those registers allow at
+    the kernels' 128 threads (65,536 registers an SM, allocated a warp at a
+    time in units of 8 a thread)."""
+    lines = ptxas_report(_build.log_path("flash_attention_bwd").read_text())
+    out = {}
+    for kernel in ("dkdv_wg_kernel", "dq_wg_kernel"):
+        name = f"{kernel}<{hd}>"
+        line = next((ln for ln in lines if ln.startswith(f"{name}:")  # demangled
+                     or f"{len(kernel)}{kernel}ILi{hd}E" in ln.split(":")[0]), None)
+        if line is None:
+            raise AssertionError(f"ptxas report: no line for {name}")
+        regs = int(re.search(r"Used (\d+) registers", line).group(1))
+        stack, stores, loads = (int(re.search(rf"(\d+) bytes {what}", line).group(1))
+                                for what in ("stack frame", "spill stores", "spill loads"))
+        out[name] = {"registers": regs, "stack_bytes": stack, "spill_store_bytes": stores,
+                     "spill_load_bytes": loads,
+                     "blocks_per_sm_by_registers": 65536 // (128 * -(-regs // 8) * 8)}
+    return out
+
+
 def _close(name, got, want, tol):
     got, want = got.detach().float(), want.detach().float()
     if not bool(torch.isfinite(got).all()):
@@ -319,8 +350,9 @@ def _ssd_inputs(gen, B, S, H, P, N, single_group, dtype, device):
 
 def check_kernels(device) -> dict:
     """Phase 3. Returns each kernel's max abs error at the served shape in
-    float32, and the flash forward's and backward's in bfloat16 (their
-    tensor-core variants, which training runs)."""
+    float32, and the flash forward's in bfloat16 (its tensor-core variant,
+    which training runs); phase 12 measures the backward's at the training
+    shape."""
     gen = torch.Generator(device=device).manual_seed(0)
     errs = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -347,10 +379,8 @@ def check_kernels(device) -> dict:
                 q, k, v, o, g, lse, causal=causal, window=win, softcap=cap))
             want = flash_attention_bwd_ref(q, k, v, o, g, lse, causal=causal, window=win,
                                            softcap=cap)
-            err = max(_grad_err(f"flash_bwd {case} {dtype} d{n}", a, b, tol)
-                      for n, a, b in zip("qkv", got, want))
-            if case == FLASH_BWD_CASES[0] and dtype == torch.bfloat16:  # as timed
-                errs["flash_attention_bwd"] = err
+            for n, a, b in zip("qkv", got, want):
+                _grad_err(f"flash_bwd {case} {dtype} d{n}", a, b, tol)
         for case in DECODE_CASES:
             B, H, K, hd, Smax, win, cap, fill = case
             q, k, v = _qkv(gen, B, 1, Smax, H, K, hd, dtype, device)
@@ -1038,14 +1068,39 @@ def time_kernels(device, n_sets=16) -> dict:
     bound_s, bound_by = kernel_bound(2.5 * fwd_flops, 4 * qo_bytes + 4 * kv_bytes + lse_bytes,
                                      f32=False, hw=H100)
     sdpa_fwd_bwd_ms = _time_ms(fwd_bwd(sdpa), tlib, 20)
+
+    def bwd(q, k, v, g, o, lse):
+        return flash_attention_bwd(q, k, v, o, g, lse)
+
+    def bwd_ref(q, k, v, g, o, lse):
+        return flash_attention_bwd_ref(q, k, v, o, g, lse)
+
+    # at the full training shape: against the plain version, and two runs bit
+    # for bit (exact resume rests on it)
+    got, want = bwd(*tsets[0]), bwd_ref(*tsets[0])
+    bwd_err = max(_grad_err(f"flash_bwd at {shape} d{n}", a, b, BF16_TOL)
+                  for n, a, b in zip("qkv", got, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, bwd(*tsets[0]))):
+        raise AssertionError(f"flash_bwd at {shape}: two runs differ")
+    del got, want
+    # the dK/dV pass's schedule as the wrapper launched it: its items (one
+    # block each a KV head and batch row), then its tiles (segments in column 2)
+    sched, n_items, n_tiles, slots = cached_schedule(tsets[0][0].device, S, S, H // K, True, 0,
+                                                     B * K)
     out["flash_attention_bwd"] = {
-        "ms": _time_ms(lambda q, k, v, g, o, lse: flash_attention_bwd(q, k, v, o, g, lse),
-                       tsets, 20),
-        "plain_ms": _time_ms(lambda q, k, v, g, o, lse: flash_attention_bwd_ref(
-            q, k, v, o, g, lse), tsets, 4),
+        "ms": _time_ms(bwd, tsets, 20),
+        "plain_ms": _time_ms(bwd_ref, tsets, 4),
+        "max_abs_err": bwd_err,
         "library_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
         "library_is": "SDPA forward + backward minus SDPA forward, a difference of two timings",
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        # device µs a launch of the D pre-pass, the dK/dV pass, the merge and the dQ pass
+        "kernels_us": _kernel_us(bwd, tsets),
+        "tc_kernels": tc_kernel_report(hd),
+        "dkdv_blocks": n_items * B * K,
+        "dkdv_cut_tiles": int((sched[n_items:n_items + n_tiles, 2] > 1).sum()) * B * K,
+        "workspace_mb": workspace_numel(slots, B * K, hd) * 4 / 1e6,
+        "bit_identical_rerun": True,
         "shape": shape + ", backward",
     }
 
@@ -1246,8 +1301,8 @@ def main() -> int:
     print(f"[kernels] {len(FLASH_CASES)} flash (output and log-sum-exp) + "
           f"{len(FLASH_BWD_CASES)} flash backward + {len(DECODE_CASES) + len(RING_CASES)} decode + "
           f"{len(SSD_CASES)} ssd cases x (float32, bfloat16) agree with the plain versions; "
-          f"max abs err at the served shapes (float32; the bf16_fwd and bwd entries "
-          f"bfloat16) {json.dumps(errs)} "
+          f"max abs err at the served shapes (float32; the bf16_fwd entry bfloat16) "
+          f"{json.dumps(errs)} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
     served = {}
@@ -1333,6 +1388,7 @@ def main() -> int:
                              "flash_attention_bwd": train_counts["flash_attention_bwd"],
                              "flash_attention_diff": train_counts["flash_attention"]}}
     errs["flash_attention_diff"] = diff_err
+    errs["flash_attention_bwd"] = timing["flash_attention_bwd"]["max_abs_err"]
     kernels = []
     for name, (source, replaces, arch) in meta.items():
         t = timing[name]

@@ -9,11 +9,11 @@
 // P = exp(S - lse) tile by tile and returns dq, dk, dv in q's type:
 //   D = rowsum(dO * O)                       (pre-pass, float32 (B,H,Sq))
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D) * (1 - (s/cap)^2 with a cap)
-//   dK = dS^T Q * scale   (pass 1: a block owns one K/V tile of one (b, kv head))
+//   dK = dS^T Q * scale   (pass 1: K/V tiles of one (b, kv head), over the rows)
 //   dQ = dS K * scale     (pass 2: a block owns a tile of folded query rows)
 // Masking, the GQA fold (row = q * G + g) and the causal / window tile
-// skipping follow the forward. In pass 1 a block walks the folded G*Sq rows
-// from its causal frontier up to its window edge, so dK and dV sum the G
+// skipping follow the forward. In pass 1 a key tile walks the folded G*Sq
+// rows from its causal frontier up to its window edge, so dK and dV sum the G
 // heads in registers.
 //
 // Deterministic: no atomics. dQ is not accumulated across the key blocks of
@@ -23,19 +23,51 @@
 // 2.5x the forward's). Exact resume of a crashed training run relies on
 // gradients that repeat bit for bit.
 //
-// What bounds it: operations, as the forward. Tensor-core variant (bfloat16,
-// hd 64 and 128): 4 warps of 16 rows, mma.sync.m16n8k16 bf16 products with
-// float32 accumulators, ldmatrix from padded shared rows, and a
-// double-buffered cp.async ring for the tiles a block streams (Q/dO row
-// tiles in pass 1, K/V tiles in pass 2); P and dS are rounded to bf16 as
-// product operands, dK, dV and dQ accumulate in float32. CUDA-core variant
-// (float32 at every head dim, bfloat16 at hd 8, 16, 32 and 256): hd/8 threads
-// own a key (pass 1) or a query row (pass 2), 8 dims each, with shuffle
-// reductions for the dot products, as the forward's CUDA-core variant.
+// Tensor-core variant (bfloat16 at hd 64 and 128; the training path): P and
+// dS are rounded to bf16 as product operands, dK, dV and dQ accumulate in
+// float32, and a double-buffered cp.async ring streams the tiles a block
+// walks (Q/dO rows with their lse and D in pass 1, K/V in pass 2).
+// - Pass 1 is balanced over the causal rows. Under the causal mask a key
+//   tile's walk shrinks with its position (at qwen2-0.5b's training shape,
+//   q (4,2048,14,64) k/v (4,2048,2,64), the first walks 224 stages of 64
+//   rows and the last 7), so one block a tile left the card waiting on the
+//   longest walks. kernels/flash_attention_bwd.py::dkdv_schedule cuts each
+//   walk into segments of about equal length (about two waves of 3 blocks on
+//   132 SMs: 904 blocks at that shape where there were 256) and orders them
+//   longest first; a block takes one segment. A tile walked by one segment
+//   writes dk and dv itself; the segments of a cut tile write their float32
+//   sums to a workspace the wrapper allocates, and dkdv_merge_kernel adds
+//   them in segment (= row) order and rounds once to bf16. The cuts and the
+//   order of every sum depend on the shape alone: runs repeat bit for bit.
+// - Both passes run on wgmma, Hopper's warpgroup products (dkdv_wg_kernel,
+//   dq_wg_kernel): a block is one warpgroup; B comes straight from shared
+//   tiles in the 128-byte swizzle, one tile read K-major (S^T = K Q^T,
+//   dP^T = V dO^T, S = Q K^T, dP = dO V^T) and MN-major (dV += P^T dO,
+//   dK += dS^T Q, dQ += dS K); A from registers at hd 64 (the warp's K/V or
+//   Q/dO fragments, loaded once; P and dS as computed) and from shared
+//   memory for K/V and Q/dO at hd 128. (With mma.sync every warp reads the
+//   whole stage through ldmatrix; a warpgroup product reads it once for the
+//   four warps.)
+// - What bounds it on an H100 is not the products' operations (the
+//   backward's take ~0.08 ms at 989 TFLOP/s at the training shape) but
+//   latency: a block waits for each group of products before the
+//   elementwise work that feeds the next, and 3 blocks (12 warps) an SM hide
+//   what they can. So that work is kept short and free of branches: 2^x in
+//   one MUFU.EX2 (ex2.approx.ftz), the scale folded into one multiply,
+//   masking and the softcap in copies of the loop chosen by block-uniform
+//   branches, the division of a folded row by G as a multiply-high; at hd
+//   64 both passes are capped at 168 registers (3 blocks an SM; at hd 128,
+//   2). D is a pre-pass of 16-byte loads.
+// CUDA-core variant (float32 at every head dim, bfloat16 at hd 8, 16, 32 and
+// 256): hd/8 threads own a key (pass 1) or a query row (pass 2), 8 dims each,
+// with shuffle reductions for the dot products, as the forward's CUDA-core
+// variant; one block a key tile in pass 1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_mma.cuh"
 
@@ -255,197 +287,463 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-// ---- tensor-core variant (bf16, hd 64 and 128) ------------------------------
+// ---- tensor-core variant (bf16, hd 64 and 128): Hopper's warpgroup products --
+//
+// A block is one warpgroup (4 warps) issuing wgmma. Every tile a block
+// streams lives in shared memory as HD/64 sub-tiles of 64 rows x 128 bytes
+// (64 bf16 columns each) in the 128-byte swizzle: 16-byte chunk c of row r
+// sits at chunk c ^ (r % 8) of its row, each sub-tile 1024-byte aligned. One
+// such tile serves as a K-major B (reduced over its columns: S = Q K^T) and,
+// transposed, as an MN-major B (reduced over its rows: dQ += dS K), and as a
+// K-major A. A comes from registers where they hold it (hd 64: the warp's
+// K/V or Q/dO fragments, loaded once; P and dS as computed) and from shared
+// memory where they do not (hd 128: K/V and Q/dO). The accumulators have
+// mma.sync's C fragment layout, 16 rows a warp.
+
+constexpr int kKeys = 64;         // keys a dK/dV block
+constexpr int kSubTile = 64 * 128;  // bytes of a 64-row, 64-column sub-tile
+
+// 4 bytes global -> shared, asynchronously; zero-fills when !ok (src must
+// still be a valid address)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// 2^x in one MUFU.EX2 (flushes a result below 2^-126 to zero)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// n / G by a multiply-high with gm = ceil(2^32 / G): exact for n * G < 2^32,
+// which the launch checks (n is a folded row, below G * Sq)
+__device__ __forceinline__ int div_g(int n, unsigned long long gm) {
+  return (int)(((unsigned long long)(unsigned)n * gm) >> 32);
+}
+
+// byte offset of 16-byte chunk c (of HD/8) of row r (of 64) in a tile
+__device__ __forceinline__ int tile_off(int r, int c) {
+  return (c >> 3) * kSubTile + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// the descriptor of a sub-tile (or of its rows from a multiple of 8 on) at
+// p, either major: 1024 bytes between groups of 8 rows (the 64-column
+// swizzle atom spans the sub-tile, so the other stride is unused)
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// the K-major descriptor of k-step kk (16 columns) of a tile's rows at p
+__device__ __forceinline__ uint64_t wg_desc_k(const unsigned char* p, int kk) {
+  return wg_desc(p + (kk >> 2) * kSubTile) + 2 * (kk & 3);
+}
+
+// a warp's 16 rows of a tile as HD/16 A fragments (ldmatrix through the swizzle)
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4], const unsigned char* tile,
+                                       int warp, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(a[kk], reinterpret_cast<const bf16*>(
+                       tile + tile_off(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory writes of this thread (cp.async) made visible to wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the compiler may not move reads or writes of d across this point
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+#define WG_D16                                                                         \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),           \
+      "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),       \
+      "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+#define WG_D32                                                                           \
+  WG_D16, "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),     \
+      "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]),         \
+      "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define WG_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_R32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 32) (+)= A B^T, B the 32 x 16 K-major slice at db; A (64 x 16) in
+// registers, or the K-major slice at da
+__device__ __forceinline__ void wg_n32(float (&d)[4][4], const uint32_t (&a)[4], uint64_t db,
+                                       int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_R16
+               ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+               : WG_D16
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wg_n32(float (&d)[4][4], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_R16
+               ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+               : WG_D16
+               : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 64) (+)= A B: B the 16 x 64 MN-major slice at db (kTrans 1), or
+// B^T with B the 64 x 16 K-major slice (kTrans 0); A (64 x 16) in registers,
+// or the K-major slice at da
+template <int kTrans>
+__device__ __forceinline__ void wg_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db,
+                                       int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+               : WG_D32
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTrans));
+}
+__device__ __forceinline__ void wg_n64(float (&d)[8][4], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : WG_D32
+               : "l"(da), "l"(db), "r"(acc));
+}
+
+// D = rowsum(dO * O) on the tensor-core route: HD/8 threads a row, 16-byte loads
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+delta_tc_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
+                float* __restrict__ delta, int Sq, int H, long long rows) {
+  constexpr int TPR = HD / 8;
+  const long long row = (long long)blockIdx.x * (kThreads / TPR) + threadIdx.x / TPR;
+  const int lane = threadIdx.x % TPR;
+  float acc = 0.f;
+  if (row < rows) {  // the whole group; every lane stays for the shuffles
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * HD + lane * 8);
+    const uint4 g = *reinterpret_cast<const uint4*>(dO + row * HD + lane * 8);
+    const bf16* pa = reinterpret_cast<const bf16*>(&a);
+    const bf16* pg = reinterpret_cast<const bf16*>(&g);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc += to_f(pa[i]) * to_f(pg[i]);
+  }
+  acc = group_sum<TPR>(acc);
+  if (row < rows && lane == 0) {  // row = (b * Sq + qi) * H + h -> delta (B,H,Sq)
+    const long long b = row / ((long long)Sq * H), rem = row % ((long long)Sq * H);
+    delta[(b * H + rem % H) * Sq + rem / H] = acc;
+  }
+}
 
 template <int HD>
-struct TcTiling {
-  static constexpr int kThreads = 128;               // 4 warps, 16 rows each
-  static constexpr int kBN = 64;                     // pass 1: keys a block
-  static constexpr int kBM = HD <= 64 ? 64 : 32;     // pass 1: folded rows a step
-  static constexpr int kBQ = 64;                     // pass 2: folded rows a block
-  static constexpr int kBK = 64;                     // pass 2: keys a step
-  static constexpr int kSt = HD + 8;                 // padded shared row, bf16 elements
-  static constexpr int kSmem1 = (2 * kBN + 4 * kBM) * kSt * 2 + 4 * kBM * 4;
-  static constexpr int kSmem2 = (2 * kBQ + 4 * kBK) * kSt * 2;
+struct WgTiling {
+  static constexpr int kNA = HD / 64;             // 64-column sub-tiles a row
+  static constexpr int kBM = 64;                  // pass 1: folded rows a ring stage
+  static constexpr int kBH = 32;                  // pass 1: folded rows a product
+  static constexpr int kBQ = 64;                  // pass 2: folded rows a block
+  static constexpr int kBK = 64;                  // pass 2: keys a ring stage and a product
+  static constexpr int kTile = kNA * kSubTile;    // bytes of a 64-row tile
+  static constexpr bool kRegA = HD == 64;         // A operands in registers (else shared)
+  static constexpr int kBlocks = HD == 64 ? 3 : 2;  // blocks an SM (the register cap)
+  // pass 1: Q and dO rings (2 tiles each), K, V, lse and D; pass 2: K and V
+  // rings, Q and dO; 1024 bytes for the alignment
+  static constexpr int kSmem1 = 1024 + 6 * kTile + 4 * kBM * 4;
+  static constexpr int kSmem2 = 1024 + 6 * kTile;
 };
 
-// pass 1: dK, dV for kBN keys of one (b, kv head)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// pass 1: dK, dV of kKeys keys of one (b, kv head) over one segment of
+// their row walk. items[blockIdx.x / (K * B)] = {key tile, first folded row,
+// end row, slot}; slot -1: the tile's only segment, which writes dk and dv;
+// else the segment writes its float32 partial sums to part[slot][b * K +
+// kvh] ([dK | dV], kKeys x HD each, unscaled) for dkdv_merge_kernel.
 template <int HD>
-__global__ void __launch_bounds__(128)
-dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(128, WgTiling<HD>::kBlocks)
+dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dO,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H, int K,
-               int causal, int window, float cap, float scale) {
-  using C = TcTiling<HD>;
-  constexpr int BN = C::kBN, BM = C::kBM, ST = C::kSt, NT = C::kThreads;
-  constexpr int ND = HD / 8, NM = BM / 8, CH = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [BN][ST]
-  bf16* vs = ks + BN * ST;                   // [BN][ST]
-  bf16* qs = vs + BN * ST;                   // [2][BM][ST]
-  bf16* dos = qs + 2 * BM * ST;              // [2][BM][ST]
-  float* ls = reinterpret_cast<float*>(dos + 2 * BM * ST);  // [2][BM]
-  float* dl = ls + 2 * BM;                                  // [2][BM]
+               bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
+               const int4* __restrict__ items, int Sq, int Sk, int H, int K, int B,
+               int causal, int window, float cap, float scale, unsigned long long gm) {
+  using W = WgTiling<HD>;
+  constexpr int BN = kKeys, BM = W::kBM, BH = W::kBH, NA = W::kNA, TILE = W::kTile;
+  constexpr int NT = 128, NH = BH / 8, CH = HD / 8, NKK = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* qsw = align1024(smem_raw);  // [2] Q tiles [BM][HD]
+  unsigned char* dosw = qsw + 2 * TILE;      // [2] dO tiles [BM][HD]
+  unsigned char* ksw = dosw + 2 * TILE;      // K tile [BN][HD]
+  unsigned char* vsw = ksw + TILE;           // V tile [BN][HD]
+  float* ls = reinterpret_cast<float*>(vsw + TILE);  // [2][BM]
+  float* dl = ls + 2 * BM;                           // [2][BM]
 
-  const int G = H / K;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / K, kb = blockIdx.x % (K * B);
+  const int kvh = kb % K, b = kb / K;
+  const int4 it = items[blockIdx.x / (K * B)];
+  const int k0 = it.x * BN, r_lo = it.y, r_hi = it.z, slot = it.w;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * BN;
   const int k_last = min(Sk, k0 + BN) - 1;
-  const int r_begin = causal ? k0 * G / BM * BM : 0;
-  const int r_end = (window > 0 ? min(Sq, k_last + window) : Sq) * G;
+  const float scale_log2 = scale * kLog2e, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
 
   for (int c = tid; c < BN * CH; c += NT) {
-    const int j = c / CH, cc = (c % CH) * 8, key = k0 + j;
+    const int j = c / CH, ch = c % CH, key = k0 + j;
     const bool ok = key < Sk;
-    const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
-    cp_async16(ks + j * ST + cc, k + off, ok);
-    cp_async16(vs + j * ST + cc, v + off, ok);
+    const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + ch * 8 : 0;
+    cp_async16(ksw + tile_off(j, ch), k + off, ok);
+    cp_async16(vsw + tile_off(j, ch), v + off, ok);
   }
   auto load_rows = [&](int r, int buf) {
     for (int c = tid; c < BM * CH; c += NT) {
-      const int j = c / CH, cc = (c % CH) * 8, rr = r + j;
-      const bool ok = rr < r_end;
+      const int j = c / CH, ch = c % CH, rr = r + j, qi = div_g(rr, gm);
+      const bool ok = rr < r_hi;
       const size_t off =
-          ok ? (((size_t)b * Sq + rr / G) * H + (size_t)kvh * G + rr % G) * HD + cc : 0;
-      cp_async16(qs + (buf * BM + j) * ST + cc, q + off, ok);
-      cp_async16(dos + (buf * BM + j) * ST + cc, dO + off, ok);
+          ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + rr - qi * G) * HD + ch * 8 : 0;
+      cp_async16(qsw + buf * TILE + tile_off(j, ch), q + off, ok);
+      cp_async16(dosw + buf * TILE + tile_off(j, ch), dO + off, ok);
     }
     for (int j = tid; j < BM; j += NT) {
-      const int rr = r + j;
-      const bool ok = rr < r_end;
-      const size_t li = ((size_t)b * H + (size_t)kvh * G + rr % G) * Sq + rr / G;
-      ls[buf * BM + j] = ok ? lse[li] : 0.f;
-      dl[buf * BM + j] = ok ? delta[li] : 0.f;
+      const int rr = r + j, qi = div_g(rr, gm);
+      const bool ok = rr < r_hi;
+      const size_t li = ok ? ((size_t)b * H + (size_t)kvh * G + rr - qi * G) * Sq + qi : 0;
+      cp_async4(ls + buf * BM + j, lse + li, ok);
+      cp_async4(dl + buf * BM + j, delta + li, ok);
     }
   };
-
-  // this thread's keys: warp*16 + lane/4 (acc[.][0..1]) and + 8 (acc[.][2..3])
-  const int key_a = k0 + warp * 16 + (lane >> 2);
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  if (r_begin < r_end) load_rows(r_begin, 0);
+  load_rows(r_lo, 0);
   cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();
+  uint32_t kf[NKK][4], vf[NKK][4];  // hd 64: this warp's 16 keys of K and V, as A fragments
+  if constexpr (W::kRegA) {
+    load_a<HD>(kf, ksw, warp, lane);
+    load_a<HD>(vf, vsw, warp, lane);
+  }
+
+  // this thread's keys: warp*16 + lane/4 (acc[.][.][0..1]) and + 8 (acc[.][.][2..3])
+  const int key_a = k0 + warp * 16 + (lane >> 2);
+  float dka[NA][8][4], dva[NA][8][4];  // columns a*64 + n*8 + 2*(lane%4) (+1)
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[a][n][e] = dva[a][n][e] = 0.f;
+
   int buf = 0;
-  for (int r = r_begin; r < r_end; r += BM, buf ^= 1) {
-    if (r + BM < r_end) {
+  for (int r = r_lo; r < r_hi; r += BM, buf ^= 1) {
+    if (r + BM < r_hi) {
       load_rows(r + BM, buf ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
+    fence_async_smem();
     __syncthreads();
-    const bf16* qt = qs + buf * BM * ST;
-    const bf16* dot = dos + buf * BM * ST;
-    const float* lt = ls + buf * BM;
-    const float* dt = dl + buf * BM;
+#pragma unroll
+    for (int h = 0; h < BM / BH; ++h) {
+      const int rh = r + h * BH;
+      if (rh >= r_hi) break;  // block-uniform
+      const unsigned char* qt = qsw + buf * TILE + h * BH * 128;  // the half's rows
+      const unsigned char* dot = dosw + buf * TILE + h * BH * 128;
+      const float* lt = ls + buf * BM + h * BH;
+      const float* dt = dl + buf * BM + h * BH;
 
-    // S^T = K Q^T: 16 keys x BM rows a warp; then the capped, masked scores
-    float st[NM][4];
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x BH rows
+      float st[NH][4], dp[NH][4];
+      fence_regs(st);
+      fence_regs(dp);
+      wg_fence();
 #pragma unroll
-    for (int n = 0; n < NM; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-    mma_abt<HD, NM, ST>(st, ks + warp * 16 * ST, qt, lane);
-    const int q_lo = r / G, q_hi = (r + BM - 1) / G;
-    const bool edge = (causal && q_lo < k_last) || (window > 0 && q_hi - k0 >= window) ||
-                      k0 + BN > Sk || r + BM > r_end;
-#pragma unroll
-    for (int n = 0; n < NM; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = st[n][e] * scale;
-        if (cap > 0.f) x = cap * tanhf(x / cap);
-        if (edge) {
-          const int rr = r + n * 8 + ((lane & 3) << 1) + (e & 1);
-          const int key = key_a + ((e >> 1) << 3);
-          if (rr >= r_end || key >= Sk || !visible(rr / G, key, causal, window)) x = -INFINITY;
-        }
-        st[n][e] = x;
+      for (int kk = 0; kk < NKK; ++kk) {
+        if constexpr (W::kRegA)
+          wg_n32(st, kf[kk], wg_desc_k(qt, kk), kk);
+        else
+          wg_n32(st, wg_desc_k(ksw, kk), wg_desc_k(qt, kk), kk);
       }
-    }
+#pragma unroll
+      for (int kk = 0; kk < NKK; ++kk) {
+        if constexpr (W::kRegA)
+          wg_n32(dp, vf[kk], wg_desc_k(dot, kk), kk);
+        else
+          wg_n32(dp, wg_desc_k(vsw, kk), wg_desc_k(dot, kk), kk);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(st);
+      fence_regs(dp);
 
-    // dV += P^T dO
+      const int q_lo = div_g(rh, gm), q_hi = div_g(rh + BH - 1, gm);
+      const bool edge = (causal && q_lo < k_last) || (window > 0 && q_hi - k0 >= window) ||
+                        k0 + BN > Sk || rh + BH > r_hi;
+      // P^T and dS^T = P^T * (dP^T - D) (* the softcap factor), in bf16 as
+      // the A operands of dV += P^T dO and dK += dS^T Q; one copy of the loop
+      // for each of (softcap, masked tile), chosen by block-uniform branches
+      uint32_t pa[NH / 2][4], da[NH / 2][4];
+      auto p_ds = [&](auto capped, auto masked) {
 #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      float p[2][4];
+        for (int n = 0; n < NH; ++n) {
+          float p[4], d[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = (2 * kk + h) * 8 + ((lane & 3) << 1) + (e & 1);
-          p[h][e] = exp2f((st[2 * kk + h][e] - lt[col]) * kLog2e);
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + ((lane & 3) << 1) + (e & 1);
+            float x, f = 1.f;  // the score (capped) times log2(e); the softcap factor
+            if constexpr (decltype(capped)::value) {
+              const float t = tanhf(st[n][e] * scale * inv_cap);
+              x = cap * t * kLog2e;
+              f = 1.f - t * t;
+            } else {
+              x = st[n][e] * scale_log2;
+            }
+            p[e] = fast_exp2(x - lt[col] * kLog2e);
+            if constexpr (decltype(masked)::value) {
+              const int rr = rh + col, key = key_a + ((e >> 1) << 3);
+              const bool ok =
+                  (rr < r_hi) & (key < Sk) & visible(div_g(rr, gm), key, causal, window);
+              p[e] = ok ? p[e] : 0.f;
+            }
+            d[e] = p[e] * f * (dp[n][e] - dt[col]);
+          }
+          pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+          pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+          da[n >> 1][(n & 1) * 2] = pack_bf16(d[0], d[1]);
+          da[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
         }
-      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-      mma_ab<HD, ST>(dva, pa, dot + kk * 16 * ST, lane);
-    }
+      };
+      using T_ = std::true_type;
+      using F_ = std::false_type;
+      if (cap > 0.f) {
+        if (edge) p_ds(T_{}, T_{}); else p_ds(T_{}, F_{});
+      } else {
+        if (edge) p_ds(F_{}, T_{}); else p_ds(F_{}, F_{});
+      }
 
-    // dP^T = V dO^T; dS^T = P^T * (dP^T - D) (* the softcap factor)
-    float dp[NM][4];
+      // dV += P^T dO and dK += dS^T Q over the BH rows, 16 a step
 #pragma unroll
-    for (int n = 0; n < NM; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    mma_abt<HD, NM, ST>(dp, vs + warp * 16 * ST, dot, lane);
-
-    // dK += dS^T Q
+      for (int a = 0; a < NA; ++a) {
+        fence_regs(dva[a]);
+        fence_regs(dka[a]);
+      }
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      float ds[2][4];
+      for (int kk = 0; kk < NH / 2; ++kk)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = 2 * kk + h;
-          const int col = n * 8 + ((lane & 3) << 1) + (e & 1);
-          const float x = st[n][e];
-          const float p = exp2f((x - lt[col]) * kLog2e);
-          float d = p * (dp[n][e] - dt[col]);
-          if (cap > 0.f && p > 0.f) d *= 1.f - (x / cap) * (x / cap);
-          ds[h][e] = d;
+        for (int a = 0; a < NA; ++a) {
+          wg_n64<1>(dva[a], pa[kk], wg_desc(dot + a * kSubTile + kk * 16 * 128), 1);
+          wg_n64<1>(dka[a], da[kk], wg_desc(qt + a * kSubTile + kk * 16 * 128), 1);
         }
-      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-      mma_ab<HD, ST>(dka, da, qt + kk * 16 * ST, lane);
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        fence_regs(dva[a]);
+        fence_regs(dka[a]);
+      }
     }
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
-  cp_async_wait<0>();
 
+  if (slot < 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key_a + 8 * i;
+      if (key >= Sk) continue;
+      const size_t off = (((size_t)b * Sk + key) * K + kvh) * HD + ((lane & 3) << 1);
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = a * 64 + n * 8;
+          *reinterpret_cast<uint32_t*>(dk + off + col) =
+              pack_bf16(dka[a][n][2 * i] * scale, dka[a][n][2 * i + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + off + col) =
+              pack_bf16(dva[a][n][2 * i], dva[a][n][2 * i + 1]);
+        }
+    }
+    return;
+  }
+  float* pk = part + ((size_t)slot * K * B + kb) * (2 * BN * HD);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int key = key_a + 8 * i;
-    if (key >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + key) * K + kvh) * HD + ((lane & 3) << 1);
+    const int off = (warp * 16 + (lane >> 2) + 8 * i) * HD + ((lane & 3) << 1);
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
-          pack_bf16(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
-          pack_bf16(dva[n][2 * i], dva[n][2 * i + 1]);
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = a * 64 + n * 8;
+        *reinterpret_cast<float2*>(pk + off + col) =
+            make_float2(dka[a][n][2 * i], dka[a][n][2 * i + 1]);
+        *reinterpret_cast<float2*>(pk + BN * HD + off + col) =
+            make_float2(dva[a][n][2 * i], dva[a][n][2 * i + 1]);
+      }
+  }
+}
+
+// pass 1, the merge of a key tile cut into several segments: tiles[blockIdx.x
+// / (K * B)] = {key tile, first slot, segments, 0}. Adds the segments' float32
+// partials in slot (= row) order, scales dK, rounds once to bf16.
+template <int HD>
+__global__ void __launch_bounds__(256)
+dkdv_merge_kernel(const float* __restrict__ part, const int4* __restrict__ tiles,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Sk, int K, int B,
+                  float scale) {
+  constexpr int BN = kKeys, TILE = BN * HD;
+  const int kb = blockIdx.x % (K * B), kvh = kb % K, b = kb / K;
+  const int4 m = tiles[blockIdx.x / (K * B)];
+  if (m.z < 2) return;  // an uncut tile: its block wrote dk and dv
+  const size_t stride = (size_t)K * B * 2 * TILE;  // one slot
+  const float* base = part + ((size_t)m.y * K * B + kb) * 2 * TILE;
+  for (int i = threadIdx.x * 4; i < 2 * TILE; i += 256 * 4) {
+    float4 acc = *reinterpret_cast<const float4*>(base + i);
+    for (int s = 1; s < m.z; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(base + s * stride + i);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
     }
+    const int e = i % TILE, key = m.x * BN + e / HD;
+    if (key >= Sk) continue;
+    const float sc = i < TILE ? scale : 1.f;
+    bf16* out = (i < TILE ? dk : dv) + (((size_t)b * Sk + key) * K + kvh) * HD + e % HD;
+    *reinterpret_cast<uint2*>(out) =
+        make_uint2(pack_bf16(acc.x * sc, acc.y * sc), pack_bf16(acc.z * sc, acc.w * sc));
   }
 }
 
 // pass 2: dQ for kBQ folded query rows of one (b, kv head)
 template <int HD>
-__global__ void __launch_bounds__(128)
-dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(128, WgTiling<HD>::kBlocks)
+dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, int Sq, int Sk, int H, int K, int causal, int window,
              float cap, float scale) {
-  using C = TcTiling<HD>;
-  constexpr int BQ = C::kBQ, BK = C::kBK, ST = C::kSt, NT = C::kThreads;
-  constexpr int ND = HD / 8, NN = BK / 8, CH = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [BQ][ST]
-  bf16* dos = qs + BQ * ST;                  // [BQ][ST]
-  bf16* ks = dos + BQ * ST;                  // [2][BK][ST]
-  bf16* vs = ks + 2 * BK * ST;               // [2][BK][ST]
+  using W = WgTiling<HD>;
+  constexpr int BQ = W::kBQ, BK = W::kBK, NA = W::kNA, TILE = W::kTile;
+  constexpr int NT = 128, NN = BK / 8, CH = HD / 8, NKK = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ksw = align1024(smem_raw);  // [2] K tiles [BK][HD]
+  unsigned char* vsw = ksw + 2 * TILE;       // [2] V tiles [BK][HD]
+  unsigned char* qsw = vsw + 2 * TILE;       // Q tile [BQ][HD]
+  unsigned char* dosw = qsw + TILE;          // dO tile [BQ][HD]
 
   const int G = H / K;
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -457,28 +755,30 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_begin = window > 0 ? max(0, q_first - window + 1) / BK * BK : 0;
 
   for (int c = tid; c < BQ * CH; c += NT) {
-    const int rr = c / CH, cc = (c % CH) * 8;
+    const int rr = c / CH, ch = c % CH;
     const int r = r0 + rr, qi = r / G;
     const bool ok = qi < Sq;
-    const size_t off = ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + r % G) * HD + cc : 0;
-    cp_async16(qs + rr * ST + cc, q + off, ok);
-    cp_async16(dos + rr * ST + cc, dO + off, ok);
+    const size_t off =
+        ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + r % G) * HD + ch * 8 : 0;
+    cp_async16(qsw + tile_off(rr, ch), q + off, ok);
+    cp_async16(dosw + tile_off(rr, ch), dO + off, ok);
   }
   auto load_kv = [&](int kb, int buf) {
     for (int c = tid; c < BK * CH; c += NT) {
-      const int j = c / CH, cc = (c % CH) * 8, key = kb + j;
+      const int j = c / CH, ch = c % CH, key = kb + j;
       const bool ok = key < Sk;
-      const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
-      cp_async16(ks + (buf * BK + j) * ST + cc, k + off, ok);
-      cp_async16(vs + (buf * BK + j) * ST + cc, v + off, ok);
+      const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + ch * 8 : 0;
+      cp_async16(ksw + buf * TILE + tile_off(j, ch), k + off, ok);
+      cp_async16(vsw + buf * TILE + tile_off(j, ch), v + off, ok);
     }
   };
   load_kv(k_begin, 0);
   cp_async_commit();
 
-  // this thread's rows: warp*16 + lane/4 (acc[.][0..1]) and + 8 (acc[.][2..3])
+  // this thread's rows: warp*16 + lane/4 (acc[.][.][0..1]) and + 8 (acc[.][.][2..3])
   const int ra = r0 + warp * 16 + (lane >> 2);
-  float lr[2], dr[2];
+  const float scale_log2 = scale * kLog2e, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+  float lr2[2], dr[2];  // the rows' log-sum-exp times log2(e), and D
   int qr[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -486,12 +786,15 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qr[i] = r / G;
     const bool ok = qr[i] < Sq;
     const size_t li = ((size_t)b * H + (size_t)kvh * G + r % G) * Sq + (ok ? qr[i] : 0);
-    lr[i] = ok ? lse[li] : 0.f;
+    lr2[i] = ok ? lse[li] * kLog2e : 0.f;
     dr[i] = ok ? delta[li] : 0.f;
   }
-  float dqa[ND][4];
+  float dqa[NA][8][4];  // columns a*64 + n*8 + 2*(lane%4) (+1)
 #pragma unroll
-  for (int n = 0; n < ND; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) dqa[a][n][0] = dqa[a][n][1] = dqa[a][n][2] = dqa[a][n][3] = 0.f;
+  uint32_t qf[NKK][4], df[NKK][4];  // hd 64: this warp's 16 rows of Q and dO, as A fragments
 
   int buf = 0;
   for (int kb = k_begin; kb < k_end; kb += BK, buf ^= 1) {
@@ -502,45 +805,97 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     } else {
       cp_async_wait<0>();
     }
+    fence_async_smem();
     __syncthreads();
-    const bf16* kt = ks + buf * BK * ST;
-    const bf16* vt = vs + buf * BK * ST;
+    if constexpr (W::kRegA) {
+      if (kb == k_begin) {
+        load_a<HD>(qf, qsw, warp, lane);
+        load_a<HD>(df, dosw, warp, lane);
+      }
+    }
+    const unsigned char* kt = ksw + buf * TILE;
+    const unsigned char* vt = vsw + buf * TILE;
 
-    // S = Q K^T and dP = dO V^T: 16 rows x BK keys a warp
+    // S = Q K^T and dP = dO V^T: 64 rows x BK keys
     float s[NN][4], dp[NN][4];
+    fence_regs(s);
+    fence_regs(dp);
+    wg_fence();
 #pragma unroll
-    for (int n = 0; n < NN; ++n)
+    for (int kk = 0; kk < NKK; ++kk) {
+      if constexpr (W::kRegA)
+        wg_n64<0>(s, qf[kk], wg_desc_k(kt, kk), kk);
+      else
+        wg_n64(s, wg_desc_k(qsw, kk), wg_desc_k(kt, kk), kk);
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<HD, NN, ST>(s, qs + warp * 16 * ST, kt, lane);
-    mma_abt<HD, NN, ST>(dp, dos + warp * 16 * ST, vt, lane);
+    for (int kk = 0; kk < NKK; ++kk) {
+      if constexpr (W::kRegA)
+        wg_n64<0>(dp, df[kk], wg_desc_k(vt, kk), kk);
+      else
+        wg_n64(dp, wg_desc_k(dosw, kk), wg_desc_k(vt, kk), kk);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+    fence_regs(dp);
 
     const bool edge = (causal && kb + BK - 1 > q_first) ||
                       (window > 0 && q_last - kb >= window) || kb + BK > Sk;
-    // dS = P * (dP - D) (* the softcap factor); dQ += dS K
+    // dS = P * (dP - D) (* the softcap factor) in bf16, the A operand of
+    // dQ += dS K; one copy of the loop for each of (softcap, masked tile),
+    // chosen by block-uniform branches
+    uint32_t da[BK / 16][4];
+    auto ds_k = [&](auto capped, auto masked) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      float ds[2][4];
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        float ds[2][4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = 2 * kk + h, i = e >> 1;
-          float x = s[n][e] * scale;
-          if (cap > 0.f) x = cap * tanhf(x / cap);
-          float p = exp2f((x - lr[i]) * kLog2e);
-          if (edge) {
-            const int key = kb + n * 8 + ((lane & 3) << 1) + (e & 1);
-            if (key >= Sk || !visible(qr[i], key, causal, window)) p = 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const int n = 2 * kk + hh, i = e >> 1;
+            float x, f = 1.f;  // the score (capped) times log2(e); the softcap factor
+            if constexpr (decltype(capped)::value) {
+              const float t = tanhf(s[n][e] * scale * inv_cap);
+              x = cap * t * kLog2e;
+              f = 1.f - t * t;
+            } else {
+              x = s[n][e] * scale_log2;
+            }
+            float p = fast_exp2(x - lr2[i]);
+            if constexpr (decltype(masked)::value) {
+              const int key = kb + n * 8 + ((lane & 3) << 1) + (e & 1);
+              p = (key < Sk) & visible(qr[i], key, causal, window) ? p : 0.f;
+            }
+            ds[hh][e] = p * f * (dp[n][e] - dr[i]);
           }
-          float d = p * (dp[n][e] - dr[i]);
-          if (cap > 0.f) d *= 1.f - (x / cap) * (x / cap);
-          ds[h][e] = d;
-        }
-      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-      mma_ab<HD, ST>(dqa, da, kt + kk * 16 * ST, lane);
+        da[kk][0] = pack_bf16(ds[0][0], ds[0][1]);
+        da[kk][1] = pack_bf16(ds[0][2], ds[0][3]);
+        da[kk][2] = pack_bf16(ds[1][0], ds[1][1]);
+        da[kk][3] = pack_bf16(ds[1][2], ds[1][3]);
+      }
+    };
+    using T_ = std::true_type;
+    using F_ = std::false_type;
+    if (cap > 0.f) {
+      if (edge) ds_k(T_{}, T_{}); else ds_k(T_{}, F_{});
+    } else {
+      if (edge) ds_k(F_{}, T_{}); else ds_k(F_{}, F_{});
     }
+    // dQ += dS K over the BK keys, 16 a step
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(dqa[a]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        wg_n64<1>(dqa[a], da[kk], wg_desc(kt + a * kSubTile + kk * 16 * 128), 1);
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(dqa[a]);
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
@@ -551,9 +906,11 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* row = dq + (((size_t)b * Sq + qr[i]) * H + (size_t)kvh * G + r % G) * HD +
                 ((lane & 3) << 1);
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16(dqa[n][2 * i] * scale, dqa[n][2 * i + 1] * scale);
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(row + a * 64 + n * 8) =
+            pack_bf16(dqa[a][n][2 * i] * scale, dqa[a][n][2 * i + 1] * scale);
   }
 }
 
@@ -562,6 +919,9 @@ struct Args {
   const float* lse;
   void *dq, *dk, *dv;
   float* delta;
+  float* part;
+  const int4* sched;
+  int n_items, n_tiles;
   int B, Sq, Sk, H, K, causal, window;
   float cap, scale;
   cudaStream_t s;
@@ -597,27 +957,41 @@ cudaError_t launch(const Args& a) {
   return cudaSuccess;
 }
 
+template <typename F>
+cudaError_t smem_attr(F* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 template <int HD>
 cudaError_t launch_tc(const Args& a) {
-  using C = TcTiling<HD>;
-  static const cudaError_t attr1 = cudaFuncSetAttribute(
-      dkdv_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem1);
-  static const cudaError_t attr2 = cudaFuncSetAttribute(
-      dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem2);
+  using W = WgTiling<HD>;
+  static const cudaError_t attr1 = smem_attr(dkdv_wg_kernel<HD>, W::kSmem1);
+  static const cudaError_t attr2 = smem_attr(dq_wg_kernel<HD>, W::kSmem2);
   if (attr1 != cudaSuccess) return attr1;
   if (attr2 != cudaSuccess) return attr2;
   const int G = a.H / a.K;
-  const long long nk = (a.Sk + C::kBN - 1) / C::kBN;
-  const long long nq = ((long long)G * a.Sq + C::kBQ - 1) / C::kBQ;
-  if (nq > 0x7fffffffLL || a.K > 65535 || a.B > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = launch_delta<bf16>(a, HD);
-  if (err != cudaSuccess) return err;
+  const long long kb = (long long)a.K * a.B;
+  const long long n1 = a.n_items * kb, nm = a.n_tiles * kb;
+  const long long nq = ((long long)G * a.Sq + W::kBQ - 1) / W::kBQ;
+  const long long rows = (long long)a.B * a.Sq * a.H;
+  const long long nd = (rows + kThreads / (HD / 8) - 1) / (kThreads / (HD / 8));
+  // the folded rows r < G * Sq are divided by G as a multiply-high
+  if (a.n_items <= 0 || a.n_tiles <= 0 || a.sched == nullptr || n1 > 0x7fffffffLL ||
+      nm > 0x7fffffffLL || nq > 0x7fffffffLL || nd > 0x7fffffffLL || a.K > 65535 ||
+      a.B > 65535 || (long long)G * G * a.Sq >= (1LL << 32))
+    return cudaErrorInvalidValue;
+  const unsigned long long gm = ((1ULL << 32) + G - 1) / G;
   const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
              *v = static_cast<const bf16*>(a.v), *dO = static_cast<const bf16*>(a.dO);
-  dkdv_tc_kernel<HD><<<dim3((unsigned)nk, a.K, a.B), C::kThreads, C::kSmem1, a.s>>>(
-      q, k, v, dO, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq,
-      a.Sk, a.H, a.K, a.causal, a.window, a.cap, a.scale);
-  dq_tc_kernel<HD><<<dim3((unsigned)nq, a.K, a.B), C::kThreads, C::kSmem2, a.s>>>(
+  bf16 *dk = static_cast<bf16*>(a.dk), *dv = static_cast<bf16*>(a.dv);
+  delta_tc_kernel<HD><<<(unsigned)nd, kThreads, 0, a.s>>>(static_cast<const bf16*>(a.o), dO,
+                                                          a.delta, a.Sq, a.H, rows);
+  dkdv_wg_kernel<HD><<<(unsigned)n1, 128, W::kSmem1, a.s>>>(
+      q, k, v, dO, a.lse, a.delta, dk, dv, a.part, a.sched, a.Sq, a.Sk, a.H, a.K, a.B,
+      a.causal, a.window, a.cap, a.scale, gm);
+  dkdv_merge_kernel<HD><<<(unsigned)nm, 256, 0, a.s>>>(a.part, a.sched + a.n_items, dk, dv,
+                                                       a.Sk, a.K, a.B, a.scale);
+  dq_wg_kernel<HD><<<dim3((unsigned)nq, a.K, a.B), 128, W::kSmem2, a.s>>>(
       q, k, v, dO, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.H, a.K, a.causal,
       a.window, a.cap, a.scale);
   return cudaSuccess;
@@ -640,21 +1014,30 @@ cudaError_t dispatch(int hd, const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16. q/o/dO/dq (B,Sq,H,hd), k/v/dk/dv
 // (B,Sk,K,hd), lse and delta (scratch for D) (B,H,Sq) float32, all
-// contiguous. Launches the D pre-pass, the dK/dV pass and the dQ pass on
+// contiguous. The tensor-core route (bfloat16, hd 64 and 128) also takes the
+// dK/dV pass's schedule, n_items segment rows then n_tiles key-tile rows of 4
+// int32 each (kernels/flash_attention_bwd.py::dkdv_schedule), and the float32
+// workspace of its partials (slots x B x K x 2 x 64 x hd); the CUDA-core
+// routes take null and 0 there. Launches the D pre-pass, the dK/dV pass (and on the
+// tensor-core route the merge of its cut key tiles) and the dQ pass on
 // ``stream``. Returns a cudaError_t: the launches', else cudaGetLastError().
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dO, const void* lse, void* dq,
-                                   void* dk, void* dv, void* delta, int B, int Sq, int Sk,
-                                   int H, int K, int hd, int causal, int window,
-                                   float softcap, float scale, void* stream) {
+                                   void* dk, void* dv, void* delta, void* work,
+                                   const void* sched, int n_items, int n_tiles,
+                                   int B, int Sq, int Sk, int H, int K, int hd, int causal,
+                                   int window, float softcap, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || K <= 0 || H % K != 0)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, dO, static_cast<const float*>(lse), dq, dk, dv,
-               static_cast<float*>(delta), B, Sq, Sk, H, K, causal, window, softcap,
-               scale, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(delta), static_cast<float*>(work),
+               static_cast<const int4*>(sched), n_items, n_tiles,
+               B, Sq, Sk, H, K, causal, window, softcap, scale,
+               static_cast<cudaStream_t>(stream)};
   // the tensor-core variant copies 16-byte chunks
   if (dtype == 1 && (hd == 64 || hd == 128) &&
-      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dO) & 15))
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dO |
+        (uintptr_t)sched | (uintptr_t)work) & 15))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0)

@@ -79,6 +79,11 @@ FLASH_BWD = [
     (1, 200, 8, 2, 128, True, 0, 0.0),  # hd 128
     (1, 333, 8, 4, 256, True, 128, 50.0),  # gemma2-2b: hd 256, window, softcap
     (2, 129, 4, 1, 64, False, 48, 0.0),  # non-causal, window, ragged
+    # key tiles whose row walk the tensor-core dK/dV pass cuts into many
+    # segments (kernels/flash_attention_bwd.py::dkdv_schedule)
+    (2, 1024, 14, 2, 64, True, 0, 0.0),  # long causal GQA 7:1: 14 segments on the first tile
+    (1, 777, 8, 1, 128, True, 200, 0.0),  # ragged, windowed MQA at hd 128
+    (2, 512, 8, 2, 64, False, 0, 0.0),  # non-causal: every tile cut
 ]
 # B, H, K, hd, Smax, window, softcap, fill (the new token's position; -1 = empty cache)
 DECODE = [
@@ -325,7 +330,7 @@ def test_flash_bwd_kernel_matches_plain(dev, case, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [FLASH_BWD[0], FLASH_BWD[4]])
+@pytest.mark.parametrize("case", [FLASH_BWD[0], FLASH_BWD[4], *FLASH_BWD[6:]])
 def test_flash_bwd_kernel_is_deterministic(dev, case, dtype):
     *_, causal, win, cap = case
     q, k, v, g, o, lse = _bwd_inputs(dev, case, dtype, 9)

@@ -10,9 +10,15 @@ Inputs come from a seeded numpy generator and go to both packages.
 Tolerances, float32 on both sides: the log-sum-exp atol/rtol 1e-5 (one
 reduction in another order); the gradients 1e-4, as
 tests/test_torch_train.py holds ``flash_attention_diff``.
+
+The file also checks, exactly, the segment schedule of the tensor-core
+dK/dV pass (``dkdv_schedule``), which the kernel takes as it is: every row
+step of each key tile's walk once, in order, and a fixed merge order.
 """
 import functools
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +29,7 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models.layers import causal_window_mask
+from repro_torch.kernels import flash_attention_bwd as bwd_module
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_lse_ref
 
@@ -138,3 +145,97 @@ def test_bwd_cpu_wrapper_runs_the_plain_version_and_launches_nothing():
     want = flash_attention_bwd_ref(q, k, v, out, g, lse, window=8, softcap=20.0)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert flash_attention_bwd.launches == before
+
+
+# The tensor-core dK/dV pass's segment schedule (kernels/flash_attention_bwd.py::
+# dkdv_schedule): qwen2-0.5b's training shape, chip_smoke.py's FLASH_BWD_CASES
+# shapes (S, G, causal, window, B * K) and the long cases of
+# tests/test_torch_cuda.py.
+TRAIN_SHAPE = (2048, 7, True, 0, 4 * 2)
+SCHEDULE_SHAPES = [
+    TRAIN_SHAPE,
+    (333, 7, True, 0, 2),
+    (37, 7, True, 0, 2),
+    (256, 2, True, 64, 2),
+    (200, 4, True, 0, 2),
+    (256, 4, False, 0, 1),
+    (129, 4, False, 48, 2),
+    (333, 2, True, 4096, 4),
+    (333, 2, True, 128, 4),
+    (1024, 7, True, 0, 2 * 2),
+    (777, 8, True, 200, 1),
+    (512, 4, False, 0, 2 * 2),
+]
+
+
+def _walk_rows(S, G, causal, window, k0, k_end):
+    """The folded rows r = q * G + g whose query q sees a key of [k0, k_end),
+    by brute force over the mask."""
+    q = np.arange(S)[:, None]
+    keys = np.arange(k0, k_end)[None, :]
+    seen = np.ones((S, k_end - k0), bool)
+    if causal:
+        seen &= keys <= q
+    if window:
+        seen &= q - keys < window
+    rows = np.flatnonzero(seen.any(1))
+    return (rows[:, None] * G + np.arange(G)[None]).ravel()
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES)
+def test_dkdv_schedule_covers_each_walk_once_in_order(shape):
+    S, G, causal, window, kv_blocks = shape
+    BN, BM = bwd_module.TC_KEYS, bwd_module.TC_ROWS
+    items, tiles, slots = bwd_module.dkdv_schedule(S, S, G, causal, window, kv_blocks)
+    assert (items, tiles, slots) == bwd_module.dkdv_schedule(S, S, G, causal, window, kv_blocks)
+    n_tiles = -(-S // BN)
+    assert [t[0] for t in tiles] == list(range(n_tiles))
+    by_tile = {j: sorted(it for it in items if it[0] == j) for j in range(n_tiles)}
+    assert sum(map(len, by_tile.values())) == len(items)
+    merged = {t[0]: t for t in tiles if t[2] > 1}
+    used = []
+    for j, segs in by_tile.items():
+        # contiguous, stage-aligned segments from the tile's first row
+        begin, end = segs[0][1], segs[-1][2]
+        assert all(a[2] == b[1] for a, b in zip(segs, segs[1:]))
+        assert all((lo - begin) % BM == 0 and lo < hi for _, lo, hi, _ in segs)
+        # the walk holds every row that sees a key of the tile, and no stage
+        # of rows outside it: it starts in the stage of the first such row
+        rows = _walk_rows(S, G, causal, window, j * BN, min(S, (j + 1) * BN))
+        assert begin <= rows.min() < begin + BM and end == rows.max() + 1
+        if len(segs) == 1:
+            assert segs[0][3] == -1 and tiles[j] == (j, -1, 1, 0)
+            continue
+        # a cut tile: its segments' slots are consecutive in row order, and
+        # its merge adds exactly them, first slot first
+        _, first, n, _ = merged[j]
+        assert n == len(segs) and [s[3] for s in segs] == list(range(first, first + n))
+        used += range(first, first + n)
+    assert sorted(used) == list(range(slots))
+    assert [m[1] for m in merged.values()] == sorted(m[1] for m in merged.values())
+    # longest first: the blocks of a wave take about the same time
+    lengths = [hi - lo for _, lo, hi, _ in items]
+    assert lengths == sorted(lengths, reverse=True)
+
+
+def test_dkdv_schedule_balances_the_training_shape():
+    """At qwen2-0.5b's training shape the pass makes at least two waves of
+    3 blocks on each of an H100's 132 SMs. The first key tile alone walks
+    224 stages of 64 rows, the last 7: no block walks a fifth of the first
+    tile's, and a cut tile's segments are at least half the longest."""
+    S, G, causal, window, kv_blocks = TRAIN_SHAPE
+    items, tiles, _ = bwd_module.dkdv_schedule(S, S, G, causal, window, kv_blocks)
+    assert len(items) * kv_blocks >= 2 * 132 * 3
+    stages = [-(-(hi - lo) // 64) for _, lo, hi, _ in items]
+    assert max(stages) < 224 // 5
+    assert min(st for st, it in zip(stages, items) if it[3] >= 0) * 2 >= max(stages)
+    assert any(t[2] > 1 for t in tiles)
+
+
+def test_tc_tiling_constants_match_the_source():
+    """The schedule's tile sizes are the kernels' (``kKeys`` and
+    ``WgTiling::kBM``)."""
+    src = (Path(bwd_module.__file__).parents[1] / "csrc" / "flash_attention_bwd.cu").read_text()
+    assert re.search(r"constexpr int kKeys = (\d+);", src).group(1) == str(bwd_module.TC_KEYS)
+    body = re.search(r"struct WgTiling \{(.*?)\n\};", src, re.S).group(1)
+    assert int(re.search(r"kBM = (\d+);", body).group(1)) == bwd_module.TC_ROWS

@@ -90,7 +90,22 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the first prefill no outlier (build and warm-up are not billed);
      per-query results, the price menu, compile_s, median stage walls,
      the device's busy share over one decode stage (torch.profiler) and
-     the first and second GEMM of a fresh thread (its cuBLAS handle).
+     the first and second GEMM of a fresh thread (its cuBLAS handle);
+ 14. the MoE archs at full width, depth 4 of 32 (mixtral-8x7b: 8 experts
+     top-2 of d_ff 14336, window 4096; phi3.5-moe-42b-a6.6b: 16 experts
+     top-2 of d_ff 6400; d_model 4096, 32 query heads over 8 KV heads, hd
+     128; float32 weights from a seeded torch.Generator), one arch at a
+     time: (a) as phase 4 at batch 4 (a 333-token prompt, 16
+     teacher-forced decode steps, kernels against plain, 4 flash launches
+     a prefill and 4 decode launches a step); (b) one full-width
+     moe_apply in float32 against float64 copies of its inputs and
+     weights on every branch the arch reaches (prefill (4,333,4096);
+     decode (4,1,4096), gathered for mixtral and one group for phi3.5;
+     mixtral also (17,1,4096), one group): y within 1e-4 of max |y64|,
+     aux within 1e-5, two float32 runs bit for bit, and the prefill's
+     dropped slots; (c) prefill ms, decode-step ms with 4 slots busy and
+     a torch.profiler profile of decode steps: device busy ms, idle share,
+     top kernels and the MoE FFN's device time and share.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -131,6 +146,8 @@ from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.launch.serve_sla import serve_traffic  # noqa: E402
 from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.layers import moe_apply, moe_capacity, moe_route  # noqa: E402
 from repro_torch.models.params import count_params, tree_leaves  # noqa: E402
 from repro_torch.models.transformer import LM, head_logits, plain_head_logits  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
@@ -142,6 +159,11 @@ BF16_TOL = 2e-2
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # bfloat16: tensor-core sums
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # the reference's own
 MODEL_ATOL, MODEL_RTOL = 2e-3, 1e-3
+MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+MOE_LAYERS = 4  # depth 4 of 32, every width as published
+MOE_BATCH = 4
+MOE_F64_TOL = 1e-4  # of max |y64|: float32 products of 4,096- and 14,336-long sums
+MOE_AUX_TOL = 1e-5
 ARCH = "paper-default"
 MAMBA = "mamba2-2.7b"
 PROMPT_LENS = (37, 64, 100, 129, 200, 255, 300, 333)
@@ -420,22 +442,30 @@ def check_kernels(device) -> dict:
     return errs
 
 
-def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16) -> dict:
-    """Phases 4 and 6: the same params and tokens through the kernels and
-    through the plain versions."""
-    cfg = get_config(arch, reduced=reduced)
+def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16, cfg=None,
+                batch=1) -> dict:
+    """Phases 4, 6 and 14 (a): the same params and tokens through the kernels
+    and through the plain versions; the kernels' launches: a prefill runs one
+    flash launch per attention layer and one SSD scan per mamba layer, a
+    decode step one decode launch per attention layer. ``cfg`` (default:
+    ``arch``'s) may cut the depth."""
+    cfg = cfg or get_config(arch, reduced=reduced)
     lm_k = LM(cfg, impl="cuda", device=device)
     lm_p = LM(cfg, impl="plain", device=device)
     params = lm_k.init(torch.Generator(device=device).manual_seed(0), dtype=torch.float32)
     rng = np.random.default_rng(0)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)), device=device)
-    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, 1, 1)), device=device)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=device)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, batch, 1)), device=device)
+    kinds = cfg.layer_kinds()
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    ssd_scan.launches = 0
     worst = 0.0
     with torch.no_grad():
         lk, ck = lm_k.prefill(params, prompt, kv_len=MAX_LEN, dtype=torch.float32)
         lp, cp = lm_p.prefill(params, prompt, kv_len=MAX_LEN, dtype=torch.float32)
         for step in range(steps + 1):
-            if not bool(torch.isfinite(lk).all()) or lk.shape != (1, cfg.vocab_size):
+            if not bool(torch.isfinite(lk).all()) or lk.shape != (batch, cfg.vocab_size):
                 raise AssertionError(f"model step {step}: logits {tuple(lk.shape)} not finite")
             err = float((lk - lp).abs().max())
             if not torch.allclose(lk, lp, atol=MODEL_ATOL, rtol=MODEL_RTOL):
@@ -444,6 +474,13 @@ def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16) -> d
             if step < steps:
                 lk, ck = lm_k.decode_step(params, ck, forced[step], dtype=torch.float32)
                 lp, cp = lm_p.decode_step(params, cp, forced[step], dtype=torch.float32)
+    counts = {"flash_attention": flash_attention.launches,
+              "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
+    want = {"flash_attention": kinds.count("attn"),
+            "decode_attention": kinds.count("attn") * steps,
+            "ssd_scan": kinds.count("mamba")}
+    if counts != want:
+        raise AssertionError(f"model: launches {counts}, expected {want}")
     if not torch.equal(ck["lengths"], cp["lengths"]):
         raise AssertionError("model: cache lengths differ")
     state_err = 0.0
@@ -461,7 +498,7 @@ def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16) -> d
                     raise AssertionError(f"model: {sub} cache {name} differs")
                 state_err = max(state_err, float((a - b).abs().max()))
     return {"logits_max_abs_err": worst, "cache_max_abs_err": state_err, "steps": steps,
-            "prompt_len": prompt_len,
+            "prompt_len": prompt_len, "batch": batch, "launches": counts,
             "num_params": count_params(params)}
 
 
@@ -1276,6 +1313,144 @@ def live(device, card) -> dict:
     }
 
 
+def check_moe_f64(device, cfg, params) -> dict:
+    """Phase 14 (b): one full-width ``moe_apply`` in float32 against the same
+    function on float64 copies of its inputs and weights, on every branch
+    the arch reaches (the router runs in float32 either way, so both take
+    the same experts); y within MOE_F64_TOL of max |y64|, aux within
+    MOE_AUX_TOL, two float32 runs bit for bit; the prefill's dropped slots."""
+    E, K, D = cfg.num_experts, cfg.top_k, cfg.d_model
+    gathered = E % 16 != 0  # the reference's gate for a batch of <= 16
+    shapes = [("prefill", MOE_BATCH, 333),
+              ("decode, gathered" if gathered else "decode, one group", MOE_BATCH, 1)]
+    if gathered:
+        shapes.append(("decode, one group", 17, 1))
+    p = {k: v[0] for k, v in params["blocks"]["sub0"]["moe"].items()}  # layer 0
+    out = {}
+    for seed, (name, B, S) in enumerate(shapes):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn((B, S, D), generator=gen, device=device)  # a normed hidden state's scale
+        with torch.no_grad():
+            y, aux = _twice(f"moe {name}", lambda: moe_apply(p, x, cfg))
+            p64 = {k: v.double() for k, v in p.items()}
+            y64, aux64 = moe_apply(p64, x.double(), cfg)
+            del p64
+        if not bool(torch.isfinite(y).all()) or y.shape != (B, S, D):
+            raise AssertionError(f"moe {name}: y {tuple(y.shape)} not finite")
+        scale = float(y64.abs().max())
+        err = float((y.double() - y64).abs().max())
+        aux_err = abs(float(aux) - float(aux64))
+        if err > MOE_F64_TOL * scale or aux_err > MOE_AUX_TOL:
+            raise AssertionError(f"moe {name}: max abs err {err} against {MOE_F64_TOL} x "
+                                 f"{scale}, aux err {aux_err}")
+        res = {"shape": [B, S, D], "max_abs_err": err, "max_abs_y64": scale,
+               "err_over_scale": err / scale, "aux": float(aux), "aux_err": aux_err}
+        if S > 1:  # prefill: a routing group a row, C slots an expert
+            _, _, eidx = moe_route(x, p["router"], K)
+            counts = F.one_hot(eidx.reshape(B, S * K), E).sum(dim=1)
+            C = moe_capacity(S, K, E, cfg.capacity_factor)
+            res.update(capacity=C, slots=B * S * K,
+                       dropped_slots=int((counts - C).clamp(min=0).sum()))
+        out[name] = res
+        del y, y64
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_times(device, cfg, params, steps=8) -> dict:
+    """Phase 14 (c): prefill ms of MOE_BATCH x 333 tokens and decode-step ms
+    with MOE_BATCH slots busy (host clock around synchronised runs), and a
+    torch.profiler profile of decode steps: the device's busy time a step,
+    its idle share, the top kernels, and the MoE FFN's device time (every
+    ``moe_apply`` call runs inside a ``record_function`` range here)."""
+    lm = LM(cfg, impl="cuda", device=device)
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                               (MOE_BATCH, 333)), device=device)
+    prefill_s = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(params, prompt, kv_len=MAX_LEN, dtype=torch.float32)
+            torch.cuda.synchronize(device)
+            prefill_s.append(time.perf_counter() - t0)
+        tok = torch.argmax(logits, -1)[:, None]
+
+        def step():
+            nonlocal tok, cache
+            out, cache = lm.decode_step(params, cache, tok, dtype=torch.float32)
+            tok = torch.argmax(out, -1)[:, None]
+
+        step()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize(device)
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+        def labelled(*args):
+            with torch.profiler.record_function("moe_ffn"):
+                return moe_apply(*args)
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        transformer.moe_apply = labelled
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize(device)
+        finally:
+            transformer.moe_apply = moe_apply
+    events = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / steps, e.count / steps) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key != "moe_ffn"]
+    busy_ms = sum(t for _, t, _ in rows) / 1e3
+    # the range's row on the host holds the device time of the kernels
+    # launched inside it
+    moe_ms = sum(e.device_time_total for e in events
+                 if e.key == "moe_ffn" and e.device_type == torch.autograd.DeviceType.CPU)
+    moe_ms = moe_ms / steps / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    return {
+        "prefill_ms": [1e3 * t for t in prefill_s],
+        "decode_step_ms": step_ms,
+        "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
+        "device_idle_share": 1.0 - busy_ms / step_ms if busy_ms else "not measured",
+        "moe_ffn_device_ms_per_step": moe_ms if moe_ms else "not measured",
+        "moe_ffn_share_of_busy": moe_ms / busy_ms if moe_ms and busy_ms else "not measured",
+        "moe_ffn_share_of_step": moe_ms / step_ms if moe_ms else "not measured",
+        "kernel_launches_per_step": sum(n for _, _, n in rows),
+        "top_kernels_us_per_step": [[k[:60], round(t, 3), n] for k, t, n in top],
+        "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+    }
+
+
+def moe(device, arch, card) -> dict:
+    """Phase 14: ``arch`` at full width, depth cut to MOE_LAYERS."""
+    cfg = get_config(arch).replace(num_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = check_model(device, cfg=cfg, batch=MOE_BATCH)
+    print(f"[moe a] {arch} full width, depth {MOE_LAYERS}: {json.dumps(model)} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    torch.cuda.empty_cache()
+    params = LM(cfg, device=device).init(torch.Generator(device=device).manual_seed(0),
+                                         dtype=torch.float32)
+    t0 = time.perf_counter()
+    f64 = check_moe_f64(device, cfg, params)
+    print(f"[moe b] {arch} moe_apply float32 against float64 on the card: {json.dumps(f64)} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    times = moe_times(device, cfg, params)
+    print(f"[moe c] {arch} full width, depth {MOE_LAYERS}, batch {MOE_BATCH}: "
+          f"{json.dumps(times)} on {card} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"model": model, "f64": f64, "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -1364,6 +1539,12 @@ def main() -> int:
     print(f"[live] {ARCH} full width, 9 queries on vm + cf: {json.dumps(served_live)} "
           f"({time.perf_counter() - t0:.1f}s); whole run "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
+
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        moe(device, arch, card)
+        print(f"[moe] {arch} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    print(f"[smoke] whole run {time.perf_counter() - t_start:.1f}s", flush=True)
 
     # each kernel's launches come from the run of the path it is on: the
     # served runs, and the training run of phase 10 (the bf16 forward's

@@ -1,4 +1,5 @@
-"""Dense neural layers of the decoder archs, on torch tensors.
+"""Neural layers of the decoder archs (attention, MLP and MoE FFNs), on
+torch tensors.
 
 Functions take parameter dicts in the JAX package's layout. Attention's
 inner product goes through a registry of scaled-dot-product-attention
@@ -210,7 +211,7 @@ def attention(
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # ---------------------------------------------------------------------------
 
 def mlp_decl(cfg: ModelConfig) -> dict:
@@ -228,3 +229,128 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = torch.einsum("bsd,df->bsf", x, p["wg"].to(dt))
     h = activate(g, cfg.act) * h
     return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
+
+
+def moe_decl(cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": ParamDecl((d, e), ("fsdp", None), fan_in=d),
+        "wi": ParamDecl((e, d, f), ("experts", "fsdp", "moe_ff"), fan_in=d),
+        "wg": ParamDecl((e, d, f), ("experts", "fsdp", "moe_ff"), fan_in=d),
+        "wo": ParamDecl((e, f, d), ("experts", "moe_ff", "fsdp"), fan_in=f),
+    }
+
+
+def moe_capacity(tokens: int, k: int, e: int, cf: float) -> int:
+    c = int(math.ceil(tokens * k * cf / e))
+    return max(8, -(-c // 8) * 8)  # round up to 8 lanes
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """Router probs (.., E) in float32 and the top-k (gate, expert) pairs,
+    largest first. A stable descending sort breaks ties toward the lower
+    expert index, as ``jax.lax.top_k`` does (``torch.topk`` does not
+    promise an order among equal values)."""
+    probs = torch.softmax(x.to(F32) @ router.to(F32), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return probs, vals[..., :k], idx[..., :k]
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Token-choice top-k MoE; returns (y, aux_loss).
+
+    The reference's three branches, with its gates: a decode batch of at
+    most 16 tokens on an arch whose expert count is not a multiple of 16
+    runs each token's products on its chosen experts' weights alone, with
+    no capacity (``_moe_gathered``); any other decode step routes the batch
+    as one group; prefill routes each batch row as a group, with a capacity
+    per expert (``_moe_grouped``)."""
+    B, S, D = x.shape
+    if S == 1 and B <= 16 and cfg.num_experts % 16 != 0:
+        return _moe_gathered(p, x, cfg)
+    if S == 1:  # decode: one group over the (small) batch
+        y, aux = _moe_grouped(p, x.reshape(1, B, D), cfg)
+        return y.reshape(B, S, D), aux
+    return _moe_grouped(p, x, cfg)
+
+
+def _moe_gathered(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Dropless per-token expert products. x: (B, 1, D).
+
+    The reference copies each token's K experts' weights out as (B, K, D,
+    F) (``jnp.take``) and contracts over k and f at once. Here the chosen
+    experts' ids come to the host once a call, and each (token, choice)
+    pair's products read its expert's weights in place; a token's K
+    outputs are added in k order (the same sums in another order). The
+    copy would write every chosen weight and read it twice."""
+    B, S, D = x.shape
+    dt = x.dtype
+    _, gate, eidx = moe_route(x[:, 0], p["router"], cfg.top_k)  # (B, K)
+    gate = (gate / torch.sum(gate, dim=-1, keepdim=True)).to(dt)
+    rows = []
+    for b, experts in enumerate(eidx.tolist()):  # the one device-to-host read
+        xb = x[b]  # (1, D)
+        yb = None
+        for k, e in enumerate(experts):
+            h = activate(xb @ p["wg"][e].to(dt), cfg.act) * (xb @ p["wi"][e].to(dt))
+            yk = (h * gate[b, k]) @ p["wo"][e].to(dt)
+            yb = yk if yb is None else yb + yk
+        rows.append(yb)
+    y = torch.stack(rows)  # (B, 1, D)
+    return y, torch.zeros((), dtype=F32, device=x.device)  # no aux loss on decode
+
+
+def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):
+    """xg: (G, T, D), G routing groups of T tokens each.
+
+    Sort-based dispatch: each group's T*K (token, choice) slots are sorted
+    by expert (a stable sort, so an expert keeps its slots in token order)
+    and each expert takes its first C; the slots past C are dropped. The
+    combine gathers each token's K expert outputs and adds them in k order
+    (the reference scatter-adds them into zeros: for K = 2 the two sums are
+    the same bits, and a gather needs no atomics on the card)."""
+    G, T, D = xg.shape
+    dt = xg.dtype
+    E, K = cfg.num_experts, cfg.top_k
+    C = moe_capacity(T, K, E, cfg.capacity_factor)
+    dev = xg.device
+
+    probs, gate, eidx = moe_route(xg, p["router"], K)  # (G, T, E), (G, T, K)
+    gate = gate / torch.sum(gate, dim=-1, keepdim=True)
+
+    flat_e = eidx.reshape(G, T * K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)  # slot ids sorted by expert
+    counts = F.one_hot(flat_e, E).sum(dim=1)  # (G, E)
+    starts = torch.cumsum(counts, dim=-1) - counts  # exclusive
+    ar = torch.arange(C, device=dev)
+    pos = starts[:, :, None] + ar[None, None, :]  # (G, E, C)
+    valid = ar[None, None, :] < counts[:, :, None]
+    slot = torch.gather(order, 1, torch.clamp(pos, max=T * K - 1).reshape(G, E * C))
+    token = slot // K  # (G, E*C)
+
+    xe = torch.gather(xg, 1, token[..., None].expand(G, E * C, D))
+    xe = xe.reshape(G, E, C, D) * valid[..., None].to(dt)
+    h = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
+    g_ = torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt))
+    h = activate(g_, cfg.act) * h
+    ye = torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt)).reshape(G, E * C, D)
+
+    # combine: slot s = t*K + k sits at rank r of its expert's run in the
+    # sorted order; it was kept iff r < C, and its output is row e*C + r
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(T * K, device=dev).expand(G, T * K))
+    r = rank - torch.gather(starts, 1, flat_e)
+    kept = r < C
+    row = torch.where(kept, flat_e * C + r, 0)
+    w = torch.where(kept, gate.reshape(G, T * K), 0.0).to(dt)
+    contrib = torch.gather(ye, 1, row[..., None].expand(G, T * K, D)) * w[..., None]
+    contrib = contrib.reshape(G, T, K, D)
+    y = contrib[:, :, 0]
+    for k in range(1, K):
+        y = y + contrib[:, :, k]
+
+    # load-balancing aux loss (Switch/Mixtral formulation), averaged over groups
+    me = torch.mean(probs, dim=1)  # (G, E)
+    assign = counts.to(F32) / (T * K)
+    aux = E * torch.mean(torch.sum(me * assign, dim=-1))
+    return y, aux

@@ -1,12 +1,14 @@
-"""Decoder-only LM for the dense archs and mamba2, on torch tensors.
+"""Decoder-only LM for the dense archs, the MoE archs and mamba2, on torch
+tensors.
 
 Depth is ``n_super`` super-layers of ``period`` sublayers, as in the JAX
 package; a Python loop over the stacked layer axis takes the place of
 ``lax.scan``. Uniform archs have period 1; gemma2's local/global
 alternation gives period 2. Each sublayer's mixer is attention or a mamba2
-mixer by ``cfg.layer_kinds()``. MoE FFNs, the jamba hybrid (which needs
-them) and the encoder-decoder stack are not ported yet: their configs
-raise ``NotImplementedError``.
+mixer by ``cfg.layer_kinds()``, and its FFN an MLP or a MoE by
+``cfg.ffn_kinds()``; the MoE router's aux loss is summed over every layer.
+The jamba hybrid period and the encoder-decoder stack are not ported yet:
+their configs raise ``NotImplementedError``.
 
 Training: ``loss`` is the mean next-token cross-entropy, with the LM head
 and CE taken in checkpointed sequence chunks above 1,024 tokens
@@ -31,7 +33,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
-from .layers import SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, rms_norm, softcap
+from .layers import (SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, moe_apply, moe_decl,
+                     rms_norm, softcap)
 from .params import ParamDecl, init_tree, stacked, tree_map
 from .ssd import SSD_IMPL, mamba_apply, mamba_cache_decl, mamba_decl
 
@@ -144,16 +147,14 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 class LM:
-    """Decoder-only language model (dense archs and mamba2)."""
+    """Decoder-only language model (dense and MoE archs, and mamba2)."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[str] = None,
                  device="cuda", kv_quant: bool = False):
         if kv_quant:
             raise NotImplementedError("the int8 KV cache (kv_quant) is not ported")
-        if cfg.is_moe:
-            raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported")
         if cfg.is_hybrid:
-            raise NotImplementedError(f"{cfg.name}: the hybrid period needs MoE FFNs, not ported")
+            raise NotImplementedError(f"{cfg.name}: the hybrid period is not ported")
         if cfg.is_encoder_decoder:
             raise NotImplementedError(f"{cfg.name}: encoder-decoder is not ported")
         # registers the "cuda" SDPA and SSD impls; imported here because the
@@ -171,6 +172,7 @@ class LM:
             raise ValueError(f"{cfg.num_layers} layers vs period {self.period}")
         self.n_super = cfg.num_layers // self.period
         self.kinds = cfg.layer_kinds()[: self.period]
+        self.ffns = cfg.ffn_kinds()[: self.period]
         self.windows = cfg.window_pattern()[: self.period]
         self.has_ffn = cfg.d_ff > 0
 
@@ -188,7 +190,10 @@ class LM:
             d["ln1p"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
         if self.has_ffn:
             d["ln2"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
-            d["mlp"] = mlp_decl(cfg)
+            if self.ffns[i] == "moe":
+                d["moe"] = moe_decl(cfg)
+            else:
+                d["mlp"] = mlp_decl(cfg)
             if cfg.post_block_norms:
                 d["ln2p"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
         return d
@@ -225,6 +230,8 @@ class LM:
     # Sublayer body and layer loop
     # ------------------------------------------------------------------
     def _sub_apply(self, p, i, x, *, positions, cache, lengths, want_cache):
+        """One sublayer; returns (x, its new cache, its MoE aux loss: a
+        float 0.0 where its FFN is not a MoE)."""
         cfg = self.cfg
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
         kind = self.kinds[i]
@@ -247,25 +254,33 @@ class LM:
         if cfg.post_block_norms:
             mix = rms_norm(p["ln1p"], mix, cfg.norm_eps)
         x = x + mix
+        aux = 0.0  # a float, not a tensor: no launch for a layer without a MoE
         if self.has_ffn:
             h = rms_norm(p["ln2"], x, cfg.norm_eps)
-            f = mlp_apply(p["mlp"], h, cfg)
+            if self.ffns[i] == "moe":
+                f, aux = moe_apply(p["moe"], h, cfg)
+            else:
+                f = mlp_apply(p["mlp"], h, cfg)
             if cfg.post_block_norms:
                 f = rms_norm(p["ln2p"], f, cfg.norm_eps)
             x = x + f
-        return x, new_cache
+        return x, new_cache, aux
 
     def _super_apply(self, p_super, x, positions):
-        """One super-layer without a cache (the body that remat recomputes)."""
+        """One super-layer without a cache (the body that remat recomputes);
+        returns (x, the sum of its sublayers' aux losses)."""
+        auxes = []
         for i in range(self.period):
-            x, _ = self._sub_apply(p_super[f"sub{i}"], i, x, positions=positions,
-                                   cache=None, lengths=None, want_cache=False)
-        return x
+            x, _, aux = self._sub_apply(p_super[f"sub{i}"], i, x, positions=positions,
+                                        cache=None, lengths=None, want_cache=False)
+            auxes.append(aux)
+        return x, sum(auxes)
 
     def _run_blocks(self, params, x, *, positions, cache=None, lengths=None,
                     want_cache=False, remat=None):
         """Every layer in order. Returns (x, per-layer caches as a list of
-        {"sub<i>": ...} dicts, one per super-layer).
+        {"sub<i>": ...} dicts, one per super-layer, the MoE aux loss summed
+        over every sublayer of every layer).
 
         ``remat``: None keeps every activation for the backward pass;
         "full" recomputes each super-layer in it (one
@@ -278,11 +293,13 @@ class LM:
                 "(ROADMAP queue 1 item 13)")
         if remat not in (None, "full"):
             raise ValueError(f"remat {remat!r} not in (None, 'full', 'dots', 'coll')")
+        auxes = []
         if remat == "full":  # the training forward: no cache
             for layer in range(self.n_super):
-                x = checkpoint(self._super_apply, _layer(params["blocks"], layer), x,
-                               positions, use_reentrant=False)
-            return x, []
+                x, aux = checkpoint(self._super_apply, _layer(params["blocks"], layer), x,
+                                    positions, use_reentrant=False)
+                auxes.append(aux)
+            return x, [], sum(auxes)
         caches = []
         for layer in range(self.n_super):
             p_super = _layer(params["blocks"], layer)
@@ -290,13 +307,14 @@ class LM:
             out = {}
             for i in range(self.period):
                 sub_cache = c_super[f"sub{i}"] if c_super is not None else None
-                x, nc = self._sub_apply(
+                x, nc, aux = self._sub_apply(
                     p_super[f"sub{i}"], i, x, positions=positions,
                     cache=sub_cache, lengths=lengths, want_cache=want_cache,
                 )
                 out[f"sub{i}"] = nc
+                auxes.append(aux)
             caches.append(out)
-        return x, caches
+        return x, caches, sum(auxes)
 
     # ------------------------------------------------------------------
     # Embedding / head
@@ -336,14 +354,19 @@ class LM:
 
     def hidden(self, params, tokens, *, remat=None, dtype=torch.bfloat16):
         """Embed -> blocks -> final norm."""
+        return self._hidden_aux(params, tokens, remat=remat, dtype=dtype)[0]
+
+    def _hidden_aux(self, params, tokens, *, remat, dtype):
+        """(``hidden``'s x, the MoE aux loss summed over the layers)."""
         x = self.embed(params, tokens, dtype)
         positions = self._positions(x.shape[0], x.shape[1], x.device)
-        x, _ = self._run_blocks(params, x, positions=positions, remat=remat)
-        return rms_norm(params["final_norm"], x, self.cfg.norm_eps)
+        x, _, aux = self._run_blocks(params, x, positions=positions, remat=remat)
+        return rms_norm(params["final_norm"], x, self.cfg.norm_eps), aux
 
     def loss(self, params, batch, *, remat=None, dtype=torch.bfloat16):
-        """batch: tokens (B,S), targets (B,S). Returns (total, {"ce", "aux"});
-        ``aux`` (the MoE router loss) is 0 until MoE is ported. A vision
+        """batch: tokens (B,S), targets (B,S). Returns (total, {"ce", "aux"}):
+        ``aux`` is the MoE router loss summed over the layers (0 without
+        MoE FFNs), weighted by ``router_aux_weight`` in the total. A vision
         frontend or an encoder input is refused: the reference prepends the
         patches and drops their positions before the CE, which is not ported."""
         extra = sorted({"patch_embeds", "enc_embeds"} & set(batch))
@@ -351,9 +374,9 @@ class LM:
             raise NotImplementedError(
                 f"{self.cfg.name}: the loss over a frontend ({self.cfg.frontend!r}) or "
                 f"encoder inputs {extra} is not ported")
-        x = self.hidden(params, batch["tokens"], remat=remat, dtype=dtype)
+        x, aux = self._hidden_aux(params, batch["tokens"], remat=remat, dtype=dtype)
+        aux = torch.as_tensor(aux, dtype=F32, device=x.device)
         ce = chunked_ce(lambda xc: self.head(params, xc), x, batch["targets"])
-        aux = torch.zeros((), dtype=F32, device=x.device)
         return ce + self.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     # --- serving ---
@@ -405,7 +428,7 @@ class LM:
         B, S = x.shape[:2]
         kv_len = kv_len or S
         positions = self._positions(B, S, x.device)
-        x, caches = self._run_blocks(params, x, positions=positions, want_cache=True)
+        x, caches, _ = self._run_blocks(params, x, positions=positions, want_cache=True)
         x = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         logits = self.head(params, x[:, -1:, :])[:, 0]
         return logits, self._finalize_prefill_cache(caches, B, S, kv_len, x.device)
@@ -449,8 +472,8 @@ class LM:
         lengths = cache["lengths"]
         x = self.embed(params, tokens, dtype)
         positions = self._positions(x.shape[0], tokens.shape[1], x.device, start=lengths)
-        x, _ = self._run_blocks(params, x, positions=positions,
-                                cache=cache["blocks"], lengths=lengths)
+        x, _, _ = self._run_blocks(params, x, positions=positions,
+                                   cache=cache["blocks"], lengths=lengths)
         x = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         logits = self.head(params, x)[:, -1]
         return logits, {"lengths": lengths + tokens.shape[1], "blocks": cache["blocks"]}

@@ -26,7 +26,9 @@ cotangent's split into two bf16 halves holds it to 2^-16), at least 95 % of
 dx's and of dW's elements equal to the plain head's bf16 values (which g's
 hi half alone does not reach; at this width the float32 sums' order alone
 moves ~2 % of dx across a rounding boundary), and no float32 GEMM among
-its kernels.
+its kernels. The MoE layer (plain PyTorch) in float32 against the same
+function in float64 on the card: y within 1e-4 of max |y64| and aux within
+1e-5, two runs bit for bit.
 """
 import pytest
 import torch
@@ -614,3 +616,32 @@ def test_reduced_train_step_kernels_match_plain(dev):
     for i in (1, 2):
         for a, b in zip(tree_leaves(out["cuda"][i]), tree_leaves(out["plain"][i])):
             torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+# MoE layer cases: B, S, experts (top-2, d_model 256, d_ff 512): prefill,
+# the gathered decode, and the decode routed as one group (17 tokens; 16
+# experts)
+MOE = [(4, 333, 8), (4, 1, 8), (17, 1, 8), (4, 1, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE)
+def test_moe_layer_matches_float64(dev, case):
+    """The router runs in float32 on both sides (the reference's cast), so
+    both take the same experts and drop the same slots."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import moe_apply, moe_decl
+    from repro_torch.models.params import init_tree
+
+    B, S, E = case
+    cfg = get_config("mixtral-8x7b", reduced=True).replace(d_model=256, d_ff=512, num_experts=E)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = init_tree(gen, moe_decl(cfg), torch.float32, dev)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    y, aux = moe_apply(p, x, cfg)
+    y2, aux2 = moe_apply(p, x, cfg)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    y64, aux64 = moe_apply({k: v.double() for k, v in p.items()}, x.double(), cfg)
+    assert y.shape == (B, S, cfg.d_model) and bool(torch.isfinite(y).all())
+    assert float((y.double() - y64).abs().max()) <= 1e-4 * float(y64.abs().max())
+    assert abs(float(aux) - float(aux64)) <= 1e-5

@@ -935,10 +935,10 @@ def test_prompt_shapes_depend_only_on_the_work():
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
 def test_unported_archs_surface_as_failed_queries(arch):
-    """Encoder-decoder, frontend and MoE archs are not ported: a query of
-    one fails with the refusal as its error, and the drain returns."""
+    """Encoder-decoder and frontend archs are not ported: a query of one
+    fails with the refusal as its error, and the drain returns."""
     eng = LiveEngine(_cfg(
         pools=[PoolSpec(name="vm", kind="reserved", chips=1)],
         sla=SLAConfig(relaxed_deadline_s=10.0, poll_period_s=0.02,
@@ -949,6 +949,37 @@ def test_unported_archs_surface_as_failed_queries(arch):
     done = eng.drain(1, timeout=60.0)
     assert done == [q] and q.state == "failed"
     assert q.error.startswith("NotImplementedError") and "not ported" in q.error
+
+
+def test_moe_queries_are_served_and_a_preempted_one_resumes_bit_for_bit():
+    """The two MoE patterns of the paper's Table 1 mix (core/workload.py):
+    a mixtral-8x7b BEST_EFFORT query (off_peak), preempted at a chunk
+    boundary by a mixtral IMMEDIATE one, and a phi3.5-moe RELAXED query
+    (regular_report). Every query is done with its stages billed 0..n-1
+    once each, and ends, bit for bit, with the last token and cache of the
+    same query decoded without preemption."""
+    eng = LiveEngine(_cfg(
+        pools=[PoolSpec(name="vm", kind="reserved", chips=1)],
+        sla=SLAConfig(relaxed_deadline_s=10.0, poll_period_s=0.02,
+                      vm_overload_threshold=1_000,
+                      preempt_best_effort=True),
+        decode_tokens=64, decode_chunk_tokens=4,
+    ))
+    last = _recording(eng)
+    n_stages = 1 + 64 // 4
+    boe = _q(ServiceLevel.BEST_EFFORT, arch="mixtral-8x7b")
+    imm = _q(ServiceLevel.IMMEDIATE, arch="mixtral-8x7b")
+    rel = _q(ServiceLevel.RELAXED, arch="phi3.5-moe-42b-a6.6b")
+    eng.submit(boe)
+    assert _wait_until(lambda: 0 < len(boe.stage_trace) < n_stages - 4)
+    eng.submit(imm)
+    eng.submit(rel)
+    done = eng.drain(3, timeout=120)
+    assert len(done) == 3 and all(q.state == "done" for q in done), [q.error for q in done]
+    assert boe.preemptions >= 1
+    for q in (boe, imm, rel):
+        _assert_conserved(q, n_stages)
+        _assert_bitwise_equal(last[q.qid], *_uninterrupted(eng, q))
 
 
 def test_launch_counters_are_exact_under_threads():

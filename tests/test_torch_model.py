@@ -1,5 +1,5 @@
 """The port's configs and LM (repro_torch) against the JAX package on the
-CPU, for the dense archs and mamba2. Params are drawn by the JAX
+CPU, for the dense archs, the MoE archs and mamba2. Params are drawn by the JAX
 ``LM.init`` and carried across with ``repro_torch.convert.params_from_jax``;
 prompts come from a seeded numpy generator.
 
@@ -32,8 +32,9 @@ torch.set_num_threads(1)
 
 TOL = 5e-4
 DENSE = ["paper-default", "qwen2-0.5b", "internlm2-1.8b", "granite-8b", "gemma2-2b"]
-SERVED = DENSE + ["mamba2-2.7b"]
-KV_LEN = 32  # reduced gemma2's window of 8 makes its local layers a ring
+MOE = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
+SERVED = DENSE + MOE + ["mamba2-2.7b"]
+KV_LEN = 32  # reduced gemma2's and mixtral's window of 8 makes their caches a ring
 DECODE_STEPS = 8
 
 
@@ -112,7 +113,7 @@ def test_prefill_and_decode_match_jax(arch, impl):
     _assert_cache_equal(jcache, tc)
 
 
-@pytest.mark.parametrize("arch", ["paper-default", "gemma2-2b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["paper-default", "gemma2-2b", "mamba2-2.7b", "mixtral-8x7b"])
 def test_forward_matches_jax(arch):
     cfg, jm, jp = _jax_model(arch, seed=1)
     lm, tp = _port(arch, jp, "plain")
@@ -195,7 +196,20 @@ def test_params_from_jax_carries_the_mamba_params():
     assert "attn" not in tp["blocks"]["sub0"] and "lm_head" not in tp
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-v0.1-52b", "seamless-m4t-large-v2"])
+def test_params_from_jax_carries_the_moe_params():
+    _, _, jp = _jax_model("mixtral-8x7b")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jm, tm = jp["blocks"]["sub0"]["moe"], tp["blocks"]["sub0"]["moe"]
+    assert sorted(tm) == ["router", "wg", "wi", "wo"]
+    assert tuple(tm["router"].shape) == (2, 64, 4)  # (layers, D, E)
+    assert tuple(tm["wi"].shape) == tuple(tm["wg"].shape) == (2, 4, 64, 128)  # (layers, E, D, F)
+    assert tuple(tm["wo"].shape) == (2, 4, 128, 64)  # (layers, E, F, D)
+    for name in tm:
+        np.testing.assert_array_equal(np.asarray(jm[name]), tm[name].numpy())
+    assert "mlp" not in tp["blocks"]["sub0"]
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "seamless-m4t-large-v2"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         LM(get_config(arch, reduced=True), device="cpu")

@@ -74,6 +74,25 @@ def test_serve_mamba2_matches_jax():
     assert sorted(teng.cache["blocks"]["sub0"]) == ["mamba"]
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"])
+def test_serve_moe_matches_jax(arch):
+    """The MoE archs, reduced: 5 requests on 3 slots. Each prefill routes
+    its prompt as one group with a capacity per expert; each decode step
+    routes the 3 slots (4 experts: the gathered path)."""
+    jeng = JaxEngine(arch, slots=3, max_len=48)
+    teng = ServeEngine(arch, slots=3, max_len=48, device="cpu",
+                       params=params_from_jax(jax.tree.map(np.asarray, jeng.params), device="cpu"))
+    jreqs, treqs = _requests(5, jeng.cfg.vocab_size, lens=lambda i: 5 + 3 * i,
+                             max_new=lambda i: 4 + i % 3, seed=2,
+                             levels=[ServiceLevel.BEST_EFFORT, ServiceLevel.RELAXED,
+                                     ServiceLevel.IMMEDIATE])
+    jeng.run(jreqs, max_steps=60)
+    teng.run(treqs, max_steps=60)
+    assert all(r.finish_t is not None for r in treqs)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert _admission(treqs) == _admission(jreqs)
+
+
 def test_serve_admits_by_service_level_and_is_seeded():
     runs = []
     for _ in range(2):

@@ -49,7 +49,8 @@ torch.set_num_threads(1)
 
 F32 = torch.float32
 KERNEL_TOL = 1e-4
-ARCHS = ["qwen2-0.5b", "paper-default", "gemma2-2b", "mamba2-2.7b"]
+ARCHS = ["qwen2-0.5b", "paper-default", "gemma2-2b", "mamba2-2.7b", "mixtral-8x7b",
+         "phi3.5-moe-42b-a6.6b"]
 
 
 def _t(*arrays):
@@ -185,7 +186,7 @@ def _jax_loss_and_grads(arch, B, S):
     batch = _batch(cfg.vocab_size, B, S)
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
         lambda p, b: jm.loss(p, b, remat=None, dtype=jnp.float32), has_aux=True))(jp, batch)
-    return batch, float(loss), float(metrics["ce"]), _np(grads)
+    return batch, float(loss), float(metrics["ce"]), float(metrics["aux"]), _np(grads)
 
 
 def _port_loss_and_grads(arch, batch, impl, remat=None):
@@ -200,12 +201,15 @@ def _port_loss_and_grads(arch, batch, impl, remat=None):
 @pytest.mark.parametrize("arch,B,S", [(a, 2, 16) for a in ARCHS] + [("qwen2-0.5b", 1, 1536)])
 def test_loss_and_every_grad_leaf_match_jax(arch, B, S, impl):
     """S 1536 > 1024 takes the chunked CE (3 chunks of 512). impl "cuda"
-    on the CPU runs the autograd Functions over the plain versions."""
-    batch, jloss, jce, jgrads = _jax_loss_and_grads(arch, B, S)
+    on the CPU runs the autograd Functions over the plain versions. The MoE
+    archs' aux (the router loss summed over the layers) within 1e-6, and
+    the router's gradient among the leaves; 0 for the others."""
+    batch, jloss, jce, jaux, jgrads = _jax_loss_and_grads(arch, B, S)
     _, (loss, metrics, grads) = _port_loss_and_grads(arch, batch, impl)
     np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
     np.testing.assert_allclose(float(metrics["ce"]), jce, rtol=1e-5)
-    assert float(metrics["aux"]) == 0.0
+    np.testing.assert_allclose(float(metrics["aux"]), jaux, rtol=0, atol=1e-6)
+    assert (jaux > 0) == get_config(arch).is_moe
     _assert_tree_close(jgrads, grads, atol=1e-4)
 
 
@@ -305,7 +309,17 @@ def _jax_state(arch, seed=0):
 
 @pytest.mark.parametrize("microbatches", [1, 2])
 def test_three_train_steps_match_jax(microbatches):
-    arch = "qwen2-0.5b"
+    _three_train_steps_match_jax("qwen2-0.5b", microbatches)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_three_moe_train_steps_match_jax(microbatches):
+    """mixtral: the router loss enters the total, and two microbatches
+    average it as the reference does."""
+    _three_train_steps_match_jax("mixtral-8x7b", microbatches)
+
+
+def _three_train_steps_match_jax(arch, microbatches):
     cfg, jm, _ = _jax_model(arch)
     jstate = _jax_state(arch)
     tstate = params_from_jax(jstate, device="cpu")
@@ -320,6 +334,7 @@ def test_three_train_steps_match_jax(microbatches):
         jstate, jm_ = jfn(jstate, batch)
         tstate, tm = tfn(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
         np.testing.assert_allclose(float(tm["loss"]), float(jm_["loss"]), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(float(tm["aux"]), float(jm_["aux"]), rtol=0, atol=1e-6)
         assert int(tstate["step"]) == int(jstate["step"]) == i + 1
     _assert_tree_close(jstate["params"], tstate["params"], atol=1e-5)
     _assert_tree_close(jstate["opt"], tstate["opt"], atol=1e-5)
@@ -404,7 +419,7 @@ def test_loss_refuses_frontend_and_encoder_inputs(arch, key):
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "paper-default", "gemma2-2b"])
 def test_text_only_loss_of_the_dense_archs_matches_jax(arch):
-    batch, jloss, jce, _ = _jax_loss_and_grads(arch, 2, 16)
+    batch, jloss, jce, _, _ = _jax_loss_and_grads(arch, 2, 16)
     _, jm, jp = _jax_model(arch)
     lm = LM(get_config(arch, reduced=True), device="cpu")
     with torch.no_grad():

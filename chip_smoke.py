@@ -105,12 +105,40 @@ Phases, each of which raises on failure (there is no CPU fallback):
      aux within 1e-5, two float32 runs bit for bit, and the prefill's
      dropped slots; (c) prefill ms, decode-step ms with 4 slots busy and
      a torch.profiler profile of decode steps: device busy ms, idle share,
-     top kernels and the MoE FFN's device time and share.
+     top kernels and the MoE FFN's device time and share;
+ 15. the Table 1 archs and the H100 calibration input (phase 14's models
+     freed first): (a) qwen2-0.5b, internlm2-1.8b and granite-8b (36
+     layers, d_model 4096, GQA 32:8, hd 128, d_ff 14336) at full width
+     and depth, as phase 4 at batch 4: logits within atol 2e-3 / rtol
+     1e-3 of plain, a flash launch a layer a prefill and a decode launch
+     a layer a step; (b) the dry run (launch/dryrun.py): one serve record
+     for each Table 1 arch (a 4096-token prefill at batch 1, float32; the
+     median of 3 calls by CUDA events after a warm-up; mixtral and phi3.5
+     at depths 2 and 4 of 32, extrapolated linearly), each prefill a
+     flash launch a layer, and the qwen2-0.5b train record from phase
+     10's last 10 steps, then fit_dryruns(hw=H100, hw_tag="h100") with
+     nothing skipped: the speed and factors, each record's measured /
+     analytic ratio and every clamp of SPEED_BOUNDS / FACTOR_BOUNDS; (c)
+     the live engine on the default vm / cf pools fitted from those
+     records with calibrate=True (LiveConfig(reduced=False, prompt 256,
+     32 decode tokens in stages of 8)): 9 queries of batch 1, 3 each of
+     the three dense archs at their Table 1 levels, every query done,
+     stages 0..n-1 billed once and summing to the query's bill, a launch
+     a layer for each prefill and decode step; per query the exec quote
+     that placed it, the analytic model's and the measured exec, per pool
+     the offline and the online fitted speed; then the same 9 queries on
+     the analytic pools, and on the fitted pools one at a time; each
+     run's quote errors (median |log(measured / quoted)|), asserting no
+     value for them; (d) the paper's Table 1 day (launch/paper_repro.py:
+     911 queries, 4 h, three runs) on the fitted pools and on the
+     analytic model: every query done, sanitize.check_result passing on
+     each run, the costs by level, violations and the two reductions.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -119,6 +147,7 @@ import subprocess
 import sys
 import threading
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -129,8 +158,13 @@ SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import sanitize  # noqa: E402
+from repro_torch.core.calibration import FACTOR_BOUNDS, SPEED_BOUNDS, fit_dryruns  # noqa: E402
+from repro_torch.core.cost_model import CostModel  # noqa: E402
 from repro_torch.core.live import LiveConfig, LiveEngine, _prompt_inputs, _sync  # noqa: E402
-from repro_torch.core.query import QueryWork  # noqa: E402
+from repro_torch.core.pools import default_live_pool_specs  # noqa: E402
+from repro_torch.core.query import Query, QueryWork  # noqa: E402
+from repro_torch.core.workload import TABLE1  # noqa: E402
 from repro_torch.core.sla import ServiceLevel, SLAConfig  # noqa: E402
 from repro_torch.data.batches import TokenStream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -143,6 +177,7 @@ from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_r
                                      ssd_scan_ref, ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.launch import dryrun, paper_repro  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.launch.serve_sla import serve_traffic  # noqa: E402
 from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
@@ -175,10 +210,13 @@ MAX_LEN = 512  # cache of MAX_LEN + 128 = 640 slots
 FLASH_SLICE = (1, 333, 16, 8, 64, True, 0, 0.0)
 FLASH_HD128 = (1, 333, 16, 8, 128, True, 0, 0.0)  # internlm2-1.8b prefill
 FLASH_LONG = (1, 2048, 16, 8, 64, True, 0, 0.0)  # a 2048-token prompt
+FLASH_GRANITE = (1, 333, 32, 8, 128, True, 0, 0.0)  # granite-8b prefill: GQA 4:1 at hd 128
 FLASH_CASES = [
     FLASH_SLICE,
     FLASH_HD128,
     FLASH_LONG,
+    FLASH_GRANITE,
+    (1, 4096, 32, 8, 128, True, 0, 0.0),  # granite-8b's dry-run prefill (phase 15 (b))
     (1, 37, 4, 2, 16, True, 0, 0.0),
     (2, 200, 8, 4, 32, True, 0, 0.0),
     (2, 100, 7, 1, 8, True, 0, 0.0),  # reduced qwen2-0.5b: GQA 7:1, hd 8
@@ -770,6 +808,7 @@ def train_full(device) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated(device)
     n_params = count_params(out["state"]["params"])
     step_s = float(np.median(out["step_s"][-10:]))
+    last10_ms = [1e3 * t for t in out["step_s"][-10:]]
     ckpt_s = out["ckpt_s"]
     flops = _model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
 
@@ -798,6 +837,7 @@ def train_full(device) -> tuple[dict, dict]:
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "num_params": n_params,
         "losses_first_last": [losses[0], losses[-1]], "ln_vocab": math.log(cfg.vocab_size),
         "step_ms_median_last10": 1e3 * step_s,
+        "step_ms_last10": last10_ms,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
         "model_flops_per_step": flops, "model_flop_per_s": flops / step_s,
         "mfu_vs_989T_bf16": flops / step_s / H100.peak_flops_bf16,
@@ -1054,6 +1094,7 @@ def time_kernels(device, n_sets=16) -> dict:
                                      n_sets=4, iters=40)
     out["flash_attention_long"] = _time_flash(gen, device, FLASH_LONG, 4, 20)
     out["flash_attention_hd128"] = _time_flash(gen, device, FLASH_HD128, n_sets, 100)
+    out["flash_attention_granite"] = _time_flash(gen, device, FLASH_GRANITE, n_sets, 100)
     out["lm_head_chunk"] = _time_head(gen, device)
 
     # at the training shape of phase 10, bfloat16: the forward with its
@@ -1451,6 +1492,230 @@ def moe(device, arch, card) -> dict:
     return {"model": model, "f64": f64, "times": times}
 
 
+DENSE_ARCHS = ("qwen2-0.5b", "internlm2-1.8b", "granite-8b")  # 841 of Table 1's 911
+DENSE_BATCH = 4
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "smoke_dryrun"
+DRYRUN_REPEATS = 3
+#: each dense Table 1 arch's service levels, in its pattern's cycle
+TABLE1_LEVELS = {p.arch: p.sla_cycle for p in TABLE1}
+LIVE_PER_ARCH = 3
+
+
+def dense_full(device) -> dict:
+    """Phase 15 (a): the dense Table 1 archs at full width and depth, as
+    phase 4 at batch DENSE_BATCH: kernels against plain, one flash launch a
+    layer a prefill and one decode launch a layer a step."""
+    out = {}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = check_model(device, arch=arch, batch=DENSE_BATCH)
+        print(f"[dense a] {arch} full width: {json.dumps(out[arch])} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fit_report(records: list, table) -> dict:
+    """The fit's raw values beside what it kept: ``fit_dryruns`` clamps the
+    speed to SPEED_BOUNDS and each factor to FACTOR_BOUNDS; a clamped value
+    is reported, never widened."""
+    ratios = {}
+    for rec in records:
+        ratios.setdefault((rec["arch"], rec["kind"]), []).append(
+            rec["roofline"]["terms"]["step_s"] / rec["analytic_s"])
+    geo = {k: math.exp(sum(map(math.log, v)) / len(v)) for k, v in ratios.items()}
+    all_r = [r for v in ratios.values() for r in v]
+    raw_speed = 1.0 / math.exp(sum(map(math.log, all_r)) / len(all_r))
+    factors = table.as_dict()["factors"]
+    raw_factors = {f"{a}/{k}": g * table.speed_factor for (a, k), g in geo.items()}
+    clamped = [f"{key} {raw} -> {factors[key]}" for key, raw in raw_factors.items()
+               if not FACTOR_BOUNDS[0] <= raw <= FACTOR_BOUNDS[1]]
+    if not SPEED_BOUNDS[0] <= raw_speed <= SPEED_BOUNDS[1]:
+        clamped.insert(0, f"speed {raw_speed} -> {table.speed_factor}")
+    return {"speed_factor": table.speed_factor, "raw_speed_factor": raw_speed,
+            "factors": factors, "raw_factors": raw_factors,
+            "speed_bounds": SPEED_BOUNDS, "factor_bounds": FACTOR_BOUNDS,
+            "clamped": clamped, "source": table.source}
+
+
+def dry_run(device, card, train_step_ms) -> dict:
+    """Phase 15 (b): a serve record for each Table 1 arch (launch/dryrun.py:
+    a 4096-token prefill at batch 1, float32, through the flash kernel;
+    mixtral and phi3.5 at depths 2 and 4, extrapolated) and the qwen2-0.5b
+    train record from phase 10's last ten steps; then the H100 fit of the
+    six records, nothing skipped."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    records, per_cell = [], {}
+    for arch in dryrun.TABLE1_ARCHS:
+        t0 = time.perf_counter()
+        flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
+        rec = dryrun.measure_cell(arch, device=device, repeats=DRYRUN_REPEATS)
+        depths = [int(d) for d in rec.get("depth_step_s", {})] or [get_config(arch).num_layers]
+        want = sum(depths) * (1 + DRYRUN_REPEATS)  # warm-up + timed calls, a launch a layer
+        counts = {"flash_attention": flash_attention.launches,
+                  "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
+        if counts != {"flash_attention": want, "decode_attention": 0, "ssd_scan": 0}:
+            raise AssertionError(f"dry run {arch}: launches {counts}, expected {want} flash")
+        if rec["device"] != card:
+            raise AssertionError(f"dry run {arch}: device {rec['device']!r}, card {card!r}")
+        dryrun.write_record(rec, DRYRUN_DIR)
+        records.append(rec)
+        step_s = rec["roofline"]["terms"]["step_s"]
+        per_cell[arch] = {"step_ms": 1e3 * step_s, "analytic_ms": 1e3 * rec["analytic_s"],
+                          "measured_over_analytic": step_s / rec["analytic_s"],
+                          "depths": depths, "flash_launches": counts["flash_attention"],
+                          "wall_s": time.perf_counter() - t0}
+        print(f"[dry b] {json.dumps(rec)} ({per_cell[arch]['wall_s']:.1f}s)", flush=True)
+        torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = dryrun.make_record(TRAIN_ARCH, "train", tokens=tokens,
+                             step_s=float(np.median(train_step_ms)) / 1e3,
+                             measured_ms=list(train_step_ms), device=card,
+                             source="phase 10: train() at 4 x 2048 tokens, bf16, "
+                                    "its last 10 steps")
+    dryrun.write_record(rec, DRYRUN_DIR)
+    records.append(rec)
+    step_s = rec["roofline"]["terms"]["step_s"]
+    per_cell[f"{TRAIN_ARCH}/train"] = {"step_ms": 1e3 * step_s,
+                                       "analytic_ms": 1e3 * rec["analytic_s"],
+                                       "measured_over_analytic": step_s / rec["analytic_s"]}
+    print(f"[dry b] {json.dumps(rec)}", flush=True)
+    table = fit_dryruns(DRYRUN_DIR, hw=H100, hw_tag="h100")
+    if not table.source.endswith(f"({len(records)} records)"):
+        raise AssertionError(f"dry run fit: {table.source}")
+    return {"cells": per_cell, "fit": _fit_report(records, table)}
+
+
+def _run_live(device, calibrated: bool, models=None,
+              one_at_a_time: bool = False) -> tuple[dict, object]:
+    """Phase 15 (c), one engine: LIVE_PER_ARCH queries of batch 1 for each
+    dense Table 1 arch at its pattern's levels, on the default vm / cf
+    pools, fitted from DRYRUN_DIR with the live calibration loop on, or on
+    the analytic model; submitted at once, or each after the last is done.
+    Each query's exec quote is read when a pool takes it (the pool's
+    remaining exec seconds then); the analytic H100 model's quote stands
+    beside it. ``models`` (an earlier engine's warm ``_ModelPool``) serves
+    the same weights again, so the three archs (~43 GB in float32) are
+    held once. Returns what it measured and the engine's models."""
+    specs = default_live_pool_specs()
+    if calibrated:
+        specs = [replace(s, dryrun_dir=str(DRYRUN_DIR), hw_tag="h100") for s in specs]
+    eng = LiveEngine(LiveConfig(
+        reduced=False, device=str(device), prompt_tokens=256, decode_tokens=32,
+        decode_chunk_tokens=8, calibrate=calibrated, pools=specs))
+    if models is not None:
+        eng.models = models  # before any query: workers read it at each stage
+    warm0 = set(eng.models.compile_s)
+    offline = {p.name: p.cost_model.calibration.speed_factor if calibrated else None
+               for p in eng.pools}
+    quoted = {}
+    for pool in eng.pools:
+        def placed(q, now, _pool=pool, _submit=pool.submit):
+            quoted.setdefault(q.qid, (_pool.name, _pool._static_quote(q)[0]))
+            _submit(q, now)
+        pool.submit = placed
+    qs = []
+    flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    for arch in DENSE_ARCHS:
+        levels = TABLE1_LEVELS[arch]
+        for i in range(LIVE_PER_ARCH):
+            q = Query(work=QueryWork(arch=arch, batch=1), sla=levels[i % len(levels)],
+                      submit_time=0.0, source=arch)
+            eng.submit(q)
+            qs.append(q)
+            deadline = time.monotonic() + 300.0
+            while one_at_a_time and q.state not in ("done", "failed"):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"live: Q{q.qid} did not finish alone")
+                time.sleep(0.005)
+    eng.drain(len(qs), timeout=600.0)
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention": flash_attention.launches,
+              "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
+    bad = [(q.qid, q.state, q.error) for q in qs if q.state != "done"]
+    if bad:
+        raise AssertionError(f"live calibrated={calibrated}: queries not done {bad}")
+    n_stages = 1 + 32 // 8
+    for q in qs:
+        idx = [e.index for e in q.stage_trace]
+        billed = sum(e.chip_seconds for e in q.stage_trace)
+        if idx != list(range(n_stages)) or abs(billed - q.chip_seconds) > 1e-9 * max(1.0, billed):
+            raise AssertionError(f"live: Q{q.qid} stages {idx}, billed {billed} "
+                                 f"against {q.chip_seconds}")
+    # a launch a layer: each prefill and decode step, this engine's warm-ups
+    # (one prefill and one step an (arch, batch)) included
+    layers = {a: get_config(a).num_layers for a in DENSE_ARCHS}
+    warm = [a for a, _ in set(eng.models.compile_s) - warm0]
+    want = {"flash_attention": sum(layers[a] for a in warm) + sum(
+                layers[q.work.arch] * (e.stage == "prefill") for q in qs for e in q.stage_trace),
+            "decode_attention": sum(layers[a] for a in warm) + sum(
+                layers[q.work.arch] * _stage_steps(e.stage) for q in qs for e in q.stage_trace),
+            "ssd_scan": 0}
+    if counts != want:
+        raise AssertionError(f"live calibrated={calibrated}: launches {counts}, expected {want}")
+    analytic = CostModel(use_calibration=False, decode_chunk_tokens=8)
+    rows = [{"qid": q.qid, "arch": q.work.arch, "level": q.sla.short, "pool": quoted[q.qid][0],
+             "quoted_exec_s": quoted[q.qid][1],
+             "analytic_exec_s": analytic.plan(q.work, 1).remaining_time(0),
+             "exec_s": q.exec_time, "pending_s": q.pending_time, "cost": q.cost} for q in qs]
+
+    def quote_error(key):  # median |log(measured / quoted)|
+        return float(np.median([abs(math.log(r["exec_s"] / r[key])) for r in rows]))
+
+    online = ({p.name: eng.calibrator.fitted_speed_factor(p) for p in eng.pools}
+              if calibrated else None)
+    return {"queries": rows, "quote_error_median_abs_log": quote_error("quoted_exec_s"),
+            "analytic_quote_error_median_abs_log": quote_error("analytic_exec_s"),
+            "offline_speed": offline,
+            "online_speed": online, "launches": counts, "wall_s": wall}, eng.models
+
+
+def live_calibrated(device) -> dict:
+    """Phase 15 (c): the same queries on calibrated and on analytic pools,
+    then on calibrated pools one at a time (no query beside another), on
+    one set of weights."""
+    out, models = {}, None
+    for name, calibrated, one in (("calibrated", True, False), ("analytic", False, False),
+                                  ("calibrated, one at a time", True, True)):
+        out[name], models = _run_live(device, calibrated, models, one_at_a_time=one)
+        for row in out[name].pop("queries"):
+            print(f"[live c] {name} {json.dumps(row)}", flush=True)
+        print(f"[live c] {name}: {json.dumps(out[name])}", flush=True)
+    del models
+    gc.collect()  # engines and their pools refer to each other
+    torch.cuda.empty_cache()
+    out["allocated_gb_after"] = torch.cuda.memory_allocated(device) / 1e9
+    print(f"[live c] device memory allocated after the three engines: "
+          f"{out['allocated_gb_after']:.3f} GB", flush=True)
+    return out
+
+
+def table1_day() -> dict:
+    """Phase 15 (d): the paper's Table 1 day (911 queries, 4 h, three runs)
+    on pools fitted from DRYRUN_DIR and on the analytic H100 model: every
+    query terminal, and sanitize.check_result passing on each run."""
+    out = {}
+    for name, argv in (("fitted", ["--dryrun-dir", str(DRYRUN_DIR), "--hw-tag", "h100"]),
+                       ("analytic", [])):
+        t0 = time.perf_counter()
+        day = paper_repro.main(argv)
+        prev = sanitize.set_enabled(True)
+        try:
+            for run, res in day["runs"].items():
+                if len(res.queries) != 911 or any(q.state != "done" for q in res.queries):
+                    raise AssertionError(f"day {name} {run}: not every query is done")
+                sanitize.check_result(res.queries)
+        finally:
+            sanitize.set_enabled(prev)
+        out[name] = {"summaries": {run: {k: v[k] for k in ("total_cost", "cost_by_sla",
+                                                            "violations", "cluster_share")}
+                                   for run, v in day["summaries"].items()},
+                     "reductions": day["reductions"], "wall_s": time.perf_counter() - t0}
+        print(f"[day d] {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -1544,6 +1809,21 @@ def main() -> int:
         t0 = time.perf_counter()
         moe(device, arch, card)
         print(f"[moe] {arch} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dense_full(device)
+    print(f"[dense a] ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    dry = dry_run(device, card, trained["step_ms_last10"])
+    print(f"[dry b] fit on {card}: {json.dumps(dry)} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    t0 = time.perf_counter()
+    live_calibrated(device)
+    print(f"[live c] ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    table1_day()
+    print(f"[day d] ({time.perf_counter() - t0:.1f}s)", flush=True)
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f}s", flush=True)
 
     # each kernel's launches come from the run of the path it is on: the

@@ -21,7 +21,7 @@ Properties the fault-tolerant trainer relies on:
     leaves compress in parallel threads: zlib and zstd release the GIL);
   * ``keep`` bounds how many steps stay on disk.
 The reference's elastic restore onto a mesh (``shardings``) waits for the
-port of sharding (ROADMAP queue 1 item 14).
+port of sharding (ROADMAP queue 1, data-parallel and sharding).
 """
 from __future__ import annotations
 

@@ -31,5 +31,6 @@ from .scheduler import (
     fusion_key,
     unpack_fused,
 )
+from .simulator import SimConfig, SimResult, Simulation, run_sim
 from .sla import Policy, ServiceLevel, SLAConfig
 from .workload import TABLE1, generate, scaled_patterns, stream_histogram

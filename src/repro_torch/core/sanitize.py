@@ -9,7 +9,7 @@
   * lock-ORDER asserts: acquisitions that descend the lock hierarchy
     (``LOCK_RANKS``, the JAX package's statically derived table; this
     package's threaded modules keep its lock names) raise before they
-    can deadlock; ``tests/test_torch_core_sanitize.py`` pins the table to
+    can deadlock; ``tests/test_torch_core_sched.py`` pins the table to
     the JAX package's,
   * post-run chip-second conservation and gap/overlap-free stage-trace
     asserts over the finished population (``check_result``).

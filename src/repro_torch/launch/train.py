@@ -12,7 +12,7 @@ tests/test_torch_train.py):
 On a CUDA device every attention of the forward pass runs the CUDA flash
 kernel through ``kernels/ops.py::flash_attention_diff`` (mamba2: the SSD
 scan through ``ssd_scan_diff``). Training on a mesh (``mesh``) waits for
-the port of sharding (ROADMAP queue 1 item 14).
+the port of sharding (ROADMAP queue 1, data-parallel and sharding).
 """
 from __future__ import annotations
 
@@ -62,7 +62,8 @@ def train(
     seconds the loop was held up by checkpoints (``ckpt_s``: each save's
     copy to the host, and the wait for the last write)."""
     if mesh is not None:
-        raise NotImplementedError("training on a mesh is not ported (ROADMAP queue 1 item 14)")
+        raise NotImplementedError(
+            "training on a mesh is not ported (ROADMAP queue 1, data-parallel and sharding)")
     device = torch.device(device)
     if device.type == "cuda":
         # the reference computes its float32 products in full float32

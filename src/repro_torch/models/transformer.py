@@ -290,7 +290,7 @@ class LM:
         if remat in ("dots", "coll"):
             raise NotImplementedError(
                 f"remat={remat!r} is an XLA checkpoint policy, not ported "
-                "(ROADMAP queue 1 item 13)")
+                "(ROADMAP queue 1, what training still lacks)")
         if remat not in (None, "full"):
             raise ValueError(f"remat {remat!r} not in (None, 'full', 'dots', 'coll')")
         auxes = []

@@ -3,8 +3,8 @@
 The returned step is a function (state, batch) -> (state, metrics) that
 leaves its input state untouched. Grads come from ``torch.autograd.grad``
 on the float32 master params; the forward computes in ``compute_dtype``.
-``state_axes`` (sharding) waits for the port of the mesh (ROADMAP queue 1
-item 14).
+``state_axes`` (sharding) waits for the port of the mesh (ROADMAP queue 1,
+data-parallel and sharding).
 """
 from __future__ import annotations
 

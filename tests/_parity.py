@@ -15,8 +15,14 @@ The port's hardware default is the H100 and the reference's the TPU v5e:
 ``check_case`` binds the default ``hw`` of one package to the other's spec
 while the case runs, so both packages compute with the same spec (the
 port's ``V5E`` equals the reference's field for field; the reference's
-code reads the port's ``H100`` as it reads its own specs). Names of modules not ported yet (``simulator``, ``chaos``) import as
-stubs that raise when used: only cases that need neither are run.
+code reads the port's ``H100`` as it reads its own specs).
+
+A case may name one parametrization of a parametrized test as
+``"file.py::test_x[id]"``, where ``id`` joins the parameter values with
+"-" in the order the marks were applied (``_param_sets``). Both packages
+restart their qid counter before a case (the reference's tests may call
+``reset_qids`` themselves), and a hypothesis test draws derandomized
+examples, so both packages see the same ones.
 """
 from __future__ import annotations
 
@@ -25,59 +31,60 @@ import dataclasses
 import enum
 import importlib
 import inspect
+import itertools
 import re
-import sys
 import types
 from pathlib import Path
 
 import pytest
+from hypothesis import settings
 
 TESTS = Path(__file__).resolve().parent
-NOT_PORTED = ("simulator", "chaos")
-
-
-def _waits(name):
-    def stub(*args, **kwargs):
-        raise RuntimeError(f"{name} waits on the port of core.simulator / core.chaos")
-    stub.__name__ = name
-    return stub
-
-
-def _fallback_module(name: str, real) -> types.ModuleType:
-    """A module that serves ``real``'s attributes and a stub for any other
-    name (``from repro.core import SimConfig`` in a port's case)."""
-    mod = types.ModuleType(name)
-
-    def __getattr__(attr):
-        if real is not None and hasattr(real, attr):
-            return getattr(real, attr)
-        if attr.startswith("__"):
-            raise AttributeError(attr)
-        return _waits(attr)
-
-    mod.__getattr__ = __getattr__
-    sys.modules[name] = mod
-    return mod
+settings.register_profile("_parity", derandomize=True, database=None)
 
 
 def _port_source(src: str) -> str:
-    src = re.sub(r"\brepro\.core\.(%s)\b" % "|".join(NOT_PORTED), "_parity_not_ported", src)
-    src = re.sub(r"\bfrom repro\.core import\b", "from _parity_port_core import", src)
     return re.sub(r"\brepro\.", "repro_torch.", src)
+
+
+@contextlib.contextmanager
+def _derandomized():
+    """Hypothesis settings created meanwhile derandomize their examples."""
+    prev = settings._current_profile
+    settings.load_profile("_parity")
+    try:
+        yield
+    finally:
+        settings.load_profile(prev)
 
 
 def load_case_module(filename: str, pkg: str) -> types.ModuleType:
     """``tests/<filename>`` executed as a fresh module against ``pkg``."""
     src = (TESTS / filename).read_text()
     if pkg == "repro_torch":
-        _fallback_module("_parity_port_core", importlib.import_module("repro_torch.core"))
-        _fallback_module("_parity_not_ported", None)
         src = _port_source(src)
     name = f"_parity_{pkg}_{Path(filename).stem}"
     mod = types.ModuleType(name)
     mod.__file__ = str(TESTS / filename)
-    exec(compile(src, str(TESTS / filename), "exec"), mod.__dict__)
+    with _derandomized():
+        exec(compile(src, str(TESTS / filename), "exec"), mod.__dict__)
     return mod
+
+
+def _param_sets(fn) -> dict:
+    """``{id: kwargs}`` of every parametrization of ``fn`` (``{"": {}}``
+    when it has none). Stacked marks combine as pytest combines them."""
+    marks = [m for m in getattr(fn, "pytestmark", []) if m.name == "parametrize"]
+    axes = []
+    for m in marks:
+        names = [n.strip() for n in m.args[0].split(",")] if isinstance(m.args[0], str) \
+            else list(m.args[0])
+        axes.append([dict(zip(names, v if len(names) > 1 else (v,))) for v in m.args[1]])
+    out = {}
+    for combo in itertools.product(*axes):
+        kw = {k: v for d in combo for k, v in d.items()}
+        out["-".join(str(v) for d in combo for v in d.values())] = kw
+    return out
 
 
 def _functions(module):
@@ -161,6 +168,8 @@ def _fixture_value(module, name, stack, tmp_path, monkeypatch):
         return tmp_path
     if name == "monkeypatch":
         return monkeypatch
+    if name == "update_golden":  # tests/conftest.py: never rewrite a golden file here
+        return False
     fx = getattr(module, name)
     gen = fx._get_wrapped_function()()
     if inspect.isgenerator(gen):
@@ -175,8 +184,10 @@ def run_case(pkg: str, case: str, tmp_path: Path, hw=None):
     place of the package's default spec where given; return its recorded
     snapshot (see the module docstring)."""
     filename, test_name = case.split("::")
+    test_name, _, param_id = test_name.partition("[")
     core = importlib.import_module(f"{pkg}.core")
     query_mod = importlib.import_module(f"{pkg}.core.query")
+    query_mod.reset_qids()
     insights = importlib.import_module(f"{pkg}.core.insights")
     made, quotes, menus = [], [], []
     with contextlib.ExitStack() as stack:
@@ -208,10 +219,11 @@ def run_case(pkg: str, case: str, tmp_path: Path, hw=None):
         mp.setattr(core, "price_menu", recording_menu)
         module = load_case_module(filename, pkg)
         fn = getattr(module, test_name)
-        fixtures = {}
+        fixtures = _param_sets(fn)[param_id.rstrip("]")]
         inner_mp = stack.enter_context(pytest.MonkeyPatch.context())
         for p in inspect.signature(fn).parameters:
-            fixtures[p] = _fixture_value(module, p, stack, tmp_path, inner_mp)
+            if p not in fixtures:
+                fixtures[p] = _fixture_value(module, p, stack, tmp_path, inner_mp)
         fn(**fixtures)
         return {
             "queries": [_snapshot(q, base) for q in made],

@@ -20,8 +20,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.launch.dryrun import measure_cell
 from repro_torch.launch.serve import ServeEngine
 from repro_torch.launch.train import train
+from repro_torch.launch.train_ft import train_ft
 from repro_torch.models.params import init_tree
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import LM
@@ -54,7 +56,10 @@ def test_the_scan_sees_every_module_of_the_port():
             "src/repro_torch/checkpoint/store.py", "src/repro_torch/training/step.py",
             "src/repro_torch/optim/adamw.py", "src/repro_torch/data/batches.py",
             "src/repro_torch/core/live.py", "src/repro_torch/core/scheduler.py",
-            "src/repro_torch/launch/serve_sla.py", "chip_smoke.py"} <= names
+            "src/repro_torch/launch/serve_sla.py", "src/repro_torch/core/simulator.py",
+            "src/repro_torch/core/chaos.py", "src/repro_torch/launch/paper_repro.py",
+            "src/repro_torch/launch/train_ft.py", "src/repro_torch/launch/dryrun.py",
+            "chip_smoke.py"} <= names
     # relative imports resolve inside the port: none climbs above it
     for path in PORT_FILES[:-1]:
         depth = len(path.relative_to(REPO / "src" / "repro_torch").parts) - 1
@@ -73,7 +78,7 @@ def test_port_calls_no_library_attention_or_compile(path):
 @pytest.mark.parametrize("fn", [ServeEngine.__init__, LM.__init__, build_model,
                                 params_from_jax, init_tree, train, init_state,
                                 TokenStream.__init__, make_batch, CheckpointStore.restore,
-                                LiveConfig.__init__])
+                                LiveConfig.__init__, measure_cell, train_ft])
 def test_entry_points_default_to_cuda(fn):
     params = inspect.signature(fn).parameters
     if "device" not in params:
@@ -103,6 +108,11 @@ def test_train_cli_defaults_to_cuda():
 
 def test_serve_sla_cli_defaults_to_cuda():
     assert _cli_defaults("serve_sla.py")["--device"] == "cuda"
+
+
+@pytest.mark.parametrize("cli", ["dryrun.py", "train_ft.py"])
+def test_dryrun_and_train_ft_clis_default_to_cuda(cli):
+    assert _cli_defaults(cli)["--device"] == "cuda"
 
 
 def test_live_engine_asks_for_cuda_and_raises_without_it(monkeypatch):
@@ -162,7 +172,9 @@ def test_the_grad_guard_refuses_cuda_inputs_that_require_grad_under_grad_mode():
     "repro_torch.launch.train", "repro_torch.training.step", "repro_torch.optim.adamw",
     "repro_torch.data.batches", "repro_torch.checkpoint.store", "repro_torch.convert",
     "repro_torch.core", "repro_torch.core.live", "repro_torch.core.calibration",
-    "repro_torch.launch.serve_sla",
+    "repro_torch.launch.serve_sla", "repro_torch.core.simulator", "repro_torch.core.chaos",
+    "repro_torch.launch.paper_repro", "repro_torch.launch.train_ft",
+    "repro_torch.launch.dryrun",
 ])
 def test_each_module_imports_first_in_a_fresh_interpreter(module):
     """The kernel modules and the model import each other's packages: no

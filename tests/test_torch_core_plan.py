@@ -1,9 +1,8 @@
 """The port's cost model, engine, allocation, calibration and insights
 (``repro_torch.core``) held against the JAX package's, bit for bit.
 
-Each case is a test of the JAX package that needs neither the simulator
-nor chaos (``tests/_parity.py``): it runs on both packages from the same
-seed, its own asserts hold on each, and every query, pool quote and price
+Each case is a test of the JAX package (``tests/_parity.py``), the
+simulator's included: it runs on both packages from the same seed, its own asserts hold on each, and every query, pool quote and price
 menu it makes is equal (``==``) between them, first with both packages on
 the TPU v5e spec and then on the port's H100."""
 import pytest
@@ -17,6 +16,14 @@ CASES = {
         "test_elastic_finish_time_is_exact_not_event_time",
         "test_boe_fusion_never_mixes_train_and_serve",
         "test_boe_fusion_requires_matching_output_tokens",
+        "test_stage_trace_tiles_execution",
+        "test_preemption_lets_immediate_jump_the_slice",
+        "test_preemption_invariant_under_paper_stream",
+        "test_spill_moves_remaining_stages_to_cf_at_cf_rate",
+        "test_boe_is_never_spilled_to_the_expensive_pool",
+        "test_fault_rebills_only_failed_stages",
+        "test_all_stages_failing_doubles_the_bill_exactly",
+        "test_engine_determinism_same_seed_same_summary",
     ],
     "test_allocation.py": [
         "test_frontier_is_monotone_under_parallel_overhead",
@@ -43,6 +50,9 @@ CASES = {
         "test_rejected_only_pool_falls_back_to_reprice",
         "test_build_pool_drift_action_validated",
         "test_build_pool_arms_drift_gate",
+        "test_single_point_grid_is_bit_identical_to_fixed_slice",
+        "test_sim_counts_drift_interventions_and_observer_feeds_walls",
+        "test_sim_without_drift_gate_reports_zero",
     ],
     "test_calibration.py": [
         "test_decode_chunk_times_monotone_in_context",
@@ -67,14 +77,21 @@ CASES = {
         "test_stage_observer_feeds_the_loop_from_a_simulated_pool",
         "test_cost_explorer_reports_per_pool_cluster_share",
         "test_price_menu_reflects_pool_calibration",
+        "test_sim_calibrations_flow_into_quotes_and_billing",
+        "test_summary_cluster_share_on_n_pool_registry",
+        "test_cost_explorer_keeps_derived_vm_share_for_legacy_pair",
     ],
 }
 ALL = [f"{f}::{n}" for f, names in CASES.items() for n in names]
 #: cases whose asserts hold only on the v5e's numbers (a backlog threshold
-#: sized to v5e stage times; the checked-in dry-run records are v5e's)
+#: sized to v5e stage times; the checked-in dry-run records are v5e's; a
+#: rival query arriving at t = 30 s while a v5e-timed long query still
+#: runs, which on the H100 has already finished)
 V5E_ONLY = {
     "test_allocation.py::test_backlog_watermark_re_eval_neither_skips_nor_loops",
     "test_calibration.py::test_checked_in_fixtures_fit",
+    "test_engine.py::test_preemption_lets_immediate_jump_the_slice",
+    "test_engine.py::test_spill_moves_remaining_stages_to_cf_at_cf_rate",
 }
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.chaos import ChaosConfig, WorkerDeath, install_live_chaos
 from repro_torch.core.live import (
     LiveConfig,
     LiveEngine,
@@ -37,12 +38,6 @@ from repro_torch.core.sla import Policy, ServiceLevel, SLAConfig
 torch.set_num_threads(1)
 
 _cfg = functools.partial(LiveConfig, device="cpu")
-
-
-class WorkerDeath(BaseException):
-    """Injected live worker death: a BaseException, so it blows through
-    ``LiveExecutor._execute``'s ``except Exception`` and kills the worker
-    thread the way a lost host would."""
 
 
 @pytest.fixture(autouse=True)
@@ -695,6 +690,35 @@ def test_convergence_plane_respawns_worker_and_resumes_from_checkpoint():
         counts = dict(eng.events.counts())
         assert counts["death"] == 1 and counts["resume"] == 1
         assert counts.get("replace", 0) >= 1
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_live_chaos_kills_each_stage_once_and_the_plane_heals_every_death():
+    """``core.chaos.install_live_chaos`` on the port's engine: at death
+    probability 1 every (query, stage) site kills its worker exactly once;
+    the convergence plane resumes each lost stage, so the query finishes
+    with every stage billed once."""
+    eng = LiveEngine(_cfg(
+        pools=[PoolSpec(name="vm", kind="reserved", chips=1)],
+        sla=SLAConfig(relaxed_deadline_s=10.0, poll_period_s=0.02,
+                      vm_overload_threshold=1_000),
+        stage_deadline_s=0.5, convergence=True, max_resumes=3, events=True,
+    ))
+    try:
+        chaos = install_live_chaos(eng, ChaosConfig(seed=3, live_death_prob=1.0))
+        q = _q(ServiceLevel.IMMEDIATE)
+        eng.submit(q)
+        done = eng.drain(1, timeout=60.0)
+        assert q in done and q.state == "done", q.error
+        n_stages = 1 + eng.cfg.decode_tokens // eng.cfg.decode_chunk_tokens
+        _assert_conserved(q, n_stages)
+        assert sorted(chaos._fired) == [(q.qid, i) for i in range(n_stages)]
+        assert eng.plane.deaths == n_stages and eng.plane.resumes == n_stages
+        counts = dict(eng.events.counts())
+        assert counts["death"] == n_stages and counts["resume"] == n_stages
     finally:
         eng.shutdown()
 

@@ -132,7 +132,38 @@ Phases, each of which raises on failure (there is no CPU fallback):
      value for them; (d) the paper's Table 1 day (launch/paper_repro.py:
      911 queries, 4 h, three runs) on the fitted pools and on the
      analytic model: every query done, sanitize.check_result passing on
-     each run, the costs by level, violations and the two reductions.
+     each run, the costs by level, violations and the two reductions;
+ 16. the rest of the model registry on the serving path: (k) flash at Sq
+     != Sk (seamless's cross-attention q (4,200,16,64) against k/v
+     (4,512,16,64) non-causal, and causal at Sq 512, Sk 200), one token
+     against a 512-slot cross cache at decoder position 199, and the SSD
+     scan at jamba's width (x (2,256,128,64), N 16), float32 and bfloat16
+     against their plain versions, twice bit for bit; (a) the int8 KV cache
+     on paper-default at full width, batch 4, each of PROMPT_LENS, 16
+     teacher-forced steps, kernels against plain: after prefill the
+     logits and scales within 5e-2, the first layer's int8 codes equal, at
+     most 10 % of the codes different (int8 rounding compounds the routes'
+     ~1e-6 differences with depth); each decode step from one cache, the
+     logits at atol 2e-3 / rtol 1e-3 and at most 0.1 % of the new codes
+     different; the cache's bytes against the float cache's, and the
+     decode step with and without int8 in turns; (b) jamba-v0.1-52b at
+     full width, depth 8 of 32 (one hybrid
+     period), batch 2, a 256-token prompt: 7 SSD scans and 1 flash a
+     prefill, 1 decode a step; (c) seamless-m4t-large-v2 at full width and
+     depth (24 + 24 layers), batch 4, with 333 encoder frames for a
+     333-token prompt and 512 for 200: 72 flash launches a prefill (24
+     encoder, 24 causal, 24 cross), 48 decode launches a step; (d)
+     internvl2-76b at full width, depth 4 of 80, batch 4, 256 patch
+     positions and a 77-token prompt against the live engine's context of
+     101 (the prefill ring-placed in 229 slots); (b)-(d) logits within
+     atol 2e-3 / rtol 1e-3 of plain, float32 weights, prefill and decode-step
+     ms, the step's device idle share and the peak of device memory; (e)
+     the live engine (phase 15's LiveConfig) on one reserved worker,
+     seamless at full depth and internvl2 at depth 4: a seamless
+     BEST_EFFORT query preempted by two IMMEDIATE ones, every query done and
+     billed once a stage, the preempted one's cache (cross K/V included)
+     bit for bit an uninterrupted run's, internvl2's cache wrapped, a
+     launch a layer (and cross-attention) for every prefill and step.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -161,8 +192,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import sanitize  # noqa: E402
 from repro_torch.core.calibration import FACTOR_BOUNDS, SPEED_BOUNDS, fit_dryruns  # noqa: E402
 from repro_torch.core.cost_model import CostModel  # noqa: E402
-from repro_torch.core.live import LiveConfig, LiveEngine, _prompt_inputs, _sync  # noqa: E402
-from repro_torch.core.pools import default_live_pool_specs  # noqa: E402
+from repro_torch.core.live import (LiveConfig, LiveEngine, _ModelPool, _prompt_inputs,  # noqa: E402
+                                   _sync)
+from repro_torch.core.pools import PoolSpec, default_live_pool_specs  # noqa: E402
 from repro_torch.core.query import Query, QueryWork  # noqa: E402
 from repro_torch.core.workload import TABLE1  # noqa: E402
 from repro_torch.core.sla import ServiceLevel, SLAConfig  # noqa: E402
@@ -175,14 +207,14 @@ from repro_torch.kernels.flash_attention_bwd import (cached_schedule, flash_atte
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_lse_ref, flash_attention_ref,
                                      ssd_scan_ref, ssd_sequential_ref)
-from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff  # noqa: E402
+from repro_torch.kernels.ops import flash_attention_diff, sdpa_kernel, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch import dryrun, paper_repro  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.launch.serve_sla import serve_traffic  # noqa: E402
 from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.layers import moe_apply, moe_capacity, moe_route  # noqa: E402
+from repro_torch.models.layers import _sdpa_dense, moe_apply, moe_capacity, moe_route  # noqa: E402
 from repro_torch.models.params import count_params, tree_leaves  # noqa: E402
 from repro_torch.models.transformer import LM, head_logits, plain_head_logits  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
@@ -194,6 +226,20 @@ BF16_TOL = 2e-2
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # bfloat16: tensor-core sums
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # the reference's own
 MODEL_ATOL, MODEL_RTOL = 2e-3, 1e-3
+#: the int8 KV cache (phase 16 (a), ``check_int8``). Rounding to the int8
+#: grid turns the two routes' ~1e-6 differences into whole codes in the
+#: layers after the first, and those codes move the next layer's inputs by
+#: far more than 1e-6, so the differences compound with depth (on an H100,
+#: paper-default at batch 4: up to 4.0 % of a prefill's codes, by up to 2,
+#: and its logits by up to 1.14e-2). After prefill the logits and scales are
+#: held within INT8_PREFILL_TOL, the first layer's codes must be equal and at
+#: most INT8_DIFFER_SHARE of the written codes may differ. Each decode step
+#: then runs both routes from one cache, where only the new slot can differ
+#: (up to 0.026 % of its codes): logits at MODEL_ATOL / MODEL_RTOL, at most
+#: INT8_STEP_DIFFER_SHARE of the new codes different
+INT8_PREFILL_TOL = 5e-2
+INT8_DIFFER_SHARE = 0.1
+INT8_STEP_DIFFER_SHARE = 1e-3
 MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
 MOE_LAYERS = 4  # depth 4 of 32, every width as published
 MOE_BATCH = 4
@@ -480,28 +526,59 @@ def check_kernels(device) -> dict:
     return errs
 
 
+def model_inputs(cfg, batch, prompt_len, steps, device, enc_len=None, seed=0):
+    """Seeded prompt (batch, prompt_len), teacher-forced tokens (steps,
+    batch, 1) and the prefill's frontend/encoder inputs: frame embeddings
+    (batch, enc_len or prompt_len, d_model) for an encoder-decoder, patch
+    embeddings (batch, frontend_tokens, d_model) for a vision frontend."""
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=device)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, batch, 1)), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["enc_embeds"] = torch.randn((batch, enc_len or prompt_len, cfg.d_model), generator=gen,
+                                       device=device)
+    if cfg.frontend == "vision_patches":
+        kw["frontend_embeds"] = torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                                            generator=gen, device=device)
+    return prompt, forced, kw
+
+
+def path_launches(cfg, prefills, steps) -> dict:
+    """The kernel launches of ``prefills`` prefills and ``steps`` decode
+    steps: a flash launch a prefill for each attention sublayer, and for an
+    encoder-decoder one more for each encoder layer (non-causal) and each
+    cross-attention; an SSD scan a prefill for each mamba sublayer; a decode
+    launch a step for each attention sublayer, two with cross-attention."""
+    n_attn = cfg.layer_kinds().count("attn")
+    cross = 2 if cfg.is_encoder_decoder else 1
+    return {"flash_attention": prefills * (n_attn * cross + cfg.num_encoder_layers),
+            "decode_attention": steps * n_attn * cross,
+            "ssd_scan": prefills * cfg.layer_kinds().count("mamba")}
+
+
 def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16, cfg=None,
-                batch=1) -> dict:
-    """Phases 4, 6 and 14 (a): the same params and tokens through the kernels
-    and through the plain versions; the kernels' launches: a prefill runs one
-    flash launch per attention layer and one SSD scan per mamba layer, a
-    decode step one decode launch per attention layer. ``cfg`` (default:
-    ``arch``'s) may cut the depth."""
+                batch=1, params=None, enc_len=None, kv_len=MAX_LEN) -> dict:
+    """Phases 4, 6, 14 (a), 15 (a) and 16: the same params and tokens through
+    the kernels and through the plain versions; the kernels' launches
+    (``path_launches``). ``cfg`` (default: ``arch``'s) may cut the depth;
+    ``params`` (default: drawn from a seeded generator) are float32.
+    ``enc_len`` is an encoder-decoder's frame count (default the prompt's);
+    ``kv_len`` the cache's context."""
     cfg = cfg or get_config(arch, reduced=reduced)
     lm_k = LM(cfg, impl="cuda", device=device)
     lm_p = LM(cfg, impl="plain", device=device)
-    params = lm_k.init(torch.Generator(device=device).manual_seed(0), dtype=torch.float32)
-    rng = np.random.default_rng(0)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=device)
-    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, batch, 1)), device=device)
-    kinds = cfg.layer_kinds()
+    if params is None:
+        params = lm_k.init(torch.Generator(device=device).manual_seed(0), dtype=torch.float32)
+    prompt, forced, kw = model_inputs(cfg, batch, prompt_len, steps, device, enc_len)
     flash_attention.launches = 0
     decode_attention.launches = 0
     ssd_scan.launches = 0
     worst = 0.0
     with torch.no_grad():
-        lk, ck = lm_k.prefill(params, prompt, kv_len=MAX_LEN, dtype=torch.float32)
-        lp, cp = lm_p.prefill(params, prompt, kv_len=MAX_LEN, dtype=torch.float32)
+        lk, ck = lm_k.prefill(params, prompt, kv_len=kv_len, dtype=torch.float32, **kw)
+        lp, cp = lm_p.prefill(params, prompt, kv_len=kv_len, dtype=torch.float32, **kw)
         for step in range(steps + 1):
             if not bool(torch.isfinite(lk).all()) or lk.shape != (batch, cfg.vocab_size):
                 raise AssertionError(f"model step {step}: logits {tuple(lk.shape)} not finite")
@@ -514,27 +591,25 @@ def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16, cfg=
                 lp, cp = lm_p.decode_step(params, cp, forced[step], dtype=torch.float32)
     counts = {"flash_attention": flash_attention.launches,
               "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
-    want = {"flash_attention": kinds.count("attn"),
-            "decode_attention": kinds.count("attn") * steps,
-            "ssd_scan": kinds.count("mamba")}
+    want = path_launches(cfg, 1, steps)
     if counts != want:
         raise AssertionError(f"model: launches {counts}, expected {want}")
     if not torch.equal(ck["lengths"], cp["lengths"]):
         raise AssertionError("model: cache lengths differ")
     state_err = 0.0
-    for sub in ck["blocks"]:
-        for kind, leaves in ck["blocks"][sub].items():
-            for name, a in leaves.items():
-                b = cp["blocks"][sub][kind][name]
-                if name == "pos_ids":
-                    if not torch.equal(a, b):
-                        raise AssertionError(f"model: {sub} pos_ids differ")
-                    continue
-                if not bool(torch.isfinite(a).all()):
-                    raise AssertionError(f"model: {sub} cache {name} not finite")
-                if not torch.allclose(a, b, atol=MODEL_ATOL, rtol=MODEL_RTOL):
-                    raise AssertionError(f"model: {sub} cache {name} differs")
-                state_err = max(state_err, float((a - b).abs().max()))
+    for path, a in _leaves({k: v for k, v in ck.items() if k != "lengths"}):
+        b, where = cp, "/".join(path)
+        for key in path:
+            b = b[key]
+        if path[-1] == "pos_ids":
+            if not torch.equal(a, b):
+                raise AssertionError(f"model: {where} differ")
+        elif not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"model: {where} not finite")
+        elif not torch.allclose(a, b, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+            raise AssertionError(f"model: {where} differs")
+        else:
+            state_err = max(state_err, float((a - b).abs().max()))
     return {"logits_max_abs_err": worst, "cache_max_abs_err": state_err, "steps": steps,
             "prompt_len": prompt_len, "batch": batch, "launches": counts,
             "num_params": count_params(params)}
@@ -996,36 +1071,75 @@ def _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, iters) -> dict:
     }
 
 
-def _time_flash(gen, device, case, n_sets, calls) -> dict:
-    """flash_attention (float32, causal) at ``case``: its device time, its
-    eager loop's, its plain version's, SDPA's device time on the same
-    inputs, its bound, and its kernels' device µs (profiler)."""
+def _time_flash(gen, device, case, n_sets, calls, Sk=None, causal=True) -> dict:
+    """flash_attention (float32) at ``case``, q (B,S,H,hd) against ``Sk``
+    keys (default S): its device time, its eager loop's, its plain
+    version's, SDPA's device time on the same inputs, its bound (the
+    products over the (q, k) pairs this input needs: the causal ones, or
+    all S x Sk), and its kernels' device µs (profiler)."""
     B, S, H, K, hd, *_ = case
-    sets = [_qkv(gen, B, S, S, H, K, hd, torch.float32, device) for _ in range(n_sets)]
+    Sk = Sk or S
+    sets = [_qkv(gen, B, S, Sk, H, K, hd, torch.float32, device) for _ in range(n_sets)]
     lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
-    pairs = S * (S + 1) // 2  # causal (q, k) pairs this input needs
+    pairs = sum(min(i + 1, Sk) for i in range(S)) if causal else S * Sk
     flops = 4.0 * B * H * pairs * hd
-    nbytes = 4.0 * (2 * B * S * H * hd + 2 * B * S * K * hd)  # q, o, k, v
+    nbytes = 4.0 * (2 * B * S * H * hd + 2 * B * Sk * K * hd)  # q, o, k, v
     # float32 at hd <= 128 runs as split-TF32 on the tensor cores: three tf32
     # products each; the CUDA-core float32 bound is kept beside it
     bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, split_tf32=hd <= 128, hw=H100)
     cuda_core_bound_s, _ = kernel_bound(flops, nbytes, f32=True, hw=H100)
 
     def run(q, k, v):
-        return flash_attention(q, k, v, causal=True)
+        return flash_attention(q, k, v, causal=causal)
 
     return {
         "ms": _graph_ms(run, sets, calls),
         "eager_ms": _time_ms(run, sets, 2 * calls),
-        "plain_ms": _time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=True), sets,
+        "plain_ms": _time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=causal), sets,
                              max(4, calls // 5)),
         "library_ms": _graph_ms(
-            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                           enable_gqa=True),
             lib_sets, calls),
         "kernels_us": _kernel_us(run, sets),
         "bound_ms": bound_s * 1e3, "bound_by": bound_by, "flops": flops,
         "cuda_core_bound_ms": cuda_core_bound_s * 1e3,
-        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) float32 causal",
+        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{Sk},{K},{hd}) float32 "
+                 f"{'causal' if causal else 'non-causal'}",
+    }
+
+
+def _time_decode_cross(gen, device, B, H, K, hd, Se, n_sets, iters) -> dict:
+    """decode_attention (float32) through the adapter's cross route: one
+    token against a read-only cross cache of Se encoder slots, every slot
+    valid. Its device time, its plain version's, SDPA's with no mask (the
+    same function) and its bound (bytes: q, o and every slot's K/V)."""
+    pos = torch.arange(Se, dtype=torch.int32, device=device)[None].expand(B, Se).contiguous()
+    q_pos = torch.zeros((B, 1), dtype=torch.int32, device=device)
+    sets, lib = [], []
+    for _ in range(n_sets):
+        q, k, v = _qkv(gen, B, 1, Se, H, K, hd, torch.float32, device)
+        sets.append((q, k, v, q_pos, pos))
+        lib.append(tuple(t.transpose(1, 2).contiguous() for t in (q, k, v)))
+    flops = 4.0 * B * H * Se * hd
+    nbytes = 4.0 * (2 * B * H * hd + 2 * B * Se * K * hd + B * Se)
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
+
+    def run(q, k, v, qp, kp):
+        return sdpa_kernel(q, k, v, qp, kp, None, False, None, "cross")
+
+    def plain(q, k, v, qp, kp):
+        return _sdpa_dense(q, k, v, qp, kp, None, False, None)
+
+    return {
+        "ms": _graph_ms(run, sets, iters),
+        "eager_ms": _time_ms(run, sets, iters),
+        "plain_ms": _time_ms(plain, sets, max(10, iters // 10)),
+        "library_ms": _graph_ms(lambda q, k, v: F.scaled_dot_product_attention(q, k, v), lib,
+                                iters),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "shape": f"q ({B},{H},{hd}) against a cross cache k/v ({B},{Se},{K},{hd}) float32, "
+                 "every slot valid",
     }
 
 
@@ -1096,6 +1210,14 @@ def time_kernels(device, n_sets=16) -> dict:
     out["flash_attention_hd128"] = _time_flash(gen, device, FLASH_HD128, n_sets, 100)
     out["flash_attention_granite"] = _time_flash(gen, device, FLASH_GRANITE, n_sets, 100)
     out["lm_head_chunk"] = _time_head(gen, device)
+    # phase 16's new shapes: seamless's cross-attention (flash at Sq != Sk,
+    # and decode against the cross cache) and jamba's SSD scan (N 16)
+    B, S, Se, H, K, hd = CROSS_SHAPE
+    out["flash_attention_cross"] = _time_flash(gen, device, (B, S, H, K, hd), n_sets, 100, Sk=Se,
+                                               causal=False)
+    out["decode_attention_cross"] = _time_decode_cross(gen, device, B, H, K, hd, Se, n_sets, 500)
+    B, S, H, P, N, Q = SSD_JAMBA
+    out["ssd_scan_jamba"] = _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, 100)
 
     # at the training shape of phase 10, bfloat16: the forward with its
     # log-sum-exp, the backward kernel, and flash_attention_diff's forward +
@@ -1716,6 +1838,398 @@ def table1_day() -> dict:
     return out
 
 
+# ---- phase 16: the rest of the model registry on the serving path ----------
+INT8_BATCH = 4
+JAMBA, JAMBA_LAYERS, JAMBA_BATCH, JAMBA_PROMPT = "jamba-v0.1-52b", 8, 2, 256
+ENCDEC, ENCDEC_BATCH = "seamless-m4t-large-v2", 4
+ENCDEC_CASES = ((333, 333), (200, 512))  # (prompt tokens, encoder frames)
+VLM, VLM_LAYERS, VLM_BATCH, VLM_PROMPT = "internvl2-76b", 4, 4, 77
+CROSS_SHAPE = (4, 200, 512, 16, 16, 64)  # seamless's cross-attention: B, S, Se, H, K, hd
+SSD_JAMBA = (2, 256, 128, 64, 16, 128)  # jamba's mamba mixers: B, S, H, P, N, chunk
+#: the live engine's depth cuts (16 (e)): internvl2 at 4 of 80 layers
+LIVE16_LAYERS = {VLM: VLM_LAYERS}
+
+
+def check_slice_kernels(device) -> dict:
+    """Phase 16 (k): the kernels at the slice's new shapes against their
+    plain versions, each run twice bit for bit, float32 at 1e-4 and bfloat16
+    at 2e-2: flash non-causal at seamless's cross shape (Sq 200, Sk 512) and
+    causal at Sq 512, Sk 200 (aligned at the top left); one token against the
+    cross cache through the adapter's cross route, the decoder at position
+    199 of 512 encoder slots; the SSD scan at jamba's width (N 16, 128 heads,
+    2e-4 / 5e-2 against its chunked and its sequential plain versions).
+    Returns the float32 max abs errors at the served shapes."""
+    gen = torch.Generator(device=device).manual_seed(16)
+    B, S, Se, H, K, hd = CROSS_SHAPE
+    kp = torch.arange(Se, dtype=torch.int32, device=device)[None].expand(B, Se).contiguous()
+    qp = torch.full((B, 1), S - 1, dtype=torch.int32, device=device)
+    errs = {}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for causal, sq, sk in ((False, S, Se), (True, Se, S)):
+            q, k, v = _qkv(gen, B, sq, sk, H, K, hd, dtype, device)
+            name = f"flash Sq {sq} Sk {sk} causal={causal} {dtype}"
+            got = _twice(name, lambda: flash_attention(q, k, v, causal=causal))
+            err = _close(name, got, flash_attention_ref(q, k, v, causal=causal), tol)
+            if not causal and dtype == torch.float32:
+                errs["flash_attention_cross"] = err
+        q, k, v = _qkv(gen, B, 1, Se, H, K, hd, dtype, device)
+        name = f"decode cross {dtype}"
+        got = _twice(name, lambda: sdpa_kernel(q, k, v, qp, kp, None, False, None, "cross"))
+        err = _close(name, got, _sdpa_dense(q, k, v, qp, kp, None, False, None), tol)
+        if dtype == torch.float32:
+            errs["decode_attention_cross"] = err
+        Bs, Ss, Hs, P, N, Q = SSD_JAMBA
+        args = _ssd_inputs(gen, Bs, Ss, Hs, P, N, True, dtype, device)
+        y, h = _twice(f"ssd jamba {dtype}", lambda: ssd_scan(*args, chunk=Q))
+        (yr, hr), (ys, hs) = ssd_scan_ref(*args, chunk=Q), ssd_sequential_ref(*args)
+        err = _close(f"ssd jamba {dtype} y", y, yr, SSD_TOL[dtype])
+        _close(f"ssd jamba {dtype} state", h, hr, SSD_TOL[dtype])
+        _close(f"ssd jamba {dtype} y vs sequential", y, ys, SSD_TOL[dtype])
+        _close(f"ssd jamba {dtype} state vs sequential", h, hs, SSD_TOL[dtype])
+        if dtype == torch.float32:
+            errs["ssd_scan_jamba"] = err
+    torch.cuda.synchronize(device)
+    return errs
+
+
+def model_times(device, lm, params, batch, prompt_len, kv_len=MAX_LEN, enc_len=None,
+                steps=8) -> dict:
+    """Phase 16: prefill ms (host clock around synchronised runs, three), the
+    decode step's ms with ``batch`` sequences (eight steps, after one), and
+    from torch.profiler over eight more the device's busy ms a step, its
+    idle share and the kernel launches a step."""
+    prompt, _, kw = model_inputs(lm.cfg, batch, prompt_len, 1, device, enc_len, seed=5)
+    prefill_ms = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(params, prompt, kv_len=kv_len, dtype=torch.float32, **kw)
+            torch.cuda.synchronize(device)
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        tok = torch.argmax(logits, -1)[:, None]
+
+        def step():
+            nonlocal tok, cache
+            out, cache = lm.decode_step(params, cache, tok, dtype=torch.float32)
+            tok = torch.argmax(out, -1)[:, None]
+
+        step()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize(device)
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize(device)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / steps / 1e3
+    return {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "device_busy_ms_per_step": busy_ms if busy_ms else "not measured",
+            "device_idle_share": 1.0 - busy_ms / step_ms if busy_ms else "not measured",
+            "kernel_launches_per_step": sum(e.count for e in rows) / steps}
+
+
+def _spec_bytes(spec) -> int:
+    if isinstance(spec, dict):
+        return sum(_spec_bytes(v) for v in spec.values())
+    shape, dt = spec
+    return math.prod(shape) * torch.empty((), dtype=dt).element_size()
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _int8_diff(ck, cp, where) -> tuple[int, int, float]:
+    """Two int8 caches of the same positions: pos_ids equal, the first
+    layer's codes equal (same inputs, same arithmetic). Returns (codes that
+    differ, the largest difference of a code, the scales' max abs
+    difference)."""
+    differ, most, scale_err = 0, 0, 0.0
+    for sub, c in ck["blocks"].items():
+        a, b = c["attn"], cp["blocks"][sub]["attn"]
+        if not torch.equal(a["pos_ids"], b["pos_ids"]):
+            raise AssertionError(f"int8 {where}: {sub} pos_ids differ")
+        for name in ("k_q", "v_q"):
+            d = (a[name].to(torch.int16) - b[name].to(torch.int16)).abs()
+            if bool(d[0].any()):
+                raise AssertionError(f"int8 {where}: {sub} {name}: the first layer's codes "
+                                     "differ")
+            differ, most = differ + int((d > 0).sum()), max(most, int(d.max()))
+        for name in ("k_s", "v_s"):
+            scale_err = max(scale_err, float((a[name] - b[name]).abs().max()))
+    return differ, most, scale_err
+
+
+def check_int8(device, cfg, params, batch, prompt_len, steps=16) -> dict:
+    """Phase 16 (a), one prompt length: the int8 cache through the kernels
+    against the plain versions (see INT8_PREFILL_TOL). Prefill: logits and
+    scales at INT8_PREFILL_TOL, codes by ``_int8_diff``, at most
+    INT8_DIFFER_SHARE of the written ones different. Then each
+    teacher-forced decode step runs both routes from one cache (the plain
+    route from a copy of the kernels' route's): logits at MODEL_ATOL /
+    MODEL_RTOL, codes by ``_int8_diff`` (at most INT8_STEP_DIFFER_SHARE of the
+    new ones different). Launches as ``path_launches``."""
+    lm_k = LM(cfg, impl="cuda", device=device, kv_quant=True)
+    lm_p = LM(cfg, impl="plain", device=device, kv_quant=True)
+    prompt, forced, _ = model_inputs(cfg, batch, prompt_len, steps, device)
+    n_attn = cfg.layer_kinds().count("attn")
+    flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
+    with torch.no_grad():
+        lk, ck = lm_k.prefill(params, prompt, kv_len=MAX_LEN, dtype=torch.float32)
+        lp, cp = lm_p.prefill(params, prompt, kv_len=MAX_LEN, dtype=torch.float32)
+        prefill_err = float((lk - lp).abs().max())
+        if not bool(torch.isfinite(lk).all()) or not torch.allclose(
+                lk, lp, atol=INT8_PREFILL_TOL, rtol=0.0):
+            raise AssertionError(f"int8 prefill: logits max abs err {prefill_err}")
+        written = 2 * n_attn * batch * prompt_len * cfg.num_kv_heads * cfg.head_dim
+        prefill_differ, prefill_most, prefill_scale_err = _int8_diff(ck, cp, "prefill")
+        if prefill_differ > INT8_DIFFER_SHARE * written or prefill_scale_err > INT8_PREFILL_TOL:
+            raise AssertionError(f"int8 prefill: {prefill_differ} of {written} codes differ, "
+                                 f"scales by {prefill_scale_err}")
+        step_err, step_differ, step_most, step_scale_err = 0.0, 0, 0, 0.0
+        for step in range(steps):
+            cp = _clone(ck)
+            lk, ck = lm_k.decode_step(params, ck, forced[step], dtype=torch.float32)
+            lp, cp = lm_p.decode_step(params, cp, forced[step], dtype=torch.float32)
+            err = float((lk - lp).abs().max())
+            if not bool(torch.isfinite(lk).all()) or not torch.allclose(
+                    lk, lp, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+                raise AssertionError(f"int8 decode step {step}: logits max abs err {err}")
+            differ, most, scale_err = _int8_diff(ck, cp, f"step {step}")
+            step_err, step_scale_err = max(step_err, err), max(step_scale_err, scale_err)
+            step_differ, step_most = step_differ + differ, max(step_most, most)
+    counts = {"flash_attention": flash_attention.launches,
+              "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
+    if counts != path_launches(cfg, 1, steps):
+        raise AssertionError(f"int8: launches {counts}, expected {path_launches(cfg, 1, steps)}")
+    step_codes = 2 * n_attn * batch * steps * cfg.num_kv_heads * cfg.head_dim
+    if step_differ > INT8_STEP_DIFFER_SHARE * step_codes or step_scale_err > MODEL_ATOL:
+        raise AssertionError(f"int8 decode: {step_differ} of {step_codes} new codes differ, "
+                             f"scales by {step_scale_err}")
+    return {"prompt_len": prompt_len, "prefill_logits_max_abs_err": prefill_err,
+            "prefill_codes_written": written, "prefill_codes_differing": prefill_differ,
+            "prefill_code_max_diff": prefill_most, "prefill_scales_max_abs_err": prefill_scale_err,
+            "step_logits_max_abs_err": step_err, "step_codes_written": step_codes,
+            "step_codes_differing": step_differ, "step_code_max_diff": step_most,
+            "step_scales_max_abs_err": step_scale_err,
+            "launches": counts}
+
+
+def int8_kv(device, card) -> dict:
+    """Phase 16 (a): paper-default at full width with the int8 KV cache, batch
+    INT8_BATCH, each of PROMPT_LENS, 16 teacher-forced decode steps, kernels
+    against plain (``check_int8``); the cache's bytes against the float
+    cache's; the decode step with and without int8, in turns."""
+    cfg = get_config(ARCH)
+    params = LM(cfg, device=device).init(torch.Generator(device=device).manual_seed(0),
+                                         dtype=torch.float32)
+    runs = []
+    for n in PROMPT_LENS:
+        runs.append(check_int8(device, cfg, params, INT8_BATCH, n))
+        print(f"[int8 a] {json.dumps(runs[-1])}", flush=True)
+    nbytes = {q: _spec_bytes(LM(cfg, device=device, kv_quant=q).cache_spec(
+        INT8_BATCH, MAX_LEN, torch.float32)["blocks"]) for q in (False, True)}
+    times = {}
+    for q in (False, True, True, False):
+        lm = LM(cfg, impl="cuda", device=device, kv_quant=q)
+        times.setdefault("int8" if q else "float32", []).append(
+            model_times(device, lm, params, INT8_BATCH, 333))
+    out = {"runs": runs,
+           "cache_bytes": {"float32": nbytes[False], "int8": nbytes[True],
+                           "ratio": nbytes[True] / nbytes[False]},
+           "decode_step_ms": {k: [t["decode_step_ms"] for t in v] for k, v in times.items()},
+           "times": times}
+    print(f"[int8 a] {ARCH} full width, batch {INT8_BATCH}, int8 KV: {json.dumps(out)} on {card}",
+          flush=True)
+    return out
+
+
+def slice_arch(device, card, tag, cfg, batch, cases, kv_len=None) -> dict:
+    """Phase 16 (b)-(d): ``cfg`` at full width (its depth as given), float32
+    weights from a seeded generator held once: ``check_model`` for each
+    (prompt, encoder frames) of ``cases`` at ``batch``, then the first case's
+    prefill and decode-step times; the peak of device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = LM(cfg, device=device).init(torch.Generator(device=device).manual_seed(0),
+                                         dtype=torch.float32)
+    out = {"num_layers": cfg.num_layers, "num_encoder_layers": cfg.num_encoder_layers,
+           "num_params": count_params(params), "checks": []}
+    for prompt_len, enc_len in cases:
+        t0 = time.perf_counter()
+        kv = kv_len or MAX_LEN
+        res = check_model(device, cfg=cfg, batch=batch, prompt_len=prompt_len, params=params,
+                          enc_len=enc_len, kv_len=kv)
+        res.update(enc_len=enc_len, kv_len=kv, seconds=time.perf_counter() - t0)
+        out["checks"].append(res)
+        print(f"[{tag}] {cfg.name} check: {json.dumps(res)}", flush=True)
+    prompt_len, enc_len = cases[0]
+    out["times"] = model_times(device, LM(cfg, impl="cuda", device=device), params, batch,
+                               prompt_len, kv_len or MAX_LEN, enc_len)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    del params
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {cfg.name} times and memory on {card}: "
+          f"{json.dumps({k: out[k] for k in ('times', 'peak_memory_gb', 'num_params')})}",
+          flush=True)
+    return out
+
+
+class _CutModelPool(_ModelPool):
+    """The live engine's models at full width, with the depth cuts of
+    LIVE16_LAYERS."""
+
+    def config(self, arch):
+        cfg = super().config(arch)
+        return cfg.replace(num_layers=LIVE16_LAYERS[arch]) if arch in LIVE16_LAYERS else cfg
+
+
+def live_slice(device, card) -> dict:
+    """Phase 16 (e): the live engine (phase 15's LiveConfig: full width,
+    prompt 256, 32 decode tokens in stages of 8) on one reserved worker,
+    seamless at full depth and internvl2 at depth VLM_LAYERS: a seamless
+    BEST_EFFORT query, then after its first stage boundary an IMMEDIATE
+    query of each arch. Every query done with stages 0..n-1 billed once, the
+    BEST_EFFORT one preempted and ending with the token and cache (its
+    cross K/V included) of an uninterrupted run, bit for bit; the launches of
+    every prefill and step (warm-ups included). internvl2's 256 patches and
+    256 tokens outgrow its 424-slot cache: the prefill is ring-placed and
+    decode runs on the wrapped ring."""
+    eng = LiveEngine(LiveConfig(
+        reduced=False, device=str(device), prompt_tokens=256, decode_tokens=32,
+        decode_chunk_tokens=8, pools=[PoolSpec(name="vm", kind="reserved", chips=1)],
+        sla=SLAConfig(relaxed_deadline_s=10.0, poll_period_s=0.02, vm_overload_threshold=1_000,
+                      preempt_best_effort=True)))
+    eng.models = _CutModelPool(256, 32, device=device, reduced=False)
+    last = {}
+    save = eng._save_ckpt
+
+    def recording_save(q, ck):
+        last[q.qid] = ck
+        save(q, ck)
+
+    eng._save_ckpt = recording_save
+    n_stages = 1 + 32 // 8
+    flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    boe = Query(work=QueryWork(arch=ENCDEC), sla=ServiceLevel.BEST_EFFORT, submit_time=0.0)
+    eng.submit(boe)
+    deadline = time.monotonic() + 600.0
+    while not 0 < len(boe.stage_trace) < n_stages - 1:
+        if time.monotonic() > deadline or boe.state in ("done", "failed"):
+            raise AssertionError(f"live 16: the BEST_EFFORT query did not pass its first stage "
+                                 f"({boe.state}, {boe.error})")
+        time.sleep(0.005)
+    imms = [Query(work=QueryWork(arch=a), sla=ServiceLevel.IMMEDIATE, submit_time=0.0)
+            for a in (ENCDEC, VLM)]
+    for q in imms:
+        eng.submit(q)
+    qs = [boe] + imms
+    eng.drain(len(qs), timeout=600.0)
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention": flash_attention.launches,
+              "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
+    bad = [(q.qid, q.state, q.error) for q in qs if q.state != "done"]
+    if bad:
+        raise AssertionError(f"live 16: queries not done {bad}")
+    for q in qs:
+        idx = [e.index for e in q.stage_trace]
+        billed = sum(e.chip_seconds for e in q.stage_trace)
+        if idx != list(range(n_stages)) or abs(billed - q.chip_seconds) > 1e-9 * max(1.0, billed):
+            raise AssertionError(f"live 16: Q{q.qid} stages {idx}, billed {billed} "
+                                 f"against {q.chip_seconds}")
+    if boe.preemptions < 1:
+        raise AssertionError("live 16: the BEST_EFFORT query was not preempted")
+    cfgs = {a: eng.models.config(a) for a in (ENCDEC, VLM)}
+    want = {k: 0 for k in counts}
+    for arch, _ in eng.models.compile_s:  # each warm-up: a prefill and a step
+        for k, n in path_launches(cfgs[arch], 1, 1).items():
+            want[k] += n
+    for q in qs:
+        for e in q.stage_trace:
+            for k, n in path_launches(cfgs[q.work.arch], e.stage == "prefill",
+                                      _stage_steps(e.stage)).items():
+                want[k] += n
+    if counts != want:
+        raise AssertionError(f"live 16: launches {counts}, expected {want}")
+    lm = eng.models.ensure(ENCDEC, 1)
+    with torch.no_grad():
+        tok, cache = lm.prefill(lm.params, _prompt_inputs(
+            lm.cfg.vocab_size, 1, boe.work.prompt_tokens, boe.qid, device))
+        for _ in range(boe.work.output_tokens):
+            tok, cache = lm.decode(lm.params, cache, tok)
+    ck = last[boe.qid]
+    got, ref = dict(_leaves(ck.cache)), dict(_leaves(cache))
+    if (ck.decoded != boe.work.output_tokens or not torch.equal(ck.tok, tok)
+            or got.keys() != ref.keys() or not all(torch.equal(got[k], ref[k]) for k in ref)
+            or not any(k[0] == "cross" for k in ref)):
+        raise AssertionError("live 16: the preempted seamless query's token and cache differ "
+                             "from an uninterrupted run's")
+    vlm_cache = last[imms[1].qid].cache["blocks"]["sub0"]["attn"]["pos_ids"]
+    out = {"queries": [{"qid": q.qid, "arch": q.work.arch, "level": q.sla.short,
+                        "pending_s": q.pending_time, "exec_s": q.exec_time, "cost": q.cost,
+                        "stages": len(q.stage_trace), "preemptions": q.preemptions}
+                       for q in qs],
+           "launches": counts, "wall_s": wall,
+           "compile_s": {f"{a}/{b}": t for (a, b), t in eng.models.compile_s.items()},
+           "internvl2_cache_slots": int(vlm_cache.shape[-1]),
+           "internvl2_oldest_position_kept": int(vlm_cache.min()),
+           "decode_stage_s": {a: float(np.median([e.finish - e.start for q in qs
+                                                  if q.work.arch == a for e in q.stage_trace
+                                                  if e.stage != "prefill"]))
+                              for a in (ENCDEC, VLM)},
+           "card": card}
+    if out["internvl2_oldest_position_kept"] <= 0:
+        raise AssertionError("live 16: internvl2's cache did not wrap")
+    del eng, lm, cache, ck, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[live e] {json.dumps(out)}", flush=True)
+    return out
+
+
+def slice_phase(device, card) -> dict:
+    """Phase 16: int8 KV (a), jamba (b), seamless (c), internvl2 (d), the
+    live engine on seamless and internvl2 (e), after the kernels at the
+    slice's new shapes (k)."""
+    out = {}
+    t0 = time.perf_counter()
+    out["errs"] = check_slice_kernels(device)
+    print(f"[slice k] flash at Sq != Sk, decode against the cross cache and the SSD scan at "
+          f"jamba's width agree with the plain versions, twice bit for bit: "
+          f"{json.dumps(out['errs'])} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    out["int8"] = int8_kv(device, card)
+    print(f"[int8 a] ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    out["jamba"] = slice_arch(device, card, "jamba b",
+                              get_config(JAMBA).replace(num_layers=JAMBA_LAYERS), JAMBA_BATCH,
+                              [(JAMBA_PROMPT, None)])
+    print(f"[jamba b] ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    out["seamless"] = slice_arch(device, card, "seamless c", get_config(ENCDEC), ENCDEC_BATCH,
+                                 list(ENCDEC_CASES))
+    print(f"[seamless c] ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    # the live engine's context: prompt + decode + 8, which leaves the 256
+    # patches out, so the 333-position prefill is ring-placed in 229 slots
+    out["internvl2"] = slice_arch(device, card, "internvl2 d",
+                                  get_config(VLM).replace(num_layers=VLM_LAYERS), VLM_BATCH,
+                                  [(VLM_PROMPT, None)], kv_len=VLM_PROMPT + 16 + 8)
+    print(f"[internvl2 d] ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    out["live"] = live_slice(device, card)
+    print(f"[live e] ({time.perf_counter() - t0:.1f}s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -1824,6 +2338,9 @@ def main() -> int:
     t0 = time.perf_counter()
     table1_day()
     print(f"[day d] ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    sliced = slice_phase(device, card)
+    print(f"[slice] phase 16 ({time.perf_counter() - t0:.1f}s)", flush=True)
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f}s", flush=True)
 
     # each kernel's launches come from the run of the path it is on: the
@@ -1843,13 +2360,27 @@ def main() -> int:
                                 "kernel)", TRAIN_ARCH),
         "flash_attention_diff": ("src/repro_torch/kernels/ops.py",
                                  "src/repro/kernels/ops.py:33", TRAIN_ARCH),
+        # phase 16: the launches of the seamless run with 512 encoder frames
+        # (every flash launch of its prefill: 24 encoder, 24 causal, 24 cross)
+        # and of the jamba run
+        "flash_attention_cross": ("src/repro_torch/csrc/flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:109", ENCDEC),
+        "decode_attention_cross": ("src/repro_torch/csrc/decode_attention.cu",
+                                   "src/repro/kernels/decode_attention.py:87", ENCDEC),
+        "ssd_scan_jamba": ("src/repro_torch/csrc/ssd_scan.cu",
+                           "src/repro/kernels/ssd_scan.py:87", JAMBA),
     }
+    cross = sliced["seamless"]["checks"][-1]["launches"]
     launches = {ARCH: served[ARCH]["counts"], MAMBA: served[MAMBA]["counts"],
                 TRAIN_ARCH: {"flash_attention_bf16_fwd": train_counts["flash_attention"],
                              "flash_attention_bwd": train_counts["flash_attention_bwd"],
-                             "flash_attention_diff": train_counts["flash_attention"]}}
+                             "flash_attention_diff": train_counts["flash_attention"]},
+                ENCDEC: {"flash_attention_cross": cross["flash_attention"],
+                         "decode_attention_cross": cross["decode_attention"]},
+                JAMBA: {"ssd_scan_jamba": sliced["jamba"]["checks"][0]["launches"]["ssd_scan"]}}
     errs["flash_attention_diff"] = diff_err
     errs["flash_attention_bwd"] = timing["flash_attention_bwd"]["max_abs_err"]
+    errs.update(sliced["errs"])
     kernels = []
     for name, (source, replaces, arch) in meta.items():
         t = timing[name]

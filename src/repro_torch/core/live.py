@@ -73,6 +73,21 @@ def _prompt_inputs(vocab_size: int, batch: int, prompt_tokens: int, seed: int,
                          generator=gen, device=device)
 
 
+def _prefill_kwargs(cfg, toks: torch.Tensor) -> dict:
+    """The frontend and encoder inputs of one prefill call, as the reference
+    feeds them: zero frame embeddings (batch, prompt_tokens, d_model) for an
+    encoder-decoder, zero patch embeddings (batch, frontend_tokens, d_model)
+    for a vision frontend (both frontends are stubs)."""
+    B, S = toks.shape
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["enc_embeds"] = torch.zeros((B, S, cfg.d_model), dtype=F32, device=toks.device)
+    if cfg.frontend == "vision_patches":
+        kw["frontend_embeds"] = torch.zeros((B, cfg.frontend_tokens, cfg.d_model), dtype=F32,
+                                            device=toks.device)
+    return kw
+
+
 def _sync(device: torch.device) -> None:
     """Wait until the work this thread enqueued on ``device`` is done:
     a CUDA event recorded on the current (default) stream, so the wait
@@ -112,7 +127,8 @@ def live_model(model: LM, params: dict, kv_len: int) -> _LiveModel:
 
     @torch.no_grad()
     def prefill(params, toks):
-        logits, cache = model.prefill(params, toks, kv_len=kv_len, dtype=F32)
+        logits, cache = model.prefill(params, toks, kv_len=kv_len, dtype=F32,
+                                      **_prefill_kwargs(model.cfg, toks))
         return torch.argmax(logits, -1)[:, None], cache
 
     @torch.no_grad()
@@ -165,15 +181,18 @@ class _ModelPool:
 
     @property
     def kv_len(self) -> int:
+        # as the reference: a vision frontend's positions are left out, so
+        # when they outgrow the cache's 128 slots of headroom (internvl2 at
+        # full width: 256 patches) the prefill is ring-placed and decode
+        # attends to the last kv_len + 128 positions only (ROADMAP queue 3)
         return self.prompt_tokens + self.decode_tokens + 8
 
+    def config(self, arch: str):
+        """The config this pool serves ``arch`` at."""
+        return get_config(arch, reduced=self.reduced)
+
     def _build(self, arch: str) -> _LiveModel:
-        cfg = get_config(arch, reduced=self.reduced)
-        if cfg.frontend:
-            raise NotImplementedError(
-                f"{arch}: the {cfg.frontend!r} frontend is not ported"
-            )
-        model = LM(cfg, device=self.device)  # refuses what is not ported
+        model = LM(self.config(arch), device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(0)
         return live_model(model, model.init(gen, dtype=F32), self.kv_len)
 

@@ -11,9 +11,14 @@
 // Every variant gives one thread block a tile of query rows of one (batch, kv
 // head). The G query heads of the kv group are folded into the tile's rows
 // (row = q * G + g), so the G heads share every K/V tile staged in shared
-// memory. The block walks K/V tiles only up to the causal frontier of its
-// last row and from the window edge of its first row; the ragged last tile
-// is masked, so any Sq == Sk works. Masking follows the reference: masked
+// memory. Positions are implicit, arange(Sq) for the queries and arange(Sk)
+// for the keys, as in the TPU kernel: causal keeps key j for query i iff
+// i >= j (aligned at the top left) and the window counts from the same
+// positions. The block walks K/V tiles only up to the causal frontier of its
+// last row, min(Sk, q_last + 1), and from the window edge of its first row;
+// the ragged last tile is masked, so any Sq and Sk work: seamless's
+// cross-attention runs non-causal with Sq != Sk, where every block walks all
+// Sk keys (the longest-rows-first order then changes nothing). Masking follows the reference: masked
 // scores are the finite -1e30, keys past Sk are -inf, and l is clamped at
 // 1e-30. Three variants:
 //

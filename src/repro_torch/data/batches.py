@@ -64,8 +64,8 @@ def make_batch(rng: np.random.Generator, cfg: ModelConfig, *, batch: int, seq: i
     the next-token targets (B,S) int32."""
     if cfg.frontend == "vision_patches" or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: frontend and encoder inputs are not ported (ROADMAP queue 1, "
-            "enc-dec and VLM)")
+            f"{cfg.name}: batches of patches or encoder inputs are not ported (ROADMAP "
+            "queue 1, the loss over patches and encoder inputs)")
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)).to(device)
     out = {"tokens": toks[:, :-1]}

@@ -2,9 +2,11 @@
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``.
 Causal / sliding-window / tanh-softcapped GQA attention of q (B,Sq,H,hd)
-against k/v (B,Sk,K,hd) at implicit arange positions, with a streaming
-softmax in float32. Sq == Sk of any length (the TPU kernel needs
-multiples of 128);
+against k/v (B,Sk,K,hd) at implicit positions arange(Sq) and arange(Sk),
+as the TPU kernel computes them: causal keeps key j for query i iff i >= j
+(aligned at the top left), the window counts from the same positions, and
+a tile past the frontier is skipped. Any Sq and Sk (the TPU kernel needs
+multiples of 128): seamless's cross-attention runs non-causal at Sq != Sk;
 hd in {8, 16, 32, 64, 128, 256}; float32 or bfloat16 in, out in q's type.
 float32 at hd <= 128 runs on the tensor cores in split-TF32 (its algorithm
 step by step: ``ref.flash_attention_split_ref``), bfloat16 at hd 64 and
@@ -56,7 +58,7 @@ def _launch(q, k, v, causal, window, softcap, with_lse):
     _build.refuse_grad("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if k.shape != (B, Sk, K, hd) or v.shape != k.shape or H % K or Sq != Sk:
+    if k.shape != (B, Sk, K, hd) or v.shape != k.shape or H % K:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")

@@ -125,10 +125,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if (k.shape != (B, Sk, K, hd) or v.shape != k.shape or o.shape != q.shape
-            or do.shape != q.shape or lse.shape != (B, H, Sq) or H % K or Sq != Sk):
+            or do.shape != q.shape or lse.shape != (B, H, Sq) or H % K):
         raise ValueError(
             f"flash_attention_bwd: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
             f"o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}")
+    if Sq != Sk:
+        raise ValueError(
+            f"flash_attention_bwd: Sq {Sq} != Sk {Sk}; the backward kernel takes Sq == Sk "
+            "(training across Sq != Sk, enc-dec, is ROADMAP queue 1, what training still lacks)")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {hd} not in {HEAD_DIMS}")
     _build.check_cuda_inputs("flash_attention_bwd", q.dtype, q, k, v, o, do)

@@ -7,14 +7,18 @@ models/ssd.py, so ``LM(cfg, impl="cuda")`` runs every attention and every
 mamba prefill or training forward through the hand-written kernels.
 ``sdpa_kernel`` routes by call site:
 
-* "prefill" (prefill and forward: causal self-attention at arange
-  positions, Sq == Sk of any length) -> ``flash_attention_diff`` when a
-  gradient is wanted (grad mode on and an input requires grad), else
-  ``flash_attention`` (served prefill: no log-sum-exp, no autograd
-  Function);
+* "prefill" (prefill and forward: self-attention at arange positions,
+  causal in the decoder, non-causal in seamless's encoder) ->
+  ``flash_attention_diff`` when a gradient is wanted (grad mode on and an
+  input requires grad), else ``flash_attention`` (served prefill: no
+  log-sum-exp, no autograd Function);
 * "decode" (one new token against the cache, whose pos_ids and lengths
   decide validity) -> ``decode_attention``;
-* anything else (cross-attention, multi-token decode) raises
+* "cross" (cross-attention, non-causal, no rope): Sq > 1 against the
+  encoder's Se keys -> ``flash_attention`` with Sq != Sk; one token against
+  the read-only cross cache -> ``decode_attention`` with every slot whose
+  pos_id >= 0 valid, whatever the decoder's position;
+* anything else (multi-token decode, an unknown site) raises
   ``NotImplementedError``: there is no fallback.
 
 ``ssd_kernel`` sends the chunked scan to ``ssd_scan_diff``; with an initial
@@ -95,17 +99,30 @@ def ssd_scan_diff(x, dt, A, B_, C_, chunk=128, h0=None):
     return SsdScanDiff.apply(x, dt, A, B_, C_, h0, chunk)
 
 
+#: the cross decode's lengths: the decode kernel takes a slot as valid iff
+#: pos_id >= 0 and pos_id <= length (and, with a window, length - pos_id <
+#: window). Cross-attention is non-causal, so validity must not depend on
+#: the decoder's position: a length no pos_id exceeds leaves pos_id >= 0,
+#: the reference's non-causal mask, with no change to the kernel. Cross has
+#: no window, so length - pos_id is never formed.
+CROSS_LENGTH = 2**31 - 1
+
+
 def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
     win = int(window) if window else 0
     capf = float(cap) if cap else 0.0
-    Sq = q.shape[1]
-    if site == "decode" and Sq == 1:
-        # on this path q_pos[:, 0] is the cache's lengths
+    if q.shape[1] == 1 and site in ("decode", "cross"):
+        if site == "decode":  # on this path q_pos[:, 0] is the cache's lengths
+            lengths = q_pos[:, 0].contiguous()
+        elif causal or win:
+            raise NotImplementedError("sdpa at site 'cross' is non-causal and has no window")
+        else:
+            lengths = torch.full((q.shape[0],), CROSS_LENGTH, dtype=torch.int32,
+                                 device=q.device)
         return decode_attention(
-            q[:, 0].contiguous(), k, v, k_pos, q_pos[:, 0].contiguous(),
-            window=win, softcap=capf,
+            q[:, 0].contiguous(), k, v, k_pos.contiguous(), lengths, window=win, softcap=capf,
         )[:, None]
-    if site == "prefill" and Sq == k.shape[1]:
+    if site == "prefill" or site == "cross":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             return flash_attention_diff(q, k, v, causal, win, capf)

@@ -22,7 +22,7 @@ NEG_INF = -1e30  # finite mask value, as the reference and its kernels use
 
 #: scaled-dot-product-attention implementations by name. Each takes
 #: (q, k, v, q_pos, k_pos, window, causal, cap, site); ``site`` names the
-#: call site ("prefill" | "decode") so a kernel adapter routes by
+#: call site ("prefill" | "decode" | "cross") so a kernel adapter routes by
 #: where it is called from, never by looking at tensor values.
 SDPA_IMPL: dict = {}
 
@@ -84,7 +84,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # Attention
 # ---------------------------------------------------------------------------
 
-def attn_decl(cfg: ModelConfig) -> dict:
+def attn_decl(cfg: ModelConfig, cross: bool = False) -> dict:
+    """q/k/v/o projections; cross-attention has no q/k/v biases."""
     d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     decl = {
         "wq": ParamDecl((d, h, hd), ("fsdp", "heads", "q_param_hd"), fan_in=d),
@@ -92,7 +93,7 @@ def attn_decl(cfg: ModelConfig) -> dict:
         "wv": ParamDecl((d, k, hd), ("fsdp", "kv_heads", "kv_param_hd"), fan_in=d),
         "wo": ParamDecl((h, hd, d), ("heads", "head_dim", "fsdp"), fan_in=h * hd),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         decl["bq"] = ParamDecl((h, hd), ("heads", "head_dim"), init="zeros")
         decl["bk"] = ParamDecl((k, hd), ("kv_heads", "head_dim"), init="zeros")
         decl["bv"] = ParamDecl((k, hd), ("kv_heads", "head_dim"), init="zeros")
@@ -145,6 +146,20 @@ def sdpa(q, k, v, *, q_pos, k_pos, window, causal, cap, site: str,
     return SDPA_IMPL[impl](q, k, v, q_pos, k_pos, window, causal, cap, site)
 
 
+def quantize_kv(t: torch.Tensor):
+    """Per-(slot, head) symmetric int8 over head_dim. t: (B,S,K,hd).
+    Returns (codes (B,S,K,hd) int8, scales (B,S,K) float32); ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    tf = t.to(F32)
+    scale = torch.clamp(torch.amax(torch.abs(tf), dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
+    return (q.to(F32) * scale[..., None]).to(dt)
+
+
 def attention(
     p: dict,
     x: torch.Tensor,  # (B, S, D)
@@ -152,16 +167,26 @@ def attention(
     cfg: ModelConfig,
     positions: torch.Tensor,  # (B, S)
     window: Optional[int] = None,
-    cache: Optional[dict] = None,  # {"k","v","pos_ids"} per-layer slices
+    cache: Optional[dict] = None,  # {"k","v","pos_ids"} or int8 leaves, per layer
     lengths: Optional[torch.Tensor] = None,  # (B,) current lengths (decode)
+    kv_override: Optional[tuple] = None,  # cross-attention: (k, v, k_pos) precomputed
+    causal: bool = True,
+    use_rope: bool = True,
     impl: str = "plain",
+    kv_quant: bool = False,
 ):
-    """Causal self-attention with rope for prefill/forward/decode.
+    """Attention for prefill/forward/decode, and cross-attention against the
+    precomputed K/V of ``kv_override`` (call site "cross").
 
     Returns (out, new_cache). new_cache is None unless a cache was given or
-    prefill requested one via the ``cache={}`` sentinel. On decode the new
-    K/V and pos_ids are written into the given cache tensors IN PLACE, and
-    those same tensors are returned.
+    prefill requested one via the ``cache={}`` sentinel, and never for
+    cross-attention. With ``kv_quant`` prefill stores int8 K/V and their
+    float32 scales ("k_q", "v_q", "k_s", "v_s", per (slot, head)) and
+    attends to the dequantized values, exactly what decode will read. On
+    decode the new entries and pos_ids are written into the given cache
+    tensors IN PLACE, and those same tensors are returned; an int8 cache
+    (one holding "k_q") is then dequantized whole in a pass of its own
+    before the attention, as the reference dequantizes before its kernel.
     """
     B, S, D = x.shape
     dt = x.dtype
@@ -169,39 +194,65 @@ def attention(
     if "bq" in p:
         q = q + p["bq"].to(dt)
 
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
-    if "bk" in p:
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_interleaved)
-    if cache is not None and "k" in cache:
-        # decode: write the S new entries into ring/linear slots
-        # lengths % Smax onward. The reference blends a one-hot over all
-        # Smax slots (cache * (1 - oh) + oh @ new); for finite values
-        # that is exactly an overwrite of the written slots, which an
-        # indexed in-place write gives without touching the others.
-        ck, cv, pos_ids = cache["k"], cache["v"], cache["pos_ids"]
-        Smax = ck.shape[1]
-        ar = torch.arange(S, dtype=lengths.dtype, device=x.device)
-        slot = (lengths[:, None] + ar[None, :]) % Smax  # (B, S)
-        rows = torch.arange(B, device=x.device)[:, None].expand(B, S)
-        ck[rows, slot] = k.to(ck.dtype)
-        cv[rows, slot] = v.to(cv.dtype)
-        pos_ids[rows, slot] = positions.to(pos_ids.dtype)
-        new_cache = {"k": ck, "v": cv, "pos_ids": pos_ids}
-        k, v, k_pos = ck, cv, pos_ids
-        site = "decode"
+    if kv_override is not None:
+        k, v, k_pos = kv_override
+        new_cache = None
+        site = "cross"
     else:
-        # prefill (cache={} asks for one: keys are their own slots) or forward
-        new_cache = {"k": k, "v": v, "pos_ids": positions} if cache is not None else None
-        k_pos = positions
-        site = "prefill"
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+        if "bk" in p:
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
+        if use_rope:
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_interleaved)
+        if cache is not None and ("k" in cache or "k_q" in cache):
+            # decode: write the S new entries into ring/linear slots
+            # lengths % Smax onward. The reference blends a one-hot over all
+            # Smax slots (cache * (1 - oh) + oh @ new, or a select); for
+            # finite values that is exactly an overwrite of the written
+            # slots, which an indexed in-place write gives without touching
+            # the others.
+            pos_ids = cache["pos_ids"]
+            Smax = pos_ids.shape[1]
+            ar = torch.arange(S, dtype=lengths.dtype, device=x.device)
+            slot = (lengths[:, None] + ar[None, :]) % Smax  # (B, S)
+            rows = torch.arange(B, device=x.device)[:, None].expand(B, S)
+            pos_ids[rows, slot] = positions.to(pos_ids.dtype)
+            if "k_q" in cache:
+                new_cache = dict(cache)
+                for name, t in (("k", k), ("v", v)):
+                    codes, scales = quantize_kv(t)
+                    cache[f"{name}_q"][rows, slot] = codes
+                    cache[f"{name}_s"][rows, slot] = scales
+                k = dequantize_kv(cache["k_q"], cache["k_s"], dt)
+                v = dequantize_kv(cache["v_q"], cache["v_s"], dt)
+            else:
+                ck, cv = cache["k"], cache["v"]
+                ck[rows, slot] = k.to(ck.dtype)
+                cv[rows, slot] = v.to(cv.dtype)
+                new_cache = {"k": ck, "v": cv, "pos_ids": pos_ids}
+                k, v = ck, cv
+            k_pos = pos_ids
+            site = "decode"
+        else:
+            # prefill (cache={} asks for one: keys are their own slots) or forward
+            if cache is None:
+                new_cache = None
+            elif kv_quant:
+                (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                new_cache = {"k_q": kq, "v_q": vq, "k_s": ks, "v_s": vs, "pos_ids": positions}
+                k, v = dequantize_kv(kq, ks, dt), dequantize_kv(vq, vs, dt)
+            else:
+                new_cache = {"k": k, "v": v, "pos_ids": positions}
+            k_pos = positions
+            site = "prefill"
 
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_interleaved)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_interleaved)
     out = sdpa(
         q, k, v,
-        q_pos=positions, k_pos=k_pos, window=window, causal=True,
+        q_pos=positions, k_pos=k_pos, window=window, causal=causal,
         cap=cfg.attn_logit_softcap, site=site, impl=impl,
     )
     if cfg.attn_out_scale is not None:

@@ -1,28 +1,37 @@
-"""Decoder-only LM for the dense archs, the MoE archs and mamba2, on torch
-tensors.
+"""The LM of every arch in the registry, on torch tensors: the dense
+decoders, the MoE archs, mamba2, jamba's hybrid, seamless's
+encoder-decoder and internvl2's vision-patch frontend.
 
 Depth is ``n_super`` super-layers of ``period`` sublayers, as in the JAX
 package; a Python loop over the stacked layer axis takes the place of
 ``lax.scan``. Uniform archs have period 1; gemma2's local/global
-alternation gives period 2. Each sublayer's mixer is attention or a mamba2
-mixer by ``cfg.layer_kinds()``, and its FFN an MLP or a MoE by
-``cfg.ffn_kinds()``; the MoE router's aux loss is summed over every layer.
-The jamba hybrid period and the encoder-decoder stack are not ported yet:
-their configs raise ``NotImplementedError``.
+alternation gives period 2; jamba's mamba/attention 7:1 interleave with
+alternating dense/MoE FFNs gives period 8. Each sublayer's mixer is
+attention or a mamba2 mixer by ``cfg.layer_kinds()``, and its FFN an MLP or
+a MoE by ``cfg.ffn_kinds()``; the MoE router's aux loss is summed over the
+MoE sublayers. Encoder-decoder (seamless) adds an encoder stack over
+precomputed frame embeddings and cross-attention to every decoder
+attention sublayer; a vision frontend (internvl2) puts precomputed patch
+embeddings before the token embeddings.
 
 Training: ``loss`` is the mean next-token cross-entropy, with the LM head
 and CE taken in checkpointed sequence chunks above 1,024 tokens
 (``chunked_ce``); ``remat="full"`` recomputes each super-layer in the
-backward pass.
+backward pass. The loss over patches or encoder inputs is not ported.
 
 Cache layout (decode-ready), leaf for leaf the JAX package's:
   {"lengths": (B,) int32,
    "blocks": {"sub<i>": {"attn": {"k", "v": (n_super,B,Smax,K,hd),
                                   "pos_ids": (n_super,B,Smax) int32}}
                       or {"mamba": {"ssm": (n_super,B,H,P,N) float32,
-                                    "conv": (n_super,B,W-1,conv_ch)}}}}
-``decode_step`` writes the new token's K/V, or the new SSM and conv state,
-into that cache in place and returns it with ``lengths`` advanced.
+                                    "conv": (n_super,B,W-1,conv_ch)}}},
+   "cross": {"sub<i>": {"k", "v": (n_super,B,Se,K,hd),
+                        "pos_ids": (n_super,B,Se) int32}}}  (enc-dec only)
+With ``kv_quant`` an attention cache holds "k_q", "v_q" (int8) and "k_s",
+"v_s" (n_super,B,Smax,K) float32 in place of "k" and "v". ``decode_step``
+writes the new token's K/V, or the new SSM and conv state, into that cache
+in place and returns it with ``lengths`` advanced; the cross K/V is
+read-only.
 """
 from __future__ import annotations
 
@@ -147,27 +156,27 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 class LM:
-    """Decoder-only language model (dense and MoE archs, and mamba2)."""
+    """Decoder-only / hybrid / encoder-decoder language model."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[str] = None,
                  device="cuda", kv_quant: bool = False):
-        if kv_quant:
-            raise NotImplementedError("the int8 KV cache (kv_quant) is not ported")
-        if cfg.is_hybrid:
-            raise NotImplementedError(f"{cfg.name}: the hybrid period is not ported")
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(f"{cfg.name}: encoder-decoder is not ported")
         # registers the "cuda" SDPA and SSD impls; imported here because the
         # kernel modules import models.layers, which imports this package
         from ..kernels import ops  # noqa: F401
 
         self.cfg = cfg
         self.device = torch.device(device)
+        self.kv_quant = kv_quant  # int8 KV cache (serving)
         self.impl = impl if impl is not None else default_impl(self.device)
         for kind, registry in (("sdpa", SDPA_IMPL), ("ssd", SSD_IMPL)):
             if self.impl not in registry:
                 raise KeyError(f"unknown {kind} impl {self.impl!r}; known: {sorted(registry)}")
-        self.period = len(cfg.local_global_pattern) if cfg.local_global_pattern else 1
+        if cfg.is_hybrid:
+            self.period = cfg.hybrid_period
+        elif cfg.local_global_pattern:
+            self.period = len(cfg.local_global_pattern)
+        else:
+            self.period = 1
         if cfg.num_layers % self.period:
             raise ValueError(f"{cfg.num_layers} layers vs period {self.period}")
         self.n_super = cfg.num_layers // self.period
@@ -188,6 +197,9 @@ class LM:
             d["mamba"] = mamba_decl(cfg)
         if cfg.post_block_norms:
             d["ln1p"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
+        if cfg.is_encoder_decoder and self.kinds[i] == "attn":
+            d["ln_x"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
+            d["cross"] = attn_decl(cfg, cross=True)
         if self.has_ffn:
             d["ln2"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
             if self.ffns[i] == "moe":
@@ -212,6 +224,15 @@ class LM:
             tree["lm_head"] = ParamDecl(
                 (cfg.d_model, cfg.vocab_size), ("fsdp", "vocab"), fan_in=cfg.d_model
             )
+        if cfg.is_encoder_decoder:
+            enc_sub = {
+                "ln1": ParamDecl((cfg.d_model,), ("embed",), init="ones"),
+                "attn": attn_decl(cfg),
+                "ln2": ParamDecl((cfg.d_model,), ("embed",), init="ones"),
+                "mlp": mlp_decl(cfg),
+            }
+            tree["enc_blocks"] = stacked({"sub0": enc_sub}, cfg.num_encoder_layers)
+            tree["enc_final_norm"] = ParamDecl((cfg.d_model,), ("embed",), init="ones")
         return tree
 
     def init(self, gen: torch.Generator, dtype=F32) -> dict:
@@ -229,9 +250,14 @@ class LM:
     # ------------------------------------------------------------------
     # Sublayer body and layer loop
     # ------------------------------------------------------------------
-    def _sub_apply(self, p, i, x, *, positions, cache, lengths, want_cache):
+    def _sub_apply(self, p, i, x, *, positions, cache, lengths, want_cache,
+                   enc_out=None, cross_kv=None):
         """One sublayer; returns (x, its new cache, its MoE aux loss: a
-        float 0.0 where its FFN is not a MoE)."""
+        float 0.0 where its FFN is not a MoE). An encoder-decoder attention
+        sublayer then cross-attends: in prefill (and the teacher-forced
+        forward) to K/V projected from ``enc_out`` at positions arange(Se),
+        kept as the new cache's "cross" when one is wanted; in decode to the
+        read-only ``cross_kv``."""
         cfg = self.cfg
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
         kind = self.kinds[i]
@@ -244,7 +270,7 @@ class LM:
                 c_in = None
             mix, nc = attention(
                 p["attn"], h, cfg=cfg, positions=positions, window=self.windows[i],
-                cache=c_in, lengths=lengths, impl=self.impl,
+                cache=c_in, lengths=lengths, impl=self.impl, kv_quant=self.kv_quant,
             )
         else:
             c_in = cache["mamba"] if cache is not None else None
@@ -254,6 +280,23 @@ class LM:
         if cfg.post_block_norms:
             mix = rms_norm(p["ln1p"], mix, cfg.norm_eps)
         x = x + mix
+
+        if "cross" in p and (enc_out is not None or cross_kv is not None):
+            h = rms_norm(p["ln_x"], x, cfg.norm_eps)
+            if cross_kv is not None:
+                kv = (cross_kv["k"], cross_kv["v"], cross_kv["pos_ids"])
+            else:
+                dt = h.dtype
+                ek = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"].to(dt))
+                ev = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"].to(dt))
+                epos = self._positions(enc_out.shape[0], enc_out.shape[1], enc_out.device)
+                if want_cache:
+                    new_cache["cross"] = {"k": ek, "v": ev, "pos_ids": epos}
+                kv = (ek, ev, epos)
+            cx, _ = attention(p["cross"], h, cfg=cfg, positions=positions, kv_override=kv,
+                              causal=False, use_rope=False, impl=self.impl)
+            x = x + cx
+
         aux = 0.0  # a float, not a tensor: no launch for a layer without a MoE
         if self.has_ffn:
             h = rms_norm(p["ln2"], x, cfg.norm_eps)
@@ -266,21 +309,24 @@ class LM:
             x = x + f
         return x, new_cache, aux
 
-    def _super_apply(self, p_super, x, positions):
+    def _super_apply(self, p_super, x, positions, enc_out=None):
         """One super-layer without a cache (the body that remat recomputes);
         returns (x, the sum of its sublayers' aux losses)."""
         auxes = []
         for i in range(self.period):
             x, _, aux = self._sub_apply(p_super[f"sub{i}"], i, x, positions=positions,
-                                        cache=None, lengths=None, want_cache=False)
+                                        cache=None, lengths=None, want_cache=False,
+                                        enc_out=enc_out)
             auxes.append(aux)
         return x, sum(auxes)
 
-    def _run_blocks(self, params, x, *, positions, cache=None, lengths=None,
-                    want_cache=False, remat=None):
+    def _run_blocks(self, params, x, *, positions, cache=None, cross=None, lengths=None,
+                    want_cache=False, enc_out=None, remat=None):
         """Every layer in order. Returns (x, per-layer caches as a list of
         {"sub<i>": ...} dicts, one per super-layer, the MoE aux loss summed
-        over every sublayer of every layer).
+        over every sublayer of every layer). ``cross`` is the stacked
+        read-only cross K/V of a decode step; ``enc_out`` the encoder's
+        output in prefill and the teacher-forced forward.
 
         ``remat``: None keeps every activation for the backward pass;
         "full" recomputes each super-layer in it (one
@@ -297,19 +343,21 @@ class LM:
         if remat == "full":  # the training forward: no cache
             for layer in range(self.n_super):
                 x, aux = checkpoint(self._super_apply, _layer(params["blocks"], layer), x,
-                                    positions, use_reentrant=False)
+                                    positions, enc_out, use_reentrant=False)
                 auxes.append(aux)
             return x, [], sum(auxes)
         caches = []
         for layer in range(self.n_super):
             p_super = _layer(params["blocks"], layer)
             c_super = _layer(cache, layer) if cache is not None else None
+            x_super = _layer(cross, layer) if cross is not None else {}
             out = {}
             for i in range(self.period):
                 sub_cache = c_super[f"sub{i}"] if c_super is not None else None
                 x, nc, aux = self._sub_apply(
                     p_super[f"sub{i}"], i, x, positions=positions,
                     cache=sub_cache, lengths=lengths, want_cache=want_cache,
+                    enc_out=enc_out, cross_kv=x_super.get(f"sub{i}"),
                 )
                 out[f"sub{i}"] = nc
                 auxes.append(aux)
@@ -317,13 +365,17 @@ class LM:
         return x, caches, sum(auxes)
 
     # ------------------------------------------------------------------
-    # Embedding / head
+    # Embedding / head / encoder
     # ------------------------------------------------------------------
-    def embed(self, params, tokens, dtype=torch.bfloat16):
+    def embed(self, params, tokens, frontend_embeds=None, dtype=torch.bfloat16):
+        """Token embeddings (B, S, D) in ``dtype``; precomputed frontend
+        embeddings (B, F, D), where given, go before them (B, F + S, D)."""
         cfg = self.cfg
         x = params["embed"][tokens.long()].to(dtype)
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
+        if frontend_embeds is not None:
+            x = torch.cat([frontend_embeds.to(dtype), x], dim=1)
         return x
 
     def head(self, params, x) -> torch.Tensor:
@@ -339,6 +391,37 @@ class LM:
             logits = plain_head_logits(x, w)
         return softcap(logits, cfg.final_logit_softcap)
 
+    def encode(self, params, enc_embeds, remat=None):
+        """The encoder stack over precomputed frame embeddings (B, Se, D),
+        in their type (the audio frontend is a stub, as in the reference):
+        non-causal self-attention with rope at positions arange(Se), then a
+        gated MLP, each layer; "full" remat recomputes each layer in the
+        backward pass."""
+        cfg = self.cfg
+        x = enc_embeds
+        positions = self._positions(x.shape[0], x.shape[1], x.device)
+
+        def body(p, h):
+            a = rms_norm(p["ln1"], h, cfg.norm_eps)
+            mix, _ = attention(p["attn"], a, cfg=cfg, positions=positions, causal=False,
+                               impl=self.impl)
+            h = h + mix
+            return h + mlp_apply(p["mlp"], rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+
+        for layer in range(cfg.num_encoder_layers):
+            p = _layer(params["enc_blocks"], layer)["sub0"]
+            x = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
+        return rms_norm(params["enc_final_norm"], x, cfg.norm_eps)
+
+    def _encoder_out(self, params, enc_embeds, dtype, remat=None):
+        """The encoder's output for an encoder-decoder arch (which requires
+        ``enc_embeds``), else None."""
+        if not self.cfg.is_encoder_decoder:
+            return None
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name}: an encoder-decoder model requires enc_embeds")
+        return self.encode(params, enc_embeds.to(dtype), remat=remat)
+
     def _positions(self, B, S, device, start=None):
         ar = torch.arange(S, dtype=torch.int32, device=device)[None]
         if start is None:
@@ -348,32 +431,43 @@ class LM:
     # ------------------------------------------------------------------
     # Public steps
     # ------------------------------------------------------------------
-    def forward(self, params, tokens, *, remat=None, dtype=torch.bfloat16):
-        """Teacher-forced forward; returns logits (B, S, V) float32."""
-        return self.head(params, self.hidden(params, tokens, remat=remat, dtype=dtype))
+    def forward(self, params, tokens, *, frontend_embeds=None, enc_embeds=None, remat=None,
+                dtype=torch.bfloat16):
+        """Teacher-forced forward; returns logits (B, F + S, V) float32 (F
+        frontend positions, where given)."""
+        return self.head(params, self.hidden(params, tokens, frontend_embeds=frontend_embeds,
+                                             enc_embeds=enc_embeds, remat=remat, dtype=dtype))
 
-    def hidden(self, params, tokens, *, remat=None, dtype=torch.bfloat16):
+    def hidden(self, params, tokens, *, frontend_embeds=None, enc_embeds=None, remat=None,
+               dtype=torch.bfloat16):
         """Embed -> blocks -> final norm."""
-        return self._hidden_aux(params, tokens, remat=remat, dtype=dtype)[0]
+        return self._hidden_aux(params, tokens, frontend_embeds=frontend_embeds,
+                                enc_embeds=enc_embeds, remat=remat, dtype=dtype)[0]
 
-    def _hidden_aux(self, params, tokens, *, remat, dtype):
+    def _hidden_aux(self, params, tokens, *, remat, dtype, frontend_embeds=None,
+                    enc_embeds=None):
         """(``hidden``'s x, the MoE aux loss summed over the layers)."""
-        x = self.embed(params, tokens, dtype)
+        x = self.embed(params, tokens, frontend_embeds, dtype)
         positions = self._positions(x.shape[0], x.shape[1], x.device)
-        x, _, aux = self._run_blocks(params, x, positions=positions, remat=remat)
+        enc_out = self._encoder_out(params, enc_embeds, dtype, remat)
+        x, _, aux = self._run_blocks(params, x, positions=positions, enc_out=enc_out,
+                                     remat=remat)
         return rms_norm(params["final_norm"], x, self.cfg.norm_eps), aux
 
     def loss(self, params, batch, *, remat=None, dtype=torch.bfloat16):
         """batch: tokens (B,S), targets (B,S). Returns (total, {"ce", "aux"}):
-        ``aux`` is the MoE router loss summed over the layers (0 without
-        MoE FFNs), weighted by ``router_aux_weight`` in the total. A vision
-        frontend or an encoder input is refused: the reference prepends the
-        patches and drops their positions before the CE, which is not ported."""
+        ``aux`` is the MoE router loss summed over the MoE sublayers (0
+        without MoE FFNs), weighted by ``router_aux_weight`` in the total. A
+        vision frontend or an encoder input is refused: the reference
+        prepends the patches and drops their positions before the CE, which
+        is not ported (ROADMAP queue 1, the loss over patches and encoder
+        inputs)."""
         extra = sorted({"patch_embeds", "enc_embeds"} & set(batch))
         if self.cfg.frontend or extra:
             raise NotImplementedError(
                 f"{self.cfg.name}: the loss over a frontend ({self.cfg.frontend!r}) or "
-                f"encoder inputs {extra} is not ported")
+                f"encoder inputs {extra} is not ported (ROADMAP queue 1, the loss over "
+                "patches and encoder inputs)")
         x, aux = self._hidden_aux(params, batch["tokens"], remat=remat, dtype=dtype)
         aux = torch.as_tensor(aux, dtype=F32, device=x.device)
         ce = chunked_ce(lambda xc: self.head(params, xc), x, batch["targets"])
@@ -385,29 +479,47 @@ class LM:
             return window  # ring buffer
         return kv_len + 128  # headroom so full-attn decode never wraps
 
-    def cache_spec(self, batch: int, kv_len: int, dtype=torch.bfloat16) -> dict:
-        """(shape, dtype) for every leaf of a decode-ready cache at kv_len."""
-        K, hd = self.cfg.num_kv_heads, self.cfg.head_dim
+    def cache_spec(self, batch: int, kv_len: int, dtype=torch.bfloat16,
+                   enc_len: Optional[int] = None) -> dict:
+        """(shape, dtype) for every leaf of a decode-ready cache at kv_len;
+        an encoder-decoder's cross K/V holds ``enc_len`` (default kv_len)
+        encoder positions."""
+        cfg = self.cfg
+        K, hd = cfg.num_kv_heads, cfg.head_dim
         n = self.n_super
-        blocks = {}
+        blocks, cross = {}, {}
         for i in range(self.period):
             if self.kinds[i] == "attn":
                 smax = self._attn_cache_len(kv_len, self.windows[i])
-                blocks[f"sub{i}"] = {"attn": {
-                    "k": ((n, batch, smax, K, hd), dtype),
-                    "v": ((n, batch, smax, K, hd), dtype),
-                    "pos_ids": ((n, batch, smax), torch.int32),
-                }}
+                if self.kv_quant:
+                    attn = {"k_q": ((n, batch, smax, K, hd), torch.int8),
+                            "v_q": ((n, batch, smax, K, hd), torch.int8),
+                            "k_s": ((n, batch, smax, K), F32),
+                            "v_s": ((n, batch, smax, K), F32)}
+                else:
+                    attn = {"k": ((n, batch, smax, K, hd), dtype),
+                            "v": ((n, batch, smax, K, hd), dtype)}
+                attn["pos_ids"] = ((n, batch, smax), torch.int32)
+                blocks[f"sub{i}"] = {"attn": attn}
+                if cfg.is_encoder_decoder:
+                    senc = enc_len or kv_len
+                    cross[f"sub{i}"] = {"k": ((n, batch, senc, K, hd), dtype),
+                                        "v": ((n, batch, senc, K, hd), dtype),
+                                        "pos_ids": ((n, batch, senc), torch.int32)}
             else:
                 blocks[f"sub{i}"] = {"mamba": {
                     name: ((n,) + shape, dt)
-                    for name, (shape, dt) in mamba_cache_decl(self.cfg, batch, dtype).items()
+                    for name, (shape, dt) in mamba_cache_decl(cfg, batch, dtype).items()
                 }}
-        return {"lengths": ((batch,), torch.int32), "blocks": blocks}
+        out = {"lengths": ((batch,), torch.int32), "blocks": blocks}
+        if cfg.is_encoder_decoder:
+            out["cross"] = cross
+        return out
 
-    def init_cache(self, batch: int, kv_len: int, dtype=torch.bfloat16) -> dict:
-        """Empty cache: zero K/V and SSM/conv state, pos_ids -1 (empty
-        slot), lengths 0."""
+    def init_cache(self, batch: int, kv_len: int, dtype=torch.bfloat16,
+                   enc_len: Optional[int] = None) -> dict:
+        """Empty cache: zero K/V, scales and SSM/conv state, pos_ids -1
+        (empty slot), lengths 0."""
 
         def make(spec):
             if isinstance(spec, dict):
@@ -417,37 +529,43 @@ class LM:
                 return torch.full(shape, -1, dtype=dt, device=self.device)
             return torch.zeros(shape, dtype=dt, device=self.device)
 
-        cache = make(self.cache_spec(batch, kv_len, dtype))
+        cache = make(self.cache_spec(batch, kv_len, dtype, enc_len))
         cache["lengths"] = torch.zeros((batch,), dtype=torch.int32, device=self.device)
         return cache
 
     def prefill(self, params, tokens, *, kv_len: Optional[int] = None,
-                dtype=torch.bfloat16):
-        """Process a full prompt; returns (last_logits, decode-ready cache)."""
-        x = self.embed(params, tokens, dtype)
+                frontend_embeds=None, enc_embeds=None, dtype=torch.bfloat16):
+        """Process a full prompt (frontend positions first, where given);
+        returns (last_logits, decode-ready cache)."""
+        x = self.embed(params, tokens, frontend_embeds, dtype)
         B, S = x.shape[:2]
         kv_len = kv_len or S
         positions = self._positions(B, S, x.device)
-        x, caches, _ = self._run_blocks(params, x, positions=positions, want_cache=True)
+        enc_out = self._encoder_out(params, enc_embeds, dtype)
+        x, caches, _ = self._run_blocks(params, x, positions=positions, want_cache=True,
+                                        enc_out=enc_out)
         x = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         logits = self.head(params, x[:, -1:, :])[:, 0]
         return logits, self._finalize_prefill_cache(caches, B, S, kv_len, x.device)
 
     def _finalize_prefill_cache(self, caches, B, S, kv_len, device):
-        """Pad/ring-place prefill K/V into the decode-cache layout; stack the
-        mamba state as it is."""
-        blocks = {}
+        """Pad/ring-place prefill K/V (and int8 scales) into the decode-cache
+        layout; stack the mamba state and the cross K/V as they are."""
+
+        def stack(i, kind):
+            names = caches[0][f"sub{i}"][kind]
+            return {n: torch.stack([c[f"sub{i}"][kind][n] for c in caches]) for n in names}
+
+        blocks, cross = {}, {}
         for i in range(self.period):
             if self.kinds[i] == "mamba":
-                blocks[f"sub{i}"] = {"mamba": {
-                    name: torch.stack([c[f"sub{i}"]["mamba"][name] for c in caches])
-                    for name in ("ssm", "conv")
-                }}
+                blocks[f"sub{i}"] = {"mamba": stack(i, "mamba")}
                 continue
+            if "cross" in caches[0][f"sub{i}"]:
+                cross[f"sub{i}"] = stack(i, "cross")
             smax = self._attn_cache_len(kv_len, self.windows[i])
             sub = {}
-            for name in ("k", "v", "pos_ids"):
-                leaf = torch.stack([c[f"sub{i}"]["attn"][name] for c in caches])
+            for name, leaf in stack(i, "attn").items():
                 fill = -1 if name == "pos_ids" else 0
                 out = torch.full(leaf.shape[:2] + (smax,) + leaf.shape[3:], fill,
                                  dtype=leaf.dtype, device=leaf.device)
@@ -461,19 +579,25 @@ class LM:
                 sub[name] = out
             blocks[f"sub{i}"] = {"attn": sub}
         lengths = torch.full((B,), S, dtype=torch.int32, device=device)
-        return {"lengths": lengths, "blocks": blocks}
+        out = {"lengths": lengths, "blocks": blocks}
+        if self.cfg.is_encoder_decoder:
+            out["cross"] = cross
+        return out
 
     def decode_step(self, params, cache, tokens, dtype=torch.bfloat16):
         """One decode step for every sequence. tokens: (B, S_new).
 
         Writes the new K/V and mamba state into ``cache`` in place. Returns
         (logits (B, V) for the last position, the cache with ``lengths``
-        advanced)."""
+        advanced; its cross K/V, where it has one, as it was)."""
         lengths = cache["lengths"]
-        x = self.embed(params, tokens, dtype)
+        x = self.embed(params, tokens, None, dtype)
         positions = self._positions(x.shape[0], tokens.shape[1], x.device, start=lengths)
-        x, _, _ = self._run_blocks(params, x, positions=positions,
-                                   cache=cache["blocks"], lengths=lengths)
+        x, _, _ = self._run_blocks(params, x, positions=positions, cache=cache["blocks"],
+                                   cross=cache.get("cross"), lengths=lengths)
         x = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         logits = self.head(params, x)[:, -1]
-        return logits, {"lengths": lengths + tokens.shape[1], "blocks": cache["blocks"]}
+        out = {"lengths": lengths + tokens.shape[1], "blocks": cache["blocks"]}
+        if "cross" in cache:
+            out["cross"] = cache["cross"]
+        return logits, out

@@ -28,7 +28,11 @@ hi half alone does not reach; at this width the float32 sums' order alone
 moves ~2 % of dx across a rounding boundary), and no float32 GEMM among
 its kernels. The MoE layer (plain PyTorch) in float32 against the same
 function in float64 on the card: y within 1e-4 of max |y64| and aux within
-1e-5, two runs bit for bit.
+1e-5, two runs bit for bit. Flash at Sq != Sk, the cross-attention decode
+and the SSD scan at jamba's width at the attention and SSD tolerances
+above, bit for bit on a second run; the slice's archs at reduced size
+(int8 KV, jamba, seamless, internvl2) through the kernels within 1e-4 of
+the plain versions in float32.
 """
 import pytest
 import torch
@@ -645,3 +649,120 @@ def test_moe_layer_matches_float64(dev, case):
     assert y.shape == (B, S, cfg.d_model) and bool(torch.isfinite(y).all())
     assert float((y.double() - y64).abs().max()) <= 1e-4 * float(y64.abs().max())
     assert abs(float(aux) - float(aux64)) <= 1e-5
+
+
+# flash at Sq != Sk: B, Sq, Sk, H, K, hd, causal (positions arange(Sq) and
+# arange(Sk), causal aligned at the top left)
+FLASH_XQ = [
+    (4, 200, 512, 16, 16, 64, False),  # seamless-m4t-large-v2 cross-attention prefill
+    (2, 512, 200, 4, 2, 64, True),
+    (1, 37, 100, 4, 2, 16, False),  # reduced widths
+    (1, 100, 37, 4, 2, 16, True),
+    (2, 129, 333, 8, 4, 128, False),
+    (1, 333, 129, 8, 4, 128, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", FLASH_XQ)
+def test_flash_kernel_at_sq_ne_sk_matches_plain(dev, case, dtype, tol):
+    """Every forward route (split-TF32 float32, bf16 tensor cores at hd 64
+    and 128, CUDA cores at bf16 hd 16) with its log-sum-exp, and a second
+    run bit for bit."""
+    B, Sq, Sk, H, K, hd, causal = case
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    want, want_lse = flash_attention_lse_ref(q, k, v, causal=causal)
+    assert torch.equal(o, got) and lse.shape == (B, H, Sq)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", [(4, 16, 16, 64, 512, 199), (2, 4, 2, 16, 20, 3),
+                                  (2, 8, 4, 128, 333, 0)])
+def test_decode_against_a_cross_cache_sees_every_encoder_slot(dev, case, dtype, tol):
+    """One token against seamless's read-only cross cache (pos_ids
+    arange(Se)) through the adapter's cross route, the decoder at a position
+    below Se - 1: every slot is valid, as the dense non-causal oracle has
+    it; a second run bit for bit."""
+    from repro_torch.kernels.ops import sdpa_kernel
+    from repro_torch.models.layers import _sdpa_dense
+
+    B, H, K, hd, Se, qpos = case
+    gen = torch.Generator(device=dev).manual_seed(22)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, 1, H, hd), (B, Se, K, hd), (B, Se, K, hd)))
+    q_pos = torch.full((B, 1), qpos, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(Se, dtype=torch.int32, device=dev)[None].expand(B, Se).contiguous()
+    before = decode_attention.launches
+    got = sdpa_kernel(q, k, v, q_pos, k_pos, None, False, None, "cross")
+    assert decode_attention.launches == before + 1
+    assert torch.equal(got, sdpa_kernel(q, k, v, q_pos, k_pos, None, False, None, "cross"))
+    want = _sdpa_dense(q, k, v, q_pos, k_pos, None, False, None)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", SSD_DTYPES)
+def test_ssd_kernel_at_jamba_width(dev, dtype, tol):
+    """jamba-v0.1-52b's mamba mixer: 128 heads of P 64 over one group of N
+    16, chunk 128, a 256-token prompt; a second run bit for bit."""
+    args = _ssd_inputs(dev, 2, 256, 128, 64, 16, dtype, seed=23, single_group=True)
+    y, h = ssd_scan(*args, chunk=128)
+    y2, h2 = ssd_scan(*args, chunk=128)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    yr, hr = ssd_scan_ref(*args, chunk=128)
+    ys, hs = ssd_sequential_ref(*args)
+    for got, want in ((y, yr), (h, hr), (y, ys), (h, hs)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_quant", [("paper-default", True), ("gemma2-2b", True),
+                                           ("jamba-v0.1-52b", False),
+                                           ("seamless-m4t-large-v2", False),
+                                           ("internvl2-76b", False)])
+def test_reduced_model_kernels_match_plain(dev, arch, kv_quant):
+    """The slice's archs at reduced size on the card: prefill and 4
+    teacher-forced decode steps through the kernels against the plain
+    versions, float32, logits within 1e-4; seamless with 29 encoder frames
+    for a 20-token prompt, internvl2 with a cache small enough to ring-place
+    its 148-position prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+
+    cfg = get_config(arch, reduced=True)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    params = LM(cfg, device=dev).init(gen)
+    S = 140 if arch == "internvl2-76b" else 20
+    toks = torch.randint(0, cfg.vocab_size, (2, S + 4), generator=gen, device=dev)
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["enc_embeds"] = torch.randn((2, S + 9, cfg.d_model), generator=gen, device=dev)
+    if cfg.frontend == "vision_patches":
+        kw["frontend_embeds"] = torch.randn((2, cfg.frontend_tokens, cfg.d_model),
+                                            generator=gen, device=dev)
+    kv_len = 4 if arch == "internvl2-76b" else 32
+    out = {}
+    with torch.no_grad():
+        for impl in ("cuda", "plain"):
+            lm = LM(cfg, impl=impl, device=dev, kv_quant=kv_quant)
+            logits, cache = lm.prefill(params, toks[:, :S], kv_len=kv_len, dtype=torch.float32,
+                                       **kw)
+            steps = [logits]
+            for i in range(4):
+                logits, cache = lm.decode_step(params, cache, toks[:, S + i:S + i + 1],
+                                               dtype=torch.float32)
+                steps.append(logits)
+            out[impl] = steps
+    for a, b in zip(out["cuda"], out["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

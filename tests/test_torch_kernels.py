@@ -200,18 +200,24 @@ def test_wrappers_refuse_a_device_that_is_neither_cpu_nor_cuda():
         decode_attention(q[:, 0], k, k, pos, lengths)
 
 
-@pytest.mark.parametrize("site,Sq,Sk", [("decode", 1, 40), ("prefill", 37, 37)])
+@pytest.mark.parametrize("site,Sq,Sk", [("decode", 1, 40), ("prefill", 37, 37),
+                                         ("prefill", 5, 9), ("cross", 5, 9), ("cross", 1, 9)])
 def test_adapter_routes_the_served_shapes_to_the_wrappers(site, Sq, Sk):
+    """Prefill at arange positions (causal, Sq != Sk aligned at the top
+    left), decode against a cache, and cross-attention (non-causal: flash
+    at Sq != Sk, or one token against every valid encoder slot)."""
     q, k, v = _t(*_normal(8, (2, Sq, 4, 16), (2, Sk, 2, 16), (2, Sk, 2, 16)))
+    causal = site != "cross"
     if site == "decode":
         lengths = torch.tensor([39, 20], dtype=torch.int32)
         q_pos = lengths[:, None]
         ar = torch.arange(Sk, dtype=torch.int32)[None].expand(2, Sk)
         k_pos = torch.where(ar <= q_pos, ar, -1).to(torch.int32)
     else:
-        q_pos = k_pos = torch.arange(Sq, dtype=torch.int32)[None].expand(2, Sq)
-    got = ops.sdpa_kernel(q, k, v, q_pos, k_pos, None, True, None, site)
-    want = layers._sdpa_dense(q, k, v, q_pos, k_pos, None, True, None)
+        q_pos = torch.arange(Sq, dtype=torch.int32)[None].expand(2, Sq)
+        k_pos = torch.arange(Sk, dtype=torch.int32)[None].expand(2, Sk)
+    got = ops.sdpa_kernel(q, k, v, q_pos, k_pos, None, causal, None, site)
+    want = layers._sdpa_dense(q, k, v, q_pos, k_pos, None, causal, None)
     _close(got, want)
 
 
@@ -246,8 +252,9 @@ def test_adapter_serves_prefill_without_the_autograd_function(grad_mode, require
     _close(got.detach(), layers._sdpa_dense(q, k, v, pos, pos, None, True, None).detach())
 
 
-@pytest.mark.parametrize("site,Sq,Sk", [("cross", 5, 9), ("decode", 2, 40), ("prefill", 5, 9)])
+@pytest.mark.parametrize("site,Sq,Sk", [("decode", 2, 40), ("decode", 3, 17), ("train", 5, 5)])
 def test_adapter_raises_for_shapes_off_the_slice(site, Sq, Sk):
+    """A multi-token decode and an unknown site have no kernel route."""
     q, k, v = _t(*_normal(9, (1, Sq, 4, 16), (1, Sk, 2, 16), (1, Sk, 2, 16)))
     pos = torch.zeros((1, Sq), dtype=torch.int32)
     with pytest.raises(NotImplementedError):

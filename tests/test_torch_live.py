@@ -960,19 +960,76 @@ def test_prompt_shapes_depend_only_on_the_work():
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
-def test_unported_archs_surface_as_failed_queries(arch):
-    """Encoder-decoder and frontend archs are not ported: a query of one
-    fails with the refusal as its error, and the drain returns."""
+def test_encdec_and_vlm_queries_are_served_and_a_preempted_one_resumes_bit_for_bit(arch):
+    """An encoder-decoder (seamless: zero frame embeddings as its encoder
+    input) and a vision-frontend arch (internvl2: zero patch embeddings
+    before the prompt), as the reference's live engine feeds them: a
+    BEST_EFFORT query preempted at a chunk boundary by an IMMEDIATE one of
+    the same arch. Both are done with their stages billed 0..n-1 once each
+    and end, bit for bit, with the last token and cache (seamless's
+    read-only cross K/V included) of the same query decoded without
+    preemption."""
     eng = LiveEngine(_cfg(
         pools=[PoolSpec(name="vm", kind="reserved", chips=1)],
         sla=SLAConfig(relaxed_deadline_s=10.0, poll_period_s=0.02,
-                      vm_overload_threshold=1_000),
+                      vm_overload_threshold=1_000,
+                      preempt_best_effort=True),
+        decode_tokens=64, decode_chunk_tokens=4,
     ))
-    q = _q(ServiceLevel.IMMEDIATE, arch=arch)
-    eng.submit(q)
-    done = eng.drain(1, timeout=60.0)
-    assert done == [q] and q.state == "failed"
-    assert q.error.startswith("NotImplementedError") and "not ported" in q.error
+    last = _recording(eng)
+    n_stages = 1 + 64 // 4
+    boe = _q(ServiceLevel.BEST_EFFORT, arch=arch)
+    imm = _q(ServiceLevel.IMMEDIATE, arch=arch)
+    eng.submit(boe)
+    assert _wait_until(lambda: 0 < len(boe.stage_trace) < n_stages - 4)
+    eng.submit(imm)
+    done = eng.drain(2, timeout=120)
+    assert len(done) == 2 and all(q.state == "done" for q in done), [q.error for q in done]
+    assert boe.preemptions >= 1
+    for q in (boe, imm):
+        _assert_conserved(q, n_stages)
+        _assert_bitwise_equal(last[q.qid], *_uninterrupted(eng, q))
+    cache = last[boe.qid].cache
+    assert ("cross" in cache) == (arch == "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b"])
+def test_stage_work_with_frontend_inputs_matches_the_jax_package(arch):
+    """The reference's live prefill feeds seamless zero frame embeddings
+    (batch, prompt_tokens, d_model) and internvl2 zero patch embeddings
+    (batch, frontend_tokens, d_model); the port's stage entry points, over
+    the reference's params, give its tokens at every step and its cache
+    (within atol 1e-5 / rtol 1e-4)."""
+    from repro.core import live as ref_live
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.live import _prefill_kwargs
+    from repro_torch.models.transformer import LM
+
+    prompt, decode_tokens = 16, 6
+    ref_pool = ref_live._ModelPool(prompt, decode_tokens)
+    ref = ref_pool.ensure(arch, 1)
+    model = LM(get_config(arch, reduced=True), device="cpu")
+    port = live_model(model, params_from_jax(jax.tree.map(np.asarray, ref.params),
+                                             device="cpu"), ref_pool.kv_len)
+    toks_j, kw = ref_live._prompt_inputs(ref.cfg, 1, prompt, seed=7)
+    toks = torch.as_tensor(np.array(toks_j), dtype=torch.long)
+    ours = _prefill_kwargs(model.cfg, toks)
+    assert ours.keys() == kw.keys() and len(kw) == 1
+    for k in kw:
+        assert tuple(ours[k].shape) == kw[k].shape and not ours[k].any()
+    tok_j, cache_j = ref.prefill(ref.params, toks_j, kw)
+    tok, cache = port.prefill(port.params, toks)
+    for _ in range(decode_tokens):
+        assert tok.tolist() == np.asarray(tok_j).tolist()
+        tok_j, cache_j = ref.decode(ref.params, cache_j, tok_j)
+        tok, cache = port.decode(port.params, cache, tok)
+    assert tok.tolist() == np.asarray(tok_j).tolist()
+    want = dict(_leaves(jax.tree.map(np.asarray, cache_j)))
+    got = dict(_leaves(cache))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k], atol=1e-5, rtol=1e-4, err_msg=str(k))
 
 
 def test_moe_queries_are_served_and_a_preempted_one_resumes_bit_for_bit():

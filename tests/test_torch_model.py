@@ -1,7 +1,9 @@
 """The port's configs and LM (repro_torch) against the JAX package on the
 CPU, for the dense archs, the MoE archs and mamba2. Params are drawn by the JAX
 ``LM.init`` and carried across with ``repro_torch.convert.params_from_jax``;
-prompts come from a seeded numpy generator.
+prompts come from a seeded numpy generator. jamba, seamless, internvl2 and
+the int8 KV cache have files of their own (test_torch_hybrid.py,
+test_torch_encdec_vlm.py, test_torch_kv_int8.py).
 
 Tolerance: logits, cache K/V and mamba ssm/conv state within atol/rtol
 5e-4 in float32 (same arithmetic in another summation order, over a few
@@ -208,13 +210,3 @@ def test_params_from_jax_carries_the_moe_params():
         np.testing.assert_array_equal(np.asarray(jm[name]), tm[name].numpy())
     assert "mlp" not in tp["blocks"]["sub0"]
 
-
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "seamless-m4t-large-v2"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError):
-        LM(get_config(arch, reduced=True), device="cpu")
-
-
-def test_int8_kv_cache_raises():
-    with pytest.raises(NotImplementedError):
-        LM(get_config("paper-default", reduced=True), device="cpu", kv_quant=True)

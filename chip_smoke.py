@@ -163,7 +163,38 @@ Phases, each of which raises on failure (there is no CPU fallback):
      BEST_EFFORT query preempted by two IMMEDIATE ones, every query done and
      billed once a stage, the preempted one's cache (cross K/V included)
      bit for bit an uninterrupted run's, internvl2's cache wrapped, a
-     launch a layer (and cross-attention) for every prefill and step.
+     launch a layer (and cross-attention) for every prefill and step;
+ 17. training across the registry, bfloat16 compute on float32 master
+     weights from a seeded generator, each run's steps donated
+     (make_train_step(donate=True), train()'s step) on TokenStream batches:
+     (a) in phase 3, the flash forward with its log-sum-exp and the flash
+     backward at Sq != Sk (seamless's training cross-attention q
+     (2,512,16,64) against k/v (2,768,16,64) non-causal; causal at Sk > Sq,
+     where dK and dV of the keys past Sq - 1 must be exactly 0; causal at
+     Sq > Sk; a ragged case at hd 16, GQA 2:1), float32 and bfloat16 at
+     phase 3's tolerances, twice bit for bit, and in phase 12 the seamless
+     shape timed as device time (a replayed CUDA graph) beside its bound
+     and SDPA's; (b) seamless-m4t-large-v2 at
+     full width and depth, 10 steps at batch 2 x 512 tokens and 512
+     frames: the first loss within 5 % of ln V, 72 flash forward and 72
+     backward launches a step, step ms, tokens/s, peak memory, one step
+     profiled (device busy ms, top kernels); then from the initial
+     weights one loss-and-gradient step at 768 frames through the kernels
+     and through the plain versions (24 flash forwards and 24 backwards at
+     Sq != Sk through the kernels, the cross call site's, which the
+     kernels line reports for the cross rows): in float32 compute the losses within
+     1e-3 relative and each cross-attention projection's gradient within
+     2e-2 of its scale; in bfloat16 compute the losses within 1e-3 and the
+     kernels' cross gradients no farther from the float32 plain ones than
+     twice the plain bf16 route's (bf16 over 48 layers moves them by some
+     percent of their scale on either route); (c) internvl2-76b at
+     full width, depth 2 of 80, 5 steps at batch 1 x 512 positions (256
+     patches, whose positions the CE drops, and 256 tokens); (d)
+     mixtral-8x7b at full width, depth 2 of 32, 5 steps at batch 2 x 1024,
+     the router aux each step; (e) qwen2-0.5b at 4 x 2048 under each remat
+     policy (None, "full", "dots", "coll"), 3 steps from one state and the
+     same batches: the first loss and grad norm within 1e-5 relative
+     across them, step ms and peak memory each.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -487,6 +518,24 @@ def check_kernels(device) -> dict:
                                            softcap=cap)
             for n, a, b in zip("qkv", got, want):
                 _grad_err(f"flash_bwd {case} {dtype} d{n}", a, b, tol)
+        for case in FLASH_BWD_XQ_CASES:  # phase 17 (a): the backward at Sq != Sk
+            B, Sq, Sk, H, K, hd, causal = case
+            name = f"flash Sq {Sq} Sk {Sk} {case} {dtype}"
+            q, k, v = _qkv(gen, B, Sq, Sk, H, K, hd, dtype, device)
+            g = torch.randn((B, Sq, H, hd), generator=gen, device=device).to(dtype)
+            o, lse = _twice(name, lambda: flash_attention_lse(q, k, v, causal=causal))
+            want_o, want_lse = flash_attention_lse_ref(q, k, v, causal=causal)
+            fwd_err = _close(name, o, want_o, tol)
+            _close(f"{name} lse", lse, want_lse, LSE_TOL[dtype])
+            got = _twice(f"{name} bwd", lambda: flash_attention_bwd(q, k, v, o, g, lse,
+                                                                    causal=causal))
+            want = flash_attention_bwd_ref(q, k, v, o, g, lse, causal=causal)
+            bwd_err = max(_grad_err(f"{name} d{n}", a, b, tol) for n, a, b in zip("qkv", got, want))
+            if causal and Sk > Sq and (bool(got[1][:, Sq:].any()) or bool(got[2][:, Sq:].any())):
+                raise AssertionError(f"{name}: dK or dV of a key past Sq - 1 is not 0")
+            if case[:6] == XATTN_TRAIN and dtype == torch.bfloat16:  # seamless's training cross
+                errs["flash_attention_bf16_fwd_cross"] = fwd_err
+                errs["flash_attention_bwd_cross"] = bwd_err
         for case in DECODE_CASES:
             B, H, K, hd, Smax, win, cap, fill = case
             q, k, v = _qkv(gen, B, 1, Smax, H, K, hd, dtype, device)
@@ -887,10 +936,12 @@ def train_full(device) -> tuple[dict, dict]:
     ckpt_s = out["ckpt_s"]
     flops = _model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
 
-    # one step under the profiler: the device's busy time against the step
+    # one step under the profiler: the device's busy time against the step,
+    # donated as train()'s steps are (the in-place update; nothing reads
+    # out["state"] afterwards)
     model = LM(cfg, device=device)
     fn = training_step.make_train_step(model, OptConfig(warmup_steps=10, total_steps=TRAIN_STEPS),
-                                       remat=None, compute_dtype=torch.bfloat16)
+                                       remat=None, compute_dtype=torch.bfloat16, donate=True)
     data = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1, device=device).next()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
@@ -1181,16 +1232,79 @@ def _time_head(gen, device, iters=5) -> dict:
     }
 
 
+def _time_train_xq(gen, device, B, S, Se, H, K, hd) -> tuple[dict, dict]:
+    """Phase 17 (a) timed: seamless's training cross-attention, q (B,S,H,hd)
+    against k/v (B,Se,K,hd) bfloat16 non-causal, every (q, k) pair: the
+    forward with its log-sum-exp and the backward kernel, SDPA's forward
+    and SDPA's forward + backward minus its forward, as device time (a
+    replayed CUDA graph, ``_graph_ms``: these kernels take tens of µs, less
+    than the host's cost of an eager call), with the eager loop's time
+    beside them (``eager_ms``, host included); the plain versions in an
+    eager loop; and the bound."""
+    bf = torch.bfloat16
+    sets = []
+    for _ in range(4):
+        q, k, v = _qkv(gen, B, S, Se, H, K, hd, bf, device)
+        g = torch.randn((B, S, H, hd), generator=gen, device=device).to(bf)
+        o, lse = flash_attention_lse(q, k, v, causal=False)
+        sets.append((q, k, v, g, o, lse))
+    lib = [tuple(t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+           + (g.transpose(1, 2).contiguous(),) for q, k, v, g, _, _ in sets]
+
+    def sdpa_fwd(q, k, v, g):
+        return F.scaled_dot_product_attention(q, k, v)
+
+    def sdpa_fwd_bwd(q, k, v, g):
+        return torch.autograd.grad(F.scaled_dot_product_attention(q, k, v), (q, k, v), g)
+
+    def fwd(q, k, v, *_):
+        return flash_attention_lse(q, k, v, causal=False)
+
+    def bwd(q, k, v, g, o, lse):
+        return flash_attention_bwd(q, k, v, o, g, lse, causal=False)
+
+    def bwd_ref(q, k, v, g, o, lse):
+        return flash_attention_bwd_ref(q, k, v, o, g, lse, causal=False)
+
+    fwd_flops = 4.0 * B * H * S * Se * hd  # Q K^T and P V over every pair
+    qo_bytes, kv_bytes, lse_bytes = 2.0 * B * S * H * hd, 2.0 * B * Se * K * hd, 4.0 * B * H * S
+    shape = f"q ({B},{S},{H},{hd}) k/v ({B},{Se},{K},{hd}) bfloat16 non-causal"
+    sdpa_ms = _graph_ms(sdpa_fwd, lib, 20)
+    bound_s, bound_by = kernel_bound(fwd_flops, 2 * qo_bytes + 2 * kv_bytes + lse_bytes,
+                                     f32=False, hw=H100)
+    forward = {
+        "ms": _graph_ms(fwd, sets, 20), "eager_ms": _time_ms(fwd, sets, 20),
+        "plain_ms": _time_ms(lambda q, k, v, *_: flash_attention_lse_ref(q, k, v, causal=False),
+                             sets, 4),
+        "library_ms": sdpa_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "shape": shape + ", forward with the log-sum-exp (the training forward)",
+    }
+    bound_s, bound_by = kernel_bound(2.5 * fwd_flops, 4 * qo_bytes + 4 * kv_bytes + lse_bytes,
+                                     f32=False, hw=H100)
+    back = {
+        "ms": _graph_ms(bwd, sets, 20), "eager_ms": _time_ms(bwd, sets, 20),
+        "plain_ms": _time_ms(bwd_ref, sets, 4),
+        "library_ms": _graph_ms(sdpa_fwd_bwd, lib, 20) - sdpa_ms,
+        "library_is": "SDPA forward + backward minus SDPA forward, a difference of two "
+                      "device times (CUDA-graph replays)",
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "kernels_us": _kernel_us(bwd, sets),
+        "shape": shape + ", backward",
+    }
+    return forward, back
+
+
 def time_kernels(device, n_sets=16) -> dict:
     """Phase 12: each kernel at the served shape (float32): its time, its
     plain version's, one library call's where one PyTorch call computes the
     same function, and its bound on an H100. The serving kernels' and their
     library calls' ms are device time (CUDA-graph replay, ``_graph_ms``),
     with the eager loop's time beside them (``eager_ms``, host included);
-    the plain versions and the millisecond-scale training kernels are timed
-    in an eager loop (``_time_ms``). The decode and SSD entries also give
-    each of their kernels' device µs a launch and the launches seen
-    (``kernels_us``, profiler)."""
+    the plain versions and the millisecond-scale training kernels at phase
+    10's shape are timed in an eager loop (``_time_ms``); phase 17's
+    training kernels at the cross shape, tens of µs each, as device time.
+    The decode and SSD entries also give each of their kernels' device µs
+    a launch and the launches seen (``kernels_us``, profiler)."""
     gen = torch.Generator(device=device).manual_seed(1)
     out = {}
 
@@ -1218,6 +1332,9 @@ def time_kernels(device, n_sets=16) -> dict:
     out["decode_attention_cross"] = _time_decode_cross(gen, device, B, H, K, hd, Se, n_sets, 500)
     B, S, H, P, N, Q = SSD_JAMBA
     out["ssd_scan_jamba"] = _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, 100)
+    # phase 17's new shape: seamless's training cross-attention at 768 frames
+    out["flash_attention_bf16_fwd_cross"], out["flash_attention_bwd_cross"] = _time_train_xq(
+        gen, device, *XATTN_TRAIN)
 
     # at the training shape of phase 10, bfloat16: the forward with its
     # log-sum-exp, the backward kernel, and flash_attention_diff's forward +
@@ -2230,6 +2347,306 @@ def slice_phase(device, card) -> dict:
     return out
 
 
+# ---- phase 17: training across the registry ---------------------------------
+# the flash backward at Sq != Sk (phase 3): B, Sq, Sk, H, K, hd, causal
+XATTN_TRAIN = (2, 512, 768, 16, 16, 64)  # seamless's cross-attention at 768 frames
+FLASH_BWD_XQ_CASES = [
+    XATTN_TRAIN + (False,),
+    (2, 200, 512, 8, 2, 128, True),  # causal at Sk > Sq: keys past Sq - 1 see no query
+    (1, 768, 512, 14, 2, 64, True),  # causal at Sq > Sk
+    (2, 37, 100, 4, 2, 16, True),  # ragged, reduced widths
+]
+ENCDEC_TRAIN = (2, 512, 10)  # batch, tokens (= encoder frames), steps
+VLM_TRAIN_LAYERS, VLM_TRAIN = 2, (1, 512, 5)  # batch, positions (256 patches + 256 tokens)
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN = "mixtral-8x7b", 2, (2, 1024, 5)
+REMAT_STEPS = 3
+REMAT_TOL = 1e-5  # relative, across the remat policies (bit for bit expected)
+XQ_LOSS_RTOL = 1e-3  # the 768-frame step, kernels against plain
+#: the 768-frame step in bf16 compute: the kernels' gradients no farther from
+#: the float32 plain gradients than this times the plain bf16 route's
+XQ_BF16_RATIO = 2.0
+
+
+def _zero_launches():
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    flash_attention.launches_sq_ne_sk = flash_attention_bwd.launches_sq_ne_sk = 0
+    decode_attention.launches = ssd_scan.launches = 0
+
+
+def _launches() -> dict:
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
+
+
+def _reckon_gb(params) -> dict:
+    """The training state's bytes before a run: float32 params, grads and
+    two moments (16 bytes a parameter), the forward's bf16 weight copies (2
+    bytes) and the donated update's one temporary of the largest leaf."""
+    n = count_params(params)
+    largest = max(t.numel() for t in tree_leaves(params))
+    return {"num_params": n, "state_gb": 16 * n / 1e9,
+            "reckoned_peak_gb": (18 * n + 4 * largest) / 1e9}
+
+
+def _train_steps(device, cfg, batch, seq, steps, remat=None, state=None, seed=0):
+    """``steps`` donated train steps of ``cfg`` at full width in bfloat16
+    (``make_train_step(donate=True)``, the step train() runs) on batches of
+    ``TokenStream``, the launch counters zeroed just before and read just
+    after. Returns (the final state, the run's numbers)."""
+    model = LM(cfg, device=device)
+    if state is None:
+        state = training_step.init_state(model, torch.Generator(device=device).manual_seed(seed))
+    fn = training_step.make_train_step(model, OptConfig(warmup_steps=2, total_steps=steps),
+                                       remat=remat, compute_dtype=torch.bfloat16, donate=True)
+    stream = TokenStream(cfg, batch, seq, seed=seed, device=device)
+    losses, auxes, norms, step_ms = [], [], [], []
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    _zero_launches()
+    for _ in range(steps):
+        data = stream.next()
+        t0 = time.perf_counter()
+        state, m = fn(state, data)
+        losses.append(float(m["loss"]))  # reads the loss: the step's end on the device
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        auxes.append(float(m["aux"]))
+        norms.append(float(m["grad_norm"]))
+    counts = _launches()
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train {cfg.name}: losses {losses}, grad norms {norms}")
+    ms = float(np.median(step_ms[1:]))
+    return state, {
+        "batch": batch, "seq": seq, "steps": steps, "remat": remat, "losses": losses,
+        "router_aux": auxes, "grad_norms": norms, "step_ms": step_ms,
+        "step_ms_median_after_first": ms, "tokens_per_s": batch * seq / ms * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+        "state_memory_gb": base / 1e9,
+        "activation_peak_gb": (torch.cuda.max_memory_allocated(device) - base) / 1e9,
+        "launches": counts,
+    }
+
+
+def _first_loss(name, losses, vocab):
+    if abs(losses[0] / math.log(vocab) - 1) > FIRST_LOSS_TOL:
+        raise AssertionError(f"{name}: first loss {losses[0]}, ln V {math.log(vocab)}")
+
+
+def _expect_launches(name, counts, fwd, bwd):
+    want = {"flash_attention": fwd, "flash_attention_bwd": bwd, "decode_attention": 0,
+            "ssd_scan": 0}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+
+
+def _profiled_step(device, fn, state, data) -> tuple[dict, dict]:
+    """One train step under torch.profiler: (the new state, the device's busy
+    ms, its launches and top kernels)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = fn(state, data)
+        float(m["loss"])
+        torch.cuda.synchronize(device)
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(t for _, t, _ in rows) / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    return state, {"device_busy_ms_profiled_step": busy_ms if busy_ms else "not measured",
+                   "kernel_launches_profiled_step": sum(n for *_, n in rows),
+                   "top_kernels_ms": [[k[:70], round(t / 1e3, 3), n] for k, t, n in top]}
+
+
+def _cross_grads(device, cfg, params, data, impl, dtype):
+    """(loss, the cross-attention projections' gradients in float32, the
+    launches, the flash launches at Sq != Sk) of one loss-and-gradient
+    step. With more frames than tokens only the cross-attention runs at
+    Sq != Sk (the encoder's and the decoder's self-attention at Sq == Sk),
+    so the last count is the cross call site's."""
+    _zero_launches()
+    loss, _, grads = training_step.loss_and_grads(LM(cfg, impl=impl, device=device), params,
+                                                  data, remat=None, compute_dtype=dtype)
+    cross = {w: grads["blocks"]["sub0"]["cross"][w].float() for w in ("wq", "wk", "wv", "wo")}
+    return float(loss), cross, _launches(), {
+        "flash_attention": flash_attention.launches_sq_ne_sk,
+        "flash_attention_bwd": flash_attention_bwd.launches_sq_ne_sk}
+
+
+def encdec_train(device, card) -> dict:
+    """Phase 17 (b): seamless-m4t-large-v2 at full width and depth (24 + 24
+    layers): ENCDEC_TRAIN steps at batch 2 x 512 tokens with 512 encoder
+    frames, 72 flash forwards and 72 backwards a step (24 encoder, 24
+    causal, 24 cross), then one step profiled. Then, from the initial
+    weights, one loss-and-gradient step at 768 frames for 512 tokens (the
+    cross-attention's backward at Sq != Sk) through the kernels and through
+    the plain versions. In float32 compute (split-TF32 forward, the float32
+    backward): the losses within XQ_LOSS_RTOL, each cross-attention
+    projection's gradient within BF16_TOL of its scale. In bfloat16 compute
+    (the bf16 kernels, as the training runs): the losses within
+    XQ_LOSS_RTOL; after 48 bf16 layers the gradients of either route sit
+    some percent of their scale from the float32 ones (PERF.md §6),
+    so each route's bf16 gradients are held against the float32 plain ones:
+    the kernels' no farther than XQ_BF16_RATIO times the plain route's."""
+    cfg = get_config(ENCDEC)
+    B, S, steps = ENCDEC_TRAIN
+    n_attn = 3 * cfg.num_layers  # the encoder's, the decoder's and the cross-attentions
+    torch.cuda.empty_cache()
+    state, out = _train_steps(device, cfg, B, S, steps)
+    _expect_launches("seamless train", out["launches"], n_attn * steps, n_attn * steps)
+    _first_loss("seamless train", out["losses"], cfg.vocab_size)
+    out.update(_reckon_gb(state["params"]))
+    fn = training_step.make_train_step(LM(cfg, device=device), OptConfig(), remat=None,
+                                       compute_dtype=torch.bfloat16, donate=True)
+    data = TokenStream(cfg, B, S, seed=steps, device=device).next()
+    state, prof = _profiled_step(device, fn, state, data)
+    out.update(prof)
+    if isinstance(prof["device_busy_ms_profiled_step"], float):
+        out["device_idle_share"] = 1 - (prof["device_busy_ms_profiled_step"]
+                                        / out["step_ms_median_after_first"])
+    del state, fn
+    torch.cuda.empty_cache()
+    print(f"[train17 b] {ENCDEC} full width, bfloat16, on {card}: {json.dumps(out)}", flush=True)
+
+    params = LM(cfg, device=device).init(torch.Generator(device=device).manual_seed(0))
+    data = TokenStream(cfg, B, S, seed=7, device=device).next()
+    data["enc_embeds"] = TokenStream(cfg, B, XATTN_TRAIN[2], seed=7,
+                                     device=device).next()["enc_embeds"]
+    runs = {(impl, dt): _cross_grads(device, cfg, params, data, impl, dt)
+            for dt in (torch.float32, torch.bfloat16) for impl in ("cuda", "plain")}
+    for (impl, dt), (loss, _, counts, xcounts) in runs.items():
+        n = n_attn if impl == "cuda" else 0
+        _expect_launches(f"seamless at {XATTN_TRAIN[2]} frames {impl} {dt}", counts, n, n)
+        nx = cfg.num_layers if impl == "cuda" else 0
+        if xcounts != {"flash_attention": nx, "flash_attention_bwd": nx}:
+            raise AssertionError(f"seamless at {XATTN_TRAIN[2]} frames {impl} {dt}: launches "
+                                 f"at Sq != Sk {xcounts}, expected {nx} of each")
+    # the bf16 kernels' run is the training route: its cross call site's
+    # launches are the kernels line's for the Sq != Sk rows
+    xq = {"tokens": S, "frames": XATTN_TRAIN[2],
+          "cross_launches_bf16": runs[("cuda", torch.bfloat16)][3]}
+    truth = runs[("plain", torch.float32)][1]
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        (lk, gk, *_), (lp, gp, *_) = runs[("cuda", dt)], runs[("plain", dt)]
+        rel = abs(lk - lp) / abs(lp)
+        if not math.isfinite(lk) or rel > XQ_LOSS_RTOL:
+            raise AssertionError(f"seamless at Sq != Sk, {dt}: loss {lk} against plain {lp}")
+        xq[f"{tag}_loss"], xq[f"{tag}_loss_rel_err"] = lk, rel
+        xq[f"{tag}_cross_grad_err_over_scale"] = {
+            w: float((gk[w] - gp[w]).abs().max() / gp[w].abs().max()) for w in gk}
+    for w, e in xq["f32_cross_grad_err_over_scale"].items():
+        if e > BF16_TOL:
+            raise AssertionError(f"seamless at Sq != Sk, float32: d{w} {e} of its scale")
+    gk, gp = runs[("cuda", torch.bfloat16)][1], runs[("plain", torch.bfloat16)][1]
+    xq["bf16_from_f32_over_scale"] = {}
+    for w in gk:
+        scale = float(truth[w].abs().max())
+        ek = float((gk[w] - truth[w]).abs().max()) / scale
+        ep = float((gp[w] - truth[w]).abs().max()) / scale
+        xq["bf16_from_f32_over_scale"][w] = {"kernels": ek, "plain": ep}
+        if ek > XQ_BF16_RATIO * ep:
+            raise AssertionError(f"seamless at Sq != Sk, bf16: d{w} {ek} of its scale from the "
+                                 f"float32 gradient, the plain route's {ep}")
+    print(f"[train17 b] {ENCDEC} one step at {XATTN_TRAIN[2]} frames for {S} tokens, kernels "
+          f"against plain: {json.dumps(xq)}", flush=True)
+    del params, runs, truth, gk, gp
+    torch.cuda.empty_cache()
+    out["xq_step"] = xq
+    return out
+
+
+def vlm_train(device, card) -> dict:
+    """Phase 17 (c): internvl2-76b at full width, depth VLM_TRAIN_LAYERS of
+    80: VLM_TRAIN steps at batch 1 x 512 positions (256 patch embeddings,
+    whose positions the CE drops, and 256 tokens), a flash forward and a
+    backward a layer a step."""
+    cfg = get_config(VLM).replace(num_layers=VLM_TRAIN_LAYERS)
+    B, S, steps = VLM_TRAIN
+    torch.cuda.empty_cache()
+    state, out = _train_steps(device, cfg, B, S, steps)
+    _expect_launches("internvl2 train", out["launches"], cfg.num_layers * steps,
+                     cfg.num_layers * steps)
+    _first_loss("internvl2 train", out["losses"], cfg.vocab_size)
+    out.update(_reckon_gb(state["params"]), num_layers=cfg.num_layers,
+               patch_positions=cfg.frontend_tokens)
+    del state
+    torch.cuda.empty_cache()
+    print(f"[train17 c] {VLM} full width, depth {cfg.num_layers}, bfloat16, on {card}: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def moe_train(device, card) -> dict:
+    """Phase 17 (d): mixtral-8x7b at full width, depth MOE_TRAIN_LAYERS of 32:
+    MOE_TRAIN steps at batch 2 x 1024, every loss finite, the router aux
+    each step, a flash forward and a backward a layer a step."""
+    cfg = get_config(MOE_TRAIN_ARCH).replace(num_layers=MOE_TRAIN_LAYERS)
+    B, S, steps = MOE_TRAIN
+    torch.cuda.empty_cache()
+    state, out = _train_steps(device, cfg, B, S, steps)
+    _expect_launches("mixtral train", out["launches"], cfg.num_layers * steps,
+                     cfg.num_layers * steps)
+    if not all(a > 0 for a in out["router_aux"]):
+        raise AssertionError(f"mixtral train: router aux {out['router_aux']}")
+    out.update(_reckon_gb(state["params"]), num_layers=cfg.num_layers)
+    del state
+    torch.cuda.empty_cache()
+    print(f"[train17 d] {MOE_TRAIN_ARCH} full width, depth {cfg.num_layers}, bfloat16, on "
+          f"{card}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def remat_train(device, card) -> dict:
+    """Phase 17 (e): qwen2-0.5b at phase 10's shape (4 x 2048, bf16),
+    REMAT_STEPS steps under each remat policy from one state and the same
+    batches: the first step's loss and grad norm within REMAT_TOL across
+    the policies; step ms and the peak of device memory each. Under a
+    policy each layer's forward runs again in the backward pass, so the
+    flash forward launches twice a layer a step."""
+    cfg = get_config(TRAIN_ARCH)
+    state0 = training_step.init_state(LM(cfg, device=device),
+                                      torch.Generator(device=device).manual_seed(0))
+    out = {}
+    for remat in (None, "full", "dots", "coll"):
+        torch.cuda.empty_cache()
+        state = _clone(state0)
+        state, res = _train_steps(device, cfg, TRAIN_BATCH, TRAIN_SEQ, REMAT_STEPS,
+                                  remat=remat, state=state)
+        n = cfg.num_layers * REMAT_STEPS
+        _expect_launches(f"qwen2 remat {remat}", res["launches"], n if remat is None else 2 * n,
+                         n)
+        out[str(remat)] = res
+        del state
+    first = out["None"]
+    for name, res in out.items():
+        for key in ("losses", "grad_norms"):
+            a, b = res[key][0], first[key][0]
+            if abs(a - b) > REMAT_TOL * abs(b):
+                raise AssertionError(f"remat {name}: first {key} {a} against {b} without remat")
+        res["bit_equal_to_none"] = (res["losses"] == first["losses"]
+                                    and res["grad_norms"] == first["grad_norms"])
+    out["coll_out_copy"] = "none: the tag is a view of its input (aten.alias), 0 bytes"
+    del state0
+    torch.cuda.empty_cache()
+    print(f"[train17 e] {TRAIN_ARCH} remat policies at {TRAIN_BATCH} x {TRAIN_SEQ}, bfloat16, "
+          f"on {card}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def train_phase(device, card) -> dict:
+    """Phase 17: training across the registry: seamless (b), internvl2 (c),
+    mixtral (d), the remat policies (e); the flash backward at Sq != Sk (a)
+    is checked in phase 3 and timed in phase 12."""
+    out = {}
+    for key, fn in (("seamless", encdec_train), ("internvl2", vlm_train),
+                    ("mixtral", moe_train), ("remat", remat_train)):
+        gc.collect()  # what earlier phases left in reference cycles holds device memory
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[key] = fn(device, card)
+        print(f"[train17] {key} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -2253,7 +2670,8 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = check_kernels(device)
     print(f"[kernels] {len(FLASH_CASES)} flash (output and log-sum-exp) + "
-          f"{len(FLASH_BWD_CASES)} flash backward + {len(DECODE_CASES) + len(RING_CASES)} decode + "
+          f"{len(FLASH_BWD_CASES)} flash backward + {len(FLASH_BWD_XQ_CASES)} flash forward and "
+          f"backward at Sq != Sk + {len(DECODE_CASES) + len(RING_CASES)} decode + "
           f"{len(SSD_CASES)} ssd cases x (float32, bfloat16) agree with the plain versions; "
           f"max abs err at the served shapes (float32; the bf16_fwd entry bfloat16) "
           f"{json.dumps(errs)} "
@@ -2341,6 +2759,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sliced = slice_phase(device, card)
     print(f"[slice] phase 16 ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    trained17 = train_phase(device, card)
+    print(f"[train17] phase 17 ({time.perf_counter() - t0:.1f}s)", flush=True)
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f}s", flush=True)
 
     # each kernel's launches come from the run of the path it is on: the
@@ -2369,15 +2790,27 @@ def main() -> int:
                                    "src/repro/kernels/decode_attention.py:87", ENCDEC),
         "ssd_scan_jamba": ("src/repro_torch/csrc/ssd_scan.cu",
                            "src/repro/kernels/ssd_scan.py:87", JAMBA),
+        # phase 17: the launches of the cross call site (the only one at
+        # Sq != Sk) in (b)'s loss-and-gradient step at 768 frames through the
+        # bf16 kernels, the shape these rows time: 24 forwards, 24 backwards
+        "flash_attention_bf16_fwd_cross": ("src/repro_torch/csrc/flash_attention.cu",
+                                           "src/repro/kernels/flash_attention.py:109",
+                                           "train17"),
+        "flash_attention_bwd_cross": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                      "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, no "
+                                      "Pallas kernel)", "train17"),
     }
     cross = sliced["seamless"]["checks"][-1]["launches"]
+    xq17 = trained17["seamless"]["xq_step"]["cross_launches_bf16"]
     launches = {ARCH: served[ARCH]["counts"], MAMBA: served[MAMBA]["counts"],
                 TRAIN_ARCH: {"flash_attention_bf16_fwd": train_counts["flash_attention"],
                              "flash_attention_bwd": train_counts["flash_attention_bwd"],
                              "flash_attention_diff": train_counts["flash_attention"]},
                 ENCDEC: {"flash_attention_cross": cross["flash_attention"],
                          "decode_attention_cross": cross["decode_attention"]},
-                JAMBA: {"ssd_scan_jamba": sliced["jamba"]["checks"][0]["launches"]["ssd_scan"]}}
+                JAMBA: {"ssd_scan_jamba": sliced["jamba"]["checks"][0]["launches"]["ssd_scan"]},
+                "train17": {"flash_attention_bf16_fwd_cross": xq17["flash_attention"],
+                            "flash_attention_bwd_cross": xq17["flash_attention_bwd"]}}
     errs["flash_attention_diff"] = diff_err
     errs["flash_attention_bwd"] = timing["flash_attention_bwd"]["max_abs_err"]
     errs.update(sliced["errs"])

@@ -14,7 +14,10 @@
 // Masking, the GQA fold (row = q * G + g) and the causal / window tile
 // skipping follow the forward. In pass 1 a key tile walks the folded G*Sq
 // rows from its causal frontier up to its window edge, so dK and dV sum the G
-// heads in registers.
+// heads in registers. Sq and Sk are independent (seamless's cross-attention
+// trains non-causal at Sq != Sk): rows stop at G*Sq and keys at Sk, and a key
+// tile that no row sees (causal, keys past Sq - 1) walks no rows and writes
+// dK = dV = 0.
 //
 // Deterministic: no atomics. dQ is not accumulated across the key blocks of
 // pass 1 (FA2's float atomics, whose order changes from run to run) but

@@ -60,17 +60,24 @@ def prefill_specs(cfg: ModelConfig, cell: ShapeCell, dtype=BF16) -> dict:
 
 def make_batch(rng: np.random.Generator, cfg: ModelConfig, *, batch: int, seq: int,
                kind: str = "train", device="cuda") -> dict:
-    """Deterministic synthetic batch: tokens (B,S) int32 and, for training,
-    the next-token targets (B,S) int32."""
-    if cfg.frontend == "vision_patches" or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: batches of patches or encoder inputs are not ported (ROADMAP "
-            "queue 1, the loss over patches and encoder inputs)")
+    """Deterministic synthetic batch of ``seq`` positions: tokens (B,St) int32
+    and, for training, the next-token targets (B,St) int32, St = ``seq``
+    less a vision frontend's patch positions (``_text_len``); a vision
+    frontend's ``patch_embeds`` (B, frontend_tokens, d_model) and an
+    encoder-decoder's ``enc_embeds`` (B, seq, d_model), float32 standard
+    normals. Everything is drawn from ``rng``, tokens first."""
+    st = _text_len(cfg, seq)
     toks = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)).to(device)
+        rng.integers(0, cfg.vocab_size, (batch, st + 1)).astype(np.int32)).to(device)
     out = {"tokens": toks[:, :-1]}
     if kind == "train":
         out["targets"] = toks[:, 1:]
+    if cfg.frontend == "vision_patches":
+        out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.frontend_tokens, cfg.d_model), dtype=np.float32)).to(device)
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, seq, cfg.d_model), dtype=np.float32)).to(device)
     return out
 
 

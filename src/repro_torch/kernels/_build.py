@@ -100,12 +100,17 @@ def load(name: str, argtypes: list) -> ctypes._CFuncPtr:
         return fn
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``. Locked: the live engine launches
-    from several worker threads, and ``+=`` on an attribute is a read
-    and a write that another thread can come between."""
+def count_launch(wrapper, sq_ne_sk: bool = False) -> None:
+    """Add one to ``wrapper.launches``, and to ``wrapper.launches_sq_ne_sk``
+    too for an attention launch whose queries and keys differ in length
+    (seamless's cross-attention, where the encoder's and the decoder's run
+    at Sq == Sk). Locked: the live engine launches from several worker
+    threads, and ``+=`` on an attribute is a read and a write that another
+    thread can come between."""
     with _count_lock:
         wrapper.launches += 1
+        if sq_ne_sk:
+            wrapper.launches_sq_ne_sk += 1
 
 
 def refuse_grad(name: str, *tensors) -> None:

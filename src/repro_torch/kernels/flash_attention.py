@@ -18,7 +18,8 @@ on a 16-byte boundary (a float32 view at an offset of a whole number of
 ``flash_attention`` is the serving entry point; ``flash_attention_lse``
 also returns the float32 log-sum-exp of each row, (B,H,Sq), which the
 backward kernel (``flash_attention_bwd``) takes. Both launch the same
-kernel and count on ``flash_attention.launches``.
+kernel and count on ``flash_attention.launches`` (those at Sq != Sk on
+``flash_attention.launches_sq_ne_sk`` as well).
 
 On a CPU tensor the wrappers compute the plain versions
 (``ref.flash_attention_ref``, ``ref.flash_attention_lse_ref``); on a CUDA
@@ -81,9 +82,10 @@ def _launch(q, k, v, causal, window, softcap, with_lse):
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-        _build.count_launch(flash_attention)
+        _build.count_launch(flash_attention, sq_ne_sk=Sq != Sk)
     _build.raise_on_error("flash_attention", rc)
     return o, lse
 
 
 flash_attention.launches = 0
+flash_attention.launches_sq_ne_sk = 0

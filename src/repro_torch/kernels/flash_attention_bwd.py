@@ -6,9 +6,12 @@ backward (arXiv 2307.08691, Alg. 2) of ``flash_attention``: from q, k, v,
 the forward's output o and its log-sum-exp lse (B,H,Sq) float32, and the
 output's gradient do, it recomputes the probabilities tile by tile and
 returns (dq, dk, dv) in q's type. Causal / window / softcap and the GQA
-fold as the forward; Sq == Sk of any length; hd in {8, 16, 32, 64, 128,
-256}; float32 or bfloat16 (hd 64 and 128 in bfloat16 on the tensor
-cores, where q, k, v, o and do must lie on a 16-byte boundary).
+fold as the forward, at any Sq and Sk with the forward's positions
+arange(Sq) and arange(Sk) (causal aligned at the top left: seamless's
+cross-attention trains non-causal at Sq != Sk); a key that no query sees
+(causal, past Sq - 1) gets dK = dV = 0. hd in {8, 16, 32, 64, 128, 256};
+float32 or bfloat16 (hd 64 and 128 in bfloat16 on the tensor cores, where
+q, k, v, o and do must lie on a 16-byte boundary).
 
 On the tensor-core route (Hopper's warpgroup products, wgmma) the dK/dV
 pass is balanced over the causal rows:
@@ -22,7 +25,8 @@ on the same inputs give the same bits.
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.flash_attention_bwd_ref``); on a CUDA tensor it launches the kernels
-or raises. ``flash_attention_bwd.launches`` counts the calls that launch.
+or raises. ``flash_attention_bwd.launches`` counts the calls that launch,
+``flash_attention_bwd.launches_sq_ne_sk`` those of them at Sq != Sk.
 """
 from __future__ import annotations
 
@@ -65,7 +69,9 @@ def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks):
     Returns ``(items, tiles, slots)``. ``items``: one (key tile, first row,
     end row, slot) per segment, longest first; slot -1 marks a tile's only
     segment, which writes dK and dV itself, and the segments of a cut tile
-    take consecutive slots in row order. ``tiles``: one (key tile, first
+    take consecutive slots in row order. A tile whose walk is empty (causal
+    at Sk > Sq: its keys lie past every query) is one segment of no rows,
+    which writes its dK and dV as zeros. ``tiles``: one (key tile, first
     slot, segments, 0) per key tile (-1 and 1 for an uncut one); a cut
     tile's float32 partials are added in slot order. ``slots``: the
     workspace's slots. The cuts and the order of the sums depend on the
@@ -129,10 +135,6 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
         raise ValueError(
             f"flash_attention_bwd: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
             f"o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}")
-    if Sq != Sk:
-        raise ValueError(
-            f"flash_attention_bwd: Sq {Sq} != Sk {Sk}; the backward kernel takes Sq == Sk "
-            "(training across Sq != Sk, enc-dec, is ROADMAP queue 1, what training still lacks)")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {hd} not in {HEAD_DIMS}")
     _build.check_cuda_inputs("flash_attention_bwd", q.dtype, q, k, v, o, do)
@@ -161,9 +163,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-        _build.count_launch(flash_attention_bwd)
+        _build.count_launch(flash_attention_bwd, sq_ne_sk=Sq != Sk)
     _build.raise_on_error("flash_attention_bwd", rc)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_sq_ne_sk = 0

@@ -15,9 +15,11 @@ mamba prefill or training forward through the hand-written kernels.
 * "decode" (one new token against the cache, whose pos_ids and lengths
   decide validity) -> ``decode_attention``;
 * "cross" (cross-attention, non-causal, no rope): Sq > 1 against the
-  encoder's Se keys -> ``flash_attention`` with Sq != Sk; one token against
-  the read-only cross cache -> ``decode_attention`` with every slot whose
-  pos_id >= 0 valid, whatever the decoder's position;
+  encoder's Se keys -> as "prefill", at Sq != Sk (``flash_attention_diff``
+  in training: seamless's cross-attention backward runs the backward kernel
+  at Sq != Sk); one token against the read-only cross cache ->
+  ``decode_attention`` with every slot whose pos_id >= 0 valid, whatever the
+  decoder's position;
 * anything else (multi-token decode, an unknown site) raises
   ``NotImplementedError``: there is no fallback.
 
@@ -27,7 +29,8 @@ state (multi-token decode) ``ssd_scan`` raises on a CUDA tensor.
 Training differentiability: the forward of ``flash_attention_diff`` is the
 CUDA flash kernel, which also returns each row's log-sum-exp, and its
 backward is the CUDA FlashAttention-2 backward kernel
-(``flash_attention_bwd``) on the saved q, k, v, output and log-sum-exp.
+(``flash_attention_bwd``, any Sq and Sk) on the saved q, k, v, output and
+log-sum-exp.
 The reference's ``ops.py:32-56`` reruns its jnp oracle in the backward
 instead; it has no backward kernel. ``ssd_scan_diff`` reruns
 ``ssd_chunked`` in its backward, as the reference trains mamba2. The

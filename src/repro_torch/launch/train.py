@@ -52,6 +52,7 @@ def train(
     microbatches: int = 1,
     log_every: int = 10,
     opt: OptConfig | None = None,
+    remat: str | None = None,
     device="cuda",
     dtype=torch.bfloat16,
 ) -> dict:
@@ -60,7 +61,13 @@ def train(
     final state, the number of steps run, each step's wall seconds
     (``step_s``; each ends in a device sync, reading the loss) and the
     seconds the loop was held up by checkpoints (``ckpt_s``: each save's
-    copy to the host, and the wait for the last write)."""
+    copy to the host, and the wait for the last write). The step updates
+    the state in place (``donate``, as the reference donates it to its
+    jitted step), so training holds one copy of it. ``remat`` is the
+    train step's policy (``models/transformer.py::REMAT_POLICIES``); None,
+    the reference's, keeps every activation. Every arch of the registry
+    trains: a vision frontend's batches carry patch embeddings, an
+    encoder-decoder's frame embeddings (``data/batches.py::make_batch``)."""
     if mesh is not None:
         raise NotImplementedError(
             "training on a mesh is not ported (ROADMAP queue 1, data-parallel and sharding)")
@@ -72,7 +79,8 @@ def train(
     model = LM(cfg, device=device)
     opt_cfg = opt or OptConfig(warmup_steps=10, total_steps=max(steps, 10))
     step_fn = training_step.make_train_step(
-        model, opt_cfg, microbatches=microbatches, remat=None, compute_dtype=dtype)
+        model, opt_cfg, microbatches=microbatches, remat=remat, compute_dtype=dtype,
+        donate=True)
     store = CheckpointStore(ckpt_dir)
     stream = TokenStream(cfg, batch, seq, seed=seed, device=device)
 

@@ -5,6 +5,13 @@ Functions take parameter dicts in the JAX package's layout. Attention's
 inner product goes through a registry of scaled-dot-product-attention
 implementations: "plain" (``_sdpa_dense``, the oracle) lives here and
 kernels/ops.py registers "cuda".
+
+``coll_out`` tags the outputs that the reference tags with
+``checkpoint_name(x, "coll_out")``: the attention and MLP outputs, and the
+MoE experts' and layer's outputs. The tag is an op of its own,
+``torch.ops.repro_torch.coll_out``, that returns a view of its input (no
+copy) and passes the gradient through, so that the "coll" remat policy
+(models/transformer.py) can name what it saves.
 """
 from __future__ import annotations
 
@@ -19,6 +26,33 @@ from .params import ParamDecl
 
 F32 = torch.float32
 NEG_INF = -1e30  # finite mask value, as the reference and its kernels use
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("coll_out(Tensor(a) x) -> Tensor(a)")
+_LIB.impl("coll_out", lambda x: torch.ops.aten.alias.default(x), "CompositeExplicitAutograd")
+
+
+class _CollOut(torch.autograd.Function):
+    """The tag's autograd: the identity both ways."""
+
+    @staticmethod
+    def forward(ctx, x):
+        with torch._C._AutoDispatchBelowAutograd():
+            return torch.ops.repro_torch.coll_out(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+_LIB.impl("coll_out", _CollOut.apply, "Autograd")
+
+
+def coll_out(x: torch.Tensor) -> torch.Tensor:
+    """x, tagged for the "coll" remat policy where a gradient may be taken
+    (the only place a policy looks); x itself otherwise, so that serving
+    pays nothing for it."""
+    return torch.ops.repro_torch.coll_out(x) if torch.is_grad_enabled() else x
 
 #: scaled-dot-product-attention implementations by name. Each takes
 #: (q, k, v, q_pos, k_pos, window, causal, cap, site); ``site`` names the
@@ -257,7 +291,7 @@ def attention(
     )
     if cfg.attn_out_scale is not None:
         out = out * cfg.attn_out_scale
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    y = coll_out(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)))
     return y, new_cache
 
 
@@ -279,7 +313,7 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(dt))
     g = torch.einsum("bsd,df->bsf", x, p["wg"].to(dt))
     h = activate(g, cfg.act) * h
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
+    return coll_out(torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt)))
 
 
 def moe_decl(cfg: ModelConfig) -> dict:
@@ -384,7 +418,7 @@ def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):
     h = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
     g_ = torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt))
     h = activate(g_, cfg.act) * h
-    ye = torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt)).reshape(G, E * C, D)
+    ye = coll_out(torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))).reshape(G, E * C, D)
 
     # combine: slot s = t*K + k sits at rank r of its expert's run in the
     # sorted order; it was kept iff r < C, and its output is row e*C + r
@@ -399,6 +433,7 @@ def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):
     y = contrib[:, :, 0]
     for k in range(1, K):
         y = y + contrib[:, :, k]
+    y = coll_out(y)
 
     # load-balancing aux loss (Switch/Mixtral formulation), averaged over groups
     me = torch.mean(probs, dim=1)  # (G, E)

@@ -16,8 +16,12 @@ embeddings before the token embeddings.
 
 Training: ``loss`` is the mean next-token cross-entropy, with the LM head
 and CE taken in checkpointed sequence chunks above 1,024 tokens
-(``chunked_ce``); ``remat="full"`` recomputes each super-layer in the
-backward pass. The loss over patches or encoder inputs is not ported.
+(``chunked_ce``), over the text positions: a vision frontend's patch
+positions are dropped before it, and an encoder-decoder's encoder runs over
+the batch's frame embeddings. ``remat`` picks what each super-layer keeps
+for the backward pass (``REMAT_POLICIES``): everything (None), nothing
+("full"), the products with no batch dimension ("dots") or the tagged
+sublayer outputs ("coll").
 
 Cache layout (decode-ready), leaf for leaf the JAX package's:
   {"lengths": (B,) int32,
@@ -36,10 +40,12 @@ read-only.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .config import ModelConfig
 from .layers import (SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, moe_apply, moe_decl,
@@ -48,6 +54,37 @@ from .params import ParamDecl, init_tree, stacked, tree_map
 from .ssd import SSD_IMPL, mamba_apply, mamba_cache_decl, mamba_decl
 
 F32 = torch.float32
+_aten = torch.ops.aten
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: save a
+    matrix product with no batch dimension, recompute everything else.
+    ``torch.einsum`` lowers every two-operand product to ``aten.bmm``, folding
+    the equation's batch dimensions into the bmm's batch: the projections
+    ("bsd,dhk->bshk", "bshk,hkd->bsd", "bsd,df->bsf") reach it with a batch
+    of 1, the attention scores and the experts' products ("bqkgd,bskd->...",
+    "gecd,edf->gecf") with B x K and E; ``@`` (the router) reaches
+    ``aten.mm``. (An equation whose batch dimensions all have size 1 folds to
+    a batch of 1 and is saved too: more memory, the same values.)"""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _coll_saveable(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.save_only_these_names("coll_out")``: save
+    the outputs tagged by ``layers.coll_out``, recompute everything else."""
+    if op is torch.ops.repro_torch.coll_out.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: the remat policies: what a super-layer keeps for the backward pass. None
+#: keeps every activation, "full" none (the reference's ``jax.checkpoint``
+#: of its scan body), "dots" and "coll" what their policy saves.
+REMAT_POLICIES = {None: None, "full": None, "dots": _dots_saveable, "coll": _coll_saveable}
 
 
 def _ce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -329,21 +366,22 @@ class LM:
         output in prefill and the teacher-forced forward.
 
         ``remat``: None keeps every activation for the backward pass;
-        "full" recomputes each super-layer in it (one
-        ``torch.utils.checkpoint`` per super-layer, the reference's
-        ``jax.checkpoint`` of the scan body). "dots" and "coll" are XLA
-        checkpoint policies and raise ``NotImplementedError``."""
-        if remat in ("dots", "coll"):
-            raise NotImplementedError(
-                f"remat={remat!r} is an XLA checkpoint policy, not ported "
-                "(ROADMAP queue 1, what training still lacks)")
-        if remat not in (None, "full"):
-            raise ValueError(f"remat {remat!r} not in (None, 'full', 'dots', 'coll')")
+        "full", "dots" and "coll" run each super-layer under one
+        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+        scan body): "full" recomputes all of it in the backward pass, "dots"
+        and "coll" keep what their policy saves (``REMAT_POLICIES``, a
+        selective-checkpoint context) and recompute the rest."""
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat {remat!r} not in {tuple(REMAT_POLICIES)}")
         auxes = []
-        if remat == "full":  # the training forward: no cache
+        if remat is not None:  # the training forward: no cache
+            kw = {}
+            if REMAT_POLICIES[remat] is not None:
+                kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                           REMAT_POLICIES[remat])
             for layer in range(self.n_super):
                 x, aux = checkpoint(self._super_apply, _layer(params["blocks"], layer), x,
-                                    positions, enc_out, use_reentrant=False)
+                                    positions, enc_out, use_reentrant=False, **kw)
                 auxes.append(aux)
             return x, [], sum(auxes)
         caches = []
@@ -395,8 +433,9 @@ class LM:
         """The encoder stack over precomputed frame embeddings (B, Se, D),
         in their type (the audio frontend is a stub, as in the reference):
         non-causal self-attention with rope at positions arange(Se), then a
-        gated MLP, each layer; "full" remat recomputes each layer in the
-        backward pass."""
+        gated MLP, each layer. Under any remat policy each layer is
+        recomputed whole in the backward pass, as the reference checkpoints
+        its encoder whenever ``remat`` is set."""
         cfg = self.cfg
         x = enc_embeds
         positions = self._positions(x.shape[0], x.shape[1], x.device)
@@ -455,23 +494,35 @@ class LM:
         return rms_norm(params["final_norm"], x, self.cfg.norm_eps), aux
 
     def loss(self, params, batch, *, remat=None, dtype=torch.bfloat16):
-        """batch: tokens (B,S), targets (B,S). Returns (total, {"ce", "aux"}):
-        ``aux`` is the MoE router loss summed over the MoE sublayers (0
-        without MoE FFNs), weighted by ``router_aux_weight`` in the total. A
-        vision frontend or an encoder input is refused: the reference
-        prepends the patches and drops their positions before the CE, which
-        is not ported (ROADMAP queue 1, the loss over patches and encoder
-        inputs)."""
-        extra = sorted({"patch_embeds", "enc_embeds"} & set(batch))
-        if self.cfg.frontend or extra:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the loss over a frontend ({self.cfg.frontend!r}) or "
-                f"encoder inputs {extra} is not ported (ROADMAP queue 1, the loss over "
-                "patches and encoder inputs)")
-        x, aux = self._hidden_aux(params, batch["tokens"], remat=remat, dtype=dtype)
+        """batch: tokens (B,S), targets (B,S), and ``patch_embeds`` (B,F,D)
+        for a vision frontend or ``enc_embeds`` (B,Se,D) for an
+        encoder-decoder. Returns (total, {"ce", "aux"}): the CE over the text
+        positions (a vision frontend's ``frontend_tokens`` patch positions
+        are dropped before it, as in the reference); ``aux`` is the MoE
+        router loss summed over the MoE sublayers (0 without MoE FFNs),
+        weighted by ``router_aux_weight`` in the total. ``enc_embeds`` is
+        ignored by an arch without an encoder, as the reference ignores it.
+        Where the reference's CE would fail on mismatched shapes (a vision
+        arch without its patches, patches given to an arch that drops none,
+        tokens and targets of different lengths) this raises ``ValueError``."""
+        cfg = self.cfg
+        tokens, targets = batch["tokens"], batch["targets"]
+        patches = batch.get("patch_embeds")
+        drop = cfg.frontend_tokens if cfg.frontend == "vision_patches" else 0
+        positions = tokens.shape[1] + (patches.shape[1] if patches is not None else 0)
+        if positions - drop != targets.shape[1]:
+            raise ValueError(
+                f"{cfg.name}: {tokens.shape[1]} tokens"
+                f"{f' after {patches.shape[1]} patch positions' if patches is not None else ''}"
+                f", {drop} frontend positions dropped before the CE, against "
+                f"{targets.shape[1]} targets")
+        x, aux = self._hidden_aux(params, tokens, remat=remat, dtype=dtype,
+                                  frontend_embeds=patches, enc_embeds=batch.get("enc_embeds"))
+        if drop:
+            x = x[:, drop:]
         aux = torch.as_tensor(aux, dtype=F32, device=x.device)
-        ce = chunked_ce(lambda xc: self.head(params, xc), x, batch["targets"])
-        return ce + self.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
+        ce = chunked_ce(lambda xc: self.head(params, xc), x, targets)
+        return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     # --- serving ---
     def _attn_cache_len(self, kv_len: int, window: Optional[int]) -> int:

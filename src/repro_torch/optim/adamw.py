@@ -5,7 +5,11 @@ The reference's arithmetic step for step (``repro/optim/adamw.py``), not
 ``torch.optim.AdamW``, whose state layout and step differ: the optimizer
 state is a plain tree {m, v} of float32 tensors shaped like the params, so
 the checkpoint holds the reference's leaves, and ``update`` returns new
-trees rather than writing in place.
+trees rather than writing in place, unless the caller donates its state
+(``donate=True``, the reference's ``jax.jit(..., donate_argnums=(0,))`` of
+its train step): then each float32 leaf's new params and moments are
+written into the given tensors, by the same operations, so the bits are
+the same and no second copy of the state is ever held.
 """
 from __future__ import annotations
 
@@ -60,8 +64,18 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict,
-           step: torch.Tensor):
-    """Returns (new_params, new_opt_state, {"grad_norm", "lr"})."""
+           step: torch.Tensor, donate: bool = False):
+    """Returns (new_params, new_opt_state, {"grad_norm", "lr"}). With
+    ``donate`` the leaves of ``params``, ``opt_state`` and ``grads`` (used
+    as scratch) are overwritten, and the returned trees hold them; every
+    leaf must then be float32 (``ValueError`` if not), so that no second
+    copy of the state is made without the caller knowing."""
+    if donate:  # checked before any leaf is written
+        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+            if not p.dtype == g.dtype == F32:
+                raise ValueError(
+                    f"adamw.update(donate=True): a leaf of {p.dtype} with a gradient of "
+                    f"{g.dtype} cannot be updated in place; only float32 leaves can")
     gnorm = global_norm(grads)
     scale = None
     if cfg.clip_norm is not None:
@@ -74,15 +88,32 @@ def update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict,
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])):
-        g = g.to(F32)
-        if scale is not None:
-            g = g * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.to(F32)
-        new_p.append((p.to(F32) - lr * delta).to(p.dtype))
+        if donate:
+            p32 = p
+        else:  # new tensors; the given ones stay as they are
+            p32, g, m, v = p.to(F32, copy=True), g.to(F32, copy=True), m.clone(), v.clone()
+        _update_in_place(cfg, p32, g, m, v, scale, lr, bc1, bc2)
+        new_p.append(p32.to(p.dtype))
         new_m.append(m)
         new_v.append(v)
     return (tree_unflatten(params, new_p),
             {"m": tree_unflatten(params, new_m), "v": tree_unflatten(params, new_v)},
             {"grad_norm": gnorm, "lr": lr})
+
+
+def _update_in_place(cfg, p, g, m, v, scale, lr, bc1, bc2):
+    """The reference's arithmetic for one float32 leaf, op for op, written
+    into p, m and v, with g and one temporary as scratch (one leaf's size
+    beyond the state): m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2,
+    p -= lr ((m / bc1) / (sqrt(v / bc2) + eps) + wd p), g clipped first."""
+    if scale is not None:
+        g.mul_(scale)
+    t = torch.mul(g, 1 - cfg.b1)
+    m.mul_(cfg.b1).add_(t)
+    torch.square(g, out=t)
+    v.mul_(cfg.b2).add_(t.mul_(1 - cfg.b2))
+    torch.div(m, bc1, out=g)
+    torch.div(v, bc2, out=t)
+    g.div_(t.sqrt_().add_(cfg.eps))
+    g.add_(torch.mul(p, cfg.weight_decay, out=t))
+    p.sub_(g.mul_(lr))

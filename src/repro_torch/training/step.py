@@ -1,7 +1,8 @@
 """Training step factory: grad-accumulation microbatching, remat, AdamW.
 
 The returned step is a function (state, batch) -> (state, metrics) that
-leaves its input state untouched. Grads come from ``torch.autograd.grad``
+leaves its input state untouched, unless it is made with ``donate=True``:
+then it writes the new state into the tensors of the one it is given. Grads come from ``torch.autograd.grad``
 on the float32 master params; the forward computes in ``compute_dtype``.
 ``state_axes`` (sharding) waits for the port of the mesh (ROADMAP queue 1,
 data-parallel and sharding).
@@ -60,7 +61,14 @@ def make_train_step(
     microbatches: int = 1,
     remat: Optional[str] = "full",
     compute_dtype=torch.bfloat16,
+    donate: bool = False,
 ):
+    """The step. With ``donate`` it takes ownership of the state it is given
+    (the reference's trainer jits its step with ``donate_argnums=(0,)``): the
+    optimizer writes the new params and moments into the given tensors
+    (``adamw.update(donate=True)``), so a step holds one copy of the state,
+    not two; the caller must not read the old state afterwards."""
+
     def train_step(state, batch):
         params = state["params"]
         if microbatches == 1:
@@ -87,7 +95,7 @@ def make_train_step(
             metrics = {"ce": loss, "aux": aux / microbatches}
 
         new_params, new_opt, opt_metrics = adamw.update(
-            opt_cfg, params, grads, state["opt"], state["step"])
+            opt_cfg, params, grads, state["opt"], state["step"], donate=donate)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, **metrics, **opt_metrics}
 

@@ -32,7 +32,12 @@ function in float64 on the card: y within 1e-4 of max |y64| and aux within
 and the SSD scan at jamba's width at the attention and SSD tolerances
 above, bit for bit on a second run; the slice's archs at reduced size
 (int8 KV, jamba, seamless, internvl2) through the kernels within 1e-4 of
-the plain versions in float32.
+the plain versions in float32. The flash backward at Sq != Sk (causal and
+not, keys past the last query with dK = dV = 0 exactly) at the gradients'
+tolerance, bit for bit on a second run; the reduced loss and grads of the
+archs with encoder or patch inputs (and jamba, mixtral) through the kernels
+within 1e-5 of the plain versions, and under every remat policy the same
+bits as without.
 """
 import pytest
 import torch
@@ -389,8 +394,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash_attention_bwd(q, kv, kv, q, q.bfloat16(), lse)
     with pytest.raises(ValueError):  # the output's gradient not contiguous
         flash_attention_bwd(q, kv, kv, q, q.transpose(1, 2).contiguous().transpose(1, 2), lse)
-    with pytest.raises(ValueError):  # Sq != Sk
-        flash_attention_bwd(q, kv[:, :4].contiguous(), kv[:, :4].contiguous(), q, q, lse)
 
 
 def _ssd_inputs(dev, B, S, H, P, N, dtype, seed=3, single_group=False):
@@ -685,6 +688,40 @@ def test_flash_kernel_at_sq_ne_sk_matches_plain(dev, case, dtype, tol):
     torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
 
 
+# the backward at Sq != Sk: FLASH_XQ, each causal and not, and causal at Sk >
+# Sq with keys no query sees (seamless's training cross shape at the end)
+FLASH_BWD_XQ = sorted({c[:6] + (causal,) for c in FLASH_XQ for causal in (False, True)}) + [
+    (2, 512, 768, 16, 16, 64, True),
+    (2, 512, 768, 16, 16, 64, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", FLASH_BWD_XQ)
+def test_flash_bwd_kernel_at_sq_ne_sk_matches_plain(dev, case, dtype, tol):
+    """Every backward route (float32 on the CUDA cores, bf16 on the tensor
+    cores at hd 64 and 128, bf16 hd 16 on the CUDA cores) against the FA2
+    plain version at the gradients' tolerance; dK and dV of keys past Sq - 1
+    under the causal mask exactly 0; a second run bit for bit."""
+    B, Sq, Sk, H, K, hd, causal = case
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for shape in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd), (B, Sq, H, hd)))
+    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, g, lse, causal=causal)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, g, lse, causal=causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _grads_close(a, b, tol)
+    if causal and Sk > Sq:
+        assert not got[1][:, Sq:].any() and not got[2][:, Sq:].any()
+    again = flash_attention_bwd(q, k, v, o, g, lse, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("case", [(4, 16, 16, 64, 512, 199), (2, 4, 2, 16, 20, 3),
@@ -766,3 +803,49 @@ def test_reduced_model_kernels_match_plain(dev, arch, kv_quant):
             out[impl] = steps
     for a, b in zip(out["cuda"], out["plain"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-76b", "jamba-v0.1-52b",
+                                  "mixtral-8x7b"])
+def test_reduced_training_across_the_registry_kernels_match_plain(dev, arch):
+    """The loss and every grad leaf at reduced size, float32, through the
+    kernels against the plain versions within 1e-5: seamless with 24
+    encoder frames for 16 tokens (its cross-attention's backward at Sq !=
+    Sk), internvl2 with 8 patch positions before 8 tokens; one flash forward
+    and one backward launch an attention layer (encoder and cross included).
+    The kernels' loss and gradients under remat "full", "dots" and "coll"
+    equal those without, bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import make_batch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import LM
+    from repro_torch.training import step
+
+    cfg = get_config(arch, reduced=True)
+    batch = make_batch(np.random.default_rng(3), cfg, batch=2, seq=16, device=dev)
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = torch.randn((2, 24, cfg.d_model), device=dev)
+    params = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    n_attn = (sum(k == "attn" for k in cfg.layer_kinds()) * (2 if cfg.is_encoder_decoder else 1)
+              + cfg.num_encoder_layers)
+    out = {}
+    for impl in ("cuda", "plain"):
+        before = flash_attention.launches, flash_attention_bwd.launches
+        out[impl] = step.loss_and_grads(LM(cfg, impl=impl, device=dev), params, batch,
+                                        remat=None, compute_dtype=torch.float32)
+        n = n_attn if impl == "cuda" else 0
+        assert (flash_attention.launches - before[0], flash_attention_bwd.launches - before[1]) \
+            == (n, n)
+    (lk, mk, gk), (lp, mp, gp) = out["cuda"], out["plain"]
+    torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(mk["aux"], mp["aux"], atol=1e-6, rtol=0)
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    for remat in ("full", "dots", "coll"):
+        loss, _, grads = step.loss_and_grads(LM(cfg, impl="cuda", device=dev), params, batch,
+                                             remat=remat, compute_dtype=torch.float32)
+        assert torch.equal(loss, lk), remat
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(gk))), remat

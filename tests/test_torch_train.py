@@ -38,7 +38,7 @@ from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff
 from repro_torch.kernels.ref import ssd_sequential_ref
 from repro_torch.launch.train import SimulatedFailure, train
 from repro_torch.models import transformer
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.transformer import LM
 from repro_torch.optim import adamw
 from repro_torch.training import step
@@ -50,7 +50,7 @@ torch.set_num_threads(1)
 F32 = torch.float32
 KERNEL_TOL = 1e-4
 ARCHS = ["qwen2-0.5b", "paper-default", "gemma2-2b", "mamba2-2.7b", "mixtral-8x7b",
-         "phi3.5-moe-42b-a6.6b"]
+         "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b", "seamless-m4t-large-v2", "internvl2-76b"]
 
 
 def _t(*arrays):
@@ -180,10 +180,28 @@ def _batch(vocab, B, S, seed=0):
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
 
+def _arch_batch(arch, B, S, seed=0, enc_len=None):
+    """A training batch of S positions for ``arch``: a vision frontend's
+    ``frontend_tokens`` patch embeddings take the first of them, an
+    encoder-decoder gets ``enc_len`` (default S) frame embeddings; float32
+    standard normals from the same generator."""
+    cfg = get_config(arch, reduced=True)
+    rng = np.random.default_rng(seed)
+    F = cfg.frontend_tokens if cfg.frontend == "vision_patches" else 0
+    toks = rng.integers(0, cfg.vocab_size, (B, S - F + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if F:
+        batch["patch_embeds"] = rng.standard_normal((B, F, cfg.d_model), dtype=np.float32)
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = rng.standard_normal((B, enc_len or S, cfg.d_model),
+                                                  dtype=np.float32)
+    return batch
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_loss_and_grads(arch, B, S):
+def _jax_loss_and_grads(arch, B, S, enc_len=None):
     cfg, jm, jp = _jax_model(arch)
-    batch = _batch(cfg.vocab_size, B, S)
+    batch = _arch_batch(arch, B, S, enc_len=enc_len)
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
         lambda p, b: jm.loss(p, b, remat=None, dtype=jnp.float32), has_aux=True))(jp, batch)
     return batch, float(loss), float(metrics["ce"]), float(metrics["aux"]), _np(grads)
@@ -203,8 +221,14 @@ def test_loss_and_every_grad_leaf_match_jax(arch, B, S, impl):
     """S 1536 > 1024 takes the chunked CE (3 chunks of 512). impl "cuda"
     on the CPU runs the autograd Functions over the plain versions. The MoE
     archs' aux (the router loss summed over the layers) within 1e-6, and
-    the router's gradient among the leaves; 0 for the others."""
-    batch, jloss, jce, jaux, jgrads = _jax_loss_and_grads(arch, B, S)
+    the router's gradient among the leaves; 0 for the others. internvl2's
+    batch holds 8 patch positions and 8 tokens (the patches' positions
+    dropped before the CE), seamless's 16 frame embeddings for its encoder."""
+    _check_loss_and_grads(arch, B, S, impl)
+
+
+def _check_loss_and_grads(arch, B, S, impl, enc_len=None):
+    batch, jloss, jce, jaux, jgrads = _jax_loss_and_grads(arch, B, S, enc_len)
     _, (loss, metrics, grads) = _port_loss_and_grads(arch, batch, impl)
     np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
     np.testing.assert_allclose(float(metrics["ce"]), jce, rtol=1e-5)
@@ -213,10 +237,18 @@ def test_loss_and_every_grad_leaf_match_jax(arch, B, S, impl):
     _assert_tree_close(jgrads, grads, atol=1e-4)
 
 
+@pytest.mark.parametrize("impl", ["plain", "cuda"])
+@pytest.mark.parametrize("enc_len", [9, 24])
+def test_encdec_loss_at_another_encoder_length_matches_jax(enc_len, impl):
+    """seamless with 16 decoder tokens against 9 and 24 encoder frames: the
+    cross-attention (and its backward) at Sq != Sk, as the same loss
+    tolerances."""
+    _check_loss_and_grads("seamless-m4t-large-v2", 2, 16, impl, enc_len)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_full_equals_no_remat(arch):
-    cfg = get_config(arch, reduced=True)
-    batch = _batch(cfg.vocab_size, 2, 16, seed=1)
+    batch = _arch_batch(arch, 2, 16, seed=1)
     _, (l0, _, g0) = _port_loss_and_grads(arch, batch, "cuda")
     _, (l1, _, g1) = _port_loss_and_grads(arch, batch, "cuda", remat="full")
     torch.testing.assert_close(l1, l0)
@@ -224,12 +256,13 @@ def test_remat_full_equals_no_remat(arch):
         torch.testing.assert_close(a, b)
 
 
-@pytest.mark.parametrize("remat", ["dots", "coll", "some"])
+@pytest.mark.parametrize("remat", ["some"])
 def test_xla_remat_policies_raise(remat):
+    """An unknown policy; "dots" and "coll" train (tests/test_torch_remat.py)."""
     lm = LM(get_config("qwen2-0.5b", reduced=True), device="cpu")
     params = lm.init(torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError if remat != "some" else ValueError):
+    with pytest.raises(ValueError):
         lm.loss(params, {"tokens": tokens, "targets": tokens}, remat=remat)
 
 
@@ -286,6 +319,56 @@ def test_adamw_update_matches_jax_with_clipping_active():
         np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6, atol=1e-9)
         for jtree, ttree in ((jp, tp), (jo["m"], to["m"]), (jo["v"], to["v"])):
             _assert_tree_close(jtree, ttree, atol=1e-6, rtol=1e-6)
+
+
+def test_adamw_donated_update_is_bit_for_bit_the_pure_one():
+    """``donate=True`` (train()'s step, as the reference donates its state)
+    writes into the given params and moments: the same bits as the returned
+    trees of the pure update, with clipping on and off, and the leaves are
+    the given tensors."""
+    rng = np.random.default_rng(1)
+    shapes = {"a": (40, 30), "b": {"c": (50,), "d": (2, 20, 3)}}
+
+    def draw(scale):
+        return params_from_jax(jax.tree.map(
+            lambda s: (rng.standard_normal(s) * scale).astype(np.float32), shapes,
+            is_leaf=lambda s: isinstance(s, tuple)), "cpu")
+
+    cfg = adamw.OptConfig(lr=1e-2, warmup_steps=2, total_steps=6)
+    p = draw(1.0)
+    pd = tree_map(torch.clone, p)
+    o, od = adamw.init(p), adamw.init(pd)
+    for i in range(5):
+        g = draw(10.0 if i % 2 else 0.01)  # clipped, then not
+        gd = tree_map(torch.clone, g)
+        ids = [id(t) for t in tree_leaves({"p": pd, "o": od})]
+        p, o, m = adamw.update(cfg, p, g, o, torch.tensor(i, dtype=torch.int32))
+        pd, od, md = adamw.update(cfg, pd, gd, od, torch.tensor(i, dtype=torch.int32),
+                                  donate=True)
+        assert [id(t) for t in tree_leaves({"p": pd, "o": od})] == ids
+        assert torch.equal(m["grad_norm"], md["grad_norm"])
+        for a, b in zip(tree_leaves({"p": p, "o": o}), tree_leaves({"p": pd, "o": od})):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("leaf", ["params", "grads"])
+def test_adamw_donate_refuses_a_leaf_it_cannot_update_in_place(leaf):
+    """``donate=True`` writes float32 leaves in place; a bfloat16 param or
+    gradient raises rather than being copied, which would hold a second
+    state the caller did not ask for. The given tensors stay as they
+    were."""
+    gen = torch.Generator().manual_seed(0)
+    p = {"a": torch.randn((4, 3), generator=gen), "b": torch.randn((5,), generator=gen)}
+    g = {"a": torch.randn((4, 3), generator=gen), "b": torch.randn((5,), generator=gen)}
+    o = adamw.init(p)
+    tree = p if leaf == "params" else g
+    tree["b"] = tree["b"].to(torch.bfloat16)
+    before = [t.clone() for t in tree_leaves({"p": p, "g": g, "o": o})]
+    cfg = adamw.OptConfig(warmup_steps=2, total_steps=6)
+    with pytest.raises(ValueError, match="in place"):
+        adamw.update(cfg, p, g, o, torch.tensor(0, dtype=torch.int32), donate=True)
+    assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves({"p": p, "g": g, "o": o})))
+    adamw.update(cfg, p, g, o, torch.tensor(0, dtype=torch.int32))  # the pure update takes it
 
 
 @pytest.mark.parametrize("i", [0, 1, 5, 10, 55, 100, 200])
@@ -393,19 +476,40 @@ def test_token_stream_is_deterministic_restartable_and_sharded():
         TokenStream(cfg, 3, 16, host_count=2, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "seamless-m4t-large-v2"])
-def test_make_batch_refuses_frontend_and_encoder_inputs(arch):
-    with pytest.raises(NotImplementedError):
-        make_batch(np.random.default_rng(0), get_config(arch, reduced=True), batch=1, seq=8,
-                   device="cpu")
+@pytest.mark.parametrize("arch", ["internvl2-76b", "seamless-m4t-large-v2", "qwen2-0.5b"])
+def test_make_batch_matches_the_references_layout(arch):
+    """Keys, shapes and dtypes of the reference's make_batch (its values
+    come from jax.random, the port's from numpy): internvl2's 24 positions
+    are 8 patch embeddings and 16 tokens, seamless's encoder gets 24 frame
+    embeddings; TokenStream serves the same layout, its tokens in range."""
+    from repro.data.batches import make_batch as jax_make_batch
+
+    want = jax_make_batch(jax.random.PRNGKey(0), jax_get_config(arch, reduced=True), batch=2,
+                          seq=24)
+    cfg = get_config(arch, reduced=True)
+    got = make_batch(np.random.default_rng(0), cfg, batch=2, seq=24, device="cpu")
+    streamed = TokenStream(cfg, 2, 24, seed=5, device="cpu").next()
+    for batch in (got, streamed):
+        assert sorted(batch) == sorted(want)
+        for k, v in want.items():
+            assert tuple(batch[k].shape) == v.shape, k
+            assert str(batch[k].dtype).removeprefix("torch.") == str(v.dtype), k
+        assert int(batch["tokens"].max()) < cfg.vocab_size
+        assert torch.equal(batch["tokens"][:, 1:], batch["targets"][:, :-1])
+    prefill = make_batch(np.random.default_rng(0), cfg, batch=2, seq=24, kind="prefill",
+                         device="cpu")
+    assert sorted(prefill) == sorted(set(want) - {"targets"})
 
 
-@pytest.mark.parametrize("arch,key", [("internvl2-76b", "patch_embeds"), ("internvl2-76b", None),
-                                      ("qwen2-0.5b", "patch_embeds"), ("qwen2-0.5b", "enc_embeds")])
+@pytest.mark.parametrize("arch,key", [("internvl2-76b", None), ("qwen2-0.5b", "patch_embeds"),
+                                      ("seamless-m4t-large-v2", None),
+                                      ("seamless-m4t-large-v2", "patch_embeds")])
 def test_loss_refuses_frontend_and_encoder_inputs(arch, key):
-    """The reference prepends the patches and drops their positions before
-    the CE (src/repro/models/transformer.py:390-410); the port does neither,
-    so its loss refuses rather than differ."""
+    """Where the reference's loss fails, the port's raises ValueError rather
+    than compute something else: internvl2 without patches (the reference
+    drops 8 text positions and its CE no longer matches the targets),
+    patches on an arch that drops none (concatenated, then mismatched), and
+    an encoder-decoder without its frames (the reference asserts)."""
     cfg = get_config(arch, reduced=True)
     lm = LM(cfg, device="cpu")  # the param tree builds, as the model tests check
     params = lm.init(torch.Generator().manual_seed(0))
@@ -413,8 +517,22 @@ def test_loss_refuses_frontend_and_encoder_inputs(arch, key):
     batch = {"tokens": tokens, "targets": tokens}
     if key is not None:
         batch[key] = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         lm.loss(params, batch, dtype=F32)
+
+
+def test_enc_embeds_are_ignored_without_an_encoder():
+    """The reference runs its encoder only for an encoder-decoder arch
+    (transformer.py:382-384): a decoder-only arch's loss is the same with
+    ``enc_embeds`` in its batch."""
+    lm = LM(get_config("qwen2-0.5b", reduced=True), device="cpu")
+    params = lm.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(lm.cfg.vocab_size, 2, 8).items()}
+    with torch.no_grad():
+        want, _ = lm.loss(params, batch, dtype=F32)
+        got, _ = lm.loss(params, {**batch, "enc_embeds": torch.ones((2, 5, lm.cfg.d_model))},
+                         dtype=F32)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "paper-default", "gemma2-2b"])

@@ -194,7 +194,32 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the router aux each step; (e) qwen2-0.5b at 4 x 2048 under each remat
      policy (None, "full", "dots", "coll"), 3 steps from one state and the
      same batches: the first loss and grad norm within 1e-5 relative
-     across them, step ms and peak memory each.
+     across them, step ms and peak memory each;
+ 18. data-parallel training and the sharding layer (qwen2-0.5b at full
+     width): (a) one rank on NCCL (launch/multihost.py::initialize through a
+     FileStore under build/): the DP step (training/dp_compressed.py) at 4 x
+     2048 in bf16, 24 flash forward and 24 backward launches a step,
+     uncompressed bit for bit make_train_step's step, int8: the mean and
+     the new error feedback bit for bit the plain dequantize(quantize(g +
+     err)) and its residual; step ms, the compression pass's device ms
+     (torch.profiler), wire bytes a rank (0 at N = 1); (b) two gloo ranks
+     on the one card (torch.multiprocessing spawn; NCCL takes one rank a
+     device), float32 at a global 2 x 1024 split 1 + 1, three steps
+     uncompressed and int8: the first two losses against one rank on the
+     whole batch (rtol 1e-5) and its params after them (atol 2e-3 / rtol
+     1e-3), the third loss (the first after an update that moves the
+     params) int8 within 1e-2 of uncompressed, wire bytes int8 < 0.6 x,
+     the ranks' params equal after every step; (c) launch/programs.py's
+     cells on a (1,1) DeviceMesh at each cell's batch and length, depth cut
+     by depth_supers (printed as "reduced"): train_4k (baseline,
+     remat_coll; 32 microbatches) bit for bit make_train_step, prefill_32k
+     (baseline bit for bit LM.prefill; big_serve's 2 chunks against 1:
+     logits atol 2e-3 / rtol 1e-3, cache within 2e-2) and decode_32k
+     (baseline, kv_int8) bit for bit LM.decode_step, ms and peak memory
+     each; (d) at the reduced size (a full-width save took 46-65 s on the
+     H100, PERF.md): a checkpoint written by train() restored through
+     tree_shardings onto the (1,1) mesh, every leaf a DTensor there equal to the plain restore,
+     and train(mesh=...) resumed from it, losses bit for bit train()'s.
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -214,7 +239,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
@@ -229,7 +256,8 @@ from repro_torch.core.pools import PoolSpec, default_live_pool_specs  # noqa: E4
 from repro_torch.core.query import Query, QueryWork  # noqa: E402
 from repro_torch.core.workload import TABLE1  # noqa: E402
 from repro_torch.core.sla import ServiceLevel, SLAConfig  # noqa: E402
-from repro_torch.data.batches import TokenStream  # noqa: E402
+from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
+from repro_torch.data.batches import TokenStream, make_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse  # noqa: E402
@@ -240,7 +268,9 @@ from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_r
                                      ssd_scan_ref, ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, sdpa_kernel, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
-from repro_torch.launch import dryrun, paper_repro  # noqa: E402
+from repro_torch.launch import dryrun, multihost, paper_repro  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.programs import build_program  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.launch.serve_sla import serve_traffic  # noqa: E402
 from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
@@ -249,8 +279,11 @@ from repro_torch.models.layers import _sdpa_dense, moe_apply, moe_capacity, moe_
 from repro_torch.models.params import count_params, tree_leaves  # noqa: E402
 from repro_torch.models.transformer import LM, head_logits, plain_head_logits  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
+from repro_torch.parallel.compress import (WireCount, dequantize_int8, quantize_int8,  # noqa: E402
+                                           tree_ef_allreduce_mean)
+from repro_torch.parallel.sharding import TRAIN_RULES, tree_shardings  # noqa: E402
 from repro_torch.perf.hw import H100, kernel_bound  # noqa: E402
-from repro_torch.training import step as training_step  # noqa: E402
+from repro_torch.training import dp_compressed, step as training_step  # noqa: E402
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -2647,6 +2680,452 @@ def train_phase(device, card) -> dict:
     return out
 
 
+# ---- phase 18: data-parallel training and the sharding layer ----------------
+DP_OPT = OptConfig(warmup_steps=1, total_steps=10)  # lr 0 at step 0 (the schedule), 3e-4 at 1
+DP2_WORLD, DP2_BATCH, DP2_SEQ, DP2_STEPS = 2, 2, 1024, 3  # (b): the global batch, float32
+DP2_LOSS_RTOL = 1e-5  # (b): two ranks against one on the whole batch
+DP_INT8_LOSS_TOL = 1e-2  # the reference's own bound (tests/test_parallel.py)
+DP_WIRE_RATIO = 0.6
+DP2_TIMEOUT = 600
+PG_DIR = Path(__file__).resolve().parent / "build" / "smoke_pg"
+#: (c): (cell, variant, depth_supers); depth cut through the reference's own
+#: depth_supers to what the phase's time allows (qwen2-0.5b has 24 layers)
+PROGRAM_CELLS = (("train_4k", "baseline", 2), ("train_4k", "remat_coll", 2),
+                 ("prefill_32k", "baseline", 2), ("prefill_32k", "big_serve", 2),
+                 ("decode_32k", "baseline", 4), ("decode_32k", "kv_int8", 4))
+TRAIN_4K_MICROBATCHES = 32  # default_microbatches of train_4k at full depth
+
+
+def _tree_cmp(a, b) -> tuple[bool, float]:
+    """(every leaf equal bit for bit, the largest abs difference)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb) or any(x.shape != y.shape for x, y in zip(la, lb)):
+        raise AssertionError("trees of different structure")
+    equal = all(torch.equal(x, y) for x, y in zip(la, lb))
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(la, lb))
+    return equal, err
+
+
+def _device_ms(fn) -> tuple[object, float]:
+    """fn()'s result and the device's busy ms over it (torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return out, busy
+
+
+def dp_one_rank(device) -> dict:
+    """Phase 18 (a): one rank on NCCL, qwen2-0.5b at full width, a DP step at
+    phase 10's shape in bf16. Uncompressed, it is held to make_train_step's
+    step (bit for bit expected: a one-rank all-reduce and / 1 leave the
+    grads as they are); compressed, the mean and the new error feedback are
+    held to the plain dequantize(quantize(g + err)) and its residual, bit
+    for bit, with err a compressed step's residual. Step ms (the second
+    call of each), the compression pass's device ms, wire bytes a rank."""
+    cfg = get_config(TRAIN_ARCH)
+    model = LM(cfg, device=device)
+    state = dp_compressed.init_state(model, torch.Generator(device=device).manual_seed(0))
+    data = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=device).next()
+    out = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "num_params": count_params(state["params"])}
+    for compress in (False, True):
+        step = dp_compressed.make_dp_train_step(model, DP_OPT, compress=compress)
+        rec = {}
+        for _ in range(2):
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            _zero_launches()
+            t0 = time.perf_counter()
+            new, m = step(state, data)
+            rec["loss"] = float(m["loss"])
+            rec["step_ms"] = 1e3 * (time.perf_counter() - t0)
+            rec["launches"] = _launches()
+            _expect_launches(f"dp step compress={compress}", rec["launches"], cfg.num_layers,
+                             cfg.num_layers)
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        rec["wire_bytes_per_rank_per_step"] = step.wire.bytes / 2
+        if not compress:
+            plain = training_step.make_train_step(model, DP_OPT, remat=None,
+                                                  compute_dtype=torch.bfloat16)
+            ref, mr = plain({k: state[k] for k in ("params", "opt", "step")}, data)
+            equal, err = _tree_cmp({"p": new["params"], "o": new["opt"]},
+                                   {"p": ref["params"], "o": ref["opt"]})
+            rec["bit_equal_to_make_train_step"] = equal and rec["loss"] == float(mr["loss"])
+            rec["state_max_abs_diff"] = err
+            if not rec["bit_equal_to_make_train_step"]:
+                print(f"[dp18 a] the one-rank step differs from make_train_step's by {err} "
+                      f"(losses {rec['loss']} / {float(mr['loss'])})", flush=True)
+                if err > MODEL_ATOL:
+                    raise AssertionError(f"dp step: state differs by {err}")
+            del ref
+        else:
+            _, _, grads = training_step.loss_and_grads(model, state["params"], data, remat=None,
+                                                       compute_dtype=torch.bfloat16)
+            err = new["err"]  # a compressed step's residual: not zero
+            wire = WireCount()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            tree_ef_allreduce_mean(grads, err, None, wire)
+            torch.cuda.synchronize(device)
+            rec["compress_pass_ms_host"] = 1e3 * (time.perf_counter() - t0)
+            (mean, new_err), busy = _device_ms(lambda: tree_ef_allreduce_mean(grads, err, None,
+                                                                              wire))
+            rec["compress_pass_device_ms"] = busy if busy else "not measured"
+            for g, e, mg, ne in zip(tree_leaves(grads), tree_leaves(err), tree_leaves(mean),
+                                    tree_leaves(new_err)):
+                target = g.float() + e
+                deq = dequantize_int8(*quantize_int8(target))
+                if not (torch.equal(mg, deq.to(g.dtype)) and torch.equal(ne, target - deq)):
+                    raise AssertionError("dp step: the int8 mean or residual differs from plain")
+            rec["mean_and_residual_bit_equal_to_plain"] = True
+            rec["elements"] = sum(g.numel() for g in tree_leaves(grads))
+            del grads, mean, new_err, err
+        del new
+        out["int8" if compress else "plain"] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bit_sums(params) -> torch.Tensor:
+    """Two weighted int64 sums of every leaf's 32-bit words: equal on two
+    ranks whose params are equal bit for bit."""
+    out = []
+    for t in tree_leaves(params):
+        b = t.reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+        out += [b.sum(), (b * w).sum()]
+    return torch.stack(out)
+
+
+def _replicas_equal(params, world) -> bool:
+    sums = _bit_sums(params)
+    got = [torch.empty_like(sums) for _ in range(world)]
+    dist.all_gather(got, sums)
+    return all(torch.equal(g, sums) for g in got)
+
+
+def _replicas_equal_full(params, rank) -> bool:
+    """Rank 0's params sent to every rank and compared bit for bit."""
+    same = torch.ones((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+    for t in tree_leaves(params):
+        got = t.clone()
+        dist.broadcast(got, src=0)
+        same &= torch.equal(got, t)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same)
+
+
+def _dp2_rank(rank, world, pg_dir, out_path):
+    """Phase 18 (b), one rank: a gloo process on cuda:0."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{pg_dir}/gloo", world_size=world,
+                            rank=rank)
+    try:
+        device = torch.device("cuda", 0)
+        cfg = get_config(TRAIN_ARCH)
+        model = LM(cfg, device=device)
+        stream = TokenStream(cfg, DP2_BATCH, DP2_SEQ, seed=0, device=device)
+        batches = [stream.next() for _ in range(DP2_STEPS)]
+        rows = slice(rank * DP2_BATCH // world, (rank + 1) * DP2_BATCH // world)
+        res = {}
+        for compress in (False, True):
+            state = dp_compressed.init_state(model, torch.Generator(device=device).manual_seed(0))
+            step = dp_compressed.make_dp_train_step(model, DP_OPT, compress=compress,
+                                                    compute_dtype=torch.float32)
+            rec = {"losses": [], "step_ms": [], "replicas_equal_sums": []}
+            _zero_launches()
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                state, m = step(state, {k: v[rows] for k, v in b.items()})
+                rec["losses"].append(float(m["loss"]))
+                rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                rec["replicas_equal_sums"].append(_replicas_equal(state["params"], world))
+                if i == 1 and not compress and rank == 0:
+                    two = _clone(state["params"])
+            rec["launches"] = _launches()
+            t0 = time.perf_counter()
+            rec["replicas_equal_full"] = _replicas_equal_full(state["params"], rank)
+            rec["full_compare_s"] = time.perf_counter() - t0
+            rec["wire_bytes_per_step"] = step.wire.bytes / DP2_STEPS
+            res["int8" if compress else "plain"] = rec
+            del state
+            torch.cuda.empty_cache()
+        if rank == 0:  # the one-rank step on the whole batch
+            state = training_step.init_state(model, torch.Generator(device=device).manual_seed(0))
+            plain = training_step.make_train_step(model, DP_OPT, remat=None,
+                                                  compute_dtype=torch.float32)
+            one = []
+            for b in batches[:2]:
+                state, m = plain(state, b)
+                one.append(float(m["loss"]))
+            pairs = list(zip(tree_leaves(two), tree_leaves(state["params"])))
+            res["one_rank"] = {
+                "losses": one,
+                "params_max_abs_diff": max(float((a - b).abs().max()) for a, b in pairs),
+                "params_close": all(torch.allclose(a, b, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+                                    for a, b in pairs)}
+            res["peak_memory_gb_rank0"] = torch.cuda.max_memory_allocated(device) / 1e9
+            Path(out_path).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_two_ranks() -> dict:
+    """Phase 18 (b): two gloo ranks on the one card (NCCL takes one rank a
+    device), qwen2-0.5b at full width in float32 at a global 2 x 1024 split
+    1 + 1, DP2_STEPS steps uncompressed and int8 from the same state and
+    batches: the uncompressed losses of the first two steps against the
+    one-rank step on the whole batch (rtol 1e-5), its params after them
+    (atol 2e-3 / rtol 1e-3); the third loss, the first after an update that
+    moves the params, int8 within 1e-2 of uncompressed; wire bytes int8 <
+    0.6 x uncompressed; the ranks' params equal after every step (two
+    weighted sums of their bits) and at the end (rank 0's sent over)."""
+    run_dir = PG_DIR / "dp2"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    out_path = run_dir / "result.json"
+    ctx = torch.multiprocessing.start_processes(
+        _dp2_rank, args=(DP2_WORLD, str(run_dir), str(out_path)), nprocs=DP2_WORLD,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + DP2_TIMEOUT
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"dp two ranks: still running after {DP2_TIMEOUT} s")
+    res = json.loads(out_path.read_text())
+    plain, int8, one = res["plain"], res["int8"], res["one_rank"]
+    for a, b in zip(plain["losses"][:2], one["losses"]):
+        if abs(a - b) > DP2_LOSS_RTOL * abs(b):
+            raise AssertionError(f"dp two ranks: losses {plain['losses']} against one rank's {one}")
+    if not one["params_close"]:
+        raise AssertionError(f"dp two ranks: params differ from one rank's by "
+                             f"{one['params_max_abs_diff']}")
+    gap = abs(int8["losses"][2] - plain["losses"][2])
+    if gap > DP_INT8_LOSS_TOL:
+        raise AssertionError(f"dp two ranks: int8 loss {int8['losses']} vs {plain['losses']}")
+    ratio = int8["wire_bytes_per_step"] / plain["wire_bytes_per_step"]
+    if ratio >= DP_WIRE_RATIO:
+        raise AssertionError(f"dp two ranks: wire ratio {ratio}")
+    for rec in (plain, int8):
+        if not (all(rec["replicas_equal_sums"]) and rec["replicas_equal_full"]):
+            raise AssertionError(f"dp two ranks: the replicas differ: {rec}")
+        want = DP2_STEPS * get_config(TRAIN_ARCH).num_layers
+        _expect_launches("dp two ranks (rank 0)", rec["launches"], want, want)
+    res["int8_loss_gap_step3"] = gap
+    res["wire_ratio"] = ratio
+    res["gloo_cuda_tensors"] = "taken as they are (gloo stages them through the host itself)"
+    return res
+
+
+def _fill_cache(spec, S, gen, device):
+    """A decode cache after an S-token context: random K/V (int8 codes and
+    scales with kv_int8), pos_ids 0..S-1 in slots 0..S-1 and -1 after,
+    lengths S."""
+    out = {}
+    for k, v in spec.items():
+        if isinstance(v, dict):
+            out[k] = _fill_cache(v, S, gen, device)
+        elif k == "lengths":
+            out[k] = torch.full(v.shape, S, dtype=v.dtype, device=device)
+        elif k == "pos_ids":
+            ar = torch.arange(v.shape[-1], dtype=torch.int32, device=device)
+            out[k] = torch.where(ar < S, ar, -1).expand(v.shape).contiguous()
+        elif v.dtype == torch.int8:
+            out[k] = torch.randint(-127, 128, v.shape, generator=gen, dtype=torch.int8,
+                                   device=device)
+        elif k in ("k_s", "v_s"):
+            out[k] = torch.rand(v.shape, generator=gen, device=device) * 0.02 + 0.005
+        else:
+            out[k] = torch.randn(v.shape, generator=gen, dtype=v.dtype, device=device)
+    return out
+
+
+def _timed(device, fn):
+    """(fn()'s result, its ms on the host clock to a device sync, the peak of
+    device memory during it in GB)."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _program_train(device, prog) -> dict:
+    model, cfg, cell = prog.model, prog.cfg, prog.cell
+    state = training_step.init_state(model, torch.Generator(device=device).manual_seed(0))
+    twin = _clone(state)
+    data = make_batch(np.random.default_rng(0), cfg, batch=cell.global_batch, seq=cell.seq_len,
+                      device=device)
+    for k, spec in prog.in_specs[1].items():
+        if data[k].shape != spec.shape:
+            raise AssertionError(f"program {cell.name}: input {k} {data[k].shape} vs {spec.shape}")
+    _zero_launches()
+    (new, m), ms, peak = _timed(device, lambda: prog(state, data))
+    counts = _launches()
+    mb, remat = prog.meta["microbatches"], prog.meta["remat"]
+    n = cfg.num_layers * mb
+    _expect_launches(f"program {cell.name}", counts, 2 * n if remat else n, n)
+    direct = training_step.make_train_step(model, OptConfig(), microbatches=mb, remat=remat,
+                                           donate=True)
+    ref, mr = direct(twin, data)
+    equal, err = _tree_cmp(new, ref)
+    if not (equal and float(m["loss"]) == float(mr["loss"])):
+        raise AssertionError(f"program {cell.name}: differs from make_train_step by {err}")
+    return {"ms": ms, "peak_memory_gb": peak, "loss": float(m["loss"]), "launches": counts,
+            "bit_equal_to_make_train_step": True}
+
+
+def _program_prefill(device, prog, base) -> tuple[dict, tuple]:
+    model, cfg, cell = prog.model, prog.cfg, prog.cell
+    params = model.init(torch.Generator(device=device).manual_seed(0), dtype=torch.bfloat16)
+    data = make_batch(np.random.default_rng(0), cfg, batch=cell.global_batch, seq=cell.seq_len,
+                      kind="prefill", device=device)
+    _zero_launches()
+    (logits, cache), ms, peak = _timed(device, lambda: prog(params, data))
+    counts = _launches()
+    _expect_launches(f"program {cell.name}", counts,
+                     cfg.num_layers * prog.meta["prefill_microbatches"], 0)
+    rec = {"ms": ms, "peak_memory_gb": peak, "launches": counts}
+    if base is None:  # pmb 1: the direct call, bit for bit
+        want = model.prefill(params, data["tokens"])
+        equal, err = _tree_cmp({"l": logits, "c": cache}, {"l": want[0], "c": want[1]})
+        if not equal:
+            raise AssertionError(f"program {cell.name}: differs from LM.prefill by {err}")
+        rec["bit_equal_to_prefill"] = True
+    else:  # pmb 2 against pmb 1
+        rec["logits_max_abs_err"] = _close("program prefill pmb 2 logits", logits, base[0],
+                                           MODEL_ATOL)
+        kv_equal, kv_err = _tree_cmp(cache, base[1])
+        rec.update(cache_bit_equal=kv_equal, cache_max_abs_diff=kv_err)
+        if kv_err > BF16_TOL:
+            raise AssertionError(f"program prefill pmb 2: cache differs by {kv_err}")
+    return rec, (logits, cache)
+
+
+def _program_decode(device, prog) -> dict:
+    model, cfg, cell = prog.model, prog.cfg, prog.cell
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(gen, dtype=torch.bfloat16)
+    cache = _fill_cache(prog.in_specs[1], cell.seq_len, gen, device)
+    twin = _clone(cache)
+    tokens = torch.randint(0, cfg.vocab_size, (cell.global_batch, 1), generator=gen,
+                           dtype=torch.int32, device=device)
+    _zero_launches()
+    (logits, new), ms, peak = _timed(device, lambda: prog(params, cache, tokens))
+    counts = _launches()
+    if counts["decode_attention"] != cfg.num_layers or counts["flash_attention"]:
+        raise AssertionError(f"program {cell.name}: launches {counts}")
+    want = model.decode_step(params, twin, tokens)
+    equal, err = _tree_cmp({"l": logits, "c": new}, {"l": want[0], "c": want[1]})
+    if not equal:
+        raise AssertionError(f"program {cell.name}: differs from LM.decode_step by {err}")
+    del twin, want
+    # the next token on the advanced cache: the step without first-call costs
+    _, ms_next, _ = _timed(device, lambda: prog(params, new, tokens))
+    return {"ms": ms, "ms_next_step": ms_next, "peak_memory_gb": peak, "launches": counts,
+            "cache_gb": sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9,
+            "bit_equal_to_decode_step": True}
+
+
+def programs(device, mesh) -> list:
+    """Phase 18 (c): build_program's cells of qwen2-0.5b on the (1,1) mesh,
+    at each cell's own batch and length, depth cut by depth_supers
+    (``reduced``), each against the direct call."""
+    out, base = [], None
+    for name, variant, depth in PROGRAM_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        kw = {"microbatches": TRAIN_4K_MICROBATCHES} if name == "train_4k" else {}
+        prog = build_program(TRAIN_ARCH, name, mesh, depth_supers=depth, variant=variant, **kw)
+        rec = {"cell": name, "variant": variant, "batch": prog.cell.global_batch,
+               "seq": prog.cell.seq_len, "meta": prog.meta,
+               "reduced": f"depth_supers={depth}: {prog.cfg.num_layers} of "
+                          f"{get_config(TRAIN_ARCH).num_layers} layers, every width as published"}
+        if prog.kind == "train":
+            rec.update(_program_train(device, prog))
+        elif prog.kind == "prefill":
+            res, got = _program_prefill(device, prog, base)
+            base = got if variant == "baseline" else None
+            rec.update(res)
+        else:
+            rec.update(_program_decode(device, prog))
+        rec["wall_s"] = time.perf_counter() - t0
+        print(f"[dp18 c] {json.dumps(rec)}", flush=True)
+        out.append(rec)
+        del prog
+    return out
+
+
+def elastic_restore(device, mesh) -> dict:
+    """Phase 18 (d), at the reduced size as phase 11 (a full-width save took
+    46-65 s on the H100, PERF.md): train() writes steps 2 and 4; step 2 restores through
+    tree_shardings(state_axes, state_specs, TRAIN_RULES, mesh) onto the
+    (1,1) mesh (every leaf a DTensor on it, its local tensor the unsharded
+    restore's bit for bit); then train(mesh=mesh) and train() each resume
+    from step 2 to 4, losses bit for bit."""
+    kw = dict(reduced=True, steps=4, batch=4, seq=32, ckpt_every=2, log_every=100, device=device)
+    root = CKPT_DIR / "elastic"
+    shutil.rmtree(root, ignore_errors=True)
+    full = train(TRAIN_ARCH, ckpt_dir=str(root / "full"), **kw)
+    model = LM(get_config(TRAIN_ARCH, reduced=True), device=device)
+    specs = training_step.state_specs(model)
+    sh = tree_shardings(training_step.state_axes(model), specs, TRAIN_RULES, mesh)
+    store = CheckpointStore(root / "full")
+    placed, _ = store.restore(2, specs, shardings=sh)
+    plain, _ = store.restore(2, specs, device=device)
+    leaves = tree_leaves(placed)
+    for t in leaves:
+        if not isinstance(t, DTensor) or dict(zip(t.device_mesh.mesh_dim_names,
+                                                  t.device_mesh.shape)) != {"data": 1, "model": 1}:
+            raise AssertionError(f"elastic restore: a leaf {type(t)} not on the (1,1) mesh")
+    equal, err = _tree_cmp(dict(enumerate(t.to_local() for t in leaves)),
+                           dict(enumerate(tree_leaves(plain))))
+    if not equal:
+        raise AssertionError(f"elastic restore: leaves differ by {err}")
+    runs = {}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        (root / name).mkdir()
+        shutil.copytree(root / "full" / "step_00000002", root / name / "step_00000002")
+        runs[name] = train(TRAIN_ARCH, ckpt_dir=str(root / name), mesh=m, **kw)
+    shutil.rmtree(root, ignore_errors=True)
+    if runs["mesh"]["losses"] != runs["plain"]["losses"] or runs["mesh"]["steps_run"] != 2:
+        raise AssertionError(f"elastic restore: resumed losses {runs}")
+    return {"leaves": len(leaves), "placements": sorted({str(t.placements) for t in leaves}),
+            "resumed_losses_mesh": runs["mesh"]["losses"],
+            "resumed_losses_plain": runs["plain"]["losses"],
+            "uninterrupted_last2": full["losses"][2:]}
+
+
+def dp_phase(device, card) -> dict:
+    """Phase 18: (a) one rank on NCCL, (b) two gloo ranks, (c) the cell
+    programs on the (1,1) mesh, (d) the elastic restore."""
+    shutil.rmtree(PG_DIR, ignore_errors=True)
+    PG_DIR.mkdir(parents=True)
+    topo = multihost.initialize(f"file://{PG_DIR}/nccl", 1, 0)
+    out = {"topology": topo}
+    try:
+        for key, fn in (("a", lambda: dp_one_rank(device)), ("b", dp_two_ranks),
+                        ("c", lambda: programs(device, make_local_mesh(1, 1))),
+                        ("d", lambda: elastic_restore(device, make_local_mesh(1, 1)))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out[key] = fn()
+            print(f"[dp18 {key}] {json.dumps(out[key]) if key != 'c' else ''} on {card} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(PG_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -2762,6 +3241,9 @@ def main() -> int:
     t0 = time.perf_counter()
     trained17 = train_phase(device, card)
     print(f"[train17] phase 17 ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    dp_phase(device, card)
+    print(f"[dp18] phase 18 ({time.perf_counter() - t0:.1f}s)", flush=True)
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f}s", flush=True)
 
     # each kernel's launches come from the run of the path it is on: the

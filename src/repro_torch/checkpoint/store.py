@@ -19,9 +19,10 @@ Properties the fault-tolerant trainer relies on:
   * async save: the device->host copy happens synchronously, the
     compress+write runs on a background thread so training continues (the
     leaves compress in parallel threads: zlib and zstd release the GIL);
-  * ``keep`` bounds how many steps stay on disk.
-The reference's elastic restore onto a mesh (``shardings``) waits for the
-port of sharding (ROADMAP queue 1, data-parallel and sharding).
+  * ``keep`` bounds how many steps stay on disk;
+  * elastic restore: with ``shardings`` (``parallel/sharding.py``'s
+    NamedShardings, e.g. from ``tree_shardings(state_axes, ...)``) each leaf
+    comes back as a DTensor on that mesh, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -177,10 +178,15 @@ class CheckpointStore:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, step: Optional[int], template, device="cuda"):
+    def restore(self, step: Optional[int], template, device="cuda", shardings=None):
         """Restore into the structure of ``template`` (a tree whose leaves,
         tensors of any device including "meta", give the expected shapes),
-        onto ``device``. Returns (tree, extra)."""
+        onto ``device``. Returns (tree, extra). With ``shardings``, a matching
+        tree of NamedShardings, each leaf is placed by
+        ``torch.distributed.tensor.distribute_tensor`` on its sharding's mesh
+        (and that mesh's device type) and comes back as a DTensor: every
+        rank reads the whole leaf and keeps its shard, so any mesh whose
+        axes divide the dims restores any checkpoint."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -204,8 +210,16 @@ class CheckpointStore:
                 raise ValueError(f"checkpoint leaf {key} has shape {meta['shape']}, "
                                  f"the template {list(want[key].shape)}")
             raw = decompress((d / meta["file"]).read_bytes())
-            flat[key] = _from_host(raw, meta["shape"], meta["dtype"]).to(device)
+            flat[key] = _from_host(raw, meta["shape"], meta["dtype"])
+            if shardings is None:
+                flat[key] = flat[key].to(device)
         missing = sorted(set(want) - set(flat))
         if missing:
             raise KeyError(f"checkpoint {d} lacks leaves {missing}")
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            placed = _flatten(shardings)
+            flat = {k: distribute_tensor(t, placed[k].mesh, placed[k].placements)
+                    for k, t in flat.items()}
         return _unflatten(flat, template), manifest["extra"]

@@ -3,8 +3,8 @@
 ``train_specs`` / ``prefill_specs`` say what every (arch x shape) cell
 feeds its step: each input leaf as a tensor on the ``meta`` device (shape
 and dtype, no storage), the structure ``make_batch`` materializes.
-``launch/dryrun.py`` draws its inputs from them. The sharding spec of the
-leaves (the reference's ``batch_axes``) waits for the mesh.
+``launch/dryrun.py`` draws its inputs from them; ``batch_axes`` names the
+logical axes of every leaf (``launch/programs.py`` shards them).
 
 The reference draws its tokens with ``jax.random``; the port cannot import
 it and draws from ``np.random.default_rng([seed, step, host_index])``. So
@@ -56,6 +56,17 @@ def prefill_specs(cfg: ModelConfig, cell: ShapeCell, dtype=BF16) -> dict:
     B, S = cell.global_batch, cell.seq_len
     return {"tokens": _spec((B, _text_len(cfg, S)), torch.int32),
             **_embed_specs(cfg, B, S, dtype)}
+
+
+def batch_axes(cfg: ModelConfig, kind: str) -> dict:
+    """Logical sharding axes for every input leaf."""
+    ax = {
+        "tokens": ("batch", "seq"),
+        "targets": ("batch", "seq"),
+        "patch_embeds": ("batch", "seq", "embed"),
+        "enc_embeds": ("batch", "seq", "embed"),
+    }
+    return ax
 
 
 def make_batch(rng: np.random.Generator, cfg: ModelConfig, *, batch: int, seq: int,

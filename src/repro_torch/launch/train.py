@@ -1,22 +1,30 @@
-"""Fault-tolerant trainer.
+"""Fault-tolerant trainer, and a data-parallel one.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --steps 50 --batch 8 --seq 64 --ckpt-every 10 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --dp int8 --steps 10 --batch 8 --seq 64 --device cpu
 
 Production behaviors demonstrated here (and tested in
 tests/test_torch_train.py):
   * periodic async checkpoints (params + optimizer + data stream);
   * crash/restart recovery: on startup the trainer resumes from the latest
     checkpoint, including the data-stream cursor (exact-once batches);
-  * simulated failure injection (--fail-at) to exercise the recovery path.
+  * simulated failure injection (--fail-at) to exercise the recovery path;
+  * elastic restore onto a mesh (``mesh``): the resume places the state by
+    ``tree_shardings(state_axes, state_specs, TRAIN_RULES, mesh)``.
 On a CUDA device every attention of the forward pass runs the CUDA flash
 kernel through ``kernels/ops.py::flash_attention_diff`` (mamba2: the SSD
-scan through ``ssd_scan_diff``). Training on a mesh (``mesh``) waits for
-the port of sharding (ROADMAP queue 1, data-parallel and sharding).
+scan through ``ssd_scan_diff``). A mesh whose axes are all 1 trains as
+without one, bit for bit; a larger mesh raises until ROADMAP queue 1's SPMD
+item. ``train_dp`` (``--dp``) trains data-parallel across the ranks of a
+process group (``training/dp_compressed.py``: replicated params, the grads'
+mean sent as int8 with error feedback, or as float32).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 
@@ -25,9 +33,13 @@ import torch
 from ..checkpoint.store import CheckpointStore
 from ..configs import get_config
 from ..data.batches import TokenStream
+from ..models.params import tree_map
 from ..models.transformer import LM
 from ..optim.adamw import OptConfig
-from ..training import step as training_step
+from ..parallel.sharding import (SPMD_TODO, TRAIN_RULES, is_trivial, mesh_shape, sharding_ctx,
+                                 tree_shardings)
+from ..training import dp_compressed, step as training_step
+from . import multihost
 
 #: the CLI's default checkpoint directory: inside the checkout, gitignored
 DEFAULT_CKPT_DIR = str(Path(__file__).resolve().parents[3] / "build" / "ckpt")
@@ -67,10 +79,13 @@ def train(
     train step's policy (``models/transformer.py::REMAT_POLICIES``); None,
     the reference's, keeps every activation. Every arch of the registry
     trains: a vision frontend's batches carry patch embeddings, an
-    encoder-decoder's frame embeddings (``data/batches.py::make_batch``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh is not ported (ROADMAP queue 1, data-parallel and sharding)")
+    encoder-decoder's frame embeddings (``data/batches.py::make_batch``).
+    ``mesh`` (a DeviceMesh whose axes are all 1; a larger one raises): the
+    resume restores the state onto the mesh as DTensors, each rank steps
+    its local shards (on one device, the whole tensors) and the step runs
+    under ``sharding_ctx(mesh, TRAIN_RULES)``."""
+    if mesh is not None and not is_trivial(mesh):
+        raise NotImplementedError(f"train() on mesh {mesh_shape(mesh)}: {SPMD_TODO}")
     device = torch.device(device)
     if device.type == "cuda":
         # the reference computes its float32 products in full float32
@@ -83,11 +98,18 @@ def train(
         donate=True)
     store = CheckpointStore(ckpt_dir)
     stream = TokenStream(cfg, batch, seq, seed=seed, device=device)
+    shardings = None
+    if mesh is not None:
+        shardings = tree_shardings(training_step.state_axes(model),
+                                   training_step.state_specs(model), TRAIN_RULES, mesh)
 
     # --- restore or init ---
     start = store.latest_step()
     if start is not None:
-        state, extra = store.restore(start, training_step.state_specs(model), device=device)
+        state, extra = store.restore(start, training_step.state_specs(model), device=device,
+                                     shardings=shardings)
+        if shardings is not None:
+            state = tree_map(lambda t: t.to_local(), state)
         stream.seek(extra["stream"])
         print(f"[train] resumed from step {start}")
     else:
@@ -101,7 +123,8 @@ def train(
             store.wait()
             raise SimulatedFailure(f"injected failure at step {i}")
         ts = time.perf_counter()
-        state, metrics = step_fn(state, stream.next())
+        with sharding_ctx(mesh, TRAIN_RULES):  # without a mesh, shard() is the identity
+            state, metrics = step_fn(state, stream.next())
         loss = float(metrics["loss"])
         step_s.append(time.perf_counter() - ts)
         losses.append(loss)
@@ -122,6 +145,51 @@ def train(
             "state": state, "steps_run": len(losses), "step_s": step_s, "ckpt_s": ckpt_s}
 
 
+def train_dp(
+    arch: str = "qwen2-0.5b",
+    *,
+    reduced: bool = True,
+    steps: int = 10,
+    batch: int = 8,
+    seq: int = 64,
+    seed: int = 0,
+    compress: bool = True,
+    log_every: int = 10,
+    device="cuda",
+    dtype=torch.bfloat16,
+) -> dict:
+    """Data-parallel training on this rank of the process group (joined by
+    ``multihost.initialize``: torchrun's environment, or a group the caller
+    has initialised): every rank holds the same params, draws its own rows
+    of the global ``batch`` (``TokenStream(host_index=rank,
+    host_count=world)``) and steps with the grads' mean over the ranks,
+    int8 with error feedback (``compress``) or float32. No checkpoints.
+    Returns this rank's losses, the final state and the bytes it sent."""
+    device = torch.device(device)
+    topo = multihost.initialize(device=device.type)
+    rank, world = topo["process_index"], topo["process_count"]
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, reduced=reduced)
+    model = LM(cfg, device=device)
+    state = dp_compressed.init_state(model, torch.Generator(device=device).manual_seed(seed))
+    step_fn = dp_compressed.make_dp_train_step(
+        model, OptConfig(warmup_steps=10, total_steps=max(steps, 10)), compress=compress,
+        compute_dtype=dtype)
+    stream = TokenStream(cfg, batch, seq, seed=seed, host_index=rank, host_count=world,
+                         device=device)
+    losses = []
+    for i in range(steps):
+        state, metrics = step_fn(state, stream.next())
+        losses.append(float(metrics["loss"]))
+        if rank == 0 and (i + 1) % log_every == 0:
+            print(f"[train_dp] step {i+1}/{steps} loss={losses[-1]:.4f} on {world} ranks, "
+                  f"{step_fn.wire.bytes / (i + 1) / 2**20:.3f} MiB sent a step a rank")
+    return {"losses": losses, "state": state, "wire_bytes": step_fn.wire.bytes,
+            "rank": rank, "world": world}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -136,7 +204,17 @@ def main():
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dp", choices=("off", "int8", "float32"), default="off",
+                    help="data-parallel over the ranks (torchrun), the grads' mean sent as "
+                         "int8 or float32; no checkpoints")
     args = ap.parse_args()
+    if args.dp != "off":
+        out = train_dp(args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
+                       seq=args.seq, seed=args.seed, compress=args.dp == "int8",
+                       device=args.device)
+        torch.distributed.destroy_process_group()
+        print(f"[train_dp] rank {out['rank']} done: final_loss={out['losses'][-1]:.4f}")
+        return
     out = train(
         args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
         seq=args.seq, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

@@ -12,6 +12,10 @@ MoE experts' and layer's outputs. The tag is an op of its own,
 ``torch.ops.repro_torch.coll_out``, that returns a view of its input (no
 copy) and passes the gradient through, so that the "coll" remat policy
 (models/transformer.py) can name what it saves.
+
+``shard`` marks the activations that the reference constrains to a layout,
+at the same sites with the same logical axes (``parallel/sharding.py``); on
+one device it returns its input.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import shard
 from .config import ModelConfig
 from .params import ParamDecl
 
@@ -227,6 +232,7 @@ def attention(
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
+    q = shard(q, "batch", "seq", "act_heads", "act_head_dim")
 
     if kv_override is not None:
         k, v, k_pos = kv_override
@@ -240,6 +246,8 @@ def attention(
             v = v + p["bv"].to(dt)
         if use_rope:
             k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_interleaved)
+        k = shard(k, "batch", "seq", "act_kv_heads", "act_head_dim")
+        v = shard(v, "batch", "seq", "act_kv_heads", "act_head_dim")
         if cache is not None and ("k" in cache or "k_q" in cache):
             # decode: write the S new entries into ring/linear slots
             # lengths % Smax onward. The reference blends a one-hot over all
@@ -291,7 +299,8 @@ def attention(
     )
     if cfg.attn_out_scale is not None:
         out = out * cfg.attn_out_scale
-    y = coll_out(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)))
+    y = coll_out(shard(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)),
+                       "batch", "seq", "embed"))
     return y, new_cache
 
 
@@ -312,8 +321,9 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(dt))
     g = torch.einsum("bsd,df->bsf", x, p["wg"].to(dt))
-    h = activate(g, cfg.act) * h
-    return coll_out(torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt)))
+    h = shard(activate(g, cfg.act) * h, "batch", "seq", "ff")
+    y = torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
+    return coll_out(shard(y, "batch", "seq", "embed"))
 
 
 def moe_decl(cfg: ModelConfig) -> dict:
@@ -414,10 +424,11 @@ def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):
     token = slot // K  # (G, E*C)
 
     xe = torch.gather(xg, 1, token[..., None].expand(G, E * C, D))
-    xe = xe.reshape(G, E, C, D) * valid[..., None].to(dt)
+    xe = shard(xe.reshape(G, E, C, D) * valid[..., None].to(dt),
+               "batch", "experts", "capacity", "embed")
     h = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
     g_ = torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt))
-    h = activate(g_, cfg.act) * h
+    h = shard(activate(g_, cfg.act) * h, "batch", "experts", "capacity", "moe_ff")
     ye = coll_out(torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))).reshape(G, E * C, D)
 
     # combine: slot s = t*K + k sits at rank r of its expert's run in the
@@ -433,7 +444,7 @@ def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):
     y = contrib[:, :, 0]
     for k in range(1, K):
         y = y + contrib[:, :, k]
-    y = coll_out(y)
+    y = coll_out(shard(y, "batch", "seq", "embed"))
 
     # load-balancing aux loss (Switch/Mixtral formulation), averaged over groups
     me = torch.mean(probs, dim=1)  # (G, E)

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import shard
 from .config import ModelConfig
 from .params import ParamDecl
 
@@ -160,7 +161,8 @@ def mamba_apply(
     di, ns, nh, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     W = cfg.conv_width
 
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"].to(dt_))
+    zxbcdt = shard(torch.einsum("bsd,de->bse", x, p["in_proj"].to(dt_)),
+                   "batch", "seq", "ssm_inner")
     z, xs, B_, C_, dtr = _split_proj(zxbcdt, cfg)
     conv_in = torch.cat([xs, B_, C_], dim=-1)  # (B,S,conv_ch)
 
@@ -220,7 +222,7 @@ def mamba_apply(
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     yn = (p["norm_w"].to(F32) * yf * torch.rsqrt(var + cfg.norm_eps)).to(dt_)
     out = torch.einsum("bse,ed->bsd", yn, p["out_proj"].to(dt_))
-    return out, new_cache
+    return shard(out, "batch", "seq", "embed"), new_cache
 
 
 def mamba_cache_decl(cfg: ModelConfig, batch: int, dtype) -> dict:

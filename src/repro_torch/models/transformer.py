@@ -36,6 +36,11 @@ With ``kv_quant`` an attention cache holds "k_q", "v_q" (int8) and "k_s",
 writes the new token's K/V, or the new SSM and conv state, into that cache
 in place and returns it with ``lengths`` advanced; the cross K/V is
 read-only.
+
+``param_axes`` and ``cache_axes`` name every leaf's logical axes, the
+reference's, from which ``parallel/sharding.py`` places a tree on a mesh;
+the embeddings, the encoder's input and the logits pass the reference's
+``shard`` sites, as do the layers' activations (``models/layers.py``).
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..parallel.sharding import shard
 from .config import ModelConfig
 from .layers import (SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, moe_apply, moe_decl,
                      rms_norm, softcap)
@@ -284,6 +290,11 @@ class LM:
         return tree_map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
                         self.decls())
 
+    def param_axes(self) -> dict:
+        """Every param's logical axis names (``ParamDecl.axes``), in the tree
+        of ``param_shapes``."""
+        return tree_map(lambda d: d.axes, self.decls())
+
     # ------------------------------------------------------------------
     # Sublayer body and layer loop
     # ------------------------------------------------------------------
@@ -414,7 +425,7 @@ class LM:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(dtype), x], dim=1)
-        return x
+        return shard(x, "batch", "seq", "embed")
 
     def head(self, params, x) -> torch.Tensor:
         """Logits in float32, from x and the weights in x's type: bf16 x on the
@@ -427,7 +438,7 @@ class LM:
             logits = head_logits(x, w.to(x.dtype))
         else:
             logits = plain_head_logits(x, w)
-        return softcap(logits, cfg.final_logit_softcap)
+        return shard(softcap(logits, cfg.final_logit_softcap), "batch", "seq", "vocab")
 
     def encode(self, params, enc_embeds, remat=None):
         """The encoder stack over precomputed frame embeddings (B, Se, D),
@@ -437,7 +448,7 @@ class LM:
         recomputed whole in the backward pass, as the reference checkpoints
         its encoder whenever ``remat`` is set."""
         cfg = self.cfg
-        x = enc_embeds
+        x = shard(enc_embeds, "batch", "seq", "embed")
         positions = self._positions(x.shape[0], x.shape[1], x.device)
 
         def body(p, h):
@@ -566,6 +577,34 @@ class LM:
         if cfg.is_encoder_decoder:
             out["cross"] = cross
         return out
+
+    def cache_axes(self, cache_spec: dict) -> dict:
+        """Logical sharding axes for every leaf of a cache tree (a
+        ``cache_spec``, or a cache), by leaf name."""
+
+        def one(names):
+            lead = ("layers",) if "blocks" in names or "cross" in names else ()
+            name = names[-1]
+            if name == "lengths":
+                return ("batch",)
+            if name in ("k", "v", "k_q", "v_q"):
+                return lead + ("batch", "kv_seq", "kv_heads", "head_dim")
+            if name in ("k_s", "v_s"):
+                return lead + ("batch", "kv_seq", "kv_heads")
+            if name == "pos_ids":
+                return lead + ("batch", "kv_seq")
+            if name == "ssm":
+                return lead + ("batch", "ssm_heads", None, None)
+            if name == "conv":
+                return lead + ("batch", None, "conv_ch")
+            raise ValueError(f"unknown cache leaf {names}")
+
+        def rec(node, names):
+            if isinstance(node, dict):
+                return {k: rec(v, names + (k,)) for k, v in node.items()}
+            return one(names)
+
+        return rec(cache_spec, ())
 
     def init_cache(self, batch: int, kv_len: int, dtype=torch.bfloat16,
                    enc_len: Optional[int] = None) -> dict:

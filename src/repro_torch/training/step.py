@@ -4,8 +4,9 @@ The returned step is a function (state, batch) -> (state, metrics) that
 leaves its input state untouched, unless it is made with ``donate=True``:
 then it writes the new state into the tensors of the one it is given. Grads come from ``torch.autograd.grad``
 on the float32 master params; the forward computes in ``compute_dtype``.
-``state_axes`` (sharding) waits for the port of the mesh (ROADMAP queue 1,
-data-parallel and sharding).
+``state_axes`` gives every state leaf's logical axes, from which
+``parallel/sharding.py::tree_shardings`` places the state on a mesh
+(``launch/train.py``, ``checkpoint/store.py``'s elastic restore).
 """
 from __future__ import annotations
 
@@ -28,6 +29,16 @@ def init_state(model: LM, gen: torch.Generator) -> dict:
         "params": params,
         "opt": adamw.init(params),
         "step": torch.zeros((), dtype=torch.int32, device=model.device),
+    }
+
+
+def state_axes(model: LM) -> dict:
+    """The logical axes of every leaf of the state (``state_specs``'s tree)."""
+    pax = model.param_axes()
+    return {
+        "params": pax,
+        "opt": {"m": pax, "v": pax},
+        "step": (),
     }
 
 

@@ -61,18 +61,78 @@
 //    by alpha = 0 later).
 // No atomics, every sum in a fixed order: two runs give the same bits.
 //
-// bf16 tensor-core variant: hd 64 and 128, the training path. What bounds
-// it: operations (~300 FLOPs per byte moved at the training shape). Design
-// (FlashAttention-2): 4 warps, 64 folded rows (16 a warp) against K/V tiles
-// of 64 keys. S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products
-// with float32 accumulators, fed by ldmatrix from shared memory whose rows
-// are padded by 16 bytes (no bank conflicts). K/V tiles stream through a
-// double-buffered cp.async ring as above. P is rounded to bf16 for P V, where
-// the oracle rounds its probabilities too (models/layers.py,
-// probs.to(v.dtype)). mma.sync, not wgmma: a warp-level instruction that
-// needs no shared-memory descriptors or warpgroup fences, so a kernel can be
-// checked one warp's fragment at a time; wgmma with TMA and warp
-// specialisation is the next step up (later work).
+// Hopper variant (flash_wg_kernel): bf16 at hd 64 and 128, the training
+// forward with its log-sum-exp and bf16 prefill (qwen2-0.5b, the 32k cells,
+// mixtral, internlm2, granite and internvl2 at hd 128). What bounds it:
+// operations (qwen2-0.5b's training shape q (4,2048,14,64) k/v
+// (4,2048,2,64): 30.1 GFLOP causal, 0.0304 ms at 989 TFLOP/s, against 34 MB
+// moved, 0.010 ms at 3.35 TB/s). The design before it (mma.sync with ldmatrix,
+// FlashAttention-2) ran at ~15 % of that: every warp re-read each K/V tile
+// from shared memory, the warps that computed also issued the copies and
+// waited at two barriers a tile, and mma.sync held the tensor cores through
+// the softmax. This one follows FlashAttention-3 (arXiv 2407.08608):
+//  - A block is 384 threads: warpgroup 0 produces, warpgroups 1 and 2
+//    consume, each with 64 folded rows (128 a block). One producer thread
+//    issues TMA loads of K and V tiles of 128 keys into a ring of 3 stages;
+//    each stage has a "full" mbarrier, completed by the producer's expect_tx
+//    and the boxes' bytes, and an "empty" one, at which the 8 consumer warps
+//    arrive when done with it. setmaxnreg moves registers from the producer
+//    (24) to the consumers (240).
+//  - S = Q K^T is wgmma.m64n128k16, Q (K-major A) and K (K-major B) both
+//    from shared memory; O += P V is wgmma.m64n64k16 with P as a register A
+//    fragment (the S accumulator packed to bf16: two of its n-blocks of 8
+//    keys are one k-step of 16) and V the same swizzled tile read as an
+//    MN-major B, one product per 64 columns. The two warpgroups share every
+//    K/V tile of the ring.
+//  - Within a warpgroup, tile t's S and tile t - 1's P V are issued
+//    together; the softmax of tile t waits for S only and runs while P V is
+//    on the tensor cores (FA3's intra-warpgroup overlap), so a tile stays
+//    in the ring until the next tile's turn: with 2 stages the next load
+//    would find no free stage and every tile would wait for its load. The
+//    softmax writes its exponentials into the S registers,
+//    and P is packed to bf16 only once the last P V is done with the P
+//    registers: a P written while a product still read the last one made
+//    ptxas serialise every product (its warning C7513).
+//  - The two consumers take turns at issuing their products (named
+//    barriers), so that one's softmax runs under the other's products
+//    (FA3's ping-pong).
+//  - The softmax runs in log2 units (the scale times log2(e) folded into
+//    the exponent's multiply-add, 2^x in one MUFU.EX2), with four partial
+//    maxima and sums a row to keep the dependent chains short; masking and
+//    the softcap in copies of the loop chosen by block-uniform branches; a
+//    warpgroup skips a tile wholly outside its rows' causal or window range
+//    (exact, as above).
+//  - Block i takes row tile nx - 1 - i / (K * B) of (b, kv head) i % (K * B):
+//    the longest causal row tiles of every (b, kv head) first.
+//  - P is rounded to bf16 for P V, l is summed from the unrounded p;
+//    masked scores are -1e30, keys past Sk -inf, l is clamped at 1e-30, as
+//    the other variants. No atomics: two runs give the same bits.
+// What it waits on: with the softmax left out it runs in about 60 % of its
+// time at hd 64 (scripts/flash_variants.py builds and times such
+// variants): the exponentials and maxima, not the loads or the products,
+// are what a further pass has to hide.
+// Trouble spots, and what was done about each:
+//  - Tensor maps from a library loaded with ctypes: cuTensorMapEncodeTiled
+//    is a driver function and the library is not linked to libcuda, so its
+//    entry point comes from cudaGetDriverEntryPointByVersion; the maps hold
+//    the base pointers, so they are encoded on every
+//    call (host microseconds) and passed as __grid_constant__ parameters.
+//  - K/V (B,Sk,K,hd) are 4-D maps (hd, K, Sk, B) with boxes (64, 1, 128, 1):
+//    keys past Sk of a batch row are zero-filled, never the next row's; hd
+//    128 loads two 64-column boxes a tile (the 128-byte swizzle spans 64
+//    bf16 columns); expect_tx counts whole boxes, the zero-filled part too;
+//    the ring is aligned to 1024 bytes by hand (the dynamic shared memory's
+//    base is not).
+//  - Q's folded rows (q * G + g) are not one TMA box when G does not divide
+//    the tile (G = 7): each consumer loads its 64 rows once by cp.async into
+//    the same swizzled layout (zeros past G * Sq), fences them for the async
+//    proxy and syncs its warpgroup on a named barrier.
+//  - The masks: each thread's two rows (lane/4 and + 8 of its warp's 16, the
+//    wgmma accumulator's layout, which is mma.sync's) have their queries
+//    q = r / G computed once; the row max and sum are quad shuffles.
+//  - Registers at hd 128: S 64, O 64 and P 32 a thread fit the consumers'
+//    240 (ptxas reports the launch's even share, 168, with no spills;
+//    chip_smoke.py prints it).
 //
 // CUDA-core variant: what neither tensor-core variant takes, float32 at hd
 // 256 (gemma2-2b; its split fragments and accumulators would not fit the
@@ -81,12 +141,16 @@
 // each (dims lane + TPR*i); a row's dot product is a shuffle reduction over
 // them; K/V tiles are staged as float32 in static shared memory (32 KB at
 // every hd: 64 keys at hd <= 64, 32 at hd 128, 16 at hd 256).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tc_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -94,6 +158,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -208,157 +273,305 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- tensor-core variant (bf16, hd 64 and 128) ------------------------------
+// ---- Hopper variant (bf16, hd 64 and 128): TMA, an mbarrier ring, wgmma ----
 
 template <int HD>
-struct TcTiling {
-  static constexpr int kThreads = 128;  // 4 warps
-  static constexpr int kBM = 64;        // folded query rows per block, 16 a warp
-  static constexpr int kBN = 64;        // keys per K/V tile
-  static constexpr int kSt = HD + 8;    // padded shared row, bf16 elements
-  static constexpr int kSmem = (kBM + 4 * kBN) * kSt * (int)sizeof(bf16);  // Q; 2 x (K, V)
+struct WgTiling {
+  static constexpr int kNC = 2;         // consumer warpgroups
+  static constexpr int kThreads = 128 * (1 + kNC);  // warpgroup 0 loads, 1 and 2 compute
+  static constexpr int kBM = 64 * kNC;  // folded query rows a block, 64 a consumer
+  static constexpr int kBN = 128;       // keys a K/V tile
+  static constexpr int kNA = HD / 64;   // 64-column sub-tiles (TMA boxes) of a row
+  static constexpr int kStages = 3;     // K/V ring stages
+  static constexpr int kBox = kBN * 128;         // bytes of a box: 64 columns of kBN keys
+  static constexpr int kQTile = kNA * kSubTile;  // bytes of a consumer's 64 Q rows
+  static constexpr int kKVTile = kNA * kBox;     // bytes of a K (or V) tile
+  // 1024 bytes for the alignment; Q of the consumers; the K and V rings;
+  // a full and an empty mbarrier a stage
+  static constexpr int kSmem = 1024 + kNC * kQTile + 2 * kStages * kKVTile + 2 * kStages * 8;
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg
 };
 
 template <int HD>
-__global__ void __launch_bounds__(128)
-flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o,
-                float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal,
-                int window, float cap, float scale) {
-  using C = TcTiling<HD>;
-  constexpr int BM = C::kBM, BN = C::kBN, ST = C::kSt, NT = C::kThreads;
-  constexpr int KD = HD / 16, ND = HD / 8, NN = BN / 8, CH = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [BM][ST]
-  bf16* ks = qs + BM * ST;                   // [2][BN][ST]
-  bf16* vs = ks + 2 * BN * ST;               // [2][BN][ST]
+__global__ void __launch_bounds__(WgTiling<HD>::kThreads, 1)
+flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                const bf16* __restrict__ q, bf16* __restrict__ o, float* __restrict__ lse,
+                int Sq, int Sk, int H, int K, int B, int causal, int window, float cap,
+                float scale) {
+  using W = WgTiling<HD>;
+  constexpr int BM = W::kBM, BN = W::kBN, NA = W::kNA, ST = W::kStages, CH = HD / 8, NC = W::kNC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* qsw = align1024(smem_raw);     // [NC] Q tiles [64][HD]
+  unsigned char* ksw = qsw + NC * W::kQTile;    // [ST] K tiles [BN][HD]
+  unsigned char* vsw = ksw + ST * W::kKVTile;   // [ST] V tiles [BN][HD]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vsw + ST * W::kKVTile);  // [ST]
+  uint64_t* empty = full + ST;                                          // [ST]
 
-  const int G = H / K;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;  // the longest causal rows first
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // block i: row tile nx - 1 - i / (K * B) of (b, kv head) i % (K * B), so
+  // that the longest causal row tiles of every (b, kv head) come first
+  const int G = H / K, kb = K * B;
+  const int nx = (G * Sq + BM - 1) / BM;
+  const int grp = blockIdx.x % kb, kvh = grp % K, b = grp / K;
+  const int r0 = (nx - 1 - (int)(blockIdx.x / kb)) * BM;
   const int q_first = r0 / G;
   const int q_last = min(Sq - 1, (r0 + BM - 1) / G);
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
   const int k_begin = window > 0 ? max(0, q_first - window + 1) / BN * BN : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+  const int tid = threadIdx.x;
 
-  for (int c = tid; c < BM * CH; c += NT) {
-    const int rr = c / CH, cc = (c % CH) * 8;
-    const int r = r0 + rr, qi = r / G;
-    const bool ok = qi < Sq;
-    const size_t off = ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + r % G) * HD + cc : 0;
-    cp_async16(qs + rr * ST + cc, q + off, ok);
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);  // the producer's arrival and the tile's bytes
+      mbar_init(&empty[s], 4 * NC);  // one arrival from each consumer warp
+    }
+    mbar_fence_init();
   }
-  auto load_kv = [&](int k0, int buf) {
-    for (int c = tid; c < BN * CH; c += NT) {
-      const int j = c / CH, cc = (c % CH) * 8;
-      const int key = k0 + j;
-      const bool ok = key < Sk;
-      const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
-      cp_async16(ks + (buf * BN + j) * ST + cc, k + off, ok);
-      cp_async16(vs + (buf * BN + j) * ST + cc, v + off, ok);
+  __syncthreads();
+
+  if (tid < 128) {  // the producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W::kProducerRegs));
+    if (tid == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST, k0 = k_begin + t * BN;
+        mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(&full[s], 2 * W::kKVTile);  // whole boxes, zeros past Sk too
+#pragma unroll
+        for (int a = 0; a < NA; ++a) {
+          tma_load_4d(ksw + s * W::kKVTile + a * W::kBox, &tk, &full[s], a * 64, kvh, k0, b);
+          tma_load_4d(vsw + s * W::kKVTile + a * W::kBox, &tv, &full[s], a * 64, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 folded rows against every K/V tile of the ring
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W::kConsumerRegs));
+  const int cw = tid / 128 - 1, wtid = tid % 128, warp = wtid >> 5, lane = tid & 31;
+  const int rw = r0 + cw * 64;  // this warpgroup's first folded row
+  unsigned char* qt = qsw + cw * W::kQTile;
+  // Q once, by cp.async into the swizzled layout: its folded rows are G
+  // heads of a token, then the next token's, which no TMA box describes
+  for (int c = wtid; c < 64 * CH; c += 128) {
+    const int rr = c / CH, ch = c % CH, r = rw + rr, qi = r / G;
+    const bool ok = qi < Sq;
+    const size_t off =
+        ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + r % G) * HD + ch * 8 : 0;
+    cp_async16(qt + tile_off(rr, ch), q + off, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+  wg_bar_sync(1 + cw);
+
+  const int wq_first = rw / G;                          // the warpgroup's first query
+  const int wq_last = min(Sq - 1, (rw + 63) / G);       // and its last real one
+  const int ra = rw + warp * 16 + (lane >> 2);          // this thread's rows: ra, ra + 8
+  const int qa = ra / G, qb = (ra + 8) / G;
+  const float scale_log2 = scale * kLog2e, scale_cap = cap > 0.f ? scale / cap : 0.f;
+  const float masked_log2 = kNegInf * kLog2e;  // the masked score -1e30, in log2 units
+  float acc[NA][8][4];  // O: columns a*64 + n*8 + 2*(lane%4) (+1)
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[a][n][0] = acc[a][n][1] = acc[a][n][2] = acc[a][n][3] = 0.f;
+  float m[2] = {masked_log2, masked_log2}, l[2] = {0.f, 0.f};  // m in log2 units
+
+  // the tiles this warpgroup computes, [t_lo, t_hi): a tile wholly outside
+  // its rows' causal or window range is skipped, which is exact (its
+  // weights are 0, or are wiped by alpha = 0 when the rows' first visible
+  // key comes); it still waits for every tile and releases it
+  int t_lo = 0, t_hi = n_tiles;
+  if (wq_first >= Sq) {
+    t_hi = 0;
+  } else {
+    if (window > 0) t_lo = min(n_tiles, max(0, (wq_first - window + 1 - k_begin) / BN));
+    if (causal) t_hi = max(t_lo, min(n_tiles, (wq_last - k_begin) / BN + 1));
+  }
+  // the two consumers take turns at issuing products (named barriers 3 and
+  // 4): one's softmax runs under the other's products. Each takes n_tiles
+  // + 1 turns, one a tile and one for the last O += P V.
+  auto turn_begin = [&] {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + NC + cw) : "memory");
+  };
+  auto turn_end = [&] {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + NC + (cw + 1) % NC) : "memory");
+  };
+  if (cw == NC - 1) turn_end();  // the last consumer lets the first go first
+  auto pass = [&](int t) {  // wait for tile t and release it unread
+    mbar_wait(&full[t % ST], (t / ST) & 1);
+    turn_begin();
+    turn_end();
+    if (lane == 0) mbar_arrive(&empty[t % ST]);
+  };
+  auto k_tile = [&](int t) { return ksw + (t % ST) * W::kKVTile; };
+  auto v_tile = [&](int t) { return vsw + (t % ST) * W::kKVTile; };
+  // S = Q K^T for tile t, 64 rows x BN keys, both operands from shared
+  // memory; issued, not waited for
+  float sc[BN / 8][4];
+  auto issue_s = [&](int t) {
+    const unsigned char* kt = k_tile(t);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wg_n128(sc, wg_desc_k(qt, kk), wg_desc(kt + (kk >> 2) * W::kBox) + 2 * (kk & 3), kk);
+    wg_commit();
+  };
+  // O += P V for tile t over its BN keys, 16 a step: P the register A, V
+  // the MN-major B, each 64 columns a product; issued, not waited for
+  auto issue_pv = [&](int t, const uint32_t (&p)[BN / 16][4]) {
+    const unsigned char* vt = v_tile(t);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+        wg_n64<1>(acc[a], p[kk], wg_desc(vt + a * W::kBox + kk * 16 * 128), 1);
+    wg_commit();
+  };
+  // the online softmax of tile t's scores, in place: scale, cap and mask
+  // in log2 units, the rows' new maxima (alpha rescales what came before),
+  // and sc := p = 2^(x - m), summed unrounded into l. Partial maxima and
+  // sums, four a row, keep the chains short. One copy for each of
+  // (softcap, masked tile), chosen by block-uniform branches; without
+  // either, the scale is folded into the exponent's multiply-add.
+  auto softmax = [&](int t, float (&alpha)[2]) {
+    const int k0 = k_begin + t * BN;
+    const bool edge = (causal && k0 + BN - 1 > wq_first) ||
+                      (window > 0 && wq_last - k0 >= window) || k0 + BN > Sk;
+    auto body = [&](auto capped, auto masked) {
+      constexpr bool kCap = decltype(capped)::value, kMask = decltype(masked)::value;
+      constexpr bool kRaw = !kCap && !kMask;
+      if constexpr (!kRaw) {
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x;
+            if constexpr (kCap)
+              x = cap * tanhf(sc[n][e] * scale_cap) * kLog2e;
+            else
+              x = sc[n][e] * scale_log2;
+            if constexpr (kMask) {
+              const int key = k0 + n * 8 + ((lane & 3) << 1) + (e & 1);
+              const int qi = e < 2 ? qa : qb;
+              if (key >= Sk)
+                x = -INFINITY;  // not a key: no weight even in a row with none valid
+              else if ((causal && key > qi) || (window > 0 && qi - key >= window))
+                x = masked_log2;
+            }
+            sc[n][e] = x;
+          }
+      }
+      float mp[2][4];
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float x = fmaxf(sc[n][2 * i], sc[n][2 * i + 1]);
+          mp[i][n & 3] = n < 4 ? x : fmaxf(mp[i][n & 3], x);
+        }
+      const float mul = kRaw ? scale_log2 : 1.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = fmaxf(fmaxf(mp[i][0], mp[i][1]), fmaxf(mp[i][2], mp[i][3])) * mul;
+        mx = fmaxf(m[i], mx);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[i] = fast_exp2(m[i] - mx);
+        m[i] = mx;
+      }
+      float ls[2][4];
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = fast_exp2(fmaf(sc[n][e], mul, -m[e >> 1]));
+          ls[e >> 1][n & 3] = n < 4 && (e & 1) == 0 ? sc[n][e] : ls[e >> 1][n & 3] + sc[n][e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        l[i] = l[i] * alpha[i] + ((ls[i][0] + ls[i][1]) + (ls[i][2] + ls[i][3]));
+    };
+    using T_ = std::true_type;
+    using F_ = std::false_type;
+    if (cap > 0.f) {
+      if (edge) body(T_{}, T_{}); else body(T_{}, F_{});
+    } else {
+      if (edge) body(F_{}, T_{}); else body(F_{}, F_{});
     }
   };
-  load_kv(k_begin, 0);
-  cp_async_commit();
-
-  // this thread's rows of the tile: warp*16 + lane/4 (d[0], d[1]) and + 8 (d[2], d[3])
-  const int ra = r0 + warp * 16 + (lane >> 2);
-  const int qa = ra / G, qb = (ra + 8) / G;
-  uint32_t qf[KD][4];
-  float acc[ND][4];
+  // P in bf16 as the A operand of O += P V: two n-blocks of 8 keys of the S
+  // accumulator are one A k-step of 16
+  auto to_p = [&](uint32_t (&p)[BN / 16][4]) {
 #pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  int buf = 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += BN, buf ^= 1) {
-    if (k0 + BN < k_end) {
-      load_kv(k0 + BN, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int n = 0; n < BN / 8; ++n) {
+      p[n >> 1][(n & 1) * 2] = pack_bf16(sc[n][0], sc[n][1]);
+      p[n >> 1][(n & 1) * 2 + 1] = pack_bf16(sc[n][2], sc[n][3]);
     }
-    __syncthreads();
-    if (k0 == k_begin) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(qf[kk], qs + (warp * 16 + a_row(lane)) * ST + kk * 16 + a_col(lane));
-    }
-    const bf16* kt = ks + buf * BN * ST;
-    const bf16* vt = vs + buf * BN * ST;
+  };
 
-    // S = Q K^T, 16 rows x BN keys a warp
-    float s[NN][4];
+  // within the warpgroup, tile t's S = Q K^T and tile t - 1's O += P V run
+  // on the tensor cores while the softmax of tile t waits only for S (P is
+  // packed only once O += P V is done with the registers of the last P)
+  for (int t = 0; t < t_lo; ++t) pass(t);
+  if (t_lo < t_hi) {
+    uint32_t pa[BN / 16][4];
+    float alpha[2];
+    mbar_wait(&full[t_lo % ST], (t_lo / ST) & 1);
+    turn_begin();
+    fence_regs(sc);
+    wg_fence();
+    issue_s(t_lo);
+    turn_end();
+    wg_wait0();
+    fence_regs(sc);
+    softmax(t_lo, alpha);  // O is still 0: no rescale
+    to_p(pa);
+    for (int t = t_lo + 1; t < t_hi; ++t) {
+      mbar_wait(&full[t % ST], (t / ST) & 1);
+      turn_begin();
+      fence_regs(sc);
 #pragma unroll
-    for (int n = 0; n < NN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+      wg_fence();
+      issue_s(t);
+      issue_pv(t - 1, pa);
+      turn_end();
+      wg_wait<1>();  // S of tile t
+      fence_regs(sc);
+      softmax(t, alpha);
+      wg_wait0();  // O += P V of tile t - 1
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+      for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % ST]);
 #pragma unroll
-      for (int n = 0; n < NN; n += 2) {
-        uint32_t bb[4];
-        ldsm_x4(bb, kt + (n * 8 + bn_row(lane)) * ST + kk * 16 + bn_col(lane));
-        mma16816(s[n], qf[kk], bb[0], bb[1]);
-        mma16816(s[n + 1], qf[kk], bb[2], bb[3]);
-      }
-    }
-
-    // scale, cap and mask; a tile inside every row's range skips the mask
-    const bool edge = (causal && k0 + BN - 1 > q_first) ||
-                      (window > 0 && q_last - k0 >= window) || k0 + BN > Sk;
-    float mx[2] = {m[0], m[1]};
+      for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int n = 0; n < NN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        if (cap > 0.f) x = cap * tanhf(x / cap);
-        if (edge) {
-          const int key = k0 + n * 8 + ((lane & 3) << 1) + (e & 1);
-          const int qi = e < 2 ? qa : qb;
-          if (key >= Sk) x = -INFINITY;  // not a key: no weight even in a row with none valid
-          else if ((causal && key > qi) || (window > 0 && qi - key >= window)) x = kNegInf;
+        for (int n = 0; n < 8; ++n) {
+          acc[a][n][0] *= alpha[0];
+          acc[a][n][1] *= alpha[0];
+          acc[a][n][2] *= alpha[1];
+          acc[a][n][3] *= alpha[1];
         }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+      to_p(pa);
     }
+    turn_begin();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float alpha = exp2f((m[i] - mx[i]) * kLog2e);
-      m[i] = mx[i];
-      l[i] *= alpha;
+    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+    wg_fence();
+    issue_pv(t_hi - 1, pa);
+    turn_end();
+    wg_wait0();
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][2 * i] *= alpha;
-        acc[n][2 * i + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[n][e] - m[e >> 1]) * kLog2e);
-        s[n][e] = p;
-        l[e >> 1] += p;  // this thread's share; the quad sums at the end
-      }
-    }
-
-    // O += P V, P in bf16
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      mma_ab<HD, ST>(acc, pa, vt + kk * 16 * ST, lane);
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+    if (lane == 0) mbar_arrive(&empty[(t_hi - 1) % ST]);
+  } else {
+    turn_begin();
+    turn_end();
   }
+  for (int t = t_hi; t < n_tiles; ++t) pass(t);
+  if (cw == 0) turn_begin();  // the last consumer's last turn_end
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -367,18 +580,20 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = ra + 8 * i, qi = r / G;
+    const int r = ra + 8 * i, qi = i == 0 ? qa : qb;
     if (qi >= Sq) continue;
     const int h = kvh * G + r % G;
     const float lc = fmaxf(l[i], 1e-30f);
     const float inv = 1.f / lc;
     bf16* orow = o + (((size_t)b * Sq + qi) * H + h) * HD + ((lane & 3) << 1);
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + a * 64 + n * 8) =
+            pack_bf16(acc[a][n][2 * i] * inv, acc[a][n][2 * i + 1] * inv);
     if (lse != nullptr && (lane & 3) == 0)
-      lse[((size_t)b * H + h) * Sq + qi] = m[i] + logf(lc);
+      lse[((size_t)b * H + h) * Sq + qi] = m[i] * kLn2 + logf(lc);
   }
 }
 
@@ -674,21 +889,61 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaSuccess;
 }
 
+// cuTensorMapEncodeTiled, a driver function: the library is linked to the
+// runtime only, so it is fetched through the runtime's entry-point query
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the tensor map of k or v (B,Sk,K,hd) bf16 as a 4-D tensor (hd, K, Sk, B),
+// innermost first, read in boxes of 64 columns x bn keys of one kv head and
+// batch row, 128-byte swizzled: keys past Sk read zeros, never the next
+// batch row's
+bool kv_map(CUtensorMap* map, const void* base, int B, int Sk, int K, int hd, int bn) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)K, (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)K * hd * 2,
+                                 (cuuint64_t)Sk * K * hd * 2};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)bn, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int HD>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
+cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, float* lse,
                       int B, int Sq, int Sk, int H, int K, int causal, int window,
                       float cap, float scale, cudaStream_t stream) {
-  using C = TcTiling<HD>;
+  using W = WgTiling<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+      flash_wg_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, W::kSmem);
   if (attr != cudaSuccess) return attr;
-  const long long rows = (long long)(H / K) * Sq;
-  const long long nx = (rows + C::kBM - 1) / C::kBM;
-  if (nx > 0x7fffffffLL || K > 65535 || B > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)nx, K, B);
-  flash_tc_kernel<HD><<<grid, C::kThreads, C::kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, Sq, Sk, H, K, causal, window, cap, scale);
+  const long long rows = (long long)(H / K) * Sq;  // folded rows, held in int by the kernel
+  const long long blocks = (rows + W::kBM - 1) / W::kBM * K * B;
+  if (rows + W::kBM > 0x7fffffffLL || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap tk, tv;
+  if (!kv_map(&tk, k, B, Sk, K, HD, W::kBN) || !kv_map(&tv, v, B, Sk, K, HD, W::kBN))
+    return cudaErrorInvalidValue;
+  flash_wg_kernel<HD><<<(unsigned)blocks, W::kThreads, W::kSmem, stream>>>(
+      tk, tv, static_cast<const bf16*>(q), static_cast<bf16*>(o), lse, Sq, Sk, H, K, B,
+      causal, window, cap, scale);
   return cudaSuccess;
 }
 
@@ -744,8 +999,8 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
       case 8: err = launch<bf16, 8>(FLASH_ARGS); break;
       case 16: err = launch<bf16, 16>(FLASH_ARGS); break;
       case 32: err = launch<bf16, 32>(FLASH_ARGS); break;
-      case 64: err = launch_tc<64>(FLASH_ARGS); break;
-      case 128: err = launch_tc<128>(FLASH_ARGS); break;
+      case 64: err = launch_wg<64>(FLASH_ARGS); break;
+      case 128: err = launch_wg<128>(FLASH_ARGS); break;
       case 256: err = launch<bf16, 256>(FLASH_ARGS); break;
     }
   }

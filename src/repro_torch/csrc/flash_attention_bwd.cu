@@ -72,7 +72,7 @@
 
 #include <type_traits>
 
-#include "tc_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -304,7 +304,6 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 // mma.sync's C fragment layout, 16 rows a warp.
 
 constexpr int kKeys = 64;         // keys a dK/dV block
-constexpr int kSubTile = 64 * 128;  // bytes of a 64-row, 64-column sub-tile
 
 // 4 bytes global -> shared, asynchronously; zero-fills when !ok (src must
 // still be a valid address)
@@ -312,37 +311,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(ok ? 4 : 0)
                : "memory");
-}
-
-// 2^x in one MUFU.EX2 (flushes a result below 2^-126 to zero)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// n / G by a multiply-high with gm = ceil(2^32 / G): exact for n * G < 2^32,
-// which the launch checks (n is a folded row, below G * Sq)
-__device__ __forceinline__ int div_g(int n, unsigned long long gm) {
-  return (int)(((unsigned long long)(unsigned)n * gm) >> 32);
-}
-
-// byte offset of 16-byte chunk c (of HD/8) of row r (of 64) in a tile
-__device__ __forceinline__ int tile_off(int r, int c) {
-  return (c >> 3) * kSubTile + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// the descriptor of a sub-tile (or of its rows from a multiple of 8 on) at
-// p, either major: 1024 bytes between groups of 8 rows (the 64-column
-// swizzle atom spans the sub-tile, so the other stride is unused)
-__device__ __forceinline__ uint64_t wg_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// the K-major descriptor of k-step kk (16 columns) of a tile's rows at p
-__device__ __forceinline__ uint64_t wg_desc_k(const unsigned char* p, int kk) {
-  return wg_desc(p + (kk >> 2) * kSubTile) + 2 * (kk & 3);
 }
 
 // a warp's 16 rows of a tile as HD/16 A fragments (ldmatrix through the swizzle)
@@ -353,79 +321,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4], const unsigned
   for (int kk = 0; kk < HD / 16; ++kk)
     ldsm_x4(a[kk], reinterpret_cast<const bf16*>(
                        tile + tile_off(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))));
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// shared-memory writes of this thread (cp.async) made visible to wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// the compiler may not move reads or writes of d across this point
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
-}
-
-#define WG_D16                                                                         \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),           \
-      "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),       \
-      "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-#define WG_D32                                                                           \
-  WG_D16, "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),     \
-      "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]),         \
-      "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-#define WG_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define WG_R32                                                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
-  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64 x 32) (+)= A B^T, B the 32 x 16 K-major slice at db; A (64 x 16) in
-// registers, or the K-major slice at da
-__device__ __forceinline__ void wg_n32(float (&d)[4][4], const uint32_t (&a)[4], uint64_t db,
-                                       int acc) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_R16
-               ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-               : WG_D16
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-__device__ __forceinline__ void wg_n32(float (&d)[4][4], uint64_t da, uint64_t db, int acc) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_R16
-               ", %16, %17, p, 1, 1, 0, 0;\n}\n"
-               : WG_D16
-               : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 64) (+)= A B: B the 16 x 64 MN-major slice at db (kTrans 1), or
-// B^T with B the 64 x 16 K-major slice (kTrans 0); A (64 x 16) in registers,
-// or the K-major slice at da
-template <int kTrans>
-__device__ __forceinline__ void wg_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db,
-                                       int acc) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
-               ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-               : WG_D32
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTrans));
-}
-__device__ __forceinline__ void wg_n64(float (&d)[8][4], uint64_t da, uint64_t db, int acc) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
-               ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-               : WG_D32
-               : "l"(da), "l"(db), "r"(acc));
 }
 
 // D = rowsum(dO * O) on the tensor-core route: HD/8 threads a row, 16-byte loads
@@ -467,10 +362,6 @@ struct WgTiling {
   static constexpr int kSmem1 = 1024 + 6 * kTile + 4 * kBM * 4;
   static constexpr int kSmem2 = 1024 + 6 * kTile;
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
 
 // pass 1: dK, dV of kKeys keys of one (b, kv head) over one segment of
 // their row walk. items[blockIdx.x / (K * B)] = {key tile, first folded row,

@@ -10,10 +10,15 @@ multiples of 128): seamless's cross-attention runs non-causal at Sq != Sk;
 hd in {8, 16, 32, 64, 128, 256}; float32 or bfloat16 in, out in q's type.
 float32 at hd <= 128 runs on the tensor cores in split-TF32 (its algorithm
 step by step: ``ref.flash_attention_split_ref``), bfloat16 at hd 64 and
-128 on the tensor cores in bf16; the rest on the CUDA cores. The
-tensor-core routes copy 16 bytes at a time, so there q, k and v must start
-on a 16-byte boundary (a float32 view at an offset of a whole number of
-4 floats, a bfloat16 one of 8); the wrapper raises ``ValueError`` if not.
+128 on Hopper's warpgroup products (``flash_wg_kernel``: TMA loads of K/V
+into an mbarrier ring from a producer warpgroup, two consumer warpgroups on
+wgmma; its shared memory, ring and TMA boxes are ``wg_plan``); the rest on the
+CUDA cores. The tensor-core routes copy 16 bytes at a time (TMA too needs
+16-byte aligned tensors), so there q, k and v must start on a 16-byte
+boundary (a float32 view at an offset of a whole number of 4 floats, a
+bfloat16 one of 8); the wrapper raises ``ValueError`` if not
+(``check_route``, which also refuses shapes whose folded rows or blocks
+overflow the kernels' 32-bit indices).
 
 ``flash_attention`` is the serving entry point; ``flash_attention_lse``
 also returns the float32 log-sum-exp of each row, (B,H,Sq), which the
@@ -41,6 +46,67 @@ HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
+#: the bf16 route (``WgTiling`` in csrc/flash_attention.cu): head dims,
+#: threads a block (a producer warpgroup and two consumer warpgroups),
+#: folded query rows a block (64 a consumer), keys a K/V tile, ring stages,
+#: the columns of a TMA box (the 128-byte swizzle spans 64 bf16 columns)
+#: and the registers a thread that setmaxnreg gives the producer and the
+#: consumers
+WG_HEAD_DIMS = (64, 128)
+WG_THREADS = 384
+WG_ROWS = 128
+WG_KEYS = 128
+WG_STAGES = 3
+WG_BOX_COLS = 64
+WG_REGS = (24, 240)
+_INT_MAX = 2**31 - 1
+
+
+def wg_plan(hd):
+    """The bf16 route's plan at head dim ``hd``, as the kernel lays it out:
+    ``threads``, ``rows`` (folded query rows a block), ``keys`` (a tile),
+    ``stages`` of the K/V ring, ``smem_bytes`` (1024 for aligning the ring
+    by hand, Q of both consumers, the K and V rings, a full and an empty
+    8-byte mbarrier a stage), the TMA ``box`` (columns, keys) of K or V,
+    ``boxes`` a tile (K and V, hd/64 each) and ``tx_bytes``, what a stage's
+    full barrier waits for (whole boxes, zero-filled keys past Sk too) and
+    the setmaxnreg ``regs`` of the producer and the consumers."""
+    if hd not in WG_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the bf16 route takes head_dim {WG_HEAD_DIMS}, not {hd}")
+    sub = hd // WG_BOX_COLS  # 64-column boxes a row
+    box_bytes = WG_BOX_COLS * WG_KEYS * 2
+    stages = WG_STAGES
+    q_bytes = WG_ROWS * hd * 2
+    kv_tile = sub * box_bytes
+    return {"threads": WG_THREADS, "rows": WG_ROWS, "keys": WG_KEYS, "stages": stages,
+            "smem_bytes": 1024 + q_bytes + 2 * stages * kv_tile + 2 * stages * 8,
+            "box": (WG_BOX_COLS, WG_KEYS), "boxes": 2 * sub, "tx_bytes": 2 * kv_tile,
+            "regs": WG_REGS}
+
+
+def check_route(q, k, v):
+    """The checks that need no device: shapes, head dim, dtype, the
+    tensor-core routes' 16-byte alignment (float32 at hd <= 128, bfloat16
+    at hd 64 and 128) and the index range of the bf16 route. Raises
+    ValueError or TypeError for what the kernels do not take."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, K, hd) or v.shape != k.shape or H % K:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: dtype {q.dtype} not in (float32, bfloat16)")
+    wgmma = q.dtype == torch.bfloat16 and hd in WG_HEAD_DIMS
+    tensor_cores = wgmma or (q.dtype == torch.float32 and hd <= 128)
+    if tensor_cores and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"flash_attention: {q.dtype} at head_dim {hd} runs on the tensor cores, "
+                         "which need q, k and v to start on a 16-byte boundary")
+    rows = H // K * Sq
+    if wgmma and (rows + WG_ROWS > _INT_MAX or -(-rows // WG_ROWS) * K * B > _INT_MAX):
+        raise ValueError(f"flash_attention: {rows} folded rows a kv head at batch {B} overflow "
+                         "the bf16 route's 32-bit row and block indices")
+
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     if q.device.type == "cpu":
@@ -59,15 +125,8 @@ def _launch(q, k, v, causal, window, softcap, with_lse):
     _build.refuse_grad("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if k.shape != (B, Sk, K, hd) or v.shape != k.shape or H % K:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    check_route(q, k, v)
     _build.check_cuda_inputs("flash_attention", q.dtype, q, k, v)
-    tensor_cores = hd <= 128 if q.dtype == torch.float32 else hd in (64, 128)
-    if tensor_cores and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"flash_attention: {q.dtype} at head_dim {hd} runs on the tensor cores, "
-                         "which need q, k and v to start on a 16-byte boundary")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if o.numel() == 0:

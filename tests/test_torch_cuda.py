@@ -81,6 +81,15 @@ FLASH = [
     (1, 256, 14, 2, 64, False, 0, 0.0),  # non-causal
     (1, 129, 4, 2, 32, False, 48, 0.0),  # non-causal, window, ragged
     (2, 37, 4, 2, 32, True, 256, 30.0),  # window >= S, softcap
+    # the edges of the bf16 route at hd 64 and 128 (flash_wg_kernel: 128
+    # folded rows a block, 128 keys a tile)
+    (1, 100, 14, 2, 64, True, 0, 0.0),  # G Sq = 700: not a multiple of a block's rows
+    (2, 17, 7, 1, 128, True, 0, 0.0),  # G Sq = 119: under one block's rows
+    (1, 37, 8, 2, 64, True, 0, 0.0),  # Sk under one key tile
+    (1, 4097, 8, 1, 64, True, 0, 0.0),  # a ragged last key tile
+    (1, 500, 4, 2, 64, True, 100, 0.0),  # a window that cuts inside a key tile
+    (2, 200, 8, 4, 128, True, 0, 30.0),  # softcap at hd 128
+    (1, 8192, 14, 2, 64, True, 0, 0.0),  # 8192 tokens, causal GQA 7:1
 ]
 # flash backward: the cases of test_flash_attention_diff_grads_match_plain_autograd
 FLASH_BWD = [
@@ -232,13 +241,15 @@ def test_flash_lse_matches_plain(dev, case, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [FLASH[0], FLASH[2], FLASH[7]])
-def test_flash_tf32_kernel_is_deterministic(dev, case):
+def test_flash_kernel_is_deterministic_in_float32_and_bfloat16(dev, case, dtype):
     """float32 at hd <= 128 (split-TF32 tensor cores): two key halves merge
-    in a fixed order, so two runs give the same bits."""
+    in a fixed order; bfloat16 at hd 64 and 128 (flash_wg_kernel): every sum
+    in a fixed order, no atomics. Two runs give the same bits."""
     B, S, H, K, hd, causal, win, cap = case
     gen = torch.Generator(device=dev).manual_seed(13)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
     first = flash_attention_lse(q, k, v, causal=causal, window=win, softcap=cap)
     for _ in range(2):
@@ -663,6 +674,8 @@ FLASH_XQ = [
     (1, 100, 37, 4, 2, 16, True),
     (2, 129, 333, 8, 4, 128, False),
     (1, 333, 129, 8, 4, 128, True),
+    (1, 37, 4097, 14, 2, 64, False),  # few queries against a ragged last key tile
+    (2, 300, 77, 8, 2, 128, True),  # Sk under one key tile at hd 128
 ]
 
 

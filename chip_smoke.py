@@ -233,11 +233,37 @@ Phases, each of which raises on failure (there is no CPU fallback):
      H100, PERF.md): a checkpoint written by train() restored through
      tree_shardings onto the (1,1) mesh, every leaf a DTensor there equal to the plain restore,
      and train(mesh=...) resumed from it, losses bit for bit train()'s.
-The line before the last is the kernels' JSON; the last line is
+ 19. SPMD on a (2, 2) ("data", "model") mesh (parallel/spmd.py): four gloo
+     ranks on cuda:0 in one spawn (NCCL takes one rank a device), the
+     mesh's sub-groups gloo; each kernel on a rank's local shards: (a)
+     qwen2-0.5b at full width and depth, 3 bf16 steps at a global 4 x 1024
+     (remat None, the state drawn from one seed and kept shard by shard)
+     against the one-device step on rank 0 (loss and grad norm rtol 2e-2),
+     24 flash forwards and 24 backwards a rank a step, step ms, peak
+     memory and the collectives of a step by kind (CommDebugMode) a rank;
+     then float32 at 2 x 512, two steps: loss and grad norm rtol 1e-5,
+     params atol 1e-4; every moment in its param's placements; one local
+     flash call (7 q heads, the rank's kv head) against its plain version;
+     (b) build_program's train_4k remat_coll (float32, 8 x 4096, 2
+     microbatches, depth 2 of 24), prefill_32k (4 x 32,768, depth 2) and
+     decode_32k baseline and kv_int8 (batch 8, depth 4), each against the
+     direct call on one device over the same rows (float32 train at (a)'s
+     bounds, bf16 logits at atol 0.05 / rtol 1e-3), launches a rank; (c)
+     mixtral-8x7b at full width, depth 2 (1 if the four ranks' state and a
+     gathered layer with its gradient are reckoned over 70 GB), experts
+     over "model", two float32 steps at 2 x 512 against one device as
+     (a); (d) mamba2-2.7b
+     at full width, depth 2, one prefill at 2 x 1024 with its SSM heads
+     over "model": 2 SSD launches a rank, logits against one device's.
+     Every cut is printed as "reduced".
+The line before the last is the kernels' JSON (each kernel's phase 19
+launches on rank 0 under "spmd"); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import json
 import math
@@ -270,7 +296,7 @@ from repro_torch.core.query import Query, QueryWork  # noqa: E402
 from repro_torch.core.workload import TABLE1  # noqa: E402
 from repro_torch.core.sla import ServiceLevel, SLAConfig  # noqa: E402
 from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
-from repro_torch.data.batches import TokenStream, make_batch  # noqa: E402
+from repro_torch.data.batches import TokenStream, make_batch, place_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_lse,  # noqa: E402
@@ -3341,6 +3367,439 @@ def dp_phase(device, card) -> dict:
     return out
 
 
+# ---- phase 19: SPMD on a (2, 2) mesh of four gloo ranks on cuda:0 ----------
+SPMD_WORLD = 4
+SPMD_TIMEOUT = 600
+SPMD_A_BATCH, SPMD_A_SEQ, SPMD_A_STEPS = 4, 1024, 3  # (a): bf16, full depth
+SPMD_F32_BATCH, SPMD_F32_SEQ, SPMD_F32_STEPS = 2, 512, 2  # (a) and (c): float32
+SPMD_LOSS_RTOL, SPMD_PARAM_ATOL = 1e-5, 1e-4
+#: (a) in bf16: the sharded step's loss and grad norm against the one-device
+#: step (tensor parallelism rounds its Partial sums to bf16 before adding
+#: them; the tight comparison is the float32 pass)
+SPMD_BF16_RTOL = 2e-2
+#: (b): (cell, variant, depth_supers, global batch, microbatches); batches
+#: and depths cut to what four ranks on one card take in the phase's time
+SPMD_PROGRAMS = (("train_4k", "remat_coll", 2, 8, 2), ("prefill_32k", "baseline", 2, 4, None),
+                 ("decode_32k", "baseline", 4, 8, None), ("decode_32k", "kv_int8", 4, 8, None))
+SPMD_MOE_BUDGET_GB = 70  # (c): the four ranks' state and one gathered layer
+SPMD_MAMBA_DEPTH, SPMD_MAMBA_BATCH, SPMD_MAMBA_SEQ = 2, 2, 1024
+
+
+def _spmd_serial(rank, world, fn):
+    """fn() on each rank in turn (one whole copy of a state on the card at a
+    time), a barrier between."""
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+            gc.collect()
+            torch.cuda.empty_cache()  # the whole copy's blocks back to the card
+        dist.barrier()
+    return out
+
+
+def _whole_on_host(tree, rank) -> dict:
+    """{key: leaf} of a tree of DTensors gathered whole one leaf at a time
+    (a collective: every rank calls it), kept in host memory on rank 0."""
+    out = {}
+    for k, v in _leaves(tree):
+        t = v.full_tensor()
+        if rank == 0:
+            out[k] = t.cpu()
+        del t
+    return out
+
+
+def _spmd_train(device, rank, mesh, model, batch, seq, steps, dtype, one_device: bool,
+                profile: bool = False):
+    """``steps`` donated train steps of ``model`` on the mesh (TRAIN_RULES,
+    remat None) from the seeded state, on TokenStream's batches, and on rank
+    0 the same steps on one device first. Returns (rank's record, the
+    sharded params gathered whole, the one-device params or None)."""
+    from repro_torch.parallel.sharding import sharding_ctx
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cfg = model.cfg
+    opt = DP_OPT
+    rec = {"batch": batch, "seq": seq, "steps": steps, "dtype": str(dtype).split(".")[-1]}
+    one = None
+    if one_device and rank == 0:
+        state = training_step.init_state(model, torch.Generator(device=device).manual_seed(0))
+        fn = training_step.make_train_step(model, opt, remat=None, compute_dtype=dtype,
+                                           donate=True)
+        stream = TokenStream(cfg, batch, seq, seed=0, device=device)
+        rec["one_device"] = {"losses": [], "grad_norms": []}
+        for _ in range(steps):
+            state, m = fn(state, stream.next())
+            rec["one_device"]["losses"].append(float(m["loss"]))
+            rec["one_device"]["grad_norms"].append(float(m["grad_norm"]))
+        one = {k: v.cpu() for k, v in _leaves(state["params"])}
+        del state, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    sh = tree_shardings(training_step.state_axes(model), training_step.state_specs(model),
+                        TRAIN_RULES, mesh)
+    state = _spmd_serial(rank, SPMD_WORLD, lambda: training_step.init_state_on_mesh(
+        model, torch.Generator(device=device).manual_seed(0), sh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn = training_step.make_train_step(model, opt, remat=None, compute_dtype=dtype, donate=True)
+    stream = TokenStream(cfg, batch, seq, seed=0, device=device, mesh=mesh, rules=TRAIN_RULES)
+    rec.update(losses=[], grad_norms=[], step_ms=[], launches=[])
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(steps):
+        data = stream.next()
+        torch.cuda.synchronize(device)
+        dist.barrier()
+        _zero_launches()
+        t0 = time.perf_counter()
+        comm = CommDebugMode() if i == steps - 1 else contextlib.nullcontext()
+        with comm, sharding_ctx(mesh, TRAIN_RULES):
+            if profile and i == 1:  # the second step, profiled: gloo's share
+                (state, m), rec["profiled_step"] = _collective_share(lambda: fn(state, data))
+            else:
+                state, m = fn(state, data)
+        rec["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize(device)
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["grad_norms"].append(float(m["grad_norm"]))
+        rec["launches"].append(_launches())
+        if i == steps - 1:
+            rec["collectives_last_step"] = {str(k).split(".")[-1]: v for k, v in
+                                            comm.get_comm_counts().items()}
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    rec["placed"] = all(
+        tuple(a.placements) == tuple(b.placements) == tuple(c.placements)
+        for a, b, c in zip(tree_leaves(state["params"]), tree_leaves(state["opt"]["m"]),
+                           tree_leaves(state["opt"]["v"])))
+    got = _whole_on_host(state["params"], rank)
+    del state, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, got, one
+
+
+def _collective_share(fn) -> tuple:
+    """fn() under torch.profiler: (its result, {the wall ms, the ms this
+    rank's thread spent in the functional collectives and their waits
+    (gloo's part of the step, the host staging included), its share of the
+    wall, the device's busy ms and idle share})."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = prof.key_averages()
+    coll = sum(e.cpu_time_total for e in rows if e.key.startswith("_c10d_functional::")) / 1e3
+    busy = sum(e.self_device_time_total for e in rows
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return out, {"wall_ms": wall, "collective_ms": coll, "collective_share": coll / wall,
+                 "device_busy_ms": busy if busy else "not measured",
+                 "device_idle_share": 1 - busy / wall if busy else "not measured"}
+
+
+def _spmd_cmp_train(rec, got, one, loss_rtol, param_atol=None):
+    """On rank 0: the sharded run's losses and grad norms against the one
+    device's (and, with ``param_atol``, every param)."""
+    od = rec["one_device"]
+    for key, want in (("losses", od["losses"]), ("grad_norms", od["grad_norms"])):
+        for a, b in zip(rec[key], want):
+            if not abs(a - b) <= loss_rtol * abs(b):
+                raise AssertionError(f"spmd train {key}: {rec[key]} against one device's {want}")
+    if param_atol is not None:
+        err = max(float((got[k] - one[k]).abs().max()) for k in one)
+        rec["params_max_abs_diff"] = err
+        if err > param_atol:
+            raise AssertionError(f"spmd train: params differ from one device's by {err}")
+
+
+def _spmd_a(device, rank, mesh) -> dict:
+    """Phase 19 (a): qwen2-0.5b at full width and depth."""
+    model = LM(get_config(TRAIN_ARCH), device=device)
+    out = {}
+    rec, got, one = _spmd_train(device, rank, mesh, model, SPMD_A_BATCH, SPMD_A_SEQ,
+                                SPMD_A_STEPS, torch.bfloat16, one_device=True, profile=True)
+    if rank == 0:
+        _spmd_cmp_train(rec, got, one, SPMD_BF16_RTOL)
+    out["bf16"] = rec
+    del got, one
+    rec, got, one = _spmd_train(device, rank, mesh, model, SPMD_F32_BATCH, SPMD_F32_SEQ,
+                                SPMD_F32_STEPS, torch.float32, one_device=True)
+    if rank == 0:
+        _spmd_cmp_train(rec, got, one, SPMD_LOSS_RTOL, SPMD_PARAM_ATOL)
+    out["float32"] = rec
+    # one local flash call: the rank's 7 q heads against its kv head
+    gen = torch.Generator(device=device).manual_seed(rank)
+    q, k, v = _qkv(gen, 2, SPMD_A_SEQ, SPMD_A_SEQ, 7, 1, 64, torch.bfloat16, device)
+    got_o = flash_attention(q, k, v, causal=True)
+    want_o = flash_attention_ref(q, k, v, causal=True)
+    out["local_flash_max_abs_err"] = _close("spmd local flash (7 q heads, 1 kv head)", got_o,
+                                            want_o, BF16_TOL)
+    return out
+
+
+def _spmd_b(device, rank, mesh) -> list:
+    """Phase 19 (b): build_program's cells on the (2, 2) mesh, each against
+    the same program's arithmetic on one device over the same rows (the
+    direct call the (1,1) program runs bit for bit, phase 18 (c)) on rank 0."""
+    from repro_torch.configs import SHAPES
+
+    out = []
+    for name, variant, depth, batch, mb in SPMD_PROGRAMS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        full_cell = SHAPES[name]
+        SHAPES[name] = replace(full_cell, global_batch=batch)
+        make_step = training_step.make_train_step
+        # the train program's step in float32 compute, as the CPU tests bind it
+        training_step.make_train_step = functools.partial(make_step, compute_dtype=torch.float32)
+        try:
+            kw = {"microbatches": mb} if mb else {}
+            prog = build_program(TRAIN_ARCH, name, mesh, depth_supers=depth, variant=variant,
+                                 **kw)
+        finally:
+            SHAPES[name] = full_cell
+            training_step.make_train_step = make_step
+        model, cfg, cell = prog.model, prog.cfg, prog.cell
+        rec = {"cell": name, "variant": variant, "batch": batch, "seq": cell.seq_len,
+               "meta": prog.meta,
+               "reduced": f"depth_supers={depth}: {cfg.num_layers} of "
+                          f"{get_config(TRAIN_ARCH).num_layers} layers; batch {batch} of "
+                          f"{full_cell.global_batch}; every width as published"}
+        t0 = time.perf_counter()
+        if prog.kind == "train":
+            rec.update(_spmd_program_train(device, rank, prog))
+        else:
+            rec.update(_spmd_program_serve(device, rank, prog))
+        rec["wall_s"] = time.perf_counter() - t0
+        out.append(rec)
+        del prog
+    return out
+
+
+def _spmd_program_train(device, rank, prog) -> dict:
+    """train_4k on the mesh: the program's step (float32 compute), two steps
+    from the seeded state; on rank 0 make_train_step on one device first,
+    the same microbatches and policy."""
+    model, cfg, cell = prog.model, prog.cfg, prog.cell
+    data = make_batch(np.random.default_rng(0), cfg, batch=cell.global_batch, seq=cell.seq_len,
+                      device=device)
+    mb, remat = prog.meta["microbatches"], prog.meta["remat"]
+    rec = {"losses": [], "step_ms": []}
+    one = None
+    if rank == 0:
+        state = training_step.init_state(model, torch.Generator(device=device).manual_seed(0))
+        direct = training_step.make_train_step(model, OptConfig(), microbatches=mb, remat=remat,
+                                               compute_dtype=torch.float32, donate=True)
+        rec["one_device"] = {"losses": [], "grad_norms": []}
+        for _ in range(2):
+            state, m = direct(state, data)
+            rec["one_device"]["losses"].append(float(m["loss"]))
+            rec["one_device"]["grad_norms"].append(float(m["grad_norm"]))
+        one = {k: v.cpu() for k, v in _leaves(state["params"])}
+        del state, direct
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    sh = prog.in_shardings[0]
+    state = _spmd_serial(rank, SPMD_WORLD, lambda: training_step.init_state_on_mesh(
+        model, torch.Generator(device=device).manual_seed(0), sh))
+    batch = place_batch(data, prog.mesh, prog.rules, microbatches=mb)
+    rec["grad_norms"] = []
+    _zero_launches()
+    for _ in range(2):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = prog(state, batch)
+        rec["losses"].append(float(m["loss"]))
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["grad_norms"].append(float(m["grad_norm"]))
+    rec["launches"] = _launches()
+    n = cfg.num_layers * mb * 2
+    _expect_launches(f"spmd program {cell.name} (rank {rank})", rec["launches"],
+                     2 * n if remat else n, n)
+    got = _whole_on_host(state["params"], rank)
+    if rank == 0:
+        _spmd_cmp_train(rec, got, one, SPMD_LOSS_RTOL, SPMD_PARAM_ATOL)
+    return rec
+
+
+def _spmd_program_serve(device, rank, prog, kernel=None) -> dict:
+    """A prefill or decode program on the mesh in bf16 against the direct
+    call on one device (rank 0): logits within phase 18 (c)'s big_serve
+    bound; ``kernel`` (by default the attention kernel of the program's
+    kind) launched once a layer on every rank."""
+    model, cfg, cell = prog.model, prog.cfg, prog.cell
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(gen, dtype=torch.bfloat16)
+    rec = {}
+    if prog.kind == "prefill":
+        data = make_batch(np.random.default_rng(0), cfg, batch=cell.global_batch,
+                          seq=cell.seq_len, kind="prefill", device=device)
+        args = (params, data)
+    else:
+        cache = _fill_cache(prog.in_specs[1], cell.seq_len, gen, device)
+        tokens = torch.randint(0, cfg.vocab_size, (cell.global_batch, 1), generator=gen,
+                               dtype=torch.int32, device=device)
+        args = (params, cache, tokens)
+    want = None
+    if rank == 0:  # before the sharded call: the decode writes its cache in place
+        twin = tuple(_clone(a) if isinstance(a, dict) else a for a in args)
+        if prog.kind == "prefill":
+            want = model.prefill(params, data["tokens"])[0].float()
+        else:
+            want = model.decode_step(params, twin[1], tokens)[0].float()
+        del twin
+    placed = prog.place(*args)
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    _zero_launches()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = prog(*placed)
+    torch.cuda.synchronize(device)
+    rec["ms"] = 1e3 * (time.perf_counter() - t0)
+    rec["launches"] = _launches()
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    layers = cfg.num_layers
+    kind = kernel or ("flash_attention" if prog.kind == "prefill" else "decode_attention")
+    if rec["launches"][kind] != layers:
+        raise AssertionError(f"spmd program {cell.name} (rank {rank}): launches "
+                             f"{rec['launches']}, expected {layers} {kind}")
+    logits = prog.gather(out[0]).float()
+    if rank == 0:
+        err = float((logits - want).abs().max())
+        rec["logits_max_abs_err"] = err
+        if not (torch.isfinite(logits).all()
+                and torch.allclose(logits, want, atol=PMB_LOGITS_ATOL, rtol=MODEL_RTOL)):
+            raise AssertionError(f"spmd program {cell.name} {prog.meta['variant']}: logits "
+                                 f"differ from one device's by {err}")
+    return rec
+
+
+def _spmd_c(device, rank, mesh) -> dict:
+    """Phase 19 (c): mixtral-8x7b at full width, experts over "model"."""
+    full = get_config(MOE_ARCHS[0])
+    depth = 2
+    probe = LM(full.replace(num_layers=depth), device="meta")
+    n = sum(math.prod(d.shape) for d in tree_leaves(probe.decls()))
+    layer = n - 2 * full.vocab_size * full.d_model
+    # the four ranks' float32 state (params, grads, two moments: 16 bytes a
+    # param, split four ways) and each rank's gathered layer (its experts,
+    # float32) with that layer's gradient before its reduce-scatter
+    need = 16 * n / 1e9 + SPMD_WORLD * 2 * 4 * (layer / depth) / 2 / 1e9
+    if need > SPMD_MOE_BUDGET_GB:
+        depth = 1
+    del probe
+    cfg = full.replace(num_layers=depth)
+    model = LM(cfg, device=device)
+    rec, got, one = _spmd_train(device, rank, mesh, model, SPMD_F32_BATCH, SPMD_F32_SEQ,
+                                SPMD_F32_STEPS, torch.float32, one_device=True)
+    rec["reduced"] = (f"depth {depth} of {full.num_layers} (the four ranks' state and a "
+                      f"gathered layer with its gradient reckoned at {need:.1f} GB, budget "
+                      f"{SPMD_MOE_BUDGET_GB} GB); every width as published")
+    if rank == 0:
+        _spmd_cmp_train(rec, got, one, SPMD_LOSS_RTOL, SPMD_PARAM_ATOL)
+    return rec
+
+
+def _spmd_d(device, rank, mesh) -> dict:
+    """Phase 19 (d): mamba2-2.7b at full width, one prefill on the mesh
+    (SERVE_RULES: ssm_heads over "model") against one device's."""
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.configs import SHAPES
+
+    name = "spmd_prefill_1k"
+    SHAPES[name] = ShapeCell(name, "prefill", SPMD_MAMBA_SEQ, SPMD_MAMBA_BATCH)
+    try:
+        prog = build_program(MAMBA, name, mesh, depth_supers=SPMD_MAMBA_DEPTH)
+    finally:
+        del SHAPES[name]
+    rec = _spmd_program_serve(device, rank, prog, kernel="ssd_scan")
+    rec["reduced"] = (f"depth {prog.cfg.num_layers} of {get_config(MAMBA).num_layers}; "
+                      f"every width as published")
+    return rec
+
+
+def _spmd_rank(rank, world, pg_dir, out_dir):
+    """Phase 19, one rank: a gloo process on cuda:0 in a (2, 2) mesh."""
+    import logging
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{pg_dir}/gloo", world_size=world,
+                            rank=rank)
+    try:
+        device = torch.device("cuda", 0)
+        mesh = make_local_mesh(2, 2)
+        res = {"rank": rank, "backends": [dist.get_backend(mesh.get_group(a))
+                                          for a in ("data", "model")]}
+        for key, fn in (("a", _spmd_a), ("b", _spmd_b), ("c", _spmd_c), ("d", _spmd_d)):
+            t0 = time.perf_counter()
+            res[key] = fn(device, rank, mesh)
+            res[f"{key}_s"] = time.perf_counter() - t0
+            if rank == 0:
+                print(f"[spmd19 {key}] rank 0: {json.dumps(res[key])} "
+                      f"({res[f'{key}_s']:.1f}s)", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_phase(card) -> dict:
+    """Phase 19: SPMD execution on a (2, 2) ("data", "model") mesh of four
+    gloo ranks on the one card (NCCL takes one rank a device), in one spawn:
+    (a) qwen2-0.5b at full width and depth, (b) build_program's cells, (c)
+    mixtral-8x7b with its experts over "model", (d) mamba2-2.7b with its
+    SSM heads over "model". Returns each rank's record."""
+    run_dir = PG_DIR / "spmd"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()  # the four ranks share the card with this process
+    print(f"[spmd19] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"of the card, {torch.cuda.mem_get_info()[0] / 1e9:.1f} GB free", flush=True)
+    ctx = torch.multiprocessing.start_processes(
+        _spmd_rank, args=(SPMD_WORLD, str(run_dir), str(run_dir)), nprocs=SPMD_WORLD,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + SPMD_TIMEOUT
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"spmd: ranks still running after {SPMD_TIMEOUT} s")
+    ranks = [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(SPMD_WORLD)]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    layers = get_config(TRAIN_ARCH).num_layers
+    for rec in ranks:
+        if rec["backends"] != ["gloo", "gloo"]:
+            raise AssertionError(f"spmd: mesh sub-groups {rec['backends']}")
+        for run in (rec["a"]["bf16"], rec["a"]["float32"], rec["c"]):
+            if not run["placed"]:
+                raise AssertionError("spmd: a moment's placements differ from its param's")
+        for counts in rec["a"]["bf16"]["launches"] + rec["a"]["float32"]["launches"]:
+            _expect_launches(f"spmd (a) rank {rec['rank']}", counts, layers, layers)
+        if ([c["launches"] for c in rec["b"]] != [c["launches"] for c in ranks[0]["b"]]
+                or rec["d"]["launches"] != ranks[0]["d"]["launches"]):
+            raise AssertionError(f"spmd: rank {rec['rank']}'s launches differ from rank 0's")
+        print(f"[spmd19] rank {rec['rank']}: (a) bf16 step ms {rec['a']['bf16']['step_ms']}, "
+              f"profiled {json.dumps(rec['a']['bf16']['profiled_step'])}, "
+              f"peak {rec['a']['bf16']['peak_memory_gb']:.2f} GB, collectives "
+              f"{json.dumps(rec['a']['bf16']['collectives_last_step'])}; (b) "
+              f"{json.dumps([[p['cell'], p['variant'], p.get('ms', p.get('step_ms'))] for p in rec['b']])}"
+              f"; (c) step ms {rec['c']['step_ms']}; (d) {rec['d']['ms']:.1f} ms on {card}",
+              flush=True)
+    return {"ranks": ranks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -3459,6 +3918,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dp_phase(device, card)
     print(f"[dp18] phase 18 ({time.perf_counter() - t0:.1f}s)", flush=True)
+    t0 = time.perf_counter()
+    spmd = spmd_phase(card)
+    print(f"[spmd19] phase 19 ({time.perf_counter() - t0:.1f}s)", flush=True)
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f}s", flush=True)
 
     # each kernel's launches come from the run of the path it is on: the
@@ -3508,6 +3970,21 @@ def main() -> int:
                 JAMBA: {"ssd_scan_jamba": sliced["jamba"]["checks"][0]["launches"]["ssd_scan"]},
                 "train17": {"flash_attention_bf16_fwd_cross": xq17["flash_attention"],
                             "flash_attention_bwd_cross": xq17["flash_attention_bwd"]}}
+    # phase 19: each kernel's launches on rank 0 of the (2, 2) mesh, in the
+    # run of the path it is on there ((a)'s first bf16 step, (b)'s
+    # prefill_32k and decode_32k calls, (d)'s prefill); the other ranks'
+    # counts are checked equal in spmd_phase
+    r0 = spmd["ranks"][0]
+    step_a = r0["a"]["bf16"]["launches"][0]
+    cells_b = {(c["cell"], c["meta"]["variant"]): c["launches"] for c in r0["b"]}
+    spmd_launches = {
+        "flash_attention": cells_b[("prefill_32k", "baseline")]["flash_attention"],
+        "decode_attention": sum(cells_b[("decode_32k", v)]["decode_attention"]
+                                for v in ("baseline", "kv_int8")),
+        "ssd_scan": r0["d"]["launches"]["ssd_scan"],
+        "flash_attention_bf16_fwd": step_a["flash_attention"],
+        "flash_attention_bwd": step_a["flash_attention_bwd"],
+        "flash_attention_diff": step_a["flash_attention"]}
     errs["flash_attention_diff"] = diff_err
     errs["flash_attention_bwd"] = timing["flash_attention_bwd"]["max_abs_err"]
     errs.update(sliced["errs"])
@@ -3517,7 +3994,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"kernel": "flash_wg_kernel"} if "bf16_fwd" in name else {}),
-            "launches": launches[arch][name], "max_abs_err": errs[name],
+            "launches": launches[arch][name], "spmd": spmd_launches.get(name, 0),
+            "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

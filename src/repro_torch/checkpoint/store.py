@@ -20,6 +20,10 @@ Properties the fault-tolerant trainer relies on:
     compress+write runs on a background thread so training continues (the
     leaves compress in parallel threads: zlib and zstd release the GIL);
   * ``keep`` bounds how many steps stay on disk;
+  * a tree of DTensors (a state on a mesh larger than one device) is
+    gathered leaf by leaf in the caller's thread, every rank taking part in
+    the same order; rank 0 alone writes it (the write thread issues no
+    collective);
   * elastic restore: with ``shardings`` (``parallel/sharding.py``'s
     NamedShardings, e.g. from ``tree_shardings(state_axes, ...)``) each leaf
     comes back as a DTensor on that mesh, whatever mesh wrote it.
@@ -92,6 +96,11 @@ def _from_host(raw: bytes, shape: list, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy())
 
 
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 class CheckpointStore:
     def __init__(self, root: str | Path, keep: int = 3):
         self.root = Path(root)
@@ -118,9 +127,15 @@ class CheckpointStore:
     # ------------------------------------------------------------------
     def save(self, step: int, tree, extra: Optional[dict] = None,
              async_: bool = False) -> None:
-        """Snapshot ``tree`` (a tree of tensors or arrays) at ``step``."""
-        # device -> host synchronously, so the caller may go on with the tensors
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        """Snapshot ``tree`` (a tree of tensors or arrays) at ``step``. Every
+        rank of a mesh calls it with its DTensors; rank 0 writes."""
+        # device -> host synchronously, so the caller may go on with the
+        # tensors; a DTensor is gathered whole first (a collective: here, in
+        # the caller's thread, never in the write thread)
+        host = {k: _to_host(v.full_tensor() if hasattr(v, "full_tensor") else v)
+                for k, v in _flatten(tree).items()}
+        if _rank() != 0:
+            return
 
         def write():
             tmp = self.root / f"step_{step:08d}.tmp"
@@ -217,9 +232,8 @@ class CheckpointStore:
         if missing:
             raise KeyError(f"checkpoint {d} lacks leaves {missing}")
         if shardings is not None:
-            from torch.distributed.tensor import distribute_tensor
+            from ..parallel.sharding import distribute_leaf
 
-            placed = _flatten(shardings)
-            flat = {k: distribute_tensor(t, placed[k].mesh, placed[k].placements)
-                    for k, t in flat.items()}
+            placed = _flatten(shardings)  # every rank read each leaf whole
+            flat = {k: distribute_leaf(t, placed[k]) for k, t in flat.items()}
         return _unflatten(flat, template), manifest["extra"]

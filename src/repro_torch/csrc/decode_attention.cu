@@ -334,9 +334,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
       work_floats < (long long)B * H * nsplit * (HD + 2))
     return cudaErrorInvalidValue;
   auto kernel = split_kernel<T, HD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // The limit is the kernel's, shared by every caller: set it once, to what
+  // the largest group (G = 2048 / HD) asks. Set per call to this call's
+  // smem, a thread at a smaller G could lower it between another thread's
+  // set and launch, whose launch then failed (cudaErrorInvalidValue).
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)split_smem(2048 / HD, HD, SP));
+  if (attr != cudaSuccess) return attr;
   const int vec = ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16) == 0;
   float* part_acc = static_cast<float*>(work);
   float* part_ml = part_acc + (size_t)B * H * nsplit * HD;

@@ -10,6 +10,13 @@ The reference draws its tokens with ``jax.random``; the port cannot import
 it and draws from ``np.random.default_rng([seed, step, host_index])``. So
 its batches differ from the reference's in value, and keep its contract:
 deterministic, restartable at any cursor, one shard per host.
+
+On a mesh (``place_batch``, ``TokenStream(mesh=...)``) every rank draws the
+same global batch from the same seed and keeps its own rows as a DTensor
+split over "data" by ``batch_axes``, so no bytes move. With microbatches a
+rank's rows are laid out microbatch by microbatch (``batch_order``), so
+that the step's microbatch i is the reference's contiguous global rows
+[i B/mb, (i+1) B/mb) without narrowing a split DTensor.
 """
 from __future__ import annotations
 
@@ -101,7 +108,13 @@ class TokenStream:
     """
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
-                 host_index: int = 0, host_count: int = 1, device="cuda"):
+                 host_index: int = 0, host_count: int = 1, device="cuda", mesh=None,
+                 rules=None, microbatches: int = 1):
+        """``mesh`` (with ``rules``): every rank draws the global batch and
+        keeps its rows as DTensors (``place_batch``, laid out for
+        ``microbatches``): the batches are those of the stream without a
+        mesh."""
+        self.mesh, self.rules, self.microbatches = mesh, rules, microbatches
         if batch % host_count:
             raise ValueError(f"batch {batch} does not split over {host_count} hosts")
         self.cfg = cfg
@@ -124,5 +137,57 @@ class TokenStream:
     def next(self) -> dict:
         rng = np.random.default_rng([self.seed, self.step, self.host_index])
         self.step += 1
-        return make_batch(rng, self.cfg, batch=self.local_batch, seq=self.seq,
-                          kind="train", device=self.device)
+        out = make_batch(rng, self.cfg, batch=self.local_batch, seq=self.seq,
+                         kind="train", device=self.device)
+        if self.mesh is not None:
+            out = place_batch(out, self.mesh, self.rules, microbatches=self.microbatches)
+        return out
+
+
+def batch_order(B: int, microbatches: int, parts: int) -> list[int]:
+    """The global rows, in the order a batch placed by ``place_batch`` holds
+    them (its ``full_tensor()``'s rows): split into ``parts`` over the batch
+    axes, each part's rows microbatch by microbatch."""
+    mb, per = microbatches, B // (microbatches * parts)
+    return [i * (B // mb) + r * per + t for r in range(parts) for i in range(mb)
+            for t in range(per)]
+
+
+def _split_coord(mesh, entry) -> tuple[int, int]:
+    """(parts, this rank's index) of a spec entry's mesh axes, the first
+    outermost."""
+    axes = entry if isinstance(entry, tuple) else (entry,) if entry else ()
+    parts, idx = 1, 0
+    for a in axes:
+        n = mesh.size(mesh.mesh_dim_names.index(a))
+        idx = idx * n + mesh.get_local_rank(a)
+        parts *= n
+    return parts, idx
+
+
+def place_batch(batch: dict, mesh, rules, *, microbatches: int = 1, kind: str = "train") -> dict:
+    """The global ``batch`` (the same whole tensors on every rank) as
+    DTensors on ``mesh``, placed by ``batch_axes`` under ``rules``: each rank
+    keeps its rows (and its slice of any other split dim), with no
+    communication. With ``microbatches`` the rows a rank holds are its part
+    of microbatch 0, then of microbatch 1, ...: ``batch_order``."""
+    from ..parallel.sharding import local_rows, tree_shardings
+
+    axes = batch_axes(None, kind)
+    sh = tree_shardings({k: axes[k] for k in batch}, batch, rules, mesh)
+    out = {}
+    for k, t in batch.items():
+        spec = sh[k].spec
+        parts, r = _split_coord(mesh, spec[0])
+        if t.shape[0] % (parts * microbatches):
+            raise ValueError(f"{k}: {t.shape[0]} rows do not split into {microbatches} "
+                             f"microbatches over {parts} ranks")
+        rows = batch_order(t.shape[0], microbatches, parts)
+        n = t.shape[0] // parts
+        loc = t[rows[r * n:(r + 1) * n]] if microbatches > 1 else t[r * n:(r + 1) * n]
+        for dim in range(1, t.dim()):
+            p, i = _split_coord(mesh, spec[dim])
+            if p > 1:
+                loc = loc.chunk(p, dim)[i]
+        out[k] = local_rows(loc.contiguous(), sh[k])
+    return out

@@ -38,6 +38,12 @@ kernels' own wrappers refuse a CUDA input that requires grad, so no
 gradient can vanish.
 
 On CPU tensors the wrappers compute their plain versions.
+
+On a mesh larger than one device both adapters take DTensors and run the
+kernels on each rank's local shards (``parallel/spmd.py``: ``local_sdpa``
+with the GQA kv-head slice, ``local_ssd``); a kernel's wrapper, which reads
+``data_ptr``, only ever sees the local tensors. K/V split on their sequence
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ import torch
 
 from ..models import layers as _layers
 from ..models import ssd as _ssd
+from ..parallel import spmd
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention, flash_attention_lse
 from .flash_attention_bwd import flash_attention_bwd
@@ -112,6 +119,8 @@ CROSS_LENGTH = 2**31 - 1
 
 
 def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
+    if spmd.is_dtensor(q):
+        return spmd.local_sdpa(sdpa_kernel, q, k, v, q_pos, k_pos, window, causal, cap, site)
     win = int(window) if window else 0
     capf = float(cap) if cap else 0.0
     if q.shape[1] == 1 and site in ("decode", "cross"):
@@ -137,6 +146,12 @@ def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
 
 
 def ssd_kernel(x, dt, A, B_, C_, chunk, h0):
+    if spmd.is_dtensor(x):  # B_, C_: the single group broadcast over the heads
+        return spmd.local_ssd(
+            lambda xl, dl, al, bl, cl, c, hl: ssd_kernel(
+                xl, dl, al, bl[:, :, None, :].expand(*xl.shape[:3], bl.shape[-1]),
+                cl[:, :, None, :].expand(*xl.shape[:3], cl.shape[-1]), c, hl),
+            x, dt, A, B_[:, :, 0], C_[:, :, 0], chunk, h0)
     # x is a head-split view of the conv output unless padding copied it;
     # B_ and C_ go by strides (the single group at head stride 0)
     return ssd_scan_diff(x.contiguous(), dt, A, B_, C_, chunk, h0)

@@ -3,7 +3,9 @@ initialised world (``launch/multihost.py::initialize`` or
 ``torch.distributed.init_process_group``), one device a rank.
 
 Functions, not module-level constants: importing this module touches no
-process group. The reference's ``mesh_axis_kwargs`` has no counterpart: it
+process group. A CUDA mesh over a gloo world (several ranks on one card)
+stages DTensor's collectives through the host
+(``parallel/host_staging.py``). The reference's ``mesh_axis_kwargs`` has no counterpart: it
 is a shim over JAX versions (``axis_types``), and a DeviceMesh has no axis
 types.
 """
@@ -23,6 +25,11 @@ def _mesh(shape: tuple, names: tuple, device_type: str) -> DeviceMesh:
     if math.prod(shape) != world:
         raise ValueError(f"mesh {dict(zip(names, shape))} needs {math.prod(shape)} ranks; "
                          f"the world has {world}")
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        # several ranks on one card: gloo carries CUDA tensors only in part
+        from ..parallel import host_staging
+
+        host_staging.install()
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 

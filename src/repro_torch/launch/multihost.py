@@ -10,13 +10,14 @@ or with the rendezvous given: ``--coordinator HOST0:1234 --num-processes N
 --process-id I``.
 
 What carries over from the reference (``repro/launch/multihost.py``):
-  * ``make_production_mesh()`` over every rank of the world;
+  * ``make_production_mesh()`` over every rank of the world (a world of
+    another size is refused);
   * the cell programs (``launch/programs.py``): the same specs and
-    shardings; executing them on a mesh larger than one device is
-    ROADMAP queue 1's SPMD item, so this entry point builds the
-    ``train_4k`` program and reports what each device would hold;
-  * per-host data: ``TokenStream(host_index=process_index,
-    host_count=process_count)`` feeds each rank its batch shard;
+    shardings; this entry point builds the ``train_4k`` program with the
+    ``remat_coll`` variant on that mesh, reports what each device holds,
+    and runs ``--steps`` steps of it (the reference compiles it): the state
+    drawn shard by shard (``training/step.py::init_state_sharded``), each
+    rank's rows of every batch (``TokenStream(mesh=...)``);
   * checkpointing: restore is elastic across meshes
     (``checkpoint/store.py``, ``shardings=``).
 """
@@ -77,18 +78,28 @@ def per_device_bytes(specs, shardings) -> int:
     return math.prod(specs.shape) * specs.element_size() // split
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--arch", default="mixtral-8x7b")
+    ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     topo = initialize(args.coordinator, args.num_processes, args.process_id, args.device)
     print(f"[multihost] topology: {topo}")
+    try:
+        _run(args, topo)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _run(args, topo) -> None:
+    from ..data.batches import TokenStream
+    from ..training import step as training_step
     from .mesh import make_production_mesh
     from .programs import build_program
 
@@ -100,10 +111,15 @@ def main():
     state_bytes = per_device_bytes(prog.in_specs[0], prog.in_shardings[0])
     print(f"[multihost] train_4k remat_coll: the state takes {state_bytes / 2**30:.3f} GiB "
           f"a device under the program's placements")
-    print("[multihost] ready: wire into launch/train.py's driver loop with "
-          "TokenStream(host_index=%d, host_count=%d)"
-          % (topo["process_index"], topo["process_count"]))
-    dist.destroy_process_group()
+    state = training_step.init_state_sharded(prog.model, 0, prog.in_shardings[0])
+    cell = prog.cell
+    stream = TokenStream(prog.cfg, cell.global_batch, cell.seq_len, seed=0,
+                         device=prog.model.device, mesh=mesh, rules=prog.rules,
+                         microbatches=prog.meta["microbatches"])
+    for i in range(args.steps):
+        state, m = prog(state, stream.next())
+        if topo["process_index"] == 0:
+            print(f"[multihost] step {i + 1}/{args.steps} loss={float(m['loss']):.4f}")
 
 
 if __name__ == "__main__":

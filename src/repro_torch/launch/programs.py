@@ -8,9 +8,14 @@ on the "meta" device), the port's ``NamedSharding`` trees and the step as
 an eager function. ``jitted()`` returns that function, and calling the
 program runs it; the reference's ``lower()`` has no counterpart (nothing is
 compiled ahead). A program builds on any mesh, so its shardings can be
-read (``launch/multihost.py``), and runs on a mesh whose axes are all 1:
-on a larger one it raises, as ``shard`` does, until ROADMAP queue 1's
-SPMD item. The model lives on the mesh's device type.
+read (``launch/multihost.py``), and runs on a ("data", "model") DeviceMesh
+of any size: on a larger one every rank calls it with DTensors placed by
+``in_shardings`` (``CellProgram.place`` puts whole inputs there) and the
+step runs SPMD (``parallel/spmd.py``). What that slice leaves out raises
+``NotImplementedError`` when run: K/V sharded on its sequence
+(``decode_kvseq*``, the ``long_500k`` cell's LONG_RULES), the expert
+capacity sharded (``moe_cshard*``) and a "pod" axis. The model lives on
+the mesh's device type.
 """
 from __future__ import annotations
 
@@ -20,11 +25,12 @@ from typing import Callable, Optional
 import torch
 
 from ..configs import get_config, get_shape
-from ..data.batches import batch_axes, prefill_specs, train_specs
+from ..data.batches import batch_axes, batch_order, place_batch, prefill_specs, train_specs
 from ..models.config import ModelConfig, ShapeCell
 from ..models.transformer import LM
 from ..optim.adamw import OptConfig
-from ..parallel.sharding import (SPMD_TODO, Rules, is_trivial, mesh_shape, rules_for,
+from ..parallel import spmd
+from ..parallel.sharding import (Rules, distribute_tree, is_trivial, mesh_shape, rules_for,
                                  sharding_ctx, tree_shardings)
 from ..training import step as training_step
 
@@ -55,6 +61,58 @@ class CellProgram:
 
     def __call__(self, *args):
         return self.fn(*args)
+
+    def _batch_split(self) -> int:
+        """The microbatches (train) or sequential chunks (prefill) a batch is
+        laid out for."""
+        return self.meta.get("microbatches", self.meta.get("prefill_microbatches", 1)) or 1
+
+    def place(self, *args):
+        """Whole inputs (the same on every rank) as this program takes them:
+        on a mesh larger than one device, DTensors placed by
+        ``in_shardings``; a batch laid out for the program's microbatches
+        or chunks (``data/batches.py::place_batch``). On a mesh whose axes
+        are all 1, the inputs themselves."""
+        if is_trivial(self.mesh):
+            return args
+        out = []
+        for i, (a, sh) in enumerate(zip(args, self.in_shardings)):
+            if self.kind in ("train", "prefill") and i == 1:
+                out.append(place_batch(a, self.mesh, self.rules,
+                                       microbatches=self._batch_split(), kind=self.kind))
+            else:
+                out.append(distribute_tree(a, sh))
+        return tuple(out)
+
+    def gather(self, tree):
+        """Outputs as whole plain tensors on every rank, rows in the global
+        order (a chunked prefill's outputs come in ``place``'s layout)."""
+        n = self._batch_split() if self.kind == "prefill" else 1
+
+        def one(t, bdim):
+            if not spmd.is_dtensor(t):
+                return t
+            parts = 1
+            for m, q in enumerate(t.placements):
+                if q.is_shard() and q.dim == bdim:
+                    parts *= t.device_mesh.size(m)
+            full = t.full_tensor()
+            if n == 1 or parts == 1:
+                return full
+            order = batch_order(full.shape[bdim], n, parts)
+            out = torch.empty_like(full)
+            out.index_copy_(bdim, torch.tensor(order, device=full.device), full)
+            return out
+
+        def rec(node, names):
+            if isinstance(node, dict):
+                return {k: rec(v, names + (k,)) for k, v in node.items()}
+            if isinstance(node, (tuple, list)):
+                return type(node)(rec(v, names + (str(i),)) for i, v in enumerate(node))
+            lead = 1 if ("blocks" in names or "cross" in names) else 0
+            return one(node, lead)
+
+        return rec(tree, ())
 
 
 def _scaled_cfg(cfg: ModelConfig, depth_supers: Optional[int], period: int, n_super: int):
@@ -159,13 +217,22 @@ def _meta(spec):
 
 
 def _on_mesh(mesh, rules: Rules, fn: Callable) -> Callable:
-    """``fn`` under ``sharding_ctx(mesh, rules)``; raises on a mesh larger
-    than one device."""
+    """``fn`` under ``sharding_ctx(mesh, rules)``. On a mesh larger than one
+    device what the SPMD slice leaves out raises ``NotImplementedError``
+    naming its ROADMAP item: a "pod" axis, K/V split on its sequence
+    (``kv_seq``), the expert capacity split (``capacity``)."""
 
     def run(*args):
-        if not is_trivial(mesh):
-            raise NotImplementedError(f"a cell program on mesh {mesh_shape(mesh)}: {SPMD_TODO}")
-        with sharding_ctx(mesh, rules):
+        if is_trivial(mesh):
+            with sharding_ctx(mesh, rules):
+                return fn(*args)
+        if "pod" in mesh_shape(mesh):
+            raise NotImplementedError(spmd.POD_TODO)
+        if rules.get("kv_seq") is not None:
+            raise NotImplementedError(spmd.KVSEQ_TODO)
+        if rules.get("capacity") is not None:
+            raise NotImplementedError(spmd.CSHARD_TODO)
+        with sharding_ctx(mesh, rules), spmd.on_mesh_ops():
             return fn(*args)
 
     return run
@@ -178,6 +245,33 @@ def _empty_cache(spec, device):
         return {k: _empty_cache(v, device) for k, v in spec.items()}
     fill = -1 if spec.dtype == torch.int32 else 0
     return torch.full(spec.shape, fill, dtype=spec.dtype, device=device)
+
+
+def _chunked_prefill_spmd(prefill_one, params, batch, pmb: int):
+    """A prefill in ``pmb`` sequential batch chunks of DTensors: chunk i is
+    each rank's i-th part of its rows (``place_batch``'s layout), and each
+    output leaf is the chunks' local results side by side on its batch dim
+    (the same layout; ``CellProgram.gather`` puts the rows in order)."""
+    outs = [prefill_one(params, {k: spmd.microbatch(v, i, pmb) for k, v in batch.items()})
+            for i in range(pmb)]
+
+    def join(leaves, bdim):
+        t = leaves[0]
+        if not spmd.is_dtensor(t):  # whole on every rank: the rows in order
+            return torch.cat(leaves, dim=bdim)
+        loc = torch.cat([x.to_local() for x in leaves], dim=bdim)
+        shape = list(t.shape)
+        shape[bdim] *= len(leaves)
+        return spmd.from_local(loc, t.device_mesh, t.placements, shape)
+
+    def rec(nodes, lead):
+        if isinstance(nodes[0], dict):
+            return {k: rec([n[k] for n in nodes], lead or k in ("blocks", "cross"))
+                    for k in nodes[0]}
+        return join(nodes, 1 if lead else 0)
+
+    logits = join([o[0].to(F32) for o in outs], 0)
+    return logits, rec([o[1] for o in outs], False)
 
 
 def _put_chunk(axes, big, small, start: int) -> None:
@@ -289,6 +383,8 @@ def build_program(
             # cache and logits
             B = cell.global_batch
             Bc = B // pmb
+            if spmd.is_dtensor(batch["tokens"]):
+                return _chunked_prefill_spmd(_prefill_one, params, batch, pmb)
             full_spec = _meta(model.cache_spec(
                 B, cell.seq_len, dtype=BF16,
                 enc_len=cell.seq_len if cfg.is_encoder_decoder else None,

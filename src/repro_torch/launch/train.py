@@ -16,8 +16,12 @@ tests/test_torch_train.py):
 On a CUDA device every attention of the forward pass runs the CUDA flash
 kernel through ``kernels/ops.py::flash_attention_diff`` (mamba2: the SSD
 scan through ``ssd_scan_diff``). A mesh whose axes are all 1 trains as
-without one, bit for bit; a larger mesh raises until ROADMAP queue 1's SPMD
-item. ``train_dp`` (``--dp``) trains data-parallel across the ranks of a
+without one, bit for bit; on a larger mesh (every rank of the world runs
+``train``) the state lives as DTensors placed by TRAIN_RULES (FSDP over
+"data", tensor and expert parallelism over "model"), each rank draws the
+global batch and keeps its rows, and the step runs SPMD
+(``parallel/spmd.py``); checkpoints are gathered leaf by leaf and written by
+rank 0. ``train_dp`` (``--dp``) trains data-parallel across the ranks of a
 process group (``training/dp_compressed.py``: replicated params, the grads'
 mean sent as int8 with error feedback, or as float32).
 """
@@ -36,8 +40,8 @@ from ..data.batches import TokenStream
 from ..models.params import tree_map
 from ..models.transformer import LM
 from ..optim.adamw import OptConfig
-from ..parallel.sharding import (SPMD_TODO, TRAIN_RULES, is_trivial, mesh_shape, sharding_ctx,
-                                 tree_shardings)
+from ..parallel import spmd
+from ..parallel.sharding import TRAIN_RULES, is_trivial, mesh_shape, sharding_ctx, tree_shardings
 from ..training import dp_compressed, step as training_step
 from . import multihost
 
@@ -80,13 +84,24 @@ def train(
     the reference's, keeps every activation. Every arch of the registry
     trains: a vision frontend's batches carry patch embeddings, an
     encoder-decoder's frame embeddings (``data/batches.py::make_batch``).
-    ``mesh`` (a DeviceMesh whose axes are all 1; a larger one raises): the
-    resume restores the state onto the mesh as DTensors, each rank steps
-    its local shards (on one device, the whole tensors) and the step runs
-    under ``sharding_ctx(mesh, TRAIN_RULES)``."""
-    if mesh is not None and not is_trivial(mesh):
-        raise NotImplementedError(f"train() on mesh {mesh_shape(mesh)}: {SPMD_TODO}")
+    ``mesh`` (a DeviceMesh over the world; ``device`` is then its device
+    type, each rank on its own device): the state is placed on the mesh by
+    ``tree_shardings(state_axes, state_specs, TRAIN_RULES, mesh)`` (a fresh
+    init draws the whole state from the seed on every rank and keeps each
+    rank's shards; a resume restores onto the mesh) and the step runs under
+    ``sharding_ctx(mesh, TRAIN_RULES)``. On a mesh whose axes are all 1
+    each rank steps its local shards, the whole tensors, bit for bit as
+    without a mesh; on a larger one the state stays DTensors
+    (``state`` in the result) and the batches are the stream's without a
+    mesh, each rank holding its rows."""
+    spmd_mesh = mesh if mesh is not None and not is_trivial(mesh) else None
+    if spmd_mesh is not None and "pod" in mesh_shape(mesh):
+        raise NotImplementedError(spmd.POD_TODO)
+    if spmd_mesh is not None:
+        device = mesh.device_type
     device = torch.device(device)
+    if spmd_mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     if device.type == "cuda":
         # the reference computes its float32 products in full float32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,7 +112,8 @@ def train(
         model, opt_cfg, microbatches=microbatches, remat=remat, compute_dtype=dtype,
         donate=True)
     store = CheckpointStore(ckpt_dir)
-    stream = TokenStream(cfg, batch, seq, seed=seed, device=device)
+    stream = TokenStream(cfg, batch, seq, seed=seed, device=device, mesh=spmd_mesh,
+                         rules=TRAIN_RULES, microbatches=microbatches)
     shardings = None
     if mesh is not None:
         shardings = tree_shardings(training_step.state_axes(model),
@@ -108,12 +124,16 @@ def train(
     if start is not None:
         state, extra = store.restore(start, training_step.state_specs(model), device=device,
                                      shardings=shardings)
-        if shardings is not None:
+        if shardings is not None and spmd_mesh is None:
             state = tree_map(lambda t: t.to_local(), state)
         stream.seek(extra["stream"])
         print(f"[train] resumed from step {start}")
     else:
-        state = training_step.init_state(model, torch.Generator(device=device).manual_seed(seed))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if spmd_mesh is not None:
+            state = training_step.init_state_on_mesh(model, gen, shardings)
+        else:
+            state = training_step.init_state(model, gen)
         start = 0
 
     losses, step_s, ckpt_s = [], [], 0.0

@@ -25,7 +25,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spmd
 from ..parallel.sharding import shard
+from ..parallel.spmd import einsum
 from .config import ModelConfig
 from .params import ParamDecl
 
@@ -56,8 +58,10 @@ _LIB.impl("coll_out", _CollOut.apply, "Autograd")
 def coll_out(x: torch.Tensor) -> torch.Tensor:
     """x, tagged for the "coll" remat policy where a gradient may be taken
     (the only place a policy looks); x itself otherwise, so that serving
-    pays nothing for it."""
-    return torch.ops.repro_torch.coll_out(x) if torch.is_grad_enabled() else x
+    pays nothing for it. A DTensor's local shard carries the tag."""
+    if not torch.is_grad_enabled():
+        return x
+    return spmd.local_apply(torch.ops.repro_torch.coll_out, x)
 
 #: scaled-dot-product-attention implementations by name. Each takes
 #: (q, k, v, q_pos, k_pos, window, causal, cap, site); ``site`` names the
@@ -100,8 +104,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     """Rotary embedding. x: (B, S, N, hd); positions: (B, S).
 
     Interleaved pairs (2i, 2i+1) are the default; rotate-half pairs
-    (i, i + hd/2) otherwise.
+    (i, i + hd/2) otherwise. A DTensor rotates its local rows with its
+    head_dim whole on every rank: a head_dim split (the bias of the
+    head-dim fallback passes its split on) is all-gathered first, since a
+    rotate-half pair, or an interleaved one under an odd split, would
+    straddle two ranks.
     """
+    if spmd.is_dtensor(x):
+        x = spmd.replicate(x, [m for m, p in enumerate(x.placements)
+                               if p.is_shard() and p.dim == 3])
+        pos = spmd.local_rows_of(positions, x)
+        return spmd.local_apply(lambda t: apply_rope(t, pos, theta, interleaved), x)
     B, S, N, hd = x.shape
     ang = rope_angles(positions, hd, theta)[:, :, None, :]  # (B,S,1,hd/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -181,7 +194,11 @@ SDPA_IMPL["plain"] = _sdpa_plain
 def sdpa(q, k, v, *, q_pos, k_pos, window, causal, cap, site: str,
          impl: str = "plain"):
     """Dispatch to a registered implementation; an unknown name raises
-    ``KeyError``."""
+    ``KeyError``. DTensors run it on each rank's local heads
+    (``spmd.local_sdpa``)."""
+    if spmd.is_dtensor(q):
+        return spmd.local_sdpa(SDPA_IMPL[impl], q, k, v, q_pos, k_pos, window, causal, cap,
+                               site)
     return SDPA_IMPL[impl](q, k, v, q_pos, k_pos, window, causal, cap, site)
 
 
@@ -229,9 +246,9 @@ def attention(
     """
     B, S, D = x.shape
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    q = einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     if "bq" in p:
-        q = q + p["bq"].to(dt)
+        q = spmd.add_bias(q, p["bq"].to(dt))
     q = shard(q, "batch", "seq", "act_heads", "act_head_dim")
 
     if kv_override is not None:
@@ -239,16 +256,19 @@ def attention(
         new_cache = None
         site = "cross"
     else:
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+        k = einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+        v = einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
         if "bk" in p:
-            k = k + p["bk"].to(dt)
-            v = v + p["bv"].to(dt)
+            k = spmd.add_bias(k, p["bk"].to(dt))
+            v = spmd.add_bias(v, p["bv"].to(dt))
         if use_rope:
             k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_interleaved)
         k = shard(k, "batch", "seq", "act_kv_heads", "act_head_dim")
         v = shard(v, "batch", "seq", "act_kv_heads", "act_head_dim")
-        if cache is not None and ("k" in cache or "k_q" in cache):
+        if cache is not None and ("k" in cache or "k_q" in cache) and spmd.is_dtensor(x):
+            k, v, k_pos, new_cache = spmd.cache_write(cache, k, v, positions, lengths, dt)
+            site = "decode"
+        elif cache is not None and ("k" in cache or "k_q" in cache):
             # decode: write the S new entries into ring/linear slots
             # lengths % Smax onward. The reference blends a one-hot over all
             # Smax slots (cache * (1 - oh) + oh @ new, or a select); for
@@ -299,7 +319,7 @@ def attention(
     )
     if cfg.attn_out_scale is not None:
         out = out * cfg.attn_out_scale
-    y = coll_out(shard(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)),
+    y = coll_out(shard(einsum("bshk,hkd->bsd", out, p["wo"].to(dt)),
                        "batch", "seq", "embed"))
     return y, new_cache
 
@@ -319,10 +339,10 @@ def mlp_decl(cfg: ModelConfig) -> dict:
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
-    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(dt))
-    g = torch.einsum("bsd,df->bsf", x, p["wg"].to(dt))
+    h = einsum("bsd,df->bsf", x, p["wi"].to(dt))
+    g = einsum("bsd,df->bsf", x, p["wg"].to(dt))
     h = shard(activate(g, cfg.act) * h, "batch", "seq", "ff")
-    y = torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
+    y = einsum("bsf,fd->bsd", h, p["wo"].to(dt))
     return coll_out(shard(y, "batch", "seq", "embed"))
 
 
@@ -341,14 +361,29 @@ def moe_capacity(tokens: int, k: int, e: int, cf: float) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8 lanes
 
 
+def moe_probs(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """Router probs (.., E) in float32. On DTensors every "model" rank
+    computes them all (the router is replicated there)."""
+    if spmd.is_dtensor(x):
+        eq = "gtd,de->gte" if x.dim() == 3 else "td,de->te"
+        return torch.softmax(einsum(eq, x.to(F32), router.to(F32)), dim=-1)
+    return torch.softmax(x.to(F32) @ router.to(F32), dim=-1)
+
+
+def moe_topk(probs: torch.Tensor, k: int):
+    """The top-k (gate, expert) pairs of ``probs``, largest first. A stable
+    descending sort breaks ties toward the lower expert index, as
+    ``jax.lax.top_k`` does (``torch.topk`` does not promise an order among
+    equal values)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
     """Router probs (.., E) in float32 and the top-k (gate, expert) pairs,
-    largest first. A stable descending sort breaks ties toward the lower
-    expert index, as ``jax.lax.top_k`` does (``torch.topk`` does not
-    promise an order among equal values)."""
-    probs = torch.softmax(x.to(F32) @ router.to(F32), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    return probs, vals[..., :k], idx[..., :k]
+    largest first (``moe_probs``, ``moe_topk``)."""
+    probs = moe_probs(x, router)
+    return (probs,) + moe_topk(probs, k)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -361,6 +396,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
     as one group; prefill routes each batch row as a group, with a capacity
     per expert (``_moe_grouped``)."""
     B, S, D = x.shape
+    if spmd.is_dtensor(x):
+        return spmd.moe_apply(p, x, cfg, gathered=S == 1 and B <= 16 and cfg.num_experts % 16 != 0)
     if S == 1 and B <= 16 and cfg.num_experts % 16 != 0:
         return _moe_gathered(p, x, cfg)
     if S == 1:  # decode: one group over the (small) batch
@@ -369,7 +406,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return _moe_grouped(p, x, cfg)
 
 
-def _moe_gathered(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _moe_gathered(p: dict, x: torch.Tensor, cfg: ModelConfig, experts: Optional[range] = None,
+                  probs: Optional[torch.Tensor] = None):
     """Dropless per-token expert products. x: (B, 1, D).
 
     The reference copies each token's K experts' weights out as (B, K, D,
@@ -377,20 +415,31 @@ def _moe_gathered(p: dict, x: torch.Tensor, cfg: ModelConfig):
     experts' ids come to the host once a call, and each (token, choice)
     pair's products read its expert's weights in place; a token's K
     outputs are added in k order (the same sums in another order). The
-    copy would write every chosen weight and read it twice."""
+    copy would write every chosen weight and read it twice.
+
+    ``experts``: the expert ids whose weights ``p`` holds (expert
+    parallelism: a rank's own), ``p``'s rows in that order; a token's
+    choices of other experts are left to their ranks (zero here).
+    ``probs``: the router's (B, E), where the caller has them."""
     B, S, D = x.shape
     dt = x.dtype
-    _, gate, eidx = moe_route(x[:, 0], p["router"], cfg.top_k)  # (B, K)
+    if probs is None:
+        probs = moe_probs(x[:, 0], p["router"])
+    gate, eidx = moe_topk(probs, cfg.top_k)  # (B, K)
     gate = (gate / torch.sum(gate, dim=-1, keepdim=True)).to(dt)
+    first = 0 if experts is None else experts.start
     rows = []
-    for b, experts in enumerate(eidx.tolist()):  # the one device-to-host read
+    for b, chosen in enumerate(eidx.tolist()):  # the one device-to-host read
         xb = x[b]  # (1, D)
         yb = None
-        for k, e in enumerate(experts):
+        for k, e in enumerate(chosen):
+            if experts is not None and e not in experts:
+                continue
+            e -= first
             h = activate(xb @ p["wg"][e].to(dt), cfg.act) * (xb @ p["wi"][e].to(dt))
             yk = (h * gate[b, k]) @ p["wo"][e].to(dt)
             yb = yk if yb is None else yb + yk
-        rows.append(yb)
+        rows.append(yb if yb is not None else torch.zeros((1, D), dtype=dt, device=x.device))
     y = torch.stack(rows)  # (B, 1, D)
     return y, torch.zeros((), dtype=F32, device=x.device)  # no aux loss on decode
 
@@ -404,13 +453,36 @@ def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):
     combine gathers each token's K expert outputs and adds them in k order
     (the reference scatter-adds them into zeros: for K = 2 the two sums are
     the same bits, and a gather needs no atomics on the card)."""
+    probs = moe_probs(xg, p["router"])  # (G, T, E)
+    y, counts = moe_dispatch(p, xg, probs, cfg)
+    y = coll_out(shard(y, "batch", "seq", "embed"))
+    return y, moe_aux(probs, counts, cfg)
+
+
+def moe_aux(probs: torch.Tensor, counts: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The load-balancing aux loss (Switch/Mixtral formulation), averaged
+    over the groups: probs (G, T, E), counts (G, E) of each expert's
+    (token, choice) slots."""
+    G, T, E = probs.shape
+    me = torch.mean(probs, dim=1)  # (G, E)
+    assign = counts.to(F32) / (T * cfg.top_k)
+    return E * torch.mean(torch.sum(me * assign, dim=-1))
+
+
+def moe_dispatch(p: dict, xg: torch.Tensor, probs: torch.Tensor, cfg: ModelConfig,
+                 experts: Optional[range] = None):
+    """``_moe_grouped``'s dispatch, expert products and combine, from the
+    router's probs: (y (G, T, D) before its ``shard``, counts (G, E)).
+    ``experts``: the expert ids whose weights ``p`` holds (a rank's own
+    under expert parallelism), ``p``'s rows in order; only their slots are
+    computed and combined (the others' sum is pending on their ranks)."""
     G, T, D = xg.shape
     dt = xg.dtype
     E, K = cfg.num_experts, cfg.top_k
     C = moe_capacity(T, K, E, cfg.capacity_factor)
     dev = xg.device
 
-    probs, gate, eidx = moe_route(xg, p["router"], K)  # (G, T, E), (G, T, K)
+    gate, eidx = moe_topk(probs, K)  # (G, T, K)
     gate = gate / torch.sum(gate, dim=-1, keepdim=True)
 
     flat_e = eidx.reshape(G, T * K)
@@ -424,12 +496,15 @@ def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):
     token = slot // K  # (G, E*C)
 
     xe = torch.gather(xg, 1, token[..., None].expand(G, E * C, D))
-    xe = shard(xe.reshape(G, E, C, D) * valid[..., None].to(dt),
-               "batch", "experts", "capacity", "embed")
+    xe = xe.reshape(G, E, C, D) * valid[..., None].to(dt)
+    if experts is not None:
+        xe = xe[:, experts.start:experts.stop]
+    xe = shard(xe, "batch", "experts", "capacity", "embed")
     h = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
     g_ = torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt))
     h = shard(activate(g_, cfg.act) * h, "batch", "experts", "capacity", "moe_ff")
-    ye = coll_out(torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))).reshape(G, E * C, D)
+    ye = coll_out(torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt)))
+    ye = ye.reshape(G, ye.shape[1] * C, D)
 
     # combine: slot s = t*K + k sits at rank r of its expert's run in the
     # sorted order; it was kept iff r < C, and its output is row e*C + r
@@ -437,17 +512,15 @@ def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):
         1, order, torch.arange(T * K, device=dev).expand(G, T * K))
     r = rank - torch.gather(starts, 1, flat_e)
     kept = r < C
-    row = torch.where(kept, flat_e * C + r, 0)
+    if experts is not None:
+        kept = kept & (flat_e >= experts.start) & (flat_e < experts.stop)
+        row = torch.where(kept, (flat_e - experts.start) * C + r, 0)
+    else:
+        row = torch.where(kept, flat_e * C + r, 0)
     w = torch.where(kept, gate.reshape(G, T * K), 0.0).to(dt)
     contrib = torch.gather(ye, 1, row[..., None].expand(G, T * K, D)) * w[..., None]
     contrib = contrib.reshape(G, T, K, D)
     y = contrib[:, :, 0]
     for k in range(1, K):
         y = y + contrib[:, :, k]
-    y = coll_out(shard(y, "batch", "seq", "embed"))
-
-    # load-balancing aux loss (Switch/Mixtral formulation), averaged over groups
-    me = torch.mean(probs, dim=1)  # (G, E)
-    assign = counts.to(F32) / (T * K)
-    aux = E * torch.mean(torch.sum(me * assign, dim=-1))
-    return y, aux
+    return y, counts

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spmd
 from ..parallel.sharding import shard
 from .config import ModelConfig
 from .params import ParamDecl
@@ -142,33 +143,19 @@ def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
     return z, xs, B_, C_, dt
 
 
-def mamba_apply(
-    p: dict,
-    x: torch.Tensor,  # (B, S, D)
-    *,
-    cfg: ModelConfig,
-    cache: Optional[dict] = None,  # {"ssm": (B,H,P,N), "conv": (B,W-1,conv_ch)}
-    want_cache: bool = False,
-    impl: str = "plain",
-):
-    """Mamba2 mixer. Prefill/train when cache is None or want_cache;
-    single-step decode when cache holds state and S == 1.
-
-    Returns (out, new_cache). On decode the new state is written into the
-    given cache tensors IN PLACE, and those same tensors are returned."""
-    Bsz, S, D = x.shape
-    dt_ = x.dtype
+def _mixer_in(p: dict, zxbcdt: torch.Tensor, cfg: ModelConfig, conv_state, want_cache: bool):
+    """From the input projection to the scan's inputs: the split, the causal
+    conv (one step against ``conv_state`` (B, W-1, conv_ch) in decode) and
+    the step sizes. Returns (z, xs_c (B,S,H,P), B_c, C_c (B,S,N), dt_act
+    (B,S,H) float32, the new conv state or None)."""
+    Bsz, S = zxbcdt.shape[:2]
+    dt_ = zxbcdt.dtype
     di, ns, nh, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     W = cfg.conv_width
-
-    zxbcdt = shard(torch.einsum("bsd,de->bse", x, p["in_proj"].to(dt_)),
-                   "batch", "seq", "ssm_inner")
     z, xs, B_, C_, dtr = _split_proj(zxbcdt, cfg)
     conv_in = torch.cat([xs, B_, C_], dim=-1)  # (B,S,conv_ch)
-
-    decode = cache is not None and "ssm" in cache and S == 1
-    if decode:
-        full = torch.cat([cache["conv"].to(dt_), conv_in], dim=1)
+    if conv_state is not None:
+        full = torch.cat([conv_state.to(dt_), conv_in], dim=1)
         conv_out = torch.einsum(
             "bwc,wc->bc", full.to(F32), p["conv_w"].to(F32)
         ) + p["conv_b"].to(F32)
@@ -183,9 +170,77 @@ def mamba_apply(
     B_c = conv_out[..., di : di + ns]  # (B,S,N) single group
     C_c = conv_out[..., di + ns :]
     dt_act = F.softplus(dtr.to(F32) + p["dt_bias"].to(F32))  # (B,S,H)
+    return z, xs_c, B_c, C_c, dt_act, new_conv
+
+
+def _scan(impl: str, xs_c, dt_act, A, B_c, C_c, chunk: int, h0):
+    """The chunked scan of (B,S,...) inputs, right-padded to a whole number
+    of chunks; returns (y (B,S,H,P), final state)."""
+    Bsz, S, nh, _ = xs_c.shape
+    ns = B_c.shape[-1]
+    pad = (-S) % chunk
+    xp, Bp, Cp, dtp = xs_c, B_c, C_c, dt_act
+    if pad:
+        # right-pad with dt=0: exp(0)=1 leaves the state untouched and
+        # padded outputs are dropped below
+        xp = F.pad(xs_c, (0, 0, 0, 0, 0, pad))
+        Bp = F.pad(B_c, (0, 0, 0, pad))
+        Cp = F.pad(C_c, (0, 0, 0, pad))
+        dtp = F.pad(dt_act, (0, 0, 0, pad))
+    # the single group broadcast over heads, as a view (head stride 0)
+    Sp = S + pad
+    Bh = Bp[:, :, None, :].expand(Bsz, Sp, nh, ns)
+    Ch = Cp[:, :, None, :].expand(Bsz, Sp, nh, ns)
+    y, h_new = SSD_IMPL[impl](xp, dtp, A, Bh, Ch, chunk, h0)
+    if pad:
+        y = y[:, :S]
+    return y, h_new
+
+
+def _mixer_out(p: dict, y, xs_c, z, cfg: ModelConfig):
+    """The skip through D and mamba2's gated RMSNorm (norm before gate):
+    (B,S,H,P) -> (B,S,d_inner) in z's type."""
+    Bsz, S = y.shape[:2]
+    dt_ = z.dtype
+    y = y + xs_c * p["D"].to(dt_)[None, None, :, None]
+    y = y.reshape(Bsz, S, cfg.d_inner)
+    yf = y.to(F32) * F.silu(z.to(F32))
+    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    return (p["norm_w"].to(F32) * yf * torch.rsqrt(var + cfg.norm_eps)).to(dt_)
+
+
+def mamba_apply(
+    p: dict,
+    x: torch.Tensor,  # (B, S, D)
+    *,
+    cfg: ModelConfig,
+    cache: Optional[dict] = None,  # {"ssm": (B,H,P,N), "conv": (B,W-1,conv_ch)}
+    want_cache: bool = False,
+    impl: str = "plain",
+):
+    """Mamba2 mixer. Prefill/train when cache is None or want_cache;
+    single-step decode when cache holds state and S == 1.
+
+    Returns (out, new_cache). On decode the new state is written into the
+    given cache tensors IN PLACE, and those same tensors are returned.
+
+    A DTensor x runs the projections on local shards (``spmd.einsum``),
+    the conv and the gated norm on each rank's rows, and the scan (or the
+    decode step) on each rank's own heads: ``ssm_heads`` over "model"."""
+    if spmd.is_dtensor(x):
+        return spmd.mamba_apply(p, x, cfg=cfg, cache=cache, want_cache=want_cache, impl=impl)
+    Bsz, S, D = x.shape
+    dt_ = x.dtype
+
+    zxbcdt = shard(torch.einsum("bsd,de->bse", x, p["in_proj"].to(dt_)),
+                   "batch", "seq", "ssm_inner")
+    decode = cache is not None and "ssm" in cache and S == 1
+    z, xs_c, B_c, C_c, dt_act, new_conv = _mixer_in(
+        p, zxbcdt, cfg, cache["conv"] if decode else None, want_cache)
     A = -torch.exp(p["A_log"].to(F32))  # (H,)
 
     if decode:
+        nh, ns = cfg.ssm_heads, cfg.ssm_state
         y1, h_new = ssd_decode_step(
             cache["ssm"], xs_c[:, 0], dt_act[:, 0], A,
             B_c[:, 0, None, :].expand(Bsz, nh, ns), C_c[:, 0, None, :].expand(Bsz, nh, ns),
@@ -196,31 +251,10 @@ def mamba_apply(
         new_cache = {"ssm": cache["ssm"], "conv": cache["conv"]}
     else:
         h0 = cache["ssm"] if (cache is not None and "ssm" in cache) else None
-        chunk = min(cfg.ssm_chunk, S)
-        pad = (-S) % chunk
-        xp, Bp, Cp, dtp = xs_c, B_c, C_c, dt_act
-        if pad:
-            # right-pad with dt=0: exp(0)=1 leaves the state untouched and
-            # padded outputs are dropped below
-            xp = F.pad(xs_c, (0, 0, 0, 0, 0, pad))
-            Bp = F.pad(B_c, (0, 0, 0, pad))
-            Cp = F.pad(C_c, (0, 0, 0, pad))
-            dtp = F.pad(dt_act, (0, 0, 0, pad))
-        # the single group broadcast over heads, as a view (head stride 0)
-        Sp = S + pad
-        Bh = Bp[:, :, None, :].expand(Bsz, Sp, nh, ns)
-        Ch = Cp[:, :, None, :].expand(Bsz, Sp, nh, ns)
-        y, h_new = SSD_IMPL[impl](xp, dtp, A, Bh, Ch, chunk, h0)
-        if pad:
-            y = y[:, :S]
+        y, h_new = _scan(impl, xs_c, dt_act, A, B_c, C_c, min(cfg.ssm_chunk, S), h0)
         new_cache = {"ssm": h_new, "conv": new_conv} if want_cache else None
 
-    y = y + xs_c * p["D"].to(dt_)[None, None, :, None]
-    y = y.reshape(Bsz, S, di)
-    # gated RMSNorm (mamba2's norm-before-gate variant)
-    yf = y.to(F32) * F.silu(z.to(F32))
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
-    yn = (p["norm_w"].to(F32) * yf * torch.rsqrt(var + cfg.norm_eps)).to(dt_)
+    yn = _mixer_out(p, y, xs_c, z, cfg)
     out = torch.einsum("bse,ed->bsd", yn, p["out_proj"].to(dt_))
     return shard(out, "batch", "seq", "embed"), new_cache
 

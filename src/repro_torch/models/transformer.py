@@ -44,7 +44,9 @@ the embeddings, the encoder's input and the logits pass the reference's
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from functools import partial
 from typing import Optional
 
@@ -52,7 +54,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..parallel.sharding import shard
+from ..parallel import spmd
+from ..parallel.sharding import current_ctx, shard, sharding_ctx
 from .config import ModelConfig
 from .layers import (SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, moe_apply, moe_decl,
                      rms_norm, softcap)
@@ -61,6 +64,7 @@ from .ssd import SSD_IMPL, mamba_apply, mamba_cache_decl, mamba_decl
 
 F32 = torch.float32
 _aten = torch.ops.aten
+_c10d = torch.ops._c10d_functional
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -79,12 +83,55 @@ def _dots_saveable(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+class _AfterAllReduce(threading.local):
+    pending = False
+
+
+_AFTER_ALL_REDUCE = _AfterAllReduce()
+
+
 def _coll_saveable(ctx, op, *args, **kwargs):
     """``jax.checkpoint_policies.save_only_these_names("coll_out")``: save
-    the outputs tagged by ``layers.coll_out``, recompute everything else."""
+    the outputs tagged by ``layers.coll_out``, recompute everything else.
+    On a mesh each tagged output is the result of an all-reduce (``shard``
+    of a Partial sum), which the reference's recompute never reissues (the
+    saved output makes it dead code): the all-reduce and its wait are saved
+    too, so the recompute issues no all-reduce. (The FSDP all-gathers are
+    recomputed, as the reference re-gathers a layer's params.)"""
     if op is torch.ops.repro_torch.coll_out.default:
         return CheckpointPolicy.MUST_SAVE
+    if op is _c10d.all_reduce.default:
+        _AFTER_ALL_REDUCE.pending = True
+        return CheckpointPolicy.MUST_SAVE
+    if op is _c10d.wait_tensor.default and _AFTER_ALL_REDUCE.pending:
+        _AFTER_ALL_REDUCE.pending = False
+        return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def _checkpoint_contexts(policy=None):
+    """``torch.utils.checkpoint``'s ``context_fn``: the selective policy's
+    forward and recompute contexts (none without a policy), the recompute's
+    under the sharding context of the forward that made it. The recompute
+    runs where the backward pass runs, on the card the autograd engine's
+    own thread, whose thread-local context is empty: ``shard`` would pass
+    every activation through unconstrained there."""
+    mesh, rules = current_ctx()
+
+    def contexts():
+        if policy is None:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        else:
+            fwd, rec = create_selective_checkpoint_contexts(policy)
+        return fwd, _both(rec, _both(sharding_ctx(mesh, rules), spmd.on_mesh_ops()))
+
+    return contexts
 
 
 #: the remat policies: what a super-layer keeps for the backward pass. None
@@ -94,7 +141,10 @@ REMAT_POLICIES = {None: None, "full": None, "dots": _dots_saveable, "coll": _col
 
 
 def _ce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """logsumexp - gold logit at each position; logits (B,S,V) float32."""
+    """logsumexp - gold logit at each position; logits (B,S,V) float32
+    (a DTensor's vocab may be split: ``spmd.vocab_ce_terms``)."""
+    if spmd.is_dtensor(logits):
+        return spmd.vocab_ce_terms(logits, targets)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
 
@@ -126,7 +176,7 @@ def chunked_ce(head_fn, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros((), dtype=F32, device=x.device)
     for i in range(0, S, c):
         acc = acc + checkpoint(_chunk_ce_sum, head_fn, x[:, i:i + c], targets[:, i:i + c],
-                               use_reentrant=False)
+                               use_reentrant=False, context_fn=_checkpoint_contexts())
     return acc / (B * S)
 
 
@@ -185,12 +235,26 @@ def plain_head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """float32 logits of x (B, S, D) against w (D, V) rounded to x's type, as
     one float32 product: the plain version of ``head_logits``, and the head of
     float32 x."""
-    return torch.einsum("bsd,dv->bsv", x.to(F32), w.to(x.dtype).to(F32))
+    return spmd.einsum("bsd,dv->bsv", x.to(F32), w.to(x.dtype).to(F32))
 
 
 def default_impl(device) -> str:
     """The kernels on a CUDA device, the plain oracle elsewhere."""
     return "cuda" if torch.device(device).type == "cuda" else "plain"
+
+
+def _slots(leaf: torch.Tensor, *, smax: int, S: int, fill: int) -> torch.Tensor:
+    """A stacked prefill K/V leaf (n, B, S, ...) in a decode cache of
+    ``smax`` slots: padded with ``fill``, or ring-placed."""
+    out = torch.full(leaf.shape[:2] + (smax,) + leaf.shape[3:], fill,
+                     dtype=leaf.dtype, device=leaf.device)
+    if smax >= S:
+        out[:, :, :S] = leaf
+    else:
+        # ring: contiguous prefill keeps the last smax positions at slots p % smax
+        idx = torch.arange(S - smax, S, device=leaf.device) % smax
+        out[:, :, idx] = leaf[:, :, S - smax:]
+    return out
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -361,6 +425,8 @@ class LM:
         """One super-layer without a cache (the body that remat recomputes);
         returns (x, the sum of its sublayers' aux losses)."""
         auxes = []
+        if spmd.is_dtensor(x):
+            p_super = spmd.gather_for_use(p_super, x.dtype)
         for i in range(self.period):
             x, _, aux = self._sub_apply(p_super[f"sub{i}"], i, x, positions=positions,
                                         cache=None, lengths=None, want_cache=False,
@@ -386,18 +452,18 @@ class LM:
             raise ValueError(f"remat {remat!r} not in {tuple(REMAT_POLICIES)}")
         auxes = []
         if remat is not None:  # the training forward: no cache
-            kw = {}
-            if REMAT_POLICIES[remat] is not None:
-                kw["context_fn"] = partial(create_selective_checkpoint_contexts,
-                                           REMAT_POLICIES[remat])
+            contexts = _checkpoint_contexts(REMAT_POLICIES[remat])
             for layer in range(self.n_super):
                 x, aux = checkpoint(self._super_apply, _layer(params["blocks"], layer), x,
-                                    positions, enc_out, use_reentrant=False, **kw)
+                                    positions, enc_out, use_reentrant=False,
+                                    context_fn=contexts)
                 auxes.append(aux)
             return x, [], sum(auxes)
         caches = []
         for layer in range(self.n_super):
             p_super = _layer(params["blocks"], layer)
+            if spmd.is_dtensor(x):  # FSDP: this layer's params, gathered for use
+                p_super = spmd.gather_for_use(p_super, x.dtype)
             c_super = _layer(cache, layer) if cache is not None else None
             x_super = _layer(cross, layer) if cross is not None else {}
             out = {}
@@ -420,7 +486,12 @@ class LM:
         """Token embeddings (B, S, D) in ``dtype``; precomputed frontend
         embeddings (B, F, D), where given, go before them (B, F + S, D)."""
         cfg = self.cfg
-        x = params["embed"][tokens.long()].to(dtype)
+        table = params["embed"]
+        if spmd.is_dtensor(table):
+            table = spmd.gather_for_use({"embed": table}, dtype)["embed"]
+            x = spmd.embed_lookup(table, tokens).to(dtype)
+        else:
+            x = table[tokens.long()].to(dtype)
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
         if frontend_embeds is not None:
@@ -433,9 +504,13 @@ class LM:
         (``head_logits``); elsewhere, and for float32 x, the same arithmetic
         as a float32 product (``plain_head_logits``)."""
         cfg = self.cfg
-        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        w = params[name]
+        if spmd.is_dtensor(w):
+            w = spmd.gather_for_use({name: w}, x.dtype)[name]
+        w = w.T if cfg.tie_embeddings else w
         if x.is_cuda and x.dtype == torch.bfloat16:
-            logits = head_logits(x, w.to(x.dtype))
+            logits = spmd.einsum("bsd,dv->bsv", x, w.to(x.dtype), fn=head_logits)
         else:
             logits = plain_head_logits(x, w)
         return shard(softcap(logits, cfg.final_logit_softcap), "batch", "seq", "vocab")
@@ -460,7 +535,8 @@ class LM:
 
         for layer in range(cfg.num_encoder_layers):
             p = _layer(params["enc_blocks"], layer)["sub0"]
-            x = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
+            x = (checkpoint(body, p, x, use_reentrant=False, context_fn=_checkpoint_contexts())
+                 if remat else body(p, x))
         return rms_norm(params["enc_final_norm"], x, cfg.norm_eps)
 
     def _encoder_out(self, params, enc_embeds, dtype, remat=None):
@@ -657,16 +733,9 @@ class LM:
             sub = {}
             for name, leaf in stack(i, "attn").items():
                 fill = -1 if name == "pos_ids" else 0
-                out = torch.full(leaf.shape[:2] + (smax,) + leaf.shape[3:], fill,
-                                 dtype=leaf.dtype, device=leaf.device)
-                if smax >= S:
-                    out[:, :, :S] = leaf
-                else:
-                    # ring: contiguous prefill keeps the last smax positions
-                    # at slots p % smax
-                    idx = torch.arange(S - smax, S, device=leaf.device) % smax
-                    out[:, :, idx] = leaf[:, :, S - smax:]
-                sub[name] = out
+                # a DTensor's local shard, whose slots dim is whole
+                sub[name] = spmd.local_apply(partial(_slots, smax=smax, S=S, fill=fill), leaf,
+                                             shape=leaf.shape[:2] + (smax,) + leaf.shape[3:])
             blocks[f"sub{i}"] = {"attn": sub}
         lengths = torch.full((B,), S, dtype=torch.int32, device=device)
         out = {"lengths": lengths, "blocks": blocks}

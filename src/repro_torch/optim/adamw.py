@@ -10,6 +10,11 @@ trees rather than writing in place, unless the caller donates its state
 its train step): then each float32 leaf's new params and moments are
 written into the given tensors, by the same operations, so the bits are
 the same and no second copy of the state is ever held.
+
+On a mesh the leaves are DTensors: the moments share their params'
+placements, ``global_norm`` is the norm of the whole tree (each leaf's sum
+of squares reduced over the ranks that hold parts of it) and the update
+runs on each rank's local shards, with no communication.
 """
 from __future__ import annotations
 
@@ -52,14 +57,21 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: dict) -> dict:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=F32, device=p.device)
+    def zeros(p):  # a DTensor's moments take its placements
+        return torch.zeros_like(p, dtype=F32, memory_format=torch.contiguous_format)
 
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
+def _sq_sum(g: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(g.to(F32)))
+    return s.full_tensor() if hasattr(s, "full_tensor") else s  # a DTensor's: reduced
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in tree_leaves(tree)))
+    """The norm of every leaf of ``tree`` together (of DTensors: of the
+    whole tensors, replicated on every rank)."""
+    return torch.sqrt(sum(_sq_sum(g) for g in tree_leaves(tree)))
 
 
 @torch.no_grad()
@@ -80,6 +92,8 @@ def update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict,
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    if hasattr(step, "to_local"):  # a replicated DTensor: every rank's is the whole
+        step = step.to_local()
     lr = schedule(cfg, step)
     t = (step + 1).to(F32)
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=t.device), t)
@@ -92,13 +106,18 @@ def update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict,
             p32 = p
         else:  # new tensors; the given ones stay as they are
             p32, g, m, v = p.to(F32, copy=True), g.to(F32, copy=True), m.clone(), v.clone()
-        _update_in_place(cfg, p32, g, m, v, scale, lr, bc1, bc2)
+        _update_in_place(cfg, *(_local(t) for t in (p32, g, m, v)), scale, lr, bc1, bc2)
         new_p.append(p32.to(p.dtype))
         new_m.append(m)
         new_v.append(v)
     return (tree_unflatten(params, new_p),
             {"m": tree_unflatten(params, new_m), "v": tree_unflatten(params, new_v)},
             {"grad_norm": gnorm, "lr": lr})
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the same storage), a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def _update_in_place(cfg, p, g, m, v, scale, lr, bc1, bc2):

@@ -29,6 +29,8 @@ import contextlib
 import threading
 from typing import Optional, Sequence, Union
 
+import torch
+
 Rules = dict[str, Union[str, tuple[str, ...], None]]
 
 #: what a larger mesh raises with, here and in the trainer and cell programs
@@ -201,6 +203,13 @@ def sharding_ctx(mesh, rules: Optional[Rules]):
         _CTX.mesh, _CTX.rules = prev
 
 
+def current_ctx() -> tuple:
+    """The (mesh, rules) of this thread's context, for code that must run
+    again under it on another thread (a checkpoint's recompute runs where
+    the backward pass runs: on the card, the autograd engine's own thread)."""
+    return _CTX.mesh, _CTX.rules
+
+
 
 # ---------------------------------------------------------------------------
 # Spec construction with divisibility fallback
@@ -254,14 +263,67 @@ def spec_for(
 
 
 def shard(x, *logical_axes: Optional[str]):
-    """Mark an activation's layout under the current (mesh, rules) context.
+    """Constrain an activation's layout under the current (mesh, rules)
+    context: the eager counterpart of ``with_sharding_constraint``.
 
     ``x`` itself outside a context (one attribute read) and on a mesh whose
-    axes are all 1; raises ``NotImplementedError`` on a larger mesh."""
+    axes are all 1. On a larger mesh ``x`` must be a DTensor: it is
+    redistributed to the placements of ``spec_for(x.shape, logical_axes)``,
+    which is where the collectives of the reference's SPMD program happen
+    (Partial -> Replicate an all-reduce, Shard -> Replicate an all-gather,
+    Replicate -> Shard a local slice). A plain tensor raises ``TypeError``:
+    nothing passes a larger mesh unsharded without notice."""
     mesh = _CTX.mesh
     if mesh is None or _CTX.rules is None or is_trivial(mesh):
         return x
-    raise NotImplementedError(f"shard{tuple(logical_axes)}: {SPMD_TODO}")
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        raise TypeError(f"shard{tuple(logical_axes)} on mesh {mesh_shape(mesh)}: a plain "
+                        f"tensor of shape {tuple(x.shape)}; a larger mesh takes DTensors")
+    placements = NamedSharding(mesh, spec_for(x.shape, logical_axes, _CTX.rules, mesh)).placements
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def distribute_tree(tree, shardings):
+    """Place every leaf of ``tree`` (whole tensors, the same on every rank:
+    drawn from one seed, or read from one checkpoint) by the NamedSharding
+    at the same place in ``shardings``: each rank keeps its shard of its
+    own copy (``distribute_tensor(src_data_rank=None)``: no bytes move)."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, shardings[k]) for k, v in tree.items()}
+    return distribute_leaf(tree, shardings)
+
+
+def distribute_leaf(t: torch.Tensor, sharding: NamedSharding):
+    """One whole tensor, the same on every rank, as the DTensor of
+    ``sharding`` whose local tensor is this rank's shard, in storage of its
+    own (a chunk that is a view would keep the whole tensor alive)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    d = distribute_tensor(t, sharding.mesh, sharding.placements, src_data_rank=None)
+    loc = d.to_local()
+    if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
+        d = DTensor.from_local(loc.clone(), sharding.mesh, sharding.placements, run_check=False,
+                               shape=d.shape, stride=d.stride())
+    return d
+
+
+def local_rows(t, sharding):
+    """The DTensor of ``sharding`` whose rank-local shard is ``t``, this rank's
+    own part, with no communication (``DTensor.from_local``): how a loader
+    that draws only its rows places them. The global shape is the local one
+    times the mesh axes the spec splits each dim over."""
+    from .spmd import from_local
+
+    sizes = mesh_shape(sharding.mesh)
+    shape = list(t.shape)
+    for dim, entry in enumerate(sharding.spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,) if entry else ()):
+            shape[dim] *= sizes[a]
+    return from_local(t, sharding.mesh, sharding.placements, shape)
 
 
 def _tree_map_axes(fn, axes_tree, shapes_tree):

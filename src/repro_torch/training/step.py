@@ -7,6 +7,17 @@ on the float32 master params; the forward computes in ``compute_dtype``.
 ``state_axes`` gives every state leaf's logical axes, from which
 ``parallel/sharding.py::tree_shardings`` places the state on a mesh
 (``launch/train.py``, ``checkpoint/store.py``'s elastic restore).
+
+On a mesh larger than one device the state's leaves are DTensors and the
+step runs under ``sharding_ctx`` (``launch/train.py``, the cell programs):
+the forward gathers each layer's FSDP params for use
+(``parallel/spmd.py``), every gradient comes back in its param's
+placements, and the loss and metrics are whole (replicated) tensors. The
+batch's leaves are DTensors split over "data" by rows; with microbatches
+each rank's local rows hold its part of every microbatch in turn
+(``data/batches.py::place_batch``), so microbatch i is the reference's
+contiguous global rows [i B/mb, (i+1) B/mb) with no rows moving between
+ranks.
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ import torch
 from ..models.params import tree_leaves, tree_map, tree_unflatten
 from ..models.transformer import LM
 from ..optim import adamw
+from ..parallel import spmd
 
 F32 = torch.float32
 
@@ -30,6 +42,57 @@ def init_state(model: LM, gen: torch.Generator) -> dict:
         "opt": adamw.init(params),
         "step": torch.zeros((), dtype=torch.int32, device=model.device),
     }
+
+
+def init_state_on_mesh(model: LM, gen: torch.Generator, shardings: dict) -> dict:
+    """``init_state`` placed by ``shardings`` (a NamedSharding tree of the
+    state, ``tree_shardings(state_axes, state_specs, ...)``): the params
+    drawn whole from ``gen`` (every rank the same, from the same seed) and
+    each rank's shards kept, the moments zeros in the params' placements;
+    no more than the whole params and the rank's shards at once."""
+    from ..parallel.sharding import distribute_tree
+
+    params = distribute_tree(model.init(gen, dtype=F32), shardings["params"])
+    return {"params": params, "opt": adamw.init(params),
+            "step": distribute_tree(torch.zeros((), dtype=torch.int32, device=model.device),
+                                    shardings["step"])}
+
+
+def init_state_sharded(model: LM, seed: int, shardings: dict) -> dict:
+    """A fresh state drawn shard by shard on the mesh of ``shardings``: each
+    rank draws only its own shard of every normal param, from a generator
+    seeded by (``seed``, the leaf, the shard's coordinates on the mesh dims
+    that split it), so ranks holding one shard draw the same values and no
+    rank ever holds a whole leaf. The values are not ``init_state``'s (other
+    draws); for states larger than a device (``launch/multihost.py``)."""
+    from torch.distributed import tensor as dt
+
+    def one(i, decl, s):
+        t = dt.zeros(decl.shape, device_mesh=s.mesh, placements=s.placements, dtype=F32)
+        loc = t.to_local()
+        if decl.init == "ones":
+            loc.fill_(1.0)
+        elif decl.init != "zeros":
+            coord = s.mesh.get_coordinate()
+            key = [c if p.is_shard() else 0 for c, p in zip(coord, s.placements)]
+            gen = torch.Generator(device=loc.device).manual_seed(
+                hash((seed, i, *key)) % 2**63)
+            fan_in = decl.fan_in if decl.fan_in is not None else (
+                decl.shape[0] if decl.shape else 1)
+            loc.normal_(generator=gen).mul_(1.0 / max(fan_in, 1) ** 0.5)
+        return t
+
+    count = iter(range(1 << 30))
+
+    def walk(decl, s):
+        if isinstance(decl, dict):
+            return {k: walk(v, s[k]) for k, v in sorted(decl.items())}
+        return one(next(count), decl, s)
+
+    params = walk(model.decls(), shardings["params"])
+    return {"params": params, "opt": adamw.init(params),
+            "step": dt.zeros((), device_mesh=shardings["step"].mesh,
+                             placements=shardings["step"].placements, dtype=torch.int32)}
 
 
 def state_axes(model: LM) -> dict:
@@ -56,12 +119,15 @@ def loss_and_grads(model: LM, params: dict, batch: dict, *,
                    remat: Optional[str] = "full", compute_dtype=torch.bfloat16):
     """(loss, metrics, grads): the loss and its gradient with respect to
     every leaf of ``params``, all detached."""
-    with torch.enable_grad():
+    with torch.enable_grad(), spmd.on_mesh_ops():
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, metrics = model.loss(live, batch, remat=remat, dtype=compute_dtype)
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+        # each gradient in its param's placements (a replicated param's
+        # gradient is Partial until here: one all-reduce)
+        grads = [spmd.like(g, p) for g, p in zip(grads, leaves)]
+    return (spmd.whole(loss.detach()), {k: spmd.whole(v.detach()) for k, v in metrics.items()},
             tree_unflatten(params, grads))
 
 
@@ -89,12 +155,11 @@ def make_train_step(
             b = batch["tokens"].shape[0]
             if b % microbatches:
                 raise ValueError(f"batch {b} is not a multiple of {microbatches} microbatches")
-            mb = b // microbatches
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
             loss = torch.zeros((), dtype=F32, device=model.device)
             aux = torch.zeros((), dtype=F32, device=model.device)
             for i in range(microbatches):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                micro = {k: spmd.microbatch(v, i, microbatches) for k, v in batch.items()}
                 l_i, m_i, g_i = loss_and_grads(
                     model, params, micro, remat=remat, compute_dtype=compute_dtype)
                 grads = tree_unflatten(params, [a + g for a, g in zip(tree_leaves(grads),

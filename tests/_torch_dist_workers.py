@@ -7,6 +7,7 @@ group in ``finally``. Imports torch and the port only.
 """
 from __future__ import annotations
 
+import threading
 import time
 from pathlib import Path
 
@@ -123,11 +124,11 @@ def dp_rank(rank: int, world: int, tmp: str, cases: list) -> None:
         dist.destroy_process_group()
 
 
-def _raises_spmd(fn) -> bool:
+def _raises_spmd(fn, exc=NotImplementedError, match="SPMD leftovers") -> bool:
     try:
         fn()
-    except NotImplementedError as e:
-        return "SPMD" in str(e)
+    except exc as e:
+        return match in str(e)
     return False
 
 
@@ -135,12 +136,12 @@ def restore_rank(rank: int, world: int, tmp: str) -> None:
     """Restore ``tmp/ckpt``'s step 1 (leaf "w", (8, 8) float32) onto a
     (world, 1) mesh through ``tree_shardings`` of ("fsdp", "ff") under
     TRAIN_RULES; writes this rank's local shard, the DTensor's mesh shape
-    and placements, and whether ``shard``, a cell program and ``train``
-    raise on that mesh, to ``tmp/shard_rank<r>.npz``."""
+    and placements, and whether ``shard`` of a plain tensor, a
+    ``decode_kvseq`` and a ``moe_cshard`` program raise on that mesh, to
+    ``tmp/shard_rank<r>.npz``."""
     from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.programs import build_program
-    from repro_torch.launch.train import train
     from repro_torch.parallel.sharding import TRAIN_RULES, shard, sharding_ctx, tree_shardings
 
     _join(rank, world, tmp)
@@ -155,9 +156,13 @@ def restore_rank(rank: int, world: int, tmp: str) -> None:
             with sharding_ctx(mesh, TRAIN_RULES):
                 shard(w.to_local(), "batch", "embed")
 
-        prog = build_program("qwen2-0.5b", "decode_32k", mesh, reduced=True)
-        raises = [_raises_spmd(shard_in_ctx), _raises_spmd(lambda: prog(None, None, None)),
-                  _raises_spmd(lambda: train("qwen2-0.5b", steps=1, device="cpu", mesh=mesh))]
+        kvseq = build_program("qwen2-0.5b", "decode_32k", mesh, reduced=True,
+                              variant="decode_kvseq")
+        cshard = build_program("mixtral-8x7b", "train_4k", mesh, reduced=True,
+                               variant="moe_cshard")
+        raises = [_raises_spmd(shard_in_ctx, TypeError, "plain tensor"),
+                  _raises_spmd(lambda: kvseq(None, None, None)),
+                  _raises_spmd(lambda: cshard(None, None))]
         np.savez(Path(tmp) / f"shard_rank{rank}.npz", local=w.to_local().numpy(),
                  mesh_shape=np.asarray(w.device_mesh.shape),
                  placements=np.asarray([str(p) for p in w.placements]),
@@ -183,5 +188,279 @@ def train_dp_rank(rank: int, world: int, tmp: str) -> None:
             for key, t in _flat(res["state"]["params"]).items():
                 out[f"{name}/params/{key}"] = t.numpy()
         np.savez(Path(tmp) / f"train_dp_rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+# --- SPMD execution on a (2, 2) mesh (tests/test_torch_spmd_{train,serve}.py) ---
+
+#: small cells both packages register for the SPMD tests (kind, seq, batch)
+SPMD_CELLS = {"tiny_train": ("train", 32, 4), "tiny_prefill": ("prefill", 24, 4),
+              "tiny_decode": ("decode", 24, 4)}
+
+
+def _spmd_setup(rank: int, world: int, tmp: str) -> None:
+    """Join the group, quiet DTensor's note on two-step all-reduces, register
+    the small cells and make the train programs compute in float32."""
+    import functools
+    import logging
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.training import step
+
+    _join(rank, world, tmp)
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    for name, (kind, seq, batch) in SPMD_CELLS.items():
+        SHAPES[name] = ShapeCell(name, kind, seq, batch)
+    step.make_train_step = functools.partial(step.make_train_step, compute_dtype=torch.float32)
+
+
+def _whole(tree) -> dict:
+    """Every leaf of a tree as a numpy array of the whole tensor (a copy: a
+    donated step writes into a replicated leaf's storage)."""
+    return {k: np.array((v.full_tensor() if hasattr(v, "full_tensor") else v).float().numpy())
+            for k, v in _flat(tree).items()}
+
+
+def _same_placements(tree, like) -> bool:
+    a, b = _flat(tree), _flat(like)
+    return all(tuple(a[k].placements) == tuple(b[k].placements) for k in a)
+
+
+def _clone(tree):
+    return {k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+def spmd_train_rank(rank: int, world: int, tmp: str, cases: list) -> None:
+    """On a (2, 2) mesh of four gloo ranks: each ``(arch, variant)`` of
+    ``cases`` as the ``tiny_train`` cell program, two steps from
+    ``tmp/train_in_<i>.npz`` (params "params/<key>", "tokens", "targets"),
+    sharded and on one device (``make_train_step`` on whole tensors); then
+    the collectives of a step on a (4, 1) mesh, the GQA kv-head slice on a
+    (1, 4) mesh, ``shard`` of a plain tensor, a checkpoint of the (2, 2)
+    state restored onto (4, 1), and ``train(mesh=)`` against ``train()``.
+    Rank 0 writes ``tmp/train_out_<i>.npz`` and ``tmp/train_checks.npz``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import place_batch
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.layers import _sdpa_dense, sdpa
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import (TRAIN_RULES, distribute_tree, shard,
+                                               sharding_ctx, tree_shardings)
+    from repro_torch.training import step
+
+    _spmd_setup(rank, world, tmp)
+    try:
+        mesh = make_local_mesh(2, 2, device_type="cpu")
+        checks = {}
+        for i, (arch, variant) in enumerate(cases):
+            inp = np.load(f"{tmp}/train_in_{i}.npz")
+            prog = programs.build_program(arch, "tiny_train", mesh, reduced=True,
+                                          variant=variant)
+            params = _nest({k[len("params/"):]: torch.from_numpy(inp[k].copy())
+                            for k in inp.files if k.startswith("params/")})
+            state = {"params": params, "opt": adamw.init(params),
+                     "step": torch.zeros((), dtype=torch.int32)}
+            twin = _clone(state)
+            batch = {k: torch.from_numpy(inp[k]) for k in ("tokens", "targets")}
+            st, b = prog.place(state, batch)
+            out = {"loss": [], "grad_norm": [], "one/loss": [], "one/grad_norm": []}
+            direct = step.make_train_step(prog.model, adamw.OptConfig(),
+                                          microbatches=prog.meta["microbatches"],
+                                          remat=prog.meta["remat"])
+            for s in range(2):
+                st, m = prog(st, b)
+                twin, dm = direct(twin, batch)
+                for pre, mm in (("", m), ("one/", dm)):
+                    out[f"{pre}loss"].append(float(mm["loss"]))
+                    out[f"{pre}grad_norm"].append(float(mm["grad_norm"]))
+                if s == 0:
+                    out.update({f"m/{k}": v for k, v in _whole(st["opt"]["m"]).items()})
+                    out.update({f"one/m/{k}": v for k, v in _whole(twin["opt"]["m"]).items()})
+            out.update({f"params/{k}": v for k, v in _whole(st["params"]).items()})
+            out.update({f"one/params/{k}": v for k, v in _whole(twin["params"]).items()})
+            out["moments_placed"] = (_same_placements(st["opt"]["m"], st["params"])
+                                     and _same_placements(st["opt"]["v"], st["params"]))
+            with sharding_ctx(mesh, TRAIN_RULES):
+                _, _, grads = step.loss_and_grads(prog.model, st["params"], b,
+                                                  remat=prog.meta["remat"],
+                                                  compute_dtype=torch.float32)
+            out["grads_placed"] = _same_placements(grads, st["params"])
+            if rank == 0:
+                np.savez(Path(tmp) / f"train_out_{i}.npz", **out)
+            if i == 0:  # the checkpoint of this (2, 2) state
+                CheckpointStore(f"{tmp}/ckpt").save(2, st)
+                dist.barrier()
+                whole = _whole(st)
+                if rank == 0:
+                    np.savez(Path(tmp) / "ckpt_state.npz", **whole)
+                mesh41 = make_local_mesh(4, 1, device_type="cpu")
+                sh = tree_shardings(step.state_axes(prog.model), step.state_specs(prog.model),
+                                    TRAIN_RULES, mesh41)
+                back, _ = CheckpointStore(f"{tmp}/ckpt").restore(
+                    2, step.state_specs(prog.model), shardings=sh)
+                checks["restore_41_exact"] = all(
+                    np.array_equal(v, whole[k]) for k, v in _whole(back).items())
+                checks["restore_41_placed"] = all(
+                    isinstance(t, DTensor) and t.device_mesh.shape == (4, 1)
+                    for t in _flat(back).values())
+
+        # the collectives of one forward and backward on a (4, 1) mesh
+        model = LM(get_config("qwen2-0.5b", reduced=True), device="cpu")
+        mesh41 = make_local_mesh(4, 1, device_type="cpu")
+        full = model.init(torch.Generator().manual_seed(0))
+        p41 = distribute_tree(full, tree_shardings(model.param_axes(), model.param_shapes(),
+                                                   TRAIN_RULES, mesh41))
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, 512, (4, 17)).astype(np.int32))
+        b41 = place_batch({"tokens": toks[:, :-1], "targets": toks[:, 1:]}, mesh41,
+                          TRAIN_RULES)
+        with CommDebugMode() as comm, sharding_ctx(mesh41, TRAIN_RULES):
+            step.loss_and_grads(model, p41, b41, remat=None, compute_dtype=torch.float32)
+        counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+        checks["all_gather"] = counts.get("all_gather_into_tensor", 0)
+        checks["reduce_scatter"] = counts.get("reduce_scatter_tensor", 0)
+        # the FSDP leaves a layer (wq, wk, wv, wo and the MLP's three) each
+        # gathered once and reduce-scattered once, and the tied table twice
+        # (the embedding and the head)
+        checks["fsdp_leaves"] = 7 * model.n_super + 2
+
+        # GQA under TP: granite's 4 q heads and 2 kv heads on a 4-way "model"
+        # axis, one q head a rank, against the whole attention
+        mesh14 = make_local_mesh(1, 4, device_type="cpu")
+        g = torch.Generator().manual_seed(1)
+        q = torch.randn(2, 8, 4, 16, generator=g)
+        k = torch.randn(2, 8, 2, 16, generator=g)
+        v = torch.randn(2, 8, 2, 16, generator=g)
+        pos = torch.arange(8, dtype=torch.int32)[None].expand(2, 8)
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+        dq = distribute_tensor(q, mesh14, [Replicate(), Shard(2)])
+        dk = distribute_tensor(k, mesh14, [Replicate(), Replicate()])
+        dv = distribute_tensor(v, mesh14, [Replicate(), Replicate()])
+        with spmd.on_mesh_ops():
+            got = sdpa(dq, dk, dv, q_pos=pos, k_pos=pos, window=None, causal=True, cap=None,
+                       site="prefill").full_tensor()
+        want = _sdpa_dense(q, k, v, pos, pos, None, True, None)
+        checks["gqa_err"] = float((got - want).abs().max())
+        cfg = get_config("granite-8b", reduced=True)
+        gmodel = LM(cfg, device="cpu")
+        gp = gmodel.init(torch.Generator().manual_seed(0))
+        gtok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 17)).astype(np.int32))
+        gb = {"tokens": gtok[:, :-1], "targets": gtok[:, 1:]}
+        l1, _, g1 = step.loss_and_grads(gmodel, gp, gb, remat=None, compute_dtype=torch.float32)
+        dgp = distribute_tree(gp, tree_shardings(gmodel.param_axes(), gmodel.param_shapes(),
+                                                 TRAIN_RULES, mesh14))
+        with sharding_ctx(mesh14, TRAIN_RULES):
+            l4, _, g4 = step.loss_and_grads(gmodel, dgp, place_batch(gb, mesh14, TRAIN_RULES),
+                                            remat=None, compute_dtype=torch.float32)
+        checks["gqa_loss"] = np.asarray([float(l1), float(l4)])
+        checks["gqa_grad_err"] = max(float(np.abs(a - b).max()) for a, b in
+                                     zip(_whole(g1).values(), _whole(g4).values()))
+        # the collectives of a step under each remat policy on the (2, 2) mesh
+        gp22 = distribute_tree(gp, tree_shardings(gmodel.param_axes(), gmodel.param_shapes(),
+                                                  TRAIN_RULES, mesh))
+        gb22 = place_batch(gb, mesh, TRAIN_RULES)
+        for remat in (None, "coll", "dots"):
+            with CommDebugMode() as comm, sharding_ctx(mesh, TRAIN_RULES):
+                lr, _, gr = step.loss_and_grads(gmodel, gp22, gb22, remat=remat,
+                                                compute_dtype=torch.float32)
+            counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+            checks[f"remat_{remat}_all_reduce"] = counts.get("all_reduce", 0)
+            checks[f"remat_{remat}_all_gather"] = counts.get("all_gather_into_tensor", 0)
+            checks[f"remat_{remat}_loss"] = float(lr)
+            checks[f"remat_{remat}_grads"] = np.concatenate(
+                [v.ravel() for v in _whole(gr).values()])
+        # the backward on another thread (the card's autograd engine runs it
+        # on a thread of its own, where the sharding context is not set): the
+        # recompute of every remat policy still constrains its activations
+        for remat in ("full", "coll"):
+            with sharding_ctx(mesh, TRAIN_RULES), spmd.on_mesh_ops(), torch.enable_grad():
+                live = {k: v for k, v in _flat(gp22).items()}
+                live = _nest({k: v.detach().requires_grad_() for k, v in live.items()})
+                loss, _ = gmodel.loss(live, gb22, remat=remat, dtype=torch.float32)
+            leaves = list(_flat(live).values())
+            got = {}
+            th = threading.Thread(target=lambda: got.update(g=torch.autograd.grad(loss, leaves)))
+            th.start()
+            th.join()
+            grads = dict(zip(_flat(live), (spmd.like(g, p) for g, p in zip(got["g"], leaves))))
+            checks[f"thread_{remat}_grads"] = np.concatenate(
+                [v.ravel() for v in _whole(_nest(grads)).values()])
+        # a state drawn shard by shard (launch/multihost.py's), one step of it
+        prog = programs.build_program("qwen2-0.5b", "tiny_train", mesh, reduced=True)
+        drawn = step.init_state_sharded(prog.model, 0, prog.in_shardings[0])
+        sh_flat = _flat(prog.in_shardings[0])
+        checks["sharded_init_placed"] = all(
+            tuple(t.placements) == tuple(sh_flat[k].placements)
+            for k, t in _flat(drawn).items())
+        checks["sharded_init_ones"] = bool((_whole(drawn["params"])["final_norm"] == 1).all())
+        inp = np.load(f"{tmp}/train_in_0.npz")
+        _, m = prog(drawn, place_batch({k: torch.from_numpy(inp[k]) for k in ("tokens", "targets")},
+                                       mesh, TRAIN_RULES))
+        checks["sharded_init_loss"] = float(m["loss"])
+        # a plain tensor on a larger mesh
+        with sharding_ctx(mesh, TRAIN_RULES):
+            checks["shard_plain_raises"] = _raises_spmd(
+                lambda: shard(torch.zeros(4, 2), "batch", "embed"), TypeError, "plain tensor")
+
+        # train(mesh=) against train(), float32, three steps with a checkpoint
+        kw = dict(reduced=True, steps=3, batch=4, seq=16, ckpt_every=2, log_every=100,
+                  dtype=torch.float32)
+        on = train("qwen2-0.5b", ckpt_dir=f"{tmp}/train_mesh", mesh=mesh, **kw)
+        off = train("qwen2-0.5b", ckpt_dir=f"{tmp}/train_plain_{rank}", device="cpu", **kw)
+        checks["train_losses"] = np.asarray([on["losses"], off["losses"]])
+        on_w, off_w = _whole(on["state"]["params"]), _whole(off["state"]["params"])
+        checks["train_param_err"] = max(float(np.abs(on_w[k] - off_w[k]).max()) for k in on_w)
+        checks["train_state_dtensors"] = all(isinstance(t, DTensor)
+                                             for t in _flat(on["state"]).values())
+        if rank == 0:
+            np.savez(Path(tmp) / "train_checks.npz", **checks)
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_serve_rank(rank: int, world: int, tmp: str, cases: list) -> None:
+    """On a (2, 2) mesh of four gloo ranks: each ``(arch, cell, variant)``
+    of ``cases`` (a ``tiny_prefill`` or ``tiny_decode`` program) on the
+    inputs of ``tmp/serve_in_<i>.npz`` (bf16 params stored as float32
+    "params/<key>", "tokens", a decode cache "cache/<key>"), sharded and on
+    one device (``LM.prefill`` / ``LM.decode_step``); rank 0 writes the
+    logits of both to ``tmp/serve_out_<i>.npz``."""
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import make_local_mesh
+
+    _spmd_setup(rank, world, tmp)
+    try:
+        mesh = make_local_mesh(2, 2, device_type="cpu")
+        for i, (arch, cell, variant) in enumerate(cases):
+            inp = np.load(f"{tmp}/serve_in_{i}.npz")
+            prog = programs.build_program(arch, cell, mesh, reduced=True, variant=variant)
+            params = _nest({k[len("params/"):]: torch.from_numpy(inp[k]).to(torch.bfloat16)
+                            for k in inp.files if k.startswith("params/")})
+            toks = torch.from_numpy(inp["tokens"])
+            model = prog.model
+            if prog.kind == "prefill":
+                logits, _ = prog.gather(prog(*prog.place(params, {"tokens": toks})))
+                one, _ = model.prefill(params, toks)
+            else:
+                spec = _flat(prog.in_specs[1])
+                cache = _nest({k[len("cache/"):]: torch.from_numpy(inp[k]).to(
+                    spec[k[len("cache/"):]].dtype) for k in inp.files if k.startswith("cache/")})
+                twin = _clone(cache)
+                logits, _ = prog.gather(prog(*prog.place(params, cache, toks)))
+                one, _ = model.decode_step(params, twin, toks)
+            if rank == 0:
+                np.savez(Path(tmp) / f"serve_out_{i}.npz", logits=logits.float().numpy(),
+                         one=one.float().numpy())
     finally:
         dist.destroy_process_group()

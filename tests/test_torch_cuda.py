@@ -37,7 +37,9 @@ not, keys past the last query with dK = dV = 0 exactly) at the gradients'
 tolerance, bit for bit on a second run; the reduced loss and grads of the
 archs with encoder or patch inputs (and jamba, mixtral) through the kernels
 within 1e-5 of the plain versions, and under every remat policy the same
-bits as without.
+bits as without. The decode kernel launched from two threads at once, at
+two group sizes over 48 KiB of shared memory, thousands of times each:
+every launch succeeds with the single-thread bits.
 """
 import pytest
 import torch
@@ -220,6 +222,46 @@ def test_decode_kernel_at_gemma2_width_on_a_ring_cache(dev, window, dtype, tol):
     got = decode_attention(q, k, v, pos, lengths, window=window, softcap=50.0)
     want = decode_attention_ref(q, k, v, pos, lengths, window=window, softcap=50.0)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_from_threads_at_two_group_sizes(dev):
+    """The live engine decodes on several worker threads at once: two
+    threads at granite-8b's and internlm2-1.8b's served shapes (4 and 2
+    query heads a kv head at hd 128, whose blocks ask for different shared
+    memory, both over the 48 KiB a block gets without opting in). Every one
+    of many launches from each succeeds and gives the single-thread bits."""
+    import threading
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases = []
+    for H, K in ((32, 8), (16, 8)):
+        B, hd, Smax, fill = 1, 128, 288, 260
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((B, H, hd), (B, Smax, K, hd), (B, Smax, K, hd)))
+        ar = torch.arange(Smax, dtype=torch.int32, device=dev)[None].expand(B, Smax)
+        lengths = torch.full((B,), fill, dtype=torch.int32, device=dev)
+        pos = torch.where(ar <= lengths[:, None], ar, torch.full_like(ar, -1)).contiguous()
+        args = (q, k, v, pos, lengths)
+        cases.append((args, decode_attention(*args)))
+    errors, start = [], threading.Barrier(len(cases))
+
+    def run(args, want):
+        start.wait()
+        try:
+            outs = [decode_attention(*args) for _ in range(3000)]
+        except RuntimeError as e:
+            errors.append(str(e))
+            return
+        if not torch.equal(torch.stack(outs), want.expand(len(outs), *want.shape)):
+            errors.append("bits differ from the single-thread run")
+
+    threads = [threading.Thread(target=run, args=c) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
 
 
 @pytest.mark.cuda

@@ -198,18 +198,35 @@ def test_program_matches_reference_and_direct_call(arch, cell, variant, cells, w
 
 
 def test_programs_raise_on_a_larger_mesh(cells):
-    """Built on a (2,1) mesh, a program has its shardings and raises when
-    run (the mesh is faked: building reads only its axes and device type)."""
+    """Built on a (2,1) mesh, a program has its shardings; what the SPMD
+    slice leaves out raises when run, naming its ROADMAP item: K/V split on
+    its sequence (``decode_kvseq``, the ``long_500k`` cell's LONG_RULES),
+    the expert capacity split (``moe_cshard``), and a "pod" axis, in a
+    program and in ``train`` (the mesh is faked: building reads only its
+    axes and device type, and each refusal comes before any input is
+    read)."""
 
     class _Mesh21:
         mesh_dim_names, shape, device_type = ("data", "model"), (2, 1), "cpu"
 
+    class _Pod:
+        mesh_dim_names, shape, device_type = ("pod", "data", "model"), (2, 1, 1), "cpu"
+
     prog = programs.build_program("qwen2-0.5b", "tiny_decode", _Mesh21(), reduced=True)
     assert tuple(prog.in_shardings[2].spec) == ("data", None)
-    with pytest.raises(NotImplementedError, match="SPMD"):
+    for arch, shape, variant, item in (
+            ("qwen2-0.5b", "tiny_decode", "decode_kvseq", "kv_seq sharding"),
+            ("mixtral-8x7b", "tiny_train", "moe_cshard", "moe_cshard"),
+            ("qwen2-0.5b", "long_500k", "baseline", "kv_seq sharding")):
+        prog = programs.build_program(arch, shape, _Mesh21(), reduced=True, variant=variant,
+                                      depth_supers=1)
+        with pytest.raises(NotImplementedError, match=item):
+            prog(None, None, None)
+    prog = programs.build_program("qwen2-0.5b", "tiny_decode", _Pod(), reduced=True)
+    with pytest.raises(NotImplementedError, match="pod axis"):
         prog(None, None, None)
-    with pytest.raises(NotImplementedError, match="SPMD"):
-        train("qwen2-0.5b", steps=1, device="cpu", mesh=_Mesh21())
+    with pytest.raises(NotImplementedError, match="pod axis"):
+        train("qwen2-0.5b", steps=1, device="cpu", mesh=_Pod())
 
 
 def test_state_bytes_per_device(cells):
@@ -245,8 +262,9 @@ def test_elastic_restore_reshards(tmp_path, world1):
 def test_elastic_restore_onto_two_ranks(tmp_path):
     """Onto a (2,1) mesh of two gloo ranks: each rank holds its half of the
     rows ("fsdp" -> "data"), and the columns go to "model" ("ff"), of size
-    1: every column on each rank. On that mesh ``shard``, a cell program
-    and ``train`` raise (SPMD execution is not ported yet)."""
+    1: every column on each rank. On that mesh ``shard`` of a plain tensor
+    raises, and so do a ``decode_kvseq`` and a ``moe_cshard`` program, each
+    naming its ROADMAP item."""
     full = np.arange(64, dtype=np.float32).reshape(8, 8)
     CheckpointStore(tmp_path / "ckpt").save(1, {"w": torch.from_numpy(full)})
     run_ranks(restore_rank, 2, (str(tmp_path),), timeout=560)

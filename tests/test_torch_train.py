@@ -698,8 +698,8 @@ def test_train_from_scratch_crashes_and_resumes_in_bf16(tmp_path):
     resumed = train("qwen2-0.5b", ckpt_dir=str(tmp_path / "ft"), **kw)
     assert resumed["steps_run"] == 4
     np.testing.assert_allclose(resumed["losses"], ref["losses"][-4:], atol=1e-5)
-    class _Mesh21:  # a mesh larger than one device: SPMD execution is not ported yet
-        mesh_dim_names, shape, device_type = ("data", "model"), (2, 1), "cpu"
+    class _Pod:  # a "pod" axis: what the SPMD slice leaves out
+        mesh_dim_names, shape, device_type = ("pod", "data", "model"), (2, 1, 1), "cpu"
 
-    with pytest.raises(NotImplementedError):
-        train("qwen2-0.5b", ckpt_dir=str(tmp_path / "mesh"), mesh=_Mesh21(), **kw)
+    with pytest.raises(NotImplementedError, match="pod axis"):
+        train("qwen2-0.5b", ckpt_dir=str(tmp_path / "mesh"), mesh=_Pod(), **kw)

@@ -131,7 +131,7 @@ Phases, each of which raises on failure (there is no CPU fallback):
      analytic ratio and every clamp of SPEED_BOUNDS / FACTOR_BOUNDS; (c)
      the live engine on the default vm / cf pools fitted from those
      records with calibrate=True (LiveConfig(reduced=False, prompt 256,
-     32 decode tokens in stages of 8)): 9 queries of batch 1, 3 each of
+     16 decode tokens in stages of 8)): 9 queries of batch 1, 3 each of
      the three dense archs at their Table 1 levels, every query done,
      stages 0..n-1 billed once and summing to the query's bill, a launch
      a layer for each prefill and decode step; per query the exec quote
@@ -149,8 +149,8 @@ Phases, each of which raises on failure (there is no CPU fallback):
      against a 512-slot cross cache at decoder position 199, and the SSD
      scan at jamba's width (x (2,256,128,64), N 16), float32 and bfloat16
      against their plain versions, twice bit for bit; (a) the int8 KV cache
-     on paper-default at full width, batch 4, each of PROMPT_LENS, 16
-     teacher-forced steps, kernels against plain: after prefill the
+     on paper-default at full width, depth 8 of 16, batch 4, each of
+     PROMPT_LENS, 16 teacher-forced steps, kernels against plain: after prefill the
      logits and scales within 5e-2, the first layer's int8 codes equal, at
      most 10 % of the codes different (int8 rounding compounds the routes'
      ~1e-6 differences with depth); each decode step from one cache, the
@@ -214,8 +214,8 @@ Phases, each of which raises on failure (there is no CPU fallback):
      err)) and its residual; step ms, the compression pass's device ms
      (torch.profiler), wire bytes a rank (0 at N = 1); (b) two gloo ranks
      on the one card (torch.multiprocessing spawn; NCCL takes one rank a
-     device), float32 at a global 2 x 1024 split 1 + 1, three steps
-     uncompressed and int8: the first two losses against one rank on the
+     device), depth 6 of 24, float32 at a global 2 x 1024 split 1 + 1,
+     three steps uncompressed and int8: the first two losses against one rank on the
      whole batch (rtol 1e-5) and its params after them (atol 2e-3 / rtol
      1e-3), the third loss (the first after an update that moves the
      params) int8 within 1e-2 of uncompressed, wire bytes int8 < 0.6 x,
@@ -236,15 +236,15 @@ Phases, each of which raises on failure (there is no CPU fallback):
  19. SPMD on a (2, 2) ("data", "model") mesh (parallel/spmd.py): four gloo
      ranks on cuda:0 in one spawn (NCCL takes one rank a device), the
      mesh's sub-groups gloo; each kernel on a rank's local shards: (a)
-     qwen2-0.5b at full width and depth, 3 bf16 steps at a global 4 x 1024
-     (remat None, the state drawn from one seed and kept shard by shard)
-     against the one-device step on rank 0 (loss and grad norm rtol 2e-2),
-     24 flash forwards and 24 backwards a rank a step, step ms, peak
+     qwen2-0.5b at full width, depth 6 of 24, 3 bf16 steps at a global 4 x
+     1024 (remat None, the state drawn from one seed and kept shard by
+     shard) against the one-device step on rank 0 (loss and grad norm rtol
+     2e-2), a flash forward and backward a layer a rank a step, step ms, peak
      memory and the collectives of a step by kind (CommDebugMode) a rank;
      then float32 at 2 x 512, two steps: loss and grad norm rtol 1e-5,
      params atol 1e-4; every moment in its param's placements; one local
      flash call (7 q heads, the rank's kv head) against its plain version;
-     (b) build_program's train_4k remat_coll (float32, 8 x 4096, 2
+     (b) build_program's train_4k remat_coll (float32, 4 x 4096, 2
      microbatches, depth 2 of 24), prefill_32k (4 x 32,768, depth 2) and
      decode_32k baseline and kv_int8 (batch 8, depth 4), each against the
      direct call on one device over the same rows (float32 train at (a)'s
@@ -254,11 +254,46 @@ Phases, each of which raises on failure (there is no CPU fallback):
      over "model", two float32 steps at 2 x 512 against one device as
      (a); (d) mamba2-2.7b
      at full width, depth 2, one prefill at 2 x 1024 with its SSM heads
-     over "model": 2 SSD launches a rank, logits against one device's.
-     Every cut is printed as "reduced".
-The line before the last is the kernels' JSON (each kernel's phase 19
-launches on rank 0 under "spmd"); the last line is
-{"ok": true, "device": {...}}.
+     over "model": 2 SSD launches a rank, logits against one device's;
+     (e) decode_32k with its cache split on its slots over "model"
+     (decode_kvseq, decode_kvseq_int8; batch 8, depth 4), as (b): each rank
+     runs the decode kernel over its half of the slots with the
+     log-sum-exp, merged across "model", and the cache keeps its
+     placements; then that attention call's merge on a peaked cache (a key
+     in the last rank's slots aligned with each group's first q head; rows
+     full, the last rank empty, every rank empty, the last rank holding 64
+     slots): the mesh's output within one bf16 ulp (atol 1e-4, rtol 2^-7)
+     of one device's call, each rank's range through the kernel with its
+     log-sum-exp against the plain version, three planted merge faults
+     read and caught; (f) the long_500k cell, batch 1 (LONG_RULES: the
+     slots and the bf16 weights' FSDP dim over "data"), decode steps of
+     mixtral-8x7b (depth 1 of 32, a ring of 4,096 slots: two steps at the
+     full 524,288-token context, one at 1,000 tokens), jamba-v0.1-52b (one
+     hybrid period, depth 8 of 32, 524,416 slots: one step at the full
+     context, its write on "data" rank 1, ~21 s on four gloo ranks, one at
+     4,096 tokens, "data" rank 1 empty) and mamba2-2.7b (two; depth 2 of
+     64), full width, params drawn leaf by leaf and placed as drawn, V
+     offset on the second half of the slots: the logits of every step
+     within rtol 1e-3 and each arch's atol (SPMD_LONG_ATOL, set between
+     sound runs over seeds and a planted fault, which the one device reads
+     again each run: every cached slot of "data" rank 1 dropped) of the
+     same steps on one device in this process before the spawn (each MoE
+     layer taking the one device's experts; where its own top-k differed,
+     a near tie of the router's probabilities), the pos_ids and lengths
+     exactly, each written K/V row on every rank that holds it within 3 %
+     of its largest magnitude, then the merge check as in (e) at the
+     attention layer's shapes (hd 128, 2,048 and 262,208 slots a rank),
+     timing the kernel on an empty rank with and without lse;
+     a decode launch an attention layer a rank a step, the last step
+     profiled (gloo's share); (g) the decode
+     kernel with its log-sum-exp on a cache cut into uneven slot ranges
+     (bf16, qwen2-0.5b's heads): the ranges merged by spmd.lse_merge within
+     1e-5 of the whole call, the whole call against its plain version,
+     the range past every row's last slot -inf. Every cut is printed as
+     "reduced".
+Each phase prints its wall. The line before the last is the kernels'
+JSON (each kernel's phase 19 launches on rank 0 under "spmd"); the last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -275,6 +310,7 @@ import threading
 import time
 from dataclasses import replace
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -316,12 +352,13 @@ from repro_torch.launch.serve_sla import serve_traffic  # noqa: E402
 from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import _sdpa_dense, moe_apply, moe_capacity, moe_route  # noqa: E402
-from repro_torch.models.params import count_params, tree_leaves  # noqa: E402
+from repro_torch.models.params import count_params, init_param, tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import LM, head_logits, plain_head_logits  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.parallel.compress import (WireCount, dequantize_int8, quantize_int8,  # noqa: E402
                                            tree_ef_allreduce_mean)
-from repro_torch.parallel.sharding import TRAIN_RULES, tree_shardings  # noqa: E402
+from repro_torch.parallel.sharding import TRAIN_RULES, distribute_leaf, tree_shardings  # noqa: E402
+from repro_torch.parallel.spmd import lse_merge  # noqa: E402
 from repro_torch.perf.hw import H100, kernel_bound  # noqa: E402
 from repro_torch.training import dp_compressed, step as training_step  # noqa: E402
 
@@ -556,13 +593,16 @@ def wg_kernel_report(hd: int) -> dict:
     return rec
 
 
-def _close(name, got, want, tol):
+def _close(name, got, want, tol, rtol=None):
+    """The max abs err of got against want, within atol ``tol`` and rtol
+    ``rtol`` (``tol`` by default)."""
     got, want = got.detach().float(), want.detach().float()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite output")
     err = float((got - want).abs().max())
-    if not torch.allclose(got, want, atol=tol, rtol=tol):
-        raise AssertionError(f"{name}: max abs err {err} beyond atol/rtol {tol}")
+    rtol = tol if rtol is None else rtol
+    if not torch.allclose(got, want, atol=tol, rtol=rtol):
+        raise AssertionError(f"{name}: max abs err {err} beyond atol {tol} / rtol {rtol}")
     return err
 
 
@@ -1218,6 +1258,8 @@ def _time_decode(gen, device, B, H, K, hd, Smax, fills, n_sets, iters) -> dict:
     bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
     return {
         "ms": _graph_ms(lambda *a: decode_attention(*a), dsets, iters),
+        # the route a cache split on its slots takes: float32 out and lse
+        "lse_ms": _graph_ms(lambda *a: decode_attention(*a, return_lse=True), dsets, iters),
         "eager_ms": _time_ms(lambda *a: decode_attention(*a), dsets, iters),
         "plain_ms": _time_ms(lambda *a: decode_attention_ref(*a), dsets, max(10, iters // 10)),
         "library_ms": _graph_ms(
@@ -1946,6 +1988,10 @@ DRYRUN_REPEATS = 3
 #: each dense Table 1 arch's service levels, in its pattern's cycle
 TABLE1_LEVELS = {p.arch: p.sla_cycle for p in TABLE1}
 LIVE_PER_ARCH = 3
+#: (c)'s decode tokens a query (the quotes scale with them, LiveConfig's
+#: tokens being the query's): 16, two stages of 8, to pay for phase 19
+#: (e)-(g); every check holds at any length
+LIVE_C_DECODE = 16
 
 
 def dense_full(device) -> dict:
@@ -2048,7 +2094,7 @@ def _run_live(device, calibrated: bool, models=None,
     if calibrated:
         specs = [replace(s, dryrun_dir=str(DRYRUN_DIR), hw_tag="h100") for s in specs]
     eng = LiveEngine(LiveConfig(
-        reduced=False, device=str(device), prompt_tokens=256, decode_tokens=32,
+        reduced=False, device=str(device), prompt_tokens=256, decode_tokens=LIVE_C_DECODE,
         decode_chunk_tokens=8, calibrate=calibrated, pools=specs))
     if models is not None:
         eng.models = models  # before any query: workers read it at each stage
@@ -2083,7 +2129,7 @@ def _run_live(device, calibrated: bool, models=None,
     bad = [(q.qid, q.state, q.error) for q in qs if q.state != "done"]
     if bad:
         raise AssertionError(f"live calibrated={calibrated}: queries not done {bad}")
-    n_stages = 1 + 32 // 8
+    n_stages = 1 + LIVE_C_DECODE // 8
     for q in qs:
         idx = [e.index for e in q.stage_trace]
         billed = sum(e.chip_seconds for e in q.stage_trace)
@@ -2165,6 +2211,9 @@ def table1_day() -> dict:
 
 # ---- phase 16: the rest of the model registry on the serving path ----------
 INT8_BATCH = 4
+#: (a)'s depth: its checks (kernels against plain, the codes that differ,
+#: the cache's bytes) hold at any depth; cut to pay for phase 19 (e)-(g)
+INT8_LAYERS = 8
 JAMBA, JAMBA_LAYERS, JAMBA_BATCH, JAMBA_PROMPT = "jamba-v0.1-52b", 8, 2, 256
 ENCDEC, ENCDEC_BATCH = "seamless-m4t-large-v2", 4
 ENCDEC_CASES = ((333, 333), (200, 512))  # (prompt tokens, encoder frames)
@@ -2348,11 +2397,12 @@ def check_int8(device, cfg, params, batch, prompt_len, steps=16) -> dict:
 
 
 def int8_kv(device, card) -> dict:
-    """Phase 16 (a): paper-default at full width with the int8 KV cache, batch
-    INT8_BATCH, each of PROMPT_LENS, 16 teacher-forced decode steps, kernels
-    against plain (``check_int8``); the cache's bytes against the float
-    cache's; the decode step with and without int8, in turns."""
-    cfg = get_config(ARCH)
+    """Phase 16 (a): paper-default at full width, depth INT8_LAYERS, with the
+    int8 KV cache, batch INT8_BATCH, each of PROMPT_LENS, 16 teacher-forced
+    decode steps, kernels against plain (``check_int8``); the cache's bytes
+    against the float cache's; the decode step with and without int8, in
+    turns."""
+    cfg = get_config(ARCH).replace(num_layers=INT8_LAYERS)
     params = LM(cfg, device=device).init(torch.Generator(device=device).manual_seed(0),
                                          dtype=torch.float32)
     runs = []
@@ -2366,7 +2416,8 @@ def int8_kv(device, card) -> dict:
         lm = LM(cfg, impl="cuda", device=device, kv_quant=q)
         times.setdefault("int8" if q else "float32", []).append(
             model_times(device, lm, params, INT8_BATCH, 333))
-    out = {"runs": runs,
+    out = {"runs": runs, "reduced": f"depth {INT8_LAYERS} of {get_config(ARCH).num_layers}; "
+                                    f"every width as published",
            "cache_bytes": {"float32": nbytes[False], "int8": nbytes[True],
                            "ratio": nbytes[True] / nbytes[False]},
            "decode_step_ms": {k: [t["decode_step_ms"] for t in v] for k, v in times.items()},
@@ -2858,6 +2909,9 @@ def train_phase(device, card) -> dict:
 # ---- phase 18: data-parallel training and the sharding layer ----------------
 DP_OPT = OptConfig(warmup_steps=1, total_steps=10)  # lr 0 at step 0 (the schedule), 3e-4 at 1
 DP2_WORLD, DP2_BATCH, DP2_SEQ, DP2_STEPS = 2, 2, 1024, 3  # (b): the global batch, float32
+#: (b)'s depth: its checks (two ranks against one, int8 against float32,
+#: the replicas equal) do not depend on it; cut to pay for phase 19 (e)-(g)
+DP2_LAYERS = 6
 DP2_LOSS_RTOL = 1e-5  # (b): two ranks against one on the whole batch
 DP_INT8_LOSS_TOL = 1e-2  # the reference's own bound (tests/test_parallel.py)
 DP_WIRE_RATIO = 0.6
@@ -3009,7 +3063,7 @@ def _dp2_rank(rank, world, pg_dir, out_path):
                             rank=rank)
     try:
         device = torch.device("cuda", 0)
-        cfg = get_config(TRAIN_ARCH)
+        cfg = get_config(TRAIN_ARCH).replace(num_layers=DP2_LAYERS)
         model = LM(cfg, device=device)
         stream = TokenStream(cfg, DP2_BATCH, DP2_SEQ, seed=0, device=device)
         batches = [stream.next() for _ in range(DP2_STEPS)]
@@ -3098,27 +3152,35 @@ def dp_two_ranks() -> dict:
     for rec in (plain, int8):
         if not (all(rec["replicas_equal_sums"]) and rec["replicas_equal_full"]):
             raise AssertionError(f"dp two ranks: the replicas differ: {rec}")
-        want = DP2_STEPS * get_config(TRAIN_ARCH).num_layers
+        want = DP2_STEPS * DP2_LAYERS
         _expect_launches("dp two ranks (rank 0)", rec["launches"], want, want)
+    res["reduced"] = (f"depth {DP2_LAYERS} of {get_config(TRAIN_ARCH).num_layers}; every width "
+                      f"as published")
     res["int8_loss_gap_step3"] = gap
     res["wire_ratio"] = ratio
     res["gloo_cuda_tensors"] = "taken as they are (gloo stages them through the host itself)"
     return res
 
 
-def _fill_cache(spec, S, gen, device):
+def _fill_cache(spec, S, gen, device, v_shift: bool = False):
     """A decode cache after an S-token context: random K/V (int8 codes and
-    scales with kv_int8), pos_ids 0..S-1 in slots 0..S-1 and -1 after,
-    lengths S."""
+    scales with kv_int8) and SSM/conv state, each slot's pos_id the last
+    position p < S it holds (p % Smax == slot: a linear cache 0..S-1 in
+    slots 0..S-1 and -1 after, a ring its last Smax positions), lengths S.
+    With ``v_shift`` the second half of a bf16 V cache's slots (the last of
+    two ranks that split them) is offset by one random vector a kv head:
+    an attention output then shows how much weight each half took."""
     out = {}
     for k, v in spec.items():
         if isinstance(v, dict):
-            out[k] = _fill_cache(v, S, gen, device)
+            out[k] = _fill_cache(v, S, gen, device, v_shift)
         elif k == "lengths":
             out[k] = torch.full(v.shape, S, dtype=v.dtype, device=device)
         elif k == "pos_ids":
-            ar = torch.arange(v.shape[-1], dtype=torch.int32, device=device)
-            out[k] = torch.where(ar < S, ar, -1).expand(v.shape).contiguous()
+            smax = v.shape[-1]
+            ar = torch.arange(smax, dtype=torch.int32, device=device)
+            out[k] = torch.where(ar < S, ar + smax * ((S - 1 - ar) // smax),
+                                 -1).expand(v.shape).contiguous()
         elif v.dtype == torch.int8:
             out[k] = torch.randint(-127, 128, v.shape, generator=gen, dtype=torch.int8,
                                    device=device)
@@ -3126,6 +3188,9 @@ def _fill_cache(spec, S, gen, device):
             out[k] = torch.rand(v.shape, generator=gen, device=device) * 0.02 + 0.005
         else:
             out[k] = torch.randn(v.shape, generator=gen, dtype=v.dtype, device=device)
+            if v_shift and k == "v":
+                out[k][..., v.shape[-3] // 2:, :, :] += torch.randn(
+                    v.shape[-2:], generator=gen, dtype=v.dtype, device=device)
     return out
 
 
@@ -3369,8 +3434,12 @@ def dp_phase(device, card) -> dict:
 
 # ---- phase 19: SPMD on a (2, 2) mesh of four gloo ranks on cuda:0 ----------
 SPMD_WORLD = 4
+SPMD_PARTS = "abcdefg"
 SPMD_TIMEOUT = 600
-SPMD_A_BATCH, SPMD_A_SEQ, SPMD_A_STEPS = 4, 1024, 3  # (a): bf16, full depth
+SPMD_A_BATCH, SPMD_A_SEQ, SPMD_A_STEPS = 4, 1024, 3  # (a): bf16
+#: (a)'s depth: its checks (against one device, a flash launch a layer, the
+#: placements) do not depend on it; cut to pay for (e)-(g)
+SPMD_A_LAYERS = 6
 SPMD_F32_BATCH, SPMD_F32_SEQ, SPMD_F32_STEPS = 2, 512, 2  # (a) and (c): float32
 SPMD_LOSS_RTOL, SPMD_PARAM_ATOL = 1e-5, 1e-4
 #: (a) in bf16: the sharded step's loss and grad norm against the one-device
@@ -3379,10 +3448,39 @@ SPMD_LOSS_RTOL, SPMD_PARAM_ATOL = 1e-5, 1e-4
 SPMD_BF16_RTOL = 2e-2
 #: (b): (cell, variant, depth_supers, global batch, microbatches); batches
 #: and depths cut to what four ranks on one card take in the phase's time
-SPMD_PROGRAMS = (("train_4k", "remat_coll", 2, 8, 2), ("prefill_32k", "baseline", 2, 4, None),
+SPMD_PROGRAMS = (("train_4k", "remat_coll", 2, 4, 2), ("prefill_32k", "baseline", 2, 4, None),
                  ("decode_32k", "baseline", 4, 8, None), ("decode_32k", "kv_int8", 4, 8, None))
 SPMD_MOE_BUDGET_GB = 70  # (c): the four ranks' state and one gathered layer
 SPMD_MAMBA_DEPTH, SPMD_MAMBA_BATCH, SPMD_MAMBA_SEQ = 2, 2, 1024
+#: (e): decode_32k with its cache split on its slots over "model", as (b)
+SPMD_KVSEQ_PROGRAMS = (("decode_32k", "decode_kvseq", 4, 8, None),
+                       ("decode_32k", "decode_kvseq_int8", 4, 8, None))
+#: (f): the long_500k cell (batch 1; the slots and FSDP over "data"):
+#: (arch, depth_supers, decode steps, context: None for the cell's full
+#: 524,288 tokens, or a short one that leaves "data" rank 1's slots empty)
+SPMD_LONG = (("mixtral-8x7b", 1, 2, None), ("mixtral-8x7b", 1, 1, 1000),
+             ("jamba-v0.1-52b", 1, 1, None), ("jamba-v0.1-52b", 1, 1, 4096),
+             ("mamba2-2.7b", 2, 2, None))
+#: (f): each arch's bound on the logits against one device's (atol; rtol
+#: MODEL_RTOL): big_serve's 0.05 where the sound runs stay under it, and
+#: for jamba, whose sound runs read 0.0577-0.0791 over seeds 0-2 at both
+#: contexts, 0.2; a planted fault (every cached slot of "data" rank 1
+#: dropped, on one device) reads 1.19-1.26 for jamba and 5.52-7.34 for
+#: mixtral (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), and each run reads
+#: it again and holds it beyond the bound
+SPMD_LONG_ATOL = {"mixtral-8x7b": PMB_LOGITS_ATOL, "jamba-v0.1-52b": 0.2,
+                  "mamba2-2.7b": PMB_LOGITS_ATOL}
+#: (f): the written K/V row against one device's, of its largest magnitude
+SPMD_KV_ROW_TOL = 0.03
+#: (e), (f): one attention layer's merged output against one device's: both
+#: round the same float32 sum once to bf16 (at most one ulp apart)
+MERGE_ATOL, MERGE_RTOL = 1e-4, 2.0 ** -7
+#: the merge check's peaked key: MERGE_PEAK times the first q head of its
+#: group, a score of MERGE_PEAK * sqrt(hd) for that head, past log(slots)
+MERGE_PEAK = 2.0
+#: (g): the decode kernel on a cut-up cache: B, H, K, hd, Smax, the rows'
+#: lengths and the cuts (the last range past every row's last slot)
+SPMD_CUT = (4, 14, 2, 64, 4096, (4000, 1000, 2047, 3000), (0, 1, 1000, 2048, 3001, 4001, 4096))
 
 
 def _spmd_serial(rank, world, fn):
@@ -3516,9 +3614,10 @@ def _spmd_cmp_train(rec, got, one, loss_rtol, param_atol=None):
 
 
 def _spmd_a(device, rank, mesh) -> dict:
-    """Phase 19 (a): qwen2-0.5b at full width and depth."""
-    model = LM(get_config(TRAIN_ARCH), device=device)
-    out = {}
+    """Phase 19 (a): qwen2-0.5b at full width, depth SPMD_A_LAYERS."""
+    model = LM(get_config(TRAIN_ARCH).replace(num_layers=SPMD_A_LAYERS), device=device)
+    out = {"reduced": f"depth {SPMD_A_LAYERS} of {get_config(TRAIN_ARCH).num_layers}; every "
+                      f"width as published"}
     rec, got, one = _spmd_train(device, rank, mesh, model, SPMD_A_BATCH, SPMD_A_SEQ,
                                 SPMD_A_STEPS, torch.bfloat16, one_device=True, profile=True)
     if rank == 0:
@@ -3540,14 +3639,15 @@ def _spmd_a(device, rank, mesh) -> dict:
     return out
 
 
-def _spmd_b(device, rank, mesh) -> list:
-    """Phase 19 (b): build_program's cells on the (2, 2) mesh, each against
-    the same program's arithmetic on one device over the same rows (the
-    direct call the (1,1) program runs bit for bit, phase 18 (c)) on rank 0."""
+def _spmd_b(device, rank, mesh, cells=SPMD_PROGRAMS) -> list:
+    """Phase 19 (b) and (e): build_program's cells on the (2, 2) mesh, each
+    against the same program's arithmetic on one device over the same rows
+    (the direct call the (1,1) program runs bit for bit, phase 18 (c)) on
+    rank 0."""
     from repro_torch.configs import SHAPES
 
     out = []
-    for name, variant, depth, batch, mb in SPMD_PROGRAMS:
+    for name, variant, depth, batch, mb in cells:
         gc.collect()
         torch.cuda.empty_cache()
         full_cell = SHAPES[name]
@@ -3671,6 +3771,11 @@ def _spmd_program_serve(device, rank, prog, kernel=None) -> dict:
     if rec["launches"][kind] != layers:
         raise AssertionError(f"spmd program {cell.name} (rank {rank}): launches "
                              f"{rec['launches']}, expected {layers} {kind}")
+    if prog.kind == "decode":  # the cache leaves' placements, as taken and returned
+        pl = {str(spec.placements) for _, spec in _leaves(prog.in_shardings[1])}
+        rec["cache_placements"] = sorted(pl)
+        if sorted({str(t.placements) for _, t in _leaves(out[1])}) != sorted(pl):
+            raise AssertionError(f"spmd program {cell.name}: the cache's placements changed")
     logits = prog.gather(out[0]).float()
     if rank == 0:
         err = float((logits - want).abs().max())
@@ -3726,8 +3831,552 @@ def _spmd_d(device, rank, mesh) -> dict:
     return rec
 
 
-def _spmd_rank(rank, world, pg_dir, out_dir):
-    """Phase 19, one rank: a gloo process on cuda:0 in a (2, 2) mesh."""
+def _spmd_e(device, rank, mesh) -> list:
+    """Phase 19 (e): qwen2-0.5b's decode_32k with its cache split on its
+    slots over "model" (decode_kvseq, decode_kvseq_int8), as (b): each rank
+    runs the decode kernel over its half of the slots with the log-sum-exp,
+    merged across "model"; then that attention call's merge on a peaked
+    cache (``_merge_check``)."""
+    out = []
+    for cell in SPMD_KVSEQ_PROGRAMS:
+        calls = []
+        with _sdpa_calls(calls):
+            rec, = _spmd_b(device, rank, mesh, (cell,))
+        rec["merge"] = _merge_check(device, rank, mesh, calls[0], rec["seq"], seed=20)
+        out.append(rec)
+    return out
+
+
+@contextlib.contextmanager
+def _sdpa_calls(calls: list):
+    """Each sharded attention call while the context lasts
+    (``spmd.local_sdpa``, as ``layers.sdpa`` reaches it): its kernel route,
+    window, causality, cap and site, and the shape, placements (None for a
+    plain tensor) and dtype of q, k, v and the positions, appended to
+    ``calls``."""
+    from repro_torch.parallel import spmd
+
+    real = spmd.local_sdpa
+
+    def recording(impl, q, k, v, q_pos, k_pos, window, causal, cap, site):
+        calls.append({"impl": impl, "window": window, "causal": causal, "cap": cap,
+                      "site": site, **{n: (tuple(t.shape), tuple(t.placements)
+                                           if isinstance(t, DTensor) else None, t.dtype)
+                                       for n, t in (("q", q), ("k", k), ("q_pos", q_pos),
+                                                    ("k_pos", k_pos))}})
+        return real(impl, q, k, v, q_pos, k_pos, window, causal, cap, site)
+
+    spmd.local_sdpa = recording
+    try:
+        yield
+    finally:
+        spmd.local_sdpa = real
+
+
+def _slot_positions(contexts, smax, device):
+    """(k_pos (B, smax), q_pos (B, 1)) int32 of rows after the given
+    contexts, slots filled as ``_fill_cache`` fills them; the query is the
+    next position."""
+    ar = torch.arange(smax, dtype=torch.int64, device=device)
+    k_pos = torch.stack([torch.where(ar < S, ar + smax * ((S - 1 - ar) // smax), -1)
+                         for S in contexts]).to(torch.int32)
+    return k_pos, torch.tensor(contexts, dtype=torch.int32, device=device)[:, None]
+
+
+def _merge_check(device, rank, mesh, call, full: int, seed: int) -> dict:
+    """One attention layer's decode call against K/V split on its slots
+    (``call``, as ``_sdpa_calls`` recorded it in a program's step: its
+    shapes, placements and route), on a cache where attention is peaked and
+    unequal across the ranks: random q, K, V, and in the last rank's slots
+    one key a row that is MERGE_PEAK times the first q head of each group.
+    Rows after the contexts ``full``, half the first rank's slots (at most
+    4,096: the last rank empty), 0 (every rank empty) and the last rank's
+    first 64 slots (its lse from 64 slots and the peak), one call with a
+    row each where the batch holds them, else a call each. Every rank runs
+    ``spmd.local_sdpa`` (the gloo all-reduces of ``lse_merge``); on rank 0
+    the output against the same call on one device over every slot within
+    MERGE_ATOL / MERGE_RTOL; each rank's range through the kernel with its
+    log-sum-exp against ``decode_attention_ref`` (F32_TOL, lse LSE_TOL);
+    three planted merge faults (the last range dropped, the ranges
+    averaged, the ranges weighted by their valid slots) read and, on a
+    call with a full row, outside the bound; the kernel's ms on the last
+    range (with lse; on an empty range also without, the one-block mean)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.parallel import spmd
+
+    (B, _, H, hd), q_pl, dt = call["q"]
+    (_, smax, K, _), k_pl, _ = call["k"]
+    seq = [m for m, p in enumerate(k_pl) if p.is_shard() and p.dim == 1]
+    if len(seq) != 1:
+        raise AssertionError(f"merge check: K/V split on its slots over mesh dims {seq}")
+    ranges = [spmd._local_range(smax, mesh.size(seq[0]), r) for r in range(mesh.size(seq[0]))]
+    lo = ranges[-1][0]
+    G = H // K
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, 1, H, hd), generator=gen, device=device).to(dt)
+    k, v = (torch.randn((B, smax, K, hd), generator=gen, device=device).to(dt) for _ in "kv")
+    for b in range(B):
+        k[b, lo + (7 + b) % (smax - lo)] = MERGE_PEAK * q[b, 0, ::G]
+    full = min(full, smax)  # a ring's context past smax holds the same slots
+    rows = [full, min(lo // 2, 4096), 0, lo + 64]
+    groups = ([[rows[i % len(rows)] for i in range(B)]] if B >= len(rows)
+              else [[c] * B for c in rows])
+    win = int(call["window"]) if call["window"] else 0
+    cap = float(call["cap"]) if call["cap"] else 0.0
+    impl = call["impl"]
+    args = (call["window"], call["causal"], call["cap"], call["site"])
+
+    def place(t, pl):
+        return t if pl is None else distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+    def ms(fn, reps=5):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / reps
+
+    out = {"shape": f"q ({B},1,{H},{hd}) k/v ({B},{smax},{K},{hd}) {str(dt)[6:]}, slots "
+                    f"{ranges}", "calls": []}
+    for contexts in groups:
+        k_pos, q_pos = _slot_positions(contexts, smax, device)
+        k_pos, q_pos = k_pos.to(call["k_pos"][2]), q_pos.to(call["q_pos"][2])
+        got = spmd.local_sdpa(impl, place(q, q_pl), place(k, k_pl), place(v, k_pl),
+                              place(q_pos, call["q_pos"][1]), place(k_pos, call["k_pos"][1]),
+                              *args).full_tensor()
+        rec = {"contexts": contexts}
+        if rank == 0:
+            want = impl(q, k, v, q_pos, k_pos, *args)
+            rec["max_abs_err"] = _close("merge check", got, want, MERGE_ATOL, MERGE_RTOL)
+            ok = (k_pos >= 0) & (k_pos <= q_pos) & ((q_pos - k_pos < win) if win else True)
+            parts, range_err, lse_err = [], 0.0, 0.0
+            for a, b in ranges:
+                kr, vr, pr = (t[:, a:b].contiguous() for t in (k, v, k_pos))
+                o, lse = impl(q, kr, vr, q_pos, pr, *args, lse=True)
+                po, pl = decode_attention_ref(q[:, 0], kr, vr, pr, q_pos[:, 0], window=win,
+                                              softcap=cap, return_lse=True)
+                range_err = max(range_err, _close("merge check range", o[:, 0], po, F32_TOL))
+                if not torch.equal(torch.isneginf(lse[:, 0]), torch.isneginf(pl)):
+                    raise AssertionError("merge check: a range's lse is -inf where the plain "
+                                         "version's is not, or the other way")
+                fin = torch.isfinite(pl)
+                if bool(fin.any()):
+                    lse_err = max(lse_err, _close("merge check lse", lse[:, 0][fin], pl[fin],
+                                                  LSE_TOL[torch.float32]))
+                parts.append((o, lse, ok[:, a:b].sum(-1).float()))
+            o, lse, n = (torch.stack(t) for t in zip(*parts))
+            slots = torch.tensor([b - a for a, b in ranges], dtype=torch.float32,
+                                 device=device)[:, None, None, None]
+
+            def stacked(t, op):
+                return t.amax(0, keepdim=True) if op == "max" else t.sum(0, keepdim=True)
+
+            n = n[:, :, None, None, None]
+            faults = {"last range dropped": lse_merge(o[:-1], lse[:-1], slots[:-1], stacked)[0],
+                      "ranges averaged": o.mean(0),
+                      "ranges weighted by valid slots": (n * o).sum(0) / n.sum(0).clamp(min=1)}
+            rec.update(range_max_abs_err=range_err, lse_max_abs_err=lse_err, faults={})
+            for name, f in faults.items():
+                f = f.to(dt).float()
+                rec["faults"][name] = {"max_abs_err": float((f - want.float()).abs().max()),
+                                       "caught": not torch.allclose(
+                                           f, want.float(), atol=MERGE_ATOL, rtol=MERGE_RTOL)}
+            if full in contexts and not all(f["caught"] for f in rec["faults"].values()):
+                raise AssertionError(f"merge check: a planted fault within the bound: "
+                                     f"{rec['faults']}")
+            a, b = ranges[-1]
+            kr, vr, pr = (t[:, a:b].contiguous() for t in (k, v, k_pos))
+            rec["last_range_ms"] = ms(lambda: impl(q, kr, vr, q_pos, pr, *args, lse=True))
+            if not bool(ok[:, a:b].any()):  # an empty rank: without lse, one block's mean
+                rec["last_range_ms_without_lse"] = ms(lambda: decode_attention(
+                    q[:, 0], kr, vr, pr, q_pos[:, 0], window=win, softcap=cap))
+            del want, parts, o, lse, faults, kr, vr, pr
+        out["calls"].append(rec)
+        dist.barrier()
+    del q, k, v
+    return out
+
+
+class _OneDeviceMesh:
+    """What a program reads of a mesh to build (its axes and device type):
+    a (1, 1) mesh on the card, without a process group."""
+    mesh_dim_names, shape, device_type = ("data", "model"), (1, 1), "cuda"
+
+
+def _init_placed(model, gen, shardings, dtype):
+    """``model.init(gen, dtype)``'s values, drawn leaf by leaf in its order,
+    each leaf placed by its NamedSharding as soon as it is drawn: a rank
+    never holds more than one whole leaf beside its shards."""
+
+    def walk(decls, sh):
+        return {k: walk(d, sh[k]) if isinstance(d, dict) else
+                distribute_leaf(init_param(gen, d, dtype, model.device), sh[k])
+                for k, d in sorted(decls.items())}
+
+    return walk(model.decls(), shardings)
+
+
+def _long_key(arch, context) -> str:
+    return f"{arch}@{context or 'full'}"
+
+
+def _long_inputs(prog, device, steps, placed: bool, dtype=torch.bfloat16, context=None, seed=0):
+    """The long_500k program's inputs from ``seed``: params in ``dtype``
+    (drawn whole, or each leaf placed as drawn), the cache after
+    ``context`` tokens (the cell's by default; V shifted on the second half
+    of its slots, ``_fill_cache``; whole, its bf16 leaves in ``dtype``) and
+    every step's tokens; the same values on one device and on a mesh
+    (float32: the same draws, not rounded to bf16)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if placed:
+        params = _init_placed(prog.model, gen, prog.in_shardings[0], dtype)
+    else:
+        params = prog.model.init(gen, dtype=dtype)
+    cache = _fill_cache(prog.in_specs[1], context or prog.cell.seq_len, gen, device, v_shift=True)
+    if dtype != torch.bfloat16:
+        cache = tree_map(lambda t: t.to(dtype) if t.dtype == torch.bfloat16 else t, cache)
+    tokens = torch.randint(0, prog.cfg.vocab_size, (steps, prog.cell.global_batch, 1),
+                           generator=gen, dtype=torch.int32, device=device)
+    return params, cache, tokens
+
+
+@contextlib.contextmanager
+def _routing(calls: list, forced: Optional[list] = None):
+    """Each MoE routing decision while the context lasts (``moe_topk``, as
+    ``layers`` calls it: the router's probs and the chosen experts of the
+    rows at hand, on the host), appended to ``calls``. With ``forced`` (an
+    earlier run's records of the same step), each call takes that run's
+    experts instead, gated by its own probs: two runs whose rounding
+    decides a near tie differently then still compute the same thing
+    (``_routing_flips`` says where, and that each was a near tie)."""
+    from repro_torch.models import layers
+
+    topk = layers.moe_topk
+
+    def recording(probs, k):
+        vals, idx = topk(probs, k)
+        calls.append((probs.detach().float().cpu(), idx.cpu()))
+        if forced is not None:
+            idx = forced[len(calls) - 1][1].to(idx.device)
+            vals = torch.gather(probs, -1, idx)
+        return vals, idx
+
+    layers.moe_topk = recording
+    try:
+        yield
+    finally:
+        layers.moe_topk = topk
+
+
+def _routing_flips(got: list, want: list) -> list:
+    """The routing decisions of one step (``_routing``'s records, in call
+    order) whose chosen experts differ between two runs: for each, the
+    experts each run chose, the two runs' largest router-probability
+    difference, and the gap between the swapped experts' probabilities in
+    ``want``. A flip within twice that difference is a near tie that the
+    two runs' rounding decides, not a fault."""
+    flips = []
+    for j, ((pg, ig), (pw, iw)) in enumerate(zip(got, want, strict=True)):
+        K, E = ig.shape[-1], pw.shape[-1]
+        diff = float((pg - pw).abs().max())
+        for r, (a, b) in enumerate(zip(ig.reshape(-1, K).tolist(), iw.reshape(-1, K).tolist())):
+            if set(a) == set(b):
+                continue
+            row = pw.reshape(-1, E)[r]
+            gap = max(abs(float(row[x]) - float(row[y]))
+                      for x in set(a) - set(b) for y in set(b) - set(a))
+            flips.append({"call": j, "row": r, "experts": a, "one_device_experts": b,
+                          "probs_max_diff": diff, "gap": gap, "near_tie": gap <= 2 * diff})
+    return flips
+
+
+def _steps(prog, params, cache, tokens, dtype, device, forced=None):
+    """The program's model's decode steps on one device: (the logits of
+    every step on the host, each step's routing records, its ms, the cache
+    after them)."""
+    logits, ms, routing = [], [], []
+    for s in range(len(tokens)):
+        routing.append([])
+        with _routing(routing[-1], forced=forced[s] if forced else None):
+            (lg, cache), step_ms, _ = _timed(device, lambda: prog.model.decode_step(
+                params, cache, tokens[s], dtype=dtype))
+        logits.append(lg.float().cpu())
+        ms.append(step_ms)
+    return torch.stack(logits), routing, ms, cache
+
+
+def _attn_leaves(cache) -> list:
+    """(key, leaf) of every attention K/V leaf of a cache (..., B, Smax, K,
+    hd) and of its pos_ids (..., B, Smax)."""
+    return [(k, t) for k, t in _leaves(cache) if k[-1] in ("k", "v", "pos_ids")]
+
+
+def _long_one_device(device, path, seed=0) -> dict:
+    """Phase 19 (f) on one device, in this process before the spawn (the
+    four ranks and a whole copy would not fit the card together): each
+    SPMD_LONG case's decode steps in bf16, as the program runs them, and
+    the same steps in float32 compute (the same draws unrounded, the bf16
+    run's experts): how far bf16 rounding alone moves the logits. At the
+    full context of an arch with attention, a planted fault too: the bf16
+    steps with every cached slot of "data" rank 1 dropped (pos_ids -1),
+    what the logits read when a merge loses that rank. The bf16 logits,
+    the distance, the fault's reading, the routing, the K/V rows each step
+    wrote and the pos_ids and lengths after the steps are saved to
+    ``path`` (host memory) and the card freed."""
+    out, saved = {}, {}
+    for arch, depth, steps, context in SPMD_LONG:
+        key = _long_key(arch, context)
+        t0 = time.perf_counter()
+        prog = build_program(arch, "long_500k", _OneDeviceMesh(), depth_supers=depth)
+        ctx = context or prog.cell.seq_len
+        smax = [v.shape[-1] for k, v in _leaves(prog.in_specs[1]) if k[-1] == "pos_ids"]
+        runs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            params, cache, tokens = _long_inputs(prog, device, steps, placed=False, dtype=dtype,
+                                                 context=context, seed=seed)
+            bf16 = dtype == torch.bfloat16
+            twin = _clone(cache) if bf16 and smax and context is None else None
+            forced = None if bf16 else runs[torch.bfloat16]["routing"]
+            logits, routing, ms, cache = _steps(prog, params, cache, tokens, dtype, device,
+                                                forced)
+            runs[dtype] = {"logits": logits, "routing": routing, "step_ms": ms,
+                           "lengths": cache["lengths"].cpu(),
+                           "pos_ids": {k: v.cpu() for k, v in _leaves(cache)
+                                       if k[-1] == "pos_ids"}}
+            if bf16 and smax:  # the K/V row each step wrote
+                runs[dtype]["rows"] = {k: torch.stack([t[..., (ctx + s) % smax[0], :, :]
+                                                       for s in range(steps)]).cpu()
+                                       for k, t in _attn_leaves(cache) if k[-1] != "pos_ids"}
+            if twin is not None:
+                for k, t in _attn_leaves(twin):
+                    if k[-1] == "pos_ids":
+                        t[..., smax[0] // 2:] = -1
+                fault = _steps(prog, params, twin, tokens, dtype, device, routing)[0]
+                atol = SPMD_LONG_ATOL[arch]
+                runs[dtype]["fault_reading"] = float((fault - logits).abs().max())
+                runs[dtype]["fault_caught"] = not torch.allclose(fault, logits, atol=atol,
+                                                                 rtol=MODEL_RTOL)
+            del params, cache, tokens, twin
+            gc.collect()
+            torch.cuda.empty_cache()
+        bf16, f32 = runs[torch.bfloat16], runs[torch.float32]
+        rounding = float((bf16["logits"] - f32["logits"]).abs().max())
+        saved[key] = dict(bf16, bf16_rounding=rounding)
+        out[key] = {"step_ms": bf16["step_ms"], "float32_step_ms": f32["step_ms"],
+                    "bf16_against_float32_logits": rounding,
+                    "fault_reading": bf16.get("fault_reading"),
+                    "float32_routing_flips": [_routing_flips(a, b) for a, b in
+                                              zip(f32["routing"], bf16["routing"])],
+                    "wall_s": time.perf_counter() - t0,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        del prog
+    torch.save(saved, path)
+    return out
+
+
+def _shard_ranges(t) -> list:
+    """[lo, hi) of this rank's local shard of the DTensor ``t`` on each of
+    its dims."""
+    from repro_torch.parallel import spmd
+
+    mesh = t.device_mesh
+    rng = [[0, n] for n in t.shape]
+    for m, p in enumerate(t.placements):
+        if p.is_shard():
+            lo, n = rng[p.dim][0], rng[p.dim][1] - rng[p.dim][0]
+            a, b = spmd._local_range(n, mesh.size(m), mesh.get_local_rank(m))
+            rng[p.dim] = [lo + a, lo + b]
+    return rng
+
+
+def _written_rows(cache, want: dict, slots: list) -> tuple:
+    """The K/V rows the steps wrote (global ``slots``) where this rank
+    holds them, against one device's (``want``: {key: (steps, ..., B, K,
+    hd)}) on the kv heads the rank holds: (rows checked here, the rows
+    every rank checks together, their largest distance over the row's
+    largest magnitude)."""
+    n, total, worst = 0, 0, 0.0
+    for k, t in _attn_leaves(cache):
+        if k[-1] == "pos_ids":
+            continue
+        mesh = t.device_mesh
+        parts = math.prod(mesh.size(m) for m, p in enumerate(t.placements)
+                          if p.is_shard() and p.dim == t.ndim - 3)
+        total += len(slots) * mesh.size() // parts  # every rank that holds the slot
+        rng = _shard_ranges(t)
+        (slo, shi), (klo, khi) = rng[-3], rng[-2]
+        for i, slot in enumerate(slots):
+            if slo <= slot < shi:
+                got = t.to_local()[..., slot - slo, :, :].float().cpu()
+                ref = want[k][i][..., klo:khi, :].float()
+                worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+                n += 1
+    return n, total, worst
+
+
+def _spmd_f(device, rank, mesh, one_path, seed=0) -> list:
+    """Phase 19 (f): the long_500k cell, batch 1 (LONG_RULES: the slots and
+    the bf16 weights' FSDP dim over "data", heads, kv heads, experts and SSM
+    heads over "model"), each SPMD_LONG case at full width: at the cell's
+    full 524,288-token context, and at a short one that leaves "data" rank
+    1's slots empty. Each layer's params gathered over "data" for use, the
+    attention cache written by the rank that owns the slot, each rank's
+    decode kernel over its slots merged by the log-sum-exp. Against the
+    one-device run (``_long_one_device``): on rank 0 the logits within
+    SPMD_LONG_ATOL (rtol MODEL_RTOL), where a planted fault must read
+    beyond it, the pos_ids and lengths exactly; on every rank that holds
+    it, each written K/V row within SPMD_KV_ROW_TOL of its largest
+    magnitude. Each MoE layer takes the one-device run's experts, and where
+    its own top-k differed, that must have been a near tie
+    (``_routing_flips``). The last step is profiled (gloo's share). At the
+    full context, the attention layer's merge on a peaked cache
+    (``_merge_check``)."""
+    from repro_torch.parallel.sharding import distribute_tree
+
+    one = torch.load(one_path)  # every rank: the routing its MoE layers take
+    out = []
+    for arch, depth, steps, context in SPMD_LONG:
+        key = _long_key(arch, context)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        prog = build_program(arch, "long_500k", mesh, depth_supers=depth)
+        cfg = prog.cfg
+        ctx = context or prog.cell.seq_len
+        params, cache, tokens = _long_inputs(prog, device, steps, placed=True, context=context,
+                                             seed=seed)
+        cache = distribute_tree(cache, prog.in_shardings[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        attn = sum(k == "attn" for k in cfg.layer_kinds())
+        rec = {"arch": arch, "context": ctx, "batch": prog.cell.global_batch,
+               "reduced": f"depth {cfg.num_layers} of {get_config(arch).num_layers}; every "
+                          f"width as published" + ("" if context is None else
+                                                   f"; a {ctx}-token context"),
+               "setup_s": time.perf_counter() - t0, "step_ms": [], "launches": [],
+               "attention_layers": attn}
+        smax = [v.shape[-1] for k, v in _leaves(prog.in_specs[1]) if k[-1] == "pos_ids"]
+        slots = [(ctx + s) % smax[0] for s in range(steps)] if smax else []
+        if smax:  # the "data" rank that owns each step's written slot
+            rec["slots"] = smax[0]
+            rec["written_slot_data_rank"] = [x // -(-smax[0] // mesh.size(0)) for x in slots]
+        logits, routing, calls = [], [], []
+        for s in range(steps):
+            tok = distribute_tree(tokens[s], prog.in_shardings[2])
+            torch.cuda.synchronize(device)
+            dist.barrier()
+            _zero_launches()
+            routing.append([])
+            t1 = time.perf_counter()
+            with _routing(routing[-1], forced=one[key]["routing"][s]), _sdpa_calls(
+                    calls if s == 0 else []):
+                if s == steps - 1:
+                    (lg, cache), rec["profiled_step"] = _collective_share(
+                        lambda: prog(params, cache, tok))
+                else:
+                    lg, cache = prog(params, cache, tok)
+            torch.cuda.synchronize(device)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
+            rec["launches"].append(_launches())
+            logits.append(prog.gather(lg).float().cpu())
+            if rec["launches"][-1] != {"flash_attention": 0, "flash_attention_bwd": 0,
+                                       "decode_attention": attn, "ssd_scan": 0}:
+                raise AssertionError(f"spmd (f) {key} rank {rank}: launches "
+                                     f"{rec['launches'][-1]}, expected {attn} decode")
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        rec["cache_placements"] = sorted({str(t.placements) for _, t in _leaves(cache)})
+        pos = {k: v.full_tensor().cpu() for k, v in _leaves(cache) if k[-1] == "pos_ids"}
+        lengths = cache["lengths"].full_tensor().cpu()
+        if slots:  # each written row where it landed, every rank
+            n, want_n, worst = _written_rows(cache, one[key]["rows"], slots)
+            n, worst = torch.tensor([float(n)]), torch.tensor([worst])
+            dist.all_reduce(n)
+            dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+            rec["written_rows_checked"], rec["written_rows_err"] = int(n), float(worst)
+            if rec["written_rows_checked"] != want_n or rec["written_rows_err"] > SPMD_KV_ROW_TOL:
+                raise AssertionError(f"spmd (f) {key}: written K/V rows {rec['written_rows_checked']}"
+                                     f" of {want_n} checked, {rec['written_rows_err']} of their "
+                                     f"magnitude from one device's")
+        if rank == 0:
+            want = one[key]
+            got = torch.stack(logits)
+            # an MoE layer's top-k at a near tie may go either way with the
+            # rounding: the mesh took the one device's experts (``_routing``),
+            # and where its own choice differed it must be a near tie
+            flips = [_routing_flips(g, w) for g, w in zip(routing, want["routing"], strict=True)]
+            rec["routing_flips"] = flips
+            if not all(f["near_tie"] for fs in flips for f in fs):
+                raise AssertionError(f"spmd (f) {key}: the routing differs from one device's "
+                                     f"beyond a near tie: {flips}")
+            atol = SPMD_LONG_ATOL[arch]
+            err = float((got - want["logits"]).abs().max())
+            rec.update(logits_max_abs_err=err, logits_atol=atol,
+                       one_device_bf16_against_float32=want["bf16_rounding"],
+                       fault_reading=want.get("fault_reading"))
+            if not (torch.isfinite(got).all() and torch.allclose(
+                    got, want["logits"], atol=atol, rtol=MODEL_RTOL)):
+                raise AssertionError(f"spmd (f) {key}: logits differ from one device's by {err}")
+            if not want.get("fault_caught", True):
+                raise AssertionError(f"spmd (f) {key}: a planted fault reads "
+                                     f"{want['fault_reading']}, within the bound {atol}")
+            if not (torch.equal(lengths, want["lengths"]) and sorted(pos) == sorted(
+                    want["pos_ids"]) and all(torch.equal(pos[k], want["pos_ids"][k]) for k in pos)):
+                raise AssertionError(f"spmd (f) {key}: pos_ids or lengths differ from one "
+                                     f"device's")
+        del prog, params, cache, tokens, lg, pos
+        gc.collect()
+        torch.cuda.empty_cache()
+        if calls and context is None:
+            rec["merge"] = _merge_check(device, rank, mesh, calls[0], ctx, seed=21)
+        rec["wall_s"] = time.perf_counter() - t0
+        out.append(rec)
+    if not any(max(r.get("written_slot_data_rank", [0])) >= 1 for r in out):
+        raise AssertionError("spmd (f): no write landed on a rank past the first")
+    if not any(r["context"] < r.get("slots", 0) // 2 for r in out):
+        raise AssertionError("spmd (f): no context left a rank's slots empty")
+    return out
+
+
+def _spmd_g(device, rank, mesh) -> dict:
+    """Phase 19 (g): the decode kernel with its log-sum-exp on a cut-up
+    cache (SPMD_CUT, bf16, qwen2-0.5b's heads): each range's call merged by
+    ``lse_merge`` against the whole call (float32, 1e-5), the whole call
+    against its plain version (F32_TOL; lse at LSE_TOL's float32), the
+    range past every row's last slot -inf, its weight 0."""
+    B, H, K, hd, Smax, lengths, cuts = SPMD_CUT
+    gen = torch.Generator(device=device).manual_seed(100 + rank)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+               for shape in ((B, H, hd), (B, Smax, K, hd), (B, Smax, K, hd)))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    ar = torch.arange(Smax, dtype=torch.int32, device=device)[None].expand(B, Smax)
+    pos = torch.where(ar <= lengths[:, None], ar, torch.full_like(ar, -1)).contiguous()
+    parts = [decode_attention(q, k[:, a:b].contiguous(), v[:, a:b].contiguous(),
+                              pos[:, a:b].contiguous(), lengths, return_lse=True)
+             for a, b in zip(cuts[:-1], cuts[1:])]
+    if not torch.isneginf(parts[-1][1]).all():
+        raise AssertionError("spmd (g): a range with no valid slot has a finite lse")
+    slots = torch.tensor([b - a for a, b in zip(cuts[:-1], cuts[1:])], dtype=torch.float32,
+                         device=device)[:, None, None]
+    merged = lse_merge(torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts]),
+                       slots, lambda t, op: t.amax(0, keepdim=True) if op == "max"
+                       else t.sum(0, keepdim=True))[0]
+    whole, lse = decode_attention(q, k, v, pos, lengths, return_lse=True)
+    plain, plain_lse = decode_attention_ref(q, k, v, pos, lengths, return_lse=True)
+    rec = {"shape": f"q ({B},{H},{hd}) k/v ({B},{Smax},{K},{hd}) bf16, lengths "
+                    f"{lengths.tolist()}, cuts {list(cuts)}",
+           "merge_max_abs_err": _close("spmd (g) merged ranges", merged, whole, 1e-5),
+           "max_abs_err": _close("spmd (g) decode with lse", whole, plain, F32_TOL),
+           "lse_max_abs_err": _close("spmd (g) lse", lse, plain_lse, LSE_TOL[torch.float32])}
+    return rec
+
+
+def _spmd_rank(rank, world, pg_dir, out_dir, parts=SPMD_PARTS, seed=0):
+    """Phase 19, one rank: a gloo process on cuda:0 in a (2, 2) mesh,
+    running the parts of phase 19 named in ``parts``."""
     import logging
 
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
@@ -3740,7 +4389,13 @@ def _spmd_rank(rank, world, pg_dir, out_dir):
         mesh = make_local_mesh(2, 2)
         res = {"rank": rank, "backends": [dist.get_backend(mesh.get_group(a))
                                           for a in ("data", "model")]}
-        for key, fn in (("a", _spmd_a), ("b", _spmd_b), ("c", _spmd_c), ("d", _spmd_d)):
+        one_path = Path(out_dir, "long_one_device.pt")
+        for key, fn in (("a", _spmd_a), ("b", _spmd_b), ("c", _spmd_c), ("d", _spmd_d),
+                        ("e", _spmd_e),
+                        ("f", lambda d, r, m: _spmd_f(d, r, m, one_path, seed)),
+                        ("g", _spmd_g)):
+            if key not in parts:
+                continue
             t0 = time.perf_counter()
             res[key] = fn(device, rank, mesh)
             res[f"{key}_s"] = time.perf_counter() - t0
@@ -3754,21 +4409,29 @@ def _spmd_rank(rank, world, pg_dir, out_dir):
         dist.destroy_process_group()
 
 
-def spmd_phase(card) -> dict:
+def spmd_phase(card, parts=SPMD_PARTS, seed=0) -> dict:
     """Phase 19: SPMD execution on a (2, 2) ("data", "model") mesh of four
     gloo ranks on the one card (NCCL takes one rank a device), in one spawn:
-    (a) qwen2-0.5b at full width and depth, (b) build_program's cells, (c)
+    (a) qwen2-0.5b at full width, (b) build_program's cells, (c)
     mixtral-8x7b with its experts over "model", (d) mamba2-2.7b with its
-    SSM heads over "model". Returns each rank's record."""
+    SSM heads over "model", (e)-(g) K/V split on its slots. Returns each
+    rank's record. ``parts`` runs some of (a)-(g) alone and ``seed`` draws
+    (f)'s inputs from another seed (how PERF.md reads (f)'s bound over
+    seeds); the smoke runs them all at seed 0."""
     run_dir = PG_DIR / "spmd"
     shutil.rmtree(run_dir, ignore_errors=True)
     run_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    long_one = (_long_one_device(torch.device("cuda", 0), run_dir / "long_one_device.pt", seed)
+                if "f" in parts else {})
+    print(f"[spmd19 f] one device: {json.dumps(long_one)} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()  # the four ranks share the card with this process
     print(f"[spmd19] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           f"of the card, {torch.cuda.mem_get_info()[0] / 1e9:.1f} GB free", flush=True)
     ctx = torch.multiprocessing.start_processes(
-        _spmd_rank, args=(SPMD_WORLD, str(run_dir), str(run_dir)), nprocs=SPMD_WORLD,
+        _spmd_rank, args=(SPMD_WORLD, str(run_dir), str(run_dir), parts, seed), nprocs=SPMD_WORLD,
         join=False, start_method="spawn")
     deadline = time.monotonic() + SPMD_TIMEOUT
     while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
@@ -3778,7 +4441,9 @@ def spmd_phase(card) -> dict:
             raise AssertionError(f"spmd: ranks still running after {SPMD_TIMEOUT} s")
     ranks = [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(SPMD_WORLD)]
     shutil.rmtree(run_dir, ignore_errors=True)
-    layers = get_config(TRAIN_ARCH).num_layers
+    if parts != SPMD_PARTS:
+        return {"ranks": ranks}
+    layers = SPMD_A_LAYERS
     for rec in ranks:
         if rec["backends"] != ["gloo", "gloo"]:
             raise AssertionError(f"spmd: mesh sub-groups {rec['backends']}")
@@ -3787,7 +4452,8 @@ def spmd_phase(card) -> dict:
                 raise AssertionError("spmd: a moment's placements differ from its param's")
         for counts in rec["a"]["bf16"]["launches"] + rec["a"]["float32"]["launches"]:
             _expect_launches(f"spmd (a) rank {rec['rank']}", counts, layers, layers)
-        if ([c["launches"] for c in rec["b"]] != [c["launches"] for c in ranks[0]["b"]]
+        if ([c["launches"] for c in rec["b"] + rec["e"] + rec["f"]]
+                != [c["launches"] for c in ranks[0]["b"] + ranks[0]["e"] + ranks[0]["f"]]
                 or rec["d"]["launches"] != ranks[0]["d"]["launches"]):
             raise AssertionError(f"spmd: rank {rec['rank']}'s launches differ from rank 0's")
         print(f"[spmd19] rank {rec['rank']}: (a) bf16 step ms {rec['a']['bf16']['step_ms']}, "
@@ -3795,8 +4461,10 @@ def spmd_phase(card) -> dict:
               f"peak {rec['a']['bf16']['peak_memory_gb']:.2f} GB, collectives "
               f"{json.dumps(rec['a']['bf16']['collectives_last_step'])}; (b) "
               f"{json.dumps([[p['cell'], p['variant'], p.get('ms', p.get('step_ms'))] for p in rec['b']])}"
-              f"; (c) step ms {rec['c']['step_ms']}; (d) {rec['d']['ms']:.1f} ms on {card}",
-              flush=True)
+              f"; (c) step ms {rec['c']['step_ms']}; (d) {rec['d']['ms']:.1f} ms; (e) "
+              f"{json.dumps([[p['variant'], p['ms']] for p in rec['e']])}; (f) "
+              f"{json.dumps([[p['arch'], p['context'], p['step_ms'], p['profiled_step']] for p in rec['f']])}"
+              f"; (g) {json.dumps(rec['g'])} on {card}", flush=True)
     return {"ranks": ranks}
 
 
@@ -3972,15 +4640,18 @@ def main() -> int:
                             "flash_attention_bwd_cross": xq17["flash_attention_bwd"]}}
     # phase 19: each kernel's launches on rank 0 of the (2, 2) mesh, in the
     # run of the path it is on there ((a)'s first bf16 step, (b)'s
-    # prefill_32k and decode_32k calls, (d)'s prefill); the other ranks'
-    # counts are checked equal in spmd_phase
+    # prefill_32k and decode_32k calls, (d)'s prefill, (e)'s decode_32k
+    # calls and (f)'s long_500k steps on the rank's slots); the other
+    # ranks' counts are checked equal in spmd_phase
     r0 = spmd["ranks"][0]
     step_a = r0["a"]["bf16"]["launches"][0]
     cells_b = {(c["cell"], c["meta"]["variant"]): c["launches"] for c in r0["b"]}
     spmd_launches = {
         "flash_attention": cells_b[("prefill_32k", "baseline")]["flash_attention"],
         "decode_attention": sum(cells_b[("decode_32k", v)]["decode_attention"]
-                                for v in ("baseline", "kv_int8")),
+                                for v in ("baseline", "kv_int8"))
+        + sum(c["launches"]["decode_attention"] for c in r0["e"])
+        + sum(n["decode_attention"] for c in r0["f"] for n in c["launches"]),
         "ssd_scan": r0["d"]["launches"]["ssd_scan"],
         "flash_attention_bf16_fwd": step_a["flash_attention"],
         "flash_attention_bwd": step_a["flash_attention_bwd"],
@@ -3994,6 +4665,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"kernel": "flash_wg_kernel"} if "bf16_fwd" in name else {}),
+            **({"lse_ms": t["lse_ms"]} if "lse_ms" in t else {}),
             "launches": launches[arch][name], "spmd": spmd_launches.get(name, 0),
             "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -28,9 +28,14 @@
 //  (2) the last split block of each (batch, KV head) to finish, found with
 //      a counter that it resets to 0, merges the splits in split order:
 //      M = max m, L = sum l exp(m - M), o = sum acc exp(m - M) /
-//      max(L, 1e-30), and writes o in q's type. One launch a call; only
-//      the counter is atomic, and every sum runs in a fixed order, so two
-//      runs give the same bits.
+//      max(L, 1e-30), and writes o in q's type. Where the caller asks for
+//      it, it writes o in float32 instead, and each head's log-sum-exp of
+//      the scaled (and capped) scores over the valid slots, lse = M + log L
+//      (-inf for a row with no valid slot), so that partial results over
+//      disjoint slot ranges (the ranks of a cache split on its sequence)
+//      can be merged: o = sum_r exp(lse_r - M) o_r / sum_r exp(lse_r - M).
+//      One launch a call; only the counter is atomic, and every sum runs
+//      in a fixed order, so two runs give the same bits.
 // kSplit is 64 slots (32 at hd 256, to bound shared memory at 83 KB), and
 // the tiles a split takes are as few as give ~4 blocks an SM: at the served
 // shape (4 sequences, 8 KV heads, a 640-slot cache) one tile, 10 x 8 x 4 =
@@ -41,7 +46,8 @@
 // clamped at 1e-30. Skipping an invalid slot is exact whenever the row has a
 // valid one: its weight exp(-1e30 - m) is 0 in float32. A row with no valid
 // slot at all gives, as in the reference, weight 1 to every slot: the merge
-// takes the mean of V over all Smax slots for it.
+// takes the mean of V over all Smax slots for it (under lse, from sums of V
+// that each split without a valid slot leaves in its acc).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,8 +99,9 @@ size_t split_smem(int G, int HD, int SP) {
 template <typename T>
 __device__ __forceinline__ void merge_row(const float* __restrict__ part_acc,
                                           const float* __restrict__ part_ml,
-                                          const T* __restrict__ v, T* __restrict__ o, int H,
-                                          int K, int Smax, int HD, int nsplit, int b, int kvh) {
+                                          const T* __restrict__ v, void* __restrict__ o,
+                                          float* __restrict__ lse, int H, int K, int Smax,
+                                          int HD, int nsplit, int b, int kvh) {
   __shared__ float sm_max[kThreads], sm_sum[kThreads];  // per head; G <= 256
   const int G = H / K;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -129,6 +136,11 @@ __device__ __forceinline__ void merge_row(const float* __restrict__ part_acc,
     }
   }
   __syncthreads();
+  if (lse != nullptr) {  // L > 0 wherever a split had a valid slot
+    for (int g = tid; g < G; g += kThreads)
+      lse[(size_t)b * H + (size_t)kvh * G + g] =
+          sm_sum[g] >= 0.f ? sm_max[g] + logf(sm_sum[g]) : __int_as_float(0xff800000);  // -inf
+  }
   for (int i = tid; i < G * HD; i += kThreads) {
     const int g = i / HD, d = i % HD;
     const float M = sm_max[g], L = sm_sum[g];
@@ -143,12 +155,20 @@ __device__ __forceinline__ void merge_row(const float* __restrict__ part_acc,
         acc += l > 0.f ? a * expf(__ldcg(part_ml + r * 2) - M) : 0.f;
       }
       out = acc / fmaxf(L, 1e-30f);
+    } else if (lse != nullptr) {  // no valid slot: the splits' sums of V
+      float acc = 0.f;
+      for (int s = 0; s < nsplit; ++s) acc += __ldcg(part_acc + ((part0 + s) * G + g) * HD + d);
+      out = acc / (float)Smax;
     } else {  // no valid slot: every score -1e30, every weight 1
       float acc = 0.f;
       for (int j = 0; j < Smax; ++j) acc += to_f(v[(((size_t)b * Smax + j) * K + kvh) * HD + d]);
       out = acc / fmaxf((float)Smax, 1e-30f);
     }
-    store(&o[((size_t)b * H + (size_t)kvh * G + g) * HD + d], out);
+    const size_t at = ((size_t)b * H + (size_t)kvh * G + g) * HD + d;
+    if (lse != nullptr)  // a partial result for a merge: float32
+      static_cast<float*>(o)[at] = out;
+    else
+      store(static_cast<T*>(o) + at, out);
   }
 }
 
@@ -156,9 +176,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 3)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const int* __restrict__ pos_ids, const int* __restrict__ lengths,
-             float* __restrict__ part_acc, float* __restrict__ part_ml, T* __restrict__ o,
-             int* __restrict__ counters, int H, int K, int Smax, int tiles_per_split, int window,
-             float cap, float scale, int vec) {
+             float* __restrict__ part_acc, float* __restrict__ part_ml, void* __restrict__ o,
+             float* __restrict__ lse, int* __restrict__ counters, int H, int K, int Smax,
+             int tiles_per_split, int window, float cap, float scale, int vec) {
   constexpr int SP = split_of<HD>();
   constexpr int LD = HD + 1;  // odd: lanes on consecutive slots hit distinct banks
   constexpr int E = 16 / sizeof(T);
@@ -296,6 +316,28 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     }
   }
   __syncthreads();
+  // Under a merge (lse wanted), a split with no valid slot keeps in its acc
+  // the sum of V over its slots, so that a row with no valid slot anywhere
+  // gets its mean of V from the splits in parallel (on a rank whose slots
+  // are all empty, every step). A row with a valid slot never reads these
+  // sums, and without lse nothing changes.
+  if (lse != nullptr && run_l[0] == 0.f) {  // block-uniform: validity is per row
+    constexpr int R = kThreads / HD;  // slots summed side by side; R * HD fits in ks
+    const int d = tid % HD, r = tid / HD;
+    const int j1 = min(Smax, tile1 * SP);
+    float s = 0.f;
+#pragma unroll 4
+    for (int j = tile0 * SP + r; j < j1; j += R)
+      s += to_f(v[(((size_t)b * Smax + j) * K + kvh) * HD + d]);
+    ks[r * HD + d] = s;
+    __syncthreads();
+    if (tid < HD) {
+      float t = 0.f;
+      for (int i = 0; i < R; ++i) t += ks[i * HD + tid];
+      for (int g = 0; g < G; ++g) acc[g * HD + tid] = t;
+    }
+    __syncthreads();
+  }
   for (int g = tid; g < G; g += kThreads) {  // l = 0: no valid slot in the split
     part_ml[(part * G + g) * 2] = run_m[g];
     part_ml[(part * G + g) * 2 + 1] = run_l[g];
@@ -311,16 +353,16 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   __syncthreads();
   if (!last) return;
   __threadfence();
-  merge_row<T>(part_acc, part_ml, v, o, H, K, Smax, HD, gridDim.x, b, kvh);
+  merge_row<T>(part_acc, part_ml, v, o, lse, H, K, Smax, HD, gridDim.x, b, kvh);
   if (tid == 0) counters[b * K + kvh] = 0;
 }
 
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
-                   const void* len, void* o, void* work, long long work_floats, void* counters,
-                   int B, int H,
-                   int K, int Smax, int window, float cap, float scale, cudaStream_t stream) {
+                   const void* len, void* o, void* lse, void* work, long long work_floats,
+                   void* counters, int B, int H, int K, int Smax, int window, float cap,
+                   float scale, cudaStream_t stream) {
   constexpr int SP = split_of<HD>();
   const int G = H / K;
   // as many splits of whole tiles as make about kTargetBlocks blocks, and
@@ -346,45 +388,54 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
   float* part_ml = part_acc + (size_t)B * H * nsplit * HD;
   kernel<<<dim3(nsplit, K, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(pos), static_cast<const int*>(len), part_acc, part_ml,
-      static_cast<T*>(o), static_cast<int*>(counters), H, K, Smax, per, window, cap, scale, vec);
+      static_cast<const int*>(pos), static_cast<const int*>(len), part_acc, part_ml, o,
+      static_cast<float*>(lse), static_cast<int*>(counters), H, K, Smax, per, window, cap, scale,
+      vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, const void* pos,
-                     const void* len, void* o, void* w, long long wn, void* cnt, int B, int H, int K,
-                     int Smax, int window, float cap, float scale, cudaStream_t s) {
+                     const void* len, void* o, void* lse, void* w, long long wn, void* cnt,
+                     int B, int H, int K, int Smax, int window, float cap, float scale,
+                     cudaStream_t s) {
+#define DECODE_CASE(D) \
+  case D:              \
+    return launch<T, D>(q, k, v, pos, len, o, lse, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
-    case 16: return launch<T, 16>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
-    case 32: return launch<T, 32>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
-    case 64: return launch<T, 64>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
-    case 128: return launch<T, 128>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
-    case 256: return launch<T, 256>(q, k, v, pos, len, o, w, wn, cnt, B, H, K, Smax, window, cap, scale, s);
+    DECODE_CASE(8)
+    DECODE_CASE(16)
+    DECODE_CASE(32)
+    DECODE_CASE(64)
+    DECODE_CASE(128)
+    DECODE_CASE(256)
     default: return cudaErrorInvalidValue;
   }
+#undef DECODE_CASE
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/o (B,H,hd), k/v (B,Smax,K,hd),
-// pos_ids (B,Smax) int32, lengths (B,) int32, all contiguous. work: float32
-// scratch of work_floats >= B*H*ceil(Smax/split)*(hd + 2), split 64 slots
-// (32 at hd 256). counters: B*K int32, zero before the call and zero again
-// after it (the kernel resets what it counts). Returns a cudaError_t.
+// pos_ids (B,Smax) int32, lengths (B,) int32, all contiguous. lse: null
+// (o in q's type), or float32 (B,H) for each head's log-sum-exp over its
+// valid slots, -inf where it has none (o in float32). work:
+// float32 scratch of work_floats >= B*H*ceil(Smax/split)*(hd + 2), split 64
+// slots (32 at hd 256). counters: B*K int32, zero before the call and zero
+// again after it (the kernel resets what it counts). Returns a cudaError_t.
 extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
-                                const void* pos_ids, const void* lengths, void* o, void* work,
-                                long long work_floats, void* counters, int B, int H, int K,
-                                int Smax, int hd,
-                                int window, float softcap, float scale, void* stream) {
+                                const void* pos_ids, const void* lengths, void* o, void* lse,
+                                void* work, long long work_floats, void* counters, int B, int H,
+                                int K, int Smax, int hd, int window, float softcap, float scale,
+                                void* stream) {
   if (B <= 0 || Smax <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(hd, q, k, v, pos_ids, lengths, o, work, work_floats, counters, B, H, K,
-                                Smax, window, softcap, scale, s);
+    return (int)dispatch<float>(hd, q, k, v, pos_ids, lengths, o, lse, work, work_floats,
+                                counters, B, H, K, Smax, window, softcap, scale, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(hd, q, k, v, pos_ids, lengths, o, work, work_floats, counters, B,
-                                        H, K, Smax, window, softcap, scale, s);
+    return (int)dispatch<__nv_bfloat16>(hd, q, k, v, pos_ids, lengths, o, lse, work,
+                                        work_floats, counters, B, H, K, Smax, window, softcap,
+                                        scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,13 @@ partial softmax states, in one launch; the float32 workspace of the
 partials is allocated here, and the counters that find the last block are
 kept per device.
 
+With ``return_lse`` the call also returns each head's log-sum-exp (B,H)
+float32 of its scaled and capped scores over the valid slots (-inf for a
+row with none), and the output in float32: what a merge of partial results
+over disjoint slot ranges needs (``parallel/spmd.py::lse_merge``, a cache
+split on its sequence across ranks), rounded once after it. Without it the
+call computes what it did before, bit for bit.
+
 On a CPU tensor the wrapper computes the plain version
 (``ref.decode_attention_ref``); on a CUDA tensor it launches the kernel or
 raises. It raises too for a CUDA input that requires grad while grad mode
@@ -29,7 +36,7 @@ from . import _build
 from .ref import decode_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 _counters: dict = {}
 
@@ -52,9 +59,10 @@ def split_slots(hd: int) -> int:
     return 32 if hd >= 256 else 64
 
 
-def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
+def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0, return_lse=False):
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, pos_ids, lengths, window=window, softcap=softcap)
+        return decode_attention_ref(q, k, v, pos_ids, lengths, window=window, softcap=softcap,
+                                    return_lse=return_lse)
     _build.refuse_grad("decode_attention", q, k, v)
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]
@@ -70,9 +78,10 @@ def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
     if pos_ids.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("decode_attention: pos_ids and lengths must be int32")
     _build.check_cuda_inputs("decode_attention", q.dtype, q, k, v, pos_ids, lengths)
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     if o.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     # each split's partial (acc (G, hd), m, l) for every query head
     nsplit = -(-Smax // split_slots(hd))
     work = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32, device=q.device)
@@ -81,15 +90,15 @@ def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
         rc = fn(
             0 if q.dtype == torch.float32 else 1,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ids.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), work.data_ptr(), work.numel(),
-            _counter_buffer(q.device, B * K).data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(),
+            work.data_ptr(), work.numel(), _counter_buffer(q.device, B * K).data_ptr(),
             B, H, K, Smax, hd, int(window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         _build.count_launch(decode_attention)
     _build.raise_on_error("decode_attention", rc)
-    return o
+    return (o, lse) if return_lse else o
 
 
 decode_attention.launches = 0

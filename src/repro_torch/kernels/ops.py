@@ -43,7 +43,8 @@ On a mesh larger than one device both adapters take DTensors and run the
 kernels on each rank's local shards (``parallel/spmd.py``: ``local_sdpa``
 with the GQA kv-head slice, ``local_ssd``); a kernel's wrapper, which reads
 ``data_ptr``, only ever sees the local tensors. K/V split on their sequence
-raise ``NotImplementedError``.
+(one token: a decode step) run the decode kernel on each rank's slots with
+its log-sum-exp, merged across the ranks (``spmd.lse_merge``).
 """
 from __future__ import annotations
 
@@ -118,7 +119,11 @@ def ssd_scan_diff(x, dt, A, B_, C_, chunk=128, h0=None):
 CROSS_LENGTH = 2**31 - 1
 
 
-def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
+def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site, lse=False):
+    """The kernels' attention, routed by ``site`` (see the module's
+    docstring). ``lse`` (one token at the "decode" and "cross" sites):
+    return (out float32, each head's log-sum-exp (B,1,H)), the decode
+    kernel's partial result over the slots it was given, for a merge."""
     if spmd.is_dtensor(q):
         return spmd.local_sdpa(sdpa_kernel, q, k, v, q_pos, k_pos, window, causal, cap, site)
     win = int(window) if window else 0
@@ -131,9 +136,14 @@ def sdpa_kernel(q, k, v, q_pos, k_pos, window, causal, cap, site):
         else:
             lengths = torch.full((q.shape[0],), CROSS_LENGTH, dtype=torch.int32,
                                  device=q.device)
-        return decode_attention(
-            q[:, 0].contiguous(), k, v, k_pos.contiguous(), lengths, window=win, softcap=capf,
-        )[:, None]
+        out = decode_attention(q[:, 0].contiguous(), k, v, k_pos.contiguous(), lengths,
+                               window=win, softcap=capf, return_lse=lse)
+        if lse:
+            return out[0][:, None], out[1][:, None]
+        return out[:, None]
+    if lse:
+        raise NotImplementedError(f"no log-sum-exp route for sdpa at site {site!r} with q "
+                                  f"{tuple(q.shape)}")
     if site == "prefill" or site == "cross":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from ..models.layers import NEG_INF, _sdpa_dense, causal_window_mask
+from ..models.layers import NEG_INF, _sdpa_dense, _sdpa_dense_lse, causal_window_mask
 from ..models.ssd import ssd_chunked
 
 F32 = torch.float32
@@ -173,8 +173,15 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, softc
     return dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def decode_attention_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
-    """q (B,H,hd) single token; validity from pos_ids/lengths."""
+def decode_attention_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0,
+                         return_lse=False):
+    """q (B,H,hd) single token; validity from pos_ids/lengths. With
+    ``return_lse``: (o (B,H,hd) float32, each head's log-sum-exp (B,H) of
+    its scaled, capped scores over the valid slots, -inf where none is
+    valid), in float32 throughout; a row with no valid slot gives the mean
+    of V over every slot, as without it."""
+    if return_lse:
+        return _decode_lse_ref(q, k, v, pos_ids, lengths, window, softcap)
     out = _sdpa_dense(
         q[:, None],  # (B,1,H,hd)
         k,
@@ -188,14 +195,22 @@ def decode_attention_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0):
     return out[:, 0]
 
 
+def _decode_lse_ref(q, k, v, pos_ids, lengths, window, cap):
+    out, lse = _sdpa_dense_lse(q[:, None], k, v, lengths[:, None].to(torch.int32), pos_ids,
+                               window if window else None, True, cap or None)
+    return out[:, 0], lse[:, 0]
+
+
 def decode_attention_split_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0,
-                               split=64):
+                               split=64, return_lse=False):
     """The split-KV decode kernel's algorithm (flash-decoding) step by step,
     in float32: per split of ``split`` slots, the partial (m, l, acc) over
     its valid slots only (a split with none has l = 0 and is skipped); the
     splits merged in split order, o = sum acc exp(m - M) / max(L, 1e-30); a
     row with no valid slot at all gives the mean of V over all Smax slots,
-    as the reference's -1e30 scores do. Returns (B,H,hd) in q's type."""
+    as the reference's -1e30 scores do. Returns (B,H,hd) in q's type; with
+    ``return_lse``, (o (B,H,hd) float32, lse = M + log L (B,H), -inf for a
+    row with no valid slot), as the kernel's merge writes them."""
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]
     G = H // K
@@ -229,6 +244,9 @@ def decode_attention_split_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0
     out = acc / L.clamp(min=1e-30)[..., None]
     mean = v.to(F32).mean(1)[:, :, None, :]  # (B,K,1,hd)
     out = torch.where(any_valid[..., None], out, mean)
+    if return_lse:
+        lse = torch.where(any_valid, M + torch.log(L), float("-inf"))
+        return out.reshape(B, H, hd), lse.reshape(B, H)
     return out.reshape(B, H, hd).to(q.dtype)
 
 

@@ -11,11 +11,12 @@ compiled ahead). A program builds on any mesh, so its shardings can be
 read (``launch/multihost.py``), and runs on a ("data", "model") DeviceMesh
 of any size: on a larger one every rank calls it with DTensors placed by
 ``in_shardings`` (``CellProgram.place`` puts whole inputs there) and the
-step runs SPMD (``parallel/spmd.py``). What that slice leaves out raises
-``NotImplementedError`` when run: K/V sharded on its sequence
-(``decode_kvseq*``, the ``long_500k`` cell's LONG_RULES), the expert
-capacity sharded (``moe_cshard*``) and a "pod" axis. The model lives on
-the mesh's device type.
+step runs SPMD (``parallel/spmd.py``), K/V sharded on its sequence
+(``decode_kvseq*``, the ``long_500k`` cell's LONG_RULES) included: each
+rank attends to its own slots and the partial results merge across ranks
+by the decode kernel's log-sum-exp. A "pod" axis raises
+``NotImplementedError`` when run. The model lives on the mesh's device
+type.
 """
 from __future__ import annotations
 
@@ -218,9 +219,8 @@ def _meta(spec):
 
 def _on_mesh(mesh, rules: Rules, fn: Callable) -> Callable:
     """``fn`` under ``sharding_ctx(mesh, rules)``. On a mesh larger than one
-    device what the SPMD slice leaves out raises ``NotImplementedError``
-    naming its ROADMAP item: a "pod" axis, K/V split on its sequence
-    (``kv_seq``), the expert capacity split (``capacity``)."""
+    device a "pod" axis raises ``NotImplementedError`` naming its ROADMAP
+    item."""
 
     def run(*args):
         if is_trivial(mesh):
@@ -228,10 +228,6 @@ def _on_mesh(mesh, rules: Rules, fn: Callable) -> Callable:
                 return fn(*args)
         if "pod" in mesh_shape(mesh):
             raise NotImplementedError(spmd.POD_TODO)
-        if rules.get("kv_seq") is not None:
-            raise NotImplementedError(spmd.KVSEQ_TODO)
-        if rules.get("capacity") is not None:
-            raise NotImplementedError(spmd.CSHARD_TODO)
         with sharding_ctx(mesh, rules), spmd.on_mesh_ops():
             return fn(*args)
 

@@ -184,7 +184,26 @@ def _sdpa_dense(q, k, v, q_pos, k_pos, window, causal, cap) -> torch.Tensor:
     return out.reshape(B, Sq, H, hd)
 
 
-def _sdpa_plain(q, k, v, q_pos, k_pos, window, causal, cap, site):
+def _sdpa_dense_lse(q, k, v, q_pos, k_pos, window, causal, cap):
+    """``_sdpa_dense`` in float32 throughout, with each row's log-sum-exp:
+    (out (B,Sq,H,hd) float32, lse (B,Sq,H) of the scaled, capped scores
+    over the keys the mask keeps, -inf where it keeps none; such a row's
+    out is the mean of V over every key, as ``_sdpa_dense`` gives it)."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(B, Sq, K, H // K, hd).to(F32),
+                     k.to(F32)) / math.sqrt(hd)
+    s = softcap(s, cap)
+    mask = causal_window_mask(q_pos, k_pos, window, causal)[:, None, None]
+    lse = torch.logsumexp(torch.where(mask, s, float("-inf")), dim=-1)  # (B,K,G,Sq)
+    probs = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(F32))
+    return out.reshape(B, Sq, H, hd), lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+
+def _sdpa_plain(q, k, v, q_pos, k_pos, window, causal, cap, site, lse=False):
+    if lse:
+        return _sdpa_dense_lse(q, k, v, q_pos, k_pos, window, causal, cap)
     return _sdpa_dense(q, k, v, q_pos, k_pos, window, causal, cap)
 
 
@@ -470,12 +489,15 @@ def moe_aux(probs: torch.Tensor, counts: torch.Tensor, cfg: ModelConfig) -> torc
 
 
 def moe_dispatch(p: dict, xg: torch.Tensor, probs: torch.Tensor, cfg: ModelConfig,
-                 experts: Optional[range] = None):
+                 experts: Optional[range] = None, capacity_rows: Optional[tuple] = None):
     """``_moe_grouped``'s dispatch, expert products and combine, from the
     router's probs: (y (G, T, D) before its ``shard``, counts (G, E)).
     ``experts``: the expert ids whose weights ``p`` holds (a rank's own
     under expert parallelism), ``p``'s rows in order; only their slots are
-    computed and combined (the others' sum is pending on their ranks)."""
+    computed and combined (the others' sum is pending on their ranks).
+    ``capacity_rows`` (c0, c1): only the capacity rows [c0, c1) of every
+    expert are computed and combined (a rank's own when the capacity is
+    split across ranks: ``moe_cshard``); counts are every slot's."""
     G, T, D = xg.shape
     dt = xg.dtype
     E, K = cfg.num_experts, cfg.top_k
@@ -499,24 +521,28 @@ def moe_dispatch(p: dict, xg: torch.Tensor, probs: torch.Tensor, cfg: ModelConfi
     xe = xe.reshape(G, E, C, D) * valid[..., None].to(dt)
     if experts is not None:
         xe = xe[:, experts.start:experts.stop]
+    c0, c1 = capacity_rows or (0, C)
+    if capacity_rows is not None:
+        xe = xe[:, :, c0:c1]
     xe = shard(xe, "batch", "experts", "capacity", "embed")
     h = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
     g_ = torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt))
     h = shard(activate(g_, cfg.act) * h, "batch", "experts", "capacity", "moe_ff")
     ye = coll_out(torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt)))
-    ye = ye.reshape(G, ye.shape[1] * C, D)
+    ye = ye.reshape(G, ye.shape[1] * (c1 - c0), D)
 
     # combine: slot s = t*K + k sits at rank r of its expert's run in the
     # sorted order; it was kept iff r < C, and its output is row e*C + r
+    # (of a rank's own rows [c0, c1): kept iff c0 <= r < c1, row e*(c1-c0) + r-c0)
     rank = torch.empty_like(order).scatter_(
         1, order, torch.arange(T * K, device=dev).expand(G, T * K))
     r = rank - torch.gather(starts, 1, flat_e)
-    kept = r < C
+    kept = (r >= c0) & (r < c1)
+    e0 = 0
     if experts is not None:
         kept = kept & (flat_e >= experts.start) & (flat_e < experts.stop)
-        row = torch.where(kept, (flat_e - experts.start) * C + r, 0)
-    else:
-        row = torch.where(kept, flat_e * C + r, 0)
+        e0 = experts.start
+    row = torch.where(kept, (flat_e - e0) * (c1 - c0) + r - c0, 0)
     w = torch.where(kept, gate.reshape(G, T * K), 0.0).to(dt)
     contrib = torch.gather(ye, 1, row[..., None].expand(G, T * K, D)) * w[..., None]
     contrib = contrib.reshape(G, T, K, D)

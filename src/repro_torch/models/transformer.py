@@ -462,15 +462,16 @@ class LM:
         caches = []
         for layer in range(self.n_super):
             p_super = _layer(params["blocks"], layer)
-            if spmd.is_dtensor(x):  # FSDP: this layer's params, gathered for use
-                p_super = spmd.gather_for_use(p_super, x.dtype)
             c_super = _layer(cache, layer) if cache is not None else None
             x_super = _layer(cross, layer) if cross is not None else {}
             out = {}
             for i in range(self.period):
                 sub_cache = c_super[f"sub{i}"] if c_super is not None else None
+                p_sub = p_super[f"sub{i}"]
+                if spmd.is_dtensor(x):  # FSDP: this sublayer's params, gathered for use
+                    p_sub = spmd.gather_for_use(p_sub, x.dtype)
                 x, nc, aux = self._sub_apply(
-                    p_super[f"sub{i}"], i, x, positions=positions,
+                    p_sub, i, x, positions=positions,
                     cache=sub_cache, lengths=lengths, want_cache=want_cache,
                     enc_out=enc_out, cross_kv=x_super.get(f"sub{i}"),
                 )
@@ -608,6 +609,11 @@ class LM:
         if drop:
             x = x[:, drop:]
         aux = torch.as_tensor(aux, dtype=F32, device=x.device)
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        if spmd.is_dtensor(params[name]):
+            # FSDP: the head's weight gathered once for every CE chunk and its
+            # recompute (``head`` passes a gathered one on), one reduce-scatter
+            params = dict(params, **spmd.gather_for_use({name: params[name]}, x.dtype))
         ce = chunked_ce(lambda xc: self.head(params, xc), x, targets)
         return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 

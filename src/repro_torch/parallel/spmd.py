@@ -10,11 +10,11 @@ reference's way, and this module does:
 
 * ``gather_for_use``: FSDP. Every param sharded over "data" is cast to the
   compute dtype and all-gathered over "data" (its "model" placements kept)
-  once a layer, inside the layer loop, so a rank holds one gathered layer
-  at a time. The gather is an autograd op whose backward reduce-scatters:
-  every gradient arrives in its param's placements. (Left to DTensor, an
-  einsum all-gathers the weight by its own choice and its gradient comes
-  back ``Partial``, not sharded.)
+  once a layer (a super-layer under remat), inside the layer loop, so a
+  rank holds one gathered layer at a time. The gather is an autograd op
+  whose backward reduce-scatters: every gradient arrives in its param's
+  placements. (Left to DTensor, an einsum all-gathers the weight by its
+  own choice and its gradient comes back ``Partial``, not sharded.)
 * ``einsum``: each two-operand product runs on the local shards, with the
   output's placements worked out per mesh dim (a sharded letter kept in the
   output stays sharded; a contracted one makes the output ``Partial``, for
@@ -27,6 +27,10 @@ reference's way, and this module does:
   rank's H/M heads while K/V hold every kv head (``act_kv_heads`` is
   None): the local call takes the kv heads its q heads map to (q head h ->
   kv head h // (H/K)) before the kernel infers its group from the shapes.
+  A decode cache split on its slots (``kv_seq``) stays split: each rank
+  attends with every head to its own slots, and the partial results merge
+  across ranks by the decode kernel's log-sum-exp (``lse_merge``);
+  ``cache_write`` writes each new entry on the rank that owns its slot.
 
 On plain tensors every function here is the plain operation, so one
 device computes exactly what it did before.
@@ -38,10 +42,9 @@ from typing import Callable, Optional
 import torch
 
 #: what the SPMD slice leaves out, and names in its errors
-KVSEQ_TODO = ("K/V sharded on its sequence (kv_seq: LONG_RULES, decode_kvseq*) is not ported "
-              "(ROADMAP queue 1, SPMD leftovers: kv_seq sharding)")
-CSHARD_TODO = ("expert capacity sharded over a mesh axis (moe_cshard) is not ported "
-               "(ROADMAP queue 1, SPMD leftovers: moe_cshard)")
+KVSEQ_TODO = ("attention of more than one query against K/V sharded on its sequence is not "
+              "ported: kv_seq runs decode steps only (ROADMAP queue 1, SPMD leftovers: kv_seq "
+              "at Sq > 1)")
 POD_TODO = ("a \"pod\" mesh axis is not ported (ROADMAP queue 1, SPMD leftovers: the pod "
             "axis on eight ranks)")
 
@@ -294,16 +297,27 @@ def local_sdpa(impl: Callable, q, k, v, q_pos, k_pos, window, causal, cap, site)
     """Scaled dot-product attention of DTensors q (B,Sq,H,hd), k/v
     (B,Sk,K,hd) by ``impl`` (a ``layers.SDPA_IMPL`` entry) on the local
     shards: batch as q holds it, q's local heads against the kv heads they
-    map to. K/V sharded on their sequence raise ``NotImplementedError`` (a
-    cross-rank merge of partial softmax results); K/V split on head_dim (a
-    cache under the head-dim fallback) are all-gathered over that dim, as
-    is q's head_dim."""
+    map to. K/V split on head_dim (a cache under the head-dim fallback) are
+    all-gathered over that dim, as is q's head_dim.
+
+    K/V sharded on their sequence (a decode cache under ``kv_seq``: flash
+    decoding across ranks, one token only) stay split: q is made whole on
+    those mesh dims (every head, its batch split kept), each rank runs
+    ``impl`` over its own slots with the log-sum-exp (float32), the
+    partial results merge over those dims (``lse_merge``: an all-reduce max
+    of (B, 1, H), an all-reduce sum of (B, 1, H, hd + 1)), are rounded once
+    to q's dtype, and each rank
+    keeps q's own heads by a local slice. Sq > 1 raises
+    ``NotImplementedError``."""
     Partial, Replicate, Shard = _placements()
     mesh = q.device_mesh
     H, K = q.shape[2], k.shape[2]
-    for t in (k, v):
-        if any(p.is_shard() and p.dim == 1 for p in t.placements):
+    seq = [m for m, p in enumerate(k.placements) if p.is_shard() and p.dim == 1]
+    orig = tuple(q.placements)
+    if seq:
+        if q.shape[1] != 1:
             raise NotImplementedError(KVSEQ_TODO)
+        q = replicate(q, seq)  # every q head against this rank's slots
 
     def fix(t, keep_heads: bool):
         pl = []
@@ -319,7 +333,7 @@ def local_sdpa(impl: Callable, q, k, v, q_pos, k_pos, window, causal, cap, site)
     # batch: k/v and the positions follow q's batch placements
     bat = [p if (p.is_shard() and p.dim == 0) else Replicate() for p in q.placements]
     hs = _heads_split(q, 2)
-    kv_pl = list(bat)
+    kv_pl = [Shard(1) if m in seq else p for m, p in enumerate(bat)]
     kv_keep = False
     if hs is not None:
         m, parts, r = hs
@@ -350,9 +364,52 @@ def local_sdpa(impl: Callable, q, k, v, q_pos, k_pos, window, causal, cap, site)
     if sel is not None:
         kl, vl = kl.index_select(2, sel), vl.index_select(2, sel)
     qp = _positions_local(q_pos, bat, mesh)
-    kp = _positions_local(k_pos, bat, mesh)
-    out = impl(ql, kl, vl, qp, kp, window, causal, cap, site)
-    return from_local(out, mesh, q.placements, list(q.shape))
+    if not seq:
+        kp = _positions_local(k_pos, bat, mesh)
+        out = impl(ql, kl, vl, qp, kp, window, causal, cap, site)
+        return from_local(out, mesh, q.placements, list(q.shape))
+    kp = _positions_local(k_pos, [Shard(1) if m in seq else p for m, p in enumerate(bat)], mesh)
+    o, lse = impl(ql, kl, vl, qp, kp, window, causal, cap, site, lse=True)
+    out = lse_merge(o, lse, kl.shape[1], _mesh_reduce(mesh, seq)).to(q.dtype)
+    for m in seq:  # q's own heads on a dim that split them: a local slice
+        if orig[m].is_shard() and orig[m].dim == 2:
+            lo, hi = _local_range(out.shape[2], mesh.size(m), mesh.get_local_rank(m))
+            out = out[:, :, lo:hi]
+    return _redistribute(from_local(out.contiguous(), mesh, [
+        orig[m] if m in seq and orig[m].is_shard() and orig[m].dim == 2 else p
+        for m, p in enumerate(q.placements)], list(q.shape)), orig)
+
+
+def lse_merge(o, lse, slots, reduce):
+    """Partial attention results over disjoint slot ranges, merged: ``o``
+    (..., hd) and ``lse`` (...) float32 of one range (lse -inf where it has
+    no valid slot), ``slots`` the range's slot count (a number, or a tensor
+    that broadcasts against lse); ``reduce(t, op)`` the max (op "max") or
+    the sum ("sum") of t over the ranges (an all-reduce across the ranks
+    holding them, or a reduction over a stacked leading dim). With M the
+    largest lse, o = sum exp(lse - M) o / sum exp(lse - M): a range with no
+    valid slot weighs 0. A row with no valid slot in any range weighs each
+    range's o (the decode kernel's mean of its V) by its slot count: the
+    mean of V over every slot, the reference's answer. Float32 throughout;
+    the caller rounds once."""
+    M = reduce(lse, "max")
+    has = M > float("-inf")
+    w = torch.where(has, torch.exp(lse - torch.where(has, M, 0.0)), slots)
+    tot = reduce(torch.cat([o * w[..., None], w[..., None]], dim=-1), "sum")
+    return tot[..., :-1] / tot[..., -1:]
+
+
+def _mesh_reduce(mesh, dims):
+    """``lse_merge``'s ``reduce`` over the mesh dims ``dims``: each call an
+    all-reduce (a Partial made Replicate on those dims) of this rank's
+    local tensor."""
+    Partial, Replicate, _ = _placements()
+
+    def reduce(t, op):
+        pl = [Partial(op) if m in dims else Replicate() for m in range(mesh.ndim)]
+        return replicate(from_local(t, mesh, pl, list(t.shape)), dims).to_local()
+
+    return reduce
 
 
 def _positions_local(pos, bat, mesh):
@@ -550,13 +607,17 @@ def moe_apply(p: dict, x, cfg, *, gathered: bool):
     reference's: the gathered per-token products for a small decode batch
     (``gathered``), one routing group over the whole batch for any other
     decode step, one group a row otherwise, with the same capacity; the aux
-    loss is taken from the global probs and counts."""
+    loss is taken from the global probs and counts.
+
+    With the ``capacity`` rule on a mesh axis (``moe_cshard``) where the
+    experts' weights are whole on it (the experts do not divide it, and
+    ``moe_ff`` is not split), each rank of that axis computes and combines
+    its own capacity rows [c0, c1) of every expert: its share of y is a
+    Partial sum there too, and so are its weights' gradients."""
     from ..models import layers
     from .sharding import current_ctx, shard
 
     rules = current_ctx()[1]
-    if rules is not None and rules.get("capacity") is not None:
-        raise NotImplementedError(CSHARD_TODO)
     Partial, Replicate, Shard = _placements()
     mesh = x.device_mesh
     B, S, D = x.shape
@@ -587,13 +648,23 @@ def moe_apply(p: dict, x, cfg, *, gathered: bool):
     probs = layers.moe_probs(xg[:, 0] if gathered else xg, p["router"])
     row_pl = list(xg.placements)
     model_split = [split.is_shard() and m == md for m in range(mesh.ndim)]
-    data_split = [q.is_shard() for q in row_pl]
+    rows = None  # moe_cshard: this rank's capacity rows
+    cm = mesh_dim(mesh, rules["capacity"]) if rules and rules.get("capacity") else None
+    if cm is not None and not gathered and not any(
+            w.placements[cm].is_shard() for w in ws.values()):
+        C = layers.moe_capacity(xg.shape[1], cfg.top_k, E, cfg.capacity_factor)
+        if C % mesh.size(cm) == 0:
+            rows = _local_range(C, mesh.size(cm), mesh.get_local_rank(cm))
+            model_split[cm] = True
+    # a weight's gradient is a Partial sum over the dims that split the rows
+    # it is used on: the batch, and the capacity under moe_cshard
+    w_partial = [q.is_shard() or (rows is not None and m == cm) for m, q in enumerate(row_pl)]
     gin = [q if q.is_shard() else Partial() if model_split[m] else Replicate()
            for m, q in enumerate(row_pl)]
     xl = xg.to_local(grad_placements=gin)
     pr = probs.to_local(grad_placements=gin)
     wl = {k: w.to_local(grad_placements=[
-        q if q.is_shard() else Partial() if data_split[m] else Replicate()
+        q if q.is_shard() else Partial() if w_partial[m] else Replicate()
         for m, q in enumerate(w.placements)]) for k, w in ws.items()}
     out_pl = [q if q.is_shard() else Partial() if model_split[m] else Replicate()
               for m, q in enumerate(row_pl)]
@@ -601,7 +672,8 @@ def moe_apply(p: dict, x, cfg, *, gathered: bool):
         if gathered:  # no aux loss on decode, as the reference
             y, aux = layers._moe_gathered(wl, xl, cfg, experts=experts, probs=pr)
         else:
-            y, counts = layers.moe_dispatch(wl, xl, pr, cfg, experts=experts)
+            y, counts = layers.moe_dispatch(wl, xl, pr, cfg, experts=experts,
+                                            capacity_rows=rows)
     G = xg.shape[0]
     y = from_local(y, mesh, out_pl, [G, xg.shape[1], D])
     if not gathered:
@@ -621,11 +693,14 @@ def cache_write(cache: dict, k, v, positions, lengths, dt):
     """``layers.attention``'s decode write on DTensors: the S new entries of
     k/v (B, S, K, hd) and their positions go into this rank's shard of each
     cache leaf (every leaf keeps its placements; the new entries take a
-    leaf's split of kv heads or head_dim by a local slice). Returns (k, v,
-    k_pos, the cache): the cache's K/V (dequantized from int8 where the
-    cache holds codes), as DTensors."""
+    leaf's split of kv heads or head_dim by a local slice). A cache split
+    on its slots (``kv_seq``) is written by the rank that owns each slot
+    alone, at its local offset: a ring cache's write moves from rank to
+    rank as it wraps. Returns (k, v, k_pos, the cache): the cache's K/V
+    (dequantized from int8 where the cache holds codes), as DTensors."""
     from ..models import layers
 
+    _, Replicate, _ = _placements()
     pos_ids = cache["pos_ids"]
     mesh = pos_ids.device_mesh
     Smax = pos_ids.shape[1]
@@ -635,11 +710,19 @@ def cache_write(cache: dict, k, v, positions, lengths, dt):
     ar = torch.arange(S, dtype=ln.dtype, device=pl.device)
     slot = (ln[:, None] + ar[None, :]) % Smax
     rows = torch.arange(pl.shape[0], device=pl.device)[:, None].expand(pl.shape[0], S)
-    pos_ids.to_local()[rows, slot] = pl
+    lo, n = 0, Smax  # this rank's slots [lo, lo + n), nested over the mesh dims in order
+    for m, p in enumerate(pos_ids.placements):
+        if p.is_shard() and p.dim == 1:
+            a, b = _local_range(n, mesh.size(m), mesh.get_local_rank(m))
+            lo, n = lo + a, b - a
+    mine = (slot >= lo) & (slot < lo + n)
+    rows, slot = rows[mine], slot[mine] - lo
+    pos_ids.to_local()[rows, slot] = pl[mine]
 
     def put(leaf, new):
-        new = _redistribute(new, leaf.placements)
-        leaf.to_local()[rows, slot] = new.to_local().to(leaf.dtype)
+        new = _redistribute(new, [Replicate() if q.is_shard() and q.dim == 1 else q
+                                  for q in leaf.placements])
+        leaf.to_local()[rows, slot] = new.to_local()[mine].to(leaf.dtype)
 
     if "k_q" in cache:
         for name, t in (("k", k), ("v", v)):

@@ -7,6 +7,7 @@ group in ``finally``. Imports torch and the port only.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from pathlib import Path
@@ -136,12 +137,15 @@ def restore_rank(rank: int, world: int, tmp: str) -> None:
     """Restore ``tmp/ckpt``'s step 1 (leaf "w", (8, 8) float32) onto a
     (world, 1) mesh through ``tree_shardings`` of ("fsdp", "ff") under
     TRAIN_RULES; writes this rank's local shard, the DTensor's mesh shape
-    and placements, and whether ``shard`` of a plain tensor, a
-    ``decode_kvseq`` and a ``moe_cshard`` program raise on that mesh, to
-    ``tmp/shard_rank<r>.npz``."""
+    and placements, and whether ``shard`` of a plain tensor and attention
+    of two queries against K/V split on its sequence over "data" raise on
+    that mesh, to ``tmp/shard_rank<r>.npz``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
     from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.launch.programs import build_program
+    from repro_torch.models.layers import sdpa
+    from repro_torch.parallel import spmd
     from repro_torch.parallel.sharding import TRAIN_RULES, shard, sharding_ctx, tree_shardings
 
     _join(rank, world, tmp)
@@ -156,13 +160,16 @@ def restore_rank(rank: int, world: int, tmp: str) -> None:
             with sharding_ctx(mesh, TRAIN_RULES):
                 shard(w.to_local(), "batch", "embed")
 
-        kvseq = build_program("qwen2-0.5b", "decode_32k", mesh, reduced=True,
-                              variant="decode_kvseq")
-        cshard = build_program("mixtral-8x7b", "train_4k", mesh, reduced=True,
-                               variant="moe_cshard")
+        def two_queries_on_split_slots():
+            q = distribute_tensor(torch.zeros(1, 2, 2, 8), mesh, [Replicate(), Replicate()])
+            kv = distribute_tensor(torch.zeros(1, 8, 1, 8), mesh, [Shard(1), Replicate()])
+            pos = torch.zeros(1, 8, dtype=torch.int32)
+            with spmd.on_mesh_ops():
+                sdpa(q, kv, kv, q_pos=pos[:, :2], k_pos=pos, window=None, causal=True, cap=None,
+                     site="prefill")
+
         raises = [_raises_spmd(shard_in_ctx, TypeError, "plain tensor"),
-                  _raises_spmd(lambda: kvseq(None, None, None)),
-                  _raises_spmd(lambda: cshard(None, None))]
+                  _raises_spmd(two_queries_on_split_slots, match="kv_seq at Sq > 1")]
         np.savez(Path(tmp) / f"shard_rank{rank}.npz", local=w.to_local().numpy(),
                  mesh_shape=np.asarray(w.device_mesh.shape),
                  placements=np.asarray([str(p) for p in w.placements]),
@@ -196,7 +203,7 @@ def train_dp_rank(rank: int, world: int, tmp: str) -> None:
 
 #: small cells both packages register for the SPMD tests (kind, seq, batch)
 SPMD_CELLS = {"tiny_train": ("train", 32, 4), "tiny_prefill": ("prefill", 24, 4),
-              "tiny_decode": ("decode", 24, 4)}
+              "tiny_decode": ("decode", 24, 4), "long_500k": ("decode", 24, 1)}
 
 
 def _spmd_setup(rank: int, world: int, tmp: str) -> None:
@@ -232,11 +239,30 @@ def _clone(tree):
     return {k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
 
 
-def spmd_train_rank(rank: int, world: int, tmp: str, cases: list) -> None:
+@contextlib.contextmanager
+def _patched_config(arch: str, patch: dict):
+    """The port's reduced config of ``arch`` with the fields of ``patch``
+    replaced, while the context lasts (``get_config`` reads it each call)."""
+    import importlib
+
+    from repro_torch import configs
+
+    mod = importlib.import_module(f"repro_torch.configs.{configs._MODULES[arch]}")
+    reduced = mod.REDUCED
+    mod.REDUCED = reduced.replace(**patch)
+    try:
+        yield
+    finally:
+        mod.REDUCED = reduced
+
+
+def spmd_train_rank(rank: int, world: int, tmp: str, cases: list, patches: dict) -> None:
     """On a (2, 2) mesh of four gloo ranks: each ``(arch, variant)`` of
-    ``cases`` as the ``tiny_train`` cell program, two steps from
+    ``cases`` as the ``tiny_train`` cell program (the reduced config's
+    fields replaced by ``patches[variant]``), two steps from
     ``tmp/train_in_<i>.npz`` (params "params/<key>", "tokens", "targets"),
-    sharded and on one device (``make_train_step`` on whole tensors); then
+    sharded and on one device (``make_train_step`` on whole tensors), and
+    the capacity rows each MoE dispatch of the first step computed; then
     the collectives of a step on a (4, 1) mesh, the GQA kv-head slice on a
     (1, 4) mesh, ``shard`` of a plain tensor, a checkpoint of the (2, 2)
     state restored onto (4, 1), and ``train(mesh=)`` against ``train()``.
@@ -250,6 +276,7 @@ def spmd_train_rank(rank: int, world: int, tmp: str, cases: list) -> None:
     from repro_torch.launch import programs
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.train import train
+    from repro_torch.models import layers
     from repro_torch.models.layers import _sdpa_dense, sdpa
     from repro_torch.models.transformer import LM
     from repro_torch.optim import adamw
@@ -264,8 +291,9 @@ def spmd_train_rank(rank: int, world: int, tmp: str, cases: list) -> None:
         checks = {}
         for i, (arch, variant) in enumerate(cases):
             inp = np.load(f"{tmp}/train_in_{i}.npz")
-            prog = programs.build_program(arch, "tiny_train", mesh, reduced=True,
-                                          variant=variant)
+            with _patched_config(arch, patches.get(variant, {})):
+                prog = programs.build_program(arch, "tiny_train", mesh, reduced=True,
+                                              variant=variant)
             params = _nest({k[len("params/"):]: torch.from_numpy(inp[k].copy())
                             for k in inp.files if k.startswith("params/")})
             state = {"params": params, "opt": adamw.init(params),
@@ -277,8 +305,19 @@ def spmd_train_rank(rank: int, world: int, tmp: str, cases: list) -> None:
             direct = step.make_train_step(prog.model, adamw.OptConfig(),
                                           microbatches=prog.meta["microbatches"],
                                           remat=prog.meta["remat"])
+            dispatch, rows = layers.moe_dispatch, []
+
+            def recording(p_, xg, *a, **kw):  # (tokens a group, c0, c1) of each dispatch
+                c0, c1 = kw.get("capacity_rows") or (0, -1)
+                rows.append((xg.shape[1], c0, c1))
+                return dispatch(p_, xg, *a, **kw)
+
             for s in range(2):
-                st, m = prog(st, b)
+                layers.moe_dispatch = recording if s == 0 else dispatch
+                try:
+                    st, m = prog(st, b)
+                finally:
+                    layers.moe_dispatch = dispatch
                 twin, dm = direct(twin, batch)
                 for pre, mm in (("", m), ("one/", dm)):
                     out[f"{pre}loss"].append(float(mm["loss"]))
@@ -288,6 +327,7 @@ def spmd_train_rank(rank: int, world: int, tmp: str, cases: list) -> None:
                     out.update({f"one/m/{k}": v for k, v in _whole(twin["opt"]["m"]).items()})
             out.update({f"params/{k}": v for k, v in _whole(st["params"]).items()})
             out.update({f"one/params/{k}": v for k, v in _whole(twin["params"]).items()})
+            out["capacity_rows"] = np.asarray(rows, dtype=np.int64).reshape(-1, 3)
             out["moments_placed"] = (_same_placements(st["opt"]["m"], st["params"])
                                      and _same_placements(st["opt"]["v"], st["params"]))
             with sharding_ctx(mesh, TRAIN_RULES):
@@ -462,5 +502,52 @@ def spmd_serve_rank(rank: int, world: int, tmp: str, cases: list) -> None:
             if rank == 0:
                 np.savez(Path(tmp) / f"serve_out_{i}.npz", logits=logits.float().numpy(),
                          one=one.float().numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_kvseq_rank(rank: int, world: int, tmp: str, cases: list) -> None:
+    """On a (2, 2) mesh of four gloo ranks: each ``(arch, cell, variant)``
+    of ``cases`` (a decode program whose cache is split on its slots:
+    ``decode_kvseq*`` or the ``long_500k`` cell) for two steps from the
+    inputs of ``tmp/kvseq_in_<i>.npz`` (bf16 params "params/<key>",
+    "tokens1", "tokens2", a decode cache "cache/<key>"), and the same two
+    steps on one device (``LM.decode_step``); rank 0 writes both steps'
+    logits of each, the caches after the second step (the mesh's gathered
+    whole) and whether every cache leaf the mesh returned kept its
+    placements to ``tmp/kvseq_out_<i>.npz``."""
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.sharding import distribute_tree
+
+    _spmd_setup(rank, world, tmp)
+    try:
+        mesh = make_local_mesh(2, 2, device_type="cpu")
+        for i, (arch, cell, variant) in enumerate(cases):
+            inp = np.load(f"{tmp}/kvseq_in_{i}.npz")
+            prog = programs.build_program(arch, cell, mesh, reduced=True, variant=variant)
+            params = _nest({k[len("params/"):]: torch.from_numpy(inp[k]).to(torch.bfloat16)
+                            for k in inp.files if k.startswith("params/")})
+            spec = _flat(prog.in_specs[1])
+            cache = _nest({k[len("cache/"):]: torch.from_numpy(inp[k]).to(
+                spec[k[len("cache/"):]].dtype) for k in inp.files if k.startswith("cache/")})
+            toks = [torch.from_numpy(inp[f"tokens{s}"]) for s in (1, 2)]
+            twin = _clone(cache)
+            p, c, t = prog.place(params, cache, toks[0])
+            out = {}
+            for s in (1, 2):
+                logits, c = prog(p, c, t)
+                out[f"logits{s}"] = prog.gather(logits).float().numpy()
+                if s == 1:
+                    t = distribute_tree(toks[1], prog.in_shardings[2])
+                one, twin = prog.model.decode_step(params, twin, toks[s - 1])
+                out[f"one{s}"] = one.float().numpy()
+            got, want = _flat(c), _flat(prog.in_shardings[1])
+            out["placed"] = sorted(got) == sorted(want) and all(
+                tuple(got[k].placements) == tuple(want[k].placements) for k in want)
+            out.update({f"cache/{k}": v for k, v in _whole(prog.gather(c)).items()})
+            out.update({f"one_cache/{k}": v for k, v in _whole(twin).items()})
+            if rank == 0:
+                np.savez(Path(tmp) / f"kvseq_out_{i}.npz", **out)
     finally:
         dist.destroy_process_group()

@@ -39,7 +39,13 @@ archs with encoder or patch inputs (and jamba, mixtral) through the kernels
 within 1e-5 of the plain versions, and under every remat policy the same
 bits as without. The decode kernel launched from two threads at once, at
 two group sizes over 48 KiB of shared memory, thousands of times each:
-every launch succeeds with the single-thread bits.
+every launch succeeds with the single-thread bits. The decode kernel's
+log-sum-exp and float32 output (a merge's partial result) at the decode
+tolerances above and the log-sum-exp at the forward's, -inf on an empty
+cache; partial results over uneven slot ranges merged by their
+log-sum-exp within 1e-5 of the whole call, and the mean of V where no
+range has a valid slot; a row with no valid slot in a cache of many
+multi-tile splits gets that mean from the splits' sums of V.
 """
 import pytest
 import torch
@@ -188,6 +194,101 @@ def test_decode_kernel_is_deterministic(dev, case, dtype):
     pos = torch.where(ar <= lengths[:, None], ar, torch.full_like(ar, -1)).contiguous()
     first = decode_attention(q, k, v, pos, lengths, window=win, softcap=cap)
     assert torch.equal(first, decode_attention(q, k, v, pos, lengths, window=win, softcap=cap))
+
+
+def _decode_inputs(dev, case, dtype, seed):
+    B, H, K, hd, Smax, win, cap, fill = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, H, hd), (B, Smax, K, hd), (B, Smax, K, hd)))
+    ar = torch.arange(Smax, dtype=torch.int32, device=dev)[None].expand(B, Smax)
+    lengths = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    pos = torch.where(ar <= lengths[:, None], ar, torch.full_like(ar, -1)).contiguous()
+    return q, k, v, pos, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", DECODE)
+def test_decode_kernel_lse_matches_plain(dev, case, dtype, tol):
+    """With ``return_lse``: the float32 output and each head's log-sum-exp
+    against the plain version (-inf on the empty cache, whose output is
+    the mean of V); the call without it returns the float32 output rounded
+    to q's type, bit for bit where a slot is valid (the empty cache's mean
+    is summed split by split under lse, slot by slot without it)."""
+    win, cap = case[5], case[6]
+    q, k, v, pos, lengths = _decode_inputs(dev, case, dtype, 12)
+    before = decode_attention.launches
+    o, lse = decode_attention(q, k, v, pos, lengths, window=win, softcap=cap, return_lse=True)
+    assert decode_attention.launches == before + 1
+    assert o.dtype == lse.dtype == torch.float32 and lse.shape == q.shape[:2]
+    want_o, want_lse = decode_attention_ref(q, k, v, pos, lengths, window=win, softcap=cap,
+                                            return_lse=True)
+    torch.testing.assert_close(o, want_o, atol=tol, rtol=tol)
+    if case[7] < 0:
+        assert torch.isneginf(lse).all()
+    else:
+        torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+    plain = decode_attention(q, k, v, pos, lengths, window=win, softcap=cap)
+    assert plain.dtype == dtype
+    if case[7] < 0:
+        torch.testing.assert_close(plain.float(), o, atol=1e-6,
+                                   rtol=1e-6 if dtype == torch.float32 else 2.0 ** -7)
+    else:
+        assert torch.equal(plain, o.to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [DECODE[0], DECODE[2], DECODE[6]])
+def test_decode_kernel_lse_merges_across_slot_ranges(dev, case, dtype):
+    """The cache cut into uneven slot ranges (one of them past every valid
+    slot: lse -inf, weight 0), each range's kernel call with its
+    log-sum-exp, merged by ``spmd.lse_merge``: the whole call's float32
+    output within 1e-5; a cache empty in every range gives the mean of V
+    over every slot."""
+    from repro_torch.parallel.spmd import lse_merge
+
+    win, cap, fill = case[5], case[6], case[7]
+    q, k, v, pos, lengths = _decode_inputs(dev, case, dtype, 13)
+    Smax = k.shape[1]
+
+    def merged(pos):
+        cuts = [0, 5, Smax // 3, Smax // 3 + 1, fill + 1, Smax]
+        parts = [decode_attention(q, k[:, a:b].contiguous(), v[:, a:b].contiguous(),
+                                  pos[:, a:b].contiguous(), lengths, window=win, softcap=cap,
+                                  return_lse=True) for a, b in zip(cuts[:-1], cuts[1:])]
+        assert torch.isneginf(parts[-1][1]).all()
+        slots = torch.tensor([b - a for a, b in zip(cuts[:-1], cuts[1:])],
+                             dtype=torch.float32, device=dev)[:, None, None]
+        return lse_merge(torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts]),
+                         slots, lambda t, op: t.amax(0, keepdim=True) if op == "max"
+                         else t.sum(0, keepdim=True))[0]
+
+    whole, _ = decode_attention(q, k, v, pos, lengths, window=win, softcap=cap, return_lse=True)
+    torch.testing.assert_close(merged(pos), whole, atol=1e-5, rtol=1e-5)
+    empty = torch.full_like(pos, -1)
+    G = q.shape[1] // k.shape[2]
+    mean = v.float().mean(1).repeat_interleave(G, dim=1)
+    torch.testing.assert_close(merged(empty), mean, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 128, 256])
+def test_decode_kernel_lse_empty_row_over_many_splits(dev, hd, dtype):
+    """A row with no valid slot in a cache of many splits of several tiles
+    each (a rank whose slots are all empty): with ``return_lse``, lse -inf
+    and the mean of V over every slot, from each split's sum of V; the
+    other row, valid to its last slot, as without lse."""
+    Smax = 70_001
+    q, k, v, pos, lengths = _decode_inputs(dev, (2, 8, 2, hd, Smax, 0, 0.0, Smax - 1), dtype, 14)
+    pos[1] = -1
+    o, lse = decode_attention(q, k, v, pos, lengths, return_lse=True)
+    assert torch.isneginf(lse[1]).all() and torch.isfinite(lse[0]).all()
+    mean = v[1].float().mean(0).repeat_interleave(q.shape[1] // k.shape[2], dim=0)
+    torch.testing.assert_close(o[1], mean, atol=1e-5, rtol=1e-5)
+    assert torch.equal(decode_attention(q, k, v, pos, lengths)[0], o[0].to(dtype))
 
 
 @pytest.mark.cuda

@@ -198,13 +198,14 @@ def test_program_matches_reference_and_direct_call(arch, cell, variant, cells, w
 
 
 def test_programs_raise_on_a_larger_mesh(cells):
-    """Built on a (2,1) mesh, a program has its shardings; what the SPMD
-    slice leaves out raises when run, naming its ROADMAP item: K/V split on
-    its sequence (``decode_kvseq``, the ``long_500k`` cell's LONG_RULES),
-    the expert capacity split (``moe_cshard``), and a "pod" axis, in a
-    program and in ``train`` (the mesh is faked: building reads only its
-    axes and device type, and each refusal comes before any input is
-    read)."""
+    """Built on a (2,1) mesh, a program has its shardings: K/V split on its
+    sequence over "model" under ``decode_kvseq`` (the kv heads and
+    head_dim replicated) and over "data" under the ``long_500k`` cell's
+    LONG_RULES (the batch whole), the capacity rows over "model" under
+    ``moe_cshard``. What the SPMD slices leave out raises when run, naming
+    its ROADMAP item: a "pod" axis, in a program and in ``train`` (the mesh
+    is faked: building reads only its axes and device type, and each
+    refusal comes before any input is read)."""
 
     class _Mesh21:
         mesh_dim_names, shape, device_type = ("data", "model"), (2, 1), "cpu"
@@ -214,14 +215,18 @@ def test_programs_raise_on_a_larger_mesh(cells):
 
     prog = programs.build_program("qwen2-0.5b", "tiny_decode", _Mesh21(), reduced=True)
     assert tuple(prog.in_shardings[2].spec) == ("data", None)
-    for arch, shape, variant, item in (
-            ("qwen2-0.5b", "tiny_decode", "decode_kvseq", "kv_seq sharding"),
-            ("mixtral-8x7b", "tiny_train", "moe_cshard", "moe_cshard"),
-            ("qwen2-0.5b", "long_500k", "baseline", "kv_seq sharding")):
-        prog = programs.build_program(arch, shape, _Mesh21(), reduced=True, variant=variant,
-                                      depth_supers=1)
-        with pytest.raises(NotImplementedError, match=item):
-            prog(None, None, None)
+    for shape, variant, k_spec, pos_spec in (
+            ("tiny_decode", "decode_kvseq", (None, "data", "model", None, None),
+             (None, "data", "model")),
+            ("long_500k", "baseline", (None, None, "data", "model", None),
+             (None, None, "data"))):
+        prog = programs.build_program("qwen2-0.5b", shape, _Mesh21(), reduced=True,
+                                      variant=variant, depth_supers=1)
+        attn = prog.in_shardings[1]["blocks"]["sub0"]["attn"]
+        assert (tuple(attn["k"].spec), tuple(attn["pos_ids"].spec)) == (k_spec, pos_spec)
+    prog = programs.build_program("mixtral-8x7b", "tiny_train", _Mesh21(), reduced=True,
+                                  variant="moe_cshard")
+    assert (prog.rules["capacity"], prog.rules["moe_ff"]) == ("model", None)
     prog = programs.build_program("qwen2-0.5b", "tiny_decode", _Pod(), reduced=True)
     with pytest.raises(NotImplementedError, match="pod axis"):
         prog(None, None, None)
@@ -263,8 +268,8 @@ def test_elastic_restore_onto_two_ranks(tmp_path):
     """Onto a (2,1) mesh of two gloo ranks: each rank holds its half of the
     rows ("fsdp" -> "data"), and the columns go to "model" ("ff"), of size
     1: every column on each rank. On that mesh ``shard`` of a plain tensor
-    raises, and so do a ``decode_kvseq`` and a ``moe_cshard`` program, each
-    naming its ROADMAP item."""
+    raises, and so does attention of more than one query against K/V split
+    on its sequence over "data", naming its ROADMAP item."""
     full = np.arange(64, dtype=np.float32).reshape(8, 8)
     CheckpointStore(tmp_path / "ckpt").save(1, {"w": torch.from_numpy(full)})
     run_ranks(restore_rank, 2, (str(tmp_path),), timeout=560)
@@ -273,7 +278,7 @@ def test_elastic_restore_onto_two_ranks(tmp_path):
         np.testing.assert_array_equal(got["local"], full[4 * r:4 * r + 4])
         assert list(got["mesh_shape"]) == [2, 1]
         assert list(got["placements"]) == ["S(0)", "S(1)"]
-        assert list(got["raises_spmd"]) == [True, True, True]
+        assert list(got["raises_spmd"]) == [True, True]
 
 
 def test_train_on_one_device_mesh_equals_train(tmp_path, world1):

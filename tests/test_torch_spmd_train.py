@@ -16,8 +16,12 @@ second step is the first that moves the params.
 Cases: reduced qwen2-0.5b (7 heads, 1 kv head: the head-dim fallback),
 granite-8b (4 heads, 2 kv heads: tensor parallelism with GQA 2:1),
 mixtral-8x7b (4 experts over "model": expert parallelism), mamba2-2.7b
-(``ssm_heads`` over "model"), and qwen2-0.5b's ``remat_coll`` and
-``dots_mb2`` variants (two microbatches: one row of each a data shard).
+(``ssm_heads`` over "model"), qwen2-0.5b's ``remat_coll`` and
+``dots_mb2`` variants (two microbatches: one row of each a data shard),
+and mixtral's ``moe_cshard`` and ``moe_cshard_dots`` with 3 experts in
+both packages (``PATCHES``): the experts do not divide "model", so the
+capacity rows split over it, each rank computing its half of every
+expert's rows with the experts' weights whole there.
 
 Tolerances (float32):
   * against the reference: losses and grad norms rtol 1e-5, the first
@@ -54,6 +58,7 @@ from repro.models.transformer import LM as JaxLM
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.layers import moe_capacity
 from repro_torch.models.transformer import LM
 from repro_torch.parallel.sharding import TRAIN_RULES, tree_shardings
 from repro_torch.training import step
@@ -62,7 +67,13 @@ REPO = Path(__file__).resolve().parents[1]
 WORLD = 4
 TIMEOUT = 500
 CASES = [("qwen2-0.5b", "baseline"), ("granite-8b", "baseline"), ("mixtral-8x7b", "baseline"),
-         ("mamba2-2.7b", "baseline"), ("qwen2-0.5b", "remat_coll"), ("qwen2-0.5b", "dots_mb2")]
+         ("mamba2-2.7b", "baseline"), ("qwen2-0.5b", "remat_coll"), ("qwen2-0.5b", "dots_mb2"),
+         ("mixtral-8x7b", "moe_cshard"), ("mixtral-8x7b", "moe_cshard_dots")]
+#: the reduced config's fields a variant's cases replace, in both packages:
+#: moe_cshard's capacity rule bites only where the experts do not divide
+#: "model" (the earlier dim takes the axis), and every reduced MoE config
+#: has 4 experts
+PATCHES = {"moe_cshard": {"num_experts": 3}, "moe_cshard_dots": {"num_experts": 3}}
 
 _REF_SCRIPT = r"""
 import os, sys, json, functools
@@ -70,7 +81,10 @@ os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            "--xla_cpu_multi_thread_eigen=false")
 sys.path.insert(0, sys.argv[1])
 tmp, cases, cells = sys.argv[2], json.loads(sys.argv[3]), json.loads(sys.argv[4])
+patches = json.loads(sys.argv[5])
+import importlib
 import numpy as np, jax, jax.numpy as jnp
+from repro import configs
 from repro.configs import SHAPES
 from repro.launch import programs
 from repro.launch.mesh import make_local_mesh
@@ -99,7 +113,13 @@ def flat(tree):
 mesh = make_local_mesh(2, 2)
 for i, (arch, variant) in enumerate(cases):
     inp = np.load(f"{tmp}/train_in_{i}.npz")
-    prog = programs.build_program(arch, "tiny_train", mesh, reduced=True, variant=variant)
+    mod = importlib.import_module(f"repro.configs.{configs._MODULES[arch]}")
+    reduced = mod.REDUCED
+    mod.REDUCED = reduced.replace(**patches.get(variant, {}))
+    try:
+        prog = programs.build_program(arch, "tiny_train", mesh, reduced=True, variant=variant)
+    finally:
+        mod.REDUCED = reduced
     params = nest({k[len("params/"):]: jnp.asarray(inp[k]) for k in inp.files
                    if k.startswith("params/")})
     state = {"params": params, "opt": adamw.init(params), "step": jnp.zeros((), jnp.int32)}
@@ -125,8 +145,8 @@ def runs(tmp_path_factory):
     results, "tmp": the directory}."""
     tmp = tmp_path_factory.mktemp("spmd_train")
     rng = np.random.default_rng(0)
-    for i, (arch, _) in enumerate(CASES):
-        model = JaxLM(jax_get_config(arch, reduced=True))
+    for i, (arch, variant) in enumerate(CASES):
+        model = JaxLM(jax_get_config(arch, reduced=True).replace(**PATCHES.get(variant, {})))
         params = model.init(jax.random.PRNGKey(i), dtype=jnp.float32)
         flat = {"params/" + "/".join(k.key for k in path): np.asarray(v)
                 for path, v in jax.tree_util.tree_flatten_with_path(params)[0]}
@@ -135,10 +155,11 @@ def runs(tmp_path_factory):
         np.savez(tmp / f"train_in_{i}.npz", tokens=toks[:, :-1], targets=toks[:, 1:], **flat)
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.Popen([sys.executable, "-c", _REF_SCRIPT, str(REPO / "src"), str(tmp),
-                             json.dumps(CASES), json.dumps(SPMD_CELLS)], env=env,
+                             json.dumps(CASES), json.dumps(SPMD_CELLS), json.dumps(PATCHES)],
+                            env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        run_ranks(spmd_train_rank, WORLD, (str(tmp), CASES), timeout=TIMEOUT)
+        run_ranks(spmd_train_rank, WORLD, (str(tmp), CASES, PATCHES), timeout=TIMEOUT)
         out, err = proc.communicate(timeout=TIMEOUT)
     finally:
         if proc.poll() is None:
@@ -182,6 +203,23 @@ def test_program_on_mesh_matches_one_device(runs, i):
 def test_grads_and_moments_keep_param_placements(runs, i):
     assert bool(runs["port"][i]["grads_placed"])
     assert bool(runs["port"][i]["moments_placed"])
+
+
+@pytest.mark.parametrize("i", [i for i, c in enumerate(CASES) if c[0] == "mixtral-8x7b"],
+                         ids=[v for a, v in CASES if a == "mixtral-8x7b"])
+def test_moe_cshard_splits_the_capacity_over_model(runs, i):
+    """Under moe_cshard with 3 experts (which do not divide the 2-way
+    "model" axis) "model" rank 0 computes the first half of every expert's
+    capacity rows in each dispatch; with 4 experts (baseline) the experts
+    take "model" and no capacity rows are split."""
+    rows = runs["port"][i]["capacity_rows"]
+    assert len(rows)
+    cfg = get_config("mixtral-8x7b", reduced=True)
+    for T, c0, c1 in rows:
+        if CASES[i][1] == "baseline":
+            assert c1 == -1
+        else:
+            assert (c0, c1) == (0, moe_capacity(T, cfg.top_k, 3, cfg.capacity_factor) // 2)
 
 
 def test_fsdp_gathers_before_use_and_reduce_scatters_after(runs):

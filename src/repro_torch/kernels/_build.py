@@ -20,6 +20,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -111,6 +112,15 @@ def count_launch(wrapper, sq_ne_sk: bool = False) -> None:
         wrapper.launches += 1
         if sq_ne_sk:
             wrapper.launches_sq_ne_sk += 1
+
+
+def refuse_fake(name: str, *tensors) -> None:
+    """Raise for a FakeTensor (a step traced under ``FakeTensorMode``): the
+    kernel reads ``data_ptr``, which means nothing there. A traced step
+    takes the kernels' trace route (``kernels/trace.py``)."""
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError(f"{name}: a FakeTensor reached the kernel's wrapper; trace a step "
+                           f"through the \"trace\" route (kernels/trace.py)")
 
 
 def refuse_grad(name: str, *tensors) -> None:

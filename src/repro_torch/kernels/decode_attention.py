@@ -63,6 +63,7 @@ def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0, return
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos_ids, lengths, window=window, softcap=softcap,
                                     return_lse=return_lse)
+    _build.refuse_fake("decode_attention", q, k, v)
     _build.refuse_grad("decode_attention", q, k, v)
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]

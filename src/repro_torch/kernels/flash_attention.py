@@ -122,6 +122,7 @@ def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0):
 
 
 def _launch(q, k, v, causal, window, softcap, with_lse):
+    _build.refuse_fake("flash_attention", q, k, v)
     _build.refuse_grad("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]

@@ -127,6 +127,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window,
                                        softcap=softcap)
+    _build.refuse_fake("flash_attention_bwd", q, k, v, o, do, lse)
     _build.refuse_grad("flash_attention_bwd", q, k, v, o, do, lse)
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]

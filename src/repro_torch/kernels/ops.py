@@ -170,5 +170,7 @@ def ssd_kernel(x, dt, A, B_, C_, chunk, h0):
 _layers.SDPA_IMPL["cuda"] = sdpa_kernel
 _ssd.SSD_IMPL["cuda"] = ssd_kernel
 
+from . import trace as _trace  # noqa: E402,F401  (registers the "trace" route)
+
 __all__ = ["flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
            "flash_attention_diff", "ssd_scan_diff", "sdpa_kernel", "ssd_kernel"]

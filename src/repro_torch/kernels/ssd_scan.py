@@ -36,6 +36,7 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
 def ssd_scan(x, dt, A, B_, C_, *, chunk=128, h0=None):
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B_, C_, chunk=chunk, h0=h0)
+    _build.refuse_fake("ssd_scan", x, dt, A, B_, C_)
     _build.refuse_grad("ssd_scan", x, dt, A, B_, C_)
     if h0 is not None:
         raise NotImplementedError("ssd_scan: the kernel scans from a zero state; "

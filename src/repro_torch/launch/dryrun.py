@@ -1,14 +1,35 @@
-"""The port's dry run: measure a cell's step on the card and write the
-calibration record ``core/calibration.py::fit_dryruns`` reads.
+"""The port's dry runs.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --out build/dryrun_h100
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b --out DIR
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --kind train
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --production --all --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --production \
+        --arch mixtral-8x7b --shape train_4k --multi-pod
 
-The reference's dry run lowers every cell to HLO on 512 faked TPU devices
-and prices it from XLA's cost analysis; on a GPU that means nothing. This
-one runs the cell on the card and times it:
+Two questions, two parts.
 
+**The production dry run** (``run_cell``, ``--production``), the reference's
+multi-pod dry run (``repro/launch/dryrun.py``): every (arch x shape) cell's
+program (``launch/programs.py::build_program``) on the production meshes
+16 x 16 and 2 x 16 x 16, traced on rank 0 of a fake world of 256 or 512
+ranks (the ``"fake"`` process group) under ``FakeTensorMode``, its state,
+params, cache and batch drawn there at full size, its kernels on their
+trace route (``kernels/trace.py``). Per cell, ``build/dryrun/<arch>__<shape>
+__<mesh>[__variant].json``: the proof that the shardings are coherent (the
+step ran on them), the bytes a device holds at its peak by category and
+whether they fit an H100's 80 GB, the collective schedule
+(``perf/collectives.py``, the counterpart of the reference's
+``perf/hlo.py``), and per-step FLOPs, bytes and wire bytes from depth
+differencing with the roofline terms (``perf/hw.py::roofline_terms``). What
+the reference prices from XLA's HLO and cost analysis the port counts op by
+op (``perf/trace.py``); XLA's HLO text itself has no counterpart. These
+are traced counts for ``perf/hw.py::H100``, not measurements.
+
+**The calibration dry run** (``measure_cell``, the default CLI): measure a
+cell's step on the card and write the calibration record
+``core/calibration.py::fit_dryruns`` reads. It runs the cell on the card
+and times it:
 - ``serve``: one prefill (``LM.prefill``, through the flash kernel) at
   batch 1 of ``tokens`` = 4096 tokens (the reference's ``prefill_32k``
   cell per chip: 32 x 32,768 tokens over 256 chips), float32 weights from
@@ -30,29 +51,42 @@ any failure raises. Without a card it raises unless the caller asks for
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
+import math
 import shutil
 import statistics
 import subprocess
+import sys
 import time
+import traceback
 from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
-from ..configs import get_config
+from ..configs import cells, get_config, get_shape, runnable
 from ..core.cost_model import _analytic_step
 from ..core.workload import TABLE1
 from ..data.batches import prefill_specs
 from ..models.config import ModelConfig, ShapeCell
 from ..models.transformer import LM
-from ..perf.hw import H100
+from ..perf.collectives import collective_summary
+from ..perf.hw import H100, roofline_terms
+from ..perf.trace import TraceCounts
+from .programs import build_program
 from .train import train
 
 F32 = torch.float32
 #: the Table 1 archs, in the order of core/workload.py
 TABLE1_ARCHS = tuple(dict.fromkeys(p.arch for p in TABLE1))
 DEFAULT_OUT = Path(__file__).resolve().parents[3] / "build" / "dryrun_h100"
+#: where the production dry run's records go (``build/`` is gitignored)
+RESULTS = Path(__file__).resolve().parents[3] / "build" / "dryrun"
+#: GPUs one NVLink domain joins: a mesh axis spanning more crosses InfiniBand
+NODE_GPUS = 8
 SERVE_TOKENS = 4096
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_WARMUP = 2
@@ -207,7 +241,321 @@ def write_record(rec: dict, out_dir) -> Path:
     return path
 
 
+# ---------------------------------------------------------------------------
+# The production dry run
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """This process as rank 0 of a ``world_size``-rank world of the "fake"
+    process group (``torch.testing``'s ``FakeStore``: collectives return at
+    once, moving nothing), torn down on exit. Raises if a group is already
+    initialised, or if the installed torch has no fake store."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("the production dry run needs torch.testing._internal.distributed."
+                           "fake_pg.FakeStore (the \"fake\" process group), which this torch "
+                           "lacks") from e
+    if dist.is_initialized():
+        raise RuntimeError("dryrun: a process group is already initialised; the fake world "
+                           "needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _local_shape(shape, sharding) -> list:
+    """The shape of rank 0's shard of a leaf of ``shape`` under ``sharding``
+    (every split even: ``spec_for`` drops an axis that does not divide)."""
+    from ..parallel.sharding import mesh_shape
+
+    sizes = mesh_shape(sharding.mesh)
+    out = list(shape)
+    for d, entry in enumerate(sharding.spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,) if entry else ()):
+            out[d] //= sizes[a]
+    return out
+
+
+def fake_inputs(prog, device) -> tuple:
+    """The program's inputs as rank 0 holds them, drawn under the active
+    ``FakeTensorMode``: on a mesh larger than one device each leaf a DTensor
+    of its ``in_shardings`` whose local tensor is rank 0's shard, else the
+    whole tensor."""
+    from ..parallel import spmd
+    from ..parallel.sharding import is_trivial
+
+    trivial = is_trivial(prog.mesh)
+
+    def rec(spec, sh):
+        if isinstance(spec, dict):
+            return {k: rec(v, sh[k]) for k, v in spec.items()}
+        loc = torch.empty(_local_shape(spec.shape, sh), dtype=spec.dtype, device=device)
+        return loc if trivial else spmd.from_local(loc, sh.mesh, sh.placements, spec.shape)
+
+    return tuple(rec(s, sh) for s, sh in zip(prog.in_specs, prog.in_shardings))
+
+
+def argument_bytes(prog) -> int:
+    """The bytes of rank 0's shards of the program's inputs: each leaf of
+    ``in_specs`` at its ``in_shardings``' shard shape (the reference's
+    ``sharding.shard_shape``)."""
+    def rec(spec, sh):
+        if isinstance(spec, dict):
+            return sum(rec(v, sh[k]) for k, v in spec.items())
+        return math.prod(_local_shape(spec.shape, sh)) * spec.element_size()
+
+    return sum(rec(s, sh) for s, sh in zip(prog.in_specs, prog.in_shardings))
+
+
+@contextlib.contextmanager
+def _marking_grads(counts: TraceCounts):
+    """``training/step.py::loss_and_grads`` with the gradients it returns
+    put in the trace's "grads" category."""
+    from ..training import step as training_step
+
+    orig = training_step.loss_and_grads
+
+    def marked(*a, **kw):
+        loss, metrics, grads = orig(*a, **kw)
+        counts.mark(grads, "grads")
+        return loss, metrics, grads
+
+    training_step.loss_and_grads = marked
+    try:
+        yield
+    finally:
+        training_step.loss_and_grads = orig
+
+
+def trace_program(prog, device) -> tuple[TraceCounts, float]:
+    """One step of ``prog`` traced under ``FakeTensorMode`` (its model on the
+    kernels' trace route): (the counts, the seconds the trace took)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    prog.model.impl = "trace"
+    t0 = time.perf_counter()
+    counts = TraceCounts()
+    with FakeTensorMode():
+        args = fake_inputs(prog, device)
+        if prog.kind == "train":
+            counts.track(args[0]["params"], "params")
+            counts.track({k: v for k, v in args[0].items() if k != "params"}, "optimizer")
+            counts.track(args[1], "inputs")
+        else:
+            counts.track(args[0], "params")
+            counts.track(args[1:], "inputs")
+        with counts.counting(), _marking_grads(counts):
+            out = prog(*args)
+        del out, args
+    return counts, time.perf_counter() - t0
+
+
+#: the production meshes' axes
+AXES = ("pod", "data", "model")
+
+
+def run_cell(arch: str, shape: str, *, multi_pod: bool, variant: str = "baseline",
+             skip_diff: bool = False, device: str = "cuda", mesh_shape=None,
+             **build_kw) -> dict:
+    """The production dry run of one cell (see the module docstring): its
+    record, with the reference's keys where they mean the same thing. Runs
+    in a fake world of its own (256 ranks, 512 with ``multi_pod``), torn
+    down before it returns. ``device`` is the mesh's device type: "cuda" on
+    the card, "cpu" in the tests. ``mesh_shape`` replaces the production
+    mesh's shape (the tests' small worlds: ("data", "model"), or ("pod",
+    "data", "model") with ``multi_pod``); ``build_kw`` goes to
+    ``build_program`` (``reduced=True`` for a reduced config, a
+    ``depth_supers`` or ``microbatches`` for the full program)."""
+    from .mesh import _mesh, make_production_mesh
+
+    cell = get_shape(shape)
+    cfg = get_config(arch, reduced=build_kw.get("reduced", False))
+    if mesh_shape is not None and len(mesh_shape) != (3 if multi_pod else 2):
+        raise ValueError(f"mesh_shape {mesh_shape} with multi_pod={multi_pod}")
+    shape_ = tuple(mesh_shape or ((2, 16, 16) if multi_pod else (16, 16)))
+    chips = math.prod(shape_)
+    rec: dict = {"arch": arch, "shape": shape, "mesh": "x".join(map(str, shape_)),
+                 "chips": chips, "variant": variant, "kind": cell.kind, "hw": "h100",
+                 "device": device}
+    ok, why = runnable(arch, cell)
+    if not ok:
+        rec["status"] = "skipped"
+        rec["skip_reason"] = why
+        return rec
+    # DTensor's note on two-step all-reduces, once a redistribution
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    with fake_world(chips):
+        if mesh_shape is None:
+            mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
+        else:
+            mesh = _mesh(shape_, AXES[-len(shape_):], device)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        rec["interconnect"] = (
+            f"the collective term prices every wire byte at one NVLink's "
+            f"{H100.ici_link_bandwidth / 1e9:.0f} GB/s; the mesh axes "
+            f"{[a for a, n in sizes.items() if n > NODE_GPUS or a == 'pod']} span more than "
+            f"one {NODE_GPUS}-GPU node and cross InfiniBand, which the term does not model")
+        # 1) the full program: the shardings' proof, memory, collectives
+        prog = build_program(arch, shape, mesh, variant=variant, **build_kw)
+        counts, secs = trace_program(prog, device)
+        per_dev = counts.peak_bytes
+        rec["full"] = {
+            "memory": {**counts.peak_by_category(), "peak": per_dev},
+            "argument_bytes": argument_bytes(prog),
+            "per_device_bytes_estimate": per_dev,
+            "fits_hbm": bool(per_dev <= H100.hbm_bytes),
+            "collectives": collective_summary(counts.collectives),
+            "flops_per_chip": counts.flops, "bytes_per_chip": counts.bytes,
+            "kernel_calls": dict(counts.kernel_calls),
+            "meta": prog.meta,
+            "trace_s": secs,
+        }
+        if skip_diff:
+            rec["status"] = "ok"
+            return rec
+        # 2) depth differencing at one microbatch (totals are schedule-invariant)
+        t1 = time.perf_counter()
+        n_super = prog.model.n_super
+        del prog, counts
+        c = []
+        for d in (1, 2):
+            p = build_program(arch, shape, mesh, variant=variant,
+                              **dict(build_kw, depth_supers=d, microbatches=1))
+            t = trace_program(p, device)[0]
+            c.append({"flops": t.flops, "bytes": t.bytes,
+                      "wire": collective_summary(t.collectives)["total_wire_bytes_per_chip"]})
+    per_super = {k: c[1][k] - c[0][k] for k in c[0]}
+    residual = {k: c[0][k] - per_super[k] for k in c[0]}
+    total = {f"{k}_per_chip": residual[k] + n_super * per_super[k] for k in c[0]}
+    terms = roofline_terms(total["flops_per_chip"], total["bytes_per_chip"],
+                           total["wire_per_chip"], chips, hw=H100)
+    tokens = cell.global_batch * (cell.seq_len if cell.kind != "decode" else 1)
+    model_flops = (6 if cell.kind == "train" else 2) * cfg.active_params() * tokens
+    flops_global = chips * total["flops_per_chip"]
+    rec["roofline"] = {
+        "per_super": per_super, "residual": residual, "total": total, "terms": terms,
+        "n_super": n_super, "model_flops": model_flops, "traced_flops_global": flops_global,
+        "useful_ratio": model_flops / flops_global if flops_global else 0.0,
+        "diff_trace_s": time.perf_counter() - t1,
+    }
+    rec["status"] = "ok"
+    return rec
+
+
+def out_path(arch: str, shape: str, mesh_name: str, variant: str, out_dir=RESULTS) -> Path:
+    """``<out_dir>/<arch>__<shape>__<mesh>[__<variant>].json``."""
+    v = "" if variant == "baseline" else f"__{variant}"
+    return Path(out_dir) / f"{arch}__{shape}__{mesh_name}{v}.json"
+
+
+def table(out_dir=RESULTS) -> str:
+    """The records under ``out_dir`` as a markdown table, a row a cell: for
+    each mesh the peak a device (GB) and whether it fits, the wire bytes a
+    chip a step (GB), the roofline's bottleneck and step (ms), the useful
+    ratio and the trace seconds (full program + differencing)."""
+    recs = {}
+    for p in sorted(Path(out_dir).glob("*.json")):
+        r = json.loads(p.read_text())
+        recs.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
+    rows = ["| arch | shape | " + " | ".join(
+        f"{m}: GB (fits), wire GB, bound, step ms, useful, trace s"
+        for m in ("16x16", "2x16x16")) + " |", "|---|---|---|---|"]
+    for (arch, shape), by_mesh in recs.items():
+        cols = []
+        for m in ("16x16", "2x16x16"):
+            r = by_mesh.get(m)
+            if r is None or r.get("status") != "ok":
+                cols.append("not run" if r is None else r.get("status", "?"))
+                continue
+            f, roof = r["full"], r.get("roofline")
+            secs = f["trace_s"] + (roof["diff_trace_s"] if roof else 0.0)
+            cols.append(
+                f"{f['per_device_bytes_estimate'] / 1e9:.2f} ({'yes' if f['fits_hbm'] else 'NO'}), "
+                f"{f['collectives']['total_wire_bytes_per_chip'] / 1e9:.3f}, "
+                + (f"{roof['terms']['bottleneck']}, {roof['terms']['step_s'] * 1e3:.2f}, "
+                   f"{roof['useful_ratio']:.3f}, " if roof else "no roofline, , , ")
+                + f"{secs:.1f}")
+        rows.append(f"| {arch} | {shape} | " + " | ".join(cols) + " |")
+    return "\n".join(rows)
+
+
+def production_main(argv=None) -> int:
+    """The reference's dry-run CLI (``--all``, ``--arch``/``--shape``,
+    ``--multi-pod``, ``--both-meshes``, ``--variant``, ``--force``,
+    ``--skip-diff``), plus ``--device``, ``--reduced``, ``--out`` and
+    ``--table`` (print the records under ``--out`` as a markdown table)."""
+    ap = argparse.ArgumentParser(prog="dryrun --production")
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--skip-diff", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true", help="the archs' reduced configs")
+    ap.add_argument("--out", default=str(RESULTS))
+    ap.add_argument("--table", action="store_true")
+    args = ap.parse_args(argv)
+    if args.table:
+        print(table(args.out))
+        return 0
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("dryrun --production: no CUDA device; pass --device cpu")
+    Path(args.out).mkdir(parents=True, exist_ok=True)
+    if args.all:
+        todo = [(a, c.name) for a, c in cells()]
+    elif args.arch and args.shape:
+        todo = [(args.arch, args.shape)]
+    else:
+        raise SystemExit("dryrun --production: --arch and --shape, or --all")
+    meshes = [True, False] if (args.both_meshes or args.all) else [args.multi_pod]
+    failures = 0
+    for arch, shape in todo:
+        for mp in meshes:
+            path = out_path(arch, shape, "2x16x16" if mp else "16x16", args.variant, args.out)
+            if path.exists() and not args.force:
+                print(f"cached   {path.name}", flush=True)
+                continue
+            t0 = time.perf_counter()
+            try:
+                rec = run_cell(arch, shape, multi_pod=mp, variant=args.variant,
+                               skip_diff=args.skip_diff, device=args.device,
+                               **({"reduced": True} if args.reduced else {}))
+            except Exception as e:  # noqa: BLE001 - record and go on
+                rec = {"arch": arch, "shape": shape, "mesh": path.stem.split("__")[2],
+                       "variant": args.variant, "status": "error",
+                       "error": f"{type(e).__name__}: {e}",
+                       "traceback": traceback.format_exc()[-4000:]}
+                failures += 1
+            path.write_text(json.dumps(rec, indent=1) + "\n")
+            extra = ""
+            if rec.get("status") == "ok":
+                f = rec["full"]
+                extra = (f" peak={f['per_device_bytes_estimate'] / 1e9:.2f}GB"
+                         f" fits={f['fits_hbm']}"
+                         f" wire={f['collectives']['total_wire_bytes_per_chip'] / 1e9:.3f}GB")
+                if "roofline" in rec:
+                    t = rec["roofline"]["terms"]
+                    extra += (f" step={t['step_s'] * 1e3:.2f}ms bottleneck={t['bottleneck']}"
+                              f" useful={rec['roofline']['useful_ratio']:.2f}")
+            print(f"{rec.get('status'):8s} {arch} {shape} {path.stem.split('__')[2]}"
+                  f" ({time.perf_counter() - t0:.1f}s){extra}", flush=True)
+    if failures:
+        raise SystemExit(f"{failures} cells failed")
+    return 0
+
+
 def main(argv=None) -> list[Path]:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--production" in argv:
+        production_main([a for a in argv if a != "--production"])
+        return []
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", action="append", default=None,
                     help="an arch to measure (repeatable; default: the Table 1 archs)")

@@ -42,6 +42,10 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") 
     return _mesh(shape, axes, device_type)
 
 
-def make_local_mesh(data: int = 1, model: int = 1, device_type: str = "cuda") -> DeviceMesh:
-    """A ("data", "model") mesh over the world's data x model ranks."""
+def make_local_mesh(data: int = 1, model: int = 1, device_type: str = "cuda",
+                    pod: int = 1) -> DeviceMesh:
+    """A ("data", "model") mesh over the world's data x model ranks; with
+    ``pod`` > 1 a ("pod", "data", "model") mesh over pod x data x model."""
+    if pod > 1:
+        return _mesh((pod, data, model), ("pod", "data", "model"), device_type)
     return _mesh((data, model), ("data", "model"), device_type)

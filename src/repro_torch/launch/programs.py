@@ -8,15 +8,17 @@ on the "meta" device), the port's ``NamedSharding`` trees and the step as
 an eager function. ``jitted()`` returns that function, and calling the
 program runs it; the reference's ``lower()`` has no counterpart (nothing is
 compiled ahead). A program builds on any mesh, so its shardings can be
-read (``launch/multihost.py``), and runs on a ("data", "model") DeviceMesh
-of any size: on a larger one every rank calls it with DTensors placed by
-``in_shardings`` (``CellProgram.place`` puts whole inputs there) and the
-step runs SPMD (``parallel/spmd.py``), K/V sharded on its sequence
-(``decode_kvseq*``, the ``long_500k`` cell's LONG_RULES) included: each
-rank attends to its own slots and the partial results merge across ranks
-by the decode kernel's log-sum-exp. A "pod" axis raises
-``NotImplementedError`` when run. The model lives on the mesh's device
-type.
+read (``launch/multihost.py``), and runs on a ("data", "model") or ("pod",
+"data", "model") DeviceMesh of any size: on a larger one every rank calls
+it with DTensors placed by ``in_shardings`` (``CellProgram.place`` puts
+whole inputs there) and the step runs SPMD (``parallel/spmd.py``), K/V
+sharded on its sequence (``decode_kvseq*``, the ``long_500k`` cell's
+LONG_RULES) included: each rank attends to its own slots and the partial
+results merge across ranks by the decode kernel's log-sum-exp. On a pod
+mesh the batch is split over ("pod", "data"), pod-major, and FSDP stays on
+"data" (``sharding.with_pod_axis``): a param is replicated over "pod" and
+its gradient comes back all-reduced there. The model lives on the mesh's
+device type.
 """
 from __future__ import annotations
 
@@ -218,16 +220,13 @@ def _meta(spec):
 
 
 def _on_mesh(mesh, rules: Rules, fn: Callable) -> Callable:
-    """``fn`` under ``sharding_ctx(mesh, rules)``. On a mesh larger than one
-    device a "pod" axis raises ``NotImplementedError`` naming its ROADMAP
-    item."""
+    """``fn`` under ``sharding_ctx(mesh, rules)`` (and, on a mesh larger than
+    one device, ``spmd.on_mesh_ops``)."""
 
     def run(*args):
         if is_trivial(mesh):
             with sharding_ctx(mesh, rules):
                 return fn(*args)
-        if "pod" in mesh_shape(mesh):
-            raise NotImplementedError(spmd.POD_TODO)
         with sharding_ctx(mesh, rules), spmd.on_mesh_ops():
             return fn(*args)
 

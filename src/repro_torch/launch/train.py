@@ -18,7 +18,8 @@ kernel through ``kernels/ops.py::flash_attention_diff`` (mamba2: the SSD
 scan through ``ssd_scan_diff``). A mesh whose axes are all 1 trains as
 without one, bit for bit; on a larger mesh (every rank of the world runs
 ``train``) the state lives as DTensors placed by TRAIN_RULES (FSDP over
-"data", tensor and expert parallelism over "model"), each rank draws the
+"data", tensor and expert parallelism over "model"; on a ("pod", "data",
+"model") mesh the batch over ("pod", "data")), each rank draws the
 global batch and keeps its rows, and the step runs SPMD
 (``parallel/spmd.py``); checkpoints are gathered leaf by leaf and written by
 rank 0. ``train_dp`` (``--dp``) trains data-parallel across the ranks of a
@@ -40,8 +41,7 @@ from ..data.batches import TokenStream
 from ..models.params import tree_map
 from ..models.transformer import LM
 from ..optim.adamw import OptConfig
-from ..parallel import spmd
-from ..parallel.sharding import TRAIN_RULES, is_trivial, mesh_shape, sharding_ctx, tree_shardings
+from ..parallel.sharding import is_trivial, mesh_shape, rules_for, sharding_ctx, tree_shardings
 from ..training import dp_compressed, step as training_step
 from . import multihost
 
@@ -86,17 +86,17 @@ def train(
     encoder-decoder's frame embeddings (``data/batches.py::make_batch``).
     ``mesh`` (a DeviceMesh over the world; ``device`` is then its device
     type, each rank on its own device): the state is placed on the mesh by
-    ``tree_shardings(state_axes, state_specs, TRAIN_RULES, mesh)`` (a fresh
+    ``tree_shardings(state_axes, state_specs, rules_for("train"), mesh)``,
+    the pod axis's rules on a mesh that has one (a fresh
     init draws the whole state from the seed on every rank and keeps each
     rank's shards; a resume restores onto the mesh) and the step runs under
-    ``sharding_ctx(mesh, TRAIN_RULES)``. On a mesh whose axes are all 1
+    ``sharding_ctx(mesh, those rules)``. On a mesh whose axes are all 1
     each rank steps its local shards, the whole tensors, bit for bit as
     without a mesh; on a larger one the state stays DTensors
     (``state`` in the result) and the batches are the stream's without a
     mesh, each rank holding its rows."""
     spmd_mesh = mesh if mesh is not None and not is_trivial(mesh) else None
-    if spmd_mesh is not None and "pod" in mesh_shape(mesh):
-        raise NotImplementedError(spmd.POD_TODO)
+    rules = rules_for("train", multi_pod=mesh is not None and "pod" in mesh_shape(mesh))
     if spmd_mesh is not None:
         device = mesh.device_type
     device = torch.device(device)
@@ -113,11 +113,11 @@ def train(
         donate=True)
     store = CheckpointStore(ckpt_dir)
     stream = TokenStream(cfg, batch, seq, seed=seed, device=device, mesh=spmd_mesh,
-                         rules=TRAIN_RULES, microbatches=microbatches)
+                         rules=rules, microbatches=microbatches)
     shardings = None
     if mesh is not None:
         shardings = tree_shardings(training_step.state_axes(model),
-                                   training_step.state_specs(model), TRAIN_RULES, mesh)
+                                   training_step.state_specs(model), rules, mesh)
 
     # --- restore or init ---
     start = store.latest_step()
@@ -143,7 +143,7 @@ def train(
             store.wait()
             raise SimulatedFailure(f"injected failure at step {i}")
         ts = time.perf_counter()
-        with sharding_ctx(mesh, TRAIN_RULES):  # without a mesh, shard() is the identity
+        with sharding_ctx(mesh, rules):  # without a mesh, shard() is the identity
             state, metrics = step_fn(state, stream.next())
         loss = float(metrics["loss"])
         step_s.append(time.perf_counter() - ts)

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..parallel import spmd
 from ..parallel.sharding import shard
@@ -448,7 +449,7 @@ def _moe_gathered(p: dict, x: torch.Tensor, cfg: ModelConfig, experts: Optional[
     gate = (gate / torch.sum(gate, dim=-1, keepdim=True)).to(dt)
     first = 0 if experts is None else experts.start
     rows = []
-    for b, chosen in enumerate(eidx.tolist()):  # the one device-to-host read
+    for b, chosen in enumerate(_chosen(eidx, cfg.num_experts)):
         xb = x[b]  # (1, D)
         yb = None
         for k, e in enumerate(chosen):
@@ -461,6 +462,17 @@ def _moe_gathered(p: dict, x: torch.Tensor, cfg: ModelConfig, experts: Optional[
         rows.append(yb if yb is not None else torch.zeros((1, D), dtype=dt, device=x.device))
     y = torch.stack(rows)  # (B, 1, D)
     return y, torch.zeros((), dtype=F32, device=x.device)  # no aux loss on decode
+
+
+def _chosen(eidx: torch.Tensor, E: int) -> list:
+    """The chosen experts (B, K) as Python lists: the one device-to-host
+    read. A step traced under ``FakeTensorMode`` (no values: the production
+    dry run) takes token b's choices as experts (b K + k) mod E, the same
+    products a token as any choice."""
+    if isinstance(eidx, FakeTensor):
+        B, K = eidx.shape
+        return [[(b * K + k) % E for k in range(K)] for b in range(B)]
+    return eidx.tolist()
 
 
 def _moe_grouped(p: dict, xg: torch.Tensor, cfg: ModelConfig):

@@ -51,6 +51,7 @@ from functools import partial
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -180,13 +181,21 @@ def chunked_ce(head_fn, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return acc / (B * S)
 
 
+def card_route(t) -> bool:
+    """Whether ``t`` takes the card's routes: a tensor on a CUDA device, or a
+    FakeTensor of any device (a step traced by the production dry run, which
+    counts what the card would do)."""
+    loc = t.to_local() if spmd.is_dtensor(t) else t
+    return loc.is_cuda or isinstance(loc, FakeTensor)
+
+
 def _mm_f32(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(c +) a @ b of two bf16 matrices, summed and returned in float32: on the
     card one bf16 tensor-core GEMM with float32 output (``aten::mm.dtype``,
     ``aten::addmm.dtype`` with c in its epilogue); elsewhere the same
     products in float32 (each exact: a product of two bf16 values fits a
     float32)."""
-    if a.is_cuda:
+    if card_route(a):
         return torch.mm(a, b, out_dtype=F32) if c is None else torch.addmm(c, a, b, out_dtype=F32)
     ab = torch.mm(a.to(F32), b.to(F32))
     return ab if c is None else c + ab
@@ -501,16 +510,16 @@ class LM:
 
     def head(self, params, x) -> torch.Tensor:
         """Logits in float32, from x and the weights in x's type: bf16 x on the
-        card takes the bf16 tensor-core GEMM with float32 output
-        (``head_logits``); elsewhere, and for float32 x, the same arithmetic
-        as a float32 product (``plain_head_logits``)."""
+        card (``card_route``) takes the bf16 tensor-core GEMM with float32
+        output (``head_logits``); elsewhere, and for float32 x, the same
+        arithmetic as a float32 product (``plain_head_logits``)."""
         cfg = self.cfg
         name = "embed" if cfg.tie_embeddings else "lm_head"
         w = params[name]
         if spmd.is_dtensor(w):
             w = spmd.gather_for_use({name: w}, x.dtype)[name]
         w = w.T if cfg.tie_embeddings else w
-        if x.is_cuda and x.dtype == torch.bfloat16:
+        if x.dtype == torch.bfloat16 and card_route(x):
             logits = spmd.einsum("bsd,dv->bsv", x, w.to(x.dtype), fn=head_logits)
         else:
             logits = plain_head_logits(x, w)

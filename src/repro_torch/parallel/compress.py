@@ -10,8 +10,11 @@ over time (Seide et al. / EF-SGD).
 The reference counts its wire bytes from the compiled HLO
 (``repro/perf/hlo.py``); here each collective adds to a ``WireCount`` by
 the same ring formulas, per rank: all-reduce 2 (N-1)/N x bytes, all-gather
-(N-1)/N x the gathered result's bytes. Int8 codes in place of float32
-all-reduces send N/8 of the bytes, plus the scales.
+(N-1)/N x the gathered result's bytes, reduce-scatter (N-1) x the
+scattered result's bytes, all-to-all (N-1)/N x bytes, a permute its bytes
+(``perf/collectives.py`` counts a traced program's collectives by these
+too). Int8 codes in place of float32 all-reduces send N/8 of the bytes,
+plus the scales.
 """
 from __future__ import annotations
 
@@ -25,16 +28,30 @@ F32 = torch.float32
 
 class WireCount:
     """Bytes one rank sends, by the ring formulas, summed over the calls
-    that were given it."""
+    that were given it; each method returns the bytes of its own call (0
+    for a group of one)."""
 
     def __init__(self):
         self.bytes = 0.0
 
-    def all_reduce(self, nbytes: int, n: int) -> None:
-        self.bytes += 2 * (n - 1) / n * nbytes
+    def _add(self, nbytes: float) -> float:
+        self.bytes += nbytes
+        return nbytes
 
-    def all_gather(self, result_bytes: int, n: int) -> None:
-        self.bytes += (n - 1) / n * result_bytes
+    def all_reduce(self, nbytes: int, n: int) -> float:
+        return self._add(2 * (n - 1) / n * nbytes)
+
+    def all_gather(self, result_bytes: int, n: int) -> float:
+        return self._add((n - 1) / n * result_bytes)
+
+    def reduce_scatter(self, result_bytes: int, n: int) -> float:
+        return self._add((n - 1) * result_bytes)
+
+    def all_to_all(self, nbytes: int, n: int) -> float:
+        return self._add((n - 1) / n * nbytes)
+
+    def permute(self, nbytes: int, n: int = 2) -> float:
+        return self._add(float(nbytes) if n > 1 else 0.0)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

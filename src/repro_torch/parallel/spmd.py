@@ -41,12 +41,13 @@ from typing import Callable, Optional
 
 import torch
 
-#: what the SPMD slice leaves out, and names in its errors
+#: what ``local_sdpa`` refuses: attention of Sq > 1 against K/V split on its
+#: sequence. The reference's cache path writes one token
+#: (``repro/models/layers.py:227-228``: "decode: write the S new entries
+#: (S==1)"), so no program of its reaches it and no ROADMAP item stands behind it
 KVSEQ_TODO = ("attention of more than one query against K/V sharded on its sequence is not "
-              "ported: kv_seq runs decode steps only (ROADMAP queue 1, SPMD leftovers: kv_seq "
-              "at Sq > 1)")
-POD_TODO = ("a \"pod\" mesh axis is not ported (ROADMAP queue 1, SPMD leftovers: the pod "
-            "axis on eight ranks)")
+              "ported: kv_seq runs decode steps only, as the reference's cache path takes one "
+              "token (repro/models/layers.py:227-228)")
 
 
 def is_dtensor(x) -> bool:
@@ -696,7 +697,8 @@ def cache_write(cache: dict, k, v, positions, lengths, dt):
     leaf's split of kv heads or head_dim by a local slice). A cache split
     on its slots (``kv_seq``) is written by the rank that owns each slot
     alone, at its local offset: a ring cache's write moves from rank to
-    rank as it wraps. Returns (k, v, k_pos, the cache): the cache's K/V
+    rank as it wraps; more than one new entry there raises
+    ``NotImplementedError`` (``KVSEQ_TODO``). Returns (k, v, k_pos, the cache): the cache's K/V
     (dequantized from int8 where the cache holds codes), as DTensors."""
     from ..models import layers
 
@@ -715,14 +717,30 @@ def cache_write(cache: dict, k, v, positions, lengths, dt):
         if p.is_shard() and p.dim == 1:
             a, b = _local_range(n, mesh.size(m), mesh.get_local_rank(m))
             lo, n = lo + a, b - a
-    mine = (slot >= lo) & (slot < lo + n)
-    rows, slot = rows[mine], slot[mine] - lo
-    pos_ids.to_local()[rows, slot] = pl[mine]
+    mine = None
+    if n < Smax:  # split on its slots: a decode step, one entry a row
+        if S != 1:
+            raise NotImplementedError(KVSEQ_TODO)
+        # a row whose slot another rank owns writes its local slot 0 back: no
+        # boolean mask (no device-to-host count; shapes that do not depend on
+        # the data, as a traced step needs)
+        mine = (slot >= lo) & (slot < lo + n)
+        slot = torch.where(mine, slot - lo, 0)
+
+    def write(loc, val):
+        if n == 0:  # no slot on this rank
+            return
+        if mine is not None:
+            val = torch.where(mine.reshape(mine.shape + (1,) * (val.dim() - 2)), val,
+                              loc[rows, slot])
+        loc[rows, slot] = val
+
+    write(pos_ids.to_local(), pl)
 
     def put(leaf, new):
         new = _redistribute(new, [Replicate() if q.is_shard() and q.dim == 1 else q
                                   for q in leaf.placements])
-        leaf.to_local()[rows, slot] = new.to_local()[mine].to(leaf.dtype)
+        write(leaf.to_local(), new.to_local().to(leaf.dtype))
 
     if "k_q" in cache:
         for name, t in (("k", k), ("v", v)):

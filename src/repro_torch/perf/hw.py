@@ -1,5 +1,6 @@
 """Hardware models: the TPU v5e the JAX package targets, and the H100 the
-port runs on. Pure data, plus the bound of one kernel call.
+port runs on. Pure data, plus the bound of one kernel call and the
+roofline terms of a step.
 """
 from __future__ import annotations
 
@@ -66,3 +67,24 @@ def kernel_bound(flops: float, hbm_bytes: float, *, f32: bool, split_tf32: bool 
     t_ops = flops / peak
     t_bytes = hbm_bytes / hw.hbm_bandwidth
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def roofline_terms(flops_per_chip: float, hbm_bytes_per_chip: float,
+                   wire_bytes_per_chip: float, chips: int, hw: HwSpec = H100) -> dict:
+    """The reference's three roofline terms of a step in seconds, on ``hw``
+    (``repro/perf/hw.py::roofline_terms``, whose ``hw`` defaults to V5E; with
+    ``hw=V5E`` these are its numbers). Every input is per chip: compute at
+    the bf16 peak, memory at the HBM rate, the collective term at one
+    link's rate (``ici_link_bandwidth``: on the H100 one NVLink, 450 GB/s;
+    a mesh axis wider than one 8-GPU node crosses InfiniBand, which this
+    term does not model). ``chips`` is kept for the reference's signature."""
+    compute = flops_per_chip / hw.peak_flops_bf16
+    memory = hbm_bytes_per_chip / hw.hbm_bandwidth
+    collective = wire_bytes_per_chip / hw.ici_link_bandwidth
+    terms = {"compute_s": compute, "memory_s": memory, "collective_s": collective}
+    terms["step_s"] = max(compute, memory, collective)
+    terms["bottleneck"] = max(
+        ("compute_s", compute), ("memory_s", memory), ("collective_s", collective),
+        key=lambda kv: kv[1],
+    )[0].replace("_s", "")
+    return terms

@@ -125,7 +125,7 @@ def dp_rank(rank: int, world: int, tmp: str, cases: list) -> None:
         dist.destroy_process_group()
 
 
-def _raises_spmd(fn, exc=NotImplementedError, match="SPMD leftovers") -> bool:
+def _raises_spmd(fn, exc=NotImplementedError, match="kv_seq runs decode steps only") -> bool:
     try:
         fn()
     except exc as e:
@@ -169,7 +169,7 @@ def restore_rank(rank: int, world: int, tmp: str) -> None:
                      site="prefill")
 
         raises = [_raises_spmd(shard_in_ctx, TypeError, "plain tensor"),
-                  _raises_spmd(two_queries_on_split_slots, match="kv_seq at Sq > 1")]
+                  _raises_spmd(two_queries_on_split_slots, match="kv_seq runs decode steps only")]
         np.savez(Path(tmp) / f"shard_rank{rank}.npz", local=w.to_local().numpy(),
                  mesh_shape=np.asarray(w.device_mesh.shape),
                  placements=np.asarray([str(p) for p in w.placements]),
@@ -206,9 +206,10 @@ SPMD_CELLS = {"tiny_train": ("train", 32, 4), "tiny_prefill": ("prefill", 24, 4)
               "tiny_decode": ("decode", 24, 4), "long_500k": ("decode", 24, 1)}
 
 
-def _spmd_setup(rank: int, world: int, tmp: str) -> None:
+def _spmd_setup(rank: int, world: int, tmp: str, f32_train: bool = True) -> None:
     """Join the group, quiet DTensor's note on two-step all-reduces, register
-    the small cells and make the train programs compute in float32."""
+    the small cells and (``f32_train``) make the train programs compute in
+    float32."""
     import functools
     import logging
 
@@ -220,7 +221,9 @@ def _spmd_setup(rank: int, world: int, tmp: str) -> None:
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
     for name, (kind, seq, batch) in SPMD_CELLS.items():
         SHAPES[name] = ShapeCell(name, kind, seq, batch)
-    step.make_train_step = functools.partial(step.make_train_step, compute_dtype=torch.float32)
+    if f32_train:
+        step.make_train_step = functools.partial(step.make_train_step,
+                                                 compute_dtype=torch.float32)
 
 
 def _whole(tree) -> dict:
@@ -256,13 +259,103 @@ def _patched_config(arch: str, patch: dict):
         mod.REDUCED = reduced
 
 
+@contextlib.contextmanager
+def _model_split_sites(seen: list):
+    """While the context lasts, append to ``seen``, for each DTensor the SPMD
+    ops build from local shards (``spmd.from_local``: the products', the
+    attention's, the SSD scan's and the MoE layer's outputs), whether it is
+    split over the "model" mesh dim: an activation that tensor parallelism
+    really splits."""
+    from repro_torch.parallel import spmd
+
+    orig = spmd.from_local
+
+    def recording(t, mesh, placements, shape):
+        out = orig(t, mesh, placements, shape)
+        md = mesh.mesh_dim_names.index("model")
+        seen.append(out.placements[md].is_shard())
+        return out
+
+    spmd.from_local = recording
+    try:
+        yield
+    finally:
+        spmd.from_local = orig
+
+
+def _model_split_params(shardings) -> bool:
+    """Whether any leaf of a tree of NamedShardings is split over "model"."""
+    return any("model" in (e if isinstance(e, tuple) else (e,)) for sh in _flat(shardings).values()
+               for e in sh.spec)
+
+
+def _train_case(rank: int, tmp: str, mesh, i: int, arch: str, variant: str, patch: dict):
+    """The ``tiny_train`` program of ``(arch, variant)`` (the reduced
+    config's fields replaced by ``patch``) on ``mesh``: two steps from
+    ``tmp/train_in_<i>.npz`` (params "params/<key>", the batch's leaves by
+    name), sharded and on one device (``make_train_step`` on whole tensors),
+    the capacity rows each MoE dispatch of the first step computed, whether
+    the grads and moments keep their params' placements and whether a param
+    and an activation site are split over "model". Returns (that record, the
+    state after the two steps, the program)."""
+    from repro_torch.launch import programs
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import sharding_ctx
+    from repro_torch.training import step
+
+    inp = np.load(f"{tmp}/train_in_{i}.npz")
+    with _patched_config(arch, patch):
+        prog = programs.build_program(arch, "tiny_train", mesh, reduced=True, variant=variant)
+    params = _nest({k[len("params/"):]: torch.from_numpy(inp[k].copy())
+                    for k in inp.files if k.startswith("params/")})
+    state = {"params": params, "opt": adamw.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    twin = _clone(state)
+    batch = {k: torch.from_numpy(inp[k]) for k in inp.files if not k.startswith("params/")}
+    st, b = prog.place(state, batch)
+    out = {"loss": [], "grad_norm": [], "one/loss": [], "one/grad_norm": []}
+    direct = step.make_train_step(prog.model, adamw.OptConfig(),
+                                  microbatches=prog.meta["microbatches"],
+                                  remat=prog.meta["remat"])
+    dispatch, rows, sites = layers.moe_dispatch, [], []
+
+    def recording(p_, xg, *a, **kw):  # (tokens a group, c0, c1) of each dispatch
+        c0, c1 = kw.get("capacity_rows") or (0, -1)
+        rows.append((xg.shape[1], c0, c1))
+        return dispatch(p_, xg, *a, **kw)
+
+    for s in range(2):
+        layers.moe_dispatch = recording if s == 0 else dispatch
+        try:
+            with _model_split_sites(sites) if s == 0 else contextlib.nullcontext():
+                st, m = prog(st, b)
+        finally:
+            layers.moe_dispatch = dispatch
+        twin, dm = direct(twin, batch)
+        for pre, mm in (("", m), ("one/", dm)):
+            out[f"{pre}loss"].append(float(mm["loss"]))
+            out[f"{pre}grad_norm"].append(float(mm["grad_norm"]))
+        if s == 0:
+            out.update({f"m/{k}": v for k, v in _whole(st["opt"]["m"]).items()})
+            out.update({f"one/m/{k}": v for k, v in _whole(twin["opt"]["m"]).items()})
+    out.update({f"params/{k}": v for k, v in _whole(st["params"]).items()})
+    out.update({f"one/params/{k}": v for k, v in _whole(twin["params"]).items()})
+    out["capacity_rows"] = np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+    out["moments_placed"] = (_same_placements(st["opt"]["m"], st["params"])
+                             and _same_placements(st["opt"]["v"], st["params"]))
+    with sharding_ctx(mesh, prog.rules):
+        _, _, grads = step.loss_and_grads(prog.model, st["params"], b, remat=prog.meta["remat"],
+                                          compute_dtype=torch.float32)
+    out["grads_placed"] = _same_placements(grads, st["params"])
+    out["model_split_param"] = _model_split_params(prog.in_shardings[0]["params"])
+    out["model_split_sites"] = np.asarray(sites, dtype=bool)
+    return out, st, prog
+
+
 def spmd_train_rank(rank: int, world: int, tmp: str, cases: list, patches: dict) -> None:
     """On a (2, 2) mesh of four gloo ranks: each ``(arch, variant)`` of
-    ``cases`` as the ``tiny_train`` cell program (the reduced config's
-    fields replaced by ``patches[variant]``), two steps from
-    ``tmp/train_in_<i>.npz`` (params "params/<key>", "tokens", "targets"),
-    sharded and on one device (``make_train_step`` on whole tensors), and
-    the capacity rows each MoE dispatch of the first step computed; then
+    ``cases`` as the ``tiny_train`` cell program (``_train_case``); then
     the collectives of a step on a (4, 1) mesh, the GQA kv-head slice on a
     (1, 4) mesh, ``shard`` of a plain tensor, a checkpoint of the (2, 2)
     state restored onto (4, 1), and ``train(mesh=)`` against ``train()``.
@@ -276,10 +369,8 @@ def spmd_train_rank(rank: int, world: int, tmp: str, cases: list, patches: dict)
     from repro_torch.launch import programs
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.train import train
-    from repro_torch.models import layers
     from repro_torch.models.layers import _sdpa_dense, sdpa
     from repro_torch.models.transformer import LM
-    from repro_torch.optim import adamw
     from repro_torch.parallel import spmd
     from repro_torch.parallel.sharding import (TRAIN_RULES, distribute_tree, shard,
                                                sharding_ctx, tree_shardings)
@@ -290,51 +381,8 @@ def spmd_train_rank(rank: int, world: int, tmp: str, cases: list, patches: dict)
         mesh = make_local_mesh(2, 2, device_type="cpu")
         checks = {}
         for i, (arch, variant) in enumerate(cases):
-            inp = np.load(f"{tmp}/train_in_{i}.npz")
-            with _patched_config(arch, patches.get(variant, {})):
-                prog = programs.build_program(arch, "tiny_train", mesh, reduced=True,
-                                              variant=variant)
-            params = _nest({k[len("params/"):]: torch.from_numpy(inp[k].copy())
-                            for k in inp.files if k.startswith("params/")})
-            state = {"params": params, "opt": adamw.init(params),
-                     "step": torch.zeros((), dtype=torch.int32)}
-            twin = _clone(state)
-            batch = {k: torch.from_numpy(inp[k]) for k in ("tokens", "targets")}
-            st, b = prog.place(state, batch)
-            out = {"loss": [], "grad_norm": [], "one/loss": [], "one/grad_norm": []}
-            direct = step.make_train_step(prog.model, adamw.OptConfig(),
-                                          microbatches=prog.meta["microbatches"],
-                                          remat=prog.meta["remat"])
-            dispatch, rows = layers.moe_dispatch, []
-
-            def recording(p_, xg, *a, **kw):  # (tokens a group, c0, c1) of each dispatch
-                c0, c1 = kw.get("capacity_rows") or (0, -1)
-                rows.append((xg.shape[1], c0, c1))
-                return dispatch(p_, xg, *a, **kw)
-
-            for s in range(2):
-                layers.moe_dispatch = recording if s == 0 else dispatch
-                try:
-                    st, m = prog(st, b)
-                finally:
-                    layers.moe_dispatch = dispatch
-                twin, dm = direct(twin, batch)
-                for pre, mm in (("", m), ("one/", dm)):
-                    out[f"{pre}loss"].append(float(mm["loss"]))
-                    out[f"{pre}grad_norm"].append(float(mm["grad_norm"]))
-                if s == 0:
-                    out.update({f"m/{k}": v for k, v in _whole(st["opt"]["m"]).items()})
-                    out.update({f"one/m/{k}": v for k, v in _whole(twin["opt"]["m"]).items()})
-            out.update({f"params/{k}": v for k, v in _whole(st["params"]).items()})
-            out.update({f"one/params/{k}": v for k, v in _whole(twin["params"]).items()})
-            out["capacity_rows"] = np.asarray(rows, dtype=np.int64).reshape(-1, 3)
-            out["moments_placed"] = (_same_placements(st["opt"]["m"], st["params"])
-                                     and _same_placements(st["opt"]["v"], st["params"]))
-            with sharding_ctx(mesh, TRAIN_RULES):
-                _, _, grads = step.loss_and_grads(prog.model, st["params"], b,
-                                                  remat=prog.meta["remat"],
-                                                  compute_dtype=torch.float32)
-            out["grads_placed"] = _same_placements(grads, st["params"])
+            out, st, prog = _train_case(rank, tmp, mesh, i, arch, variant,
+                                        patches.get(variant, {}))
             if rank == 0:
                 np.savez(Path(tmp) / f"train_out_{i}.npz", **out)
             if i == 0:  # the checkpoint of this (2, 2) state
@@ -469,39 +517,88 @@ def spmd_train_rank(rank: int, world: int, tmp: str, cases: list, patches: dict)
         dist.destroy_process_group()
 
 
-def spmd_serve_rank(rank: int, world: int, tmp: str, cases: list) -> None:
-    """On a (2, 2) mesh of four gloo ranks: each ``(arch, cell, variant)``
-    of ``cases`` (a ``tiny_prefill`` or ``tiny_decode`` program) on the
-    inputs of ``tmp/serve_in_<i>.npz`` (bf16 params stored as float32
-    "params/<key>", "tokens", a decode cache "cache/<key>"), sharded and on
-    one device (``LM.prefill`` / ``LM.decode_step``); rank 0 writes the
-    logits of both to ``tmp/serve_out_<i>.npz``."""
+#: a prefill batch's embedding leaves, and ``LM.prefill``'s keyword for each
+_EMBEDS = {"patch_embeds": "frontend_embeds", "enc_embeds": "enc_embeds"}
+
+
+@contextlib.contextmanager
+def _f32_prefill(on: bool):
+    """``LM.prefill`` computing in float32 (its params as they are) while the
+    context lasts, if ``on``."""
+    import functools
+
+    from repro_torch.models.transformer import LM
+
+    bf16 = LM.prefill
+    if on:
+        LM.prefill = functools.partialmethod(bf16, dtype=torch.float32)
+    try:
+        yield
+    finally:
+        LM.prefill = bf16
+
+
+def _serve_case(tmp: str, mesh, i: int, arch: str, cell: str, variant: str,
+                f32_prefill: bool = False) -> dict:
+    """The ``cell`` program (``tiny_prefill`` or ``tiny_decode``) of ``(arch,
+    variant)`` on ``mesh``, on the inputs of ``tmp/serve_in_<i>.npz`` (bf16
+    params stored as float32 "params/<key>", "tokens", a prefill's
+    embeddings by their batch names, a decode cache "cache/<key>"), sharded
+    and on one device (``LM.prefill`` / ``LM.decode_step``; a prefill in
+    float32 compute with ``f32_prefill``): the logits of both, and whether a
+    param and an activation site are split over "model"."""
+    with _f32_prefill(f32_prefill):
+        return _serve_case_run(tmp, mesh, i, arch, cell, variant)
+
+
+def _serve_case_run(tmp, mesh, i, arch, cell, variant) -> dict:
     from repro_torch.launch import programs
+
+    inp = np.load(f"{tmp}/serve_in_{i}.npz")
+    prog = programs.build_program(arch, cell, mesh, reduced=True, variant=variant)
+    params = _nest({k[len("params/"):]: torch.from_numpy(inp[k]).to(torch.bfloat16)
+                    for k in inp.files if k.startswith("params/")})
+    toks = torch.from_numpy(inp["tokens"])
+    model, sites = prog.model, []
+    if prog.kind == "prefill":
+        embeds = {k: torch.from_numpy(inp[k]).to(torch.bfloat16) for k in _EMBEDS
+                  if k in inp.files}
+        with _model_split_sites(sites):
+            logits, _ = prog.gather(prog(*prog.place(params, {"tokens": toks, **embeds})))
+        one, _ = model.prefill(params, toks, **{_EMBEDS[k]: v for k, v in embeds.items()})
+    else:
+        spec = _flat(prog.in_specs[1])
+        cache = _nest({k[len("cache/"):]: torch.from_numpy(inp[k]).to(
+            spec[k[len("cache/"):]].dtype) for k in inp.files if k.startswith("cache/")})
+        twin = _clone(cache)
+        with _model_split_sites(sites):
+            logits, _ = prog.gather(prog(*prog.place(params, cache, toks)))
+        one, _ = model.decode_step(params, twin, toks)
+    return {"logits": logits.float().numpy(), "one": one.float().numpy(),
+            "model_split_param": _model_split_params(prog.in_shardings[0]),
+            "model_split_sites": np.asarray(sites, dtype=bool)}
+
+
+def spmd_serve_rank(rank: int, world: int, tmp: str, cases: list, train_cases=(),
+                    f32_prefill=()) -> None:
+    """On a (2, 2) mesh of four gloo ranks: each ``(arch, variant)`` of
+    ``train_cases`` (``_train_case``, no patches) and each ``(arch, cell,
+    variant)`` of ``cases`` (``_serve_case``; the prefills of the indices in
+    ``f32_prefill`` in float32 compute); rank 0 writes each record to
+    ``tmp/train_out_<i>.npz`` and ``tmp/serve_out_<i>.npz``."""
     from repro_torch.launch.mesh import make_local_mesh
 
     _spmd_setup(rank, world, tmp)
     try:
         mesh = make_local_mesh(2, 2, device_type="cpu")
-        for i, (arch, cell, variant) in enumerate(cases):
-            inp = np.load(f"{tmp}/serve_in_{i}.npz")
-            prog = programs.build_program(arch, cell, mesh, reduced=True, variant=variant)
-            params = _nest({k[len("params/"):]: torch.from_numpy(inp[k]).to(torch.bfloat16)
-                            for k in inp.files if k.startswith("params/")})
-            toks = torch.from_numpy(inp["tokens"])
-            model = prog.model
-            if prog.kind == "prefill":
-                logits, _ = prog.gather(prog(*prog.place(params, {"tokens": toks})))
-                one, _ = model.prefill(params, toks)
-            else:
-                spec = _flat(prog.in_specs[1])
-                cache = _nest({k[len("cache/"):]: torch.from_numpy(inp[k]).to(
-                    spec[k[len("cache/"):]].dtype) for k in inp.files if k.startswith("cache/")})
-                twin = _clone(cache)
-                logits, _ = prog.gather(prog(*prog.place(params, cache, toks)))
-                one, _ = model.decode_step(params, twin, toks)
+        for i, (arch, variant) in enumerate(train_cases):
+            out = _train_case(rank, tmp, mesh, i, arch, variant, {})[0]
             if rank == 0:
-                np.savez(Path(tmp) / f"serve_out_{i}.npz", logits=logits.float().numpy(),
-                         one=one.float().numpy())
+                np.savez(Path(tmp) / f"train_out_{i}.npz", **out)
+        for i, (arch, cell, variant) in enumerate(cases):
+            out = _serve_case(tmp, mesh, i, arch, cell, variant, i in f32_prefill)
+            if rank == 0:
+                np.savez(Path(tmp) / f"serve_out_{i}.npz", **out)
     finally:
         dist.destroy_process_group()
 
@@ -549,5 +646,133 @@ def spmd_kvseq_rank(rank: int, world: int, tmp: str, cases: list) -> None:
             out.update({f"one_cache/{k}": v for k, v in _whole(twin).items()})
             if rank == 0:
                 np.savez(Path(tmp) / f"kvseq_out_{i}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def pod_mesh(device_type: str = "cpu"):
+    """The (2, 2, 2) ("pod", "data", "model") mesh over an 8-rank world."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+
+
+def spmd_pod_rank(rank: int, world: int, tmp: str, train_cases: list, serve_cases: list) -> None:
+    """On a (2, 2, 2) ("pod", "data", "model") mesh of eight gloo ranks:
+    each ``(arch, variant)`` of ``train_cases`` as the ``tiny_train``
+    program (``_train_case``) and each ``(arch, cell, variant)`` of
+    ``serve_cases`` (``_serve_case``); a checkpoint of the first train
+    case's state restored onto a (2, 2) mesh of ranks 0-3; ``train(mesh=)``
+    against ``train()``. Rank 0 writes ``tmp/train_out_<i>.npz``,
+    ``tmp/serve_out_<i>.npz``, ``tmp/ckpt_state.npz`` and
+    ``tmp/pod_checks.npz``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.sharding import TRAIN_RULES, tree_shardings
+    from repro_torch.training import step
+
+    _spmd_setup(rank, world, tmp)
+    try:
+        mesh = pod_mesh()
+        checks = {"batch_rules": str(None)}
+        for i, (arch, variant) in enumerate(train_cases):
+            out, st, prog = _train_case(rank, tmp, mesh, i, arch, variant, {})
+            if rank == 0:
+                np.savez(Path(tmp) / f"train_out_{i}.npz", **out)
+            if i == 0:
+                checks["batch_rules"] = str(prog.rules["batch"])
+                checks["fsdp_rules"] = str(prog.rules["fsdp"])
+                checks["microbatches"] = prog.meta["microbatches"]
+                CheckpointStore(f"{tmp}/ckpt").save(2, st)
+                dist.barrier()
+                whole = _whole(st)
+                if rank == 0:
+                    np.savez(Path(tmp) / "ckpt_state.npz", **whole)
+                # every rank takes part in making the sub-mesh's groups
+                mesh22 = DeviceMesh("cpu", [[0, 1], [2, 3]], mesh_dim_names=("data", "model"))
+                if rank < 4:
+                    sh = tree_shardings(step.state_axes(prog.model),
+                                        step.state_specs(prog.model), TRAIN_RULES, mesh22)
+                    back, _ = CheckpointStore(f"{tmp}/ckpt").restore(
+                        2, step.state_specs(prog.model), shardings=sh)
+                    checks["restore_22_exact"] = all(
+                        np.array_equal(v, whole[k]) for k, v in _whole(back).items())
+                    checks["restore_22_placed"] = all(
+                        isinstance(t, DTensor) and t.device_mesh.shape == (2, 2)
+                        for t in _flat(back).values())
+                dist.barrier()
+        for i, (arch, cell, variant) in enumerate(serve_cases):
+            out = _serve_case(tmp, mesh, i, arch, cell, variant)
+            if rank == 0:
+                np.savez(Path(tmp) / f"serve_out_{i}.npz", **out)
+        # train(mesh=) on the pod mesh against train(), float32, a checkpoint at step 2
+        kw = dict(reduced=True, steps=3, batch=4, seq=16, ckpt_every=2, log_every=100,
+                  dtype=torch.float32)
+        on = train("qwen2-0.5b", ckpt_dir=f"{tmp}/train_mesh", mesh=mesh, **kw)
+        off = train("qwen2-0.5b", ckpt_dir=f"{tmp}/train_plain_{rank}", device="cpu", **kw)
+        checks["train_losses"] = np.asarray([on["losses"], off["losses"]])
+        on_w, off_w = _whole(on["state"]["params"]), _whole(off["state"]["params"])
+        checks["train_param_err"] = max(float(np.abs(on_w[k] - off_w[k]).max()) for k in on_w)
+        checks["train_state_placed"] = all(
+            isinstance(t, DTensor) and t.device_mesh.mesh_dim_names == ("pod", "data", "model")
+            for t in _flat(on["state"]).values())
+        if rank == 0:
+            np.savez(Path(tmp) / "pod_checks.npz", **checks)
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_comm_rank(rank: int, world: int, tmp: str, cases: list) -> None:
+    """On a (2, 2) mesh of four gloo ranks: one call of each ``(arch, cell)``
+    of ``cases`` (reduced, baseline, the programs' own compute dtype) on
+    inputs drawn from a seed, under ``CommDebugMode`` and
+    ``perf/trace.py::TraceCounts`` (real tensors); rank 0 writes, for case
+    i, the debug mode's counts by op name and the collectives' summary to
+    ``tmp/comm_<i>.json``."""
+    import json
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.data.batches import make_batch
+    from repro_torch.launch import programs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.perf.collectives import collective_summary
+    from repro_torch.perf.trace import TraceCounts
+    from repro_torch.training import step
+
+    _spmd_setup(rank, world, tmp, f32_train=False)
+    try:
+        mesh = make_local_mesh(2, 2, device_type="cpu")
+        for i, (arch, cell) in enumerate(cases):
+            prog = programs.build_program(arch, cell, mesh, reduced=True)
+            gen = torch.Generator().manual_seed(0)
+            rng = np.random.default_rng(0)
+            c = prog.cell
+            if prog.kind == "train":
+                args = (step.init_state(prog.model, gen),
+                        make_batch(rng, prog.cfg, batch=c.global_batch, seq=c.seq_len,
+                                   device="cpu"))
+            elif prog.kind == "prefill":
+                batch = make_batch(rng, prog.cfg, batch=c.global_batch, seq=c.seq_len,
+                                   kind="prefill", device="cpu")
+                args = (prog.model.init(gen, dtype=torch.bfloat16),
+                        {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                         for k, v in batch.items()})
+            else:
+                cache = _nest({k: torch.zeros(v.shape, dtype=v.dtype)
+                               for k, v in _flat(prog.in_specs[1]).items()})
+                args = (prog.model.init(gen, dtype=torch.bfloat16), cache,
+                        torch.zeros((c.global_batch, 1), dtype=torch.int32))
+            placed = prog.place(*args)
+            rec = TraceCounts()
+            with CommDebugMode() as comm, rec.counting():
+                prog(*placed)
+            counts = {str(k).split(".")[-1]: v for k, v in comm.get_comm_counts().items()}
+            if rank == 0:
+                Path(tmp, f"comm_{i}.json").write_text(json.dumps(
+                    {"counts": counts, "summary": collective_summary(rec.collectives)}))
     finally:
         dist.destroy_process_group()

@@ -197,21 +197,21 @@ def test_program_matches_reference_and_direct_call(arch, cell, variant, cells, w
     assert agree >= TOKEN_AGREE
 
 
-def test_programs_raise_on_a_larger_mesh(cells):
+def test_programs_build_on_a_larger_mesh(cells):
     """Built on a (2,1) mesh, a program has its shardings: K/V split on its
     sequence over "model" under ``decode_kvseq`` (the kv heads and
     head_dim replicated) and over "data" under the ``long_500k`` cell's
     LONG_RULES (the batch whole), the capacity rows over "model" under
-    ``moe_cshard``. What the SPMD slices leave out raises when run, naming
-    its ROADMAP item: a "pod" axis, in a program and in ``train`` (the mesh
-    is faked: building reads only its axes and device type, and each
-    refusal comes before any input is read)."""
+    ``moe_cshard``. On a ("pod", "data", "model") mesh the batch is split
+    over ("pod", "data"), pod-major, and FSDP stays on "data"; the train
+    program's microbatches see both batch axes (the mesh is faked:
+    building reads only its axes and device type)."""
 
     class _Mesh21:
         mesh_dim_names, shape, device_type = ("data", "model"), (2, 1), "cpu"
 
     class _Pod:
-        mesh_dim_names, shape, device_type = ("pod", "data", "model"), (2, 1, 1), "cpu"
+        mesh_dim_names, shape, device_type = ("pod", "data", "model"), (2, 2, 1), "cpu"
 
     prog = programs.build_program("qwen2-0.5b", "tiny_decode", _Mesh21(), reduced=True)
     assert tuple(prog.in_shardings[2].spec) == ("data", None)
@@ -228,10 +228,12 @@ def test_programs_raise_on_a_larger_mesh(cells):
                                   variant="moe_cshard")
     assert (prog.rules["capacity"], prog.rules["moe_ff"]) == ("model", None)
     prog = programs.build_program("qwen2-0.5b", "tiny_decode", _Pod(), reduced=True)
-    with pytest.raises(NotImplementedError, match="pod axis"):
-        prog(None, None, None)
-    with pytest.raises(NotImplementedError, match="pod axis"):
-        train("qwen2-0.5b", steps=1, device="cpu", mesh=_Pod())
+    assert prog.meta["multi_pod"] and prog.rules["batch"] == ("pod", "data")
+    assert tuple(prog.in_shardings[2].spec) == (("pod", "data"), None)
+    prog = programs.build_program("qwen2-0.5b", "tiny_train", _Pod(), reduced=True)
+    assert (prog.rules["batch"], prog.rules["fsdp"]) == (("pod", "data"), "data")
+    assert tuple(prog.in_shardings[1]["tokens"].spec) == (("pod", "data"), None)
+    assert programs._data_shards(_Pod(), prog.rules) == 4
 
 
 def test_state_bytes_per_device(cells):

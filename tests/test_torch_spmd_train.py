@@ -5,12 +5,12 @@ and against the port on one device.
 
 The reference runs in one subprocess with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` (as
-tests/test_torch_dp.py runs it), every case of ``CASES`` in turn; the port
-runs every case in one spawn of four ranks (``_torch_dist_workers.py``).
-Both start from the same params (drawn by the JAX package) and the same
-numpy batch, and both train steps compute in float32 (the train step's
-``compute_dtype`` bound for the test, as tests/test_torch_programs.py
-does). Two steps: the programs' OptConfig() warms up from lr 0, so the
+tests/test_torch_dp.py runs it), every case of ``CASES`` in turn
+(``_torch_spmd_ref.py``); the port runs every case in one spawn of four
+ranks (``_torch_dist_workers.py``). Both start from the same params (drawn
+by the JAX package) and the same numpy batch, and both train steps
+compute in float32 (the train step's ``compute_dtype`` bound for the test,
+as tests/test_torch_programs.py does). Two steps: the programs' OptConfig() warms up from lr 0, so the
 second step is the first that moves the params.
 
 Cases: reduced qwen2-0.5b (7 heads, 1 kv head: the head-dim fallback),
@@ -21,7 +21,9 @@ mixtral-8x7b (4 experts over "model": expert parallelism), mamba2-2.7b
 and mixtral's ``moe_cshard`` and ``moe_cshard_dots`` with 3 experts in
 both packages (``PATCHES``): the experts do not divide "model", so the
 capacity rows split over it, each rank computing its half of every
-expert's rows with the experts' weights whole there.
+expert's rows with the experts' weights whole there. Every case splits a
+param and an activation over "model". gemma2, jamba, seamless and
+internvl2 are tests/test_torch_spmd_archs.py's.
 
 Tolerances (float32):
   * against the reference: losses and grad norms rtol 1e-5, the first
@@ -39,22 +41,12 @@ kv-head slice on a 4-way "model" axis (one q head a rank); ``shard`` of a
 plain tensor raises; a checkpoint written from (2, 2) restores onto (4, 1)
 and onto (1, 1) bit for bit; ``train(mesh=)`` equals ``train()``.
 """
-import json
-import os
-import subprocess
-import sys
-from pathlib import Path
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 import torch.distributed as dist
 
-from _torch_dist_workers import SPMD_CELLS, run_ranks, spmd_train_rank
-from repro.configs import get_config as jax_get_config
-from repro.models.transformer import LM as JaxLM
+import _torch_spmd_ref
+from _torch_dist_workers import spmd_train_rank
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_local_mesh
@@ -63,7 +55,6 @@ from repro_torch.models.transformer import LM
 from repro_torch.parallel.sharding import TRAIN_RULES, tree_shardings
 from repro_torch.training import step
 
-REPO = Path(__file__).resolve().parents[1]
 WORLD = 4
 TIMEOUT = 500
 CASES = [("qwen2-0.5b", "baseline"), ("granite-8b", "baseline"), ("mixtral-8x7b", "baseline"),
@@ -75,96 +66,14 @@ CASES = [("qwen2-0.5b", "baseline"), ("granite-8b", "baseline"), ("mixtral-8x7b"
 #: has 4 experts
 PATCHES = {"moe_cshard": {"num_experts": 3}, "moe_cshard_dots": {"num_experts": 3}}
 
-_REF_SCRIPT = r"""
-import os, sys, json, functools
-os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
-                           "--xla_cpu_multi_thread_eigen=false")
-sys.path.insert(0, sys.argv[1])
-tmp, cases, cells = sys.argv[2], json.loads(sys.argv[3]), json.loads(sys.argv[4])
-patches = json.loads(sys.argv[5])
-import importlib
-import numpy as np, jax, jax.numpy as jnp
-from repro import configs
-from repro.configs import SHAPES
-from repro.launch import programs
-from repro.launch.mesh import make_local_mesh
-from repro.models.config import ShapeCell
-from repro.optim import adamw
-from repro.training import step
-
-for name, (kind, seq, batch) in cells.items():
-    SHAPES[name] = ShapeCell(name, kind, seq, batch)
-step.make_train_step = functools.partial(step.make_train_step, compute_dtype=jnp.float32)
-
-def nest(flat):
-    out = {}
-    for key, v in flat.items():
-        node = out
-        *path, leaf = key.split("/")
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = v
-    return out
-
-def flat(tree):
-    return {"/".join(k.key for k in path): np.asarray(v, np.float32)
-            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
-
-mesh = make_local_mesh(2, 2)
-for i, (arch, variant) in enumerate(cases):
-    inp = np.load(f"{tmp}/train_in_{i}.npz")
-    mod = importlib.import_module(f"repro.configs.{configs._MODULES[arch]}")
-    reduced = mod.REDUCED
-    mod.REDUCED = reduced.replace(**patches.get(variant, {}))
-    try:
-        prog = programs.build_program(arch, "tiny_train", mesh, reduced=True, variant=variant)
-    finally:
-        mod.REDUCED = reduced
-    params = nest({k[len("params/"):]: jnp.asarray(inp[k]) for k in inp.files
-                   if k.startswith("params/")})
-    state = {"params": params, "opt": adamw.init(params), "step": jnp.zeros((), jnp.int32)}
-    batch = {k: jnp.asarray(inp[k]) for k in ("tokens", "targets")}
-    out = {"loss": [], "grad_norm": []}
-    with mesh:
-        fn = prog.jitted()
-        for s in range(2):
-            state, m = fn(jax.device_put(state, prog.in_shardings[0]), batch)
-            out["loss"].append(float(m["loss"]))
-            out["grad_norm"].append(float(m["grad_norm"]))
-            if s == 0:
-                out.update({f"m/{k}": v for k, v in flat(state["opt"]["m"]).items()})
-    out.update({f"params/{k}": v for k, v in flat(state["params"]).items()})
-    np.savez(f"{tmp}/train_ref_{i}.npz", **out)
-print("OK")
-"""
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{"ref": [case i's .npz], "port": [...], "checks": the port's other
     results, "tmp": the directory}."""
     tmp = tmp_path_factory.mktemp("spmd_train")
-    rng = np.random.default_rng(0)
-    for i, (arch, variant) in enumerate(CASES):
-        model = JaxLM(jax_get_config(arch, reduced=True).replace(**PATCHES.get(variant, {})))
-        params = model.init(jax.random.PRNGKey(i), dtype=jnp.float32)
-        flat = {"params/" + "/".join(k.key for k in path): np.asarray(v)
-                for path, v in jax.tree_util.tree_flatten_with_path(params)[0]}
-        _, seq, batch = SPMD_CELLS["tiny_train"]
-        toks = rng.integers(0, model.cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
-        np.savez(tmp / f"train_in_{i}.npz", tokens=toks[:, :-1], targets=toks[:, 1:], **flat)
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    proc = subprocess.Popen([sys.executable, "-c", _REF_SCRIPT, str(REPO / "src"), str(tmp),
-                             json.dumps(CASES), json.dumps(SPMD_CELLS), json.dumps(PATCHES)],
-                            env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        run_ranks(spmd_train_rank, WORLD, (str(tmp), CASES, PATCHES), timeout=TIMEOUT)
-        out, err = proc.communicate(timeout=TIMEOUT)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-    assert proc.returncode == 0 and "OK" in out, err[-4000:]
+    _torch_spmd_ref.write_train_inputs(tmp, CASES, PATCHES)
+    _torch_spmd_ref.run(tmp, (2, 2), spmd_train_rank, WORLD, (str(tmp), CASES, PATCHES),
+                        train=CASES, patches=PATCHES, timeout=TIMEOUT)
     return {"ref": [np.load(tmp / f"train_ref_{i}.npz") for i in range(len(CASES))],
             "port": [np.load(tmp / f"train_out_{i}.npz") for i in range(len(CASES))],
             "checks": np.load(tmp / "train_checks.npz"), "tmp": tmp}
@@ -197,6 +106,16 @@ def test_program_on_mesh_matches_one_device(runs, i):
     for k in _keys(got, "params/"):
         np.testing.assert_allclose(got[f"params/{k}"], got[f"one/params/{k}"], atol=1e-5,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("i", range(len(CASES)), ids=["-".join(c) for c in CASES])
+def test_program_on_mesh_splits_over_model(runs, i):
+    """A param leaf and an activation (a DTensor the SPMD ops build from
+    local shards) are split over "model": the case does not replicate
+    everything."""
+    got = runs["port"][i]
+    assert bool(got["model_split_param"])
+    assert got["model_split_sites"].size and got["model_split_sites"].any()
 
 
 @pytest.mark.parametrize("i", range(len(CASES)), ids=["-".join(c) for c in CASES])

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro.checkpoint import store as jax_store
 from repro.configs import get_config as jax_get_config
@@ -698,8 +700,12 @@ def test_train_from_scratch_crashes_and_resumes_in_bf16(tmp_path):
     resumed = train("qwen2-0.5b", ckpt_dir=str(tmp_path / "ft"), **kw)
     assert resumed["steps_run"] == 4
     np.testing.assert_allclose(resumed["losses"], ref["losses"][-4:], atol=1e-5)
-    class _Pod:  # a "pod" axis: what the SPMD slice leaves out
-        mesh_dim_names, shape, device_type = ("pod", "data", "model"), (2, 1, 1), "cpu"
-
-    with pytest.raises(NotImplementedError, match="pod axis"):
-        train("qwen2-0.5b", ckpt_dir=str(tmp_path / "mesh"), mesh=_Pod(), **kw)
+    # a ("pod", "data", "model") mesh is taken: on one rank, (1, 1, 1), the
+    # steps are those without a mesh, bit for bit
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    try:
+        pod = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        on_pod = train("qwen2-0.5b", ckpt_dir=str(tmp_path / "mesh"), mesh=pod, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert on_pod["losses"] == ref["losses"]

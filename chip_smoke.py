@@ -8,7 +8,9 @@ Phases, each of which raises on failure (there is no CPU fallback):
   2. build the four CUDA kernels from src/repro_torch/csrc with nvcc, one
      process each, all at once, and print ptxas's registers and spills of
      every kernel (the float32 flash route: flash_tf32_kernel<hd>; the bf16
-     one at hd 64 and 128: flash_wg_kernel<hd>);
+     one at hd 64, 128 and 256: flash_wg_kernel<hd>), and on a line of its
+     own those of the hd-256 route's three kernels (flash_wg_kernel<256>,
+     dkdv_wg_kernel<256>, dq_wg_kernel<256>);
   3. hold each kernel against its plain PyTorch version on the card, at the
      served shapes and the edge cases: attention at ragged lengths, GQA 7:1
      at hd 8, MQA, window, softcap, ring cache mid-wrap, nearly full and
@@ -28,7 +30,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      (FLASH_WG_CASES: G Sq not a multiple of a block's 128 rows and under
      one block, Sk under one 128-key tile, a ragged last tile at 4,097
      keys, a window inside a tile, softcap at hd 128, 8,192 causal tokens
-     at GQA 7:1, Sq != Sk both ways) with the log-sum-exp; every kernel run
+     at GQA 7:1, Sq != Sk both ways; and the same edges at hd 256, gemma2's
+     8 heads over 4 with softcap 50, against its 64-key tiles) with the
+     log-sum-exp, and the backward at hd 256 (G S under one stage, S under
+     one key tile, a ragged last tile, a window inside a tile, non-causal,
+     2,048 tokens with cut key tiles, Sq != Sk both ways); every kernel run
      twice on each case, bit for bit;
   4. paper-default at full width (16 layers, d_model 1024, random weights
      from a seeded torch.Generator): prefill of a 333-token prompt and 16
@@ -76,7 +82,14 @@ Phases, each of which raises on failure (there is no CPU fallback):
      SDPA's forward, its ptxas registers and spills; also at hd 128, q
      (4,2048,32,128) k/v (4,2048,8,128), and at the 32k cell's length, q
      (4,32768,14,64), held there against the plain version one query head
-     at a time), the flash backward kernel (held against its
+     at a time); at hd 256 (gemma2-2b, softcap 50) the forward and the
+     backward at T, q (4,2048,8,256) k/v (4,2048,4,256), Lg, q
+     (1,32768,8,256) k/v (1,32768,4,256) (a global layer of a prefill_32k
+     row) and Ll (the same, window 4096: a local layer), held against the
+     plain versions (whole, or a head or a kv head's group at a time), twice
+     bit for bit, beside their bounds, the plain versions' times and SDPA's
+     (uncapped), and the float32 forward at gemma2's served q (1,333,8,256)
+     (the CUDA cores); the flash backward kernel (held against its
      plain version at bfloat16's tolerance, and two runs bit for bit; each
      of its kernels' device µs a launch; the registers and spilled bytes of
      its tensor-core dK/dV and dQ kernels from the ptxas report, with the
@@ -204,7 +217,17 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the router aux each step; (e) qwen2-0.5b at 4 x 2048 under each remat
      policy (None, "full", "dots", "coll"), 3 steps from one state and the
      same batches: the first loss and grad norm within 1e-5 relative
-     across them, step ms and peak memory each;
+     across them, step ms and peak memory each; (f) gemma2-2b at full width
+     (d_model 2304, 8 query heads over 4 at hd 256, d_ff 9216, vocab
+     256,000, softcaps 50 and 30), depth 2 of 26 (its local and its global
+     layer), 5 steps at 4 x 2048: the first loss within 5 % of ln V, 2
+     flash forward and 2 backward launches a step, a profiled step's
+     attention kernels all the hd-256 wgmma ones with their share of the
+     busy time, step ms, tokens/s and peak memory; then one bf16
+     loss-and-gradient step through the kernels and through the plain
+     versions (losses within 1e-3) and one float32 through the plain
+     versions: each layer's attention projections' bf16 gradients from the
+     kernels no farther from the float32 ones than twice the plain route's;
  18. data-parallel training and the sharding layer (qwen2-0.5b at full
      width): (a) one rank on NCCL (launch/multihost.py::initialize through a
      FileStore under build/): the DP step (training/dp_compressed.py) at 4 x
@@ -229,7 +252,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
      LM.prefill of that chunk, and against 1 chunk the logits and the cache
      within 2e-2, the GEMMs running at another number of rows) and decode_32k
      (baseline, kv_int8) bit for bit LM.decode_step, ms and peak memory
-     each; (d) at the reduced size (a full-width save took 46-65 s on the
+     each; then gemma2-2b's prefill_32k (depth_supers 1: a local and a
+     global layer; 4 of its 32 rows) bit for bit LM.prefill, its wall, peak
+     memory, flash launches and a profiled call's device time by kernel,
+     the hd-256 flash forward's share; (d) at the reduced size (a full-width save took 46-65 s on the
      H100, PERF.md): a checkpoint written by train() restored through
      tree_shardings onto the (1,1) mesh, every leaf a DTensor there equal to the plain restore,
      and train(mesh=...) resumed from it, losses bit for bit train()'s.
@@ -338,12 +364,13 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_lse,  # noqa: E402
                                                  wg_plan)
 from repro_torch.kernels.flash_attention_bwd import (cached_schedule, flash_attention_bwd,  # noqa: E402
-                                                     workspace_numel)
+                                                     tc_plan, workspace_numel)
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_lse_ref, flash_attention_ref,
                                      ssd_scan_ref, ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, sdpa_kernel, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.trace import attention_pairs  # noqa: E402
 from repro_torch.launch import dryrun, multihost, paper_repro  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.programs import build_program  # noqa: E402
@@ -433,6 +460,15 @@ FLASH_WG_CASES = [
     (1, 333, 129, 8, 4, 128, True, 0, 0.0),
     (1, 37, 4097, 14, 2, 64, False, 0, 0.0),  # few queries against a ragged 4097 keys
     (2, 300, 77, 8, 2, 128, True, 0, 0.0),  # causal at Sq > Sk, Sk under one tile at hd 128
+    # hd 256 (gemma2-2b's heads, 8 over 4, softcap 50; 64-key tiles)
+    (1, 100, 100, 8, 4, 256, True, 0, 50.0),  # G Sq = 200: not a multiple of a block's rows
+    (2, 17, 17, 8, 4, 256, True, 0, 50.0),  # G Sq = 34: under one block's rows
+    (1, 37, 37, 8, 4, 256, True, 0, 0.0),  # Sk under one key tile
+    (1, 1000, 1000, 8, 4, 256, True, 0, 50.0),  # a ragged last key tile
+    (1, 500, 500, 8, 4, 256, True, 100, 50.0),  # a window that cuts inside a key tile
+    (1, 256, 256, 8, 4, 256, False, 0, 50.0),  # non-causal
+    (2, 129, 333, 8, 4, 256, False, 0, 50.0),  # Sq < Sk
+    (1, 333, 129, 8, 4, 256, True, 0, 50.0),  # Sq > Sk
 ]
 # flash backward kernel cases (as FLASH_CASES)
 FLASH_BWD_CASES = [
@@ -446,6 +482,13 @@ FLASH_BWD_CASES = [
     (1, 333, 8, 4, 256, True, 128, 50.0),
     (2, 1024, 14, 2, 64, True, 0, 0.0),  # long causal GQA: key tiles cut into many segments
     (1, 777, 8, 1, 128, True, 200, 0.0),  # ragged, windowed MQA at hd 128
+    # hd 256 (two warpgroups a block, each with half the columns)
+    (2, 17, 8, 4, 256, True, 0, 50.0),  # G S = 34: under one 64-row stage
+    (1, 37, 8, 4, 256, True, 0, 0.0),  # S under one key tile
+    (1, 1000, 8, 4, 256, True, 0, 50.0),  # a ragged last key tile
+    (1, 500, 8, 4, 256, True, 100, 50.0),  # a window that cuts inside a key tile
+    (1, 256, 8, 4, 256, False, 0, 50.0),  # non-causal
+    (1, 2048, 8, 4, 256, True, 0, 50.0),  # cut key tiles: their partials merged
 ]
 # decode cases: B, H, K, hd, Smax, window, softcap, fill
 # (fill = the new token's position; slots 0..fill hold positions 0..fill,
@@ -569,12 +612,13 @@ def tc_kernel_report(hd: int) -> dict:
     """Registers, stack and spill bytes a thread of the flash backward's
     tensor-core dK/dV and dQ kernels at head dim ``hd``, from the build's
     ptxas report (phase 2), and the blocks an SM those registers allow at
-    the kernels' 128 threads (65,536 registers an SM, allocated a warp at a
-    time in units of 8 a thread)."""
-    out = {}
+    the kernels' threads (``tc_plan``: 128, and 256 at hd 256; 65,536
+    registers an SM, allocated a warp at a time in units of 8 a thread)."""
+    out, threads = {}, tc_plan(hd)["threads"]
     for kernel in ("dkdv_wg_kernel", "dq_wg_kernel"):
         rec = _kernel_regs("flash_attention_bwd", kernel, hd)
-        rec["blocks_per_sm_by_registers"] = 65536 // (128 * -(-rec["registers"] // 8) * 8)
+        rec["threads"] = threads
+        rec["blocks_per_sm_by_registers"] = 65536 // (threads * -(-rec["registers"] // 8) * 8)
         out[f"{kernel}<{hd}>"] = rec
     return out
 
@@ -1294,10 +1338,11 @@ def _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, iters) -> dict:
     }
 
 
-def _time_flash(gen, device, case, n_sets, calls, Sk=None, causal=True) -> dict:
+def _time_flash(gen, device, case, n_sets, calls, Sk=None, causal=True, softcap=0.0) -> dict:
     """flash_attention (float32) at ``case``, q (B,S,H,hd) against ``Sk``
-    keys (default S): its device time, its eager loop's, its plain
-    version's, SDPA's device time on the same inputs, its bound (the
+    keys (default S), capped at ``softcap``: its device time, its eager
+    loop's, its plain version's, SDPA's device time on the same inputs
+    (without the cap: no PyTorch call caps the scores), its bound (the
     products over the (q, k) pairs this input needs: the causal ones, or
     all S x Sk), and its kernels' device µs (profiler)."""
     B, S, H, K, hd, *_ = case
@@ -1313,12 +1358,13 @@ def _time_flash(gen, device, case, n_sets, calls, Sk=None, causal=True) -> dict:
     cuda_core_bound_s, _ = kernel_bound(flops, nbytes, f32=True, hw=H100)
 
     def run(q, k, v):
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, softcap=softcap)
 
     return {
         "ms": _graph_ms(run, sets, calls),
         "eager_ms": _time_ms(run, sets, 2 * calls),
-        "plain_ms": _time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=causal), sets,
+        "plain_ms": _time_ms(lambda q, k, v: flash_attention_ref(q, k, v, causal=causal,
+                                                                 softcap=softcap), sets,
                              max(4, calls // 5)),
         "library_ms": _graph_ms(
             lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
@@ -1328,7 +1374,8 @@ def _time_flash(gen, device, case, n_sets, calls, Sk=None, causal=True) -> dict:
         "bound_ms": bound_s * 1e3, "bound_by": bound_by, "flops": flops,
         "cuda_core_bound_ms": cuda_core_bound_s * 1e3,
         "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{Sk},{K},{hd}) float32 "
-                 f"{'causal' if causal else 'non-causal'}",
+                 f"{'causal' if causal else 'non-causal'}"
+                 + (f", softcap {softcap} (SDPA without it)" if softcap else ""),
     }
 
 
@@ -1467,8 +1514,14 @@ def _time_train_xq(gen, device, B, S, Se, H, K, hd) -> tuple[dict, dict]:
     return forward, back
 
 
+def _sdpa_window_mask(S, window, device):
+    """SDPA's boolean mask (S, S) of causal attention within ``window``."""
+    i = torch.arange(S, device=device)
+    return (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+
 def _time_flash_bf16(gen, device, B, Sq, Sk, H, K, hd, causal, calls, n_sets=4,
-                     heads=None) -> dict:
+                     heads=None, window=0, softcap=0.0) -> dict:
     """The bf16 flash forward with its log-sum-exp (flash_wg_kernel), q
     (B,Sq,H,hd) against k/v (B,Sk,K,hd): held against its plain version
     (``flash_attention_lse_ref``) at BF16_TOL and LSE_TOL on the same
@@ -1482,23 +1535,31 @@ def _time_flash_bf16(gen, device, B, Sq, Sk, H, K, hd, causal, calls, n_sets=4,
     the whole input's scores do not fit the card (each head is independent
     of the others: the plain version of q[b, :, h], k[b, :, h // G] and v's
     is the same function on those inputs); the plain version is then timed
-    on one such head only."""
+    on one such head only. ``window`` and ``softcap`` as the model's; SDPA
+    has no softcap (its time is of the same attention uncapped) and takes
+    the window as a boolean mask."""
     bf = torch.bfloat16
     G = H // K
     sets = [_qkv(gen, B, Sq, Sk, H, K, hd, bf, device) for _ in range(n_sets)]
     lib = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    mask = _sdpa_window_mask(Sq, window, device) if window else None
 
     def fwd(q, k, v):
-        return flash_attention_lse(q, k, v, causal=causal)
+        return flash_attention_lse(q, k, v, **kw)
 
     def sdpa(q, k, v):
+        if mask is not None:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
 
     def plain(q, k, v):
-        return flash_attention_lse_ref(q, k, v, causal=causal)
+        return flash_attention_lse_ref(q, k, v, **kw)
 
     shape = (f"q ({B},{Sq},{H},{hd}) k/v ({B},{Sk},{K},{hd}) bfloat16 "
-             f"{'causal' if causal else 'non-causal'}, forward with the log-sum-exp")
+             f"{'causal' if causal else 'non-causal'}"
+             + (f", window {window}" if window else "") + (f", softcap {softcap}" if softcap else "")
+             + ", forward with the log-sum-exp")
     q, k, v = sets[0]
     o, lse = _twice(f"flash bf16 {shape}", lambda: fwd(q, k, v))
     if B > 1:  # a batch row gets the same bits at half the batch
@@ -1530,7 +1591,7 @@ def _time_flash_bf16(gen, device, B, Sq, Sk, H, K, hd, causal, calls, n_sets=4,
                            "row, query head) pairs one at a time; its scores at the whole input "
                            f"({4 * B * H * Sq * Sk / 1e9:.0f} GB in float32) do not fit the card")
     del o, lse
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    pairs = attention_pairs(Sq, Sk, causal, window)
     flops = 4.0 * B * H * pairs * hd  # Q K^T and P V
     # q, k, v read once; o and the log-sum-exp written once
     nbytes = 2.0 * (2 * B * Sq * H * hd + 2 * B * Sk * K * hd) + 4.0 * B * H * Sq
@@ -1544,7 +1605,201 @@ def _time_flash_bf16(gen, device, B, Sq, Sk, H, K, hd, causal, calls, n_sets=4,
         "kernels_us": _kernel_us(fwd, sets, calls=min(max(calls, 4), 10)),
         "wg_kernel": wg_kernel_report(hd), "shape": shape,
     })
+    if softcap:
+        rec["library_is"] = "SDPA's forward without the softcap" + (
+            ", the window as a boolean mask" if window else "")
     return rec
+
+
+def _time_bwd_bf16(gen, device, B, S, H, K, hd, window, softcap, calls, n_sets) -> dict:
+    """The bf16 flash backward at q (B,S,H,hd) k/v (B,S,K,hd) causal, with
+    ``window`` and ``softcap``: held against its plain version at
+    BF16_TOL of each gradient's scale, on the whole input where its scores
+    fit (B S^2 H <= 2^28) and else on each kv head's group of G query heads
+    one group at a time, and two runs bit for bit; its time (CUDA events,
+    eager: it takes a millisecond or more), its plain version's (the whole
+    input, or one query head against its kv head), SDPA's forward +
+    backward less its forward (eager, as the kernel; uncapped, the window a
+    boolean mask), the bound (2.5x the forward's products over the kept
+    pairs; q, k, v, o, dO and the log-sum-exp read once, dq, dk, dv written
+    once), each kernel's device µs (profiler), the tensor-core kernels'
+    registers and the dK/dV pass's blocks and workspace."""
+    bf = torch.bfloat16
+    G = H // K
+    kw = dict(causal=True, window=window, softcap=softcap)
+    sets = []
+    for _ in range(n_sets):
+        q, k, v = _qkv(gen, B, S, S, H, K, hd, bf, device)
+        g = torch.randn((B, S, H, hd), generator=gen, device=device).to(bf)
+        o, lse = flash_attention_lse(q, k, v, **kw)
+        sets.append((q, k, v, g, o, lse))
+
+    def bwd(q, k, v, g, o, lse):
+        return flash_attention_bwd(q, k, v, o, g, lse, **kw)
+
+    def bwd_ref(q, k, v, g, o, lse):
+        return flash_attention_bwd_ref(q, k, v, o, g, lse, **kw)
+
+    shape = (f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) bfloat16 causal"
+             + (f", window {window}" if window else "") + f", softcap {softcap}, backward")
+    got = bwd(*sets[0])
+    if not all(torch.equal(a, b) for a, b in zip(got, bwd(*sets[0]))):
+        raise AssertionError(f"flash_bwd at {shape}: two runs differ")
+    rec = {"shape": shape, "bit_identical_rerun": True}
+    if B * S * S * H <= 2**28:
+        want = bwd_ref(*sets[0])
+        err = max(_grad_err(f"flash_bwd at {shape} d{n}", a, b, BF16_TOL)
+                  for n, a, b in zip("qkv", got, want))
+        del want
+        rec["checked_on"] = "the whole input"
+        rec["plain_ms"] = _time_ms(bwd_ref, sets, 2)
+    else:
+        err = 0.0
+        q, k, v, g, o, lse = sets[0]
+        for b in range(B):
+            for kh in range(K):
+                hs = slice(kh * G, kh * G + G)
+                part = [t[b:b + 1, :, hs].contiguous() for t in (q, k, v, g, o)]
+                part[1], part[2] = (t[b:b + 1, :, kh:kh + 1].contiguous() for t in (k, v))
+                want = bwd_ref(*part, lse[b:b + 1, hs].contiguous())
+                mine = (got[0][b:b + 1, :, hs], got[1][b:b + 1, :, kh:kh + 1],
+                        got[2][b:b + 1, :, kh:kh + 1])
+                err = max(err, max(_grad_err(f"flash_bwd at {shape}, row {b} kv head {kh} d{n}",
+                                             a, w, BF16_TOL) for n, a, w in zip("qkv", mine, want)))
+                del part, want
+        rec["checked_on"] = f"each kv head with its {G} query heads, one group at a time"
+        rec["plain_ms"] = None
+        one = [t[:1, :, :1].contiguous() for t in sets[0][:5]] + [sets[0][5][:1, :1].contiguous()]
+        rec["plain_ms_one_head"] = _time_ms(bwd_ref, [one], 1)
+        rec["plain_is"] = "one query head against its kv head: x B H for the whole input"
+        del one
+    del got
+    torch.cuda.empty_cache()
+    rec["ms"] = _time_ms(bwd, sets, calls)
+    mask = _sdpa_window_mask(S, window, device) if window else None
+
+    def sdpa(q, k, v):
+        if mask is not None:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    lib = [tuple(t.transpose(1, 2).contiguous().requires_grad_() for t in st[:3])
+           + (st[3].transpose(1, 2).contiguous(),) for st in sets]
+    with torch.no_grad():
+        sdpa_fwd_ms = _time_ms(lambda q, k, v, g: sdpa(q, k, v), lib, calls)
+    sdpa_all_ms = _time_ms(lambda q, k, v, g: torch.autograd.grad(sdpa(q, k, v), (q, k, v), g),
+                           lib, calls)
+    del lib, mask
+    rec.update(library_ms=sdpa_all_ms - sdpa_fwd_ms, library_fwd_bwd_ms=sdpa_all_ms,
+               library_is="SDPA forward + backward less its forward (no softcap"
+                          + (", the window as a boolean mask" if window else "") + ")")
+    pairs = attention_pairs(S, S, True, window)
+    flops = 4.0 * B * H * pairs * hd
+    qo, kvb, lse_b = 2.0 * B * S * H * hd, 2.0 * B * S * K * hd, 4.0 * B * H * S
+    bound_s, bound_by = kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=False, hw=H100)
+    sched, n_items, n_tiles, slots = cached_schedule(device, S, S, G, True, window, B * K, hd)
+    rec.update(max_abs_err=err, bound_ms=bound_s * 1e3, bound_by=bound_by,
+               tflop_per_s=2.5 * flops / rec["ms"] / 1e9,
+               kernels_us=_kernel_us(bwd, sets, calls=min(calls, 4)),
+               tc_kernels=tc_kernel_report(hd), dkdv_blocks=n_items * B * K,
+               dkdv_cut_tiles=int((sched[n_items:n_items + n_tiles, 2] > 1).sum()) * B * K,
+               workspace_mb=workspace_numel(slots, B * K, hd) * 4 / 1e6)
+    del sets
+    torch.cuda.empty_cache()
+    return rec
+
+
+#: phase 12's hd-256 shapes (gemma2-2b, bf16, causal, softcap 50): B, S, H,
+#: K, hd, window, forward calls timed, backward calls timed, input sets
+HD256_SHAPES = {
+    "T": (4, 2048, 8, 4, 256, 0, 20, 10, 2),  # phase 17 (f)'s training shape
+    "Lg": (1, 32768, 8, 4, 256, 0, 3, 3, 1),  # a global layer of one prefill_32k row
+    "Ll": (1, 32768, 8, 4, 256, 4096, 3, 3, 1),  # a local layer (window 4096)
+}
+HD256_CAP = 50.0
+#: gemma2-2b's served float32 prefill (the CUDA-core route): B, S, H, K, hd
+FLASH_F32_HD256 = (1, 333, 8, 4, 256)
+#: the other routes that stay on the CUDA cores, at the shapes their phases
+#: run: (name, dtype, B, S, H, K, hd): the float32 backward of phase 9 (b)
+#: (qwen2-0.5b, 1 x 512), of a rank of 18 (b) (1 x 1,024) and of a rank of
+#: 19 (c) (mixtral's 16 local heads over 4 at hd 128, 1 x 512); bf16 at hd
+#: 8 (the reduced qwen2-0.5b of phase 11, 4 x 32)
+CUDA_CORE_BWD = (("f32_bwd_phase9b", torch.float32, 1, 512, 14, 2, 64),
+                 ("f32_bwd_phase18b", torch.float32, 1, 1024, 14, 2, 64),
+                 ("f32_bwd_phase19c", torch.float32, 1, 512, 16, 4, 128),
+                 ("bf16_hd8_reduced", torch.bfloat16, 4, 32, 7, 1, 8))
+
+
+def time_hd256(device) -> dict:
+    """Phase 12, head dim 256: the bf16 forward with its log-sum-exp and the
+    backward (flash_wg_kernel<256>, dkdv_wg_kernel<256>, dq_wg_kernel<256>)
+    at HD256_SHAPES, and the float32 forward (the CUDA-core flash_kernel)
+    at gemma2's served shape."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    out = {}
+    for tag, (B, S, H, K, hd, window, fcalls, bcalls, n_sets) in HD256_SHAPES.items():
+        heads = None if B * S * S * H <= 2**28 else tuple(
+            (b, h) for b in range(B) for h in range(H))
+        out[f"fwd_{tag}"] = _time_flash_bf16(gen, device, B, S, S, H, K, hd, True, fcalls,
+                                             n_sets=n_sets, heads=heads, window=window,
+                                             softcap=HD256_CAP)
+        out[f"bwd_{tag}"] = _time_bwd_bf16(gen, device, B, S, H, K, hd, window, HD256_CAP,
+                                           bcalls, n_sets)
+        torch.cuda.empty_cache()
+    B, S, H, K, hd = FLASH_F32_HD256
+    out["f32_served"] = _time_flash(gen, device, (B, S, H, K, hd), 16, 50, softcap=HD256_CAP)
+    for name, dt, B, S, H, K, hd in CUDA_CORE_BWD:
+        out[name] = _time_cuda_core(gen, device, dt, B, S, H, K, hd)
+    return out
+
+
+def _time_cuda_core(gen, device, dtype, B, S, H, K, hd) -> dict:
+    """A backward that stays on the CUDA cores (dkdv_kernel, dq_kernel),
+    causal, and the forward beside it (float32 at hd <= 128 the split-TF32
+    flash_tf32_kernel, else flash_kernel): the forward with its log-sum-exp
+    and the backward
+    as device time (replayed CUDA graphs: these calls take tens of µs to a
+    few ms), beside their bounds (float32 at the CUDA cores' rate, bf16 at
+    the tensor cores'), the plain versions' times and SDPA's forward."""
+    sets = []
+    for _ in range(4):
+        q, k, v = _qkv(gen, B, S, S, H, K, hd, dtype, device)
+        g = torch.randn((B, S, H, hd), generator=gen, device=device).to(dtype)
+        o, lse = flash_attention_lse(q, k, v)
+        sets.append((q, k, v, g, o, lse))
+    lib = [tuple(t.transpose(1, 2).contiguous() for t in st[:3]) for st in sets]
+
+    def fwd(q, k, v, *_):
+        return flash_attention_lse(q, k, v)
+
+    def bwd(q, k, v, g, o, lse):
+        return flash_attention_bwd(q, k, v, o, g, lse)
+
+    f32 = dtype == torch.float32
+    flops = 4.0 * B * H * attention_pairs(S, S, True, 0) * hd
+    e = 4 if f32 else 2
+    qo, kvb, lse_b = e * B * S * H * hd, e * B * S * K * hd, 4.0 * B * H * S
+    # float32 at hd <= 128 runs its forward as split-TF32 (flash_tf32_kernel)
+    fb, fby = kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=f32,
+                           split_tf32=f32 and hd <= 128, hw=H100)
+    bb, bby = kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=f32, hw=H100)
+    got = bwd(*sets[0])
+    want = flash_attention_bwd_ref(*sets[0][:3], sets[0][4], sets[0][3], sets[0][5])
+    tol = F32_TOL if f32 else BF16_TOL
+    err = max(_grad_err(f"cuda-core bwd {dtype} hd {hd} d{n}", a, b, tol)
+              for n, a, b in zip("qkv", got, want))
+    return {
+        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) {str(dtype)[6:]} causal",
+        "fwd_ms": _graph_ms(fwd, sets, 20), "bwd_ms": _graph_ms(bwd, sets, 20),
+        "fwd_bound_ms": fb * 1e3, "fwd_bound_by": fby, "bwd_bound_ms": bb * 1e3,
+        "bwd_bound_by": bby, "bwd_max_abs_err": err,
+        "plain_fwd_ms": _time_ms(lambda q, k, v, *_: flash_attention_lse_ref(q, k, v), sets, 4),
+        "plain_bwd_ms": _time_ms(lambda q, k, v, g, o, lse: flash_attention_bwd_ref(
+            q, k, v, o, g, lse), sets, 4),
+        "library_fwd_ms": _graph_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), lib, 20),
+        "kernels_us": _kernel_us(lambda *a: (fwd(*a), bwd(*a)), sets, calls=4),
+    }
 
 
 def time_kernels(device, n_sets=16) -> dict:
@@ -1653,7 +1908,7 @@ def time_kernels(device, n_sets=16) -> dict:
     # the dK/dV pass's schedule as the wrapper launched it: its items (one
     # block each a KV head and batch row), then its tiles (segments in column 2)
     sched, n_items, n_tiles, slots = cached_schedule(tsets[0][0].device, S, S, H // K, True, 0,
-                                                     B * K)
+                                                     B * K, hd)
     out["flash_attention_bwd"] = {
         "ms": _time_ms(bwd, tsets, 20),
         "plain_ms": _time_ms(bwd_ref, tsets, 4),
@@ -2614,6 +2869,9 @@ FLASH_BWD_XQ_CASES = [
     (2, 200, 512, 8, 2, 128, True),  # causal at Sk > Sq: keys past Sq - 1 see no query
     (1, 768, 512, 14, 2, 64, True),  # causal at Sq > Sk
     (2, 37, 100, 4, 2, 16, True),  # ragged, reduced widths
+    (2, 129, 333, 8, 4, 256, False),  # hd 256, Sq < Sk
+    (1, 100, 333, 8, 4, 256, True),  # hd 256, causal at Sk > Sq
+    (1, 333, 129, 8, 4, 256, True),  # hd 256, Sq > Sk
 ]
 ENCDEC_TRAIN = (2, 512, 10)  # batch, tokens (= encoder frames), steps
 VLM_TRAIN_LAYERS, VLM_TRAIN = 2, (1, 512, 5)  # batch, positions (256 patches + 256 tokens)
@@ -2699,9 +2957,16 @@ def _expect_launches(name, counts, fwd, bwd):
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
 
 
+#: name marks of the attention kernels (csrc/flash_attention*.cu) in a profile
+ATTN_KERNEL_MARKS = ("flash_wg_kernel", "flash_kernel", "flash_tf32_kernel", "dkdv_wg_kernel",
+                     "dq_wg_kernel", "dkdv_merge_kernel", "delta_tc_kernel", "dkdv_kernel",
+                     "dq_kernel", "delta_kernel")
+
+
 def _profiled_step(device, fn, state, data) -> tuple[dict, dict]:
     """One train step under torch.profiler: (the new state, the device's busy
-    ms, its launches and top kernels)."""
+    ms, its launches and top kernels, the attention kernels' device ms and
+    share of the busy time, and each attention kernel's launches)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         state, m = fn(state, data)
@@ -2711,9 +2976,16 @@ def _profiled_step(device, fn, state, data) -> tuple[dict, dict]:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(t for _, t, _ in rows) / 1e3
     top = sorted(rows, key=lambda r: -r[1])[:6]
+    names = [(k.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0], t, n)
+             for k, t, n in rows]
+    attn = [(k, t, n) for k, t, n in names if k.split("<")[0] in ATTN_KERNEL_MARKS]
+    attn_ms = sum(t for _, t, _ in attn) / 1e3
     return state, {"device_busy_ms_profiled_step": busy_ms if busy_ms else "not measured",
                    "kernel_launches_profiled_step": sum(n for *_, n in rows),
-                   "top_kernels_ms": [[k[:70], round(t / 1e3, 3), n] for k, t, n in top]}
+                   "top_kernels_ms": [[k[:70], round(t / 1e3, 3), n] for k, t, n in top],
+                   "attention_kernels": {k: [round(t / 1e3, 3), n] for k, t, n in attn},
+                   "attention_ms_profiled_step": attn_ms,
+                   "attention_share_of_busy": attn_ms / busy_ms if busy_ms else "not measured"}
 
 
 def _cross_grads(device, cfg, params, data, impl, dtype):
@@ -2891,13 +3163,116 @@ def remat_train(device, card) -> dict:
     return out
 
 
+GEMMA = "gemma2-2b"
+#: (f): depth 2 of 26 (its local and its global layer); batch, tokens, steps
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN = 2, (4, 2048, 5)
+#: (f)'s loss-and-gradient step, kernels against plain in bf16: the losses
+#: within this (relative) and the kernels' attention gradients no farther
+#: from the float32 plain ones than XQ_BF16_RATIO times the plain bf16 route's
+GEMMA_LOSS_RTOL = 1e-3
+
+
+def gemma2_train(device, card) -> dict:
+    """Phase 17 (f): gemma2-2b at full width (d_model 2304, 8 query heads
+    over 4 at hd 256, d_ff 9216, vocab 256,000, softcaps 50 and 30), depth
+    GEMMA_TRAIN_LAYERS of 26: a local and a global layer. GEMMA_TRAIN steps
+    of train()'s donated step at batch 4 x 2048 in bf16 on float32 master
+    weights: every loss finite, a flash forward and a backward a layer a
+    step; then one step profiled, whose attention
+    kernels must all be the hd-256 wgmma ones (flash_wg_kernel<256>,
+    dkdv_wg_kernel<256>, dq_wg_kernel<256>), a layer each, with their share
+    of the device's busy time. Then, from the run's initial weights and on
+    its first batch, one bf16 loss-and-gradient step through the kernels
+    and through impl="plain", and one in float32 through impl="plain": the
+    kernels' loss the run's first loss (within 1e-5), the bf16 losses
+    within GEMMA_LOSS_RTOL, and each layer's attention projections'
+    gradients (wq, wk, wv, wo) from the kernels no farther from the float32
+    plain ones than XQ_BF16_RATIO times the plain bf16 route's. The first
+    loss is not held to ln V: gemma2's initialisation (the reference's:
+    embeddings scaled by sqrt(d_model) and tied to the head, logits capped
+    at 30) starts near 18.4 on either route, not at the uniform ln V."""
+    cfg = get_config(GEMMA).replace(num_layers=GEMMA_TRAIN_LAYERS)
+    B, S, steps = GEMMA_TRAIN
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    state, out = _train_steps(device, cfg, B, S, steps)
+    _expect_launches("gemma2 train", out["launches"], L * steps, L * steps)
+    out.update(_reckon_gb(state["params"]), num_layers=L, head_dim=cfg.head_dim,
+               ln_vocab=math.log(cfg.vocab_size),
+               windows=list(LM(cfg, device="meta").windows),
+               reduced=f"depth {L} of {get_config(GEMMA).num_layers}, every width as published")
+    fn = training_step.make_train_step(LM(cfg, device=device), OptConfig(), remat=None,
+                                       compute_dtype=torch.bfloat16, donate=True)
+    data = TokenStream(cfg, B, S, seed=steps, device=device).next()
+    state, prof = _profiled_step(device, fn, state, data)
+    out.update(prof)
+    if isinstance(prof["device_busy_ms_profiled_step"], float):
+        out["device_idle_share"] = 1 - (prof["device_busy_ms_profiled_step"]
+                                        / out["step_ms_median_after_first"])
+    routes = {k.split("<")[0]: (k, n) for k, (_, n) in prof["attention_kernels"].items()}
+    for name in ("flash_wg_kernel", "dkdv_wg_kernel", "dq_wg_kernel"):
+        if routes.get(name) != (f"{name}<256>", L):
+            raise AssertionError(f"gemma2 train: the profiled step's {name} {routes.get(name)}, "
+                                 f"expected {L} launches at hd 256")
+    stray = sorted(set(routes) - {"flash_wg_kernel", "dkdv_wg_kernel", "dq_wg_kernel",
+                                  "dkdv_merge_kernel", "delta_tc_kernel"})
+    if stray:
+        raise AssertionError(f"gemma2 train: attention kernels off the hd-256 route {stray}")
+    del state, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train17 f] {GEMMA} full width, depth {L}, bfloat16, on {card}: {json.dumps(out)}",
+          flush=True)
+
+    # the run's initial weights (init_state's, seed 0) and its first batch
+    params = LM(cfg, device=device).init(torch.Generator(device=device).manual_seed(0),
+                                         dtype=torch.float32)
+    data = TokenStream(cfg, B, S, seed=0, device=device).next()
+    runs = {}
+    for impl, dt in (("cuda", torch.bfloat16), ("plain", torch.bfloat16),
+                     ("plain", torch.float32)):
+        _zero_launches()
+        loss, _, grads = training_step.loss_and_grads(LM(cfg, impl=impl, device=device), params,
+                                                      data, remat=None, compute_dtype=dt)
+        n = L if impl == "cuda" else 0
+        _expect_launches(f"gemma2 loss and grads {impl} {dt}", _launches(), n, n)
+        attn = {f"sub{i}.{w}": grads["blocks"][f"sub{i}"]["attn"][w].float()
+                for i in range(2) for w in ("wq", "wk", "wv", "wo")}
+        runs[(impl, dt)] = (float(loss), attn)
+        del grads
+    (lk, gk), (lp, gp) = runs[("cuda", torch.bfloat16)], runs[("plain", torch.bfloat16)]
+    truth = runs[("plain", torch.float32)][1]
+    rel = abs(lk - lp) / abs(lp)
+    if not math.isfinite(lk) or rel > GEMMA_LOSS_RTOL:
+        raise AssertionError(f"gemma2 bf16 step: loss {lk} against plain {lp}")
+    if abs(lk - out["losses"][0]) > 1e-5 * abs(lk):
+        raise AssertionError(f"gemma2 bf16 step: loss {lk}, the run's first {out['losses'][0]}")
+    check = {"tokens": B * S, "bf16_loss": lk, "bf16_plain_loss": lp, "bf16_loss_rel_err": rel,
+             "f32_plain_loss": runs[("plain", torch.float32)][0],
+             "bf16_from_f32_over_scale": {}}
+    for w in gk:
+        scale = float(truth[w].abs().max())
+        ek = float((gk[w] - truth[w]).abs().max()) / scale
+        ep = float((gp[w] - truth[w]).abs().max()) / scale
+        check["bf16_from_f32_over_scale"][w] = {"kernels": ek, "plain": ep}
+        if ek > XQ_BF16_RATIO * ep:
+            raise AssertionError(f"gemma2 bf16 step: d{w} {ek} of its scale from the float32 "
+                                 f"gradient, the plain route's {ep}")
+    print(f"[train17 f] {GEMMA} one bf16 loss-and-gradient step, kernels against plain: "
+          f"{json.dumps(check)}", flush=True)
+    del params, runs, truth, gk, gp
+    torch.cuda.empty_cache()
+    out["grad_check"] = check
+    return out
+
+
 def train_phase(device, card) -> dict:
     """Phase 17: training across the registry: seamless (b), internvl2 (c),
-    mixtral (d), the remat policies (e); the flash backward at Sq != Sk (a)
-    is checked in phase 3 and timed in phase 12."""
+    mixtral (d), the remat policies (e), gemma2-2b at hd 256 (f); the flash
+    backward at Sq != Sk (a) is checked in phase 3 and timed in phase 12."""
     out = {}
     for key, fn in (("seamless", encdec_train), ("internvl2", vlm_train),
-                    ("mixtral", moe_train), ("remat", remat_train)):
+                    ("mixtral", moe_train), ("remat", remat_train), ("gemma2", gemma2_train)):
         gc.collect()  # what earlier phases left in reference cycles holds device memory
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3233,8 +3608,9 @@ def _program_train(device, prog) -> dict:
 
 def _flash_share(device, fn) -> dict:
     """One profiled call of fn (torch.profiler): the device's busy ms, the
-    bf16 flash forward's (flash_wg_kernel) device ms and launches, and its
-    share of the busy time."""
+    bf16 flash forward's (flash_wg_kernel) device ms and launches, its
+    share of the busy time, and the device ms of the kernels that take the
+    most."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
@@ -3246,9 +3622,11 @@ def _flash_share(device, fn) -> dict:
     flash_ms = sum(t for t, _ in flash) / 1e3
     if not flash:
         raise AssertionError("profiled prefill: no flash_wg_kernel launch")
+    top = sorted(rows, key=lambda r: -r[1])[:6]
     return {"profiled_device_busy_ms": busy, "flash_fwd_device_ms": flash_ms,
             "flash_fwd_launches_profiled": sum(n for _, n in flash),
-            "flash_fwd_share_of_device": flash_ms / busy}
+            "flash_fwd_share_of_device": flash_ms / busy,
+            "top_kernels_ms": [[k[:70], round(t / 1e3, 3), n] for k, t, n in top]}
 
 
 def _narrow_batch(axes, big, out, start, n) -> None:
@@ -3357,7 +3735,8 @@ def programs(device, mesh) -> list:
         t0 = time.perf_counter()
         kw = {"microbatches": TRAIN_4K_MICROBATCHES} if name == "train_4k" else {}
         prog = build_program(TRAIN_ARCH, name, mesh, depth_supers=depth, variant=variant, **kw)
-        rec = {"cell": name, "variant": variant, "batch": prog.cell.global_batch,
+        rec = {"arch": TRAIN_ARCH, "cell": name, "variant": variant,
+               "batch": prog.cell.global_batch,
                "seq": prog.cell.seq_len, "meta": prog.meta,
                "reduced": f"depth_supers={depth}: {prog.cfg.num_layers} of "
                           f"{get_config(TRAIN_ARCH).num_layers} layers, every width as published"}
@@ -3373,7 +3752,43 @@ def programs(device, mesh) -> list:
         print(f"[dp18 c] {json.dumps(rec)}", flush=True)
         out.append(rec)
         del prog
+    out.append(gemma2_prefill(device, mesh))
     return out
+
+
+#: (c): gemma2-2b's prefill_32k, depth_supers 1 (a local and a global layer
+#: of 26) at GEMMA_PREFILL_ROWS of its 32 rows of 32,768 tokens
+GEMMA_PREFILL_ROWS = 4
+
+
+def gemma2_prefill(device, mesh) -> dict:
+    """Phase 18 (c), gemma2-2b: build_program's prefill_32k (the bf16 flash
+    forward at hd 256, a global and a local layer) on the (1,1) mesh, cut
+    to GEMMA_PREFILL_ROWS rows and depth_supers 1, bit for bit LM.prefill;
+    its wall, peak memory, flash launches and one profiled call's device
+    time by kernel, the flash forward's share among it."""
+    from repro_torch.configs import SHAPES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full_cell = SHAPES["prefill_32k"]
+    SHAPES["prefill_32k"] = replace(full_cell, global_batch=GEMMA_PREFILL_ROWS)
+    try:
+        prog = build_program(GEMMA, "prefill_32k", mesh, depth_supers=1)
+    finally:
+        SHAPES["prefill_32k"] = full_cell
+    rec = {"arch": GEMMA, "cell": "prefill_32k", "variant": "baseline",
+           "batch": prog.cell.global_batch, "seq": prog.cell.seq_len, "meta": prog.meta,
+           "reduced": f"depth_supers=1: {prog.cfg.num_layers} of {get_config(GEMMA).num_layers} "
+                      f"layers; {GEMMA_PREFILL_ROWS} of {full_cell.global_batch} rows; every "
+                      "width as published"}
+    res, _ = _program_prefill(device, prog, None)
+    rec.update(res)
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"[dp18 c] {json.dumps(rec)}", flush=True)
+    del prog
+    return rec
 
 
 def elastic_restore(device, mesh) -> dict:
@@ -4778,6 +5193,9 @@ def main() -> int:
     for name in _build.KERNELS:
         for line in ptxas_report(_build.log_path(name).read_text()):
             print(f"[ptxas {name}] {line}", flush=True)
+    # the hd-256 route's three kernels (gemma2-2b, bf16): registers and spills
+    hd256_regs = {"flash_wg_kernel<256>": wg_kernel_report(256), **tc_kernel_report(256)}
+    print(f"[ptxas hd256] {json.dumps(hd256_regs)}", flush=True)
 
     t0 = time.perf_counter()
     errs = check_kernels(device)
@@ -4839,6 +5257,14 @@ def main() -> int:
         print(f"[time] {name} {json.dumps(t)} on {card}", flush=True)
     print(f"[time] {time.perf_counter() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hd256 = time_hd256(device)
+    for name, t in hd256.items():
+        print(f"[time hd256] {name} {json.dumps(t)} on {card}", flush=True)
+    print(f"[time hd256] {time.perf_counter() - t0:.1f}s", flush=True)
+    timing["flash_attention_bf16_fwd_hd256"] = hd256["fwd_T"]
+    timing["flash_attention_bwd_hd256"] = hd256["bwd_T"]
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     served_live = live(device, card)
@@ -4885,7 +5311,7 @@ def main() -> int:
     print(f"[pod19] phase 19 (h) ({time.perf_counter() - t0:.1f}s)", flush=True)
     t0 = time.perf_counter()
     prefill = next(c for c in programmed if c["cell"] == "prefill_32k"
-                   and c["variant"] == "baseline")
+                   and c["variant"] == "baseline" and c["arch"] == TRAIN_ARCH)
     dryrun_phase(card, prefill)
     print(f"[dry20] phase 20 ({time.perf_counter() - t0:.1f}s)", flush=True)
     print(f"[smoke] whole run {time.perf_counter() - t_start:.1f}s", flush=True)
@@ -4925,6 +5351,13 @@ def main() -> int:
         "flash_attention_bwd_cross": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                       "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, no "
                                       "Pallas kernel)", "train17"),
+        # phase 17 (f): gemma2-2b's training run at hd 256 (the rows' time is
+        # at its shape, phase 12's "T")
+        "flash_attention_bf16_fwd_hd256": ("src/repro_torch/csrc/flash_attention.cu",
+                                           "src/repro/kernels/flash_attention.py:109", GEMMA),
+        "flash_attention_bwd_hd256": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                      "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, no "
+                                      "Pallas kernel)", GEMMA),
     }
     cross = sliced["seamless"]["checks"][-1]["launches"]
     xq17 = trained17["seamless"]["xq_step"]["cross_launches_bf16"]
@@ -4936,7 +5369,11 @@ def main() -> int:
                          "decode_attention_cross": cross["decode_attention"]},
                 JAMBA: {"ssd_scan_jamba": sliced["jamba"]["checks"][0]["launches"]["ssd_scan"]},
                 "train17": {"flash_attention_bf16_fwd_cross": xq17["flash_attention"],
-                            "flash_attention_bwd_cross": xq17["flash_attention_bwd"]}}
+                            "flash_attention_bwd_cross": xq17["flash_attention_bwd"]},
+                GEMMA: {"flash_attention_bf16_fwd_hd256":
+                        trained17["gemma2"]["launches"]["flash_attention"],
+                        "flash_attention_bwd_hd256":
+                        trained17["gemma2"]["launches"]["flash_attention_bwd"]}}
     # phase 19: each kernel's launches on rank 0 of the (2, 2) mesh, in the
     # run of the path it is on there ((a)'s first bf16 step, (b)'s
     # prefill_32k and decode_32k calls, (d)'s prefill, (e)'s decode_32k
@@ -4955,6 +5392,12 @@ def main() -> int:
         "flash_attention_bf16_fwd": step_a["flash_attention"],
         "flash_attention_bwd": step_a["flash_attention_bwd"],
         "flash_attention_diff": step_a["flash_attention"]}
+    # (i): gemma2-2b's bf16 train step on the mesh, at hd 256
+    step_i = next(r for r in r0["i"] if r["arch"] == GEMMA and r["kind"] == "train")
+    spmd_launches["flash_attention_bf16_fwd_hd256"] = step_i["launches"][0]["flash_attention"]
+    spmd_launches["flash_attention_bwd_hd256"] = step_i["launches"][0]["flash_attention_bwd"]
+    errs["flash_attention_bf16_fwd_hd256"] = hd256["fwd_T"]["max_abs_err"]
+    errs["flash_attention_bwd_hd256"] = hd256["bwd_T"]["max_abs_err"]
     errs["flash_attention_diff"] = diff_err
     errs["flash_attention_bwd"] = timing["flash_attention_bwd"]["max_abs_err"]
     errs.update(sliced["errs"])
@@ -4964,6 +5407,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"kernel": "flash_wg_kernel"} if "bf16_fwd" in name else {}),
+            **({"hd": 256} if name.endswith("_hd256") else {}),
             **({"lse_ms": t["lse_ms"]} if "lse_ms" in t else {}),
             "launches": launches[arch][name], "spmd": spmd_launches.get(name, 0),
             "max_abs_err": errs[name],

@@ -1,0 +1,244 @@
+"""The bf16 flash forward (with its log-sum-exp) and backward at head dim 256,
+gemma2-2b's attention, timed on a card at three shapes, beside their
+bounds, their plain versions and SDPA:
+
+* ``T``: q (4,2048,8,256), k/v (4,2048,4,256), causal, softcap 50: gemma2's
+  attention at the training shape of chip_smoke.py's phase 10;
+* ``Lg``: q (1,32768,8,256), k/v (1,32768,4,256), causal, softcap 50: a
+  global layer of one prefill_32k row;
+* ``Ll``: the same with window 4096: a local layer.
+
+Two more shapes, not run by default, time the same wrappers at the other
+head dims of the bf16 tensor-core route, whose forward shares the hd-256
+kernel's code (its K and V rings): ``T64``, qwen2-0.5b's training shape q
+(4,2048,14,64) k/v (4,2048,2,64), and ``T128``, q (4,2048,32,128) k/v
+(4,2048,8,128), GQA 4:1 at hd 128 (mixtral's and granite's), causal, no
+softcap; both are held and timed as T is.
+
+Each timing is CUDA events around a run of launches after a warm-up (the
+kernels take a millisecond or more a call, far above the host's cost of
+one). The kernels go through the package's wrappers
+(``flash_attention_lse``, ``flash_attention_bwd``), so the script times
+whatever route the tree it runs from takes at bf16 hd 256. The plain
+versions (``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``)
+are timed on the whole input at T and on one query head against its kv head
+at Lg and Ll (the whole input's float32 scores, 34 GB a head pair, do not fit
+with their gradients). SDPA (``F.scaled_dot_product_attention`` with
+``enable_gqa``) has no softcap, so its times are of the same attention
+without the cap: the forward, and forward + backward less the forward; at Ll
+the window is its boolean mask. Each kernel is also held against its plain
+version, at T on the whole input and at Lg and Ll on kv head 0 and its two
+query heads (bf16: 2e-2, the log-sum-exp 1e-3, the backward 2e-2 of the
+gradients' scale, as chip_smoke.py holds them), and run twice bit for bit.
+
+Run on a card from the repository root (one JSON line a shape, also
+appended to ``build/hd256_routes.json``, or to ``--out``):
+
+    python scripts/hd256_routes.py [--shapes T Lg Ll T64 T128] [--src OTHER/src]
+
+``--src`` times another tree's package (a parent commit unpacked beside
+this one) with this script.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+#: name: (B, S, H, K, hd, causal, window, softcap, timed calls)
+SHAPES = {
+    "T": (4, 2048, 8, 4, 256, True, 0, 50.0, 10),
+    "Lg": (1, 32768, 8, 4, 256, True, 0, 50.0, 2),
+    "Ll": (1, 32768, 8, 4, 256, True, 4096, 50.0, 2),
+    "T64": (4, 2048, 14, 2, 64, True, 0, 0.0, 20),
+    "T128": (4, 2048, 32, 8, 128, True, 0, 0.0, 10),
+}
+DEFAULT_SHAPES = ("T", "Lg", "Ll")
+BF16_TOL = 2e-2
+LSE_TOL = 1e-3
+
+
+def _ms(fn, args_list, calls):
+    """Mean ms of fn over ``calls`` calls, rotating through ``args_list``,
+    after one warm-up call on each set; CUDA events around the run."""
+    for a in args_list:
+        fn(*a)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(*args_list[i % len(args_list)])
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def _err(name, got, want, tol, scale=None):
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = float((got - want).abs().max())
+    if scale is not None:  # the backward: within tol of the gradient's scale
+        bound = tol * max(1e-6, float(want.abs().max()))
+        if err > bound:
+            raise AssertionError(f"{name}: max abs err {err} beyond {bound}")
+    elif not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: max abs err {err} beyond atol / rtol {tol}")
+    return err
+
+
+def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_pairs):
+    B, S, H, K, hd, causal, window, cap, calls = SHAPES[tag]
+    G = H // K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_sets = 2 if S <= 4096 else 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    sets = []
+    for _ in range(n_sets):
+        q, k, v, g = rnd(B, S, H, hd), rnd(B, S, K, hd), rnd(B, S, K, hd), rnd(B, S, H, hd)
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window, softcap=cap)
+        sets.append((q, k, v, g, o, lse))
+    kw = dict(causal=causal, window=window, softcap=cap)
+
+    def fwd(q, k, v, *_):
+        return flash_attention_lse(q, k, v, **kw)
+
+    def bwd(q, k, v, g, o, lse):
+        return flash_attention_bwd(q, k, v, o, g, lse, **kw)
+
+    rec = {"shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) bfloat16 "
+                    f"{'causal' if causal else 'non-causal'}, window {window}, softcap {cap}"}
+    # against the plain versions, and twice bit for bit
+    q, k, v, g, o, lse = sets[0]
+    o2, lse2 = fwd(q, k, v)
+    dq, dk, dv = bwd(*sets[0])
+    again = bwd(*sets[0])
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))):
+        raise AssertionError(f"{tag}: two runs differ")
+    del o2, lse2, again
+    if S <= 4096:
+        heads, kv = slice(0, H), slice(0, K)
+    else:  # kv head 0 and its G query heads
+        heads, kv = slice(0, G), slice(0, 1)
+    part = (q[:, :, heads].contiguous(), k[:, :, kv].contiguous(), v[:, :, kv].contiguous())
+    want_o, want_lse = ref.flash_attention_lse_ref(*part, **kw)
+    rec["fwd_max_abs_err"] = _err(f"{tag} fwd", o[:, :, heads], want_o, BF16_TOL)
+    rec["lse_max_abs_err"] = _err(f"{tag} lse", lse[:, heads], want_lse, LSE_TOL)
+    want = ref.flash_attention_bwd_ref(*part, o[:, :, heads].contiguous(),
+                                       g[:, :, heads].contiguous(),
+                                       lse[:, heads].contiguous(), **kw)
+    rec["bwd_max_abs_err"] = max(
+        _err(f"{tag} d{n}", got, w, BF16_TOL, scale=True)
+        for n, got, w in zip("qkv", (dq[:, :, heads], dk[:, :, kv], dv[:, :, kv]), want))
+    rec["checked_on"] = "the whole input" if S <= 4096 else f"kv head 0, query heads 0..{G - 1}"
+    del want_o, want_lse, want, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    rec["fwd_ms"] = _ms(fwd, sets, calls)
+    rec["bwd_ms"] = _ms(bwd, sets, calls)
+    # the plain versions: the whole input at T, one query head at Lg and Ll
+    if S <= 4096:
+        plain_sets = [s for s in sets]
+        rec["plain_is"] = "the whole input"
+    else:
+        plain_sets = [tuple(t[:, :, :1].contiguous() for t in (q, k, v, g, o))
+                      + (lse[:, :1].contiguous(),)]
+        rec["plain_is"] = "one query head against its kv head (x H for the whole input)"
+    rec["plain_fwd_ms"] = _ms(lambda q, k, v, *_: ref.flash_attention_lse_ref(q, k, v, **kw),
+                              plain_sets, 1)
+    rec["plain_bwd_ms"] = _ms(lambda q, k, v, g, o, lse: ref.flash_attention_bwd_ref(
+        q, k, v, o, g, lse, **kw), plain_sets, 1)
+    del plain_sets
+    torch.cuda.empty_cache()
+
+    # SDPA, without the softcap (no PyTorch call caps the scores)
+    mask = None
+    if window:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    lib = [tuple(t.transpose(1, 2).contiguous().requires_grad_() for t in s[:3])
+           + (s[3].transpose(1, 2).contiguous(),) for s in sets]
+
+    def sdpa(q, k, v, *_):
+        if mask is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    def sdpa_fwd_bwd(q, k, v, g):
+        return torch.autograd.grad(sdpa(q, k, v), (q, k, v), g)
+
+    try:
+        with torch.no_grad():
+            rec["sdpa_fwd_ms"] = _ms(sdpa, lib, calls)
+        rec["sdpa_bwd_ms"] = _ms(sdpa_fwd_bwd, lib, calls) - rec["sdpa_fwd_ms"]
+        rec["sdpa_is"] = (("SDPA without the softcap" if cap else "SDPA")
+                          + (", the window as a boolean mask" if window else "")
+                          + "; the backward is forward + backward less the forward")
+    except RuntimeError as e:  # no SDPA backend takes the shape
+        rec["sdpa_fwd_ms"] = rec.get("sdpa_fwd_ms")
+        rec["sdpa_bwd_ms"] = None
+        rec["sdpa_error"] = str(e).splitlines()[0][:200]
+    del lib, mask
+
+    pairs = attention_pairs(S, S, causal, window)
+    flops = 4.0 * B * H * pairs * hd  # Q K^T and P V over the kept pairs
+    qo, kvb, lse_b = 2.0 * B * S * H * hd, 2.0 * B * S * K * hd, 4.0 * B * H * S
+    fs, fby = hw.kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=False, hw=hw.H100)
+    bs, bby = hw.kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=False, hw=hw.H100)
+    rec.update(kept_pairs=pairs, fwd_flops=flops, fwd_bound_ms=fs * 1e3, fwd_bound_by=fby,
+               bwd_bound_ms=bs * 1e3, bwd_bound_by=bby,
+               fwd_tflop_per_s=flops / rec["fwd_ms"] / 1e9,
+               bwd_tflop_per_s=2.5 * flops / rec["bwd_ms"] / 1e9)
+    del sets
+    torch.cuda.empty_cache()
+    return rec
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shapes", nargs="+", default=list(DEFAULT_SHAPES), choices=list(SHAPES))
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch package is timed")
+    ap.add_argument("--out", default=str(ROOT / "build" / "hd256_routes.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("hd256_routes: no CUDA device; this script runs only on the GPU")
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    from repro_torch.kernels.trace import attention_pairs
+    from repro_torch.perf import hw
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print(card, flush=True)
+    recs = []
+    for tag in args.shapes:
+        rec = {"name": tag, "src": args.src, "card": card,
+               **run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw,
+                           attention_pairs)}
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "a") as f:
+        for rec in recs:
+            f.write(json.dumps(rec) + "\n")
+
+
+if __name__ == "__main__":
+    main()

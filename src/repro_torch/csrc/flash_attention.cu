@@ -61,9 +61,10 @@
 //    by alpha = 0 later).
 // No atomics, every sum in a fixed order: two runs give the same bits.
 //
-// Hopper variant (flash_wg_kernel): bf16 at hd 64 and 128, the training
+// Hopper variant (flash_wg_kernel): bf16 at hd 64, 128 and 256, the training
 // forward with its log-sum-exp and bf16 prefill (qwen2-0.5b, the 32k cells,
-// mixtral, internlm2, granite and internvl2 at hd 128). What bounds it:
+// mixtral, internlm2, granite and internvl2 at hd 128, gemma2-2b at hd 256).
+// What bounds it:
 // operations (qwen2-0.5b's training shape q (4,2048,14,64) k/v
 // (4,2048,2,64): 30.1 GFLOP causal, 0.0304 ms at 989 TFLOP/s, against 34 MB
 // moved, 0.010 ms at 3.35 TB/s). The design before it (mma.sync with ldmatrix,
@@ -73,11 +74,14 @@
 // the softmax. This one follows FlashAttention-3 (arXiv 2407.08608):
 //  - A block is 384 threads: warpgroup 0 produces, warpgroups 1 and 2
 //    consume, each with 64 folded rows (128 a block). One producer thread
-//    issues TMA loads of K and V tiles of 128 keys into a ring of 3 stages;
-//    each stage has a "full" mbarrier, completed by the producer's expect_tx
-//    and the boxes' bytes, and an "empty" one, at which the 8 consumer warps
-//    arrive when done with it. setmaxnreg moves registers from the producer
-//    (24) to the consumers (240).
+//    issues TMA loads of K and V tiles of 128 keys (64 at hd 256) into a K
+//    ring and a V ring of 3 stages (2 at hd 256); each stage of each ring
+//    has a "full" mbarrier, completed by the producer's expect_tx and the
+//    boxes' bytes, and an "empty" one, at which the 8 consumer warps arrive
+//    when done with it. K of a tile is released as soon as S = Q K^T is
+//    done, V a tile later, after its O += P V: so the next K load starts a
+//    whole tile before it is needed even with 2 stages. setmaxnreg moves
+//    registers from the producer (24) to the consumers (240).
 //  - S = Q K^T is wgmma.m64n128k16, Q (K-major A) and K (K-major B) both
 //    from shared memory; O += P V is wgmma.m64n64k16 with P as a register A
 //    fragment (the S accumulator packed to bf16: two of its n-blocks of 8
@@ -86,10 +90,10 @@
 //    K/V tile of the ring.
 //  - Within a warpgroup, tile t's S and tile t - 1's P V are issued
 //    together; the softmax of tile t waits for S only and runs while P V is
-//    on the tensor cores (FA3's intra-warpgroup overlap), so a tile stays
-//    in the ring until the next tile's turn: with 2 stages the next load
-//    would find no free stage and every tile would wait for its load. The
-//    softmax writes its exponentials into the S registers,
+//    on the tensor cores (FA3's intra-warpgroup overlap), so a V tile
+//    stays in its ring until the next tile's turn (hence the separate K
+//    ring, whose tile is free once S is done). The softmax writes its
+//    exponentials into the S registers,
 //    and P is packed to bf16 only once the last P V is done with the P
 //    registers: a P written while a product still read the last one made
 //    ptxas serialise every product (its warning C7513).
@@ -133,11 +137,24 @@
 //  - Registers at hd 128: S 64, O 64 and P 32 a thread fit the consumers'
 //    240 (ptxas reports the launch's even share, 168, with no spills;
 //    chip_smoke.py prints it).
+//  - hd 256 (gemma2-2b): what bounds it is operations, as at hd 64. Its
+//    training shape q (4,2048,8,256) k/v (4,2048,4,256) causal does 6.9e10
+//    FLOP, 0.0695 ms at 989 TFLOP/s, against 0.030 ms of bytes; a global
+//    layer of prefill_32k, q (1,32768,8,256), 4.45 ms against 0.04 ms. The
+//    tiles of hd 128 do not fit: Q of two consumers takes 64 KiB, and 3
+//    stages of 128-key K and V tiles 384 KiB more, of a block's 227. So the
+//    tiles hold 64 keys and the rings 2 stages: 1 KiB of alignment + 64 KiB
+//    of Q + 2 x 2 x 32 KiB of K and V = 193 KiB (WgTiling<256>::kSmem);
+//    the separate K and V rings keep a K load in flight a tile ahead with
+//    2 stages. Q is read from shared memory as four 64-column boxes a row.
+//    Registers a consumer thread: O 128 (64 rows x 256 columns over 128
+//    threads), S 32 (64 keys), P 16 as the bf16 A operand, under the
+//    consumers' 240 (ptxas's report, chip_smoke.py phase 2).
 //
 // CUDA-core variant: what neither tensor-core variant takes, float32 at hd
-// 256 (gemma2-2b; its split fragments and accumulators would not fit the
-// registers of a 16-row warp tile) and bfloat16 at hd 8, 16, 32 (the reduced
-// configs) and 256. Each row is owned by hd/8 threads holding 8 of its dims
+// 256 (gemma2-2b served; its split fragments and accumulators would not fit
+// the registers of a 16-row warp tile) and bfloat16 at hd 8, 16, 32 (the
+// reduced configs). Each row is owned by hd/8 threads holding 8 of its dims
 // each (dims lane + TPR*i); a row's dot product is a shuffle reduction over
 // them; K/V tiles are staged as float32 in static shared memory (32 KB at
 // every hd: 64 keys at hd <= 64, 32 at hd 128, 16 at hd 256).
@@ -273,22 +290,25 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- Hopper variant (bf16, hd 64 and 128): TMA, an mbarrier ring, wgmma ----
+// ---- Hopper variant (bf16, hd 64, 128, 256): TMA, mbarrier rings, wgmma -----
 
 template <int HD>
 struct WgTiling {
   static constexpr int kNC = 2;         // consumer warpgroups
   static constexpr int kThreads = 128 * (1 + kNC);  // warpgroup 0 loads, 1 and 2 compute
   static constexpr int kBM = 64 * kNC;  // folded query rows a block, 64 a consumer
-  static constexpr int kBN = 128;       // keys a K/V tile
+  // keys a K/V tile and stages of the K and V rings: 128 and 3 at hd 64 and
+  // 128, 64 and 2 at hd 256, where Q and the rings must fit a block's 227
+  // KiB (in integer arithmetic: HD / 256 is 1 at hd 256, else 0)
+  static constexpr int kBN = 128 - HD / 256 * 64;
   static constexpr int kNA = HD / 64;   // 64-column sub-tiles (TMA boxes) of a row
-  static constexpr int kStages = 3;     // K/V ring stages
+  static constexpr int kStages = 3 - HD / 256;
   static constexpr int kBox = kBN * 128;         // bytes of a box: 64 columns of kBN keys
   static constexpr int kQTile = kNA * kSubTile;  // bytes of a consumer's 64 Q rows
   static constexpr int kKVTile = kNA * kBox;     // bytes of a K (or V) tile
   // 1024 bytes for the alignment; Q of the consumers; the K and V rings;
-  // a full and an empty mbarrier a stage
-  static constexpr int kSmem = 1024 + kNC * kQTile + 2 * kStages * kKVTile + 2 * kStages * 8;
+  // a full and an empty mbarrier a stage of each ring
+  static constexpr int kSmem = 1024 + kNC * kQTile + 2 * kStages * kKVTile + 4 * kStages * 8;
   static constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg
 };
 
@@ -304,8 +324,11 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   unsigned char* qsw = align1024(smem_raw);     // [NC] Q tiles [64][HD]
   unsigned char* ksw = qsw + NC * W::kQTile;    // [ST] K tiles [BN][HD]
   unsigned char* vsw = ksw + ST * W::kKVTile;   // [ST] V tiles [BN][HD]
-  uint64_t* full = reinterpret_cast<uint64_t*>(vsw + ST * W::kKVTile);  // [ST]
-  uint64_t* empty = full + ST;                                          // [ST]
+  // a full and an empty barrier a stage of the K ring, then of the V ring
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(vsw + ST * W::kKVTile);  // [ST]
+  uint64_t* empty_k = full_k + ST;                                          // [ST]
+  uint64_t* full_v = empty_k + ST;                                          // [ST]
+  uint64_t* empty_v = full_v + ST;                                          // [ST]
 
   // block i: row tile nx - 1 - i / (K * B) of (b, kv head) i % (K * B), so
   // that the longest causal row tiles of every (b, kv head) come first
@@ -323,8 +346,10 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], 1);  // the producer's arrival and the tile's bytes
-      mbar_init(&empty[s], 4 * NC);  // one arrival from each consumer warp
+      mbar_init(&full_k[s], 1);  // the producer's arrival and the tile's bytes
+      mbar_init(&empty_k[s], 4 * NC);  // one arrival from each consumer warp
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], 4 * NC);
     }
     mbar_fence_init();
   }
@@ -334,14 +359,19 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W::kProducerRegs));
     if (tid == 0) {
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % ST, k0 = k_begin + t * BN;
-        mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(&full[s], 2 * W::kKVTile);  // whole boxes, zeros past Sk too
+        const int s = t % ST, k0 = k_begin + t * BN, parity = ((t / ST) & 1) ^ 1;
+        // the first round passes at once; expect_tx counts whole boxes,
+        // zeros past Sk too
+        mbar_wait(&empty_k[s], parity);
+        mbar_expect_tx(&full_k[s], W::kKVTile);
 #pragma unroll
-        for (int a = 0; a < NA; ++a) {
-          tma_load_4d(ksw + s * W::kKVTile + a * W::kBox, &tk, &full[s], a * 64, kvh, k0, b);
-          tma_load_4d(vsw + s * W::kKVTile + a * W::kBox, &tv, &full[s], a * 64, kvh, k0, b);
-        }
+        for (int a = 0; a < NA; ++a)
+          tma_load_4d(ksw + s * W::kKVTile + a * W::kBox, &tk, &full_k[s], a * 64, kvh, k0, b);
+        mbar_wait(&empty_v[s], parity);
+        mbar_expect_tx(&full_v[s], W::kKVTile);
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+          tma_load_4d(vsw + s * W::kKVTile + a * W::kBox, &tv, &full_v[s], a * 64, kvh, k0, b);
       }
     }
     return;
@@ -400,11 +430,23 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + NC + (cw + 1) % NC) : "memory");
   };
   if (cw == NC - 1) turn_end();  // the last consumer lets the first go first
+  // the K and V rings' stages of tile t: wait for one to be full, or
+  // release it (one arrival a warp)
+  auto wait_k = [&](int t) { mbar_wait(&full_k[t % ST], (t / ST) & 1); };
+  auto wait_v = [&](int t) { mbar_wait(&full_v[t % ST], (t / ST) & 1); };
+  auto free_k = [&](int t) {
+    if (lane == 0) mbar_arrive(&empty_k[t % ST]);
+  };
+  auto free_v = [&](int t) {
+    if (lane == 0) mbar_arrive(&empty_v[t % ST]);
+  };
   auto pass = [&](int t) {  // wait for tile t and release it unread
-    mbar_wait(&full[t % ST], (t / ST) & 1);
+    wait_k(t);
+    wait_v(t);
     turn_begin();
     turn_end();
-    if (lane == 0) mbar_arrive(&empty[t % ST]);
+    free_k(t);
+    free_v(t);
   };
   auto k_tile = [&](int t) { return ksw + (t % ST) * W::kKVTile; };
   auto v_tile = [&](int t) { return vsw + (t % ST) * W::kKVTile; };
@@ -414,8 +456,13 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   auto issue_s = [&](int t) {
     const unsigned char* kt = k_tile(t);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wg_n128(sc, wg_desc_k(qt, kk), wg_desc(kt + (kk >> 2) * W::kBox) + 2 * (kk & 3), kk);
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint64_t db = wg_desc(kt + (kk >> 2) * W::kBox) + 2 * (kk & 3);
+      if constexpr (BN == 128)
+        wg_n128(sc, wg_desc_k(qt, kk), db, kk);
+      else
+        wg_n64(sc, wg_desc_k(qt, kk), db, kk);
+    }
     wg_commit();
   };
   // O += P V for tile t over its BN keys, 16 a step: P the register A, V
@@ -513,12 +560,14 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
 
   // within the warpgroup, tile t's S = Q K^T and tile t - 1's O += P V run
   // on the tensor cores while the softmax of tile t waits only for S (P is
-  // packed only once O += P V is done with the registers of the last P)
+  // packed only once O += P V is done with the registers of the last P).
+  // K of tile t is released once S is done, V of tile t - 1 once O += P V
+  // is: the K ring's next load starts a tile before its use
   for (int t = 0; t < t_lo; ++t) pass(t);
   if (t_lo < t_hi) {
     uint32_t pa[BN / 16][4];
     float alpha[2];
-    mbar_wait(&full[t_lo % ST], (t_lo / ST) & 1);
+    wait_k(t_lo);
     turn_begin();
     fence_regs(sc);
     wg_fence();
@@ -526,10 +575,12 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     turn_end();
     wg_wait0();
     fence_regs(sc);
+    free_k(t_lo);
     softmax(t_lo, alpha);  // O is still 0: no rescale
     to_p(pa);
     for (int t = t_lo + 1; t < t_hi; ++t) {
-      mbar_wait(&full[t % ST], (t / ST) & 1);
+      wait_k(t);
+      wait_v(t - 1);
       turn_begin();
       fence_regs(sc);
 #pragma unroll
@@ -540,11 +591,12 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
       turn_end();
       wg_wait<1>();  // S of tile t
       fence_regs(sc);
+      free_k(t);
       softmax(t, alpha);
       wg_wait0();  // O += P V of tile t - 1
 #pragma unroll
       for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
-      if (lane == 0) mbar_arrive(&empty[(t - 1) % ST]);
+      free_v(t - 1);
 #pragma unroll
       for (int a = 0; a < NA; ++a)
 #pragma unroll
@@ -556,6 +608,7 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
         }
       to_p(pa);
     }
+    wait_v(t_hi - 1);
     turn_begin();
 #pragma unroll
     for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
@@ -565,7 +618,7 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     wg_wait0();
 #pragma unroll
     for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
-    if (lane == 0) mbar_arrive(&empty[(t_hi - 1) % ST]);
+    free_v(t_hi - 1);
   } else {
     turn_begin();
     turn_end();
@@ -981,7 +1034,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   // the tensor-core variants copy 16-byte chunks
-  const bool tc = (dtype == 0 && hd <= 128) || (dtype == 1 && (hd == 64 || hd == 128));
+  const bool tc = (dtype == 0 && hd <= 128) || (dtype == 1 && hd >= 64);
   if (tc && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15)) return (int)cudaErrorInvalidValue;
 #define FLASH_ARGS q, k, v, o, l, B, Sq, Sk, H, K, causal, window, softcap, scale, s
   cudaError_t err = cudaErrorInvalidValue;
@@ -1001,7 +1054,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
       case 32: err = launch<bf16, 32>(FLASH_ARGS); break;
       case 64: err = launch_wg<64>(FLASH_ARGS); break;
       case 128: err = launch_wg<128>(FLASH_ARGS); break;
-      case 256: err = launch<bf16, 256>(FLASH_ARGS); break;
+      case 256: err = launch_wg<256>(FLASH_ARGS); break;
     }
   }
 #undef FLASH_ARGS

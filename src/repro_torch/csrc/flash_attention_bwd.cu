@@ -26,7 +26,7 @@
 // 2.5x the forward's). Exact resume of a crashed training run relies on
 // gradients that repeat bit for bit.
 //
-// Tensor-core variant (bfloat16 at hd 64 and 128; the training path): P and
+// Tensor-core variant (bfloat16 at hd 64, 128 and 256; the training path): P and
 // dS are rounded to bf16 as product operands, dK, dV and dQ accumulate in
 // float32, and a double-buffered cp.async ring streams the tiles a block
 // walks (Q/dO rows with their lse and D in pass 1, K/V in pass 2).
@@ -61,8 +61,35 @@
 //   branches, the division of a folded row by G as a multiply-high; at hd
 //   64 both passes are capped at 168 registers (3 blocks an SM; at hd 128,
 //   2). D is a pre-pass of 16-byte loads.
-// CUDA-core variant (float32 at every head dim, bfloat16 at hd 8, 16, 32 and
-// 256): hd/8 threads own a key (pass 1) or a query row (pass 2), 8 dims each,
+// - hd 256 (gemma2-2b, softcap 50 and a 4096-key window on its local
+//   layers): what bounds it is operations, 0.174 ms at 989 TFLOP/s at its
+//   training shape q (4,2048,8,256) k/v (4,2048,4,256) causal against
+//   0.06 ms of bytes, 11.1 ms at a global layer of prefill_32k's length.
+//   One warpgroup cannot hold the accumulators: dK and dV of 64 keys x 256
+//   columns are 256 float32 registers a thread (the limit is 255), dQ of
+//   64 rows 128. So a block is two warpgroups, each owning half of the
+//   columns of dK and dV (pass 1) or dQ (pass 2): 64 + 64 (or 64)
+//   accumulator registers a thread. S and dP, which both need, are not
+//   computed twice over the whole head dim (1.5x pass 1's products, 1.67x
+//   pass 2's): warpgroup 0 computes S (S^T), warpgroup 1 dP (dP^T), each
+//   over all 256 columns. Nor is the elementwise work (the softcap's tanh,
+//   2^x, the masks) done twice: warpgroup w forms P and dS of its half of
+//   the n-blocks (the A operands' k-steps), from its own product and the
+//   half of the other's it needs, and the two then swap the bf16 P and dS
+//   they formed; each exchange goes through shared memory in the
+//   accumulators' own layout (thread i of one warpgroup holds what thread i
+//   of the other needs), behind a __syncthreads. Each warpgroup then takes
+//   its columns' dV, dK (or dQ) products. Every product and every
+//   exponential is done once. The exchanges take 16 KiB in pass 1 and 24
+//   KiB in pass 2, each buffer rewritten only after a barrier that follows
+//   the other warpgroup's read; with the Q, dO, K and V tiles of 32 KiB
+//   each, 215,040 and 222,208 bytes of the 232,448 a block may use, so one
+//   block (8 warps) an SM. FA3's alternative, transposed products with P
+//   and dS staged through shared memory in bf16, would not fit beside
+//   these tiles. The schedule's target is two waves of 132 SMs at the
+//   route's blocks an SM (kernels/flash_attention_bwd.py::target_blocks).
+// CUDA-core variant (float32 at every head dim, bfloat16 at hd 8, 16, 32):
+// hd/8 threads own a key (pass 1) or a query row (pass 2), 8 dims each,
 // with shuffle reductions for the dot products, as the forward's CUDA-core
 // variant; one block a key tile in pass 1.
 #include <cuda_bf16.h>
@@ -290,9 +317,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-// ---- tensor-core variant (bf16, hd 64 and 128): Hopper's warpgroup products --
+// ---- tensor-core variant (bf16, hd 64, 128, 256): warpgroup products -------
 //
-// A block is one warpgroup (4 warps) issuing wgmma. Every tile a block
+// A block is one warpgroup (4 warps; two at hd 256) issuing wgmma. Every tile a block
 // streams lives in shared memory as HD/64 sub-tiles of 64 rows x 128 bytes
 // (64 bf16 columns each) in the 128-byte swizzle: 16-byte chunk c of row r
 // sits at chunk c ^ (r % 8) of its row, each sub-tile 1024-byte aligned. One
@@ -356,20 +383,33 @@ struct WgTiling {
   static constexpr int kBK = 64;                  // pass 2: keys a ring stage and a product
   static constexpr int kTile = kNA * kSubTile;    // bytes of a 64-row tile
   static constexpr bool kRegA = HD == 64;         // A operands in registers (else shared)
-  static constexpr int kBlocks = HD == 64 ? 3 : 2;  // blocks an SM (the register cap)
-  // pass 1: Q and dO rings (2 tiles each), K, V, lse and D; pass 2: K and V
-  // rings, Q and dO; 1024 bytes for the alignment
-  static constexpr int kSmem1 = 1024 + 6 * kTile + 4 * kBM * 4;
-  static constexpr int kSmem2 = 1024 + 6 * kTile;
+  // warpgroups a block: 1, and 2 at hd 256 (HD / 256 is 1 there, else 0),
+  // each owning half of the columns of dK and dV (pass 1) or dQ (pass 2)
+  static constexpr int kNW = 1 + HD / 256;
+  static constexpr int kThreads = 128 * kNW;
+  static constexpr int kBlocks = 3 - HD / 128;    // blocks an SM: 3, 2, 1 at hd 64, 128, 256
+  // the exchange between the two warpgroups at hd 256, each warpgroup's
+  // half: of S and dP in float32, then of the bf16 P and dS it formed
+  // (pass 1: 64 keys x kBH rows; pass 2: kBQ rows x kBK keys, dS only)
+  static constexpr int kXch1 = (kNW - 1) * 2 * (64 * kBH / 2) * (4 + 2 * 2);
+  static constexpr int kXch2 = (kNW - 1) * 2 * (kBQ * kBK / 2) * (4 + 2);
+  // pass 1: Q and dO rings (2 tiles each), K, V, lse and D, the exchange;
+  // pass 2: K and V rings, Q and dO, the exchange; 1024 bytes for the
+  // alignment
+  static constexpr int kSmem1 = 1024 + 6 * kTile + 4 * kBM * 4 + kXch1;
+  static constexpr int kSmem2 = 1024 + 6 * kTile + kXch2;
 };
 
 // pass 1: dK, dV of kKeys keys of one (b, kv head) over one segment of
 // their row walk. items[blockIdx.x / (K * B)] = {key tile, first folded row,
 // end row, slot}; slot -1: the tile's only segment, which writes dk and dv;
 // else the segment writes its float32 partial sums to part[slot][b * K +
-// kvh] ([dK | dV], kKeys x HD each, unscaled) for dkdv_merge_kernel.
+// kvh] ([dK | dV], kKeys x HD each, unscaled) for dkdv_merge_kernel. With
+// two warpgroups (hd 256) warpgroup w owns columns [w HD / 2, (w + 1) HD / 2)
+// of dK and dV; warpgroup 0 computes S^T, warpgroup 1 dP^T, each over the
+// whole head dim, and each reads the other's from shared memory.
 template <int HD>
-__global__ void __launch_bounds__(128, WgTiling<HD>::kBlocks)
+__global__ void __launch_bounds__(WgTiling<HD>::kThreads, WgTiling<HD>::kBlocks)
 dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dO,
                const float* __restrict__ lse, const float* __restrict__ delta,
@@ -378,7 +418,8 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                int causal, int window, float cap, float scale, unsigned long long gm) {
   using W = WgTiling<HD>;
   constexpr int BN = kKeys, BM = W::kBM, BH = W::kBH, NA = W::kNA, TILE = W::kTile;
-  constexpr int NT = 128, NH = BH / 8, CH = HD / 8, NKK = HD / 16;
+  constexpr int NW = W::kNW, NT = W::kThreads, NH = BH / 8, CH = HD / 8, NKK = HD / 16;
+  constexpr int NAW = NA / NW;  // 64-column sub-tiles of dK and dV a warpgroup owns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* qsw = align1024(smem_raw);  // [2] Q tiles [BM][HD]
   unsigned char* dosw = qsw + 2 * TILE;      // [2] dO tiles [BM][HD]
@@ -386,12 +427,15 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* vsw = ksw + TILE;           // V tile [BN][HD]
   float* ls = reinterpret_cast<float*>(vsw + TILE);  // [2][BM]
   float* dl = ls + 2 * BM;                           // [2][BM]
+  float* xch = dl + 2 * BM;  // NW 2: the warpgroups' exchange (kXch1 bytes)
 
   const int G = H / K, kb = blockIdx.x % (K * B);
   const int kvh = kb % K, b = kb / K;
   const int4 it = items[blockIdx.x / (K * B)];
   const int k0 = it.x * BN, r_lo = it.y, r_hi = it.z, slot = it.w;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warpgroup (0 at one a block, where the compiler then knows it)
+  const int tid = threadIdx.x, wg = NW == 1 ? 0 : tid / 128, wtid = tid % 128,
+            warp = (NW == 1 ? tid : wtid) >> 5, lane = tid & 31;
   const int k_last = min(Sk, k0 + BN) - 1;
   const float scale_log2 = scale * kLog2e, inv_cap = cap > 0.f ? 1.f / cap : 0.f;
 
@@ -432,9 +476,10 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // this thread's keys: warp*16 + lane/4 (acc[.][.][0..1]) and + 8 (acc[.][.][2..3])
   const int key_a = k0 + warp * 16 + (lane >> 2);
-  float dka[NA][8][4], dva[NA][8][4];  // columns a*64 + n*8 + 2*(lane%4) (+1)
+  // this warpgroup's columns of dK and dV: (wg * NAW + a) * 64 + n*8 + 2*(lane%4) (+1)
+  float dka[NAW][8][4], dva[NAW][8][4];
 #pragma unroll
-  for (int a = 0; a < NA; ++a)
+  for (int a = 0; a < NAW; ++a)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -460,51 +505,30 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float* lt = ls + buf * BM + h * BH;
       const float* dt = dl + buf * BM + h * BH;
 
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x BH rows
-      float st[NH][4], dp[NH][4];
-      fence_regs(st);
-      fence_regs(dp);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < NKK; ++kk) {
-        if constexpr (W::kRegA)
-          wg_n32(st, kf[kk], wg_desc_k(qt, kk), kk);
-        else
-          wg_n32(st, wg_desc_k(ksw, kk), wg_desc_k(qt, kk), kk);
-      }
-#pragma unroll
-      for (int kk = 0; kk < NKK; ++kk) {
-        if constexpr (W::kRegA)
-          wg_n32(dp, vf[kk], wg_desc_k(dot, kk), kk);
-        else
-          wg_n32(dp, wg_desc_k(vsw, kk), wg_desc_k(dot, kk), kk);
-      }
-      wg_commit();
-      wg_wait0();
-      fence_regs(st);
-      fence_regs(dp);
-
       const int q_lo = div_g(rh, gm), q_hi = div_g(rh + BH - 1, gm);
       const bool edge = (causal && q_lo < k_last) || (window > 0 && q_hi - k0 >= window) ||
                         k0 + BN > Sk || rh + BH > r_hi;
-      // P^T and dS^T = P^T * (dP^T - D) (* the softcap factor), in bf16 as
-      // the A operands of dV += P^T dO and dK += dS^T Q; one copy of the loop
-      // for each of (softcap, masked tile), chosen by block-uniform branches
-      uint32_t pa[NH / 2][4], da[NH / 2][4];
-      auto p_ds = [&](auto capped, auto masked) {
+      // P^T and dS^T = P^T * (dP^T - D) (* the softcap factor) of the
+      // n-blocks n0 .. n0 + N - 1 (rows n*8 ..) from their S^T and dP^T (sa,
+      // dpa: N blocks), in bf16 as the A operands of dV += P^T dO and dK +=
+      // dS^T Q (pout, dout: N / 2 k-steps); one copy of the loop for each of
+      // (softcap, masked tile), chosen by block-uniform branches
+      auto p_ds = [&](auto capped, auto masked, int n0, const auto& sa, const auto& dpa,
+                      auto& pout, auto& dout) {
+        constexpr int N = std::extent<std::remove_reference_t<decltype(sa)>>::value;
 #pragma unroll
-        for (int n = 0; n < NH; ++n) {
+        for (int j = 0; j < N; ++j) {
           float p[4], d[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int col = n * 8 + ((lane & 3) << 1) + (e & 1);
+            const int col = (n0 + j) * 8 + ((lane & 3) << 1) + (e & 1);
             float x, f = 1.f;  // the score (capped) times log2(e); the softcap factor
             if constexpr (decltype(capped)::value) {
-              const float t = tanhf(st[n][e] * scale * inv_cap);
+              const float t = tanhf(sa[j][e] * scale * inv_cap);
               x = cap * t * kLog2e;
               f = 1.f - t * t;
             } else {
-              x = st[n][e] * scale_log2;
+              x = sa[j][e] * scale_log2;
             }
             p[e] = fast_exp2(x - lt[col] * kLog2e);
             if constexpr (decltype(masked)::value) {
@@ -513,25 +537,111 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   (rr < r_hi) & (key < Sk) & visible(div_g(rr, gm), key, causal, window);
               p[e] = ok ? p[e] : 0.f;
             }
-            d[e] = p[e] * f * (dp[n][e] - dt[col]);
+            d[e] = p[e] * f * (dpa[j][e] - dt[col]);
           }
-          pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
-          pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-          da[n >> 1][(n & 1) * 2] = pack_bf16(d[0], d[1]);
-          da[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
+          pout[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+          pout[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+          dout[j >> 1][(j & 1) * 2] = pack_bf16(d[0], d[1]);
+          dout[j >> 1][(j & 1) * 2 + 1] = pack_bf16(d[2], d[3]);
         }
       };
       using T_ = std::true_type;
       using F_ = std::false_type;
-      if (cap > 0.f) {
-        if (edge) p_ds(T_{}, T_{}); else p_ds(T_{}, F_{});
+      auto p_ds_any = [&](int n0, const auto& sa, const auto& dpa, auto& pout, auto& dout) {
+        if (cap > 0.f) {
+          if (edge) p_ds(T_{}, T_{}, n0, sa, dpa, pout, dout);
+          else p_ds(T_{}, F_{}, n0, sa, dpa, pout, dout);
+        } else {
+          if (edge) p_ds(F_{}, T_{}, n0, sa, dpa, pout, dout);
+          else p_ds(F_{}, F_{}, n0, sa, dpa, pout, dout);
+        }
+      };
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x BH rows, then P^T and dS^T
+      uint32_t pa[NH / 2][4], da[NH / 2][4];
+      if constexpr (NW == 1) {
+        float st[NH][4], dp[NH][4];
+        fence_regs(st);
+        fence_regs(dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < NKK; ++kk) {
+          if constexpr (W::kRegA)
+            wg_n32(st, kf[kk], wg_desc_k(qt, kk), kk);
+          else
+            wg_n32(st, wg_desc_k(ksw, kk), wg_desc_k(qt, kk), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < NKK; ++kk) {
+          if constexpr (W::kRegA)
+            wg_n32(dp, vf[kk], wg_desc_k(dot, kk), kk);
+          else
+            wg_n32(dp, wg_desc_k(vsw, kk), wg_desc_k(dot, kk), kk);
+        }
+        wg_commit();
+        wg_wait0();
+        fence_regs(st);
+        fence_regs(dp);
+        p_ds_any(0, st, dp, pa, da);
       } else {
-        if (edge) p_ds(F_{}, T_{}); else p_ds(F_{}, F_{});
+        // warpgroup 0 S^T, warpgroup 1 dP^T; warpgroup w then forms P^T and
+        // dS^T of n-blocks 2w and 2w + 1 (k-step w of the A operands), so
+        // each needs the other's product on those blocks only. Both
+        // exchanges go through shared memory in the accumulators' layout
+        // (the same (key, row) at the same thread of either warpgroup), each
+        // behind a barrier; the next write of a buffer comes after the other
+        // warpgroup's read of it (a barrier lies between)
+        static_assert(NH == 4, "two n-blocks a warpgroup");
+        float mine[NH][4];
+        const unsigned char* a_t = wg == 0 ? ksw : vsw;
+        const unsigned char* b_t = wg == 0 ? qt : dot;
+        fence_regs(mine);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < NKK; ++kk) wg_n32(mine, wg_desc_k(a_t, kk), wg_desc_k(b_t, kk), kk);
+        wg_commit();
+        wg_wait0();
+        fence_regs(mine);
+        float* x1 = xch;                                           // [2 wg][8][128]
+        uint32_t* x2 = reinterpret_cast<uint32_t*>(xch + 2 * 8 * 128);  // [2 wg][8][128]
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // the other's n-blocks: 2, 3 (to wg 1) or 0, 1
+            x1[wg * 1024 + (j * 4 + e) * 128 + wtid] = wg == 0 ? mine[2 + j][e] : mine[j][e];
+        __syncthreads();
+        float sl[2][4], dpl[2][4];  // this warpgroup's n-blocks 2 wg, 2 wg + 1
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float other = x1[(1 - wg) * 1024 + (j * 4 + e) * 128 + wtid];
+            sl[j][e] = wg == 0 ? mine[j][e] : other;
+            dpl[j][e] = wg == 0 ? other : mine[2 + j][e];
+          }
+        uint32_t op[1][4], od[1][4];  // k-step wg of the A operands
+        p_ds_any(2 * wg, sl, dpl, op, od);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x2[wg * 1024 + i * 128 + wtid] = op[0][i];
+          x2[wg * 1024 + (4 + i) * 128 + wtid] = od[0][i];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t xp = x2[(1 - wg) * 1024 + i * 128 + wtid];
+          const uint32_t xd = x2[(1 - wg) * 1024 + (4 + i) * 128 + wtid];
+          pa[0][i] = wg == 0 ? op[0][i] : xp;
+          pa[1][i] = wg == 0 ? xp : op[0][i];
+          da[0][i] = wg == 0 ? od[0][i] : xd;
+          da[1][i] = wg == 0 ? xd : od[0][i];
+        }
       }
 
-      // dV += P^T dO and dK += dS^T Q over the BH rows, 16 a step
+      // dV += P^T dO and dK += dS^T Q over the BH rows, 16 a step, on this
+      // warpgroup's columns
 #pragma unroll
-      for (int a = 0; a < NA; ++a) {
+      for (int a = 0; a < NAW; ++a) {
         fence_regs(dva[a]);
         fence_regs(dka[a]);
       }
@@ -539,14 +649,15 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < NH / 2; ++kk)
 #pragma unroll
-        for (int a = 0; a < NA; ++a) {
-          wg_n64<1>(dva[a], pa[kk], wg_desc(dot + a * kSubTile + kk * 16 * 128), 1);
-          wg_n64<1>(dka[a], da[kk], wg_desc(qt + a * kSubTile + kk * 16 * 128), 1);
+        for (int a = 0; a < NAW; ++a) {
+          const int sub = (wg * NAW + a) * kSubTile + kk * 16 * 128;
+          wg_n64<1>(dva[a], pa[kk], wg_desc(dot + sub), 1);
+          wg_n64<1>(dka[a], da[kk], wg_desc(qt + sub), 1);
         }
       wg_commit();
       wg_wait0();
 #pragma unroll
-      for (int a = 0; a < NA; ++a) {
+      for (int a = 0; a < NAW; ++a) {
         fence_regs(dva[a]);
         fence_regs(dka[a]);
       }
@@ -561,10 +672,10 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (key >= Sk) continue;
       const size_t off = (((size_t)b * Sk + key) * K + kvh) * HD + ((lane & 3) << 1);
 #pragma unroll
-      for (int a = 0; a < NA; ++a)
+      for (int a = 0; a < NAW; ++a)
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
-          const int col = a * 64 + n * 8;
+          const int col = (wg * NAW + a) * 64 + n * 8;
           *reinterpret_cast<uint32_t*>(dk + off + col) =
               pack_bf16(dka[a][n][2 * i] * scale, dka[a][n][2 * i + 1] * scale);
           *reinterpret_cast<uint32_t*>(dv + off + col) =
@@ -578,10 +689,10 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int off = (warp * 16 + (lane >> 2) + 8 * i) * HD + ((lane & 3) << 1);
 #pragma unroll
-    for (int a = 0; a < NA; ++a)
+    for (int a = 0; a < NAW; ++a)
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const int col = a * 64 + n * 8;
+        const int col = (wg * NAW + a) * 64 + n * 8;
         *reinterpret_cast<float2*>(pk + off + col) =
             make_float2(dka[a][n][2 * i], dka[a][n][2 * i + 1]);
         *reinterpret_cast<float2*>(pk + BN * HD + off + col) =
@@ -622,9 +733,12 @@ dkdv_merge_kernel(const float* __restrict__ part, const int4* __restrict__ tiles
   }
 }
 
-// pass 2: dQ for kBQ folded query rows of one (b, kv head)
+// pass 2: dQ for kBQ folded query rows of one (b, kv head). With two
+// warpgroups (hd 256) warpgroup w owns columns [w HD / 2, (w + 1) HD / 2) of
+// dQ; warpgroup 0 computes S, warpgroup 1 dP, and each reads the other's
+// from shared memory.
 template <int HD>
-__global__ void __launch_bounds__(128, WgTiling<HD>::kBlocks)
+__global__ void __launch_bounds__(WgTiling<HD>::kThreads, WgTiling<HD>::kBlocks)
 dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -632,17 +746,21 @@ dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              float cap, float scale) {
   using W = WgTiling<HD>;
   constexpr int BQ = W::kBQ, BK = W::kBK, NA = W::kNA, TILE = W::kTile;
-  constexpr int NT = 128, NN = BK / 8, CH = HD / 8, NKK = HD / 16;
+  constexpr int NW = W::kNW, NT = W::kThreads, NN = BK / 8, CH = HD / 8, NKK = HD / 16;
+  constexpr int NAW = NA / NW;  // 64-column sub-tiles of dQ a warpgroup owns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ksw = align1024(smem_raw);  // [2] K tiles [BK][HD]
   unsigned char* vsw = ksw + 2 * TILE;       // [2] V tiles [BK][HD]
   unsigned char* qsw = vsw + 2 * TILE;       // Q tile [BQ][HD]
   unsigned char* dosw = qsw + TILE;          // dO tile [BQ][HD]
+  float* xch = reinterpret_cast<float*>(dosw + TILE);  // NW 2: the exchange (kXch2 bytes)
 
   const int G = H / K;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows first
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warpgroup (0 at one a block, where the compiler then knows it)
+  const int tid = threadIdx.x, wg = NW == 1 ? 0 : tid / 128, wtid = tid % 128,
+            warp = (NW == 1 ? tid : wtid) >> 5, lane = tid & 31;
   const int q_first = r0 / G;
   const int q_last = min(Sq - 1, (r0 + BQ - 1) / G);
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
@@ -683,9 +801,10 @@ dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lr2[i] = ok ? lse[li] * kLog2e : 0.f;
     dr[i] = ok ? delta[li] : 0.f;
   }
-  float dqa[NA][8][4];  // columns a*64 + n*8 + 2*(lane%4) (+1)
+  // this warpgroup's columns of dQ: (wg * NAW + a) * 64 + n*8 + 2*(lane%4) (+1)
+  float dqa[NAW][8][4];
 #pragma unroll
-  for (int a = 0; a < NA; ++a)
+  for (int a = 0; a < NAW; ++a)
 #pragma unroll
     for (int n = 0; n < 8; ++n) dqa[a][n][0] = dqa[a][n][1] = dqa[a][n][2] = dqa[a][n][3] = 0.f;
   uint32_t qf[NKK][4], df[NKK][4];  // hd 64: this warp's 16 rows of Q and dO, as A fragments
@@ -710,39 +829,18 @@ dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const unsigned char* kt = ksw + buf * TILE;
     const unsigned char* vt = vsw + buf * TILE;
 
-    // S = Q K^T and dP = dO V^T: 64 rows x BK keys
-    float s[NN][4], dp[NN][4];
-    fence_regs(s);
-    fence_regs(dp);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < NKK; ++kk) {
-      if constexpr (W::kRegA)
-        wg_n64<0>(s, qf[kk], wg_desc_k(kt, kk), kk);
-      else
-        wg_n64(s, wg_desc_k(qsw, kk), wg_desc_k(kt, kk), kk);
-    }
-#pragma unroll
-    for (int kk = 0; kk < NKK; ++kk) {
-      if constexpr (W::kRegA)
-        wg_n64<0>(dp, df[kk], wg_desc_k(vt, kk), kk);
-      else
-        wg_n64(dp, wg_desc_k(dosw, kk), wg_desc_k(vt, kk), kk);
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(s);
-    fence_regs(dp);
-
     const bool edge = (causal && kb + BK - 1 > q_first) ||
                       (window > 0 && q_last - kb >= window) || kb + BK > Sk;
-    // dS = P * (dP - D) (* the softcap factor) in bf16, the A operand of
-    // dQ += dS K; one copy of the loop for each of (softcap, masked tile),
-    // chosen by block-uniform branches
-    uint32_t da[BK / 16][4];
-    auto ds_k = [&](auto capped, auto masked) {
+    // dS = P * (dP - D) (* the softcap factor) of the n-blocks n0 .. n0 +
+    // N - 1 (keys n*8 ..) from their S and dP (sa, dpa: N blocks), in bf16:
+    // the A fragments of N / 2 k-steps of dQ += dS K (aout); one copy of
+    // the loop for each of (softcap, masked tile), chosen by block-uniform
+    // branches
+    auto ds_k = [&](auto capped, auto masked, int n0, const auto& sa, const auto& dpa,
+                    auto& aout) {
+      constexpr int N = std::extent<std::remove_reference_t<decltype(sa)>>::value;
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
+      for (int kk = 0; kk < N / 2; ++kk) {
         float ds[2][4];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
@@ -751,45 +849,124 @@ dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const int n = 2 * kk + hh, i = e >> 1;
             float x, f = 1.f;  // the score (capped) times log2(e); the softcap factor
             if constexpr (decltype(capped)::value) {
-              const float t = tanhf(s[n][e] * scale * inv_cap);
+              const float t = tanhf(sa[n][e] * scale * inv_cap);
               x = cap * t * kLog2e;
               f = 1.f - t * t;
             } else {
-              x = s[n][e] * scale_log2;
+              x = sa[n][e] * scale_log2;
             }
             float p = fast_exp2(x - lr2[i]);
             if constexpr (decltype(masked)::value) {
-              const int key = kb + n * 8 + ((lane & 3) << 1) + (e & 1);
+              const int key = kb + (n0 + n) * 8 + ((lane & 3) << 1) + (e & 1);
               p = (key < Sk) & visible(qr[i], key, causal, window) ? p : 0.f;
             }
-            ds[hh][e] = p * f * (dp[n][e] - dr[i]);
+            ds[hh][e] = p * f * (dpa[n][e] - dr[i]);
           }
-        da[kk][0] = pack_bf16(ds[0][0], ds[0][1]);
-        da[kk][1] = pack_bf16(ds[0][2], ds[0][3]);
-        da[kk][2] = pack_bf16(ds[1][0], ds[1][1]);
-        da[kk][3] = pack_bf16(ds[1][2], ds[1][3]);
+        aout[kk][0] = pack_bf16(ds[0][0], ds[0][1]);
+        aout[kk][1] = pack_bf16(ds[0][2], ds[0][3]);
+        aout[kk][2] = pack_bf16(ds[1][0], ds[1][1]);
+        aout[kk][3] = pack_bf16(ds[1][2], ds[1][3]);
       }
     };
     using T_ = std::true_type;
     using F_ = std::false_type;
-    if (cap > 0.f) {
-      if (edge) ds_k(T_{}, T_{}); else ds_k(T_{}, F_{});
-    } else {
-      if (edge) ds_k(F_{}, T_{}); else ds_k(F_{}, F_{});
-    }
-    // dQ += dS K over the BK keys, 16 a step
+    auto ds_any = [&](int n0, const auto& sa, const auto& dpa, auto& aout) {
+      if (cap > 0.f) {
+        if (edge) ds_k(T_{}, T_{}, n0, sa, dpa, aout); else ds_k(T_{}, F_{}, n0, sa, dpa, aout);
+      } else {
+        if (edge) ds_k(F_{}, T_{}, n0, sa, dpa, aout); else ds_k(F_{}, F_{}, n0, sa, dpa, aout);
+      }
+    };
+
+    // S = Q K^T and dP = dO V^T: 64 rows x BK keys, then dS
+    uint32_t da[BK / 16][4];
+    if constexpr (NW == 1) {
+      float s[NN][4], dp[NN][4];
+      fence_regs(s);
+      fence_regs(dp);
+      wg_fence();
 #pragma unroll
-    for (int a = 0; a < NA; ++a) fence_regs(dqa[a]);
+      for (int kk = 0; kk < NKK; ++kk) {
+        if constexpr (W::kRegA)
+          wg_n64<0>(s, qf[kk], wg_desc_k(kt, kk), kk);
+        else
+          wg_n64(s, wg_desc_k(qsw, kk), wg_desc_k(kt, kk), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < NKK; ++kk) {
+        if constexpr (W::kRegA)
+          wg_n64<0>(dp, df[kk], wg_desc_k(vt, kk), kk);
+        else
+          wg_n64(dp, wg_desc_k(dosw, kk), wg_desc_k(vt, kk), kk);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      fence_regs(dp);
+      ds_any(0, s, dp, da);
+    } else {
+      // warpgroup 0 S, warpgroup 1 dP; warpgroup w then forms dS of
+      // n-blocks 4w .. 4w + 3 (k-steps 2w and 2w + 1 of the A operand), so
+      // each needs the other's product on those blocks only; both exchanges
+      // as in the dK/dV pass, the tile's last barrier before the next write
+      static_assert(NN == 8, "four n-blocks a warpgroup");
+      float mine[NN][4];
+      const unsigned char* a_t = wg == 0 ? qsw : dosw;
+      const unsigned char* b_t = wg == 0 ? kt : vt;
+      fence_regs(mine);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < NKK; ++kk) wg_n64(mine, wg_desc_k(a_t, kk), wg_desc_k(b_t, kk), kk);
+      wg_commit();
+      wg_wait0();
+      fence_regs(mine);
+      float* x1 = xch;                                            // [2 wg][16][128]
+      uint32_t* x2 = reinterpret_cast<uint32_t*>(xch + 2 * 16 * 128);  // [2 wg][8][128]
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // the other's n-blocks: 4..7 (to wg 1) or 0..3
+          x1[wg * 2048 + (j * 4 + e) * 128 + wtid] = wg == 0 ? mine[4 + j][e] : mine[j][e];
+      __syncthreads();
+      float sl[4][4], dpl[4][4];  // this warpgroup's n-blocks 4 wg .. 4 wg + 3
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float other = x1[(1 - wg) * 2048 + (j * 4 + e) * 128 + wtid];
+          sl[j][e] = wg == 0 ? mine[j][e] : other;
+          dpl[j][e] = wg == 0 ? other : mine[4 + j][e];
+        }
+      uint32_t own[2][4];  // k-steps 2 wg, 2 wg + 1 of the A operand
+      ds_any(4 * wg, sl, dpl, own);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x2[wg * 1024 + (j * 4 + i) * 128 + wtid] = own[j][i];
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t other = x2[(1 - wg) * 1024 + (j * 4 + i) * 128 + wtid];
+          da[j][i] = wg == 0 ? own[j][i] : other;
+          da[2 + j][i] = wg == 0 ? other : own[j][i];
+        }
+    }
+    // dQ += dS K over the BK keys, 16 a step, on this warpgroup's columns
+#pragma unroll
+    for (int a = 0; a < NAW; ++a) fence_regs(dqa[a]);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int a = 0; a < NA; ++a)
-        wg_n64<1>(dqa[a], da[kk], wg_desc(kt + a * kSubTile + kk * 16 * 128), 1);
+      for (int a = 0; a < NAW; ++a)
+        wg_n64<1>(dqa[a], da[kk],
+                  wg_desc(kt + (wg * NAW + a) * kSubTile + kk * 16 * 128), 1);
     wg_commit();
     wg_wait0();
 #pragma unroll
-    for (int a = 0; a < NA; ++a) fence_regs(dqa[a]);
+    for (int a = 0; a < NAW; ++a) fence_regs(dqa[a]);
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
@@ -800,10 +977,10 @@ dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* row = dq + (((size_t)b * Sq + qr[i]) * H + (size_t)kvh * G + r % G) * HD +
                 ((lane & 3) << 1);
 #pragma unroll
-    for (int a = 0; a < NA; ++a)
+    for (int a = 0; a < NAW; ++a)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
-        *reinterpret_cast<uint32_t*>(row + a * 64 + n * 8) =
+        *reinterpret_cast<uint32_t*>(row + (wg * NAW + a) * 64 + n * 8) =
             pack_bf16(dqa[a][n][2 * i] * scale, dqa[a][n][2 * i + 1] * scale);
   }
 }
@@ -880,35 +1057,40 @@ cudaError_t launch_tc(const Args& a) {
   bf16 *dk = static_cast<bf16*>(a.dk), *dv = static_cast<bf16*>(a.dv);
   delta_tc_kernel<HD><<<(unsigned)nd, kThreads, 0, a.s>>>(static_cast<const bf16*>(a.o), dO,
                                                           a.delta, a.Sq, a.H, rows);
-  dkdv_wg_kernel<HD><<<(unsigned)n1, 128, W::kSmem1, a.s>>>(
+  dkdv_wg_kernel<HD><<<(unsigned)n1, W::kThreads, W::kSmem1, a.s>>>(
       q, k, v, dO, a.lse, a.delta, dk, dv, a.part, a.sched, a.Sq, a.Sk, a.H, a.K, a.B,
       a.causal, a.window, a.cap, a.scale, gm);
   dkdv_merge_kernel<HD><<<(unsigned)nm, 256, 0, a.s>>>(a.part, a.sched + a.n_items, dk, dv,
                                                        a.Sk, a.K, a.B, a.scale);
-  dq_wg_kernel<HD><<<dim3((unsigned)nq, a.K, a.B), 128, W::kSmem2, a.s>>>(
+  dq_wg_kernel<HD><<<dim3((unsigned)nq, a.K, a.B), W::kThreads, W::kSmem2, a.s>>>(
       q, k, v, dO, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.H, a.K, a.causal,
       a.window, a.cap, a.scale);
   return cudaSuccess;
 }
 
+// the CUDA-core route: float32 at every head dim, bfloat16 at hd 8, 16, 32
 template <typename T>
 cudaError_t dispatch(int hd, const Args& a) {
   switch (hd) {
     case 8: return launch<T, 8>(a);
     case 16: return launch<T, 16>(a);
     case 32: return launch<T, 32>(a);
-    case 64: return launch<T, 64>(a);
-    case 128: return launch<T, 128>(a);
-    case 256: return launch<T, 256>(a);
-    default: return cudaErrorInvalidValue;
   }
+  if constexpr (std::is_same<T, float>::value) {
+    switch (hd) {
+      case 64: return launch<T, 64>(a);
+      case 128: return launch<T, 128>(a);
+      case 256: return launch<T, 256>(a);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/o/dO/dq (B,Sq,H,hd), k/v/dk/dv
 // (B,Sk,K,hd), lse and delta (scratch for D) (B,H,Sq) float32, all
-// contiguous. The tensor-core route (bfloat16, hd 64 and 128) also takes the
+// contiguous. The tensor-core route (bfloat16, hd 64, 128 and 256) also takes the
 // dK/dV pass's schedule, n_items segment rows then n_tiles key-tile rows of 4
 // int32 each (kernels/flash_attention_bwd.py::dkdv_schedule), and the float32
 // workspace of its partials (slots x B x K x 2 x 64 x hd); the CUDA-core
@@ -929,7 +1111,8 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
                B, Sq, Sk, H, K, causal, window, softcap, scale,
                static_cast<cudaStream_t>(stream)};
   // the tensor-core variant copies 16-byte chunks
-  if (dtype == 1 && (hd == 64 || hd == 128) &&
+  const bool tc = dtype == 1 && (hd == 64 || hd == 128 || hd == 256);
+  if (tc &&
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dO |
         (uintptr_t)sched | (uintptr_t)work) & 15))
     return (int)cudaErrorInvalidValue;
@@ -940,6 +1123,8 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
     err = launch_tc<64>(a);
   else if (dtype == 1 && hd == 128)
     err = launch_tc<128>(a);
+  else if (dtype == 1 && hd == 256)
+    err = launch_tc<256>(a);
   else if (dtype == 1)
     err = dispatch<bf16>(hd, a);
   else

@@ -9,11 +9,12 @@ a tile past the frontier is skipped. Any Sq and Sk (the TPU kernel needs
 multiples of 128): seamless's cross-attention runs non-causal at Sq != Sk;
 hd in {8, 16, 32, 64, 128, 256}; float32 or bfloat16 in, out in q's type.
 float32 at hd <= 128 runs on the tensor cores in split-TF32 (its algorithm
-step by step: ``ref.flash_attention_split_ref``), bfloat16 at hd 64 and
-128 on Hopper's warpgroup products (``flash_wg_kernel``: TMA loads of K/V
-into an mbarrier ring from a producer warpgroup, two consumer warpgroups on
-wgmma; its shared memory, ring and TMA boxes are ``wg_plan``); the rest on the
-CUDA cores. The tensor-core routes copy 16 bytes at a time (TMA too needs
+step by step: ``ref.flash_attention_split_ref``), bfloat16 at hd 64, 128
+and 256 on Hopper's warpgroup products (``flash_wg_kernel``: TMA loads of
+K and V into mbarrier rings from a producer warpgroup, two consumer
+warpgroups on wgmma; its shared memory, rings and TMA boxes are
+``wg_plan``); the rest (float32 at hd 256, bfloat16 at hd 8, 16 and 32) on
+the CUDA cores. The tensor-core routes copy 16 bytes at a time (TMA too needs
 16-byte aligned tensors), so there q, k and v must start on a 16-byte
 boundary (a float32 view at an offset of a whole number of 4 floats, a
 bfloat16 one of 8); the wrapper raises ``ValueError`` if not
@@ -48,15 +49,16 @@ _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
 
 #: the bf16 route (``WgTiling`` in csrc/flash_attention.cu): head dims,
 #: threads a block (a producer warpgroup and two consumer warpgroups),
-#: folded query rows a block (64 a consumer), keys a K/V tile, ring stages,
-#: the columns of a TMA box (the 128-byte swizzle spans 64 bf16 columns)
-#: and the registers a thread that setmaxnreg gives the producer and the
-#: consumers
-WG_HEAD_DIMS = (64, 128)
+#: folded query rows a block (64 a consumer), keys a K/V tile and stages of
+#: the K and V rings by head dim (hd 256: 64 keys, 2 stages, so that Q and
+#: the rings fit a block's shared memory), the columns of a TMA box (the
+#: 128-byte swizzle spans 64 bf16 columns) and the registers a thread that
+#: setmaxnreg gives the producer and the consumers
+WG_HEAD_DIMS = (64, 128, 256)
 WG_THREADS = 384
 WG_ROWS = 128
-WG_KEYS = 128
-WG_STAGES = 3
+WG_KEYS = {64: 128, 128: 128, 256: 64}
+WG_STAGES = {64: 3, 128: 3, 256: 2}
 WG_BOX_COLS = 64
 WG_REGS = (24, 240)
 _INT_MAX = 2**31 - 1
@@ -65,29 +67,30 @@ _INT_MAX = 2**31 - 1
 def wg_plan(hd):
     """The bf16 route's plan at head dim ``hd``, as the kernel lays it out:
     ``threads``, ``rows`` (folded query rows a block), ``keys`` (a tile),
-    ``stages`` of the K/V ring, ``smem_bytes`` (1024 for aligning the ring
-    by hand, Q of both consumers, the K and V rings, a full and an empty
-    8-byte mbarrier a stage), the TMA ``box`` (columns, keys) of K or V,
-    ``boxes`` a tile (K and V, hd/64 each) and ``tx_bytes``, what a stage's
-    full barrier waits for (whole boxes, zero-filled keys past Sk too) and
-    the setmaxnreg ``regs`` of the producer and the consumers."""
+    ``stages`` of each of the K and V rings, ``smem_bytes`` (1024 for
+    aligning the rings by hand, Q of both consumers, the K and V rings, a
+    full and an empty 8-byte mbarrier a stage of each ring), the TMA
+    ``box`` (columns, keys) of K or V, ``boxes`` a tile (K and V, hd/64
+    each) and ``tx_bytes``, what the full barriers of a tile's K and V
+    stages wait for together (whole boxes, zero-filled keys past Sk too)
+    and the setmaxnreg ``regs`` of the producer and the consumers."""
     if hd not in WG_HEAD_DIMS:
         raise ValueError(f"flash_attention: the bf16 route takes head_dim {WG_HEAD_DIMS}, not {hd}")
     sub = hd // WG_BOX_COLS  # 64-column boxes a row
-    box_bytes = WG_BOX_COLS * WG_KEYS * 2
-    stages = WG_STAGES
+    keys, stages = WG_KEYS[hd], WG_STAGES[hd]
+    box_bytes = WG_BOX_COLS * keys * 2
     q_bytes = WG_ROWS * hd * 2
     kv_tile = sub * box_bytes
-    return {"threads": WG_THREADS, "rows": WG_ROWS, "keys": WG_KEYS, "stages": stages,
-            "smem_bytes": 1024 + q_bytes + 2 * stages * kv_tile + 2 * stages * 8,
-            "box": (WG_BOX_COLS, WG_KEYS), "boxes": 2 * sub, "tx_bytes": 2 * kv_tile,
+    return {"threads": WG_THREADS, "rows": WG_ROWS, "keys": keys, "stages": stages,
+            "smem_bytes": 1024 + q_bytes + 2 * stages * kv_tile + 4 * stages * 8,
+            "box": (WG_BOX_COLS, keys), "boxes": 2 * sub, "tx_bytes": 2 * kv_tile,
             "regs": WG_REGS}
 
 
 def check_route(q, k, v):
     """The checks that need no device: shapes, head dim, dtype, the
     tensor-core routes' 16-byte alignment (float32 at hd <= 128, bfloat16
-    at hd 64 and 128) and the index range of the bf16 route. Raises
+    at hd 64, 128 and 256) and the index range of the bf16 route. Raises
     ValueError or TypeError for what the kernels do not take."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]

@@ -10,8 +10,9 @@ fold as the forward, at any Sq and Sk with the forward's positions
 arange(Sq) and arange(Sk) (causal aligned at the top left: seamless's
 cross-attention trains non-causal at Sq != Sk); a key that no query sees
 (causal, past Sq - 1) gets dK = dV = 0. hd in {8, 16, 32, 64, 128, 256};
-float32 or bfloat16 (hd 64 and 128 in bfloat16 on the tensor cores, where
-q, k, v, o and do must lie on a 16-byte boundary).
+float32 or bfloat16 (hd 64, 128 and 256 in bfloat16 on the tensor cores,
+where q, k, v, o and do must lie on a 16-byte boundary: ``ValueError`` if
+not).
 
 On the tensor-core route (Hopper's warpgroup products, wgmma) the dK/dV
 pass is balanced over the causal rows:
@@ -43,20 +44,63 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 #: head dims of the tensor-core route (bfloat16)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128, 256)
 #: the tensor-core dK/dV pass's tiles (``kKeys`` and ``WgTiling::kBM`` in the
 #: source): keys a block, folded query rows a ring stage
 TC_KEYS = 64
 TC_ROWS = 64
-#: dK/dV blocks the schedule aims at: two waves of an H100's 132 SMs at 3
-#: blocks an SM (more segments balance better but add partial sums to merge)
-TARGET_BLOCKS = 2 * 132 * 3
+#: the tensor-core route's blocks an SM by head dim (``WgTiling::kBlocks``:
+#: registers at hd 64 and 128, shared memory at hd 256) and warpgroups a
+#: block (``WgTiling::kNW``: two at hd 256, each with half the columns)
+TC_BLOCKS_PER_SM = {64: 3, 128: 2, 256: 1}
+TC_WARPGROUPS = {64: 1, 128: 1, 256: 2}
+#: SMs of an H100, and the waves of them the dK/dV schedule aims at
+SMS = 132
+TARGET_WAVES = 2
 #: ring stages of the shortest segment (a key tile's last may be shorter)
 MIN_SEGMENT = 8
 _schedules: dict = {}
 
 
-def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks):
+def target_blocks(hd=64):
+    """dK/dV blocks the schedule aims at for the route at head dim ``hd``:
+    ``TARGET_WAVES`` waves of the card's SMs at the route's blocks an SM
+    (more segments balance better but add partial sums to merge)."""
+    return TARGET_WAVES * SMS * TC_BLOCKS_PER_SM[hd]
+
+
+def tc_plan(hd):
+    """The tensor-core route's launch at head dim ``hd``, as the source's
+    ``WgTiling`` lays it out: ``warpgroups`` and ``threads`` a block,
+    ``blocks_per_sm``, and the shared memory of the dK/dV pass
+    (``smem1``: the Q and dO rings of two 64-row tiles, the K and V tiles,
+    the rows' lse and D, and at two warpgroups their exchange: each one's
+    half of its 64 x 32 float32 product, S^T or dP^T, then of the bf16 P^T
+    and dS^T it formed) and of the dQ pass (``smem2``: the K and V rings,
+    the Q and dO tiles, the exchange of halves of the 64 x 64 S or dP and of
+    the bf16 dS), each with 1024 bytes for aligning the tiles by hand."""
+    if hd not in TC_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: the tensor-core route takes head_dim "
+                         f"{TC_HEAD_DIMS}, not {hd}")
+    tile = TC_ROWS * hd * 2  # a 64-row bf16 tile
+    nw = TC_WARPGROUPS[hd]
+    return {"warpgroups": nw, "threads": 128 * nw, "blocks_per_sm": TC_BLOCKS_PER_SM[hd],
+            "smem1": 1024 + 6 * tile + 4 * TC_ROWS * 4 + (nw - 1) * 2 * (64 * 32 // 2) * (4 + 4),
+            "smem2": 1024 + 6 * tile + (nw - 1) * 2 * (64 * 64 // 2) * (4 + 2)}
+
+
+def check_tc_route(q, k, v, o, do):
+    """The tensor-core route (bfloat16 at ``TC_HEAD_DIMS``) copies 16 bytes
+    at a time: raise ValueError unless q, k, v, o and do start on a 16-byte
+    boundary. Other routes take any."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS and any(
+            t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError(f"flash_attention_bwd: bfloat16 at head_dim {q.shape[-1]} runs on the "
+                         "tensor cores, which need q, k, v, o and do to start on a 16-byte "
+                         "boundary")
+
+
+def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks, hd=64):
     """The tensor-core dK/dV pass's work, cut into segments of about equal
     length. Key tile j (keys 64j..64j+63 of one KV head of one batch row)
     walks the folded query rows r = q * G + g from its causal frontier to
@@ -64,7 +108,7 @@ def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks):
     than ``seg`` stages is cut into the fewest segments of at most ``seg``
     stages, whose lengths differ by at most a stage, with ``seg`` chosen so
     that the ``kv_blocks`` (= B * K) copies of the schedule make about
-    ``TARGET_BLOCKS`` blocks.
+    ``target_blocks(hd)`` blocks.
 
     Returns ``(items, tiles, slots)``. ``items``: one (key tile, first row,
     end row, slot) per segment, longest first; slot -1 marks a tile's only
@@ -84,7 +128,7 @@ def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks):
         end = (min(Sq, k_last + window) if window > 0 else Sq) * G
         walks.append((begin, max(begin, end)))
     stages = sum(-(-(e - b) // BM) for b, e in walks)
-    seg = max(MIN_SEGMENT, -(-stages * kv_blocks // TARGET_BLOCKS))
+    seg = max(MIN_SEGMENT, -(-stages * kv_blocks // target_blocks(hd)))
     items, tiles, slots = [], [], 0
     for j, (b, e) in enumerate(walks):
         n_stages = -(-(e - b) // BM)
@@ -143,13 +187,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
     if lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse on {lse.device}, q on {q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    check_tc_route(q, k, v, o, do)
     if dq.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)  # rowsum(do * o)
     sched, n_items, n_tiles, work = None, 0, 0, None
     if q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:  # the tensor-core route
         sched, n_items, n_tiles, slots = cached_schedule(q.device, Sq, Sk, H // K, bool(causal),
-                                                         int(window or 0), B * K)
+                                                         int(window or 0), B * K, hd)
         work = torch.empty(workspace_numel(slots, B * K, hd), dtype=torch.float32,
                            device=q.device)
     fn = _build.load("flash_attention_bwd", _ARGTYPES)

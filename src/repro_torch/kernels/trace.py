@@ -64,7 +64,7 @@ class _FlashTrace(torch.autograd.Function):
     """``FlashAttentionDiff``'s shapes: the forward's output and its
     log-sum-exp (B,H,Sq) float32, saved with q, k, v; the backward's dq,
     dk, dv, its row sums (B,H,Sq) float32 and, on the tensor-core route
-    (bf16 at hd 64 and 128), the dK/dV pass's float32 workspace."""
+    (bf16 at hd 64, 128 and 256), the dK/dV pass's float32 workspace."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -85,7 +85,8 @@ class _FlashTrace(torch.autograd.Function):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = _empty((B, H, Sq), F32, q)  # noqa: F841  (rowsum(do * o), held by the call)
         if q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
-            _, _, slots = dkdv_schedule(Sq, Sk, H // K, bool(causal), int(window or 0), B * K)
+            _, _, slots = dkdv_schedule(Sq, Sk, H // K, bool(causal), int(window or 0), B * K,
+                                        hd)
             work = _empty((workspace_numel(slots, B * K, hd),), F32, q)  # noqa: F841
         add_kernel("flash_attention_bwd", *_flash_counts(q, k, causal, window, True))
         return dq, dk, dv, None, None

@@ -507,7 +507,7 @@ def test_flash_bwd_kernel_is_deterministic(dev, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 64), (torch.float32, 8),
-                                      (torch.bfloat16, 128)])
+                                      (torch.bfloat16, 128), (torch.bfloat16, 256)])
 def test_flash_refuses_inputs_off_a_16_byte_boundary(dev, dtype, hd):
     """The tensor-core routes copy 16 bytes at a time: a contiguous view one
     element into its buffer is refused with a ValueError that says so; the

@@ -21,20 +21,21 @@ CSRC = Path(flash_module.__file__).parents[1] / "csrc"
 def test_wg_plan_fits_shared_memory_and_boxes_of_64_columns(hd):
     plan = wg_plan(hd)
     assert plan["smem_bytes"] <= H100.vmem_bytes  # what one block may use
-    assert plan["box"] == (flash_module.WG_BOX_COLS, plan["keys"]) == (64, 128)
+    keys = 64 if hd == 256 else 128  # hd 256: Q and the rings must fit 227 KiB
+    assert plan["box"] == (flash_module.WG_BOX_COLS, plan["keys"]) == (64, keys)
     assert plan["boxes"] == 2 * hd // 64  # K and V, hd/64 boxes each
     assert plan["tx_bytes"] == plan["boxes"] * 64 * plan["keys"] * 2
     assert plan["threads"] == 3 * 128 and plan["rows"] == 2 * 64
     producer, consumer = plan["regs"]  # one warp of each warpgroup on each SM quarter
     assert 32 * (producer + 2 * consumer) <= 65536 // 4
-    # Q of both consumers, the K and V rings and the barriers, after 1024
-    # bytes of alignment slack
+    # Q of both consumers, the K and V rings and their barriers (a full and
+    # an empty one a stage of each ring), after 1024 bytes of alignment slack
     ring = 2 * plan["stages"] * (hd // 64) * 64 * plan["keys"] * 2
-    assert plan["smem_bytes"] == 1024 + plan["rows"] * hd * 2 + ring + 2 * plan["stages"] * 8
+    assert plan["smem_bytes"] == 1024 + plan["rows"] * hd * 2 + ring + 4 * plan["stages"] * 8
 
 
 def test_wg_plan_refuses_other_head_dims():
-    for hd in (8, 32, 256):
+    for hd in (8, 16, 32):
         with pytest.raises(ValueError):
             wg_plan(hd)
 
@@ -67,13 +68,17 @@ def test_wg_plan_sizes_are_the_sources(hd):
 
 
 def test_wg_tiling_constants_match_the_source():
-    """The plan's sizes are the kernel's (``WgTiling`` in the source)."""
-    w = _wg_tiling(64)
-    assert 128 * (1 + w["kNC"]) == flash_module.WG_THREADS
-    assert 64 * w["kNC"] == flash_module.WG_ROWS
-    assert w["kBN"] == flash_module.WG_KEYS
-    assert w["kStages"] == flash_module.WG_STAGES
-    assert (w["kProducerRegs"], w["kConsumerRegs"]) == flash_module.WG_REGS
+    """The plan's sizes are the kernel's (``WgTiling`` in the source), at
+    every head dim of the route."""
+    assert sorted(flash_module.WG_KEYS) == sorted(flash_module.WG_STAGES) == sorted(
+        flash_module.WG_HEAD_DIMS)
+    for hd in flash_module.WG_HEAD_DIMS:
+        w = _wg_tiling(hd)
+        assert 128 * (1 + w["kNC"]) == flash_module.WG_THREADS
+        assert 64 * w["kNC"] == flash_module.WG_ROWS
+        assert w["kBN"] == flash_module.WG_KEYS[hd]
+        assert w["kStages"] == flash_module.WG_STAGES[hd]
+        assert (w["kProducerRegs"], w["kConsumerRegs"]) == flash_module.WG_REGS
 
 
 def _shifted(dtype, shape):
@@ -84,11 +89,11 @@ def _shifted(dtype, shape):
 
 @pytest.mark.parametrize("dtype,hd,tensor_cores", [
     (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 32, False), (torch.bfloat16, 256, False),
+    (torch.bfloat16, 32, False), (torch.bfloat16, 256, True),
     (torch.float32, 64, True), (torch.float32, 8, True),
     (torch.float32, 256, False)])
 def test_check_route_holds_the_tensor_core_routes_to_16_bytes(dtype, hd, tensor_cores):
-    """bf16 at hd 64 and 128 (TMA and wgmma) and float32 at hd <= 128
+    """bf16 at hd 64, 128 and 256 (TMA and wgmma) and float32 at hd <= 128
     (split-TF32) copy 16 bytes at a time, so they need 16-byte aligned q, k,
     v; the CUDA-core route takes any."""
     q = torch.zeros((1, 8, 4, hd), dtype=dtype)

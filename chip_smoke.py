@@ -8,17 +8,23 @@ Phases, each of which raises on failure (there is no CPU fallback):
   2. build the four CUDA kernels from src/repro_torch/csrc with nvcc, one
      process each, all at once, and print ptxas's registers and spills of
      every kernel (the float32 flash route: flash_tf32_kernel<hd>; the bf16
-     one at hd 64, 128 and 256: flash_wg_kernel<hd>), and on a line of its
+     one at hd 64, 128 and 256: flash_wg_kernel<hd>), and on lines of their
      own those of the hd-256 route's three kernels (flash_wg_kernel<256>,
-     dkdv_wg_kernel<256>, dq_wg_kernel<256>);
+     dkdv_wg_kernel<256>, dq_wg_kernel<256>) and of the float32 tensor-core
+     kernels (flash_tf32_kernel<256>; dkdv_tf32_kernel and dq_tf32_kernel
+     at hd 64 and 128) with their spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      served shapes and the edge cases: attention at ragged lengths, GQA 7:1
      at hd 8, MQA, window, softcap, ring cache mid-wrap, nearly full and
      empty caches, gemma2-2b's hd 256 (flash at S 333, decode on a 640-slot
      ring cache, windows 4096 and 128, softcap 50), internlm2-1.8b's hd 128
      and a 2048-token prompt (flash), float32 at atol/rtol 1e-4 (float32
-     flash at hd <= 128 on the split-TF32 tensor cores) and bfloat16 at
-     2e-2; the flash forward's log-sum-exp (1e-4,
+     flash, forward at every head dim and backward at hd <= 128, on the
+     split-TF32 tensor cores) and bfloat16 at 2e-2; the float32 routes
+     also against their step-by-step split plain versions
+     (F32_SPLIT_CASES: gemma2-2b's served hd 256, the backward at phase 9
+     (b)'s shape with cut key tiles, GQA 7:1 at hd 8, windows, softcap 50,
+     Sq != Sk both ways); the flash forward's log-sum-exp (1e-4,
      bfloat16 1e-3) and the flash backward kernel against the FA2 plain
      version (the same tolerances times the gradients' scale); the SSD
      scan at the served chunk lengths 37/64/100/128 (one to three chunks),
@@ -40,6 +46,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
      from a seeded torch.Generator): prefill of a 333-token prompt and 16
      teacher-forced decode steps through the kernels and through the plain
      versions; logits within atol 2e-3 / rtol 1e-3, equal pos_ids/lengths;
+     (b) after phase 7, gemma2-2b at full width, depth 2 of 26, served in
+     float32 the same way (a 333-token prompt, 2 decode steps): its hd-256
+     flash on the split-TF32 route (flash_tf32_kernel<256>), a launch a
+     layer;
   5. ServeEngine on paper-default at full width, 4 slots, 8 requests of
      three service levels: every request finishes, admission respects the
      levels, and the launch counters show 16 flash launches per prefill and
@@ -60,6 +70,8 @@ Phases, each of which raises on failure (there is no CPU fallback):
      query heads over 2 KV heads, vocab 151,936, tied embeddings), the loss
      and every grad leaf of one float32 train step through the kernels
      against impl="plain", atol 2e-3 / rtol 1e-3, and one train_step each;
+     a flash forward and a float32 backward (split-TF32: dkdv_tf32_kernel,
+     dq_tf32_kernel) a layer;
  10. training, (c): train() of qwen2-0.5b at full width, 20 steps of batch
      4 x seq 2048 in bfloat16: every loss finite, the first within 5 % of
      ln 151,936, exactly 24 flash forward and 24 flash backward launches a
@@ -89,7 +101,13 @@ Phases, each of which raises on failure (there is no CPU fallback):
      plain versions (whole, or a head or a kv head's group at a time), twice
      bit for bit, beside their bounds, the plain versions' times and SDPA's
      (uncapped), and the float32 forward at gemma2's served q (1,333,8,256)
-     (the CUDA cores); the flash backward kernel (held against its
+     (split-TF32, beside the CUDA-core kernel's time it replaced); the
+     float32 backward (split-TF32) at phase 9 (b)'s, a rank of 18 (b)'s and
+     a rank of 19 (c)'s shapes and bf16 at hd 8 (the CUDA cores), each
+     beside its split-TF32 and CUDA-core bounds, the plain versions, SDPA's
+     forward and forward + backward less forward (profiler device time),
+     and the CUDA-core kernels' times the float32 routes replaced
+     (CUDA_CORE_MS); the flash backward kernel (held against its
      plain version at bfloat16's tolerance, and two runs bit for bit; each
      of its kernels' device µs a launch; the registers and spilled bytes of
      its tensor-core dK/dV and dQ kernels from the ptxas report, with the
@@ -318,8 +336,9 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the range past every row's last slot -inf. Every cut is printed as
      "reduced".
 Each phase prints its wall. The line before the last is the kernels'
-JSON (each kernel's phase 19 launches on rank 0 under "spmd"); the last
-line is {"ok": true, "device": {...}}.
+JSON (each kernel's phase 19 launches on rank 0 under "spmd", null for
+one whose path does not run on the mesh); the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -364,9 +383,10 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_lse,  # noqa: E402
                                                  wg_plan)
 from repro_torch.kernels.flash_attention_bwd import (cached_schedule, flash_attention_bwd,  # noqa: E402
-                                                     tc_plan, workspace_numel)
+                                                     tc_plan, tf32_bwd_plan, workspace_numel)
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,  # noqa: E402
-                                     flash_attention_lse_ref, flash_attention_ref,
+                                     flash_attention_bwd_split_ref, flash_attention_lse_ref,
+                                     flash_attention_ref, flash_attention_split_ref,
                                      ssd_scan_ref, ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, sdpa_kernel, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -489,6 +509,22 @@ FLASH_BWD_CASES = [
     (1, 500, 8, 4, 256, True, 100, 50.0),  # a window that cuts inside a key tile
     (1, 256, 8, 4, 256, False, 0, 50.0),  # non-causal
     (1, 2048, 8, 4, 256, True, 0, 50.0),  # cut key tiles: their partials merged
+]
+# the float32 tensor-core routes against their step-by-step split plain
+# versions (ref.flash_attention_split_ref, ref.flash_attention_bwd_split_ref):
+# gemma2-2b's served forward at hd 256 (global and a window that bites), and
+# the backward at phase 9 (b)'s shape (cut key tiles), GQA 7:1 at hd 8, a
+# window at hd 128, softcap 50 at hd 16, and Sq != Sk both ways; B, Sq, Sk,
+# H, K, hd, causal, window, softcap
+F32_SPLIT_CASES = [
+    (1, 333, 333, 8, 4, 256, True, 0, 50.0),
+    (1, 333, 333, 8, 4, 256, True, 128, 50.0),
+    (1, 512, 512, 14, 2, 64, True, 0, 0.0),
+    (2, 37, 37, 7, 1, 8, True, 0, 0.0),
+    (1, 777, 777, 8, 1, 128, True, 200, 0.0),
+    (1, 100, 100, 4, 2, 16, True, 8, 50.0),
+    (1, 100, 333, 4, 2, 64, True, 0, 0.0),
+    (1, 333, 129, 4, 2, 128, True, 0, 0.0),
 ]
 # decode cases: B, H, K, hd, Smax, window, softcap, fill
 # (fill = the new token's position; slots 0..fill hold positions 0..fill,
@@ -623,6 +659,23 @@ def tc_kernel_report(hd: int) -> dict:
     return out
 
 
+def tf32_kernel_report() -> dict:
+    """The float32 tensor-core kernels on the paths that were on the CUDA
+    cores: the forward at hd 256 (flash_tf32_kernel<256>, gemma2-2b served)
+    and the split-TF32 backward (dkdv_tf32_kernel, dq_tf32_kernel) at hd 64
+    and 128: ptxas's registers, stack and spill bytes a thread, and the
+    blocks an SM those registers allow (``tf32_bwd_plan``'s threads)."""
+    out = {"flash_tf32_kernel<256>": _kernel_regs("flash_attention", "flash_tf32_kernel", 256)}
+    for hd in (64, 128):
+        threads = tf32_bwd_plan(hd)["threads"]
+        for kernel in ("dkdv_tf32_kernel", "dq_tf32_kernel"):
+            rec = _kernel_regs("flash_attention_bwd", kernel, hd)
+            rec["blocks_per_sm_by_registers"] = 65536 // (threads * -(-rec["registers"] // 8) * 8)
+            rec["blocks_per_sm_planned"] = tf32_bwd_plan(hd)["blocks_per_sm"]
+            out[f"{kernel}<{hd}>"] = rec
+    return out
+
+
 def wg_kernel_report(hd: int) -> dict:
     """The bf16 flash forward (flash_wg_kernel<hd>, one block an SM): its
     ptxas registers, stack and spills, which ptxas counts at the launch's
@@ -750,6 +803,24 @@ def check_kernels(device) -> dict:
             if case[:6] == XATTN_TRAIN and dtype == torch.bfloat16:  # seamless's training cross
                 errs["flash_attention_bf16_fwd_cross"] = fwd_err
                 errs["flash_attention_bwd_cross"] = bwd_err
+        for case in F32_SPLIT_CASES if dtype == torch.float32 else ():
+            B, Sq, Sk, H, K, hd, causal, win, cap = case
+            name = f"flash f32 split {case}"
+            kw = dict(causal=causal, window=win, softcap=cap)
+            q, k, v = _qkv(gen, B, Sq, Sk, H, K, hd, dtype, device)
+            g = torch.randn((B, Sq, H, hd), generator=gen, device=device)
+            o, lse = _twice(name, lambda: flash_attention_lse(q, k, v, **kw))
+            want_o, want_lse = flash_attention_split_ref(q, k, v, **kw)
+            _close(name, o, want_o, tol)
+            _close(f"{name} lse", lse, want_lse, LSE_TOL[dtype])
+            plain_err = _close(f"{name} vs plain", o, flash_attention_ref(q, k, v, **kw), tol)
+            if case == F32_SPLIT_CASES[0]:  # gemma2-2b's served float32 forward
+                errs["flash_attention_f32_hd256"] = plain_err
+            if hd <= 128:  # the split-TF32 backward
+                got = _twice(f"{name} bwd", lambda: flash_attention_bwd(q, k, v, o, g, lse, **kw))
+                want = flash_attention_bwd_split_ref(q, k, v, o, g, lse, **kw)
+                for n, a, b in zip("qkv", got, want):
+                    _grad_err(f"{name} d{n}", a, b, tol)
         for case in DECODE_CASES:
             B, H, K, hd, Smax, win, cap, fill = case
             q, k, v = _qkv(gen, B, 1, Smax, H, K, hd, dtype, device)
@@ -1061,12 +1132,12 @@ def check_train_step(device, batch=1, seq=512) -> dict:
     data = TokenStream(cfg, batch, seq, seed=0, device=device).next()
     res = {}
     for impl, model in lm.items():
-        flash_attention.launches = 0
+        _zero_launches()
         res[impl] = training_step.loss_and_grads(model, state["params"], data, remat=None,
                                                  compute_dtype=torch.float32)
-        if impl == "cuda" and flash_attention.launches != cfg.num_layers:
-            raise AssertionError(f"train step: {flash_attention.launches} flash launches, "
-                                 f"expected {cfg.num_layers}")
+        if impl == "cuda":  # a float32 forward and backward a layer, on the tensor cores
+            launches = _launches()
+            _expect_launches("train step", launches, cfg.num_layers, cfg.num_layers)
     (lk, _, gk), (lp, _, gp) = res["cuda"], res["plain"]
     loss_err = _close("train step loss", lk, lp, MODEL_ATOL)
     grad_err = 0.0
@@ -1089,7 +1160,7 @@ def check_train_step(device, batch=1, seq=512) -> dict:
             raise AssertionError("train step: the new states differ")
     return {"batch": batch, "seq": seq, "loss": float(lk), "loss_err": loss_err,
             "grad_max_abs_err": grad_err, "grad_norm": float(mk["grad_norm"]),
-            "num_params": count_params(state["params"])}
+            "num_params": count_params(state["params"]), "launches": launches}
 
 
 def _model_flops(cfg, n_params, B, S) -> float:
@@ -1352,9 +1423,9 @@ def _time_flash(gen, device, case, n_sets, calls, Sk=None, causal=True, softcap=
     pairs = sum(min(i + 1, Sk) for i in range(S)) if causal else S * Sk
     flops = 4.0 * B * H * pairs * hd
     nbytes = 4.0 * (2 * B * S * H * hd + 2 * B * Sk * K * hd)  # q, o, k, v
-    # float32 at hd <= 128 runs as split-TF32 on the tensor cores: three tf32
-    # products each; the CUDA-core float32 bound is kept beside it
-    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, split_tf32=hd <= 128, hw=H100)
+    # float32 runs as split-TF32 on the tensor cores (every head dim): three
+    # tf32 products each; the CUDA-core float32 bound is kept beside it
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, split_tf32=True, hw=H100)
     cuda_core_bound_s, _ = kernel_bound(flops, nbytes, f32=True, hw=H100)
 
     def run(q, k, v):
@@ -1717,24 +1788,34 @@ HD256_SHAPES = {
     "Ll": (1, 32768, 8, 4, 256, 4096, 3, 3, 1),  # a local layer (window 4096)
 }
 HD256_CAP = 50.0
-#: gemma2-2b's served float32 prefill (the CUDA-core route): B, S, H, K, hd
+#: gemma2-2b's served float32 prefill (split-TF32, flash_tf32_kernel<256>):
+#: B, S, H, K, hd
 FLASH_F32_HD256 = (1, 333, 8, 4, 256)
-#: the other routes that stay on the CUDA cores, at the shapes their phases
-#: run: (name, dtype, B, S, H, K, hd): the float32 backward of phase 9 (b)
-#: (qwen2-0.5b, 1 x 512), of a rank of 18 (b) (1 x 1,024) and of a rank of
-#: 19 (c) (mixtral's 16 local heads over 4 at hd 128, 1 x 512); bf16 at hd
-#: 8 (the reduced qwen2-0.5b of phase 11, 4 x 32)
-CUDA_CORE_BWD = (("f32_bwd_phase9b", torch.float32, 1, 512, 14, 2, 64),
-                 ("f32_bwd_phase18b", torch.float32, 1, 1024, 14, 2, 64),
-                 ("f32_bwd_phase19c", torch.float32, 1, 512, 16, 4, 128),
-                 ("bf16_hd8_reduced", torch.bfloat16, 4, 32, 7, 1, 8))
+#: the backward's routes at the shapes their phases run: (name, dtype, B, S,
+#: H, K, hd): the float32 backward (split-TF32: dkdv_tf32_kernel,
+#: dq_tf32_kernel) of phase 9 (b) (qwen2-0.5b, 1 x 512), of a rank of 18 (b)
+#: (1 x 1,024) and of a rank of 19 (c) (mixtral's 16 local heads over 4 at
+#: hd 128, 1 x 512); bf16 at hd 8 (the reduced qwen2-0.5b of phase 11, 4 x
+#: 32), which stays on the CUDA cores
+BWD_ROUTE_SHAPES = (("f32_bwd_phase9b", torch.float32, 1, 512, 14, 2, 64),
+                    ("f32_bwd_phase18b", torch.float32, 1, 1024, 14, 2, 64),
+                    ("f32_bwd_phase19c", torch.float32, 1, 512, 16, 4, 128),
+                    ("bf16_hd8_reduced", torch.bfloat16, 4, 32, 7, 1, 8))
+#: device ms of the CUDA-core kernels the float32 routes replaced, at these
+#: shapes (flash_kernel<float, 256>; dkdv_kernel / dq_kernel<float, hd>),
+#: timed by scripts/hd256_routes.py (--shapes F256 B9 B18 B19) on the tree
+#: before the change, on an NVIDIA H100 80GB HBM3 at 700 W
+CUDA_CORE_MS = {"f32_served": 0.20455039978027345, "f32_bwd_phase9b": 1.3533915710449218,
+                "f32_bwd_phase18b": 2.8141522216796875, "f32_bwd_phase19c": 1.1795941162109376}
 
 
 def time_hd256(device) -> dict:
     """Phase 12, head dim 256: the bf16 forward with its log-sum-exp and the
     backward (flash_wg_kernel<256>, dkdv_wg_kernel<256>, dq_wg_kernel<256>)
-    at HD256_SHAPES, and the float32 forward (the CUDA-core flash_kernel)
-    at gemma2's served shape."""
+    at HD256_SHAPES, and the float32 forward (split-TF32,
+    flash_tf32_kernel<256>) at gemma2's served shape beside the CUDA-core
+    kernel's time it replaced; then the backward's routes at
+    BWD_ROUTE_SHAPES (``_time_bwd_route``)."""
     gen = torch.Generator(device=device).manual_seed(5)
     out = {}
     for tag, (B, S, H, K, hd, window, fcalls, bcalls, n_sets) in HD256_SHAPES.items():
@@ -1748,19 +1829,31 @@ def time_hd256(device) -> dict:
         torch.cuda.empty_cache()
     B, S, H, K, hd = FLASH_F32_HD256
     out["f32_served"] = _time_flash(gen, device, (B, S, H, K, hd), 16, 50, softcap=HD256_CAP)
-    for name, dt, B, S, H, K, hd in CUDA_CORE_BWD:
-        out[name] = _time_cuda_core(gen, device, dt, B, S, H, K, hd)
+    out["f32_served"]["cuda_core_ms"] = CUDA_CORE_MS["f32_served"]
+    for name, dt, B, S, H, K, hd in BWD_ROUTE_SHAPES:
+        out[name] = _time_bwd_route(gen, device, dt, B, S, H, K, hd)
+        if name in CUDA_CORE_MS:
+            out[name]["cuda_core_bwd_ms"] = CUDA_CORE_MS[name]
     return out
 
 
-def _time_cuda_core(gen, device, dtype, B, S, H, K, hd) -> dict:
-    """A backward that stays on the CUDA cores (dkdv_kernel, dq_kernel),
-    causal, and the forward beside it (float32 at hd <= 128 the split-TF32
-    flash_tf32_kernel, else flash_kernel): the forward with its log-sum-exp
-    and the backward
-    as device time (replayed CUDA graphs: these calls take tens of µs to a
-    few ms), beside their bounds (float32 at the CUDA cores' rate, bf16 at
-    the tensor cores'), the plain versions' times and SDPA's forward."""
+def _profiled_ms(fn, args_list, calls) -> float:
+    """ms of device time a call of fn, its kernels' (``_kernel_us``), for a
+    call that a CUDA graph does not capture, such as autograd's backward."""
+    return sum(us * n for us, n in _kernel_us(fn, args_list, calls).values()) / calls / 1e3
+
+
+def _time_bwd_route(gen, device, dtype, B, S, H, K, hd) -> dict:
+    """The backward at q (B,S,H,hd) k/v (B,S,K,hd), causal, on its route
+    (float32 at hd <= 128 split-TF32: dkdv_tf32_kernel, dq_tf32_kernel;
+    bf16 at hd 8 the CUDA cores: dkdv_kernel, dq_kernel), and the forward
+    beside it (float32: flash_tf32_kernel; bf16 at hd 8: flash_kernel):
+    the forward with its log-sum-exp and the backward as device time
+    (replayed CUDA graphs: these calls take tens of µs to a few ms), beside
+    their bounds (float32 as split-TF32, three tf32 products each, with the
+    CUDA cores' float32 bound beside it; bf16 at the tensor cores' rate),
+    the plain versions' times, SDPA's forward (a CUDA graph) and its
+    forward + backward less its forward (the profiler's device time)."""
     sets = []
     for _ in range(4):
         q, k, v = _qkv(gen, B, S, S, H, K, hd, dtype, device)
@@ -1779,27 +1872,48 @@ def _time_cuda_core(gen, device, dtype, B, S, H, K, hd) -> dict:
     flops = 4.0 * B * H * attention_pairs(S, S, True, 0) * hd
     e = 4 if f32 else 2
     qo, kvb, lse_b = e * B * S * H * hd, e * B * S * K * hd, 4.0 * B * H * S
-    # float32 at hd <= 128 runs its forward as split-TF32 (flash_tf32_kernel)
-    fb, fby = kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=f32,
-                           split_tf32=f32 and hd <= 128, hw=H100)
-    bb, bby = kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=f32, hw=H100)
+    # float32 runs as split-TF32 (the backward at hd <= 128, as these shapes)
+    fb, fby = kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=f32, split_tf32=f32, hw=H100)
+    bb, bby = kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=f32, split_tf32=f32,
+                           hw=H100)
     got = bwd(*sets[0])
     want = flash_attention_bwd_ref(*sets[0][:3], sets[0][4], sets[0][3], sets[0][5])
     tol = F32_TOL if f32 else BF16_TOL
-    err = max(_grad_err(f"cuda-core bwd {dtype} hd {hd} d{n}", a, b, tol)
+    err = max(_grad_err(f"bwd {dtype} hd {hd} d{n}", a, b, tol)
               for n, a, b in zip("qkv", got, want))
-    return {
+    lib_grad = [tuple(t.transpose(1, 2).contiguous().requires_grad_() for t in st[:3])
+                + (st[3].transpose(1, 2).contiguous(),) for st in sets]
+
+    def sdpa(q, k, v, *_):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    with torch.no_grad():
+        sdpa_fwd_dev = _profiled_ms(sdpa, lib_grad, 8)
+    sdpa_all = _profiled_ms(lambda q, k, v, g: torch.autograd.grad(sdpa(q, k, v), (q, k, v), g),
+                            lib_grad, 8)
+    rec = {
         "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) {str(dtype)[6:]} causal",
+        "route": "split-TF32 tensor cores" if f32 else "CUDA cores",
         "fwd_ms": _graph_ms(fwd, sets, 20), "bwd_ms": _graph_ms(bwd, sets, 20),
         "fwd_bound_ms": fb * 1e3, "fwd_bound_by": fby, "bwd_bound_ms": bb * 1e3,
         "bwd_bound_by": bby, "bwd_max_abs_err": err,
         "plain_fwd_ms": _time_ms(lambda q, k, v, *_: flash_attention_lse_ref(q, k, v), sets, 4),
         "plain_bwd_ms": _time_ms(lambda q, k, v, g, o, lse: flash_attention_bwd_ref(
             q, k, v, o, g, lse), sets, 4),
-        "library_fwd_ms": _graph_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), lib, 20),
+        "library_fwd_ms": _graph_ms(lambda q, k, v: sdpa(q, k, v), lib, 20),
+        "library_bwd_ms": sdpa_all - sdpa_fwd_dev, "library_fwd_bwd_ms": sdpa_all,
+        "library_is": "SDPA; its backward: forward + backward less forward, profiler device time",
         "kernels_us": _kernel_us(lambda *a: (fwd(*a), bwd(*a)), sets, calls=4),
     }
+    if f32:
+        rec["fwd_cuda_core_bound_ms"] = kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=True,
+                                                     hw=H100)[0] * 1e3
+        rec["bwd_cuda_core_bound_ms"] = kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b,
+                                                     f32=True, hw=H100)[0] * 1e3
+        rec["tf32_kernels"] = {k: v for k, v in tf32_kernel_report().items()
+                               if k.endswith(f"<{hd}>")}
+    del lib_grad
+    return rec
 
 
 def time_kernels(device, n_sets=16) -> dict:
@@ -2960,7 +3074,7 @@ def _expect_launches(name, counts, fwd, bwd):
 #: name marks of the attention kernels (csrc/flash_attention*.cu) in a profile
 ATTN_KERNEL_MARKS = ("flash_wg_kernel", "flash_kernel", "flash_tf32_kernel", "dkdv_wg_kernel",
                      "dq_wg_kernel", "dkdv_merge_kernel", "delta_tc_kernel", "dkdv_kernel",
-                     "dq_kernel", "delta_kernel")
+                     "dq_kernel", "delta_kernel", "dkdv_tf32_kernel", "dq_tf32_kernel")
 
 
 def _profiled_step(device, fn, state, data) -> tuple[dict, dict]:
@@ -5196,13 +5310,16 @@ def main() -> int:
     # the hd-256 route's three kernels (gemma2-2b, bf16): registers and spills
     hd256_regs = {"flash_wg_kernel<256>": wg_kernel_report(256), **tc_kernel_report(256)}
     print(f"[ptxas hd256] {json.dumps(hd256_regs)}", flush=True)
+    # the float32 tensor-core kernels that replaced the CUDA-core ones
+    print(f"[ptxas f32] {json.dumps(tf32_kernel_report())}", flush=True)
 
     t0 = time.perf_counter()
     errs = check_kernels(device)
     print(f"[kernels] {len(FLASH_CASES)} flash (output and log-sum-exp) + "
           f"{len(FLASH_BWD_CASES)} flash backward + {len(FLASH_BWD_XQ_CASES)} flash forward and "
           f"backward at Sq != Sk + {len(DECODE_CASES) + len(RING_CASES)} decode + "
-          f"{len(SSD_CASES)} ssd cases x (float32, bfloat16) agree with the plain versions; "
+          f"{len(SSD_CASES)} ssd cases x (float32, bfloat16) agree with the plain versions, "
+          f"{len(F32_SPLIT_CASES)} float32 cases with the split-TF32 plain versions; "
           f"max abs err at the served shapes (float32; the bf16_fwd entry bfloat16) "
           f"{json.dumps(errs)} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
@@ -5224,6 +5341,15 @@ def main() -> int:
               flush=True)
         del eng
         torch.cuda.empty_cache()
+
+    # gemma2-2b served in float32: its hd-256 flash on the split-TF32 route
+    t0 = time.perf_counter()
+    gemma_cfg = get_config(GEMMA).replace(num_layers=GEMMA_TRAIN_LAYERS)
+    gemma_served = check_model(device, arch=GEMMA, cfg=gemma_cfg, steps=2)
+    print(f"[model] {GEMMA} full width, depth {GEMMA_TRAIN_LAYERS} of "
+          f"{get_config(GEMMA).num_layers}, float32 prefill and 2 decode steps: "
+          f"{json.dumps(gemma_served)} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     diff_err = check_diff(device)
@@ -5264,6 +5390,11 @@ def main() -> int:
     print(f"[time hd256] {time.perf_counter() - t0:.1f}s", flush=True)
     timing["flash_attention_bf16_fwd_hd256"] = hd256["fwd_T"]
     timing["flash_attention_bwd_hd256"] = hd256["bwd_T"]
+    timing["flash_attention_f32_hd256"] = hd256["f32_served"]
+    b9 = hd256["f32_bwd_phase9b"]
+    timing["flash_attention_bwd_f32"] = {
+        "ms": b9["bwd_ms"], "plain_ms": b9["plain_bwd_ms"], "bound_ms": b9["bwd_bound_ms"],
+        "bound_by": b9["bwd_bound_by"], "library_ms": b9["library_bwd_ms"]}
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5358,7 +5489,22 @@ def main() -> int:
         "flash_attention_bwd_hd256": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                       "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, no "
                                       "Pallas kernel)", GEMMA),
+        # the float32 routes on the split-TF32 tensor cores: gemma2-2b's
+        # served prefill at hd 256 (phase 4 (b)'s launches, phase 12's
+        # "f32_served" time) and the float32 backward (phase 9 (b)'s
+        # launches and shape)
+        "flash_attention_f32_hd256": ("src/repro_torch/csrc/flash_attention.cu",
+                                      "src/repro/kernels/flash_attention.py:109", "gemma_f32"),
+        "flash_attention_bwd_f32": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                    "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, no "
+                                    "Pallas kernel)", "train9"),
     }
+    kernel_names = {"flash_attention_bf16_fwd": "flash_wg_kernel",
+                    "flash_attention_bf16_fwd_cross": "flash_wg_kernel",
+                    "flash_attention_bf16_fwd_hd256": "flash_wg_kernel",
+                    "flash_attention_f32_hd256": "flash_tf32_kernel",
+                    "flash_attention_bwd_f32": "dkdv_tf32_kernel, dkdv_merge_kernel, "
+                                               "dq_tf32_kernel"}
     cross = sliced["seamless"]["checks"][-1]["launches"]
     xq17 = trained17["seamless"]["xq_step"]["cross_launches_bf16"]
     launches = {ARCH: served[ARCH]["counts"], MAMBA: served[MAMBA]["counts"],
@@ -5373,7 +5519,10 @@ def main() -> int:
                 GEMMA: {"flash_attention_bf16_fwd_hd256":
                         trained17["gemma2"]["launches"]["flash_attention"],
                         "flash_attention_bwd_hd256":
-                        trained17["gemma2"]["launches"]["flash_attention_bwd"]}}
+                        trained17["gemma2"]["launches"]["flash_attention_bwd"]},
+                "gemma_f32": {"flash_attention_f32_hd256":
+                              gemma_served["launches"]["flash_attention"]},
+                "train9": {"flash_attention_bwd_f32": step_check["launches"]["flash_attention_bwd"]}}
     # phase 19: each kernel's launches on rank 0 of the (2, 2) mesh, in the
     # run of the path it is on there ((a)'s first bf16 step, (b)'s
     # prefill_32k and decode_32k calls, (d)'s prefill, (e)'s decode_32k
@@ -5396,20 +5545,37 @@ def main() -> int:
     step_i = next(r for r in r0["i"] if r["arch"] == GEMMA and r["kind"] == "train")
     spmd_launches["flash_attention_bf16_fwd_hd256"] = step_i["launches"][0]["flash_attention"]
     spmd_launches["flash_attention_bwd_hd256"] = step_i["launches"][0]["flash_attention_bwd"]
+    # the float32 backward at hd 64: (a)'s first float32 step and (b)'s
+    # train_4k cell (float32 compute)
+    spmd_launches["flash_attention_bwd_f32"] = (
+        r0["a"]["float32"]["launches"][0]["flash_attention_bwd"]
+        + cells_b[("train_4k", "remat_coll")]["flash_attention_bwd"])
+    # (i): seamless's prefill and decode, its cross-attention among them
+    seamless_i = {r["kind"]: r["launches"] for r in r0["i"] if r["arch"] == ENCDEC}
+    spmd_launches["flash_attention_cross"] = seamless_i["prefill"]["flash_attention"]
+    spmd_launches["decode_attention_cross"] = seamless_i["decode"]["decode_attention"]
+    # null, not run on the mesh: gemma2 serves there with bf16 params and
+    # trains in bf16, so its float32 hd-256 forward never runs; seamless
+    # does not train there; jamba only decodes there ((f)), which launches
+    # no scan
+    spmd_launches.update(dict.fromkeys(("flash_attention_f32_hd256",
+                                        "flash_attention_bf16_fwd_cross",
+                                        "flash_attention_bwd_cross", "ssd_scan_jamba")))
     errs["flash_attention_bf16_fwd_hd256"] = hd256["fwd_T"]["max_abs_err"]
     errs["flash_attention_bwd_hd256"] = hd256["bwd_T"]["max_abs_err"]
     errs["flash_attention_diff"] = diff_err
     errs["flash_attention_bwd"] = timing["flash_attention_bwd"]["max_abs_err"]
+    errs["flash_attention_bwd_f32"] = b9["bwd_max_abs_err"]
     errs.update(sliced["errs"])
     kernels = []
     for name, (source, replaces, arch) in meta.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            **({"kernel": "flash_wg_kernel"} if "bf16_fwd" in name else {}),
+            **({"kernel": kernel_names[name]} if name in kernel_names else {}),
             **({"hd": 256} if name.endswith("_hd256") else {}),
             **({"lse_ms": t["lse_ms"]} if "lse_ms" in t else {}),
-            "launches": launches[arch][name], "spmd": spmd_launches.get(name, 0),
+            "launches": launches[arch][name], "spmd": spmd_launches[name],
             "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -1,6 +1,6 @@
-"""The bf16 flash forward (with its log-sum-exp) and backward at head dim 256,
-gemma2-2b's attention, timed on a card at three shapes, beside their
-bounds, their plain versions and SDPA:
+"""The flash forward (with its log-sum-exp) and backward, timed on a card
+beside their bounds, their plain versions and SDPA. The bf16 routes at head
+dim 256, gemma2-2b's attention, at three shapes:
 
 * ``T``: q (4,2048,8,256), k/v (4,2048,4,256), causal, softcap 50: gemma2's
   attention at the training shape of chip_smoke.py's phase 10;
@@ -14,6 +14,25 @@ kernel's code (its K and V rings): ``T64``, qwen2-0.5b's training shape q
 (4,2048,14,64) k/v (4,2048,2,64), and ``T128``, q (4,2048,32,128) k/v
 (4,2048,8,128), GQA 4:1 at hd 128 (mixtral's and granite's), causal, no
 softcap; both are held and timed as T is.
+
+Four float32 shapes (``--shapes F256 B9 B18 B19``) time the float32 routes
+at the shapes the port runs them: ``F256``, gemma2-2b's served prefill q
+(1,333,8,256) k/v (1,333,4,256), causal, softcap 50 (its forward is what
+serving runs; the backward is timed too); ``B9``, ``B18`` and ``B19``, the
+float32 backward of chip_smoke.py's phase 9 (b) q (1,512,14,64) k/v
+(1,512,2,64), of a rank of 18 (b) at 1,024 tokens and of a rank of 19 (c)
+q (1,512,16,128) k/v (1,512,4,128), causal. ``B9x8`` (not run by default)
+is B9's attention at batch 8 and 2,048 tokens, 16 (batch row, kv head)
+copies of the float32 dK/dV schedule, each cut into about one wave of
+blocks; its record also gives the dK/dV blocks and the float32 workspace
+that schedule makes. These calls take tens of µs to
+a few ms, so the kernels and SDPA's forward are timed as device time, a
+replayed CUDA graph of many calls; SDPA's forward + backward as the device
+time of its kernels (torch.profiler), less its forward's measured the same
+way. Their bounds are given twice: float32 on the CUDA cores (67 TFLOP/s)
+and split-TF32 (three tf32 products each, 495 TFLOP/s). They are held at
+1e-4 (the log-sum-exp 1e-4, the gradients 1e-4 of their scale), as
+chip_smoke.py holds float32.
 
 Each timing is CUDA events around a run of launches after a warm-up (the
 kernels take a millisecond or more a call, far above the host's cost of
@@ -52,17 +71,22 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
-#: name: (B, S, H, K, hd, causal, window, softcap, timed calls)
+#: name: (B, S, H, K, hd, causal, window, softcap, timed calls, dtype)
 SHAPES = {
-    "T": (4, 2048, 8, 4, 256, True, 0, 50.0, 10),
-    "Lg": (1, 32768, 8, 4, 256, True, 0, 50.0, 2),
-    "Ll": (1, 32768, 8, 4, 256, True, 4096, 50.0, 2),
-    "T64": (4, 2048, 14, 2, 64, True, 0, 0.0, 20),
-    "T128": (4, 2048, 32, 8, 128, True, 0, 0.0, 10),
+    "T": (4, 2048, 8, 4, 256, True, 0, 50.0, 10, "bfloat16"),
+    "Lg": (1, 32768, 8, 4, 256, True, 0, 50.0, 2, "bfloat16"),
+    "Ll": (1, 32768, 8, 4, 256, True, 4096, 50.0, 2, "bfloat16"),
+    "T64": (4, 2048, 14, 2, 64, True, 0, 0.0, 20, "bfloat16"),
+    "T128": (4, 2048, 32, 8, 128, True, 0, 0.0, 10, "bfloat16"),
+    "F256": (1, 333, 8, 4, 256, True, 0, 50.0, 50, "float32"),
+    "B9": (1, 512, 14, 2, 64, True, 0, 0.0, 20, "float32"),
+    "B18": (1, 1024, 14, 2, 64, True, 0, 0.0, 20, "float32"),
+    "B19": (1, 512, 16, 4, 128, True, 0, 0.0, 20, "float32"),
+    "B9x8": (8, 2048, 14, 2, 64, True, 0, 0.0, 10, "float32"),
 }
 DEFAULT_SHAPES = ("T", "Lg", "Ll")
-BF16_TOL = 2e-2
-LSE_TOL = 1e-3
+#: (output, log-sum-exp, gradients over their scale) tolerances by dtype
+TOL = {"bfloat16": (2e-2, 1e-3, 2e-2), "float32": (1e-4, 1e-4, 1e-4)}
 
 
 def _ms(fn, args_list, calls):
@@ -80,6 +104,47 @@ def _ms(fn, args_list, calls):
     return start.elapsed_time(stop) / calls
 
 
+def _graph_ms(fn, args_list, calls, replays=10):
+    """Device ms of one call of fn: ``calls`` calls, rotating through
+    ``args_list``, captured in one CUDA graph and replayed (no host work
+    between two calls)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for a in args_list:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (replays * calls)
+
+
+def _device_ms(fn, args_list, calls):
+    """ms of device time a call of fn: the sum of its kernels' device time
+    (torch.profiler) over ``calls`` calls, divided by ``calls``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for a in args_list:
+        fn(*a)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(calls):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / calls
+
+
 def _err(name, got, want, tol, scale=None):
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
@@ -95,14 +160,16 @@ def _err(name, got, want, tol, scale=None):
 
 
 def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_pairs):
-    B, S, H, K, hd, causal, window, cap, calls = SHAPES[tag]
+    B, S, H, K, hd, causal, window, cap, calls, dtype = SHAPES[tag]
+    fwd_tol, lse_tol, bwd_tol = TOL[dtype]
+    f32 = dtype == "float32"
     G = H // K
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    n_sets = 2 if S <= 4096 else 1
+    n_sets = 4 if f32 else 2 if S <= 4096 else 1
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+        return torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
 
     sets = []
     for _ in range(n_sets):
@@ -117,7 +184,7 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
     def bwd(q, k, v, g, o, lse):
         return flash_attention_bwd(q, k, v, o, g, lse, **kw)
 
-    rec = {"shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) bfloat16 "
+    rec = {"shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) {dtype} "
                     f"{'causal' if causal else 'non-causal'}, window {window}, softcap {cap}"}
     # against the plain versions, and twice bit for bit
     q, k, v, g, o, lse = sets[0]
@@ -134,20 +201,24 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
         heads, kv = slice(0, G), slice(0, 1)
     part = (q[:, :, heads].contiguous(), k[:, :, kv].contiguous(), v[:, :, kv].contiguous())
     want_o, want_lse = ref.flash_attention_lse_ref(*part, **kw)
-    rec["fwd_max_abs_err"] = _err(f"{tag} fwd", o[:, :, heads], want_o, BF16_TOL)
-    rec["lse_max_abs_err"] = _err(f"{tag} lse", lse[:, heads], want_lse, LSE_TOL)
+    rec["fwd_max_abs_err"] = _err(f"{tag} fwd", o[:, :, heads], want_o, fwd_tol)
+    rec["lse_max_abs_err"] = _err(f"{tag} lse", lse[:, heads], want_lse, lse_tol)
     want = ref.flash_attention_bwd_ref(*part, o[:, :, heads].contiguous(),
                                        g[:, :, heads].contiguous(),
                                        lse[:, heads].contiguous(), **kw)
     rec["bwd_max_abs_err"] = max(
-        _err(f"{tag} d{n}", got, w, BF16_TOL, scale=True)
+        _err(f"{tag} d{n}", got, w, bwd_tol, scale=True)
         for n, got, w in zip("qkv", (dq[:, :, heads], dk[:, :, kv], dv[:, :, kv]), want))
     rec["checked_on"] = "the whole input" if S <= 4096 else f"kv head 0, query heads 0..{G - 1}"
     del want_o, want_lse, want, dq, dk, dv
     torch.cuda.empty_cache()
 
-    rec["fwd_ms"] = _ms(fwd, sets, calls)
-    rec["bwd_ms"] = _ms(bwd, sets, calls)
+    # float32's calls are short: device time, a replayed CUDA graph
+    timed = _graph_ms if f32 else _ms
+    rec["fwd_ms"] = timed(fwd, sets, calls)
+    rec["bwd_ms"] = timed(bwd, sets, calls)
+    rec["timed_as"] = ("device time (CUDA graph replay)" if f32
+                       else "CUDA events around an eager loop")
     # the plain versions: the whole input at T, one query head at Lg and Ll
     if S <= 4096:
         plain_sets = [s for s in sets]
@@ -180,9 +251,17 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
         return torch.autograd.grad(sdpa(q, k, v), (q, k, v), g)
 
     try:
-        with torch.no_grad():
-            rec["sdpa_fwd_ms"] = _ms(sdpa, lib, calls)
-        rec["sdpa_bwd_ms"] = _ms(sdpa_fwd_bwd, lib, calls) - rec["sdpa_fwd_ms"]
+        if f32:  # device time: the forward in a CUDA graph, both from the profiler
+            with torch.no_grad():
+                rec["sdpa_fwd_ms"] = _graph_ms(sdpa, lib, calls)
+                sdpa_fwd_dev = _device_ms(sdpa, lib, calls)
+            rec["sdpa_fwd_bwd_ms"] = _device_ms(sdpa_fwd_bwd, lib, calls)
+            rec["sdpa_bwd_ms"] = rec["sdpa_fwd_bwd_ms"] - sdpa_fwd_dev
+            rec["sdpa_fwd_profiler_ms"] = sdpa_fwd_dev
+        else:
+            with torch.no_grad():
+                rec["sdpa_fwd_ms"] = _ms(sdpa, lib, calls)
+            rec["sdpa_bwd_ms"] = _ms(sdpa_fwd_bwd, lib, calls) - rec["sdpa_fwd_ms"]
         rec["sdpa_is"] = (("SDPA without the softcap" if cap else "SDPA")
                           + (", the window as a boolean mask" if window else "")
                           + "; the backward is forward + backward less the forward")
@@ -194,13 +273,28 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
 
     pairs = attention_pairs(S, S, causal, window)
     flops = 4.0 * B * H * pairs * hd  # Q K^T and P V over the kept pairs
-    qo, kvb, lse_b = 2.0 * B * S * H * hd, 2.0 * B * S * K * hd, 4.0 * B * H * S
-    fs, fby = hw.kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=False, hw=hw.H100)
-    bs, bby = hw.kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=False, hw=hw.H100)
+    e = 4.0 if f32 else 2.0
+    qo, kvb, lse_b = e * B * S * H * hd, e * B * S * K * hd, 4.0 * B * H * S
+    # float32: the split-TF32 bound (three tf32 products each), and the
+    # CUDA cores' float32 bound beside it
+    fs, fby = hw.kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=f32, split_tf32=f32,
+                              hw=hw.H100)
+    bs, bby = hw.kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=f32, split_tf32=f32,
+                              hw=hw.H100)
     rec.update(kept_pairs=pairs, fwd_flops=flops, fwd_bound_ms=fs * 1e3, fwd_bound_by=fby,
                bwd_bound_ms=bs * 1e3, bwd_bound_by=bby,
                fwd_tflop_per_s=flops / rec["fwd_ms"] / 1e9,
                bwd_tflop_per_s=2.5 * flops / rec["bwd_ms"] / 1e9)
+    fab = sys.modules[flash_attention_bwd.__module__]
+    if f32 and getattr(fab, "route", lambda *_: None)(torch.float32, hd) == "tf32":
+        items, _, slots = fab.dkdv_schedule(S, S, G, causal, window, B * K, hd, torch.float32)
+        rec.update(bwd_dkdv_blocks=len(items) * B * K,
+                   bwd_workspace_bytes=4 * fab.workspace_numel(slots, B * K, hd))
+    if f32:
+        fc, _ = hw.kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=True, hw=hw.H100)
+        bc, _ = hw.kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=True, hw=hw.H100)
+        rec.update(fwd_bound_is="split-TF32", fwd_cuda_core_bound_ms=fc * 1e3,
+                   bwd_cuda_core_bound_ms=bc * 1e3)
     del sets
     torch.cuda.empty_cache()
     return rec

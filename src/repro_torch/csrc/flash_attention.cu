@@ -22,9 +22,9 @@
 // scores are the finite -1e30, keys past Sk are -inf, and l is clamped at
 // 1e-30. Three variants:
 //
-// Split-TF32 tensor-core variant: float32 at hd 8, 16, 32, 64 and 128, the
+// Split-TF32 tensor-core variant: float32 at every head dim (8 to 256), the
 // serving path (paper-default and qwen2-0.5b serve at hd 64, internlm2-1.8b
-// and granite-8b at 128). What bounds it: operations, 4*hd float32 FLOPs per
+// and granite-8b at 128, gemma2-2b at 256). What bounds it: operations, 4*hd float32 FLOPs per
 // causal (q, k) pair of each head (227.8 MFLOP at the served q (1,333,16,64),
 // 3.4 us at 67 TFLOP/s) against ~1.4 MB of inputs. The CUDA-core design
 // before it spent ~64 dependent steps a key tile per thread (8 FMAs, 3
@@ -39,7 +39,7 @@
 //    rounded by bit masking, not cvt.rna (the same rounding, a quarter less
 //    time here).
 //  - Q is split once (into registers at hd <= 64, into shared memory at hd
-//    128 to keep the registers for the accumulators). P never leaves the
+//    128 and 256 to keep the registers for the accumulators). P never leaves the
 //    registers: the accumulator of S holds (g, 2t), (g, 2t + 1), and the A
 //    operand of P V wants (g, t), (g, t + 4), so the k index of each 8-key
 //    step is permuted (column t is key 2t, t + 4 is key 2t + 1) and V's
@@ -50,7 +50,7 @@
 //    distinct banks.
 //  - A block is 32 folded rows and 4 warps: two row warps of 16 rows, each
 //    twice, once for each half of every ring stage's keys (32 keys a warp
-//    at hd <= 64, 16 at hd 128). The two halves' (m, l, acc) merge in a
+//    at hd <= 64, 16 at hd 128; hd 256 below). The two halves' (m, l, acc) merge in a
 //    fixed order at the end. The served shape is latency-bound: its longest
 //    block walks the causal chain of 333 keys, and one warp alone on it took
 //    0.0345 ms; two warps on its keys halve that chain. 32-row tiles give
@@ -59,6 +59,22 @@
 //  - A warp skips a key tile that lies wholly outside its own rows' causal
 //    or window range; that is exact (the tile's weights are 0, or are wiped
 //    by alpha = 0 later).
+//  - hd 256 (gemma2-2b served in float32, q (1,333,8,256), softcap 50:
+//    1.37 GFLOP as three tf32 products, 2.8 us at 495 TFLOP/s, against 8.2
+//    MB, 2.4 us): the same kernel. O is 16 x 256 / 32 = 128 registers a
+//    thread of a 16-row warp tile; Q's hi and lo halves stay in shared
+//    memory (2 x 32 x 260 floats, 66,560 bytes) beside the 2-stage K/V ring
+//    of 32 keys (133,120 bytes): 199,680 of a block's 232,448, one block an
+//    SM. V is split 4 n-blocks at a time (NV), so a P V step holds 16 more
+//    registers, not 128. With one block an SM, a stage's keys are split
+//    over four warp groups of 8 keys each (kSplit 4: 8 warps an SM, so a
+//    warp's dependent products wait beside another's), each computing S
+//    over the whole head dim for its own keys, its even and odd k-steps in
+//    two accumulators (two chains of 48 products, not one of 96); nothing
+//    is exchanged but the final (m, l, acc) merge, in part order. The
+//    served shape's 666 folded rows a kv head make 21 x 4 = 84 blocks for
+//    the 132 SMs; the longest block's causal chain is 333 keys, 11 ring
+//    stages (phase 2 prints ptxas's registers and spills).
 // No atomics, every sum in a fixed order: two runs give the same bits.
 //
 // Hopper variant (flash_wg_kernel): bf16 at hd 64, 128 and 256, the training
@@ -151,13 +167,11 @@
 //    threads), S 32 (64 keys), P 16 as the bf16 A operand, under the
 //    consumers' 240 (ptxas's report, chip_smoke.py phase 2).
 //
-// CUDA-core variant: what neither tensor-core variant takes, float32 at hd
-// 256 (gemma2-2b served; its split fragments and accumulators would not fit
-// the registers of a 16-row warp tile) and bfloat16 at hd 8, 16, 32 (the
-// reduced configs). Each row is owned by hd/8 threads holding 8 of its dims
-// each (dims lane + TPR*i); a row's dot product is a shuffle reduction over
-// them; K/V tiles are staged as float32 in static shared memory (32 KB at
-// every hd: 64 keys at hd <= 64, 32 at hd 128, 16 at hd 256).
+// CUDA-core variant: what neither tensor-core variant takes, bfloat16 at hd
+// 8, 16, 32 (the reduced configs; the wgmma tiles start at 64 columns).
+// Each row is owned by hd/8 threads holding 8 of its dims each (dims lane +
+// TPR*i); a row's dot product is a shuffle reduction over them; K/V tiles
+// are staged as float32 in static shared memory (64 keys at hd <= 64).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -178,9 +192,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
 
 // ---- CUDA-core variant ------------------------------------------------------
@@ -190,7 +202,7 @@ struct Tiling {
   static constexpr int kTpr = HD >= 8 ? HD / 8 : 1;  // threads per query row
   static constexpr int kDpt = HD / kTpr;             // dims per thread
   static constexpr int kRows = kThreads / kTpr;      // query rows per block
-  static constexpr int kBk = HD <= 64 ? 64 : (HD <= 128 ? 32 : 16);  // keys per tile
+  static constexpr int kBk = 64;                     // keys per tile (hd <= 32)
 };
 
 template <typename T, int HD>
@@ -650,21 +662,26 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   }
 }
 
-// ---- split-TF32 tensor-core variant (float32, hd 8 to 128) ------------------
+// ---- split-TF32 tensor-core variant (float32, hd 8 to 256) ------------------
 
 template <int HD>
 struct Tf32Tiling {
   static constexpr int kBM = 32;            // folded query rows per block, 16 a row warp
   static constexpr int kRowWarps = kBM / 16;
-  static constexpr int kSplit = 2;          // warp groups that share a block's keys
-  static constexpr int kThreads = 32 * kRowWarps * kSplit;  // 4 warps
-  static constexpr int kBN = HD <= 64 ? 32 : 16;  // keys a warp takes from a stage
+  // warp groups that share a block's keys: 2, and 4 at hd 256 (one block an
+  // SM: 8 warps an SM, not 4)
+  static constexpr int kSplit = HD == 256 ? 4 : 2;
+  static constexpr int kThreads = 32 * kRowWarps * kSplit;  // 4 warps (8 at hd 256)
+  // keys a warp takes from a stage: 32 at hd <= 64, 16 at 128, 8 at 256
+  static constexpr int kBN = HD <= 64 ? 32 : (HD == 128 ? 16 : 8);
   static constexpr int kStage = kSplit * kBN;      // keys a ring stage holds
   static constexpr int kLd = HD + 4;        // shared row, floats: conflict-free fragments
   static constexpr bool kQRegs = HD <= 64;  // Q's split fragments in registers, else shared
-  static constexpr int kQWords = (kQRegs ? 1 : 2) * kBM * kLd;  // Q (hi, then lo at hd 128)
+  static constexpr int kQWords = (kQRegs ? 1 : 2) * kBM * kLd;  // Q (hi, then lo at hd >= 128)
   static constexpr int kSmem = (kQWords + 4 * kStage * kLd) * (int)sizeof(float);  // + 2 x (K, V)
 };
+
+static_assert(Tf32Tiling<256>::kSmem <= 232448, "hd 256 fits a block's shared memory");
 
 template <int HD>
 __global__ void __launch_bounds__(Tf32Tiling<HD>::kThreads)
@@ -768,10 +785,16 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* kt = ks + (buf * SK + half * BN) * LD;
       const float* vt = vs + (buf * SK + half * BN) * LD;
 
-      // S = Q K^T, 16 rows x BN keys a warp
-      float s[NN][4];
+      // S = Q K^T, 16 rows x BN keys a warp; at hd 256 the odd k-steps sum
+      // apart (s_odd) and are added at the end: two dependent chains of 48
+      // products an n-block instead of one of 96
+      float s[NN][4], s_odd[HD == 256 ? NN : 1][4];
 #pragma unroll
       for (int j = 0; j < NN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if constexpr (HD == 256) {
+#pragma unroll
+        for (int j = 0; j < NN; ++j) s_odd[j][0] = s_odd[j][1] = s_odd[j][2] = s_odd[j][3] = 0.f;
+      }
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
         uint32_t ah[4], al[4];
@@ -797,7 +820,20 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           split_tf32(kb[0], bh[j][0], bl[j][0]);
           split_tf32(kb[4], bh[j][1], bl[j][1]);
         }
-        mma3(s, ah, al, bh, bl);
+        if constexpr (HD == 256) {
+          if (kk & 1)
+            mma3(s_odd, ah, al, bh, bl);
+          else
+            mma3(s, ah, al, bh, bl);
+        } else {
+          mma3(s, ah, al, bh, bl);
+        }
+      }
+      if constexpr (HD == 256) {
+#pragma unroll
+        for (int j = 0; j < NN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += s_odd[j][e];
       }
 
       // scale, cap and mask (s[j][e]: row e < 2 ? qa : qb, key kw + 8j + 2t
@@ -874,35 +910,42 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
-  // merge the two halves' (m, l, acc) of each row, in a fixed order: the
-  // second half's warps leave theirs in the K/V rings (free after the loop's
-  // last barrier), one float per lane and value, and the first half's combine
+  // merge the kSplit parts' (m, l, acc) of each row, in a fixed order: the
+  // other parts' warps leave theirs in the K/V rings (free after the loop's
+  // last barrier), one float per lane and value, and the first part's warps
+  // combine them in part order
   constexpr int PV = 4 + 4 * KD;  // values a lane leaves
   float* part = ks + rw * 32 + lane;
-  if (half == 1) {
-    part[0] = m[0];
-    part[RW * 32] = m[1];
-    part[2 * RW * 32] = l[0];
-    part[3 * RW * 32] = l[1];
+  if (half > 0) {
+    float* mine = part + (half - 1) * PV * RW * 32;
+    mine[0] = m[0];
+    mine[RW * 32] = m[1];
+    mine[2 * RW * 32] = l[0];
+    mine[3 * RW * 32] = l[1];
 #pragma unroll
     for (int n = 0; n < KD; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) part[(4 + 4 * n + e) * RW * 32] = acc[n][e];
+      for (int e = 0; e < 4; ++e) mine[(4 + 4 * n + e) * RW * 32] = acc[n][e];
   }
-  static_assert(PV * RW * 32 <= 4 * SK * LD, "the merge's values fit the K/V rings");
+  static_assert((C::kSplit - 1) * PV * RW * 32 <= 4 * SK * LD,
+                "the merge's values fit the K/V rings");
   __syncthreads();
-  if (half == 1) return;
+  if (half > 0) return;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float m1 = part[i * RW * 32], l1 = part[(2 + i) * RW * 32];
-    const float mm = fmaxf(m[i], m1);
-    const float a0 = expf(m[i] - mm), a1 = expf(m1 - mm);
-    m[i] = mm;
-    l[i] = l[i] * a0 + l1 * a1;
+  for (int h = 1; h < C::kSplit; ++h) {
+    const float* other = part + (h - 1) * PV * RW * 32;
 #pragma unroll
-    for (int n = 0; n < KD; ++n) {
-      acc[n][2 * i] = acc[n][2 * i] * a0 + part[(4 + 4 * n + 2 * i) * RW * 32] * a1;
-      acc[n][2 * i + 1] = acc[n][2 * i + 1] * a0 + part[(5 + 4 * n + 2 * i) * RW * 32] * a1;
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = other[i * RW * 32], l1 = other[(2 + i) * RW * 32];
+      const float mm = fmaxf(m[i], m1);
+      const float a0 = expf(m[i] - mm), a1 = expf(m1 - mm);
+      m[i] = mm;
+      l[i] = l[i] * a0 + l1 * a1;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        acc[n][2 * i] = acc[n][2 * i] * a0 + other[(4 + 4 * n + 2 * i) * RW * 32] * a1;
+        acc[n][2 * i + 1] = acc[n][2 * i + 1] * a0 + other[(5 + 4 * n + 2 * i) * RW * 32] * a1;
+      }
     }
   }
 
@@ -1033,8 +1076,9 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  // the tensor-core variants copy 16-byte chunks
-  const bool tc = (dtype == 0 && hd <= 128) || (dtype == 1 && hd >= 64);
+  // the tensor-core variants (float32 at every head dim, bf16 at 64, 128,
+  // 256) copy 16-byte chunks
+  const bool tc = dtype == 0 || (dtype == 1 && hd >= 64);
   if (tc && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15)) return (int)cudaErrorInvalidValue;
 #define FLASH_ARGS q, k, v, o, l, B, Sq, Sk, H, K, causal, window, softcap, scale, s
   cudaError_t err = cudaErrorInvalidValue;
@@ -1045,7 +1089,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
       case 32: err = launch_tf32<32>(FLASH_ARGS); break;
       case 64: err = launch_tf32<64>(FLASH_ARGS); break;
       case 128: err = launch_tf32<128>(FLASH_ARGS); break;
-      case 256: err = launch<float, 256>(FLASH_ARGS); break;
+      case 256: err = launch_tf32<256>(FLASH_ARGS); break;
     }
   } else if (dtype == 1) {
     switch (hd) {

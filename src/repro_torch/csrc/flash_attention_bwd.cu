@@ -26,7 +26,7 @@
 // 2.5x the forward's). Exact resume of a crashed training run relies on
 // gradients that repeat bit for bit.
 //
-// Tensor-core variant (bfloat16 at hd 64, 128 and 256; the training path): P and
+// Tensor-core variant (bfloat16 at hd 64, 128 and 256; the bf16 training path): P and
 // dS are rounded to bf16 as product operands, dK, dV and dQ accumulate in
 // float32, and a double-buffered cp.async ring streams the tiles a block
 // walks (Q/dO rows with their lse and D in pass 1, K/V in pass 2).
@@ -88,9 +88,40 @@
 //   and dS staged through shared memory in bf16, would not fit beside
 //   these tiles. The schedule's target is two waves of 132 SMs at the
 //   route's blocks an SM (kernels/flash_attention_bwd.py::target_blocks).
-// CUDA-core variant (float32 at every head dim, bfloat16 at hd 8, 16, 32):
-// hd/8 threads own a key (pass 1) or a query row (pass 2), 8 dims each,
-// with shuffle reductions for the dot products, as the forward's CUDA-core
+// Split-TF32 tensor-core variant (float32 at hd 8 to 128: every float32
+// gradient, train(dtype=float32) and the smoke's float32 training checks;
+// dkdv_tf32_kernel, dq_tf32_kernel): every product is mma.sync.m16n8k8 tf32
+// with each operand split into a tf32 hi and lo half, taken as lo*hi +
+// hi*lo + hi*hi (tc_mma.cuh), P and dS split too, which keeps float32's
+// 1e-4 where plain TF32 does not. What bounds it: operations, 3 x 2.5 x
+// the forward's products at the tf32 rate (q (1,512,14,64) causal: 0.0071
+// ms at 495 TFLOP/s, against 0.0025 ms of bytes); what holds it back is
+// latency, each warp's products waiting on the elementwise work between
+// them with 8 warps an SM. The CUDA-core kernels before it ran one block a
+// 32-key tile (32 blocks for 132 SMs at that shape), each thread walking up
+// to 3,584 rows one after another: 1.35 ms. This design:
+//  - Pass 1 takes the bf16 route's schedule (dkdv_schedule: segments of
+//    about equal length, the cut tiles' float32 partials added in slot
+//    order by dkdv_merge_kernel<float>), its 64-row stages walked as two of
+//    32 rows, and shorter segments than bf16's (the float32 blocks are
+//    slower a stage): 256 blocks at that shape. 4 warps own 16 keys each.
+//  - Operands that are a B of two products and are read by every warp (Q
+//    and dO in pass 1, K and V in pass 2) are split once a stage, in place
+//    in shared memory between two barriers; the A operands (a warp's own
+//    16 keys or rows) are split as read, P and dS from the accumulators
+//    with the k index permuted as in the forward. K and V stay in shared
+//    memory (their split fragments beside dK and dV, 128 registers a thread
+//    at hd 128, would not fit).
+//  - At hd 128 one block fits an SM (203 KB of shared memory), so a block
+//    is two warp groups that take half of each stage's rows (pass 1) or
+//    keys (pass 2) each, their dK, dV (dQ) added in a fixed order at the
+//    end through the ring: 8 warps an SM, as at hd 64 with two blocks.
+//  - No atomics, every sum in an order fixed by the shape: two runs give
+//    the same bits.
+// CUDA-core variant (bfloat16 at hd 8, 16, 32: the reduced configs; float32
+// at hd 256, which no full-width path runs through the kernels): hd/8
+// threads own a key (pass 1) or a query row (pass 2), 8 dims each, with
+// shuffle reductions for the dot products, as the forward's CUDA-core
 // variant; one block a key tile in pass 1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,7 +174,7 @@ struct Tiling {
   static constexpr int kTpr = HD >= 8 ? HD / 8 : 1;  // threads per key / row
   static constexpr int kDpt = HD / kTpr;             // dims per thread
   static constexpr int kRows = kThreads / kTpr;      // keys (pass 1) or rows (pass 2) a block
-  static constexpr int kTile = HD <= 64 ? 64 : (HD <= 128 ? 32 : 16);  // staged rows / keys
+  static constexpr int kTile = HD <= 32 ? 64 : 16;  // staged rows / keys (bf16 hd <= 32; f32 256)
 };
 
 template <int TPR>
@@ -703,11 +734,15 @@ dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // pass 1, the merge of a key tile cut into several segments: tiles[blockIdx.x
 // / (K * B)] = {key tile, first slot, segments, 0}. Adds the segments' float32
-// partials in slot (= row) order, scales dK, rounds once to bf16.
-template <int HD>
+// partials in slot (= row) order, scales dK, writes T (bf16: rounded once),
+// for both tensor-core routes. A tile's 2 x kKeys x HD sums are shared by
+// gridDim.y blocks (1 on the bf16 route; HD / 8 on the float32 route, whose
+// short segments leave many partials to a few tiles), 1024 floats a block a
+// pass.
+template <typename T, int HD>
 __global__ void __launch_bounds__(256)
 dkdv_merge_kernel(const float* __restrict__ part, const int4* __restrict__ tiles,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Sk, int K, int B,
+                  T* __restrict__ dk, T* __restrict__ dv, int Sk, int K, int B,
                   float scale) {
   constexpr int BN = kKeys, TILE = BN * HD;
   const int kb = blockIdx.x % (K * B), kvh = kb % K, b = kb / K;
@@ -715,7 +750,7 @@ dkdv_merge_kernel(const float* __restrict__ part, const int4* __restrict__ tiles
   if (m.z < 2) return;  // an uncut tile: its block wrote dk and dv
   const size_t stride = (size_t)K * B * 2 * TILE;  // one slot
   const float* base = part + ((size_t)m.y * K * B + kb) * 2 * TILE;
-  for (int i = threadIdx.x * 4; i < 2 * TILE; i += 256 * 4) {
+  for (int i = (blockIdx.y * 256 + threadIdx.x) * 4; i < 2 * TILE; i += 256 * 4 * gridDim.y) {
     float4 acc = *reinterpret_cast<const float4*>(base + i);
     for (int s = 1; s < m.z; ++s) {
       const float4 x = *reinterpret_cast<const float4*>(base + s * stride + i);
@@ -727,9 +762,12 @@ dkdv_merge_kernel(const float* __restrict__ part, const int4* __restrict__ tiles
     const int e = i % TILE, key = m.x * BN + e / HD;
     if (key >= Sk) continue;
     const float sc = i < TILE ? scale : 1.f;
-    bf16* out = (i < TILE ? dk : dv) + (((size_t)b * Sk + key) * K + kvh) * HD + e % HD;
-    *reinterpret_cast<uint2*>(out) =
-        make_uint2(pack_bf16(acc.x * sc, acc.y * sc), pack_bf16(acc.z * sc, acc.w * sc));
+    T* out = (i < TILE ? dk : dv) + (((size_t)b * Sk + key) * K + kvh) * HD + e % HD;
+    if constexpr (std::is_same<T, bf16>::value)
+      *reinterpret_cast<uint2*>(out) =
+          make_uint2(pack_bf16(acc.x * sc, acc.y * sc), pack_bf16(acc.z * sc, acc.w * sc));
+    else
+      *reinterpret_cast<float4*>(out) = make_float4(acc.x * sc, acc.y * sc, acc.z * sc, acc.w * sc);
   }
 }
 
@@ -985,6 +1023,493 @@ dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- split-TF32 tensor-core variant (float32, hd 8 to 128) -----------------
+//
+// A warp group is 4 warps; a block is kSplit groups. Pass 1
+// (dkdv_tf32_kernel): kKeys keys of one (b, kv head), 16 a warp, over one
+// segment of the dK/dV schedule, the segment's rows streamed in ring stages
+// of kBR (each group takes kBR / kSplit of them). Pass 2 (dq_tf32_kernel):
+// kBQ folded rows, 16 a warp, over key stages of kBK (each group takes kBK /
+// kSplit). Every product is mma.sync.m16n8k8
+// tf32 in split-TF32 (tc_mma.cuh: split_tf32, mma3). Pass 1's products:
+// S^T = K Q^T and dP^T = V dO^T (A: the warp's 16 keys of K or V; B: the
+// stage's rows of Q or dO, k = dim), then dV += P^T dO and dK += dS^T Q (A:
+// P^T or dS^T as it sits in the accumulator; B: dO or Q, k = row). Pass 2's:
+// S = Q K^T, dP = dO V^T, dQ += dS K. An operand that is a B of two products
+// (Q and dO in pass 1, K and V in pass 2) and is read by all four warps is
+// split once a stage, in place in shared memory (hi over the copied floats,
+// lo beside them, between two barriers); an operand read as A (K and V in
+// pass 1, Q and dO in pass 2: a warp's own 16 rows, each fragment used for
+// every n-block of a k-step) is split as it is read, and so is P (dS),
+// from the accumulator. As in the forward, a C fragment holds (g, 2t),
+// (g, 2t + 1) and an A fragment wants (g, t), (g, t + 4), so an
+// accumulator-to-A k-step permutes its k index (column t is C's 2t, t + 4
+// is 2t + 1) and its B's rows are read in that order. Shared rows of
+// hd + 4 floats put every fragment's 32 loads in 32 distinct banks.
+
+template <int HD>
+struct Tf32BwdTiling {
+  // warp groups that share a ring stage: at hd 128 (one block an SM) two,
+  // each with half the stage's rows (pass 1) or keys (pass 2), their sums
+  // added in a fixed order at the end: 8 warps an SM, not 4
+  static constexpr int kSplit = HD == 128 ? 2 : 1;
+  static constexpr int kThreads = 128 * kSplit;  // 4 warps a group: 16 keys or rows each
+  static constexpr int kBR = 32;        // pass 1: folded rows a ring stage
+  static constexpr int kBQ = 64;        // pass 2: folded rows a block
+  static constexpr int kBK = 32;        // pass 2: keys a ring stage
+  static constexpr int kLd = HD + 4;    // a shared row, floats: conflict-free fragments
+  static constexpr int kBlocks = HD <= 64 ? 2 : 1;  // blocks an SM: shared memory at hd 128
+  // pass 1: K and V of the block's keys; 2 ring stages of Q and dO, each
+  // as hi and lo halves; the stages' lse and D
+  static constexpr int kSmem1 = (2 * kKeys * kLd + 2 * 4 * kBR * kLd + 2 * 2 * kBR) * 4;
+  // pass 2: Q and dO of the block's rows; 2 ring stages of K and V, hi and lo
+  static constexpr int kSmem2 = (2 * kBQ * kLd + 2 * 4 * kBK * kLd) * 4;
+};
+static_assert(Tf32BwdTiling<128>::kSmem1 <= 232448 && Tf32BwdTiling<128>::kSmem2 <= 232448,
+              "hd 128 fits a block's shared memory");
+
+// a warp's A fragment of 16 rows, split as it is read: p = the row-major
+// tile (stride LD) at row g, column 8 kk + t; a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4)
+template <int LD>
+__device__ __forceinline__ void split_a(const float* p, uint32_t (&h)[4], uint32_t (&l)[4]) {
+  split_tf32(p[0], h[0], l[0]);
+  split_tf32(p[8 * LD], h[1], l[1]);
+  split_tf32(p[4], h[2], l[2]);
+  split_tf32(p[8 * LD + 4], h[3], l[3]);
+}
+
+// a C fragment (16 x 8) as the A fragment of one k-step, k permuted
+// (column t is C's column 2t, t + 4 is 2t + 1), split
+__device__ __forceinline__ void split_c_as_a(const float (&c)[4], uint32_t (&h)[4],
+                                             uint32_t (&l)[4]) {
+  split_tf32(c[0], h[0], l[0]);  // (g, 2t)
+  split_tf32(c[2], h[1], l[1]);  // (g + 8, 2t)
+  split_tf32(c[1], h[2], l[2]);  // (g, 2t + 1)
+  split_tf32(c[3], h[3], l[3]);  // (g + 8, 2t + 1)
+}
+
+// a ring stage's N tiles of R rows (each [R][LD], hi; its lo half at + R
+// LD), split in place by the block's NT threads
+template <int N, int R, int HD, int NT>
+__device__ __forceinline__ void split_stage(float* st, int tid) {
+  constexpr int LD = HD + 4, CH = HD / 4;
+  for (int i = tid; i < N * R * CH; i += NT) {
+    const int m = i / (R * CH), j = (i / CH) % R, c = (i % CH) * 4;
+    float* p = st + (2 * m * R + j) * LD + c;
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(p) = h;
+    *reinterpret_cast<uint4*>(p + R * LD) = l;
+  }
+}
+
+// acc[n0 + n] (n < NV) += A B for one k-step: A split (ah, al); B from a
+// split tile, b the hi half at this thread's (row 2t of the k-step, column g),
+// lo at + lo_off: b0 (row 2t, column 8 n + g), b1 (row 2t + 1, the same)
+template <int KD, int NV, int LD>
+__device__ __forceinline__ void mma_rows(float (&acc)[KD][4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], const float* b, int lo_off) {
+#pragma unroll
+  for (int n0 = 0; n0 < KD; n0 += NV) {  // NV n-blocks at a time: fewer live registers
+    uint32_t bh[NV][2], bl[NV][2];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const float* p = b + 8 * (n0 + n);
+      bh[n][0] = __float_as_uint(p[0]);
+      bh[n][1] = __float_as_uint(p[LD]);
+      bl[n][0] = __float_as_uint(p[lo_off]);
+      bl[n][1] = __float_as_uint(p[lo_off + LD]);
+    }
+#pragma unroll
+    for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], al, bh[n]);  // as mma3
+#pragma unroll
+    for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], ah, bl[n]);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], ah, bh[n]);
+  }
+}
+
+// the B fragments of NB n-blocks of 8 rows from a split tile, k = column:
+// b0 (row 8 j + g, column 8 kk + t), b1 (the same, column + 4); p the hi
+// half at (row g, column 8 kk + t), lo at + lo_off
+template <int NB, int LD>
+__device__ __forceinline__ void b_cols(uint32_t (&bh)[NB][2], uint32_t (&bl)[NB][2],
+                                       const float* p, int lo_off) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float* r = p + 8 * j * LD;
+    bh[j][0] = __float_as_uint(r[0]);
+    bh[j][1] = __float_as_uint(r[4]);
+    bl[j][0] = __float_as_uint(r[lo_off]);
+    bl[j][1] = __float_as_uint(r[lo_off + 4]);
+  }
+}
+
+// pass 1: dK, dV of kKeys keys of one (b, kv head) over one segment of their
+// row walk, items[blockIdx.x / (K * B)] = {key tile, first folded row, end
+// row, slot}, as dkdv_wg_kernel: slot -1 writes dk and dv, else the float32
+// partials go to part[slot][b * K + kvh] for dkdv_merge_kernel<float>
+template <int HD>
+__global__ void __launch_bounds__(Tf32BwdTiling<HD>::kThreads, Tf32BwdTiling<HD>::kBlocks)
+dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dO,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+                 const int4* __restrict__ items, int Sq, int Sk, int H, int K, int B,
+                 int causal, int window, float cap, float scale) {
+  using C = Tf32BwdTiling<HD>;
+  constexpr int BN = kKeys, BR = C::kBR, LD = C::kLd, NT = C::kThreads;
+  constexpr int RH = BR / C::kSplit;  // a warp's rows of a stage
+  constexpr int KD = HD / 8;  // k-steps of S^T and dP^T; n-blocks of dK and dV
+  constexpr int NR = RH / 8;  // n-blocks of S^T and dP^T; k-steps of dV and dK
+  constexpr int CH = HD / 4;  // 16-byte copies a row
+  constexpr int NV = KD < 4 ? KD : 4;
+  constexpr int RS = 4 * BR * LD;  // a ring stage: Q hi, Q lo, dO hi, dO lo
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;           // K [BN][LD]
+  float* vs = ks + BN * LD;  // V [BN][LD]
+  float* rs = vs + BN * LD;  // [2] ring stages
+  float* ls = rs + 2 * RS;   // [2][BR] lse
+  float* dl = ls + 2 * BR;   // [2][BR] D
+
+  const int G = H / K, kb = blockIdx.x % (K * B);
+  const int kvh = kb % K, b = kb / K;
+  const int4 it = items[blockIdx.x / (K * B)];
+  const int k0 = it.x * BN, r_lo = it.y, r_hi = it.z, slot = it.w;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = (tid >> 5) & 3, half = tid >> 7;  // the warp's keys; its rows of a stage
+  const int wk = k0 + warp * 16;  // the warp's first key
+  const int ro = half * RH;       // the warp's first row of a stage
+  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+
+  for (int c = tid; c < BN * CH; c += NT) {
+    const int j = c / CH, cc = (c % CH) * 4, key = k0 + j;
+    const bool ok = key < Sk;
+    const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
+    cp_async16(ks + j * LD + cc, k + off, ok);
+    cp_async16(vs + j * LD + cc, v + off, ok);
+  }
+  auto load_rows = [&](int r, int buf) {
+    float* st = rs + buf * RS;
+    for (int c = tid; c < BR * CH; c += NT) {
+      const int j = c / CH, cc = (c % CH) * 4, rr = r + j, qi = rr / G;
+      const bool ok = rr < r_hi;
+      const size_t off =
+          ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + rr - qi * G) * HD + cc : 0;
+      cp_async16(st + j * LD + cc, q + off, ok);               // Q's hi half
+      cp_async16(st + (2 * BR + j) * LD + cc, dO + off, ok);  // dO's hi half
+    }
+    for (int j = tid; j < BR; j += NT) {
+      const int rr = r + j, qi = rr / G;
+      const bool ok = rr < r_hi;
+      const size_t li = ok ? ((size_t)b * H + (size_t)kvh * G + rr - qi * G) * Sq + qi : 0;
+      cp_async4(ls + buf * BR + j, lse + li, ok);
+      cp_async4(dl + buf * BR + j, delta + li, ok);
+    }
+    cp_async_commit();
+  };
+  load_rows(r_lo, 0);  // with K and V
+
+  // this thread's keys: wk + g (acc[.][0..1]) and wk + g + 8 (acc[.][2..3])
+  float dka[KD][4], dva[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  int buf = 0;
+  for (int r = r_lo; r < r_hi; r += BR, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // this stage is in, and every warp is done with the other one
+    if (r + BR < r_hi) load_rows(r + BR, buf ^ 1);  // in flight under this stage
+    float* st = rs + buf * RS;
+    split_stage<2, BR, HD, NT>(st, tid);
+    __syncthreads();
+    const float* lt = ls + buf * BR + ro;
+    const float* dt = dl + buf * BR + ro;
+    const int rh = r + ro;  // the warp's rows: rh .. rh + RH - 1
+    const int q_lo = rh / G, q_hi = (min(rh + RH, r_hi) - 1) / G;
+    const bool skip = rh >= r_hi || wk >= Sk || (causal && q_hi < wk) ||
+                      (window > 0 && q_lo - (wk + 15) >= window);
+    if (!skip) {
+      const float* qt = st + ro * LD;                // Q hi; lo at + BR * LD
+      const float* ot = st + (2 * BR + ro) * LD;     // dO hi; lo at + BR * LD
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x RH rows
+      float s[NR][4], dp[NR][4];
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ah[4], al[4], bh[NR][2], bl[NR][2];
+        split_a<LD>(ks + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
+        b_cols<NR, LD>(bh, bl, qt + g * LD + 8 * kk + t, BR * LD);
+        mma3(s, ah, al, bh, bl);
+        split_a<LD>(vs + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
+        b_cols<NR, LD>(bh, bl, ot + g * LD + 8 * kk + t, BR * LD);
+        mma3(dp, ah, al, bh, bl);
+      }
+      // P^T = exp(S^T scale (capped) - lse) and dS^T = P^T (dP^T - D) (times
+      // the softcap's 1 - tanh^2); s[j][e]: key wk + g + 8 (e >> 1), row rh +
+      // 8 j + 2 t + (e & 1). A tile inside every pair's range skips the mask.
+      const bool edge = (causal && q_lo < wk + 15) || (window > 0 && q_hi - wk >= window) ||
+                        wk + 16 > Sk || rh + RH > r_hi;
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          float x = s[j][e] * scale, f = 1.f;
+          if (cap > 0.f) {
+            const float th = tanhf(x * inv_cap);
+            x = cap * th;
+            f = 1.f - th * th;
+          }
+          float p = expf(x - lt[col]);
+          if (edge) {
+            const int rr = rh + col, key = wk + g + ((e >> 1) << 3);
+            const bool ok = rr < r_hi && key < Sk && visible(rr / G, key, causal, window);
+            p = ok ? p : 0.f;
+          }
+          s[j][e] = p;
+          dp[j][e] = p * f * (dp[j][e] - dt[col]);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q, a k-step of 8 rows at a time
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        uint32_t ah[4], al[4];
+        const int row = (8 * j + 2 * t) * LD + g;
+        split_c_as_a(s[j], ah, al);
+        mma_rows<KD, NV, LD>(dva, ah, al, ot + row, BR * LD);
+        split_c_as_a(dp[j], ah, al);
+        mma_rows<KD, NV, LD>(dka, ah, al, qt + row, BR * LD);
+      }
+    }
+  }
+  cp_async_wait<0>();  // an empty walk issued its copies too
+  if constexpr (C::kSplit == 2) {
+    // the second half's warps leave their sums in the ring (free once every
+    // warp is past its last stage), one float per thread and value; the
+    // first half's add them, in that order
+    float* xs = rs + (tid & 127);
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int n = 0; n < KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xs[(8 * n + e) * 128] = dka[n][e];
+          xs[(8 * n + 4 + e) * 128] = dva[n][e];
+        }
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dka[n][e] += xs[(8 * n + e) * 128];
+        dva[n][e] += xs[(8 * n + 4 + e) * 128];
+      }
+  }
+
+  if (slot < 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = wk + g + 8 * i;
+      if (key >= Sk) continue;
+      const size_t off = (((size_t)b * Sk + key) * K + kvh) * HD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        *reinterpret_cast<float2*>(dk + off + 8 * n) =
+            make_float2(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
+        *reinterpret_cast<float2*>(dv + off + 8 * n) =
+            make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+      }
+    }
+    return;
+  }
+  float* pk = part + ((size_t)slot * K * B + kb) * (2 * BN * HD);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int off = (warp * 16 + g + 8 * i) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      *reinterpret_cast<float2*>(pk + off + 8 * n) = make_float2(dka[n][2 * i], dka[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(pk + BN * HD + off + 8 * n) =
+          make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+// pass 2: dQ for kBQ folded query rows of one (b, kv head), the longest
+// causal rows first
+template <int HD>
+__global__ void __launch_bounds__(Tf32BwdTiling<HD>::kThreads, Tf32BwdTiling<HD>::kBlocks)
+dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dO,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, int Sq, int Sk, int H, int K, int causal, int window,
+               float cap, float scale) {
+  using C = Tf32BwdTiling<HD>;
+  constexpr int BQ = C::kBQ, BK = C::kBK, LD = C::kLd, NT = C::kThreads;
+  constexpr int KH = BK / C::kSplit;  // a warp's keys of a stage
+  constexpr int KD = HD / 8;  // k-steps of S and dP; n-blocks of dQ
+  constexpr int NN = KH / 8;  // n-blocks of S and dP; k-steps of dQ
+  constexpr int CH = HD / 4;  // 16-byte copies a row
+  constexpr int NV = KD < 4 ? KD : 4;
+  constexpr int RS = 4 * BK * LD;  // a ring stage: K hi, K lo, V hi, V lo
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;            // Q [BQ][LD]
+  float* dos = qs + BQ * LD;  // dO [BQ][LD]
+  float* rs = dos + BQ * LD;  // [2] ring stages
+
+  const int G = H / K, kvh = blockIdx.y, b = blockIdx.z;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows first
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = (tid >> 5) & 3, half = tid >> 7;  // the warp's rows; its keys of a stage
+  const int ko = half * KH;  // the warp's first key of a stage
+  const int q_first = r0 / G;
+  const int q_last = min(Sq - 1, (r0 + BQ - 1) / G);
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) / BK * BK : 0;
+  const int wr = r0 + warp * 16;  // the warp's first folded row
+  const int wq_first = wr / G, wq_last = min(Sq - 1, (wr + 15) / G);
+  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+
+  for (int c = tid; c < BQ * CH; c += NT) {
+    const int rr = c / CH, cc = (c % CH) * 4, r = r0 + rr, qi = r / G;
+    const bool ok = qi < Sq;
+    const size_t off = ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + r - qi * G) * HD + cc : 0;
+    cp_async16(qs + rr * LD + cc, q + off, ok);
+    cp_async16(dos + rr * LD + cc, dO + off, ok);
+  }
+  auto load_kv = [&](int kb, int buf) {
+    float* st = rs + buf * RS;
+    for (int c = tid; c < BK * CH; c += NT) {
+      const int j = c / CH, cc = (c % CH) * 4, key = kb + j;
+      const bool ok = key < Sk;
+      const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
+      cp_async16(st + j * LD + cc, k + off, ok);               // K's hi half
+      cp_async16(st + (2 * BK + j) * LD + cc, v + off, ok);  // V's hi half
+    }
+    cp_async_commit();
+  };
+  load_kv(k_begin, 0);  // with Q and dO
+
+  // this thread's rows: wr + g (acc[.][0..1]) and wr + g + 8 (acc[.][2..3])
+  int qr[2];
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + g + 8 * i, qi = r / G;
+    const size_t li = ((size_t)b * H + (size_t)kvh * G + r - qi * G) * Sq + qi;
+    qr[i] = qi;
+    lr[i] = qi < Sq ? lse[li] : 0.f;
+    dr[i] = qi < Sq ? delta[li] : 0.f;
+  }
+  float dqa[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  int buf = 0;
+  for (int kb = k_begin; kb < k_end; kb += BK, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // this stage is in, and every warp is done with the other one
+    if (kb + BK < k_end) load_kv(kb + BK, buf ^ 1);  // in flight under this stage
+    float* st = rs + buf * RS;
+    split_stage<2, BK, HD, NT>(st, tid);
+    __syncthreads();
+    const int kw = kb + ko;  // the warp's keys: kw .. kw + KH - 1
+    const bool skip = wq_first >= Sq || kw >= k_end || (causal && kw > wq_last) ||
+                      (window > 0 && wq_first - (kw + KH - 1) >= window);
+    if (!skip) {
+      const float* kt = st + ko * LD;             // K hi; lo at + BK * LD
+      const float* vt = st + (2 * BK + ko) * LD;  // V hi; lo at + BK * LD
+      // S = Q K^T and dP = dO V^T: the warp's 16 rows x KH keys
+      float s[NN][4], dp[NN][4];
+#pragma unroll
+      for (int j = 0; j < NN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ah[4], al[4], bh[NN][2], bl[NN][2];
+        split_a<LD>(qs + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
+        b_cols<NN, LD>(bh, bl, kt + g * LD + 8 * kk + t, BK * LD);
+        mma3(s, ah, al, bh, bl);
+        split_a<LD>(dos + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
+        b_cols<NN, LD>(bh, bl, vt + g * LD + 8 * kk + t, BK * LD);
+        mma3(dp, ah, al, bh, bl);
+      }
+      // dS = P (dP - D) (times the softcap's factor); s[j][e]: row qr[e >>
+      // 1], key kw + 8 j + 2 t + (e & 1)
+      const bool edge = (causal && kw + KH - 1 > wq_first) ||
+                        (window > 0 && wq_last - kw >= window) || kw + KH > Sk;
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale, f = 1.f;
+          if (cap > 0.f) {
+            const float th = tanhf(x * inv_cap);
+            x = cap * th;
+            f = 1.f - th * th;
+          }
+          float p = expf(x - lr[e >> 1]);
+          if (edge) {
+            const int key = kw + 8 * j + 2 * t + (e & 1);
+            p = key < Sk && visible(qr[e >> 1], key, causal, window) ? p : 0.f;
+          }
+          dp[j][e] = p * f * (dp[j][e] - dr[e >> 1]);
+        }
+      }
+      // dQ += dS K, a k-step of 8 keys at a time
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        uint32_t ah[4], al[4];
+        split_c_as_a(dp[j], ah, al);
+        mma_rows<KD, NV, LD>(dqa, ah, al, kt + (8 * j + 2 * t) * LD + g, BK * LD);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if constexpr (C::kSplit == 2) {  // the two halves' dQ added in a fixed order, as pass 1
+    float* xs = rs + (tid & 127);
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int n = 0; n < KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xs[(4 * n + e) * 128] = dqa[n][e];
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[n][e] += xs[(4 * n + e) * 128];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qr[i] >= Sq) continue;
+    const int r = wr + g + 8 * i;
+    float* row = dq + (((size_t)b * Sq + qr[i]) * H + (size_t)kvh * G + r - qr[i] * G) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(dqa[n][2 * i] * scale, dqa[n][2 * i + 1] * scale);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *dO;
   const float* lse;
@@ -1060,41 +1585,70 @@ cudaError_t launch_tc(const Args& a) {
   dkdv_wg_kernel<HD><<<(unsigned)n1, W::kThreads, W::kSmem1, a.s>>>(
       q, k, v, dO, a.lse, a.delta, dk, dv, a.part, a.sched, a.Sq, a.Sk, a.H, a.K, a.B,
       a.causal, a.window, a.cap, a.scale, gm);
-  dkdv_merge_kernel<HD><<<(unsigned)nm, 256, 0, a.s>>>(a.part, a.sched + a.n_items, dk, dv,
-                                                       a.Sk, a.K, a.B, a.scale);
+  dkdv_merge_kernel<bf16, HD><<<(unsigned)nm, 256, 0, a.s>>>(a.part, a.sched + a.n_items, dk,
+                                                             dv, a.Sk, a.K, a.B, a.scale);
   dq_wg_kernel<HD><<<dim3((unsigned)nq, a.K, a.B), W::kThreads, W::kSmem2, a.s>>>(
       q, k, v, dO, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.H, a.K, a.causal,
       a.window, a.cap, a.scale);
   return cudaSuccess;
 }
 
-// the CUDA-core route: float32 at every head dim, bfloat16 at hd 8, 16, 32
+template <int HD>
+cudaError_t launch_tf32(const Args& a) {
+  using C = Tf32BwdTiling<HD>;
+  static const cudaError_t attr1 = smem_attr(dkdv_tf32_kernel<HD>, C::kSmem1);
+  static const cudaError_t attr2 = smem_attr(dq_tf32_kernel<HD>, C::kSmem2);
+  if (attr1 != cudaSuccess) return attr1;
+  if (attr2 != cudaSuccess) return attr2;
+  const int G = a.H / a.K;
+  const long long kb = (long long)a.K * a.B;
+  const long long n1 = a.n_items * kb, nm = a.n_tiles * kb;
+  const long long rows = (long long)G * a.Sq;  // folded rows, held in int by the kernels
+  const long long nq = (rows + C::kBQ - 1) / C::kBQ;
+  if (a.n_items <= 0 || a.n_tiles <= 0 || a.sched == nullptr || n1 > 0x7fffffffLL ||
+      nm > 0x7fffffffLL || rows + C::kBQ > 0x7fffffffLL || a.K > 65535 || a.B > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_delta<float>(a, HD);
+  if (err != cudaSuccess) return err;
+  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v), *dO = static_cast<const float*>(a.dO);
+  float *dk = static_cast<float*>(a.dk), *dv = static_cast<float*>(a.dv);
+  dkdv_tf32_kernel<HD><<<(unsigned)n1, C::kThreads, C::kSmem1, a.s>>>(
+      q, k, v, dO, a.lse, a.delta, dk, dv, a.part, a.sched, a.Sq, a.Sk, a.H, a.K, a.B,
+      a.causal, a.window, a.cap, a.scale);
+  dkdv_merge_kernel<float, HD><<<dim3((unsigned)nm, HD / 8), 256, 0, a.s>>>(
+      a.part, a.sched + a.n_items, dk, dv, a.Sk, a.K, a.B, a.scale);
+  dq_tf32_kernel<HD><<<dim3((unsigned)nq, a.K, a.B), C::kThreads, C::kSmem2, a.s>>>(
+      q, k, v, dO, a.lse, a.delta, static_cast<float*>(a.dq), a.Sq, a.Sk, a.H, a.K, a.causal,
+      a.window, a.cap, a.scale);
+  return cudaSuccess;
+}
+
+// the CUDA-core route: bfloat16 at hd 8, 16, 32 and float32 at hd 256
 template <typename T>
 cudaError_t dispatch(int hd, const Args& a) {
-  switch (hd) {
-    case 8: return launch<T, 8>(a);
-    case 16: return launch<T, 16>(a);
-    case 32: return launch<T, 32>(a);
-  }
   if constexpr (std::is_same<T, float>::value) {
+    return hd == 256 ? launch<T, 256>(a) : cudaErrorInvalidValue;
+  } else {
     switch (hd) {
-      case 64: return launch<T, 64>(a);
-      case 128: return launch<T, 128>(a);
-      case 256: return launch<T, 256>(a);
+      case 8: return launch<T, 8>(a);
+      case 16: return launch<T, 16>(a);
+      case 32: return launch<T, 32>(a);
     }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/o/dO/dq (B,Sq,H,hd), k/v/dk/dv
 // (B,Sk,K,hd), lse and delta (scratch for D) (B,H,Sq) float32, all
-// contiguous. The tensor-core route (bfloat16, hd 64, 128 and 256) also takes the
-// dK/dV pass's schedule, n_items segment rows then n_tiles key-tile rows of 4
-// int32 each (kernels/flash_attention_bwd.py::dkdv_schedule), and the float32
-// workspace of its partials (slots x B x K x 2 x 64 x hd); the CUDA-core
-// routes take null and 0 there. Launches the D pre-pass, the dK/dV pass (and on the
+// contiguous. The tensor-core routes (bfloat16 at hd 64, 128 and 256,
+// float32 at hd 8 to 128) also take the dK/dV pass's schedule, n_items
+// segment rows then n_tiles key-tile rows of 4 int32 each
+// (kernels/flash_attention_bwd.py::dkdv_schedule), and the float32 workspace
+// of its partials (slots x B x K x 2 x 64 x hd); the CUDA-core routes take
+// null and 0 there. Launches the D pre-pass, the dK/dV pass (and on the
 // tensor-core route the merge of its cut key tiles) and the dQ pass on
 // ``stream``. Returns a cudaError_t: the launches', else cudaGetLastError().
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
@@ -1110,14 +1664,24 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
                static_cast<const int4*>(sched), n_items, n_tiles,
                B, Sq, Sk, H, K, causal, window, softcap, scale,
                static_cast<cudaStream_t>(stream)};
-  // the tensor-core variant copies 16-byte chunks
-  const bool tc = dtype == 1 && (hd == 64 || hd == 128 || hd == 256);
+  // the tensor-core variants copy 16-byte chunks
+  const bool tf32 = dtype == 0 && hd <= 128;
+  const bool tc = tf32 || (dtype == 1 && (hd == 64 || hd == 128 || hd == 256));
   if (tc &&
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dO |
         (uintptr_t)sched | (uintptr_t)work) & 15))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (dtype == 0)
+  if (tf32) {
+    switch (hd) {
+      case 8: err = launch_tf32<8>(a); break;
+      case 16: err = launch_tf32<16>(a); break;
+      case 32: err = launch_tf32<32>(a); break;
+      case 64: err = launch_tf32<64>(a); break;
+      case 128: err = launch_tf32<128>(a); break;
+      default: err = cudaErrorInvalidValue;
+    }
+  } else if (dtype == 0)
     err = dispatch<float>(hd, a);
   else if (dtype == 1 && hd == 64)
     err = launch_tc<64>(a);

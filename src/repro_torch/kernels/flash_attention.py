@@ -8,17 +8,17 @@ as the TPU kernel computes them: causal keeps key j for query i iff i >= j
 a tile past the frontier is skipped. Any Sq and Sk (the TPU kernel needs
 multiples of 128): seamless's cross-attention runs non-causal at Sq != Sk;
 hd in {8, 16, 32, 64, 128, 256}; float32 or bfloat16 in, out in q's type.
-float32 at hd <= 128 runs on the tensor cores in split-TF32 (its algorithm
-step by step: ``ref.flash_attention_split_ref``), bfloat16 at hd 64, 128
-and 256 on Hopper's warpgroup products (``flash_wg_kernel``: TMA loads of
-K and V into mbarrier rings from a producer warpgroup, two consumer
-warpgroups on wgmma; its shared memory, rings and TMA boxes are
-``wg_plan``); the rest (float32 at hd 256, bfloat16 at hd 8, 16 and 32) on
-the CUDA cores. The tensor-core routes copy 16 bytes at a time (TMA too needs
-16-byte aligned tensors), so there q, k and v must start on a 16-byte
-boundary (a float32 view at an offset of a whole number of 4 floats, a
-bfloat16 one of 8); the wrapper raises ``ValueError`` if not
-(``check_route``, which also refuses shapes whose folded rows or blocks
+float32 at every head dim runs on the tensor cores in split-TF32
+(``flash_tf32_kernel``; its algorithm step by step:
+``ref.flash_attention_split_ref``; its tiling ``tf32_plan``), bfloat16 at hd
+64, 128 and 256 on Hopper's warpgroup products (``flash_wg_kernel``: TMA loads
+of K and V into mbarrier rings from a producer warpgroup, two consumer
+warpgroups on wgmma; its shared memory, rings and TMA boxes are ``wg_plan``);
+bfloat16 at hd 8, 16 and 32 on the CUDA cores. The tensor-core routes copy 16
+bytes at a time (TMA too needs 16-byte aligned tensors), so there q, k and v
+must start on a 16-byte boundary (a float32 view at an offset of a whole
+number of 4 floats, a bfloat16 one of 8); the wrapper raises ``ValueError`` if
+not (``check_route``, which also refuses shapes whose folded rows or blocks
 overflow the kernels' 32-bit indices).
 
 ``flash_attention`` is the serving entry point; ``flash_attention_lse``
@@ -87,10 +87,37 @@ def wg_plan(hd):
             "regs": WG_REGS}
 
 
+#: the float32 route (``Tf32Tiling`` in csrc/flash_attention.cu): folded
+#: query rows a block (16 a row warp), and by head dim the warp groups that
+#: share a ring stage's keys and the keys a warp takes from a stage
+TF32_ROWS = 32
+TF32_SPLIT = {8: 2, 16: 2, 32: 2, 64: 2, 128: 2, 256: 4}
+TF32_KEYS = {8: 32, 16: 32, 32: 32, 64: 32, 128: 16, 256: 8}
+TF32_SMEM_LIMIT = 232448  # shared memory a block may use on an H100
+
+
+def tf32_plan(hd):
+    """The float32 route's tiling at head dim ``hd``, as ``Tf32Tiling``
+    lays it out: ``split`` (warp groups that share a stage's keys),
+    ``threads`` a block (two row warps in each group), ``rows``, ``keys`` a
+    warp takes from a stage, ``stage`` (keys a ring stage), ``ld`` (a
+    shared row's floats, hd + 4: conflict-free fragments),
+    ``q_in_registers`` (Q's split fragments; else Q's hi and lo halves in
+    shared memory) and ``smem_bytes`` (Q, then two stages of K and V)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    split, keys = TF32_SPLIT[hd], TF32_KEYS[hd]
+    stage, ld, q_regs = split * keys, hd + 4, hd <= 64
+    q_words = (1 if q_regs else 2) * TF32_ROWS * ld
+    return {"split": split, "threads": 32 * (TF32_ROWS // 16) * split, "rows": TF32_ROWS,
+            "keys": keys, "stage": stage, "ld": ld, "q_in_registers": q_regs,
+            "smem_bytes": (q_words + 4 * stage * ld) * 4}
+
+
 def check_route(q, k, v):
     """The checks that need no device: shapes, head dim, dtype, the
-    tensor-core routes' 16-byte alignment (float32 at hd <= 128, bfloat16
-    at hd 64, 128 and 256) and the index range of the bf16 route. Raises
+    tensor-core routes' 16-byte alignment (float32 at every head dim,
+    bfloat16 at hd 64, 128 and 256) and the index range of the bf16 route. Raises
     ValueError or TypeError for what the kernels do not take."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -101,7 +128,7 @@ def check_route(q, k, v):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: dtype {q.dtype} not in (float32, bfloat16)")
     wgmma = q.dtype == torch.bfloat16 and hd in WG_HEAD_DIMS
-    tensor_cores = wgmma or (q.dtype == torch.float32 and hd <= 128)
+    tensor_cores = wgmma or q.dtype == torch.float32
     if tensor_cores and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"flash_attention: {q.dtype} at head_dim {hd} runs on the tensor cores, "
                          "which need q, k and v to start on a 16-byte boundary")

@@ -10,12 +10,16 @@ fold as the forward, at any Sq and Sk with the forward's positions
 arange(Sq) and arange(Sk) (causal aligned at the top left: seamless's
 cross-attention trains non-causal at Sq != Sk); a key that no query sees
 (causal, past Sq - 1) gets dK = dV = 0. hd in {8, 16, 32, 64, 128, 256};
-float32 or bfloat16 (hd 64, 128 and 256 in bfloat16 on the tensor cores,
-where q, k, v, o and do must lie on a 16-byte boundary: ``ValueError`` if
-not).
+float32 or bfloat16. Two routes run on the tensor cores, where q, k, v, o
+and do must lie on a 16-byte boundary (``ValueError`` if not): bfloat16 at
+hd 64, 128 and 256 on Hopper's warpgroup products (wgmma; ``tc_plan``) and
+float32 at hd 8 to 128 in split-TF32 (``mma.sync`` tf32, each operand split
+into a tf32 hi and lo half, each product lo·hi + hi·lo + hi·hi;
+``tf32_bwd_plan``; its algorithm step by step:
+``ref.flash_attention_bwd_split_ref``). The rest (bfloat16 at hd 8, 16 and
+32, float32 at hd 256) runs on the CUDA cores. ``route`` names the route.
 
-On the tensor-core route (Hopper's warpgroup products, wgmma) the dK/dV
-pass is balanced over the causal rows:
+On both tensor-core routes the dK/dV pass is balanced over the causal rows:
 ``dkdv_schedule`` cuts each key tile's walk over the folded query rows into
 segments of about equal length, one block each. This module keeps the
 schedule on the device per shape and allocates, per call, the float32
@@ -45,6 +49,8 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
 
 #: head dims of the tensor-core route (bfloat16)
 TC_HEAD_DIMS = (64, 128, 256)
+#: head dims of the split-TF32 tensor-core route (float32)
+TF32_HEAD_DIMS = (8, 16, 32, 64, 128)
 #: the tensor-core dK/dV pass's tiles (``kKeys`` and ``WgTiling::kBM`` in the
 #: source): keys a block, folded query rows a ring stage
 TC_KEYS = 64
@@ -54,19 +60,47 @@ TC_ROWS = 64
 #: block (``WgTiling::kNW``: two at hd 256, each with half the columns)
 TC_BLOCKS_PER_SM = {64: 3, 128: 2, 256: 1}
 TC_WARPGROUPS = {64: 1, 128: 1, 256: 2}
+#: the split-TF32 route (``Tf32BwdTiling`` in the source): threads of a
+#: warp group (4 warps, 16 keys or rows each), warp groups a block by head
+#: dim (two at hd 128, each with half of a stage's rows or keys), folded rows
+#: a ring stage of the dK/dV pass, folded rows a dQ block, keys a ring stage
+#: of the dQ pass, and blocks an SM by head dim (shared memory: one block at
+#: hd 128)
+TF32_THREADS = 128
+TF32_SPLIT = {8: 1, 16: 1, 32: 1, 64: 1, 128: 2}
+TF32_STAGE_ROWS = 32
+TF32_DQ_ROWS = 64
+TF32_DQ_KEYS = 32
+TF32_BLOCKS_PER_SM = {8: 2, 16: 2, 32: 2, 64: 2, 128: 1}
 #: SMs of an H100, and the waves of them the dK/dV schedule aims at
 SMS = 132
 TARGET_WAVES = 2
-#: ring stages of the shortest segment (a key tile's last may be shorter)
+#: 64-row stages of the shortest segment (a key tile's last may be
+#: shorter), by route: the float32 route's blocks walk a stage slower, so
+#: its walks are cut finer
 MIN_SEGMENT = 8
+TF32_MIN_SEGMENT = 2
 _schedules: dict = {}
 
 
-def target_blocks(hd=64):
-    """dK/dV blocks the schedule aims at for the route at head dim ``hd``:
-    ``TARGET_WAVES`` waves of the card's SMs at the route's blocks an SM
-    (more segments balance better but add partial sums to merge)."""
-    return TARGET_WAVES * SMS * TC_BLOCKS_PER_SM[hd]
+def route(dtype, hd):
+    """The backward's route for ``dtype`` at head dim ``hd``: "wgmma"
+    (bfloat16 at ``TC_HEAD_DIMS``), "tf32" (float32 at ``TF32_HEAD_DIMS``)
+    or "cuda_core" (bfloat16 at hd 8, 16, 32; float32 at hd 256)."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.float32 and hd in TF32_HEAD_DIMS:
+        return "tf32"
+    return "cuda_core"
+
+
+def target_blocks(hd=64, dtype=torch.bfloat16):
+    """dK/dV blocks the schedule aims at for the route of ``dtype`` at head
+    dim ``hd``: ``TARGET_WAVES`` waves of the card's SMs at the route's
+    blocks an SM (more segments balance better but add partial sums to
+    merge)."""
+    per_sm = {"wgmma": TC_BLOCKS_PER_SM, "tf32": TF32_BLOCKS_PER_SM}[route(dtype, hd)][hd]
+    return TARGET_WAVES * SMS * per_sm
 
 
 def tc_plan(hd):
@@ -89,26 +123,53 @@ def tc_plan(hd):
             "smem2": 1024 + 6 * tile + (nw - 1) * 2 * (64 * 64 // 2) * (4 + 2)}
 
 
+def tf32_bwd_plan(hd):
+    """The split-TF32 route's launch at head dim ``hd``, as the source's
+    ``Tf32BwdTiling`` lays it out: ``split`` (warp groups that share a
+    stage, each with half its rows or keys), ``threads`` a block (4 warps a
+    group), ``blocks_per_sm``, the dK/dV pass's ``keys`` a block (16 a warp) and
+    ``rows`` a ring stage, the dQ pass's ``dq_rows`` a block (16 a warp) and
+    ``dq_keys`` a ring stage, ``ld`` (a shared row's floats, hd + 4), and
+    the shared memory of the dK/dV pass (``smem1``: K and V of the block's
+    keys, two ring stages of Q and dO each as a tf32 hi and lo half, the
+    stages' lse and D) and of the dQ pass (``smem2``: Q and dO of the
+    block's rows, two ring stages of K and V, hi and lo)."""
+    if hd not in TF32_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: the split-TF32 route takes head_dim "
+                         f"{TF32_HEAD_DIMS}, not {hd}")
+    ld = hd + 4
+    return {"split": TF32_SPLIT[hd], "threads": TF32_THREADS * TF32_SPLIT[hd],
+            "blocks_per_sm": TF32_BLOCKS_PER_SM[hd], "keys": TC_KEYS,
+            "rows": TF32_STAGE_ROWS, "dq_rows": TF32_DQ_ROWS, "dq_keys": TF32_DQ_KEYS, "ld": ld,
+            "smem1": (2 * TC_KEYS * ld + 2 * 4 * TF32_STAGE_ROWS * ld + 2 * 2 * TF32_STAGE_ROWS)
+            * 4,
+            "smem2": (2 * TF32_DQ_ROWS * ld + 2 * 4 * TF32_DQ_KEYS * ld) * 4}
+
+
 def check_tc_route(q, k, v, o, do):
-    """The tensor-core route (bfloat16 at ``TC_HEAD_DIMS``) copies 16 bytes
-    at a time: raise ValueError unless q, k, v, o and do start on a 16-byte
-    boundary. Other routes take any."""
-    if q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS and any(
+    """The tensor-core routes (bfloat16 at ``TC_HEAD_DIMS``, float32 at
+    ``TF32_HEAD_DIMS``) copy 16 bytes at a time: raise ValueError unless q,
+    k, v, o and do start on a 16-byte boundary. The CUDA-core route takes
+    any."""
+    if route(q.dtype, q.shape[-1]) != "cuda_core" and any(
             t.data_ptr() % 16 for t in (q, k, v, o, do)):
-        raise ValueError(f"flash_attention_bwd: bfloat16 at head_dim {q.shape[-1]} runs on the "
+        raise ValueError(f"flash_attention_bwd: {q.dtype} at head_dim {q.shape[-1]} runs on the "
                          "tensor cores, which need q, k, v, o and do to start on a 16-byte "
                          "boundary")
 
 
-def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks, hd=64):
-    """The tensor-core dK/dV pass's work, cut into segments of about equal
-    length. Key tile j (keys 64j..64j+63 of one KV head of one batch row)
-    walks the folded query rows r = q * G + g from its causal frontier to
-    its window edge, in ring stages of ``TC_ROWS`` rows. A walk longer
-    than ``seg`` stages is cut into the fewest segments of at most ``seg``
-    stages, whose lengths differ by at most a stage, with ``seg`` chosen so
-    that the ``kv_blocks`` (= B * K) copies of the schedule make about
-    ``target_blocks(hd)`` blocks.
+def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks, hd=64, dtype=torch.bfloat16):
+    """The tensor-core dK/dV pass's work (either tensor-core route: the float32
+    one walks each 64-row stage as two of ``TF32_STAGE_ROWS``), cut into
+    segments of about equal length. Key tile j (keys 64j..64j+63 of one KV
+    head of one batch row) walks the folded query rows r = q * G + g from its
+    causal frontier to its window edge, in ring stages of ``TC_ROWS`` rows. A
+    walk longer than ``seg`` stages is cut into the fewest segments of at most
+    ``seg`` stages, whose lengths differ by at most a stage, with ``seg``
+    chosen so that the ``kv_blocks`` (= B * K) copies of the schedule make
+    about ``target_blocks(hd, dtype)`` blocks; on the float32 route, so that
+    one copy makes about one wave of them (``target_blocks / TARGET_WAVES``),
+    whatever ``kv_blocks`` is.
 
     Returns ``(items, tiles, slots)``. ``items``: one (key tile, first row,
     end row, slot) per segment, longest first; slot -1 marks a tile's only
@@ -128,7 +189,14 @@ def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks, hd=64):
         end = (min(Sq, k_last + window) if window > 0 else Sq) * G
         walks.append((begin, max(begin, end)))
     stages = sum(-(-(e - b) // BM) for b, e in walks)
-    seg = max(MIN_SEGMENT, -(-stages * kv_blocks // target_blocks(hd)))
+    if route(dtype, hd) == "tf32":
+        # one wave of the route's blocks a copy, whatever kv_blocks is: a
+        # (batch row, kv head)'s cuts, and so its float32 sums, depend on its
+        # own walk alone, the same bits however rows and heads are split
+        # over ranks (a mesh's local call against one device's)
+        seg = max(TF32_MIN_SEGMENT, -(-stages * TARGET_WAVES // target_blocks(hd, dtype)))
+    else:
+        seg = max(MIN_SEGMENT, -(-stages * kv_blocks // target_blocks(hd, dtype)))
     items, tiles, slots = [], [], 0
     for j, (b, e) in enumerate(walks):
         n_stages = -(-(e - b) // BM)
@@ -147,8 +215,9 @@ def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks, hd=64):
 
 
 def cached_schedule(device, *shape):
-    """``(schedule, n_items, n_tiles, slots)``: dkdv_schedule(*shape) on
-    ``device`` as one int32 tensor (the items' rows, then the tiles'), kept
+    """``(schedule, n_items, n_tiles, slots)``: dkdv_schedule(*shape)
+    (Sq, Sk, G, causal, window, kv_blocks, hd[, dtype]) on ``device`` as one
+    int32 tensor (the items' rows, then the tiles'), kept
     per device and shape, with its counts."""
     key = (device, *shape)
     got = _schedules.get(key)
@@ -192,9 +261,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
         return dq, dk, dv
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)  # rowsum(do * o)
     sched, n_items, n_tiles, work = None, 0, 0, None
-    if q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:  # the tensor-core route
+    if route(q.dtype, hd) != "cuda_core":  # a tensor-core route
         sched, n_items, n_tiles, slots = cached_schedule(q.device, Sq, Sk, H // K, bool(causal),
-                                                         int(window or 0), B * K, hd)
+                                                         int(window or 0), B * K, hd, q.dtype)
         work = torch.empty(workspace_numel(slots, B * K, hd), dtype=torch.float32,
                            device=q.device)
     fn = _build.load("flash_attention_bwd", _ARGTYPES)

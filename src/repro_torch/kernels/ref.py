@@ -74,25 +74,28 @@ def mm_split_tf32(a, b):
 
 
 def flash_attention_split_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """The float32 tensor-core flash kernel's algorithm step by step, in
-    float32, at the kernel's one tiling (``Tf32Tiling``). The G query heads
-    of a kv head are folded into the rows (row = q * G + g); each tile of 32
-    folded rows walks stages of 2 x ``keys`` keys (``keys`` 32 at hd <= 64,
-    else 16) from its first row's window edge (aligned down to a stage) to
-    its last row's causal frontier, and part h of each stage goes to
-    partial state h (the kernel's warp groups). Per key tile: S = Q Kᵀ in split-TF32, scaled,
-    capped, -1e30 where masked and -inf past Sk (the kernel's zero-filled
-    keys), the online softmax update, O += P V in split-TF32 (P split too).
-    The partial states merge in order: M = max(m_h), l = sum l_h exp(m_h -
-    M), acc likewise; l is clamped at 1e-30. (The kernel's warps also skip
-    a key tile wholly outside their rows' range; that is exact, so it is not
-    repeated here.) Returns (out in q's type, log-sum-exp (B,H,Sq) float32,
-    h = kv_head * G + g)."""
+    """The float32 tensor-core flash kernel's algorithm step by step, in float32,
+    at the kernel's tiling (``Tf32Tiling``, at every head dim, 8 to 256). The
+    G query heads of a kv head are folded into the rows (row = q * G + g);
+    each tile of 32 folded rows walks stages of ``split`` x ``keys`` keys
+    (``tf32_plan``: 2 x 32 at hd <= 64, 2 x 16 at hd 128, 4 x 8 at hd 256)
+    from its first row's
+    window edge (aligned down to a stage) to its last row's causal frontier,
+    and part h of each stage goes to partial state h (the kernel's warp
+    groups). Per key tile: S = Q Kᵀ in split-TF32, scaled, capped, -1e30 where
+    masked and -inf past Sk (the kernel's zero-filled keys), the online
+    softmax update, O += P V in split-TF32 (P split too). The partial states
+    merge in order: M = max(m_h), l = sum l_h exp(m_h - M), acc likewise; l is
+    clamped at 1e-30. (The kernel's warps also skip a key tile wholly outside
+    their rows' range; that is exact, so it is not repeated here.) Returns
+    (out in q's type, log-sum-exp (B,H,Sq) float32, h = kv_head * G + g)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G, R = H // K, (H // K) * Sq
-    rows, split, keys = 32, 2, 32 if hd <= 64 else 16  # Tf32Tiling's kBM, kSplit, kBN
-    stage = split * keys
+    from .flash_attention import tf32_plan  # the wrapper's module imports this one
+
+    plan = tf32_plan(hd)  # Tf32Tiling's kBM, kSplit and kBN
+    rows, split, keys, stage = plan["rows"], plan["split"], plan["keys"], plan["stage"]
     dev = q.device
     qf = q.to(F32).reshape(B, Sq, K, G, hd).permute(0, 2, 1, 3, 4).reshape(B, K, R, hd)
     pad = (-Sk) % stage + stage  # zero keys past Sk, so that every tile is whole
@@ -171,6 +174,118 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, softc
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(F32)) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
     return dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _fold(x, B, K, G, Sq):
+    """(B,Sq,H,...) -> (B,K,G*Sq,...) in float32, row = q * G + g."""
+    rest = x.shape[3:]
+    return (x.to(F32).reshape(B, Sq, K, G, *rest).transpose(1, 2)
+            .reshape(B, K, Sq * G, *rest))
+
+
+def flash_attention_bwd_split_ref(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0.0):
+    """The float32 tensor-core backward's algorithm step by step
+    (``dkdv_tf32_kernel``, ``dkdv_merge_kernel<float>``, ``dq_tf32_kernel``
+    in csrc/flash_attention_bwd.cu), in float32 with every product in
+    split-TF32 (``mm_split_tf32``: P and dS split too), at the kernels'
+    tiling and schedule. The G query heads of a kv head are folded into the
+    rows (row = q * G + g). D = rowsum(dO * O) first. Pass 1: the segments
+    of ``dkdv_schedule`` (float32's blocks an SM), each 64 keys over its
+    rows in stages of 32: S^T = K Q^T scaled and capped, P^T = exp(S^T -
+    lse) where the key is below Sk and visible (else 0), dP^T = V dO^T,
+    dS^T = P^T (dP^T - D) (times 1 - tanh^2 under a softcap), dV += P^T dO,
+    dK += dS^T Q; a tile walked by one segment is written (dK times the
+    scale), the partials of a cut tile are added in slot order, then
+    scaled. Pass 2: tiles of 64 rows, each over its keys in stages of 32
+    from its first row's window edge (aligned down to a stage) to its last
+    row's causal frontier: S = Q K^T, P, dP = dO V^T, dS, dQ += dS K, times
+    the scale. (The kernels' warps also skip a stage wholly outside their
+    keys' or rows' range, which is exact, and at hd 128 two warp groups
+    take half of each stage and add their sums at the end, which changes
+    only the order of float32 sums; neither is repeated here.) Returns
+    (dq, dk, dv) in the inputs' types."""
+    from .flash_attention_bwd import dkdv_schedule, tf32_bwd_plan  # it imports this module
+
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G, R = H // K, (H // K) * Sq
+    plan = tf32_bwd_plan(hd)  # Tf32BwdTiling's kKeys, kBR, kBQ, kBK
+    keys, stage, dq_rows, dq_keys = plan["keys"], plan["rows"], plan["dq_rows"], plan["dq_keys"]
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    qf, dof = _fold(q, B, K, G, Sq), _fold(do, B, K, G, Sq)
+    delta = (dof * _fold(o, B, K, G, Sq)).sum(-1)  # (B,K,R)
+    lf = lse.to(F32).reshape(B, K, G, Sq).transpose(2, 3).reshape(B, K, R)
+    pad = (-Sk) % keys + keys  # zero keys past Sk, as the kernels' copies
+    kf, vf = (torch.nn.functional.pad(t.to(F32).permute(0, 2, 1, 3), (0, 0, 0, pad))
+              for t in (k, v))
+    qpos = torch.arange(R, device=dev) // G
+
+    def p_ds(s, ds_in, rows, key, l, d):
+        """P and dS of scores s and dP ``ds_in``, rows x keys (either way
+        round: ``rows`` and ``key`` broadcast to s's shape)."""
+        x, f = s * scale, 1.0
+        if softcap:
+            th = torch.tanh(x / softcap)
+            x, f = softcap * th, 1.0 - th * th
+        ok = key < Sk
+        if causal:
+            ok = ok & (key <= qpos[rows])
+        if window:
+            ok = ok & (qpos[rows] - key < window)
+        p = torch.where(ok, torch.exp(x - l), 0.0)
+        return p, p * f * (ds_in - d)
+
+    dk = torch.zeros((B, K, Sk + pad, hd), dtype=F32, device=dev)
+    dv = torch.zeros_like(dk)
+    items, tiles, _ = dkdv_schedule(Sq, Sk, G, bool(causal), int(window or 0), B * K, hd,
+                                    torch.float32)
+    part = {}
+    for j, lo, hi, slot in items:
+        k0 = j * keys
+        kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
+        key = torch.arange(k0, k0 + keys, device=dev)[:, None]
+        dka = torch.zeros((B, K, keys, hd), dtype=F32, device=dev)
+        dva = torch.zeros_like(dka)
+        for r in range(lo, hi, stage):
+            rows = torch.arange(r, min(r + stage, hi), device=dev)
+            qr, dr = qf[:, :, rows], dof[:, :, rows]
+            st = mm_split_tf32(kt, qr.transpose(-1, -2))  # (B,K,keys,rows)
+            dpt = mm_split_tf32(vt, dr.transpose(-1, -2))
+            p, ds = p_ds(st, dpt, rows[None], key, lf[:, :, None, rows], delta[:, :, None, rows])
+            dva = dva + mm_split_tf32(p, dr)
+            dka = dka + mm_split_tf32(ds, qr)
+        if slot < 0:
+            dk[:, :, k0:k0 + keys], dv[:, :, k0:k0 + keys] = dka * scale, dva
+        else:
+            part[slot] = (dka, dva)
+    for j, first, n, _ in tiles:
+        if n < 2:
+            continue
+        dka, dva = part[first]
+        for i in range(first + 1, first + n):
+            dka, dva = dka + part[i][0], dva + part[i][1]
+        dk[:, :, j * keys:(j + 1) * keys], dv[:, :, j * keys:(j + 1) * keys] = dka * scale, dva
+
+    dq = torch.zeros((B, K, R, hd), dtype=F32, device=dev)
+    for r0 in range(0, R, dq_rows):
+        rows = torch.arange(r0, min(R, r0 + dq_rows), device=dev)
+        q_first, q_last = r0 // G, min(Sq - 1, (r0 + dq_rows - 1) // G)
+        k_end = min(Sk, q_last + 1) if causal else Sk
+        k_begin = max(0, q_first - window + 1) // dq_keys * dq_keys if window else 0
+        qr, dr = qf[:, :, rows], dof[:, :, rows]
+        acc = torch.zeros((B, K, rows.numel(), hd), dtype=F32, device=dev)
+        for kb in range(k_begin, k_end, dq_keys):
+            kt, vt = kf[:, :, kb:kb + dq_keys], vf[:, :, kb:kb + dq_keys]
+            key = torch.arange(kb, kb + dq_keys, device=dev)[None]
+            s = mm_split_tf32(qr, kt.transpose(-1, -2))  # (B,K,rows,keys)
+            dp = mm_split_tf32(dr, vt.transpose(-1, -2))
+            _, ds = p_ds(s, dp, rows[:, None], key, lf[:, :, rows, None], delta[:, :, rows, None])
+            acc = acc + mm_split_tf32(ds, kt)
+        dq[:, :, r0:r0 + rows.numel()] = acc * scale
+    dq = dq.reshape(B, K, Sq, G, hd).transpose(1, 2).reshape(B, Sq, H, hd)
+    dk, dv = (t[:, :, :Sk].transpose(1, 2) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
 
 
 def decode_attention_ref(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0,

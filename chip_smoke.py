@@ -10,21 +10,24 @@ Phases, each of which raises on failure (there is no CPU fallback):
      every kernel (the float32 flash route: flash_tf32_kernel<hd>; the bf16
      one at hd 64, 128 and 256: flash_wg_kernel<hd>), and on lines of their
      own those of the hd-256 route's three kernels (flash_wg_kernel<256>,
-     dkdv_wg_kernel<256>, dq_wg_kernel<256>) and of the float32 tensor-core
-     kernels (flash_tf32_kernel<256>; dkdv_tf32_kernel and dq_tf32_kernel
-     at hd 64 and 128) with their spills;
+     dkdv_wg_kernel<256>, dq_wg_kernel<256>) and of the split-TF32 kernels
+     (flash_tf32_kernel<256>; dkdv_tf32_kernel and dq_tf32_kernel at
+     float32 hd 64 and 128 and bf16 hd 8, 16 and 32, dkdv_tf32_cols_kernel
+     and dq_tf32_cols_kernel at float32 hd 256) with their spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      served shapes and the edge cases: attention at ragged lengths, GQA 7:1
      at hd 8, MQA, window, softcap, ring cache mid-wrap, nearly full and
      empty caches, gemma2-2b's hd 256 (flash at S 333, decode on a 640-slot
      ring cache, windows 4096 and 128, softcap 50), internlm2-1.8b's hd 128
      and a 2048-token prompt (flash), float32 at atol/rtol 1e-4 (float32
-     flash, forward at every head dim and backward at hd <= 128, on the
-     split-TF32 tensor cores) and bfloat16 at 2e-2; the float32 routes
-     also against their step-by-step split plain versions
-     (F32_SPLIT_CASES: gemma2-2b's served hd 256, the backward at phase 9
-     (b)'s shape with cut key tiles, GQA 7:1 at hd 8, windows, softcap 50,
-     Sq != Sk both ways); the flash forward's log-sum-exp (1e-4,
+     flash, forward and backward at every head dim, on the split-TF32
+     tensor cores) and bfloat16 at 2e-2; the float32 routes also against
+     their step-by-step split plain versions (F32_SPLIT_CASES: gemma2-2b's
+     served hd 256 forward and backward, the backward at phase 9 (b)'s
+     shape with cut key tiles, GQA 7:1 at hd 8, windows, softcap 50, Sq !=
+     Sk both ways), and the bf16 backward at hd 8, 16, 32 (the split-TF32
+     kernels) against its split plain version at 2^-7 of the gradients'
+     scale (BF16_SPLIT_TOL); the flash forward's log-sum-exp (1e-4,
      bfloat16 1e-3) and the flash backward kernel against the FA2 plain
      version (the same tolerances times the gradients' scale); the SSD
      scan at the served chunk lengths 37/64/100/128 (one to three chunks),
@@ -82,7 +85,8 @@ Phases, each of which raises on failure (there is no CPU fallback):
      operand: their share of the step and their kernels, none of them a
      float32 GEMM;
  11. training, (d): a crash at step 7 and exact resume at reduced size on
-     the card, losses within 1e-5 of the uninterrupted run;
+     the card, losses within 1e-5 of the uninterrupted run, whose launches
+     (bf16 at hd 8) are counted;
  12. time each kernel at the served shapes with CUDA events, beside its
      bound on an H100, its plain version and one library call where there
      is one (the serving kernels and their library calls as device time:
@@ -103,11 +107,16 @@ Phases, each of which raises on failure (there is no CPU fallback):
      (uncapped), and the float32 forward at gemma2's served q (1,333,8,256)
      (split-TF32, beside the CUDA-core kernel's time it replaced); the
      float32 backward (split-TF32) at phase 9 (b)'s, a rank of 18 (b)'s and
-     a rank of 19 (c)'s shapes and bf16 at hd 8 (the CUDA cores), each
-     beside its split-TF32 and CUDA-core bounds, the plain versions, SDPA's
-     forward and forward + backward less forward (profiler device time),
-     and the CUDA-core kernels' times the float32 routes replaced
-     (CUDA_CORE_MS); the flash backward kernel (held against its
+     a rank of 19 (c)'s shapes and at gemma2-2b's served (1 x 333) and
+     training (4 x 2048) shapes at hd 256, softcap 50, and bf16 at hd 8,
+     16, 32 (the reduced qwen2-0.5b's heads, split-TF32 too), each held
+     against its plain version twice bit for bit and beside its
+     split-TF32 and CUDA-core bounds, the plain versions, SDPA's forward
+     and forward + backward less forward (profiler device time), and the
+     CUDA-core kernels' times the routes replaced (CUDA_CORE_MS); every
+     timed block of the phase between two readings of the SM clock, power
+     draw and temperature (nvidia-smi, printed as "[clocks]" lines); the
+     flash backward kernel (held against its
      plain version at bfloat16's tolerance, and two runs bit for bit; each
      of its kernels' device µs a launch; the registers and spilled bytes of
      its tensor-core dK/dV and dQ kernels from the ptxas report, with the
@@ -244,8 +253,12 @@ Phases, each of which raises on failure (there is no CPU fallback):
      busy time, step ms, tokens/s and peak memory; then one bf16
      loss-and-gradient step through the kernels and through the plain
      versions (losses within 1e-3) and one float32 through the plain
-     versions: each layer's attention projections' bf16 gradients from the
-     kernels no farther from the float32 ones than twice the plain route's;
+     versions and through the kernels: each layer's attention
+     projections' bf16 gradients from the kernels no farther from the
+     float32 ones than twice the plain route's, the float32 kernels' loss
+     and gradients (2 launches of the split-TF32 hd-256 backward) within
+     atol 2e-3 / rtol 1e-3 of the plain ones; the clocks, power and
+     temperature read at the start and end of phases 17 and 19;
  18. data-parallel training and the sharding layer (qwen2-0.5b at full
      width): (a) one rank on NCCL (launch/multihost.py::initialize through a
      FileStore under build/): the DP step (training/dp_compressed.py) at 4 x
@@ -382,7 +395,8 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_lse,  # noqa: E402
                                                  wg_plan)
-from repro_torch.kernels.flash_attention_bwd import (cached_schedule, flash_attention_bwd,  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import (cached_schedule, dkdv_schedule,  # noqa: E402
+                                                     flash_attention_bwd, route as bwd_route,
                                                      tc_plan, tf32_bwd_plan, workspace_numel)
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_bwd_split_ref, flash_attention_lse_ref,
@@ -411,6 +425,10 @@ from repro_torch.training import dp_compressed, step as training_step  # noqa: E
 
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+#: a bf16 kernel against its split plain version: both round float32 sums of
+#: the same products, taken in other orders, once to bf16, so they may differ
+#: by one bf16 unit in the last place, at most 2^-7 of the gradient's scale
+BF16_SPLIT_TOL = 2.0 ** -7
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # bfloat16: tensor-core sums
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # the reference's own
 MODEL_ATOL, MODEL_RTOL = 2e-3, 1e-3
@@ -495,6 +513,7 @@ FLASH_BWD_CASES = [
     (1, 333, 14, 2, 64, True, 0, 0.0),
     (2, 37, 7, 1, 8, True, 0, 0.0),
     (1, 256, 4, 2, 32, True, 64, 30.0),
+    (2, 129, 4, 2, 16, True, 0, 50.0),  # bf16 hd 16 (split-TF32), ragged, softcap
     (1, 200, 8, 2, 128, True, 0, 0.0),
     (1, 256, 4, 1, 128, False, 0, 0.0),  # MQA, non-causal
     (2, 129, 4, 1, 64, False, 48, 0.0),  # non-causal, window, ragged
@@ -512,7 +531,8 @@ FLASH_BWD_CASES = [
 ]
 # the float32 tensor-core routes against their step-by-step split plain
 # versions (ref.flash_attention_split_ref, ref.flash_attention_bwd_split_ref):
-# gemma2-2b's served forward at hd 256 (global and a window that bites), and
+# gemma2-2b's served forward and its backward at hd 256 (global and a window
+# that bites), and
 # the backward at phase 9 (b)'s shape (cut key tiles), GQA 7:1 at hd 8, a
 # window at hd 128, softcap 50 at hd 16, and Sq != Sk both ways; B, Sq, Sk,
 # H, K, hd, causal, window, softcap
@@ -606,6 +626,29 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _clocks(tag: str) -> str:
+    """The card's SM clock, power draw and temperature now, read with
+    nvidia-smi (nothing is set), printed on a line of its own beside
+    ``tag``: a wall or a kernel time taken beside a lowered clock or a hot
+    card reads slower."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    lines = res.stdout.strip().splitlines()
+    reading = lines[0] if res.returncode == 0 and lines else f"not read (rc {res.returncode})"
+    print(f"[clocks] {tag}: {reading} (clocks.sm, power.draw, temperature.gpu)", flush=True)
+    return reading
+
+
+def _clocked(tag, fn, *args, **kwargs):
+    """fn(*args, **kwargs) between two readings of the card's clocks, power
+    and temperature (``_clocks``), the block's wall beside the second."""
+    _clocks(f"{tag} before")
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    _clocks(f"{tag} after, {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per compiled kernel of an nvcc log: its name (demangled
     where c++filt is installed), registers, spills and shared memory."""
@@ -628,13 +671,19 @@ def ptxas_report(log: str) -> list[str]:
     return [f"{n}: {what}" for n, (_, what) in zip(names, out)]
 
 
-def _kernel_regs(lib: str, kernel: str, hd: int) -> dict:
-    """Registers, stack and spill bytes a thread of ``kernel<hd>`` from the
-    build of ``lib``'s ptxas report (phase 2)."""
+#: a kernel's type argument as c++filt prints it and as it is mangled
+TYPE_ARGS = {"float": ("float", "f"), "bf16": ("__nv_bfloat16", "13__nv_bfloat16")}
+
+
+def _kernel_regs(lib: str, kernel: str, hd: int, dtype: str | None = None) -> dict:
+    """Registers, stack and spill bytes a thread of ``kernel<hd>`` (or
+    ``kernel<dtype, hd>``: the split-TF32 backward's kernels, "float" or
+    "bf16") from the build of ``lib``'s ptxas report (phase 2)."""
     lines = ptxas_report(_build.log_path(lib).read_text())
-    name = f"{kernel}<{hd}>"
+    shown, mangled = TYPE_ARGS[dtype] if dtype else (None, "")
+    name = f"{kernel}<{shown}, {hd}>" if dtype else f"{kernel}<{hd}>"
     line = next((ln for ln in lines if ln.startswith(f"{name}:")  # demangled
-                 or f"{len(kernel)}{kernel}ILi{hd}E" in ln.split(":")[0]), None)
+                 or f"{len(kernel)}{kernel}I{mangled}Li{hd}E" in ln.split(":")[0]), None)
     if line is None:
         raise AssertionError(f"ptxas report: no line for {name}")
     regs = int(re.search(r"Used (\d+) registers", line).group(1))
@@ -659,20 +708,31 @@ def tc_kernel_report(hd: int) -> dict:
     return out
 
 
+#: the split-TF32 backward's kernels in the ptxas lines phase 2 prints (dK/dV
+#: pass, dQ pass, type argument, hd): float32 at hd 64 and 128, its
+#: column-split kernels at hd 256 (gemma2-2b), bf16 at hd 8, 16, 32 (the
+#: reduced configs)
+TF32_BWD_REPORTED = tuple(
+    [("dkdv_tf32_kernel", "dq_tf32_kernel", "float", hd) for hd in (64, 128)]
+    + [("dkdv_tf32_cols_kernel", "dq_tf32_cols_kernel", None, 256)]
+    + [("dkdv_tf32_kernel", "dq_tf32_kernel", "bf16", hd) for hd in (8, 16, 32)])
+
+
 def tf32_kernel_report() -> dict:
-    """The float32 tensor-core kernels on the paths that were on the CUDA
-    cores: the forward at hd 256 (flash_tf32_kernel<256>, gemma2-2b served)
-    and the split-TF32 backward (dkdv_tf32_kernel, dq_tf32_kernel) at hd 64
-    and 128: ptxas's registers, stack and spill bytes a thread, and the
-    blocks an SM those registers allow (``tf32_bwd_plan``'s threads)."""
+    """The tensor-core kernels on the paths that were on the CUDA cores:
+    the float32 forward at hd 256 (flash_tf32_kernel<256>, gemma2-2b served)
+    and the split-TF32 backward (dkdv_tf32_kernel, dq_tf32_kernel) at
+    TF32_BWD_REPORTED: ptxas's registers, stack and spill bytes a thread,
+    and the blocks an SM those registers allow (``tf32_bwd_plan``'s
+    threads)."""
     out = {"flash_tf32_kernel<256>": _kernel_regs("flash_attention", "flash_tf32_kernel", 256)}
-    for hd in (64, 128):
+    for dkdv, dq, dt, hd in TF32_BWD_REPORTED:
         threads = tf32_bwd_plan(hd)["threads"]
-        for kernel in ("dkdv_tf32_kernel", "dq_tf32_kernel"):
-            rec = _kernel_regs("flash_attention_bwd", kernel, hd)
+        for kernel in (dkdv, dq):
+            rec = _kernel_regs("flash_attention_bwd", kernel, hd, dt)
             rec["blocks_per_sm_by_registers"] = 65536 // (threads * -(-rec["registers"] // 8) * 8)
             rec["blocks_per_sm_planned"] = tf32_bwd_plan(hd)["blocks_per_sm"]
-            out[f"{kernel}<{hd}>"] = rec
+            out[f"{kernel}<{dt}, {hd}>" if dt else f"{kernel}<{hd}>"] = rec
     return out
 
 
@@ -785,6 +845,11 @@ def check_kernels(device) -> dict:
                                            softcap=cap)
             for n, a, b in zip("qkv", got, want):
                 _grad_err(f"flash_bwd {case} {dtype} d{n}", a, b, tol)
+            if dtype == torch.bfloat16 and bwd_route(dtype, hd) == "tf32":  # hd 8, 16, 32
+                split = flash_attention_bwd_split_ref(q, k, v, o, g, lse, causal=causal,
+                                                      window=win, softcap=cap)
+                for n, a, b in zip("qkv", got, split):
+                    _grad_err(f"flash_bwd {case} {dtype} d{n} vs split", a, b, BF16_SPLIT_TOL)
         for case in FLASH_BWD_XQ_CASES:  # phase 17 (a): the backward at Sq != Sk
             B, Sq, Sk, H, K, hd, causal = case
             name = f"flash Sq {Sq} Sk {Sk} {case} {dtype}"
@@ -816,11 +881,14 @@ def check_kernels(device) -> dict:
             plain_err = _close(f"{name} vs plain", o, flash_attention_ref(q, k, v, **kw), tol)
             if case == F32_SPLIT_CASES[0]:  # gemma2-2b's served float32 forward
                 errs["flash_attention_f32_hd256"] = plain_err
-            if hd <= 128:  # the split-TF32 backward
-                got = _twice(f"{name} bwd", lambda: flash_attention_bwd(q, k, v, o, g, lse, **kw))
-                want = flash_attention_bwd_split_ref(q, k, v, o, g, lse, **kw)
-                for n, a, b in zip("qkv", got, want):
-                    _grad_err(f"{name} d{n}", a, b, tol)
+            # the split-TF32 backward (at hd 256 its column-split kernels),
+            # against its split plain version and the FA2 plain version
+            got = _twice(f"{name} bwd", lambda: flash_attention_bwd(q, k, v, o, g, lse, **kw))
+            want = flash_attention_bwd_split_ref(q, k, v, o, g, lse, **kw)
+            plain = flash_attention_bwd_ref(q, k, v, o, g, lse, **kw)
+            for n, a, b, c in zip("qkv", got, want, plain):
+                _grad_err(f"{name} d{n}", a, b, tol)
+                _grad_err(f"{name} d{n} vs plain", a, c, tol)
         for case in DECODE_CASES:
             B, H, K, hd, Smax, win, cap, fill = case
             q, k, v = _qkv(gen, B, 1, Smax, H, K, hd, dtype, device)
@@ -1268,11 +1336,16 @@ def train_full(device) -> tuple[dict, dict]:
 
 def crash_resume(device) -> dict:
     """Phase 11: crash at step 7, resume from step 4's checkpoint, at the
-    reduced size on the card: losses and params equal the uninterrupted run."""
+    reduced size on the card: losses and params equal the uninterrupted run.
+    The uninterrupted run's launches are counted (the reduced qwen2-0.5b's
+    two layers at bf16 hd 8: a flash forward and backward a layer a step)."""
     kw = dict(reduced=True, steps=12, batch=4, seq=32, ckpt_every=4, log_every=100,
               device=device)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    _zero_launches()
     ref = train(TRAIN_ARCH, ckpt_dir=str(CKPT_DIR / "ref"), **kw)
+    launches = _launches()  # the reduced config's bf16 hd-8 kernels, 2 layers a step
+    _expect_launches("crash_resume", launches, 2 * 12, 2 * 12)
     try:
         train(TRAIN_ARCH, ckpt_dir=str(CKPT_DIR / "ft"), fail_at=7, **kw)
         raise AssertionError("crash_resume: no failure was injected")
@@ -1290,7 +1363,7 @@ def crash_resume(device) -> dict:
     if perr > 1e-5:
         raise AssertionError(f"crash_resume: final states differ by {perr}")
     return {"steps": 12, "resumed_from": 4, "loss_max_abs_err": err, "state_max_abs_err": perr,
-            "losses_last": resumed["losses"][-1]}
+            "losses_last": resumed["losses"][-1], "launches": launches}
 
 
 def _time_ms(fn, args_list, iters):
@@ -1792,21 +1865,36 @@ HD256_CAP = 50.0
 #: B, S, H, K, hd
 FLASH_F32_HD256 = (1, 333, 8, 4, 256)
 #: the backward's routes at the shapes their phases run: (name, dtype, B, S,
-#: H, K, hd): the float32 backward (split-TF32: dkdv_tf32_kernel,
-#: dq_tf32_kernel) of phase 9 (b) (qwen2-0.5b, 1 x 512), of a rank of 18 (b)
-#: (1 x 1,024) and of a rank of 19 (c) (mixtral's 16 local heads over 4 at
-#: hd 128, 1 x 512); bf16 at hd 8 (the reduced qwen2-0.5b of phase 11, 4 x
-#: 32), which stays on the CUDA cores
-BWD_ROUTE_SHAPES = (("f32_bwd_phase9b", torch.float32, 1, 512, 14, 2, 64),
-                    ("f32_bwd_phase18b", torch.float32, 1, 1024, 14, 2, 64),
-                    ("f32_bwd_phase19c", torch.float32, 1, 512, 16, 4, 128),
-                    ("bf16_hd8_reduced", torch.bfloat16, 4, 32, 7, 1, 8))
-#: device ms of the CUDA-core kernels the float32 routes replaced, at these
-#: shapes (flash_kernel<float, 256>; dkdv_kernel / dq_kernel<float, hd>),
-#: timed by scripts/hd256_routes.py (--shapes F256 B9 B18 B19) on the tree
-#: before the change, on an NVIDIA H100 80GB HBM3 at 700 W
+#: H, K, hd, softcap), causal: the float32 backward (split-TF32:
+#: dkdv_tf32_kernel, dq_tf32_kernel) of phase 9 (b) (qwen2-0.5b, 1 x 512), of
+#: a rank of 18 (b) (1 x 1,024) and of a rank of 19 (c) (mixtral's 16 local
+#: heads over 4 at hd 128, 1 x 512); gemma2-2b's at hd 256 (its column-split
+#: kernels), at its served prefill (1 x 333) and at phase 17 (f)'s float32
+#: step (4 x 2048), softcap 50; bf16 at hd 8 (the reduced qwen2-0.5b of
+#: phase 11, 4 x 32), 16 and 32 (the same heads at those widths), on the
+#: split-TF32 kernels since they left the CUDA cores
+BWD_ROUTE_SHAPES = (("f32_bwd_phase9b", torch.float32, 1, 512, 14, 2, 64, 0.0),
+                    ("f32_bwd_phase18b", torch.float32, 1, 1024, 14, 2, 64, 0.0),
+                    ("f32_bwd_phase19c", torch.float32, 1, 512, 16, 4, 128, 0.0),
+                    ("f32_bwd_gemma2_served", torch.float32, 1, 333, 8, 4, 256, 50.0),
+                    ("f32_bwd_gemma2_T", torch.float32, 4, 2048, 8, 4, 256, 50.0),
+                    ("bf16_hd8_reduced", torch.bfloat16, 4, 32, 7, 1, 8, 0.0),
+                    ("bf16_hd16_reduced", torch.bfloat16, 4, 32, 7, 1, 16, 0.0),
+                    ("bf16_hd32_reduced", torch.bfloat16, 4, 32, 7, 1, 32, 0.0))
+#: device ms of the CUDA-core kernels the tensor-core routes replaced, at
+#: these shapes (flash_kernel<float, 256>; dkdv_kernel / dq_kernel<T, hd>),
+#: timed by scripts/hd256_routes.py on the tree before each change, on an
+#: NVIDIA H100 80GB HBM3 at 700 W: the float32 forward and backward at hd
+#: <= 128 (--shapes F256 B9 B18 B19, before the float32 routes), the float32
+#: backward at hd 256 and bf16 at hd 8, 16, 32 (--shapes F256 F256T B8 B16
+#: B32, before their split-TF32 kernels)
 CUDA_CORE_MS = {"f32_served": 0.20455039978027345, "f32_bwd_phase9b": 1.3533915710449218,
-                "f32_bwd_phase18b": 2.8141522216796875, "f32_bwd_phase19c": 1.1795941162109376}
+                "f32_bwd_phase18b": 2.8141522216796875, "f32_bwd_phase19c": 1.1795941162109376,
+                "f32_bwd_gemma2_served": 0.8076878051757812,
+                "f32_bwd_gemma2_T": 38.1202392578125,
+                "bf16_hd8_reduced": 0.050040126800537106,
+                "bf16_hd16_reduced": 0.06527859497070312,
+                "bf16_hd32_reduced": 0.0733420181274414}
 
 
 def time_hd256(device) -> dict:
@@ -1821,19 +1909,21 @@ def time_hd256(device) -> dict:
     for tag, (B, S, H, K, hd, window, fcalls, bcalls, n_sets) in HD256_SHAPES.items():
         heads = None if B * S * S * H <= 2**28 else tuple(
             (b, h) for b in range(B) for h in range(H))
-        out[f"fwd_{tag}"] = _time_flash_bf16(gen, device, B, S, S, H, K, hd, True, fcalls,
-                                             n_sets=n_sets, heads=heads, window=window,
-                                             softcap=HD256_CAP)
-        out[f"bwd_{tag}"] = _time_bwd_bf16(gen, device, B, S, H, K, hd, window, HD256_CAP,
-                                           bcalls, n_sets)
+        out[f"fwd_{tag}"] = _clocked(f"12 fwd_{tag}", _time_flash_bf16, gen, device, B, S, S,
+                                     H, K, hd, True, fcalls, n_sets=n_sets, heads=heads,
+                                     window=window, softcap=HD256_CAP)
+        out[f"bwd_{tag}"] = _clocked(f"12 bwd_{tag}", _time_bwd_bf16, gen, device, B, S, H, K,
+                                     hd, window, HD256_CAP, bcalls, n_sets)
         torch.cuda.empty_cache()
     B, S, H, K, hd = FLASH_F32_HD256
-    out["f32_served"] = _time_flash(gen, device, (B, S, H, K, hd), 16, 50, softcap=HD256_CAP)
+    out["f32_served"] = _clocked("12 f32_served", _time_flash, gen, device, (B, S, H, K, hd), 16,
+                                 50, softcap=HD256_CAP)
     out["f32_served"]["cuda_core_ms"] = CUDA_CORE_MS["f32_served"]
-    for name, dt, B, S, H, K, hd in BWD_ROUTE_SHAPES:
-        out[name] = _time_bwd_route(gen, device, dt, B, S, H, K, hd)
-        if name in CUDA_CORE_MS:
-            out[name]["cuda_core_bwd_ms"] = CUDA_CORE_MS[name]
+    for name, dt, B, S, H, K, hd, cap in BWD_ROUTE_SHAPES:
+        out[name] = _clocked(f"12 {name}", _time_bwd_route, gen, device, dt, B, S, H, K, hd,
+                             cap)
+        out[name]["cuda_core_bwd_ms"] = CUDA_CORE_MS[name]
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1843,30 +1933,31 @@ def _profiled_ms(fn, args_list, calls) -> float:
     return sum(us * n for us, n in _kernel_us(fn, args_list, calls).values()) / calls / 1e3
 
 
-def _time_bwd_route(gen, device, dtype, B, S, H, K, hd) -> dict:
-    """The backward at q (B,S,H,hd) k/v (B,S,K,hd), causal, on its route
-    (float32 at hd <= 128 split-TF32: dkdv_tf32_kernel, dq_tf32_kernel;
-    bf16 at hd 8 the CUDA cores: dkdv_kernel, dq_kernel), and the forward
-    beside it (float32: flash_tf32_kernel; bf16 at hd 8: flash_kernel):
-    the forward with its log-sum-exp and the backward as device time
-    (replayed CUDA graphs: these calls take tens of µs to a few ms), beside
-    their bounds (float32 as split-TF32, three tf32 products each, with the
-    CUDA cores' float32 bound beside it; bf16 at the tensor cores' rate),
-    the plain versions' times, SDPA's forward (a CUDA graph) and its
-    forward + backward less its forward (the profiler's device time)."""
+def _time_bwd_route(gen, device, dtype, B, S, H, K, hd, cap=0.0) -> dict:
+    """The backward at q (B,S,H,hd) k/v (B,S,K,hd), causal, softcap ``cap``,
+    on its route (float32 at every hd and bf16 at hd 8, 16, 32 split-TF32:
+    dkdv_tf32_kernel, dq_tf32_kernel), and the forward beside it (float32:
+    flash_tf32_kernel; bf16 at hd 8-32: flash_kernel): the forward with its
+    log-sum-exp and the backward as device time (replayed CUDA graphs:
+    these calls take a few µs to a few ms), beside their bounds (float32 as
+    split-TF32, three tf32 products each, with the CUDA cores' float32
+    bound beside it; bf16 at the tensor cores' bf16 rate), the plain
+    versions' times, SDPA's forward (a CUDA graph) and its forward +
+    backward less its forward (the profiler's device time; SDPA has no
+    softcap, so it runs uncapped)."""
     sets = []
     for _ in range(4):
         q, k, v = _qkv(gen, B, S, S, H, K, hd, dtype, device)
         g = torch.randn((B, S, H, hd), generator=gen, device=device).to(dtype)
-        o, lse = flash_attention_lse(q, k, v)
+        o, lse = flash_attention_lse(q, k, v, softcap=cap)
         sets.append((q, k, v, g, o, lse))
     lib = [tuple(t.transpose(1, 2).contiguous() for t in st[:3]) for st in sets]
 
     def fwd(q, k, v, *_):
-        return flash_attention_lse(q, k, v)
+        return flash_attention_lse(q, k, v, softcap=cap)
 
     def bwd(q, k, v, g, o, lse):
-        return flash_attention_bwd(q, k, v, o, g, lse)
+        return flash_attention_bwd(q, k, v, o, g, lse, softcap=cap)
 
     f32 = dtype == torch.float32
     flops = 4.0 * B * H * attention_pairs(S, S, True, 0) * hd
@@ -1877,10 +1968,13 @@ def _time_bwd_route(gen, device, dtype, B, S, H, K, hd) -> dict:
     bb, bby = kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=f32, split_tf32=f32,
                            hw=H100)
     got = bwd(*sets[0])
-    want = flash_attention_bwd_ref(*sets[0][:3], sets[0][4], sets[0][3], sets[0][5])
+    want = flash_attention_bwd_ref(*sets[0][:3], sets[0][4], sets[0][3], sets[0][5], softcap=cap)
     tol = F32_TOL if f32 else BF16_TOL
     err = max(_grad_err(f"bwd {dtype} hd {hd} d{n}", a, b, tol)
               for n, a, b in zip("qkv", got, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, bwd(*sets[0]))):
+        raise AssertionError(f"bwd {dtype} hd {hd}: two runs differ")
+    del got, want
     lib_grad = [tuple(t.transpose(1, 2).contiguous().requires_grad_() for t in st[:3])
                 + (st[3].transpose(1, 2).contiguous(),) for st in sets]
 
@@ -1892,17 +1986,21 @@ def _time_bwd_route(gen, device, dtype, B, S, H, K, hd) -> dict:
     sdpa_all = _profiled_ms(lambda q, k, v, g: torch.autograd.grad(sdpa(q, k, v), (q, k, v), g),
                             lib_grad, 8)
     rec = {
-        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) {str(dtype)[6:]} causal",
-        "route": "split-TF32 tensor cores" if f32 else "CUDA cores",
+        "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{K},{hd}) {str(dtype)[6:]} causal, "
+                 f"softcap {cap}",
+        "route": "split-TF32 tensor cores" if bwd_route(dtype, hd) == "tf32" else "wgmma",
         "fwd_ms": _graph_ms(fwd, sets, 20), "bwd_ms": _graph_ms(bwd, sets, 20),
         "fwd_bound_ms": fb * 1e3, "fwd_bound_by": fby, "bwd_bound_ms": bb * 1e3,
         "bwd_bound_by": bby, "bwd_max_abs_err": err,
-        "plain_fwd_ms": _time_ms(lambda q, k, v, *_: flash_attention_lse_ref(q, k, v), sets, 4),
+        "plain_fwd_ms": _time_ms(lambda q, k, v, *_: flash_attention_lse_ref(q, k, v,
+                                                                             softcap=cap),
+                                 sets, 4),
         "plain_bwd_ms": _time_ms(lambda q, k, v, g, o, lse: flash_attention_bwd_ref(
-            q, k, v, o, g, lse), sets, 4),
+            q, k, v, o, g, lse, softcap=cap), sets, 4),
         "library_fwd_ms": _graph_ms(lambda q, k, v: sdpa(q, k, v), lib, 20),
         "library_bwd_ms": sdpa_all - sdpa_fwd_dev, "library_fwd_bwd_ms": sdpa_all,
-        "library_is": "SDPA; its backward: forward + backward less forward, profiler device time",
+        "library_is": ("SDPA" + (" without the softcap" if cap else "")
+                       + "; its backward: forward + backward less forward, profiler device time"),
         "kernels_us": _kernel_us(lambda *a: (fwd(*a), bwd(*a)), sets, calls=4),
     }
     if f32:
@@ -1910,8 +2008,12 @@ def _time_bwd_route(gen, device, dtype, B, S, H, K, hd) -> dict:
                                                      hw=H100)[0] * 1e3
         rec["bwd_cuda_core_bound_ms"] = kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b,
                                                      f32=True, hw=H100)[0] * 1e3
+    if bwd_route(dtype, hd) == "tf32":
+        _, _, slots = dkdv_schedule(S, S, H // K, True, 0, B * K, hd, dtype)
+        rec["workspace_mb"] = workspace_numel(slots, B * K, hd) * 4 / 1e6
         rec["tf32_kernels"] = {k: v for k, v in tf32_kernel_report().items()
-                               if k.endswith(f"<{hd}>")}
+                               if k.startswith(("dkdv", "dq")) and k.endswith(f"{hd}>")
+                               and ("bf16" in k) != f32}
     del lib_grad
     return rec
 
@@ -1930,33 +2032,41 @@ def time_kernels(device, n_sets=16) -> dict:
     gen = torch.Generator(device=device).manual_seed(1)
     out = {}
 
-    out["flash_attention"] = _time_flash(gen, device, FLASH_SLICE, n_sets, 100)
+    out["flash_attention"] = _clocked("12 flash_attention", _time_flash, gen, device, FLASH_SLICE,
+                                      n_sets, 100)
     B, H, K, hd, Smax, _, _, _ = DECODE_SLICE
-    out["decode_attention"] = _time_decode(gen, device, B, H, K, hd, Smax, [332, 300, 255, 200],
-                                           n_sets, 500)
+    out["decode_attention"] = _clocked("12 decode_attention", _time_decode, gen, device, B, H, K,
+                                       hd, Smax, [332, 300, 255, 200], n_sets, 500)
     B, S, H, P, N, Q, _ = SSD_SLICE
-    out["ssd_scan"] = _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, 100)
+    out["ssd_scan"] = _clocked("12 ssd_scan", _time_ssd, gen, device, B, S, H, P, N, Q, n_sets,
+                               100)
     # the longer shapes, where splitting the slots and the chunks pays most
-    out["decode_attention_long"] = _time_decode(gen, device, B=4, H=16, K=8, hd=64, Smax=4224,
-                                                fills=[4000, 4033, 4066, 4100], n_sets=4,
-                                                iters=200)
-    out["ssd_scan_long"] = _time_ssd(gen, device, B=1, S=2048, H=80, P=64, N=128, Q=128,
-                                     n_sets=4, iters=40)
-    out["flash_attention_long"] = _time_flash(gen, device, FLASH_LONG, 4, 20)
-    out["flash_attention_hd128"] = _time_flash(gen, device, FLASH_HD128, n_sets, 100)
-    out["flash_attention_granite"] = _time_flash(gen, device, FLASH_GRANITE, n_sets, 100)
-    out["lm_head_chunk"] = _time_head(gen, device)
+    out["decode_attention_long"] = _clocked("12 decode_attention_long", _time_decode, gen, device,
+                                            B=4, H=16, K=8, hd=64, Smax=4224,
+                                            fills=[4000, 4033, 4066, 4100], n_sets=4,
+                                            iters=200)
+    out["ssd_scan_long"] = _clocked("12 ssd_scan_long", _time_ssd, gen, device, B=1, S=2048,
+                                    H=80, P=64, N=128, Q=128, n_sets=4, iters=40)
+    out["flash_attention_long"] = _clocked("12 flash_attention_long", _time_flash, gen, device,
+                                           FLASH_LONG, 4, 20)
+    out["flash_attention_hd128"] = _clocked("12 flash_attention_hd128", _time_flash, gen, device,
+                                            FLASH_HD128, n_sets, 100)
+    out["flash_attention_granite"] = _clocked("12 flash_attention_granite", _time_flash, gen,
+                                              device, FLASH_GRANITE, n_sets, 100)
+    out["lm_head_chunk"] = _clocked("12 lm_head_chunk", _time_head, gen, device)
     # phase 16's new shapes: seamless's cross-attention (flash at Sq != Sk,
     # and decode against the cross cache) and jamba's SSD scan (N 16)
     B, S, Se, H, K, hd = CROSS_SHAPE
-    out["flash_attention_cross"] = _time_flash(gen, device, (B, S, H, K, hd), n_sets, 100, Sk=Se,
-                                               causal=False)
-    out["decode_attention_cross"] = _time_decode_cross(gen, device, B, H, K, hd, Se, n_sets, 500)
+    out["flash_attention_cross"] = _clocked("12 flash_attention_cross", _time_flash, gen, device,
+                                            (B, S, H, K, hd), n_sets, 100, Sk=Se, causal=False)
+    out["decode_attention_cross"] = _clocked("12 decode_attention_cross", _time_decode_cross, gen,
+                                             device, B, H, K, hd, Se, n_sets, 500)
     B, S, H, P, N, Q = SSD_JAMBA
-    out["ssd_scan_jamba"] = _time_ssd(gen, device, B, S, H, P, N, Q, n_sets, 100)
+    out["ssd_scan_jamba"] = _clocked("12 ssd_scan_jamba", _time_ssd, gen, device, B, S, H, P, N,
+                                     Q, n_sets, 100)
     # phase 17's new shape: seamless's training cross-attention at 768 frames
-    out["flash_attention_bf16_fwd_cross"], out["flash_attention_bwd_cross"] = _time_train_xq(
-        gen, device, *XATTN_TRAIN)
+    out["flash_attention_bf16_fwd_cross"], out["flash_attention_bwd_cross"] = _clocked(
+        "12 flash_attention_cross_train", _time_train_xq, gen, device, *XATTN_TRAIN)
 
     # at the training shape of phase 10, bfloat16: the forward with its
     # log-sum-exp, the backward kernel, and flash_attention_diff's forward +
@@ -1991,11 +2101,15 @@ def time_kernels(device, n_sets=16) -> dict:
     # the forward (flash_wg_kernel) at this shape, at hd 128 (mixtral's and
     # granite's GQA 4:1 width) and at the 32k cell's length (an eighth of
     # prefill_32k's batch, the same work a row), each as device time
-    out["flash_attention_bf16_fwd"] = _time_flash_bf16(gen, device, B, S, S, H, K, hd, True, 20)
-    out["flash_attention_bf16_fwd_hd128"] = _time_flash_bf16(gen, device, *FLASH_BF16_HD128,
-                                                             True, 20)
-    out["flash_attention_bf16_fwd_32k"] = _time_flash_bf16(gen, device, *FLASH_BF16_32K, True, 2,
-                                                           n_sets=2, heads=FLASH_32K_HEADS)
+    out["flash_attention_bf16_fwd"] = _clocked("12 flash_attention_bf16_fwd", _time_flash_bf16,
+                                               gen, device, B, S, S, H, K, hd, True, 20)
+    out["flash_attention_bf16_fwd_hd128"] = _clocked("12 flash_attention_bf16_fwd_hd128",
+                                                     _time_flash_bf16, gen, device,
+                                                     *FLASH_BF16_HD128, True, 20)
+    out["flash_attention_bf16_fwd_32k"] = _clocked("12 flash_attention_bf16_fwd_32k",
+                                                   _time_flash_bf16, gen, device,
+                                                   *FLASH_BF16_32K, True, 2, n_sets=2,
+                                                   heads=FLASH_32K_HEADS)
     sdpa_fwd_ms = _time_ms(lambda q, k, v, g: sdpa(q, k, v), tlib, 20)  # eager, as the backward's
 
     # the backward: S, dV, dP, dK and dQ, 2.5x the forward's products (the
@@ -3073,8 +3187,9 @@ def _expect_launches(name, counts, fwd, bwd):
 
 #: name marks of the attention kernels (csrc/flash_attention*.cu) in a profile
 ATTN_KERNEL_MARKS = ("flash_wg_kernel", "flash_kernel", "flash_tf32_kernel", "dkdv_wg_kernel",
-                     "dq_wg_kernel", "dkdv_merge_kernel", "delta_tc_kernel", "dkdv_kernel",
-                     "dq_kernel", "delta_kernel", "dkdv_tf32_kernel", "dq_tf32_kernel")
+                     "dq_wg_kernel", "dkdv_merge_kernel", "delta_tc_kernel", "delta_kernel",
+                     "dkdv_tf32_kernel", "dq_tf32_kernel", "dkdv_tf32_cols_kernel",
+                     "dq_tf32_cols_kernel")
 
 
 def _profiled_step(device, fn, state, data) -> tuple[dict, dict]:
@@ -3297,11 +3412,14 @@ def gemma2_train(device, card) -> dict:
     dkdv_wg_kernel<256>, dq_wg_kernel<256>), a layer each, with their share
     of the device's busy time. Then, from the run's initial weights and on
     its first batch, one bf16 loss-and-gradient step through the kernels
-    and through impl="plain", and one in float32 through impl="plain": the
-    kernels' loss the run's first loss (within 1e-5), the bf16 losses
-    within GEMMA_LOSS_RTOL, and each layer's attention projections'
-    gradients (wq, wk, wv, wo) from the kernels no farther from the float32
-    plain ones than XQ_BF16_RATIO times the plain bf16 route's. The first
+    and through impl="plain", and one in float32 through impl="plain" and
+    through the kernels: the bf16 kernels' loss the run's first loss
+    (within 1e-5), the bf16 losses within GEMMA_LOSS_RTOL, and each layer's
+    attention projections' gradients (wq, wk, wv, wo) from the bf16
+    kernels no farther from the float32 plain ones than XQ_BF16_RATIO times
+    the plain bf16 route's; the float32 kernels' step (a flash_tf32_kernel
+    forward and a split-TF32 hd-256 backward a layer) within MODEL_ATOL /
+    MODEL_RTOL of the float32 plain one, loss and those gradients. The first
     loss is not held to ln V: gemma2's initialisation (the reference's:
     embeddings scaled by sqrt(d_model) and tied to the head, logits capped
     at 30) starts near 18.4 on either route, not at the uniform ln V."""
@@ -3342,14 +3460,19 @@ def gemma2_train(device, card) -> dict:
     params = LM(cfg, device=device).init(torch.Generator(device=device).manual_seed(0),
                                          dtype=torch.float32)
     data = TokenStream(cfg, B, S, seed=0, device=device).next()
-    runs = {}
+    runs, f32_launches = {}, None
     for impl, dt in (("cuda", torch.bfloat16), ("plain", torch.bfloat16),
-                     ("plain", torch.float32)):
+                     ("plain", torch.float32), ("cuda", torch.float32)):
         _zero_launches()
+        t0 = time.perf_counter()
         loss, _, grads = training_step.loss_and_grads(LM(cfg, impl=impl, device=device), params,
                                                       data, remat=None, compute_dtype=dt)
         n = L if impl == "cuda" else 0
-        _expect_launches(f"gemma2 loss and grads {impl} {dt}", _launches(), n, n)
+        launches = _launches()
+        _expect_launches(f"gemma2 loss and grads {impl} {dt}", launches, n, n)
+        if (impl, dt) == ("cuda", torch.float32):  # the float32 hd-256 backward's route
+            f32_launches = launches
+            f32_s = time.perf_counter() - t0
         attn = {f"sub{i}.{w}": grads["blocks"][f"sub{i}"]["attn"][w].float()
                 for i in range(2) for w in ("wq", "wk", "wv", "wo")}
         runs[(impl, dt)] = (float(loss), attn)
@@ -3374,9 +3497,28 @@ def gemma2_train(device, card) -> dict:
                                  f"gradient, the plain route's {ep}")
     print(f"[train17 f] {GEMMA} one bf16 loss-and-gradient step, kernels against plain: "
           f"{json.dumps(check)}", flush=True)
-    del params, runs, truth, gk, gp
+    # the float32 step through the kernels (flash_tf32_kernel<256>, the
+    # column-split dkdv_tf32_cols_kernel / dq_tf32_cols_kernel<256>) against the
+    # float32 plain one, at the float32 train step's tolerances (phase 9 (b))
+    lf, gf = runs[("cuda", torch.float32)]
+    lt = runs[("plain", torch.float32)][0]
+    f32 = {"loss": lf, "plain_loss": lt, "loss_abs_err": abs(lf - lt), "launches": f32_launches,
+           "wall_s": f32_s, "grad_max_abs_err": {}}
+    if not math.isfinite(lf) or abs(lf - lt) > MODEL_ATOL + MODEL_RTOL * abs(lt):
+        raise AssertionError(f"gemma2 float32 step: loss {lf} against plain {lt}")
+    for w in gf:
+        if not bool(torch.isfinite(gf[w]).all()):
+            raise AssertionError(f"gemma2 float32 step: d{w} is not finite")
+        f32["grad_max_abs_err"][w] = float((gf[w] - truth[w]).abs().max())
+        if not torch.allclose(gf[w], truth[w], atol=MODEL_ATOL, rtol=MODEL_RTOL):
+            raise AssertionError(f"gemma2 float32 step: d{w} max abs err "
+                                 f"{f32['grad_max_abs_err'][w]} against plain")
+    print(f"[train17 f] {GEMMA} one float32 loss-and-gradient step, kernels against plain: "
+          f"{json.dumps(f32)}", flush=True)
+    del params, runs, truth, gk, gp, gf
     torch.cuda.empty_cache()
     out["grad_check"] = check
+    out["f32_check"] = f32
     return out
 
 
@@ -5392,9 +5534,12 @@ def main() -> int:
     timing["flash_attention_bwd_hd256"] = hd256["bwd_T"]
     timing["flash_attention_f32_hd256"] = hd256["f32_served"]
     b9 = hd256["f32_bwd_phase9b"]
-    timing["flash_attention_bwd_f32"] = {
-        "ms": b9["bwd_ms"], "plain_ms": b9["plain_bwd_ms"], "bound_ms": b9["bwd_bound_ms"],
-        "bound_by": b9["bwd_bound_by"], "library_ms": b9["library_bwd_ms"]}
+    for name, rec in (("flash_attention_bwd_f32", b9),
+                      ("flash_attention_bwd_f32_hd256", hd256["f32_bwd_gemma2_T"]),
+                      ("flash_attention_bwd_bf16_hd8", hd256["bf16_hd8_reduced"])):
+        timing[name] = {"ms": rec["bwd_ms"], "plain_ms": rec["plain_bwd_ms"],
+                        "bound_ms": rec["bwd_bound_ms"], "bound_by": rec["bwd_bound_by"],
+                        "library_ms": rec["library_bwd_ms"]}
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5429,13 +5574,17 @@ def main() -> int:
     sliced = slice_phase(device, card)
     print(f"[slice] phase 16 ({time.perf_counter() - t0:.1f}s)", flush=True)
     t0 = time.perf_counter()
+    _clocks("17 start")
     trained17 = train_phase(device, card)
+    _clocks("17 end")
     print(f"[train17] phase 17 ({time.perf_counter() - t0:.1f}s)", flush=True)
     t0 = time.perf_counter()
     programmed = dp_phase(device, card)["c"]
     print(f"[dp18] phase 18 ({time.perf_counter() - t0:.1f}s)", flush=True)
     t0 = time.perf_counter()
+    _clocks("19 start")
     spmd = spmd_phase(card)
+    _clocks("19 end")
     print(f"[spmd19] phase 19 ({time.perf_counter() - t0:.1f}s)", flush=True)
     t0 = time.perf_counter()
     pod_phase(card)
@@ -5498,13 +5647,29 @@ def main() -> int:
         "flash_attention_bwd_f32": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                     "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, no "
                                     "Pallas kernel)", "train9"),
+        # the routes that left the CUDA cores: the float32 backward at hd 256
+        # (17 (f)'s float32 step through the kernels; the time at its shape,
+        # phase 12's "f32_bwd_gemma2_T") and bf16 at hd 8 (phase 11's
+        # uninterrupted reduced run; phase 12's "bf16_hd8_reduced")
+        "flash_attention_bwd_f32_hd256": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                          "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, "
+                                          "no Pallas kernel)", "gemma_f32_train"),
+        "flash_attention_bwd_bf16_hd8": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                         "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, "
+                                         "no Pallas kernel)", "train11"),
     }
     kernel_names = {"flash_attention_bf16_fwd": "flash_wg_kernel",
                     "flash_attention_bf16_fwd_cross": "flash_wg_kernel",
                     "flash_attention_bf16_fwd_hd256": "flash_wg_kernel",
                     "flash_attention_f32_hd256": "flash_tf32_kernel",
                     "flash_attention_bwd_f32": "dkdv_tf32_kernel, dkdv_merge_kernel, "
-                                               "dq_tf32_kernel"}
+                                               "dq_tf32_kernel",
+                    "flash_attention_bwd_f32_hd256": ("dkdv_tf32_cols_kernel<256>, "
+                                                      "dkdv_merge_kernel, "
+                                                      "dq_tf32_cols_kernel<256>"),
+                    "flash_attention_bwd_bf16_hd8": "dkdv_tf32_kernel<bf16, 8>, dkdv_merge_kernel, "
+                                                    "dq_tf32_kernel<bf16, 8>"}
+    head_dims = {"flash_attention_bwd_bf16_hd8": 8}
     cross = sliced["seamless"]["checks"][-1]["launches"]
     xq17 = trained17["seamless"]["xq_step"]["cross_launches_bf16"]
     launches = {ARCH: served[ARCH]["counts"], MAMBA: served[MAMBA]["counts"],
@@ -5522,7 +5687,13 @@ def main() -> int:
                         trained17["gemma2"]["launches"]["flash_attention_bwd"]},
                 "gemma_f32": {"flash_attention_f32_hd256":
                               gemma_served["launches"]["flash_attention"]},
-                "train9": {"flash_attention_bwd_f32": step_check["launches"]["flash_attention_bwd"]}}
+                "train9": {"flash_attention_bwd_f32":
+                           step_check["launches"]["flash_attention_bwd"]},
+                "gemma_f32_train": {"flash_attention_bwd_f32_hd256":
+                                    trained17["gemma2"]["f32_check"]["launches"]
+                                    ["flash_attention_bwd"]},
+                "train11": {"flash_attention_bwd_bf16_hd8":
+                            resumed["launches"]["flash_attention_bwd"]}}
     # phase 19: each kernel's launches on rank 0 of the (2, 2) mesh, in the
     # run of the path it is on there ((a)'s first bf16 step, (b)'s
     # prefill_32k and decode_32k calls, (d)'s prefill, (e)'s decode_32k
@@ -5561,11 +5732,17 @@ def main() -> int:
     spmd_launches.update(dict.fromkeys(("flash_attention_f32_hd256",
                                         "flash_attention_bf16_fwd_cross",
                                         "flash_attention_bwd_cross", "ssd_scan_jamba")))
+    # null, not run on the mesh: gemma2 trains there in bf16, and the mesh
+    # runs no reduced config
+    spmd_launches.update(dict.fromkeys(("flash_attention_bwd_f32_hd256",
+                                        "flash_attention_bwd_bf16_hd8")))
     errs["flash_attention_bf16_fwd_hd256"] = hd256["fwd_T"]["max_abs_err"]
     errs["flash_attention_bwd_hd256"] = hd256["bwd_T"]["max_abs_err"]
     errs["flash_attention_diff"] = diff_err
     errs["flash_attention_bwd"] = timing["flash_attention_bwd"]["max_abs_err"]
     errs["flash_attention_bwd_f32"] = b9["bwd_max_abs_err"]
+    errs["flash_attention_bwd_f32_hd256"] = hd256["f32_bwd_gemma2_T"]["bwd_max_abs_err"]
+    errs["flash_attention_bwd_bf16_hd8"] = hd256["bf16_hd8_reduced"]["bwd_max_abs_err"]
     errs.update(sliced["errs"])
     kernels = []
     for name, (source, replaces, arch) in meta.items():
@@ -5574,6 +5751,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             **({"kernel": kernel_names[name]} if name in kernel_names else {}),
             **({"hd": 256} if name.endswith("_hd256") else {}),
+            **({"hd": head_dims[name]} if name in head_dims else {}),
             **({"lse_ms": t["lse_ms"]} if "lse_ms" in t else {}),
             "launches": launches[arch][name], "spmd": spmd_launches[name],
             "max_abs_err": errs[name],

@@ -25,14 +25,19 @@ q (1,512,16,128) k/v (1,512,4,128), causal. ``B9x8`` (not run by default)
 is B9's attention at batch 8 and 2,048 tokens, 16 (batch row, kv head)
 copies of the float32 dK/dV schedule, each cut into about one wave of
 blocks; its record also gives the dK/dV blocks and the float32 workspace
-that schedule makes. These calls take tens of µs to
-a few ms, so the kernels and SDPA's forward are timed as device time, a
-replayed CUDA graph of many calls; SDPA's forward + backward as the device
-time of its kernels (torch.profiler), less its forward's measured the same
-way. Their bounds are given twice: float32 on the CUDA cores (67 TFLOP/s)
-and split-TF32 (three tf32 products each, 495 TFLOP/s). They are held at
-1e-4 (the log-sum-exp 1e-4, the gradients 1e-4 of their scale), as
-chip_smoke.py holds float32.
+that schedule makes. ``F256T`` is F256's attention at T's shape, q
+(4,2048,8,256) k/v (4,2048,4,256): gemma2-2b's float32 training step.
+``B8``, ``B16`` and ``B32`` time the bf16 backward at the reduced
+configs' heads, q (4,32,7,hd) k/v (4,32,1,hd), GQA 7:1, causal, at hd 8
+(the reduced qwen2-0.5b of chip_smoke.py's phases 3, 8 and 11), 16 and
+32. These calls (float32, and any call under 2^27 query-key-dim
+products) take a few µs to a few ms, so the kernels and SDPA's forward
+are timed as device time, a replayed CUDA graph of many calls; SDPA's
+forward + backward as the device time of its kernels (torch.profiler),
+less its forward's measured the same way. The float32 bounds are given
+twice: on the CUDA cores (67 TFLOP/s) and split-TF32 (three tf32 products
+each, 495 TFLOP/s). float32 is held at 1e-4 (the log-sum-exp 1e-4, the
+gradients 1e-4 of their scale), as chip_smoke.py holds it.
 
 Each timing is CUDA events around a run of launches after a warm-up (the
 kernels take a millisecond or more a call, far above the host's cost of
@@ -56,7 +61,8 @@ appended to ``build/hd256_routes.json``, or to ``--out``):
     python scripts/hd256_routes.py [--shapes T Lg Ll T64 T128] [--src OTHER/src]
 
 ``--src`` times another tree's package (a parent commit unpacked beside
-this one) with this script.
+this one) with this script. Each record also gives the backward's kernels'
+device µs a call (``bwd_kernels_us``, torch.profiler).
 """
 from __future__ import annotations
 
@@ -83,6 +89,10 @@ SHAPES = {
     "B18": (1, 1024, 14, 2, 64, True, 0, 0.0, 20, "float32"),
     "B19": (1, 512, 16, 4, 128, True, 0, 0.0, 20, "float32"),
     "B9x8": (8, 2048, 14, 2, 64, True, 0, 0.0, 10, "float32"),
+    "F256T": (4, 2048, 8, 4, 256, True, 0, 50.0, 5, "float32"),
+    "B8": (4, 32, 7, 1, 8, True, 0, 0.0, 50, "bfloat16"),
+    "B16": (4, 32, 7, 1, 16, True, 0, 0.0, 50, "bfloat16"),
+    "B32": (4, 32, 7, 1, 32, True, 0, 0.0, 50, "bfloat16"),
 }
 DEFAULT_SHAPES = ("T", "Lg", "Ll")
 #: (output, log-sum-exp, gradients over their scale) tolerances by dtype
@@ -145,6 +155,26 @@ def _device_ms(fn, args_list, calls):
     return us / 1e3 / calls
 
 
+def _kernels_us(fn, args_list, calls):
+    """{kernel: device µs a call of fn} (torch.profiler), its kernels by
+    name, the template arguments cut off."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for a in args_list:
+        fn(*a)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(calls):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ")
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
+    return out
+
+
 def _err(name, got, want, tol, scale=None):
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
@@ -163,10 +193,11 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
     B, S, H, K, hd, causal, window, cap, calls, dtype = SHAPES[tag]
     fwd_tol, lse_tol, bwd_tol = TOL[dtype]
     f32 = dtype == "float32"
+    short = f32 or B * S * S * H * hd < 2**27  # device time: a replayed CUDA graph
     G = H // K
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    n_sets = 4 if f32 else 2 if S <= 4096 else 1
+    n_sets = 4 if short else 2 if S <= 4096 else 1
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
@@ -213,12 +244,13 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
     del want_o, want_lse, want, dq, dk, dv
     torch.cuda.empty_cache()
 
-    # float32's calls are short: device time, a replayed CUDA graph
-    timed = _graph_ms if f32 else _ms
+    # short calls: device time, a replayed CUDA graph
+    timed = _graph_ms if short else _ms
     rec["fwd_ms"] = timed(fwd, sets, calls)
     rec["bwd_ms"] = timed(bwd, sets, calls)
-    rec["timed_as"] = ("device time (CUDA graph replay)" if f32
+    rec["timed_as"] = ("device time (CUDA graph replay)" if short
                        else "CUDA events around an eager loop")
+    rec["bwd_kernels_us"] = _kernels_us(bwd, sets, min(calls, 8))
     # the plain versions: the whole input at T, one query head at Lg and Ll
     if S <= 4096:
         plain_sets = [s for s in sets]
@@ -251,7 +283,7 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
         return torch.autograd.grad(sdpa(q, k, v), (q, k, v), g)
 
     try:
-        if f32:  # device time: the forward in a CUDA graph, both from the profiler
+        if short:  # device time: the forward in a CUDA graph, both from the profiler
             with torch.no_grad():
                 rec["sdpa_fwd_ms"] = _graph_ms(sdpa, lib, calls)
                 sdpa_fwd_dev = _device_ms(sdpa, lib, calls)
@@ -286,8 +318,9 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
                fwd_tflop_per_s=flops / rec["fwd_ms"] / 1e9,
                bwd_tflop_per_s=2.5 * flops / rec["bwd_ms"] / 1e9)
     fab = sys.modules[flash_attention_bwd.__module__]
-    if f32 and getattr(fab, "route", lambda *_: None)(torch.float32, hd) == "tf32":
-        items, _, slots = fab.dkdv_schedule(S, S, G, causal, window, B * K, hd, torch.float32)
+    if getattr(fab, "route", lambda *_: None)(getattr(torch, dtype), hd) == "tf32":
+        items, _, slots = fab.dkdv_schedule(S, S, G, causal, window, B * K, hd,
+                                            getattr(torch, dtype))
         rec.update(bwd_dkdv_blocks=len(items) * B * K,
                    bwd_workspace_bytes=4 * fab.workspace_numel(slots, B * K, hd))
     if f32:

@@ -88,41 +88,43 @@
 //   and dS staged through shared memory in bf16, would not fit beside
 //   these tiles. The schedule's target is two waves of 132 SMs at the
 //   route's blocks an SM (kernels/flash_attention_bwd.py::target_blocks).
-// Split-TF32 tensor-core variant (float32 at hd 8 to 128: every float32
+// Split-TF32 tensor-core variant (float32 at every head dim: every float32
 // gradient, train(dtype=float32) and the smoke's float32 training checks;
-// dkdv_tf32_kernel, dq_tf32_kernel): every product is mma.sync.m16n8k8 tf32
+// and bfloat16 at hd 8, 16, 32, the reduced configs; dkdv_tf32_kernel,
+// dq_tf32_kernel): every product is mma.sync.m16n8k8 tf32
 // with each operand split into a tf32 hi and lo half, taken as lo*hi +
 // hi*lo + hi*hi (tc_mma.cuh), P and dS split too, which keeps float32's
-// 1e-4 where plain TF32 does not. What bounds it: operations, 3 x 2.5 x
+// 1e-4 where plain TF32 does not (a bf16 input has no lo half, so its
+// products with one are skipped). What bounds it: operations, 3 x 2.5 x
 // the forward's products at the tf32 rate (q (1,512,14,64) causal: 0.0071
 // ms at 495 TFLOP/s, against 0.0025 ms of bytes); what holds it back is
 // latency, each warp's products waiting on the elementwise work between
 // them with 8 warps an SM. The CUDA-core kernels before it ran one block a
-// 32-key tile (32 blocks for 132 SMs at that shape), each thread walking up
-// to 3,584 rows one after another: 1.35 ms. This design:
+// key tile (32 blocks for 132 SMs at that shape; 4 at the reduced
+// qwen2-0.5b's bf16 q (4,32,7,8)), each thread walking up to 3,584 rows one
+// after another: 1.35 ms. This design:
 //  - Pass 1 takes the bf16 route's schedule (dkdv_schedule: segments of
 //    about equal length, the cut tiles' float32 partials added in slot
-//    order by dkdv_merge_kernel<float>), its 64-row stages walked as two of
-//    32 rows, and shorter segments than bf16's (the float32 blocks are
-//    slower a stage): 256 blocks at that shape. 4 warps own 16 keys each.
+//    order by dkdv_merge_kernel<T>), its 64-row stages walked as two of
+//    32 rows (four of 16 at hd 256), and shorter segments than bf16's (the
+//    float32 blocks are slower a stage): 256 blocks at that shape. 4 warps
+//    own 16 keys each.
 //  - Operands that are a B of two products and are read by every warp (Q
 //    and dO in pass 1, K and V in pass 2) are split once a stage, in place
-//    in shared memory between two barriers; the A operands (a warp's own
-//    16 keys or rows) are split as read, P and dS from the accumulators
+//    in shared memory between two barriers (at hd 256 as they are read);
+//    the A operands (a warp's own 16 keys or rows) are split as read, P and
+//    dS from the accumulators
 //    with the k index permuted as in the forward. K and V stay in shared
 //    memory (their split fragments beside dK and dV, 128 registers a thread
 //    at hd 128, would not fit).
 //  - At hd 128 one block fits an SM (203 KB of shared memory), so a block
 //    is two warp groups that take half of each stage's rows (pass 1) or
 //    keys (pass 2) each, their dK, dV (dQ) added in a fixed order at the
-//    end through the ring: 8 warps an SM, as at hd 64 with two blocks.
+//    end through the ring: 8 warps an SM, as at hd 64 with two blocks. At
+//    hd 256 the two groups split the columns instead (see the variant's
+//    section below).
 //  - No atomics, every sum in an order fixed by the shape: two runs give
 //    the same bits.
-// CUDA-core variant (bfloat16 at hd 8, 16, 32: the reduced configs; float32
-// at hd 256, which no full-width path runs through the kernels): hd/8
-// threads own a key (pass 1) or a query row (pass 2), 8 dims each, with
-// shuffle reductions for the dot products, as the forward's CUDA-core
-// variant; one block a key tile in pass 1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,8 +143,6 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ bool visible(int qi, int key, int causal, int window) {
   return (!causal || key <= qi) && (window <= 0 || qi - key < window);
@@ -167,185 +167,12 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dO, float* __restric
   }
 }
 
-// ---- CUDA-core variant ------------------------------------------------------
-
-template <int HD>
-struct Tiling {
-  static constexpr int kTpr = HD >= 8 ? HD / 8 : 1;  // threads per key / row
-  static constexpr int kDpt = HD / kTpr;             // dims per thread
-  static constexpr int kRows = kThreads / kTpr;      // keys (pass 1) or rows (pass 2) a block
-  static constexpr int kTile = HD <= 32 ? 64 : 16;  // staged rows / keys (bf16 hd <= 32; f32 256)
-};
-
+// a sum over groups of TPR neighbouring lanes
 template <int TPR>
 __device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// pass 1: dK, dV for kRows keys of one (b, kv head)
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dO, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-            int Sq, int Sk, int H, int K, int causal, int window, float cap, float scale) {
-  using Tl = Tiling<HD>;
-  constexpr int TPR = Tl::kTpr, DPT = Tl::kDpt, NK = Tl::kRows, R = Tl::kTile;
-  __shared__ float qs[R][HD];
-  __shared__ float dos[R][HD];
-  __shared__ float ls[R], dl[R];
-  __shared__ int qpos[R];
-
-  const int G = H / K;
-  const int kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int lane = tid % TPR;
-  const int k0 = blockIdx.x * NK;
-  const int key = k0 + tid / TPR;
-  const bool key_ok = key < Sk;
-  const int k_last = min(Sk, k0 + NK) - 1;
-  // the folded rows whose queries see a key of this block
-  const int r_begin = causal ? k0 * G : 0;
-  const int r_end = (window > 0 ? min(Sq, k_last + window) : Sq) * G;
-
-  const size_t kv_off = (((size_t)b * Sk + (key_ok ? key : 0)) * K + kvh) * HD;
-  float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    kr[i] = key_ok ? to_f(k[kv_off + lane + TPR * i]) : 0.f;
-    vr[i] = key_ok ? to_f(v[kv_off + lane + TPR * i]) : 0.f;
-    dka[i] = dva[i] = 0.f;
-  }
-
-  for (int r = r_begin; r < r_end; r += R) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int idx = tid; idx < R * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD, rr = r + j;
-      float qx = 0.f, dx = 0.f;
-      if (rr < r_end) {
-        const size_t off = (((size_t)b * Sq + rr / G) * H + (size_t)kvh * G + rr % G) * HD + d;
-        qx = to_f(q[off]);
-        dx = to_f(dO[off]);
-      }
-      qs[j][d] = qx;
-      dos[j][d] = dx;
-    }
-    for (int j = tid; j < R; j += kThreads) {
-      const int rr = r + j;
-      const bool ok = rr < r_end;
-      const size_t li = ((size_t)b * H + (size_t)kvh * G + rr % G) * Sq + rr / G;
-      ls[j] = ok ? lse[li] : 0.f;
-      dl[j] = ok ? delta[li] : 0.f;
-      qpos[j] = ok ? rr / G : -1;
-    }
-    __syncthreads();
-
-    const int n = min(R, r_end - r);  // block-uniform
-    for (int j = 0; j < n; ++j) {
-      float part = 0.f, dpart = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        part += qs[j][lane + TPR * i] * kr[i];
-        dpart += dos[j][lane + TPR * i] * vr[i];
-      }
-      part = group_sum<TPR>(part);
-      dpart = group_sum<TPR>(dpart);
-      float x = part * scale;
-      if (cap > 0.f) x = cap * tanhf(x / cap);
-      const bool ok = key_ok && visible(qpos[j], key, causal, window);
-      const float p = ok ? expf(x - ls[j]) : 0.f;
-      float ds = p * (dpart - dl[j]);
-      if (cap > 0.f) ds *= 1.f - (x / cap) * (x / cap);
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        dva[i] += p * dos[j][lane + TPR * i];
-        dka[i] += ds * qs[j][lane + TPR * i];
-      }
-    }
-  }
-  if (key_ok) {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      store(&dk[kv_off + lane + TPR * i], dka[i] * scale);
-      store(&dv[kv_off + lane + TPR * i], dva[i]);
-    }
-  }
-}
-
-// pass 2: dQ for kRows folded query rows of one (b, kv head)
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dO, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H,
-          int K, int causal, int window, float cap, float scale) {
-  using Tl = Tiling<HD>;
-  constexpr int TPR = Tl::kTpr, DPT = Tl::kDpt, NR = Tl::kRows, BK = Tl::kTile;
-  __shared__ float ks[BK][HD];
-  __shared__ float vs[BK][HD];
-
-  const int G = H / K;
-  const int kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int lane = tid % TPR;
-  const int row = blockIdx.x * NR + tid / TPR;  // = qi * G + g
-  const int qi = row / G, g = row % G;
-  const bool row_ok = qi < Sq;
-  const int q_first = (blockIdx.x * NR) / G;
-  const int q_last = min(Sq - 1, (blockIdx.x * NR + NR - 1) / G);
-  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
-
-  const size_t q_off = (((size_t)b * Sq + (row_ok ? qi : 0)) * H + (size_t)kvh * G + g) * HD;
-  const size_t li = ((size_t)b * H + (size_t)kvh * G + g) * Sq + (row_ok ? qi : 0);
-  const float lr = row_ok ? lse[li] : 0.f;
-  const float dr = row_ok ? delta[li] : 0.f;
-  float qr[DPT], dor[DPT], dqa[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = row_ok ? to_f(q[q_off + lane + TPR * i]) : 0.f;
-    dor[i] = row_ok ? to_f(dO[q_off + lane + TPR * i]) : 0.f;
-    dqa[i] = 0.f;
-  }
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    for (int idx = tid; idx < BK * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD, key = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (key < k_end) {
-        const size_t off = (((size_t)b * Sk + key) * K + kvh) * HD + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
-      }
-      ks[j][d] = kx;
-      vs[j][d] = vx;
-    }
-    __syncthreads();
-    const int n = min(BK, k_end - k0);  // block-uniform
-    for (int j = 0; j < n; ++j) {
-      float part = 0.f, dpart = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) {
-        part += qr[i] * ks[j][lane + TPR * i];
-        dpart += dor[i] * vs[j][lane + TPR * i];
-      }
-      part = group_sum<TPR>(part);
-      dpart = group_sum<TPR>(dpart);
-      float x = part * scale;
-      if (cap > 0.f) x = cap * tanhf(x / cap);
-      const bool ok = row_ok && visible(qi, k0 + j, causal, window);
-      const float p = ok ? expf(x - lr) : 0.f;
-      float ds = p * (dpart - dr);
-      if (cap > 0.f) ds *= 1.f - (x / cap) * (x / cap);
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) dqa[i] += ds * ks[j][lane + TPR * i];
-    }
-  }
-  if (row_ok) {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) store(&dq[q_off + lane + TPR * i], dqa[i] * scale);
-  }
 }
 
 // ---- tensor-core variant (bf16, hd 64, 128, 256): warpgroup products -------
@@ -1023,15 +850,16 @@ dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- split-TF32 tensor-core variant (float32, hd 8 to 128) -----------------
+// ---- split-TF32 tensor-core variant (float32 at every head dim; bf16 at hd 8,
+// 16, 32) ---------------------------------------------------------------------
 //
-// A warp group is 4 warps; a block is kSplit groups. Pass 1
+// A warp group is 4 warps; a block is kSplit x kCols groups. Pass 1
 // (dkdv_tf32_kernel): kKeys keys of one (b, kv head), 16 a warp, over one
 // segment of the dK/dV schedule, the segment's rows streamed in ring stages
 // of kBR (each group takes kBR / kSplit of them). Pass 2 (dq_tf32_kernel):
 // kBQ folded rows, 16 a warp, over key stages of kBK (each group takes kBK /
 // kSplit). Every product is mma.sync.m16n8k8
-// tf32 in split-TF32 (tc_mma.cuh: split_tf32, mma3). Pass 1's products:
+// tf32 in split-TF32 (tc_mma.cuh: split_tf32; mma_split). Pass 1's products:
 // S^T = K Q^T and dP^T = V dO^T (A: the warp's 16 keys of K or V; B: the
 // stage's rows of Q or dO, k = dim), then dV += P^T dO and dK += dS^T Q (A:
 // P^T or dS^T as it sits in the accumulator; B: dO or Q, k = row). Pass 2's:
@@ -1046,37 +874,103 @@ dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // accumulator-to-A k-step permutes its k index (column t is C's 2t, t + 4
 // is 2t + 1) and its B's rows are read in that order. Shared rows of
 // hd + 4 floats put every fragment's 32 loads in 32 distinct banks.
+//
+// hd 256 (gemma2-2b's float32 gradient: train(dtype=float32), softcap 50;
+// dkdv_tf32_cols_kernel, dq_tf32_cols_kernel): a warp's dK and dV of 16
+// keys x 256 columns are 256 float32 registers a thread, and the operands
+// do not fit a block's shared memory as hi and lo halves (K and V of 64
+// keys at ld 260 are 133,120 bytes; a split ring of Q and dO would add
+// 133,120 at 16-row stages). So a block is two warp
+// groups that split the *columns* (kCols): group c owns columns [128 c,
+// 128 c + 128) of dK and dV (pass 1) or dQ (pass 2), 128 (64) accumulator
+// registers a thread. Group 0 computes S^T (S), group 1 dP^T (dP), each
+// over all 256 columns, and the two swap them through shared memory in the
+// accumulators' layout (thread i of one group holds what thread i of the
+// other needs), behind a barrier; both then form P and dS (the elementwise
+// work twice, against every product once) and take their columns' dV, dK
+// (dQ) products. The rings hold Q and dO (K and V) once, in float32, in
+// 16-row (16-key) stages, and every warp splits its B fragments as it reads
+// them (tc_mma.cuh's split_tf32: two integer operations and a subtraction a
+// value): 208,128 and 207,872 bytes, one block (8 warps) an SM. The S
+// (dP) chain of 3 x 32 dependent products is summed in 4 interleaved
+// partial sums (chain_sum). The 64-key dK/dV tile stays, so
+// dkdv_schedule, workspace_numel and dkdv_merge_kernel<float> are those of
+// hd 8 to 128, and the float32 cuts stay independent of B x K.
+//
+// bf16 at hd 8, 16, 32 (the reduced configs' training): dkdv_tf32_kernel and
+// dq_tf32_kernel with T = bf16. Every bf16 value is exact in tf32, so Q, K,
+// V and dO have no lo halves: S^T = K Q^T and dP^T = V dO^T take one tf32
+// product a k-step, not three, and dV += P^T dO, dK += dS^T Q (dQ += dS K)
+// two (P and dS keep their split). The tiles are loaded 4 values at a time
+// and widened to float32 into the float32 route's layout (copy4); the
+// in-place split of a stage writes zero lo halves there, which no product
+// reads. dQ, dK and dV are written in bf16, a cut tile's partials through
+// dkdv_merge_kernel<bf16>, and the walks are cut into one-stage segments
+// (kernels/flash_attention_bwd.py::min_segment). What the CUDA-core
+// kernels before it lacked was parallelism, not arithmetic: at the reduced
+// qwen2-0.5b's q (4,32,7,8), 4 blocks in all, each walking 224 rows one at
+// a time. The float32 route at hd 8 to 128 keeps its kernels' code as it
+// was: their ptxas register counts moved with any change to the body
+// (even a discarded if constexpr), so hd 256 has kernels of its own
+// (dkdv_tf32_cols_kernel, dq_tf32_cols_kernel).
+
+// the operand halves a tile holds: hi and lo split in place (kSplitTile),
+// float32 split as it is read (kRawTile), or values exact in tf32, whose lo
+// halves are 0 and whose products with them are skipped (kExactTile)
+enum BSrc { kSplitTile, kRawTile, kExactTile };
 
 template <int HD>
 struct Tf32BwdTiling {
+  // warp groups that split the columns of dK and dV (pass 1) or dQ (pass
+  // 2): two at hd 256, one computing S^T (S), the other dP^T (dP)
+  static constexpr int kCols = HD == 256 ? 2 : 1;
   // warp groups that share a ring stage: at hd 128 (one block an SM) two,
   // each with half the stage's rows (pass 1) or keys (pass 2), their sums
   // added in a fixed order at the end: 8 warps an SM, not 4
   static constexpr int kSplit = HD == 128 ? 2 : 1;
-  static constexpr int kThreads = 128 * kSplit;  // 4 warps a group: 16 keys or rows each
-  static constexpr int kBR = 32;        // pass 1: folded rows a ring stage
+  static constexpr int kThreads = 128 * kSplit * kCols;  // 4 warps a group: 16 keys or rows each
+  static constexpr int kBR = HD == 256 ? 16 : 32;  // pass 1: folded rows a ring stage
   static constexpr int kBQ = 64;        // pass 2: folded rows a block
-  static constexpr int kBK = 32;        // pass 2: keys a ring stage
+  static constexpr int kBK = HD == 256 ? 16 : 32;  // pass 2: keys a ring stage
   static constexpr int kLd = HD + 4;    // a shared row, floats: conflict-free fragments
-  static constexpr int kBlocks = HD <= 64 ? 2 : 1;  // blocks an SM: shared memory at hd 128
-  // pass 1: K and V of the block's keys; 2 ring stages of Q and dO, each
-  // as hi and lo halves; the stages' lse and D
-  static constexpr int kSmem1 = (2 * kKeys * kLd + 2 * 4 * kBR * kLd + 2 * 2 * kBR) * 4;
-  // pass 2: Q and dO of the block's rows; 2 ring stages of K and V, hi and lo
-  static constexpr int kSmem2 = (2 * kBQ * kLd + 2 * 4 * kBK * kLd) * 4;
+  static constexpr int kBlocks = HD <= 64 ? 2 : 1;  // blocks an SM: shared memory at hd >= 128
+  // the rings' B operands split once a stage in place (hi and lo), or at
+  // two column groups stored once in float32 and split as read
+  static constexpr bool kPreSplit = kCols == 1;
+  static constexpr int kHalves = kPreSplit ? 2 : 1;
+  // the column groups' exchange, floats: each group's 4 warps' 16 x kBR
+  // (pass 1) or 16 x kBK (pass 2) product
+  static constexpr int kXch1 = (kCols - 1) * 2 * 4 * 16 * kBR;
+  static constexpr int kXch2 = (kCols - 1) * 2 * 4 * 16 * kBK;
+  // pass 1: K and V of the block's keys; 2 ring stages of Q and dO; the
+  // stages' lse and D; the exchange
+  static constexpr int kSmem1 = (2 * kKeys * kLd + 2 * 2 * kHalves * kBR * kLd + 2 * 2 * kBR + kXch1) * 4;
+  // pass 2: Q and dO of the block's rows; 2 ring stages of K and V; the exchange
+  static constexpr int kSmem2 = (2 * kBQ * kLd + 2 * 2 * kHalves * kBK * kLd + kXch2) * 4;
+  // the two facts the design answers: a thread's dK and dV (dQ) of 16 keys
+  // (rows) at HD / kCols columns in at most 128 (64) registers, and each
+  // pass in a block's 232,448 bytes of shared memory
+  static_assert(2 * (HD / kCols) / 8 * 4 <= 128, "dK and dV: 128 accumulator registers");
+  static_assert(kSmem1 <= 232448 && kSmem2 <= 232448, "a block's shared memory");
 };
-static_assert(Tf32BwdTiling<128>::kSmem1 <= 232448 && Tf32BwdTiling<128>::kSmem2 <= 232448,
-              "hd 128 fits a block's shared memory");
 
-// a warp's A fragment of 16 rows, split as it is read: p = the row-major
-// tile (stride LD) at row g, column 8 kk + t; a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4)
-template <int LD>
+// a warp's A fragment of 16 rows, split as it is read (or, exact in tf32,
+// taken as it is: h only): p = the row-major tile (stride LD) at row g,
+// column 8 kk + t; a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+template <int LD, bool EXACT = false>
 __device__ __forceinline__ void split_a(const float* p, uint32_t (&h)[4], uint32_t (&l)[4]) {
-  split_tf32(p[0], h[0], l[0]);
-  split_tf32(p[8 * LD], h[1], l[1]);
-  split_tf32(p[4], h[2], l[2]);
-  split_tf32(p[8 * LD + 4], h[3], l[3]);
+  if constexpr (EXACT) {
+    h[0] = __float_as_uint(p[0]);
+    h[1] = __float_as_uint(p[8 * LD]);
+    h[2] = __float_as_uint(p[4]);
+    h[3] = __float_as_uint(p[8 * LD + 4]);
+    l[0] = l[1] = l[2] = l[3] = 0u;
+  } else {
+    split_tf32(p[0], h[0], l[0]);
+    split_tf32(p[8 * LD], h[1], l[1]);
+    split_tf32(p[4], h[2], l[2]);
+    split_tf32(p[8 * LD + 4], h[3], l[3]);
+  }
 }
 
 // a C fragment (16 x 8) as the A fragment of one k-step, k permuted
@@ -1087,6 +981,44 @@ __device__ __forceinline__ void split_c_as_a(const float (&c)[4], uint32_t (&h)[
   split_tf32(c[2], h[1], l[1]);  // (g + 8, 2t)
   split_tf32(c[1], h[2], l[2]);  // (g, 2t + 1)
   split_tf32(c[3], h[3], l[3]);  // (g + 8, 2t + 1)
+}
+
+// the hi and lo halves of two B values of a tile, at p and p + D: from a
+// split tile (lo at + lo_off), split as read, or exact (lo unused)
+template <BSrc S, int D>
+__device__ __forceinline__ void b_pair(const float* p, int lo_off, uint32_t (&h)[2],
+                                       uint32_t (&l)[2]) {
+  if constexpr (S == kRawTile) {
+    split_tf32(p[0], h[0], l[0]);
+    split_tf32(p[D], h[1], l[1]);
+  } else {
+    h[0] = __float_as_uint(p[0]);
+    h[1] = __float_as_uint(p[D]);
+    if constexpr (S == kSplitTile) {
+      l[0] = __float_as_uint(p[lo_off]);
+      l[1] = __float_as_uint(p[lo_off + D]);
+    }
+  }
+}
+
+// d[j] += a b[j] in split-TF32, the terms whose halves are not 0: lo*hi
+// where A has a lo half (AL), hi*lo where B has one (BL), then hi*hi, the
+// small terms first (mma3's order), each a pass over the NT independent
+// accumulators
+template <bool AL, bool BL, int NT>
+__device__ __forceinline__ void mma_split(float (&d)[NT][4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const uint32_t (&bh)[NT][2],
+                                          const uint32_t (&bl)[NT][2]) {
+  if constexpr (AL) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], al, bh[j]);
+  }
+  if constexpr (BL) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], ah, bl[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma1688_tf32(d[j], ah, bh[j]);
 }
 
 // a ring stage's N tiles of R rows (each [R][LD], hi; its lo half at + R
@@ -1109,60 +1041,107 @@ __device__ __forceinline__ void split_stage(float* st, int tid) {
 }
 
 // acc[n0 + n] (n < NV) += A B for one k-step: A split (ah, al); B from a
-// split tile, b the hi half at this thread's (row 2t of the k-step, column g),
-// lo at + lo_off: b0 (row 2t, column 8 n + g), b1 (row 2t + 1, the same)
-template <int KD, int NV, int LD>
+// tile, b at this thread's (row 2t of the k-step, column g), its lo half at
+// + lo_off on a split tile: b0 (row 2t, column 8 n + g), b1 (row 2t + 1,
+// the same)
+template <int KD, int NV, int LD, BSrc S = kSplitTile>
 __device__ __forceinline__ void mma_rows(float (&acc)[KD][4], const uint32_t (&ah)[4],
                                          const uint32_t (&al)[4], const float* b, int lo_off) {
 #pragma unroll
   for (int n0 = 0; n0 < KD; n0 += NV) {  // NV n-blocks at a time: fewer live registers
     uint32_t bh[NV][2], bl[NV][2];
 #pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      const float* p = b + 8 * (n0 + n);
-      bh[n][0] = __float_as_uint(p[0]);
-      bh[n][1] = __float_as_uint(p[LD]);
-      bl[n][0] = __float_as_uint(p[lo_off]);
-      bl[n][1] = __float_as_uint(p[lo_off + LD]);
+    for (int n = 0; n < NV; ++n) b_pair<S, LD>(b + 8 * (n0 + n), lo_off, bh[n], bl[n]);
+#pragma unroll
+    for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], al, bh[n]);  // as mma_split
+    if constexpr (S != kExactTile) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], ah, bl[n]);
     }
-#pragma unroll
-    for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], al, bh[n]);  // as mma3
-#pragma unroll
-    for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], ah, bl[n]);
 #pragma unroll
     for (int n = 0; n < NV; ++n) mma1688_tf32(acc[n0 + n], ah, bh[n]);
   }
 }
 
-// the B fragments of NB n-blocks of 8 rows from a split tile, k = column:
-// b0 (row 8 j + g, column 8 kk + t), b1 (the same, column + 4); p the hi
-// half at (row g, column 8 kk + t), lo at + lo_off
-template <int NB, int LD>
+// the B fragments of NB n-blocks of 8 rows from a tile, k = column: b0 (row
+// 8 j + g, column 8 kk + t), b1 (the same, column + 4); p at (row g, column
+// 8 kk + t), a split tile's lo half at + lo_off
+template <int NB, int LD, BSrc S = kSplitTile>
 __device__ __forceinline__ void b_cols(uint32_t (&bh)[NB][2], uint32_t (&bl)[NB][2],
                                        const float* p, int lo_off) {
 #pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const float* r = p + 8 * j * LD;
-    bh[j][0] = __float_as_uint(r[0]);
-    bh[j][1] = __float_as_uint(r[4]);
-    bl[j][0] = __float_as_uint(r[lo_off]);
-    bl[j][1] = __float_as_uint(r[lo_off + 4]);
+  for (int j = 0; j < NB; ++j) b_pair<S, 4>(p + 8 * j * LD, lo_off, bh[j], bl[j]);
+}
+
+// acc = A B^T over KD k-steps of 8 (a warp's 16 rows of A at a, row g,
+// column t; NB n-blocks of B at b, row g, column t), every operand split as
+// read: the hd-256 column groups' S^T, dP^T (S, dP). Its NB accumulators
+// alone would make NB chains of 3 KD dependent products (96 at hd 256), each
+// product waiting on the last; the k-steps are summed in kChains
+// interleaved partial sums instead (k-step kk into sum kk % kChains), added
+// in a fixed order at the end
+constexpr int kChains = 4;
+template <int KD, int NB, int LD, BSrc S>
+__device__ __forceinline__ void chain_sum(float (&acc)[NB][4], const float* a, const float* b) {
+  float part[kChains][NB][4];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[c][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    uint32_t ah[4], al[4], bh[NB][2], bl[NB][2];
+    split_a<LD>(a + 8 * kk, ah, al);
+    b_cols<NB, LD, S>(bh, bl, b + 8 * kk, 0);
+    mma_split<true, true>(part[kk % kChains], ah, al, bh, bl);
   }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[j][e] = (part[0][j][e] + part[1][j][e]) + (part[2][j][e] + part[3][j][e]);
+}
+
+// 4 elements global -> 4 floats shared (16-byte aligned), zeros when !ok
+// (src must still be a valid address): float32 by cp.async, bf16 loaded
+// (8 bytes) and widened, which makes the caller wait for the load
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void copy4(float* dst, const bf16* src, bool ok) {
+  const uint2 x = ok ? __ldg(reinterpret_cast<const uint2*>(src)) : make_uint2(0u, 0u);
+  const bf16* h = reinterpret_cast<const bf16*>(&x);
+  *reinterpret_cast<float4*>(dst) = make_float4(to_f(h[0]), to_f(h[1]), to_f(h[2]), to_f(h[3]));
+}
+
+// two neighbouring outputs, in T
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
 
 // pass 1: dK, dV of kKeys keys of one (b, kv head) over one segment of their
 // row walk, items[blockIdx.x / (K * B)] = {key tile, first folded row, end
 // row, slot}, as dkdv_wg_kernel: slot -1 writes dk and dv, else the float32
-// partials go to part[slot][b * K + kvh] for dkdv_merge_kernel<float>
-template <int HD>
+// partials go to part[slot][b * K + kvh] for dkdv_merge_kernel<T>. T float
+// (hd 8 to 128) or bf16 (hd 8, 16, 32); hd 256 is dkdv_tf32_cols_kernel.
+template <typename T, int HD>
 __global__ void __launch_bounds__(Tf32BwdTiling<HD>::kThreads, Tf32BwdTiling<HD>::kBlocks)
-dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dO,
+dkdv_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dO,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+                 T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
                  const int4* __restrict__ items, int Sq, int Sk, int H, int K, int B,
                  int causal, int window, float cap, float scale) {
   using C = Tf32BwdTiling<HD>;
+  // bf16: exact in tf32, so no lo halves (split_stage writes zeros there,
+  // which no product reads)
+  constexpr bool EX = std::is_same<T, bf16>::value;
+  constexpr BSrc BS = EX ? kExactTile : kSplitTile;
   constexpr int BN = kKeys, BR = C::kBR, LD = C::kLd, NT = C::kThreads;
   constexpr int RH = BR / C::kSplit;  // a warp's rows of a stage
   constexpr int KD = HD / 8;  // k-steps of S^T and dP^T; n-blocks of dK and dV
@@ -1191,8 +1170,8 @@ dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int j = c / CH, cc = (c % CH) * 4, key = k0 + j;
     const bool ok = key < Sk;
     const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
-    cp_async16(ks + j * LD + cc, k + off, ok);
-    cp_async16(vs + j * LD + cc, v + off, ok);
+    copy4(ks + j * LD + cc, k + off, ok);
+    copy4(vs + j * LD + cc, v + off, ok);
   }
   auto load_rows = [&](int r, int buf) {
     float* st = rs + buf * RS;
@@ -1201,8 +1180,8 @@ dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const bool ok = rr < r_hi;
       const size_t off =
           ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + rr - qi * G) * HD + cc : 0;
-      cp_async16(st + j * LD + cc, q + off, ok);               // Q's hi half
-      cp_async16(st + (2 * BR + j) * LD + cc, dO + off, ok);  // dO's hi half
+      copy4(st + j * LD + cc, q + off, ok);               // Q's hi half
+      copy4(st + (2 * BR + j) * LD + cc, dO + off, ok);  // dO's hi half
     }
     for (int j = tid; j < BR; j += NT) {
       const int rr = r + j, qi = rr / G;
@@ -1248,12 +1227,12 @@ dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
         uint32_t ah[4], al[4], bh[NR][2], bl[NR][2];
-        split_a<LD>(ks + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
-        b_cols<NR, LD>(bh, bl, qt + g * LD + 8 * kk + t, BR * LD);
-        mma3(s, ah, al, bh, bl);
-        split_a<LD>(vs + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
-        b_cols<NR, LD>(bh, bl, ot + g * LD + 8 * kk + t, BR * LD);
-        mma3(dp, ah, al, bh, bl);
+        split_a<LD, EX>(ks + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
+        b_cols<NR, LD, BS>(bh, bl, qt + g * LD + 8 * kk + t, BR * LD);
+        mma_split<!EX, !EX>(s, ah, al, bh, bl);
+        split_a<LD, EX>(vs + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
+        b_cols<NR, LD, BS>(bh, bl, ot + g * LD + 8 * kk + t, BR * LD);
+        mma_split<!EX, !EX>(dp, ah, al, bh, bl);
       }
       // P^T = exp(S^T scale (capped) - lse) and dS^T = P^T (dP^T - D) (times
       // the softcap's 1 - tanh^2); s[j][e]: key wk + g + 8 (e >> 1), row rh +
@@ -1287,9 +1266,9 @@ dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         uint32_t ah[4], al[4];
         const int row = (8 * j + 2 * t) * LD + g;
         split_c_as_a(s[j], ah, al);
-        mma_rows<KD, NV, LD>(dva, ah, al, ot + row, BR * LD);
+        mma_rows<KD, NV, LD, BS>(dva, ah, al, ot + row, BR * LD);
         split_c_as_a(dp[j], ah, al);
-        mma_rows<KD, NV, LD>(dka, ah, al, qt + row, BR * LD);
+        mma_rows<KD, NV, LD, BS>(dka, ah, al, qt + row, BR * LD);
       }
     }
   }
@@ -1328,10 +1307,8 @@ dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const size_t off = (((size_t)b * Sk + key) * K + kvh) * HD + 2 * t;
 #pragma unroll
       for (int n = 0; n < KD; ++n) {
-        *reinterpret_cast<float2*>(dk + off + 8 * n) =
-            make_float2(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
-        *reinterpret_cast<float2*>(dv + off + 8 * n) =
-            make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+        store2(dk + off + 8 * n, dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
+        store2(dv + off + 8 * n, dva[n][2 * i], dva[n][2 * i + 1]);
       }
     }
     return;
@@ -1350,15 +1327,20 @@ dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // pass 2: dQ for kBQ folded query rows of one (b, kv head), the longest
-// causal rows first
-template <int HD>
+// causal rows first; T float (hd 8 to 128) or bf16 (hd 8, 16, 32), hd 256
+// is dq_tf32_cols_kernel
+template <typename T, int HD>
 __global__ void __launch_bounds__(Tf32BwdTiling<HD>::kThreads, Tf32BwdTiling<HD>::kBlocks)
-dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dO,
+dq_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dO,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq, int Sq, int Sk, int H, int K, int causal, int window,
+               T* __restrict__ dq, int Sq, int Sk, int H, int K, int causal, int window,
                float cap, float scale) {
   using C = Tf32BwdTiling<HD>;
+  // bf16: exact in tf32, so no lo halves (split_stage writes zeros there,
+  // which no product reads)
+  constexpr bool EX = std::is_same<T, bf16>::value;
+  constexpr BSrc BS = EX ? kExactTile : kSplitTile;
   constexpr int BQ = C::kBQ, BK = C::kBK, LD = C::kLd, NT = C::kThreads;
   constexpr int KH = BK / C::kSplit;  // a warp's keys of a stage
   constexpr int KD = HD / 8;  // k-steps of S and dP; n-blocks of dQ
@@ -1388,8 +1370,8 @@ dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int rr = c / CH, cc = (c % CH) * 4, r = r0 + rr, qi = r / G;
     const bool ok = qi < Sq;
     const size_t off = ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + r - qi * G) * HD + cc : 0;
-    cp_async16(qs + rr * LD + cc, q + off, ok);
-    cp_async16(dos + rr * LD + cc, dO + off, ok);
+    copy4(qs + rr * LD + cc, q + off, ok);
+    copy4(dos + rr * LD + cc, dO + off, ok);
   }
   auto load_kv = [&](int kb, int buf) {
     float* st = rs + buf * RS;
@@ -1397,8 +1379,8 @@ dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = c / CH, cc = (c % CH) * 4, key = kb + j;
       const bool ok = key < Sk;
       const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
-      cp_async16(st + j * LD + cc, k + off, ok);               // K's hi half
-      cp_async16(st + (2 * BK + j) * LD + cc, v + off, ok);  // V's hi half
+      copy4(st + j * LD + cc, k + off, ok);               // K's hi half
+      copy4(st + (2 * BK + j) * LD + cc, v + off, ok);  // V's hi half
     }
     cp_async_commit();
   };
@@ -1442,12 +1424,12 @@ dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
         uint32_t ah[4], al[4], bh[NN][2], bl[NN][2];
-        split_a<LD>(qs + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
-        b_cols<NN, LD>(bh, bl, kt + g * LD + 8 * kk + t, BK * LD);
-        mma3(s, ah, al, bh, bl);
-        split_a<LD>(dos + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
-        b_cols<NN, LD>(bh, bl, vt + g * LD + 8 * kk + t, BK * LD);
-        mma3(dp, ah, al, bh, bl);
+        split_a<LD, EX>(qs + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
+        b_cols<NN, LD, BS>(bh, bl, kt + g * LD + 8 * kk + t, BK * LD);
+        mma_split<!EX, !EX>(s, ah, al, bh, bl);
+        split_a<LD, EX>(dos + (warp * 16 + g) * LD + 8 * kk + t, ah, al);
+        b_cols<NN, LD, BS>(bh, bl, vt + g * LD + 8 * kk + t, BK * LD);
+        mma_split<!EX, !EX>(dp, ah, al, bh, bl);
       }
       // dS = P (dP - D) (times the softcap's factor); s[j][e]: row qr[e >>
       // 1], key kw + 8 j + 2 t + (e & 1)
@@ -1476,7 +1458,7 @@ dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < NN; ++j) {
         uint32_t ah[4], al[4];
         split_c_as_a(dp[j], ah, al);
-        mma_rows<KD, NV, LD>(dqa, ah, al, kt + (8 * j + 2 * t) * LD + g, BK * LD);
+        mma_rows<KD, NV, LD, BS>(dqa, ah, al, kt + (8 * j + 2 * t) * LD + g, BK * LD);
       }
     }
   }
@@ -1502,11 +1484,349 @@ dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     if (qr[i] >= Sq) continue;
     const int r = wr + g + 8 * i;
-    float* row = dq + (((size_t)b * Sq + qr[i]) * H + (size_t)kvh * G + r - qr[i] * G) * HD + 2 * t;
+    T* row = dq + (((size_t)b * Sq + qr[i]) * H + (size_t)kvh * G + r - qr[i] * G) * HD + 2 * t;
 #pragma unroll
     for (int n = 0; n < KD; ++n)
-      *reinterpret_cast<float2*>(row + 8 * n) =
-          make_float2(dqa[n][2 * i] * scale, dqa[n][2 * i + 1] * scale);
+      store2(row + 8 * n, dqa[n][2 * i] * scale, dqa[n][2 * i + 1] * scale);
+  }
+}
+
+// pass 1 at hd 256 (float32, kCols 2): dK, dV of kKeys keys over one
+// segment of the schedule, as dkdv_tf32_kernel; thread block 2 x 4 warps,
+// group c owning columns [c HD / 2, (c + 1) HD / 2) of dK and dV. Each
+// stage of kBR rows: group 0 computes S^T = K Q^T, group 1 dP^T = V dO^T
+// (the warp's 16 keys x kBR rows, over every column, in kChains partial
+// sums), the two swap them through shared memory in the accumulators'
+// layout (the next write of a group's buffer comes after the other group's
+// read of it: the stage's first barrier lies between), both form P^T and
+// dS^T, then dV += P^T dO and dK += dS^T Q on their columns. Q and dO are
+// held once in float32 and split as read.
+template <int HD>
+__global__ void __launch_bounds__(Tf32BwdTiling<HD>::kThreads, Tf32BwdTiling<HD>::kBlocks)
+dkdv_tf32_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dO,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+                      const int4* __restrict__ items, int Sq, int Sk, int H, int K, int B,
+                      int causal, int window, float cap, float scale) {
+  using C = Tf32BwdTiling<HD>;
+  static_assert(C::kCols == 2 && C::kSplit == 1 && !C::kPreSplit, "the column-split tiling");
+  constexpr int BN = kKeys, BR = C::kBR, LD = C::kLd, NT = C::kThreads;
+  constexpr int KD = HD / 8;  // k-steps of S^T and dP^T
+  constexpr int KC = KD / 2;  // n-blocks of dK and dV a thread holds (its group's columns)
+  constexpr int NR = BR / 8;  // n-blocks of S^T and dP^T; k-steps of dV and dK
+  constexpr int CH = HD / 4;  // 16-byte copies a row
+  constexpr int RS = 2 * BR * LD;  // a ring stage: Q, dO
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;           // K [BN][LD]
+  float* vs = ks + BN * LD;  // V [BN][LD]
+  float* rs = vs + BN * LD;  // [2] ring stages
+  float* ls = rs + 2 * RS;   // [2][BR] lse
+  float* dl = ls + 2 * BR;   // [2][BR] D
+  float* xch = dl + 2 * BR;  // the groups' exchange, [2][NR * 4][128]
+
+  const int G = H / K, kb = blockIdx.x % (K * B);
+  const int kvh = kb % K, b = kb / K;
+  const int4 it = items[blockIdx.x / (K * B)];
+  const int k0 = it.x * BN, r_lo = it.y, r_hi = it.z, slot = it.w;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = (tid >> 5) & 3, cg = tid >> 7;  // the warp's keys; the group
+  const int wk = k0 + warp * 16;  // the warp's first key
+  const int co = cg * (HD / 2);   // the group's first column of dK and dV
+  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+
+  for (int c = tid; c < BN * CH; c += NT) {
+    const int j = c / CH, cc = (c % CH) * 4, key = k0 + j;
+    const bool ok = key < Sk;
+    const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
+    cp_async16(ks + j * LD + cc, k + off, ok);
+    cp_async16(vs + j * LD + cc, v + off, ok);
+  }
+  auto load_rows = [&](int r, int buf) {
+    float* st = rs + buf * RS;
+    for (int c = tid; c < BR * CH; c += NT) {
+      const int j = c / CH, cc = (c % CH) * 4, rr = r + j, qi = rr / G;
+      const bool ok = rr < r_hi;
+      const size_t off =
+          ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + rr - qi * G) * HD + cc : 0;
+      cp_async16(st + j * LD + cc, q + off, ok);
+      cp_async16(st + (BR + j) * LD + cc, dO + off, ok);
+    }
+    for (int j = tid; j < BR; j += NT) {
+      const int rr = r + j, qi = rr / G;
+      const bool ok = rr < r_hi;
+      const size_t li = ok ? ((size_t)b * H + (size_t)kvh * G + rr - qi * G) * Sq + qi : 0;
+      cp_async4(ls + buf * BR + j, lse + li, ok);
+      cp_async4(dl + buf * BR + j, delta + li, ok);
+    }
+    cp_async_commit();
+  };
+  load_rows(r_lo, 0);  // with K and V
+
+  // this thread's keys: wk + g (acc[.][0..1]) and wk + g + 8 (acc[.][2..3]);
+  // its columns co + 8 n + 2 t (+ 1)
+  float dka[KC][4], dva[KC][4];
+#pragma unroll
+  for (int n = 0; n < KC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  int buf = 0;
+  for (int r = r_lo; r < r_hi; r += BR, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // this stage is in, and every warp is done with the other one
+    if (r + BR < r_hi) load_rows(r + BR, buf ^ 1);  // in flight under this stage
+    const float* qt = rs + buf * RS;  // Q [BR][LD]
+    const float* ot = qt + BR * LD;   // dO [BR][LD]
+    const float* lt = ls + buf * BR;
+    const float* dt = dl + buf * BR;
+    const int q_lo = r / G, q_hi = (min(r + BR, r_hi) - 1) / G;
+    const bool skip = wk >= Sk || (causal && q_hi < wk) ||
+                      (window > 0 && q_lo - (wk + 15) >= window);
+    float mine[NR][4], s[NR][4], dp[NR][4];
+    if (!skip) {
+      chain_sum<KD, NR, LD, kRawTile>(mine, (cg == 0 ? ks : vs) + (warp * 16 + g) * LD + t,
+                                      (cg == 0 ? qt : ot) + g * LD + t);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[j][e] = 0.f;
+    }
+    float* x = xch + cg * (NR * 4 * 128) + (tid & 127);
+    const float* y = xch + (1 - cg) * (NR * 4 * 128) + (tid & 127);
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[(j * 4 + e) * 128] = mine[j][e];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float other = y[(j * 4 + e) * 128];
+        s[j][e] = cg == 0 ? mine[j][e] : other;
+        dp[j][e] = cg == 0 ? other : mine[j][e];
+      }
+    if (skip) continue;
+    // P^T = exp(S^T scale (capped) - lse) and dS^T = P^T (dP^T - D) (times
+    // the softcap's 1 - tanh^2), in both groups; s[j][e]: key wk + g + 8 (e
+    // >> 1), row r + 8 j + 2 t + (e & 1)
+    const bool edge = (causal && q_lo < wk + 15) || (window > 0 && q_hi - wk >= window) ||
+                      wk + 16 > Sk || r + BR > r_hi;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        float xs = s[j][e] * scale, f = 1.f;
+        if (cap > 0.f) {
+          const float th = tanhf(xs * inv_cap);
+          xs = cap * th;
+          f = 1.f - th * th;
+        }
+        float p = expf(xs - lt[col]);
+        if (edge) {
+          const int rr = r + col, key = wk + g + ((e >> 1) << 3);
+          const bool ok = rr < r_hi && key < Sk && visible(rr / G, key, causal, window);
+          p = ok ? p : 0.f;
+        }
+        s[j][e] = p;
+        dp[j][e] = p * f * (dp[j][e] - dt[col]);
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q on the group's columns, a k-step of 8 rows
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      uint32_t ah[4], al[4];
+      const int row = (8 * j + 2 * t) * LD + g + co;
+      split_c_as_a(s[j], ah, al);
+      mma_rows<KC, 4, LD, kRawTile>(dva, ah, al, ot + row, 0);
+      split_c_as_a(dp[j], ah, al);
+      mma_rows<KC, 4, LD, kRawTile>(dka, ah, al, qt + row, 0);
+    }
+  }
+  cp_async_wait<0>();  // an empty walk issued its copies too
+
+  if (slot < 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = wk + g + 8 * i;
+      if (key >= Sk) continue;
+      const size_t off = (((size_t)b * Sk + key) * K + kvh) * HD + co + 2 * t;
+#pragma unroll
+      for (int n = 0; n < KC; ++n) {
+        store2(dk + off + 8 * n, dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
+        store2(dv + off + 8 * n, dva[n][2 * i], dva[n][2 * i + 1]);
+      }
+    }
+    return;
+  }
+  float* pk = part + ((size_t)slot * K * B + kb) * (2 * BN * HD);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int off = (warp * 16 + g + 8 * i) * HD + co + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KC; ++n) {
+      store2(pk + off + 8 * n, dka[n][2 * i], dka[n][2 * i + 1]);
+      store2(pk + BN * HD + off + 8 * n, dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+// pass 2 at hd 256 (float32, kCols 2): dQ for kBQ folded rows, the longest
+// causal rows first, as dq_tf32_kernel; group c owns columns [c HD / 2, (c +
+// 1) HD / 2) of dQ. Each stage of kBK keys: group 0 computes S = Q K^T,
+// group 1 dP = dO V^T (the warp's 16 rows x kBK keys, over every column),
+// swapped as in pass 1, both form dS, then dQ += dS K on their columns. K
+// and V are held once in float32 and split as read.
+template <int HD>
+__global__ void __launch_bounds__(Tf32BwdTiling<HD>::kThreads, Tf32BwdTiling<HD>::kBlocks)
+dq_tf32_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int Sq, int Sk, int H, int K, int causal, int window,
+                    float cap, float scale) {
+  using C = Tf32BwdTiling<HD>;
+  static_assert(C::kCols == 2 && C::kSplit == 1 && !C::kPreSplit, "the column-split tiling");
+  constexpr int BQ = C::kBQ, BK = C::kBK, LD = C::kLd, NT = C::kThreads;
+  constexpr int KD = HD / 8;  // k-steps of S and dP
+  constexpr int KC = KD / 2;  // n-blocks of dQ a thread holds (its group's columns)
+  constexpr int NN = BK / 8;  // n-blocks of S and dP; k-steps of dQ
+  constexpr int CH = HD / 4;  // 16-byte copies a row
+  constexpr int RS = 2 * BK * LD;  // a ring stage: K, V
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;            // Q [BQ][LD]
+  float* dos = qs + BQ * LD;  // dO [BQ][LD]
+  float* rs = dos + BQ * LD;  // [2] ring stages
+  float* xch = rs + 2 * RS;   // the groups' exchange, [2][NN * 4][128]
+
+  const int G = H / K, kvh = blockIdx.y, b = blockIdx.z;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows first
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = (tid >> 5) & 3, cg = tid >> 7;  // the warp's rows; the group
+  const int co = cg * (HD / 2);  // the group's first column of dQ
+  const int q_first = r0 / G;
+  const int q_last = min(Sq - 1, (r0 + BQ - 1) / G);
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) / BK * BK : 0;
+  const int wr = r0 + warp * 16;  // the warp's first folded row
+  const int wq_first = wr / G, wq_last = min(Sq - 1, (wr + 15) / G);
+  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+
+  for (int c = tid; c < BQ * CH; c += NT) {
+    const int rr = c / CH, cc = (c % CH) * 4, r = r0 + rr, qi = r / G;
+    const bool ok = qi < Sq;
+    const size_t off =
+        ok ? (((size_t)b * Sq + qi) * H + (size_t)kvh * G + r - qi * G) * HD + cc : 0;
+    cp_async16(qs + rr * LD + cc, q + off, ok);
+    cp_async16(dos + rr * LD + cc, dO + off, ok);
+  }
+  auto load_kv = [&](int kb, int buf) {
+    float* st = rs + buf * RS;
+    for (int c = tid; c < BK * CH; c += NT) {
+      const int j = c / CH, cc = (c % CH) * 4, key = kb + j;
+      const bool ok = key < Sk;
+      const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
+      cp_async16(st + j * LD + cc, k + off, ok);
+      cp_async16(st + (BK + j) * LD + cc, v + off, ok);
+    }
+    cp_async_commit();
+  };
+  load_kv(k_begin, 0);  // with Q and dO
+
+  // this thread's rows: wr + g (acc[.][0..1]) and wr + g + 8 (acc[.][2..3])
+  int qr[2];
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + g + 8 * i, qi = r / G;
+    const size_t li = ((size_t)b * H + (size_t)kvh * G + r - qi * G) * Sq + qi;
+    qr[i] = qi;
+    lr[i] = qi < Sq ? lse[li] : 0.f;
+    dr[i] = qi < Sq ? delta[li] : 0.f;
+  }
+  // its columns co + 8 n + 2 t (+ 1)
+  float dqa[KC][4];
+#pragma unroll
+  for (int n = 0; n < KC; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  int buf = 0;
+  for (int kb = k_begin; kb < k_end; kb += BK, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // this stage is in, and every warp is done with the other one
+    if (kb + BK < k_end) load_kv(kb + BK, buf ^ 1);  // in flight under this stage
+    const float* kt = rs + buf * RS;  // K [BK][LD]
+    const float* vt = kt + BK * LD;   // V [BK][LD]
+    const bool skip = wq_first >= Sq || (causal && kb > wq_last) ||
+                      (window > 0 && wq_first - (kb + BK - 1) >= window);
+    float mine[NN][4], s[NN][4], dp[NN][4];
+    if (!skip) {
+      chain_sum<KD, NN, LD, kRawTile>(mine, (cg == 0 ? qs : dos) + (warp * 16 + g) * LD + t,
+                                      (cg == 0 ? kt : vt) + g * LD + t);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[j][e] = 0.f;
+    }
+    float* x = xch + cg * (NN * 4 * 128) + (tid & 127);
+    const float* y = xch + (1 - cg) * (NN * 4 * 128) + (tid & 127);
+#pragma unroll
+    for (int j = 0; j < NN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[(j * 4 + e) * 128] = mine[j][e];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float other = y[(j * 4 + e) * 128];
+        s[j][e] = cg == 0 ? mine[j][e] : other;
+        dp[j][e] = cg == 0 ? other : mine[j][e];
+      }
+    if (skip) continue;
+    // dS = P (dP - D) (times the softcap's factor), in both groups; s[j][e]:
+    // row qr[e >> 1], key kb + 8 j + 2 t + (e & 1)
+    const bool edge = (causal && kb + BK - 1 > wq_first) ||
+                      (window > 0 && wq_last - kb >= window) || kb + BK > Sk;
+#pragma unroll
+    for (int j = 0; j < NN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float xs = s[j][e] * scale, f = 1.f;
+        if (cap > 0.f) {
+          const float th = tanhf(xs * inv_cap);
+          xs = cap * th;
+          f = 1.f - th * th;
+        }
+        float p = expf(xs - lr[e >> 1]);
+        if (edge) {
+          const int key = kb + 8 * j + 2 * t + (e & 1);
+          p = key < Sk && visible(qr[e >> 1], key, causal, window) ? p : 0.f;
+        }
+        dp[j][e] = p * f * (dp[j][e] - dr[e >> 1]);
+      }
+    }
+    // dQ += dS K on the group's columns, a k-step of 8 keys at a time
+#pragma unroll
+    for (int j = 0; j < NN; ++j) {
+      uint32_t ah[4], al[4];
+      split_c_as_a(dp[j], ah, al);
+      mma_rows<KC, 4, LD, kRawTile>(dqa, ah, al, kt + (8 * j + 2 * t) * LD + g + co, 0);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qr[i] >= Sq) continue;
+    const int r = wr + g + 8 * i;
+    float* row =
+        dq + (((size_t)b * Sq + qr[i]) * H + (size_t)kvh * G + r - qr[i] * G) * HD + co + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KC; ++n)
+      store2(row + 8 * n, dqa[n][2 * i] * scale, dqa[n][2 * i + 1] * scale);
   }
 }
 
@@ -1533,23 +1853,14 @@ cudaError_t launch_delta(const Args& a, int hd) {
   return cudaSuccess;
 }
 
-template <typename T, int HD>
-cudaError_t launch(const Args& a) {
-  using Tl = Tiling<HD>;
-  const int G = a.H / a.K;
-  const long long nk = (a.Sk + Tl::kRows - 1) / Tl::kRows;
-  const long long nq = ((long long)G * a.Sq + Tl::kRows - 1) / Tl::kRows;
-  if (nq > 0x7fffffffLL || a.K > 65535 || a.B > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = launch_delta<T>(a, HD);
-  if (err != cudaSuccess) return err;
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v), *dO = static_cast<const T*>(a.dO);
-  dkdv_kernel<T, HD><<<dim3((unsigned)nk, a.K, a.B), kThreads, 0, a.s>>>(
-      q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Sk,
-      a.H, a.K, a.causal, a.window, a.cap, a.scale);
-  dq_kernel<T, HD><<<dim3((unsigned)nq, a.K, a.B), kThreads, 0, a.s>>>(
-      q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.H, a.K, a.causal,
-      a.window, a.cap, a.scale);
+// D = rowsum(dO * O) of bf16 o and dO: HD / 8 threads a row, 16-byte loads
+template <int HD>
+cudaError_t launch_delta_tc(const Args& a) {
+  const long long rows = (long long)a.B * a.Sq * a.H;
+  const long long nd = (rows + kThreads / (HD / 8) - 1) / (kThreads / (HD / 8));
+  if (nd > 0x7fffffffLL) return cudaErrorInvalidValue;
+  delta_tc_kernel<HD><<<(unsigned)nd, kThreads, 0, a.s>>>(
+      static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dO), a.delta, a.Sq, a.H, rows);
   return cudaSuccess;
 }
 
@@ -1569,19 +1880,17 @@ cudaError_t launch_tc(const Args& a) {
   const long long kb = (long long)a.K * a.B;
   const long long n1 = a.n_items * kb, nm = a.n_tiles * kb;
   const long long nq = ((long long)G * a.Sq + W::kBQ - 1) / W::kBQ;
-  const long long rows = (long long)a.B * a.Sq * a.H;
-  const long long nd = (rows + kThreads / (HD / 8) - 1) / (kThreads / (HD / 8));
   // the folded rows r < G * Sq are divided by G as a multiply-high
   if (a.n_items <= 0 || a.n_tiles <= 0 || a.sched == nullptr || n1 > 0x7fffffffLL ||
-      nm > 0x7fffffffLL || nq > 0x7fffffffLL || nd > 0x7fffffffLL || a.K > 65535 ||
-      a.B > 65535 || (long long)G * G * a.Sq >= (1LL << 32))
+      nm > 0x7fffffffLL || nq > 0x7fffffffLL || a.K > 65535 || a.B > 65535 ||
+      (long long)G * G * a.Sq >= (1LL << 32))
     return cudaErrorInvalidValue;
   const unsigned long long gm = ((1ULL << 32) + G - 1) / G;
+  cudaError_t err = launch_delta_tc<HD>(a);
+  if (err != cudaSuccess) return err;
   const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
              *v = static_cast<const bf16*>(a.v), *dO = static_cast<const bf16*>(a.dO);
   bf16 *dk = static_cast<bf16*>(a.dk), *dv = static_cast<bf16*>(a.dv);
-  delta_tc_kernel<HD><<<(unsigned)nd, kThreads, 0, a.s>>>(static_cast<const bf16*>(a.o), dO,
-                                                          a.delta, a.Sq, a.H, rows);
   dkdv_wg_kernel<HD><<<(unsigned)n1, W::kThreads, W::kSmem1, a.s>>>(
       q, k, v, dO, a.lse, a.delta, dk, dv, a.part, a.sched, a.Sq, a.Sk, a.H, a.K, a.B,
       a.causal, a.window, a.cap, a.scale, gm);
@@ -1593,11 +1902,22 @@ cudaError_t launch_tc(const Args& a) {
   return cudaSuccess;
 }
 
-template <int HD>
+// the split-TF32 route: T float (every head dim; hd 256 on the column-split
+// kernels) or bf16 (hd 8, 16, 32)
+template <typename T, int HD>
 cudaError_t launch_tf32(const Args& a) {
   using C = Tf32BwdTiling<HD>;
-  static const cudaError_t attr1 = smem_attr(dkdv_tf32_kernel<HD>, C::kSmem1);
-  static const cudaError_t attr2 = smem_attr(dq_tf32_kernel<HD>, C::kSmem2);
+  constexpr bool cols = C::kCols == 2;
+  auto* dkdv = [] {
+    if constexpr (cols) return dkdv_tf32_cols_kernel<HD>;
+    else return dkdv_tf32_kernel<T, HD>;
+  }();
+  auto* dqk = [] {
+    if constexpr (cols) return dq_tf32_cols_kernel<HD>;
+    else return dq_tf32_kernel<T, HD>;
+  }();
+  static const cudaError_t attr1 = smem_attr(dkdv, C::kSmem1);
+  static const cudaError_t attr2 = smem_attr(dqk, C::kSmem2);
   if (attr1 != cudaSuccess) return attr1;
   if (attr2 != cudaSuccess) return attr2;
   const int G = a.H / a.K;
@@ -1608,49 +1928,39 @@ cudaError_t launch_tf32(const Args& a) {
   if (a.n_items <= 0 || a.n_tiles <= 0 || a.sched == nullptr || n1 > 0x7fffffffLL ||
       nm > 0x7fffffffLL || rows + C::kBQ > 0x7fffffffLL || a.K > 65535 || a.B > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_delta<float>(a, HD);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value)
+    err = launch_delta_tc<HD>(a);
+  else
+    err = launch_delta<float>(a, HD);
   if (err != cudaSuccess) return err;
-  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
-              *v = static_cast<const float*>(a.v), *dO = static_cast<const float*>(a.dO);
-  float *dk = static_cast<float*>(a.dk), *dv = static_cast<float*>(a.dv);
-  dkdv_tf32_kernel<HD><<<(unsigned)n1, C::kThreads, C::kSmem1, a.s>>>(
-      q, k, v, dO, a.lse, a.delta, dk, dv, a.part, a.sched, a.Sq, a.Sk, a.H, a.K, a.B,
-      a.causal, a.window, a.cap, a.scale);
-  dkdv_merge_kernel<float, HD><<<dim3((unsigned)nm, HD / 8), 256, 0, a.s>>>(
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+          *v = static_cast<const T*>(a.v), *dO = static_cast<const T*>(a.dO);
+  T *dk = static_cast<T*>(a.dk), *dv = static_cast<T*>(a.dv);
+  dkdv<<<(unsigned)n1, C::kThreads, C::kSmem1, a.s>>>(q, k, v, dO, a.lse, a.delta, dk, dv,
+                                                      a.part, a.sched, a.Sq, a.Sk, a.H, a.K,
+                                                      a.B, a.causal, a.window, a.cap, a.scale);
+  dkdv_merge_kernel<T, HD><<<dim3((unsigned)nm, HD / 8), 256, 0, a.s>>>(
       a.part, a.sched + a.n_items, dk, dv, a.Sk, a.K, a.B, a.scale);
-  dq_tf32_kernel<HD><<<dim3((unsigned)nq, a.K, a.B), C::kThreads, C::kSmem2, a.s>>>(
-      q, k, v, dO, a.lse, a.delta, static_cast<float*>(a.dq), a.Sq, a.Sk, a.H, a.K, a.causal,
+  dqk<<<dim3((unsigned)nq, a.K, a.B), C::kThreads, C::kSmem2, a.s>>>(
+      q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Sk, a.H, a.K, a.causal,
       a.window, a.cap, a.scale);
   return cudaSuccess;
-}
-
-// the CUDA-core route: bfloat16 at hd 8, 16, 32 and float32 at hd 256
-template <typename T>
-cudaError_t dispatch(int hd, const Args& a) {
-  if constexpr (std::is_same<T, float>::value) {
-    return hd == 256 ? launch<T, 256>(a) : cudaErrorInvalidValue;
-  } else {
-    switch (hd) {
-      case 8: return launch<T, 8>(a);
-      case 16: return launch<T, 16>(a);
-      case 32: return launch<T, 32>(a);
-    }
-    return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/o/dO/dq (B,Sq,H,hd), k/v/dk/dv
 // (B,Sk,K,hd), lse and delta (scratch for D) (B,H,Sq) float32, all
-// contiguous. The tensor-core routes (bfloat16 at hd 64, 128 and 256,
-// float32 at hd 8 to 128) also take the dK/dV pass's schedule, n_items
-// segment rows then n_tiles key-tile rows of 4 int32 each
-// (kernels/flash_attention_bwd.py::dkdv_schedule), and the float32 workspace
-// of its partials (slots x B x K x 2 x 64 x hd); the CUDA-core routes take
-// null and 0 there. Launches the D pre-pass, the dK/dV pass (and on the
-// tensor-core route the merge of its cut key tiles) and the dQ pass on
-// ``stream``. Returns a cudaError_t: the launches', else cudaGetLastError().
+// contiguous and on 16-byte boundaries (every route copies 16-byte chunks).
+// Every route (bfloat16 at hd 64, 128 and 256 on wgmma; float32 at every
+// head dim and bfloat16 at hd 8, 16, 32 in split-TF32) takes the dK/dV
+// pass's schedule, n_items segment rows then n_tiles key-tile rows of 4
+// int32 each (kernels/flash_attention_bwd.py::dkdv_schedule), and the
+// float32 workspace of its partials (slots x B x K x 2 x 64 x hd). Launches
+// the D pre-pass, the dK/dV pass, the merge of its cut key tiles and the dQ
+// pass on ``stream``. Returns a cudaError_t: the launches', else
+// cudaGetLastError().
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dO, const void* lse, void* dq,
                                    void* dk, void* dv, void* delta, void* work,
@@ -1664,35 +1974,29 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
                static_cast<const int4*>(sched), n_items, n_tiles,
                B, Sq, Sk, H, K, causal, window, softcap, scale,
                static_cast<cudaStream_t>(stream)};
-  // the tensor-core variants copy 16-byte chunks
-  const bool tf32 = dtype == 0 && hd <= 128;
-  const bool tc = tf32 || (dtype == 1 && (hd == 64 || hd == 128 || hd == 256));
-  if (tc &&
-      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dO |
-        (uintptr_t)sched | (uintptr_t)work) & 15))
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dO |
+       (uintptr_t)sched | (uintptr_t)work) & 15)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (tf32) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
     switch (hd) {
-      case 8: err = launch_tf32<8>(a); break;
-      case 16: err = launch_tf32<16>(a); break;
-      case 32: err = launch_tf32<32>(a); break;
-      case 64: err = launch_tf32<64>(a); break;
-      case 128: err = launch_tf32<128>(a); break;
-      default: err = cudaErrorInvalidValue;
+      case 8: err = launch_tf32<float, 8>(a); break;
+      case 16: err = launch_tf32<float, 16>(a); break;
+      case 32: err = launch_tf32<float, 32>(a); break;
+      case 64: err = launch_tf32<float, 64>(a); break;
+      case 128: err = launch_tf32<float, 128>(a); break;
+      case 256: err = launch_tf32<float, 256>(a); break;
     }
-  } else if (dtype == 0)
-    err = dispatch<float>(hd, a);
-  else if (dtype == 1 && hd == 64)
-    err = launch_tc<64>(a);
-  else if (dtype == 1 && hd == 128)
-    err = launch_tc<128>(a);
-  else if (dtype == 1 && hd == 256)
-    err = launch_tc<256>(a);
-  else if (dtype == 1)
-    err = dispatch<bf16>(hd, a);
-  else
-    err = cudaErrorInvalidValue;
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 8: err = launch_tf32<bf16, 8>(a); break;
+      case 16: err = launch_tf32<bf16, 16>(a); break;
+      case 32: err = launch_tf32<bf16, 32>(a); break;
+      case 64: err = launch_tc<64>(a); break;
+      case 128: err = launch_tc<128>(a); break;
+      case 256: err = launch_tc<256>(a); break;
+    }
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

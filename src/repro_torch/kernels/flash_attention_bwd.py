@@ -10,16 +10,17 @@ fold as the forward, at any Sq and Sk with the forward's positions
 arange(Sq) and arange(Sk) (causal aligned at the top left: seamless's
 cross-attention trains non-causal at Sq != Sk); a key that no query sees
 (causal, past Sq - 1) gets dK = dV = 0. hd in {8, 16, 32, 64, 128, 256};
-float32 or bfloat16. Two routes run on the tensor cores, where q, k, v, o
+float32 or bfloat16. Every route runs on the tensor cores, where q, k, v, o
 and do must lie on a 16-byte boundary (``ValueError`` if not): bfloat16 at
-hd 64, 128 and 256 on Hopper's warpgroup products (wgmma; ``tc_plan``) and
-float32 at hd 8 to 128 in split-TF32 (``mma.sync`` tf32, each operand split
-into a tf32 hi and lo half, each product lo·hi + hi·lo + hi·hi;
+hd 64, 128 and 256 on Hopper's warpgroup products (wgmma; ``tc_plan``), and
+float32 at every head dim and bfloat16 at hd 8, 16 and 32 in split-TF32
+(``mma.sync`` tf32, each operand split into a tf32 hi and lo half, each
+product lo·hi + hi·lo + hi·hi; a bf16 operand has no lo half; at hd 256
+two warp groups a block split the columns of dK, dV and dQ;
 ``tf32_bwd_plan``; its algorithm step by step:
-``ref.flash_attention_bwd_split_ref``). The rest (bfloat16 at hd 8, 16 and
-32, float32 at hd 256) runs on the CUDA cores. ``route`` names the route.
+``ref.flash_attention_bwd_split_ref``). ``route`` names the route.
 
-On both tensor-core routes the dK/dV pass is balanced over the causal rows:
+On both routes the dK/dV pass is balanced over the causal rows:
 ``dkdv_schedule`` cuts each key tile's walk over the folded query rows into
 segments of about equal length, one block each. This module keeps the
 schedule on the device per shape and allocates, per call, the float32
@@ -49,8 +50,9 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
 
 #: head dims of the tensor-core route (bfloat16)
 TC_HEAD_DIMS = (64, 128, 256)
-#: head dims of the split-TF32 tensor-core route (float32)
-TF32_HEAD_DIMS = (8, 16, 32, 64, 128)
+#: head dims of the split-TF32 tensor-core route: float32 at all of them,
+#: bfloat16 at those below the wgmma route's
+TF32_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 #: the tensor-core dK/dV pass's tiles (``kKeys`` and ``WgTiling::kBM`` in the
 #: source): keys a block, folded query rows a ring stage
 TC_KEYS = 64
@@ -60,24 +62,28 @@ TC_ROWS = 64
 #: block (``WgTiling::kNW``: two at hd 256, each with half the columns)
 TC_BLOCKS_PER_SM = {64: 3, 128: 2, 256: 1}
 TC_WARPGROUPS = {64: 1, 128: 1, 256: 2}
-#: the split-TF32 route (``Tf32BwdTiling`` in the source): threads of a
-#: warp group (4 warps, 16 keys or rows each), warp groups a block by head
-#: dim (two at hd 128, each with half of a stage's rows or keys), folded rows
-#: a ring stage of the dK/dV pass, folded rows a dQ block, keys a ring stage
-#: of the dQ pass, and blocks an SM by head dim (shared memory: one block at
-#: hd 128)
+#: the split-TF32 route (``Tf32BwdTiling`` in the source) by head dim:
+#: threads of a warp group (4 warps, 16 keys or rows each), warp groups
+#: that share a stage (two at hd 128, each with half of a stage's rows or
+#: keys) and that split the columns of dK, dV and dQ (two at hd 256, one
+#: computing S, the other dP), folded rows a ring stage of the dK/dV pass,
+#: folded rows a dQ block, keys a ring stage of the dQ pass, and blocks an
+#: SM (shared memory: one block at hd 128 and 256)
 TF32_THREADS = 128
-TF32_SPLIT = {8: 1, 16: 1, 32: 1, 64: 1, 128: 2}
-TF32_STAGE_ROWS = 32
+TF32_SPLIT = {8: 1, 16: 1, 32: 1, 64: 1, 128: 2, 256: 1}
+TF32_COLS = {8: 1, 16: 1, 32: 1, 64: 1, 128: 1, 256: 2}
+TF32_STAGE_ROWS = {8: 32, 16: 32, 32: 32, 64: 32, 128: 32, 256: 16}
 TF32_DQ_ROWS = 64
-TF32_DQ_KEYS = 32
-TF32_BLOCKS_PER_SM = {8: 2, 16: 2, 32: 2, 64: 2, 128: 1}
+TF32_DQ_KEYS = {8: 32, 16: 32, 32: 32, 64: 32, 128: 32, 256: 16}
+TF32_BLOCKS_PER_SM = {8: 2, 16: 2, 32: 2, 64: 2, 128: 1, 256: 1}
 #: SMs of an H100, and the waves of them the dK/dV schedule aims at
 SMS = 132
 TARGET_WAVES = 2
 #: 64-row stages of the shortest segment (a key tile's last may be
 #: shorter), by route: the float32 route's blocks walk a stage slower, so
-#: its walks are cut finer
+#: its walks are cut finer; finest (one stage) on bf16 inputs at hd 8-32,
+#: whose stages cost a global load's round trip each, not products
+#: (``min_segment``)
 MIN_SEGMENT = 8
 TF32_MIN_SEGMENT = 2
 _schedules: dict = {}
@@ -85,13 +91,18 @@ _schedules: dict = {}
 
 def route(dtype, hd):
     """The backward's route for ``dtype`` at head dim ``hd``: "wgmma"
-    (bfloat16 at ``TC_HEAD_DIMS``), "tf32" (float32 at ``TF32_HEAD_DIMS``)
-    or "cuda_core" (bfloat16 at hd 8, 16, 32; float32 at hd 256)."""
-    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
-        return "wgmma"
-    if dtype == torch.float32 and hd in TF32_HEAD_DIMS:
-        return "tf32"
-    return "cuda_core"
+    (bfloat16 at ``TC_HEAD_DIMS``) or "tf32" (float32 at every head dim,
+    bfloat16 at hd 8, 16 and 32)."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "tf32"
+
+
+def min_segment(hd=64, dtype=torch.bfloat16):
+    """64-row stages of the shortest dK/dV segment on the route of
+    ``dtype`` at head dim ``hd``: ``MIN_SEGMENT`` (wgmma),
+    ``TF32_MIN_SEGMENT`` (float32), 1 (bf16 on the split-TF32 route)."""
+    if route(dtype, hd) == "wgmma":
+        return MIN_SEGMENT
+    return TF32_MIN_SEGMENT if dtype == torch.float32 else 1
 
 
 def target_blocks(hd=64, dtype=torch.bfloat16):
@@ -126,41 +137,47 @@ def tc_plan(hd):
 def tf32_bwd_plan(hd):
     """The split-TF32 route's launch at head dim ``hd``, as the source's
     ``Tf32BwdTiling`` lays it out: ``split`` (warp groups that share a
-    stage, each with half its rows or keys), ``threads`` a block (4 warps a
-    group), ``blocks_per_sm``, the dK/dV pass's ``keys`` a block (16 a warp) and
-    ``rows`` a ring stage, the dQ pass's ``dq_rows`` a block (16 a warp) and
-    ``dq_keys`` a ring stage, ``ld`` (a shared row's floats, hd + 4), and
-    the shared memory of the dK/dV pass (``smem1``: K and V of the block's
-    keys, two ring stages of Q and dO each as a tf32 hi and lo half, the
-    stages' lse and D) and of the dQ pass (``smem2``: Q and dO of the
-    block's rows, two ring stages of K and V, hi and lo)."""
+    stage, each with half its rows or keys), ``cols`` (warp groups that
+    split the columns of dK and dV, dQ: two at hd 256, where a warp's 16
+    keys x 256 columns of dK and dV would take 256 registers a thread),
+    ``threads`` a block (4 warps a group), ``blocks_per_sm``, the dK/dV
+    pass's ``keys`` a block (16 a warp) and ``rows`` a ring stage, the dQ
+    pass's ``dq_rows`` a block (16 a warp) and ``dq_keys`` a ring stage,
+    ``ld`` (a shared row's floats, hd + 4), ``pre_split`` (the rings' B
+    operands split once a stage in place, as a tf32 hi and lo half; at two
+    column groups stored once in float32 and split as read), and the
+    shared memory of the dK/dV pass (``smem1``: K and V of the block's
+    keys, two ring stages of Q and dO, the stages' lse and D, the column
+    groups' exchange of S^T and dP^T) and of the dQ pass (``smem2``: Q and
+    dO of the block's rows, two ring stages of K and V, the exchange of S
+    and dP). bf16 inputs (hd 8, 16, 32) take the float32 plan: they are
+    widened to float32 in shared memory."""
     if hd not in TF32_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: the split-TF32 route takes head_dim "
                          f"{TF32_HEAD_DIMS}, not {hd}")
-    ld = hd + 4
-    return {"split": TF32_SPLIT[hd], "threads": TF32_THREADS * TF32_SPLIT[hd],
-            "blocks_per_sm": TF32_BLOCKS_PER_SM[hd], "keys": TC_KEYS,
-            "rows": TF32_STAGE_ROWS, "dq_rows": TF32_DQ_ROWS, "dq_keys": TF32_DQ_KEYS, "ld": ld,
-            "smem1": (2 * TC_KEYS * ld + 2 * 4 * TF32_STAGE_ROWS * ld + 2 * 2 * TF32_STAGE_ROWS)
-            * 4,
-            "smem2": (2 * TF32_DQ_ROWS * ld + 2 * 4 * TF32_DQ_KEYS * ld) * 4}
+    ld, cols, rows, dq_keys = hd + 4, TF32_COLS[hd], TF32_STAGE_ROWS[hd], TF32_DQ_KEYS[hd]
+    halves = 2 if cols == 1 else 1
+    xch1, xch2 = (cols - 1) * 2 * 4 * 16 * rows, (cols - 1) * 2 * 4 * 16 * dq_keys
+    return {"split": TF32_SPLIT[hd], "cols": cols,
+            "threads": TF32_THREADS * TF32_SPLIT[hd] * cols,
+            "blocks_per_sm": TF32_BLOCKS_PER_SM[hd], "keys": TC_KEYS, "rows": rows,
+            "dq_rows": TF32_DQ_ROWS, "dq_keys": dq_keys, "ld": ld, "pre_split": cols == 1,
+            "smem1": (2 * TC_KEYS * ld + 2 * 2 * halves * rows * ld + 2 * 2 * rows + xch1) * 4,
+            "smem2": (2 * TF32_DQ_ROWS * ld + 2 * 2 * halves * dq_keys * ld + xch2) * 4}
 
 
 def check_tc_route(q, k, v, o, do):
-    """The tensor-core routes (bfloat16 at ``TC_HEAD_DIMS``, float32 at
-    ``TF32_HEAD_DIMS``) copy 16 bytes at a time: raise ValueError unless q,
-    k, v, o and do start on a 16-byte boundary. The CUDA-core route takes
-    any."""
-    if route(q.dtype, q.shape[-1]) != "cuda_core" and any(
-            t.data_ptr() % 16 for t in (q, k, v, o, do)):
+    """Every route of the backward copies 16 bytes at a time: raise
+    ValueError unless q, k, v, o and do start on a 16-byte boundary."""
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
         raise ValueError(f"flash_attention_bwd: {q.dtype} at head_dim {q.shape[-1]} runs on the "
                          "tensor cores, which need q, k, v, o and do to start on a 16-byte "
                          "boundary")
 
 
 def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks, hd=64, dtype=torch.bfloat16):
-    """The tensor-core dK/dV pass's work (either tensor-core route: the float32
-    one walks each 64-row stage as two of ``TF32_STAGE_ROWS``), cut into
+    """The tensor-core dK/dV pass's work (either route: the split-TF32 one
+    walks each 64-row stage as stages of ``TF32_STAGE_ROWS[hd]``), cut into
     segments of about equal length. Key tile j (keys 64j..64j+63 of one KV
     head of one batch row) walks the folded query rows r = q * G + g from its
     causal frontier to its window edge, in ring stages of ``TC_ROWS`` rows. A
@@ -194,9 +211,9 @@ def dkdv_schedule(Sq, Sk, G, causal, window, kv_blocks, hd=64, dtype=torch.bfloa
         # (batch row, kv head)'s cuts, and so its float32 sums, depend on its
         # own walk alone, the same bits however rows and heads are split
         # over ranks (a mesh's local call against one device's)
-        seg = max(TF32_MIN_SEGMENT, -(-stages * TARGET_WAVES // target_blocks(hd, dtype)))
+        seg = max(min_segment(hd, dtype), -(-stages * TARGET_WAVES // target_blocks(hd, dtype)))
     else:
-        seg = max(MIN_SEGMENT, -(-stages * kv_blocks // target_blocks(hd, dtype)))
+        seg = max(min_segment(hd, dtype), -(-stages * kv_blocks // target_blocks(hd, dtype)))
     items, tiles, slots = [], [], 0
     for j, (b, e) in enumerate(walks):
         n_stages = -(-(e - b) // BM)
@@ -260,20 +277,16 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
     if dq.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)  # rowsum(do * o)
-    sched, n_items, n_tiles, work = None, 0, 0, None
-    if route(q.dtype, hd) != "cuda_core":  # a tensor-core route
-        sched, n_items, n_tiles, slots = cached_schedule(q.device, Sq, Sk, H // K, bool(causal),
-                                                         int(window or 0), B * K, hd, q.dtype)
-        work = torch.empty(workspace_numel(slots, B * K, hd), dtype=torch.float32,
-                           device=q.device)
+    sched, n_items, n_tiles, slots = cached_schedule(q.device, Sq, Sk, H // K, bool(causal),
+                                                     int(window or 0), B * K, hd, q.dtype)
+    work = torch.empty(workspace_numel(slots, B * K, hd), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_attention_bwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(
             0 if q.dtype == torch.float32 else 1,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            None if work is None or not work.numel() else work.data_ptr(),
-            None if sched is None else sched.data_ptr(), n_items, n_tiles,
+            work.data_ptr() if work.numel() else None, sched.data_ptr(), n_items, n_tiles,
             B, Sq, Sk, H, K, hd, int(bool(causal)), int(window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,

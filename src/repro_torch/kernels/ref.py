@@ -184,31 +184,41 @@ def _fold(x, B, K, G, Sq):
 
 
 def flash_attention_bwd_split_ref(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0.0):
-    """The float32 tensor-core backward's algorithm step by step
-    (``dkdv_tf32_kernel``, ``dkdv_merge_kernel<float>``, ``dq_tf32_kernel``
-    in csrc/flash_attention_bwd.cu), in float32 with every product in
+    """The split-TF32 backward's algorithm step by step
+    (``dkdv_tf32_kernel``, ``dkdv_merge_kernel<T>``, ``dq_tf32_kernel``; at
+    hd 256 ``dkdv_tf32_cols_kernel``, ``dq_tf32_cols_kernel``; in
+    csrc/flash_attention_bwd.cu), in float32 with every product in
     split-TF32 (``mm_split_tf32``: P and dS split too), at the kernels'
-    tiling and schedule. The G query heads of a kv head are folded into the
-    rows (row = q * G + g). D = rowsum(dO * O) first. Pass 1: the segments
-    of ``dkdv_schedule`` (float32's blocks an SM), each 64 keys over its
-    rows in stages of 32: S^T = K Q^T scaled and capped, P^T = exp(S^T -
-    lse) where the key is below Sk and visible (else 0), dP^T = V dO^T,
-    dS^T = P^T (dP^T - D) (times 1 - tanh^2 under a softcap), dV += P^T dO,
-    dK += dS^T Q; a tile walked by one segment is written (dK times the
-    scale), the partials of a cut tile are added in slot order, then
-    scaled. Pass 2: tiles of 64 rows, each over its keys in stages of 32
-    from its first row's window edge (aligned down to a stage) to its last
-    row's causal frontier: S = Q K^T, P, dP = dO V^T, dS, dQ += dS K, times
-    the scale. (The kernels' warps also skip a stage wholly outside their
-    keys' or rows' range, which is exact, and at hd 128 two warp groups
-    take half of each stage and add their sums at the end, which changes
-    only the order of float32 sums; neither is repeated here.) Returns
-    (dq, dk, dv) in the inputs' types."""
-    from .flash_attention_bwd import dkdv_schedule, tf32_bwd_plan  # it imports this module
+    tiling and schedule (``tf32_bwd_plan``, ``dkdv_schedule``): float32
+    inputs at every head dim, bf16 inputs at hd 8, 16 and 32. A bf16 value
+    is exact in tf32, so its lo half is 0 and the split products are the
+    kernels' one (S, dP) or two (dV, dK, dQ) tf32 products. The G query
+    heads of a kv head are folded into the rows (row = q * G + g). D =
+    rowsum(dO * O) first. Pass 1: the segments of ``dkdv_schedule`` (the
+    route's blocks an SM), each 64 keys over its rows in stages of the
+    plan's ``rows`` (32; 16 at hd 256): S^T = K Q^T scaled and capped, P^T
+    = exp(S^T - lse) where the key is below Sk and visible (else 0), dP^T =
+    V dO^T, dS^T = P^T (dP^T - D) (times 1 - tanh^2 under a softcap), dV +=
+    P^T dO, dK += dS^T Q; a tile walked by one segment is written (dK times
+    the scale), the partials of a cut tile are added in slot order, then
+    scaled. Pass 2: tiles of 64 rows, each over its keys in stages of the
+    plan's ``dq_keys`` (32; 16 at hd 256) from its first row's window edge
+    (aligned down to a stage) to its last row's causal frontier: S = Q K^T,
+    P, dP = dO V^T, dS, dQ += dS K, times the scale. (The kernels' warps
+    also skip a stage wholly outside their keys' or rows' range, which is
+    exact; at hd 128 two warp groups take half of each stage and add their
+    sums at the end, which changes only the order of float32 sums; at hd
+    256 two take half of the columns each and split the B operands as they
+    read them, which changes nothing. None of that is repeated here.)
+    Returns (dq, dk, dv) in the inputs' types, rounded once."""
+    from .flash_attention_bwd import dkdv_schedule, route, tf32_bwd_plan  # it imports this one
 
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G, R = H // K, (H // K) * Sq
+    if route(q.dtype, hd) != "tf32":
+        raise ValueError(f"flash_attention_bwd_split_ref: {q.dtype} at hd {hd} is not the "
+                         "split-TF32 route's")
     plan = tf32_bwd_plan(hd)  # Tf32BwdTiling's kKeys, kBR, kBQ, kBK
     keys, stage, dq_rows, dq_keys = plan["keys"], plan["rows"], plan["dq_rows"], plan["dq_keys"]
     dev = q.device
@@ -239,7 +249,7 @@ def flash_attention_bwd_split_ref(q, k, v, o, do, lse, *, causal=True, window=0,
     dk = torch.zeros((B, K, Sk + pad, hd), dtype=F32, device=dev)
     dv = torch.zeros_like(dk)
     items, tiles, _ = dkdv_schedule(Sq, Sk, G, bool(causal), int(window or 0), B * K, hd,
-                                    torch.float32)
+                                    q.dtype)
     part = {}
     for j, lo, hi, slot in items:
         k0 = j * keys

@@ -25,7 +25,7 @@ from ..models import ssd as _ssd
 from ..parallel import spmd
 from ..perf.trace import add_kernel
 from .decode_attention import split_slots
-from .flash_attention_bwd import dkdv_schedule, route as bwd_route, workspace_numel
+from .flash_attention_bwd import dkdv_schedule, workspace_numel
 
 F32 = torch.float32
 
@@ -63,9 +63,8 @@ def _flash_counts(q, k, causal, window, backward: bool):
 class _FlashTrace(torch.autograd.Function):
     """``FlashAttentionDiff``'s shapes: the forward's output and its
     log-sum-exp (B,H,Sq) float32, saved with q, k, v; the backward's dq,
-    dk, dv, its row sums (B,H,Sq) float32 and, on the tensor-core routes
-    (bf16 at hd 64, 128 and 256, float32 at hd 8 to 128), the dK/dV pass's
-    float32 workspace."""
+    dk, dv, its row sums (B,H,Sq) float32 and the dK/dV pass's float32
+    workspace (every route of the backward has one)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -85,10 +84,9 @@ class _FlashTrace(torch.autograd.Function):
         Sk, K = k.shape[1], k.shape[2]
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = _empty((B, H, Sq), F32, q)  # noqa: F841  (rowsum(do * o), held by the call)
-        if bwd_route(q.dtype, hd) != "cuda_core":  # a tensor-core route
-            _, _, slots = dkdv_schedule(Sq, Sk, H // K, bool(causal), int(window or 0), B * K,
-                                        hd, q.dtype)
-            work = _empty((workspace_numel(slots, B * K, hd),), F32, q)  # noqa: F841
+        _, _, slots = dkdv_schedule(Sq, Sk, H // K, bool(causal), int(window or 0), B * K, hd,
+                                    q.dtype)
+        work = _empty((workspace_numel(slots, B * K, hd),), F32, q)  # noqa: F841
         add_kernel("flash_attention_bwd", *_flash_counts(q, k, causal, window, True))
         return dq, dk, dv, None, None
 

@@ -546,9 +546,16 @@ def _serve_case(tmp: str, mesh, i: int, arch: str, cell: str, variant: str,
     embeddings by their batch names, a decode cache "cache/<key>"), sharded
     and on one device (``LM.prefill`` / ``LM.decode_step``; a prefill in
     float32 compute with ``f32_prefill``): the logits of both, and whether a
-    param and an activation site are split over "model"."""
+    param and an activation site are split over "model". With
+    ``f32_prefill`` the same prefill also runs in bf16 compute, sharded and
+    on one device ("bf16_logits", "bf16_one"): the port's own bf16 mesh
+    prefill, held to its one-device run."""
     with _f32_prefill(f32_prefill):
-        return _serve_case_run(tmp, mesh, i, arch, cell, variant)
+        out = _serve_case_run(tmp, mesh, i, arch, cell, variant)
+    if f32_prefill:
+        bf16 = _serve_case_run(tmp, mesh, i, arch, cell, variant)
+        out.update(bf16_logits=bf16["logits"], bf16_one=bf16["one"])
+    return out
 
 
 def _serve_case_run(tmp, mesh, i, arch, cell, variant) -> dict:

@@ -507,34 +507,47 @@ def test_flash_bwd_kernel_is_deterministic(dev, case, dtype):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-# float32 on the split-TF32 tensor cores: gemma2-2b's served forward (hd
-# 256, softcap 50, a window that bites), and the backward with cut key tiles
-# (GQA 7:1), a window, a softcap and Sq != Sk: B, Sq, Sk, H, K, hd, causal,
-# window, softcap
+# float32 on the split-TF32 tensor cores: gemma2-2b's served forward and
+# backward (hd 256, softcap 50, global and a window that bites; Sq != Sk
+# both ways), and the backward with cut key tiles (GQA 7:1), a window, a
+# softcap and Sq != Sk: B, Sq, Sk, H, K, hd, causal, window, softcap
 F32_SPLIT = [(1, 333, 333, 8, 4, 256, True, 128, 50.0), (1, 512, 512, 14, 2, 64, True, 0, 0.0),
              (1, 200, 200, 8, 2, 128, True, 64, 0.0), (1, 100, 100, 4, 2, 16, True, 8, 50.0),
-             (1, 100, 333, 4, 2, 64, True, 0, 0.0), (1, 333, 129, 4, 2, 32, True, 0, 0.0)]
+             (1, 100, 333, 4, 2, 64, True, 0, 0.0), (1, 333, 129, 4, 2, 32, True, 0, 0.0),
+             (1, 333, 333, 8, 4, 256, True, 0, 50.0), (2, 129, 333, 8, 4, 256, False, 0, 50.0),
+             (1, 333, 129, 8, 4, 256, True, 0, 0.0)]
+# bf16 at hd 8, 16, 32 on the same kernels (no lo halves): the reduced
+# qwen2-0.5b's q (4,32,7,8), a ragged cut walk, a window and softcap, Sq != Sk
+BF16_SPLIT = [(4, 32, 32, 7, 1, 8, True, 0, 0.0), (1, 300, 300, 7, 1, 16, True, 0, 0.0),
+              (1, 256, 256, 4, 2, 32, True, 64, 30.0), (2, 64, 200, 4, 4, 32, False, 0, 0.0)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", F32_SPLIT)
+@pytest.mark.parametrize("case", F32_SPLIT + BF16_SPLIT)
 def test_float32_kernels_match_their_split_plain_versions(dev, case):
-    """The float32 forward (hd 256 included) and the float32 backward (hd
-    <= 128) against the plain versions that write their algorithms out step
-    by step in split-TF32, at 1e-4 (the gradients at 1e-4 of their scale)."""
+    """The float32 forward and backward at every head dim, and the bf16
+    backward at hd 8, 16, 32, against the plain versions that write their
+    algorithms out step by step in split-TF32: float32 at 1e-4 (the
+    gradients at 1e-4 of their scale), bf16's gradients at 2^-7 of their
+    scale (both sides round float32 sums, in other orders, once to bf16:
+    one unit in the last place), twice bit for bit."""
     B, Sq, Sk, H, K, hd, causal, win, cap = case
+    dtype = torch.float32 if case in F32_SPLIT else torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(21)
-    q, k, v, g = (torch.randn(shape, generator=gen, device=dev)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                   for shape in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd), (B, Sq, H, hd)))
     kw = dict(causal=causal, window=win, softcap=cap)
     o, lse = flash_attention_lse(q, k, v, **kw)
-    want_o, want_lse = flash_attention_split_ref(q, k, v, **kw)
-    torch.testing.assert_close(o, want_o, atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
-    if hd <= 128:
-        got = flash_attention_bwd(q, k, v, o, g, lse, **kw)
-        for a, b in zip(got, flash_attention_bwd_split_ref(q, k, v, o, g, lse, **kw)):
-            _grads_close(a, b, 1e-4)
+    if dtype == torch.float32:
+        want_o, want_lse = flash_attention_split_ref(q, k, v, **kw)
+        torch.testing.assert_close(o, want_o, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    got = flash_attention_bwd(q, k, v, o, g, lse, **kw)
+    again = flash_attention_bwd(q, k, v, o, g, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in zip(got, flash_attention_bwd_split_ref(q, k, v, o, g, lse, **kw)):
+        assert a.dtype == dtype
+        _grads_close(a, b, 1e-4 if dtype == torch.float32 else 2.0 ** -7)
 
 
 @pytest.mark.cuda

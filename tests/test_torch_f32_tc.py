@@ -9,17 +9,18 @@ sources.
   cut tiles' partials added in slot order, the dQ pass in 32-key stages,
   every product split into tf32 halves, P and dS too) against
   ``ref.flash_attention_bwd_ref`` and against the reference's oracle VJP
-  (``repro.kernels.ops._fa_bwd``), at hd 8, 16, 32, 64 and 128, GQA 7:1,
-  windows, softcap 50, ragged S, non-causal, and Sq != Sk both ways;
+  (``repro.kernels.ops._fa_bwd``), at hd 8, 16, 32, 64, 128 and 256 (GQA
+  2:1, the column-split kernels' tiling), GQA 7:1, windows, softcap 50,
+  ragged S, non-causal, and Sq != Sk both ways;
 * ``ref.flash_attention_split_ref`` at hd 256 (gemma2-2b's served float32
   forward: 8 query heads over 4, softcap 50, a window) against the
   reference's Pallas ``flash_attention`` in interpret mode;
 * ``tf32_plan`` (the forward's ``Tf32Tiling``) and ``tf32_bwd_plan`` (the
   backward's ``Tf32BwdTiling``) held to the sources and to a block's
   232,448 bytes; the dispatch in both sources and the wrappers' routes:
-  float32 takes the tensor cores at hd 8 to 256 forward and 8 to 128
-  backward; the float32 schedule's target; the trace route's float32
-  backward holding its workspace.
+  float32 takes the tensor cores at hd 8 to 256 both ways; the float32
+  schedule's target; the trace route's float32 backward holding its
+  workspace.
 
 Inputs come from seeded numpy generators. Tolerances, float32 on both
 sides: the output and log-sum-exp atol/rtol 1e-4 (tests/test_torch_kernels.py's),
@@ -69,6 +70,14 @@ BWD_CASES = {
     "sq_gt_sk_causal": (1, 333, 129, 4, 2, 32, True, 0, 0.0),
     "cross_non_causal": (2, 64, 200, 4, 4, 64, False, 0, 0.0),  # seamless's cross shape
     "hd128_non_causal_window": (1, 129, 129, 4, 1, 128, False, 48, 0.0),
+    # hd 256 (gemma2-2b's heads, 8 over 4: the column-split kernels'
+    # 16-row and 16-key stages, B operands split as read)
+    "hd256_softcap50_ragged": (1, 100, 100, 8, 4, 256, True, 0, 50.0),
+    "hd256_window_bites": (1, 150, 150, 8, 4, 256, True, 40, 50.0),
+    "hd256_sq_lt_sk": (2, 37, 129, 8, 4, 256, True, 0, 50.0),
+    "hd256_sq_gt_sk": (1, 140, 70, 8, 4, 256, True, 0, 0.0),
+    "hd256_cross_non_causal": (1, 33, 90, 8, 4, 256, False, 0, 50.0),
+    "hd256_cut_tiles": (1, 512, 512, 8, 4, 256, True, 0, 50.0),
 }
 
 
@@ -194,15 +203,15 @@ def test_tf32_bwd_plan_is_the_sources_and_fits_a_block(hd):
     an SM its 228 KiB (1 KiB of it reserved a block); the schedule aims at
     two waves of those blocks."""
     w, plan = _tiling("flash_attention_bwd.cu", "Tf32BwdTiling", hd), tf32_bwd_plan(hd)
-    assert (plan["split"], plan["threads"], plan["blocks_per_sm"], plan["rows"], plan["dq_rows"],
-            plan["dq_keys"], plan["ld"], plan["keys"]) == (
-        w["kSplit"], w["kThreads"], w["kBlocks"], w["kBR"], w["kBQ"], w["kBK"], w["kLd"],
-        w["kKeys"])
+    assert (plan["split"], plan["cols"], plan["threads"], plan["blocks_per_sm"], plan["rows"],
+            plan["dq_rows"], plan["dq_keys"], plan["ld"], plan["keys"]) == (
+        w["kSplit"], w["kCols"], w["kThreads"], w["kBlocks"], w["kBR"], w["kBQ"], w["kBK"],
+        w["kLd"], w["kKeys"])
     assert (plan["smem1"], plan["smem2"]) == (w["kSmem1"], w["kSmem2"])
     assert max(plan["smem1"], plan["smem2"]) <= H100.vmem_bytes
     assert plan["blocks_per_sm"] * (max(plan["smem1"], plan["smem2"]) + 1024) <= 228 * 1024
     assert target_blocks(hd, F32) == 2 * 132 * plan["blocks_per_sm"]
-    # the 64-row stages of the schedule are walked as whole 32-row stages
+    # the 64-row stages of the schedule are walked as whole 32-row (16-row) stages
     assert bwd_module.TC_ROWS % plan["rows"] == 0 and plan["keys"] == bwd_module.TC_KEYS
     # 65,536 registers an SM hold the blocks' threads at 255 registers each
     assert plan["blocks_per_sm"] * plan["threads"] * 256 <= 65536
@@ -232,22 +241,19 @@ def test_float32_takes_the_tensor_cores_forward_at_every_head_dim():
 
 
 def test_float32_takes_the_tensor_cores_backward_at_hd_8_to_128():
-    assert _dispatch("flash_attention_bwd.cu", "if (tf32) {") == {
-        hd: "launch_tf32" for hd in (8, 16, 32, 64, 128)}
-    src = (CSRC / "flash_attention_bwd.cu").read_text()
-    assert "const bool tf32 = dtype == 0 && hd <= 128;" in src
-    assert "return hd == 256 ? launch<T, 256>(a) : cudaErrorInvalidValue;" in src
+    """float32 takes the split-TF32 backward at every head dim (hd 256
+    too, since its column-split kernels), bf16 at hd 8, 16, 32 as well; so
+    every input must be 16-byte aligned."""
+    assert _dispatch("flash_attention_bwd.cu", "if (dtype == 0) {") == {
+        hd: "launch_tf32" for hd in (8, 16, 32, 64, 128, 256)}
     for hd in bwd_module.HEAD_DIMS:
-        assert route(F32, hd) == ("cuda_core" if hd == 256 else "tf32")
-        assert route(torch.bfloat16, hd) == ("wgmma" if hd >= 64 else "cuda_core")
+        assert route(F32, hd) == "tf32"
+        assert route(torch.bfloat16, hd) == ("wgmma" if hd >= 64 else "tf32")
         q = torch.zeros((1, 8, 4, hd))
         kv = torch.zeros((1, 8, 2, hd))
         shifted = torch.zeros(8 * 4 * hd + 1)[1:].view(1, 8, 4, hd)
-        if hd == 256:
+        with pytest.raises(ValueError, match="16-byte"):
             check_tc_route(q, kv, kv, q, shifted)
-        else:
-            with pytest.raises(ValueError, match="16-byte"):
-                check_tc_route(q, kv, kv, q, shifted)
 
 
 @pytest.mark.parametrize("shape", [(512, 7, True, 0, 2), (1024, 7, True, 0, 2),
@@ -287,8 +293,8 @@ def test_float32_schedule_covers_each_walk_and_aims_at_its_blocks(shape):
 
 def test_traced_float32_backward_holds_its_workspace(monkeypatch):
     """The trace route (the production dry run's) allocates the float32
-    tensor-core route's dK/dV workspace at hd <= 128, from the float32
-    schedule, and none at hd 256 (its CUDA-core route)."""
+    tensor-core route's dK/dV workspace from the float32 schedule, at hd 64
+    and at hd 256 (its split-TF32 route since the column-split kernels)."""
     seen = []
     real = ktrace.workspace_numel
     monkeypatch.setattr(ktrace, "workspace_numel", lambda *a: seen.append(a) or real(*a))
@@ -301,5 +307,5 @@ def test_traced_float32_backward_holds_its_workspace(monkeypatch):
             o = ktrace.sdpa_trace(q, k, v, pos, pos, 0, True, None, "prefill")
             torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
         assert counts.kernel_calls["flash_attention_bwd"] == 1
-    _, _, slots = dkdv_schedule(S, S, 7, True, 0, B * K, 64, F32)
-    assert slots > 0 and seen == [(slots, B * K, 64)]
+    want = [(dkdv_schedule(S, S, 7, True, 0, B * K, hd, F32)[2], B * K, hd) for hd in (64, 256)]
+    assert all(slots > 0 for slots, _, _ in want) and seen == want

@@ -220,13 +220,13 @@ def _shifted(dtype, shape):
 
 
 @pytest.mark.parametrize("dtype,hd,tensor_cores", [
-    (torch.bfloat16, 256, True), (torch.bfloat16, 32, False), (torch.float32, 256, False),
-    (torch.bfloat16, 16, False), (torch.float32, 64, True), (torch.float32, 128, True)])
+    (torch.bfloat16, 256, True), (torch.bfloat16, 32, True), (torch.float32, 256, True),
+    (torch.bfloat16, 16, True), (torch.float32, 64, True), (torch.float32, 128, True)])
 def test_bwd_tensor_core_route_refuses_inputs_off_16_bytes(dtype, hd, tensor_cores):
-    """bf16 at hd 64, 128 and 256 and float32 at hd 8 to 128 copy 16 bytes
-    at a time: a misaligned q, k, v, o or do raises, rather than taking
-    another route; the CUDA-core route (bf16 at hd 8, 16, 32, float32 at hd
-    256) takes it."""
+    """Every route of the backward runs on the tensor cores and copies 16
+    bytes at a time (bf16 at hd 64, 128 and 256 on wgmma; float32 at every
+    head dim and bf16 at hd 8, 16, 32 in split-TF32): a misaligned q, k, v,
+    o or do raises, rather than taking another route."""
     q = torch.zeros((1, 8, 4, hd), dtype=dtype)
     kv = torch.zeros((1, 8, 2, hd), dtype=dtype)
     check_tc_route(q, kv, kv, q, q)

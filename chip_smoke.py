@@ -13,7 +13,8 @@ Phases, each of which raises on failure (there is no CPU fallback):
      dkdv_wg_kernel<256>, dq_wg_kernel<256>) and of the split-TF32 kernels
      (flash_tf32_kernel<256>; dkdv_tf32_kernel and dq_tf32_kernel at
      float32 hd 64 and 128 and bf16 hd 8, 16 and 32, dkdv_tf32_cols_kernel
-     and dq_tf32_cols_kernel at float32 hd 256) with their spills;
+     and dq_tf32_cols_kernel at float32 hd 256) with their spills, and of
+     the bf16 forward at hd 8, 16, 32 (flash_mma_kernel<hd>);
   3. hold each kernel against its plain PyTorch version on the card, at the
      served shapes and the edge cases: attention at ragged lengths, GQA 7:1
      at hd 8, MQA, window, softcap, ring cache mid-wrap, nearly full and
@@ -27,7 +28,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      shape with cut key tiles, GQA 7:1 at hd 8, windows, softcap 50, Sq !=
      Sk both ways), and the bf16 backward at hd 8, 16, 32 (the split-TF32
      kernels) against its split plain version at 2^-7 of the gradients'
-     scale (BF16_SPLIT_TOL); the flash forward's log-sum-exp (1e-4,
+     scale (BF16_SPLIT_TOL); the bf16 forward at hd 8, 16, 32 (mma.sync:
+     flash_mma_kernel) against its step-by-step plain version
+     (MMA_CASES: causal with a window and softcap 50, GQA 7:1, non-causal at
+     Sq != Sk both ways, ragged S; output at BF16_SPLIT_TOL, log-sum-exp at
+     MMA_LSE_TOL) and the plain version; the flash forward's log-sum-exp (1e-4,
      bfloat16 1e-3) and the flash backward kernel against the FA2 plain
      version (the same tolerances times the gradients' scale); the SSD
      scan at the served chunk lengths 37/64/100/128 (one to three chunks),
@@ -86,7 +91,8 @@ Phases, each of which raises on failure (there is no CPU fallback):
      float32 GEMM;
  11. training, (d): a crash at step 7 and exact resume at reduced size on
      the card, losses within 1e-5 of the uninterrupted run, whose launches
-     (bf16 at hd 8) are counted;
+     (bf16 at hd 8: flash_mma_kernel<8> and the split-TF32 backward) are
+     counted;
  12. time each kernel at the served shapes with CUDA events, beside its
      bound on an H100, its plain version and one library call where there
      is one (the serving kernels and their library calls as device time:
@@ -113,7 +119,10 @@ Phases, each of which raises on failure (there is no CPU fallback):
      against its plain version twice bit for bit and beside its
      split-TF32 and CUDA-core bounds, the plain versions, SDPA's forward
      and forward + backward less forward (profiler device time), and the
-     CUDA-core kernels' times the routes replaced (CUDA_CORE_MS); every
+     CUDA-core kernels' times the routes replaced (CUDA_CORE_MS; the bf16
+     forward's, flash_kernel's, CUDA_CORE_FWD_MS), the bf16 forward at hd
+     8, 16, 32 there on flash_mma_kernel, and at q (4,2048,7,32) causal
+     (FLASH_MMA_LONG) beside SDPA and the CUDA-core time; every
      timed block of the phase between two readings of the SM clock, power
      draw and temperature (nvidia-smi, printed as "[clocks]" lines); the
      flash backward kernel (held against its
@@ -394,14 +403,14 @@ from repro_torch.data.batches import TokenStream, make_batch, place_batch  # noq
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_lse,  # noqa: E402
-                                                 wg_plan)
+                                                 mma_plan, wg_plan)
 from repro_torch.kernels.flash_attention_bwd import (cached_schedule, dkdv_schedule,  # noqa: E402
                                                      flash_attention_bwd, route as bwd_route,
                                                      tc_plan, tf32_bwd_plan, workspace_numel)
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_bwd_split_ref, flash_attention_lse_ref,
-                                     flash_attention_ref, flash_attention_split_ref,
-                                     ssd_scan_ref, ssd_sequential_ref)
+                                     flash_attention_mma_ref, flash_attention_ref,
+                                     flash_attention_split_ref, ssd_scan_ref, ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, sdpa_kernel, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.trace import attention_pairs  # noqa: E402
@@ -546,6 +555,25 @@ F32_SPLIT_CASES = [
     (1, 100, 333, 4, 2, 64, True, 0, 0.0),
     (1, 333, 129, 4, 2, 128, True, 0, 0.0),
 ]
+# the bf16 route at hd 8, 16, 32 (flash_mma_kernel) against its step-by-step
+# plain version (ref.flash_attention_mma_ref) and the plain version, at each
+# head dim: causal with a window and softcap 50, GQA 7:1 (the reduced
+# configs' shape, and ragged), non-causal at Sq != Sk both ways, ragged S;
+# B, Sq, Sk, H, K, hd, causal, window, softcap
+MMA_CASES = [c for hd in (8, 16, 32) for c in (
+    (1, 333, 333, 4, 2, hd, True, 64, 50.0),
+    (4, 32, 32, 7, 1, hd, True, 0, 0.0),
+    (2, 100, 100, 7, 1, hd, True, 0, 0.0),
+    (1, 37, 100, 4, 2, hd, False, 0, 0.0),
+    (1, 100, 37, 4, 2, hd, False, 0, 0.0),
+    (2, 129, 129, 8, 4, hd, True, 0, 0.0),
+)]
+#: the bf16 kernel against its step-by-step plain version: both round P and
+#: the output to bf16 from float32 sums of the same products in other
+#: orders, so a value on a rounding boundary may round the other way: the
+#: output within BF16_SPLIT_TOL (one bf16 unit in the last place), the
+#: float32 log-sum-exp within MMA_LSE_TOL
+MMA_LSE_TOL = 1e-4
 # decode cases: B, H, K, hd, Smax, window, softcap, fill
 # (fill = the new token's position; slots 0..fill hold positions 0..fill,
 # fill -1 leaves every slot empty)
@@ -736,6 +764,18 @@ def tf32_kernel_report() -> dict:
     return out
 
 
+def mma_kernel_report(hd: int) -> dict:
+    """The bf16 flash forward at hd 8, 16, 32 (flash_mma_kernel<hd>): its
+    ptxas registers, stack and spills, and the block's threads, rows, keys
+    a tile and shared bytes (``mma_plan``, whose constants a CPU test reads
+    from the source)."""
+    plan = mma_plan(hd)
+    rec = _kernel_regs("flash_attention", "flash_mma_kernel", hd)
+    rec.update(threads=plan["threads"], rows=plan["rows"], keys=plan["keys"],
+               smem_bytes=plan["smem_bytes"])
+    return rec
+
+
 def wg_kernel_report(hd: int) -> dict:
     """The bf16 flash forward (flash_wg_kernel<hd>, one block an SM): its
     ptxas registers, stack and spills, which ptxas counts at the launch's
@@ -889,6 +929,20 @@ def check_kernels(device) -> dict:
             for n, a, b, c in zip("qkv", got, want, plain):
                 _grad_err(f"{name} d{n}", a, b, tol)
                 _grad_err(f"{name} d{n} vs plain", a, c, tol)
+        for case in MMA_CASES if dtype == torch.bfloat16 else ():
+            B, Sq, Sk, H, K, hd, causal, win, cap = case
+            name = f"flash bf16 mma {case}"
+            kw = dict(causal=causal, window=win, softcap=cap)
+            q, k, v = _qkv(gen, B, Sq, Sk, H, K, hd, dtype, device)
+            o, lse = _twice(name, lambda: flash_attention_lse(q, k, v, **kw))
+            if not torch.equal(o, flash_attention(q, k, v, **kw)):
+                raise AssertionError(f"{name}: the output differs with the LSE")
+            want_o, want_lse = flash_attention_mma_ref(q, k, v, **kw)
+            _close(f"{name} vs mma plain", o, want_o, BF16_SPLIT_TOL)
+            _close(f"{name} lse vs mma plain", lse, want_lse, MMA_LSE_TOL)
+            want_o, want_lse = flash_attention_lse_ref(q, k, v, **kw)
+            _close(f"{name} vs plain", o, want_o, tol)
+            _close(f"{name} lse vs plain", lse, want_lse, LSE_TOL[dtype])
         for case in DECODE_CASES:
             B, H, K, hd, Smax, win, cap, fill = case
             q, k, v = _qkv(gen, B, 1, Smax, H, K, hd, dtype, device)
@@ -1666,10 +1720,11 @@ def _sdpa_window_mask(S, window, device):
 
 def _time_flash_bf16(gen, device, B, Sq, Sk, H, K, hd, causal, calls, n_sets=4,
                      heads=None, window=0, softcap=0.0) -> dict:
-    """The bf16 flash forward with its log-sum-exp (flash_wg_kernel), q
-    (B,Sq,H,hd) against k/v (B,Sk,K,hd): held against its plain version
-    (``flash_attention_lse_ref``) at BF16_TOL and LSE_TOL on the same
-    inputs, and bit for bit on a second run; its device time (a replayed
+    """The bf16 flash forward with its log-sum-exp (flash_wg_kernel; at hd
+    8-32 flash_mma_kernel), q (B,Sq,H,hd) against k/v (B,Sk,K,hd): held
+    against its plain version (``flash_attention_lse_ref``) at BF16_TOL and
+    LSE_TOL on the same inputs, and bit for bit on a second run; its device
+    time (a replayed
     CUDA graph, ``_graph_ms``) and its eager loop's, SDPA's forward as
     device time on the same inputs, the plain version's time, the bound
     (the products over the (q, k) pairs this input needs), each kernel's
@@ -1746,9 +1801,12 @@ def _time_flash_bf16(gen, device, B, Sq, Sk, H, K, hd, causal, calls, n_sets=4,
         "library_ms": _graph_ms(sdpa, lib, calls),
         "bound_ms": bound_s * 1e3, "bound_by": bound_by, "flops": flops,
         "tflop_per_s": flops / ms / 1e9, "max_abs_err": err, "bit_identical_rerun": True,
-        "kernels_us": _kernel_us(fwd, sets, calls=min(max(calls, 4), 10)),
-        "wg_kernel": wg_kernel_report(hd), "shape": shape,
+        "kernels_us": _kernel_us(fwd, sets, calls=min(max(calls, 4), 10)), "shape": shape,
     })
+    if hd >= 64:
+        rec["wg_kernel"] = wg_kernel_report(hd)
+    else:
+        rec["mma_kernel"] = mma_kernel_report(hd)
     if softcap:
         rec["library_is"] = "SDPA's forward without the softcap" + (
             ", the window as a boolean mask" if window else "")
@@ -1895,6 +1953,19 @@ CUDA_CORE_MS = {"f32_served": 0.20455039978027345, "f32_bwd_phase9b": 1.35339157
                 "bf16_hd8_reduced": 0.050040126800537106,
                 "bf16_hd16_reduced": 0.06527859497070312,
                 "bf16_hd32_reduced": 0.0733420181274414}
+#: phase 12's longer bf16 forward at hd 32: the reduced configs' heads at
+#: 2,048 tokens, where the walk over the keys, not the launch, sets the
+#: time; B, S, H, K, hd, causal
+FLASH_MMA_LONG = (4, 2048, 7, 1, 32)
+#: device ms of the CUDA-core forward (flash_kernel<bf16, hd>) that the
+#: mma.sync route replaced, at the bf16 shapes of BWD_ROUTE_SHAPES and at
+#: FLASH_MMA_LONG, timed by scripts/hd256_routes.py --src build/parent/src
+#: --shapes B8 B16 B32 L32 on the tree before it (a replayed CUDA graph), on
+#: an NVIDIA H100 80GB HBM3 at 700 W
+CUDA_CORE_FWD_MS = {"bf16_hd8_reduced": 0.007051712036132813,
+                    "bf16_hd16_reduced": 0.007786496162414551,
+                    "bf16_hd32_reduced": 0.008582143783569337,
+                    "bf16_fwd_hd32_long": 0.8354135894775391}
 
 
 def time_hd256(device) -> dict:
@@ -1903,7 +1974,9 @@ def time_hd256(device) -> dict:
     at HD256_SHAPES, and the float32 forward (split-TF32,
     flash_tf32_kernel<256>) at gemma2's served shape beside the CUDA-core
     kernel's time it replaced; then the backward's routes at
-    BWD_ROUTE_SHAPES (``_time_bwd_route``)."""
+    BWD_ROUTE_SHAPES (``_time_bwd_route``), the bf16 ones beside the
+    CUDA-core forward's times too (CUDA_CORE_FWD_MS), and the bf16 forward
+    at hd 32 at FLASH_MMA_LONG (flash_mma_kernel<32>)."""
     gen = torch.Generator(device=device).manual_seed(5)
     out = {}
     for tag, (B, S, H, K, hd, window, fcalls, bcalls, n_sets) in HD256_SHAPES.items():
@@ -1923,7 +1996,14 @@ def time_hd256(device) -> dict:
         out[name] = _clocked(f"12 {name}", _time_bwd_route, gen, device, dt, B, S, H, K, hd,
                              cap)
         out[name]["cuda_core_bwd_ms"] = CUDA_CORE_MS[name]
+        if name in CUDA_CORE_FWD_MS:
+            out[name]["cuda_core_fwd_ms"] = CUDA_CORE_FWD_MS[name]
         torch.cuda.empty_cache()
+    B, S, H, K, hd = FLASH_MMA_LONG
+    out["bf16_fwd_hd32_long"] = _clocked("12 bf16_fwd_hd32_long", _time_flash_bf16, gen, device,
+                                         B, S, S, H, K, hd, True, 20)
+    out["bf16_fwd_hd32_long"]["cuda_core_ms"] = CUDA_CORE_FWD_MS["bf16_fwd_hd32_long"]
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1937,8 +2017,9 @@ def _time_bwd_route(gen, device, dtype, B, S, H, K, hd, cap=0.0) -> dict:
     """The backward at q (B,S,H,hd) k/v (B,S,K,hd), causal, softcap ``cap``,
     on its route (float32 at every hd and bf16 at hd 8, 16, 32 split-TF32:
     dkdv_tf32_kernel, dq_tf32_kernel), and the forward beside it (float32:
-    flash_tf32_kernel; bf16 at hd 8-32: flash_kernel): the forward with its
-    log-sum-exp and the backward as device time (replayed CUDA graphs:
+    flash_tf32_kernel; bf16 at hd 8-32: flash_mma_kernel, held against its
+    plain version): the forward with its log-sum-exp and the backward as
+    device time (replayed CUDA graphs:
     these calls take a few µs to a few ms), beside their bounds (float32 as
     split-TF32, three tf32 products each, with the CUDA cores' float32
     bound beside it; bf16 at the tensor cores' bf16 rate), the plain
@@ -1967,9 +2048,13 @@ def _time_bwd_route(gen, device, dtype, B, S, H, K, hd, cap=0.0) -> dict:
     fb, fby = kernel_bound(flops, 2 * qo + 2 * kvb + lse_b, f32=f32, split_tf32=f32, hw=H100)
     bb, bby = kernel_bound(2.5 * flops, 4 * qo + 4 * kvb + lse_b, f32=f32, split_tf32=f32,
                            hw=H100)
+    tol = F32_TOL if f32 else BF16_TOL
+    want_o, want_lse = flash_attention_lse_ref(*sets[0][:3], softcap=cap)
+    fwd_err = _close(f"fwd {dtype} hd {hd}", sets[0][4], want_o, tol)
+    _close(f"fwd {dtype} hd {hd} lse", sets[0][5], want_lse, LSE_TOL[dtype])
+    del want_o, want_lse
     got = bwd(*sets[0])
     want = flash_attention_bwd_ref(*sets[0][:3], sets[0][4], sets[0][3], sets[0][5], softcap=cap)
-    tol = F32_TOL if f32 else BF16_TOL
     err = max(_grad_err(f"bwd {dtype} hd {hd} d{n}", a, b, tol)
               for n, a, b in zip("qkv", got, want))
     if not all(torch.equal(a, b) for a, b in zip(got, bwd(*sets[0]))):
@@ -1991,7 +2076,7 @@ def _time_bwd_route(gen, device, dtype, B, S, H, K, hd, cap=0.0) -> dict:
         "route": "split-TF32 tensor cores" if bwd_route(dtype, hd) == "tf32" else "wgmma",
         "fwd_ms": _graph_ms(fwd, sets, 20), "bwd_ms": _graph_ms(bwd, sets, 20),
         "fwd_bound_ms": fb * 1e3, "fwd_bound_by": fby, "bwd_bound_ms": bb * 1e3,
-        "bwd_bound_by": bby, "bwd_max_abs_err": err,
+        "bwd_bound_by": bby, "bwd_max_abs_err": err, "fwd_max_abs_err": fwd_err,
         "plain_fwd_ms": _time_ms(lambda q, k, v, *_: flash_attention_lse_ref(q, k, v,
                                                                              softcap=cap),
                                  sets, 4),
@@ -2014,6 +2099,8 @@ def _time_bwd_route(gen, device, dtype, B, S, H, K, hd, cap=0.0) -> dict:
         rec["tf32_kernels"] = {k: v for k, v in tf32_kernel_report().items()
                                if k.startswith(("dkdv", "dq")) and k.endswith(f"{hd}>")
                                and ("bf16" in k) != f32}
+    if not f32:  # the forward at bf16 hd 8, 16, 32
+        rec["mma_kernel"] = mma_kernel_report(hd)
     del lib_grad
     return rec
 
@@ -3186,7 +3273,7 @@ def _expect_launches(name, counts, fwd, bwd):
 
 
 #: name marks of the attention kernels (csrc/flash_attention*.cu) in a profile
-ATTN_KERNEL_MARKS = ("flash_wg_kernel", "flash_kernel", "flash_tf32_kernel", "dkdv_wg_kernel",
+ATTN_KERNEL_MARKS = ("flash_wg_kernel", "flash_mma_kernel", "flash_tf32_kernel", "dkdv_wg_kernel",
                      "dq_wg_kernel", "dkdv_merge_kernel", "delta_tc_kernel", "delta_kernel",
                      "dkdv_tf32_kernel", "dq_tf32_kernel", "dkdv_tf32_cols_kernel",
                      "dq_tf32_cols_kernel")
@@ -5079,7 +5166,7 @@ def _spmd_g(device, rank, mesh) -> dict:
 #: (i): the rest of the registry on the (2, 2) mesh, every width as
 #: published: (arch, depth_supers, a train step too). gemma2-2b at 2 of 26
 #: layers (one local and one global; softcaps; its bf16 head dim of 256 on
-#: flash_kernel), seamless at 2 of 24 decoder and 2 of 24 encoder layers (the
+#: flash_wg_kernel<256>), seamless at 2 of 24 decoder and 2 of 24 encoder layers (the
 #: cross-attention's K/V from the encoder), internvl2 at one super-layer (1
 #: of 80; the patch positions); jamba's hybrid period runs in (f)
 SPMD_ARCHS = (("gemma2-2b", 1, True), ("seamless-m4t-large-v2", 2, False),
@@ -5454,6 +5541,9 @@ def main() -> int:
     print(f"[ptxas hd256] {json.dumps(hd256_regs)}", flush=True)
     # the float32 tensor-core kernels that replaced the CUDA-core ones
     print(f"[ptxas f32] {json.dumps(tf32_kernel_report())}", flush=True)
+    # the bf16 forward at hd 8, 16, 32 that replaced the last CUDA-core one
+    mma_regs = {f"flash_mma_kernel<{hd}>": mma_kernel_report(hd) for hd in (8, 16, 32)}
+    print(f"[ptxas mma] {json.dumps(mma_regs)}", flush=True)
 
     t0 = time.perf_counter()
     errs = check_kernels(device)
@@ -5461,7 +5551,8 @@ def main() -> int:
           f"{len(FLASH_BWD_CASES)} flash backward + {len(FLASH_BWD_XQ_CASES)} flash forward and "
           f"backward at Sq != Sk + {len(DECODE_CASES) + len(RING_CASES)} decode + "
           f"{len(SSD_CASES)} ssd cases x (float32, bfloat16) agree with the plain versions, "
-          f"{len(F32_SPLIT_CASES)} float32 cases with the split-TF32 plain versions; "
+          f"{len(F32_SPLIT_CASES)} float32 cases with the split-TF32 plain versions, "
+          f"{len(MMA_CASES)} bf16 hd 8/16/32 cases with the mma.sync plain version; "
           f"max abs err at the served shapes (float32; the bf16_fwd entry bfloat16) "
           f"{json.dumps(errs)} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
@@ -5540,6 +5631,10 @@ def main() -> int:
         timing[name] = {"ms": rec["bwd_ms"], "plain_ms": rec["plain_bwd_ms"],
                         "bound_ms": rec["bwd_bound_ms"], "bound_by": rec["bwd_bound_by"],
                         "library_ms": rec["library_bwd_ms"]}
+    hd8 = hd256["bf16_hd8_reduced"]
+    timing["flash_attention_bf16_fwd_hd8"] = {
+        "ms": hd8["fwd_ms"], "plain_ms": hd8["plain_fwd_ms"], "bound_ms": hd8["fwd_bound_ms"],
+        "bound_by": hd8["fwd_bound_by"], "library_ms": hd8["library_fwd_ms"]}
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5657,6 +5752,10 @@ def main() -> int:
         "flash_attention_bwd_bf16_hd8": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                          "src/repro/kernels/ops.py:44 _fa_bwd (jnp oracle VJP, "
                                          "no Pallas kernel)", "train11"),
+        # the last route that left the CUDA cores: the bf16 forward at hd 8
+        # (phase 11's uninterrupted reduced run; phase 12's "bf16_hd8_reduced")
+        "flash_attention_bf16_fwd_hd8": ("src/repro_torch/csrc/flash_attention.cu",
+                                         "src/repro/kernels/flash_attention.py:109", "train11"),
     }
     kernel_names = {"flash_attention_bf16_fwd": "flash_wg_kernel",
                     "flash_attention_bf16_fwd_cross": "flash_wg_kernel",
@@ -5668,8 +5767,9 @@ def main() -> int:
                                                       "dkdv_merge_kernel, "
                                                       "dq_tf32_cols_kernel<256>"),
                     "flash_attention_bwd_bf16_hd8": "dkdv_tf32_kernel<bf16, 8>, dkdv_merge_kernel, "
-                                                    "dq_tf32_kernel<bf16, 8>"}
-    head_dims = {"flash_attention_bwd_bf16_hd8": 8}
+                                                    "dq_tf32_kernel<bf16, 8>",
+                    "flash_attention_bf16_fwd_hd8": "flash_mma_kernel<8>"}
+    head_dims = {"flash_attention_bwd_bf16_hd8": 8, "flash_attention_bf16_fwd_hd8": 8}
     cross = sliced["seamless"]["checks"][-1]["launches"]
     xq17 = trained17["seamless"]["xq_step"]["cross_launches_bf16"]
     launches = {ARCH: served[ARCH]["counts"], MAMBA: served[MAMBA]["counts"],
@@ -5693,7 +5793,8 @@ def main() -> int:
                                     trained17["gemma2"]["f32_check"]["launches"]
                                     ["flash_attention_bwd"]},
                 "train11": {"flash_attention_bwd_bf16_hd8":
-                            resumed["launches"]["flash_attention_bwd"]}}
+                            resumed["launches"]["flash_attention_bwd"],
+                            "flash_attention_bf16_fwd_hd8": resumed["launches"]["flash_attention"]}}
     # phase 19: each kernel's launches on rank 0 of the (2, 2) mesh, in the
     # run of the path it is on there ((a)'s first bf16 step, (b)'s
     # prefill_32k and decode_32k calls, (d)'s prefill, (e)'s decode_32k
@@ -5735,7 +5836,8 @@ def main() -> int:
     # null, not run on the mesh: gemma2 trains there in bf16, and the mesh
     # runs no reduced config
     spmd_launches.update(dict.fromkeys(("flash_attention_bwd_f32_hd256",
-                                        "flash_attention_bwd_bf16_hd8")))
+                                        "flash_attention_bwd_bf16_hd8",
+                                        "flash_attention_bf16_fwd_hd8")))
     errs["flash_attention_bf16_fwd_hd256"] = hd256["fwd_T"]["max_abs_err"]
     errs["flash_attention_bwd_hd256"] = hd256["bwd_T"]["max_abs_err"]
     errs["flash_attention_diff"] = diff_err
@@ -5743,6 +5845,7 @@ def main() -> int:
     errs["flash_attention_bwd_f32"] = b9["bwd_max_abs_err"]
     errs["flash_attention_bwd_f32_hd256"] = hd256["f32_bwd_gemma2_T"]["bwd_max_abs_err"]
     errs["flash_attention_bwd_bf16_hd8"] = hd256["bf16_hd8_reduced"]["bwd_max_abs_err"]
+    errs["flash_attention_bf16_fwd_hd8"] = hd256["bf16_hd8_reduced"]["fwd_max_abs_err"]
     errs.update(sliced["errs"])
     kernels = []
     for name, (source, replaces, arch) in meta.items():

@@ -30,9 +30,12 @@ that schedule makes. ``F256T`` is F256's attention at T's shape, q
 ``B8``, ``B16`` and ``B32`` time the bf16 backward at the reduced
 configs' heads, q (4,32,7,hd) k/v (4,32,1,hd), GQA 7:1, causal, at hd 8
 (the reduced qwen2-0.5b of chip_smoke.py's phases 3, 8 and 11), 16 and
-32. These calls (float32, and any call under 2^27 query-key-dim
-products) take a few µs to a few ms, so the kernels and SDPA's forward
-are timed as device time, a replayed CUDA graph of many calls; SDPA's
+32. ``L32`` is B32's heads at 2,048 tokens, q (4,2048,7,32) k/v
+(4,2048,1,32), causal: a length where the forward's walk over the keys,
+not its launch, sets its time. These calls (float32, any call under 2^27
+query-key-dim products, and the bf16 head dims 8-32) take a few µs to a
+few ms, so the kernels and SDPA's forward are timed as device time, a
+replayed CUDA graph of many calls; SDPA's
 forward + backward as the device time of its kernels (torch.profiler),
 less its forward's measured the same way. The float32 bounds are given
 twice: on the CUDA cores (67 TFLOP/s) and split-TF32 (three tf32 products
@@ -93,6 +96,7 @@ SHAPES = {
     "B8": (4, 32, 7, 1, 8, True, 0, 0.0, 50, "bfloat16"),
     "B16": (4, 32, 7, 1, 16, True, 0, 0.0, 50, "bfloat16"),
     "B32": (4, 32, 7, 1, 32, True, 0, 0.0, 50, "bfloat16"),
+    "L32": (4, 2048, 7, 1, 32, True, 0, 0.0, 20, "bfloat16"),
 }
 DEFAULT_SHAPES = ("T", "Lg", "Ll")
 #: (output, log-sum-exp, gradients over their scale) tolerances by dtype
@@ -193,7 +197,7 @@ def run_shape(tag, flash_attention_lse, flash_attention_bwd, ref, hw, attention_
     B, S, H, K, hd, causal, window, cap, calls, dtype = SHAPES[tag]
     fwd_tol, lse_tol, bwd_tol = TOL[dtype]
     f32 = dtype == "float32"
-    short = f32 or B * S * S * H * hd < 2**27  # device time: a replayed CUDA graph
+    short = f32 or B * S * S * H * hd < 2**27 or hd <= 32  # device time: a replayed CUDA graph
     G = H // K
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -167,11 +167,38 @@
 //    threads), S 32 (64 keys), P 16 as the bf16 A operand, under the
 //    consumers' 240 (ptxas's report, chip_smoke.py phase 2).
 //
-// CUDA-core variant: what neither tensor-core variant takes, bfloat16 at hd
-// 8, 16, 32 (the reduced configs; the wgmma tiles start at 64 columns).
-// Each row is owned by hd/8 threads holding 8 of its dims each (dims lane +
-// TPR*i); a row's dot product is a shuffle reduction over them; K/V tiles
-// are staged as float32 in static shared memory (64 keys at hd <= 64).
+// mma.sync variant (flash_mma_kernel): bfloat16 at hd 8, 16 and 32 (the
+// reduced configs' heads; the wgmma tiles start at 64 columns). What bounds
+// it: at the reduced configs' q (4,32,7,hd), 16 blocks of one key tile, the
+// launch and one tile's latency (36-135 KB moved); at q (4,2048,7,32)
+// causal, operations (7.5 GFLOP, 7.6 us at 989 TFLOP/s, against 8.6 MB) and,
+// beside them, one exponential a kept score on the SFU. The CUDA-core design
+// before it walked each 64-key tile in 64 dependent steps a thread (a dot
+// product over hd/8 dims and shuffles, then one expf a score), K and V
+// staged element by element, on no tensor core. This design:
+//  - A block is 4 warps and 64 folded rows, 16 a warp. The key range is
+//    uniform over the block, [k_begin, k_end) from its first row's window
+//    edge to its last row's causal frontier, walked in tiles of 64 keys.
+//  - K and V tiles stream through a 2-stage ring in static shared memory by
+//    cp.async, 16 bytes a copy, keys past Sk zero-filled, the next tile in
+//    flight while this one is used; shared rows of hd + 8 bf16 (hd 8: 8, one
+//    16-byte row) put the 8 rows of every ldmatrix phase in 8 distinct
+//    16-byte bank groups.
+//  - Q's A fragments are read into registers once (hd/16 k-steps). S = Q K^T
+//    is mma.sync m16n8k16 with K's B fragments by ldmatrix; at hd 8, half a
+//    k-step, m16n8k8 (the bits of a k16 step padded with zeros, half the
+//    products).
+//  - The online softmax runs in float32 on the S accumulators, in log2 units
+//    (the scale times log2(e) in one multiply, 2^x in one MUFU.EX2, and the
+//    softcap's division by cap a multiply by scale / cap); a row's max and
+//    sum over its quad take two shuffles each. P is rounded to bf16 and
+//    kept in registers as the A operand of O += P V (two n-blocks of 8 keys
+//    are one k-step of 16), V read transposed by ldmatrix.trans; l sums the
+//    unrounded p; O accumulates in float32.
+//  - Masks, softcap and the clamp of l as the other variants. No atomics,
+//    every sum in a fixed order: two runs give the same bits.
+// kernels/ref.py::flash_attention_mma_ref is this algorithm step by step;
+// kernels/flash_attention.py::mma_plan its tiling.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -190,115 +217,239 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
-
-// ---- CUDA-core variant ------------------------------------------------------
+// ---- mma.sync variant (bf16, hd 8, 16, 32) ----------------------------------
 
 template <int HD>
-struct Tiling {
-  static constexpr int kTpr = HD >= 8 ? HD / 8 : 1;  // threads per query row
-  static constexpr int kDpt = HD / kTpr;             // dims per thread
-  static constexpr int kRows = kThreads / kTpr;      // query rows per block
-  static constexpr int kBk = 64;                     // keys per tile (hd <= 32)
+struct MmaTiling {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBM = 16 * kWarps;  // folded query rows a block, 16 a warp
+  static constexpr int kBN = 64;           // keys a K/V tile
+  static constexpr int kStages = 2;        // of the cp.async ring
+  static constexpr int kLd = HD + 8 * (HD > 8);  // a shared row, bf16: conflict-free ldmatrix
+  static constexpr int kSmem = 2 * kStages * kBN * kLd * 2;  // the K and V rings, bytes
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-             int Sq, int Sk, int H, int K, int causal, int window, float cap,
-             float scale) {
-  using Tl = Tiling<HD>;
-  constexpr int TPR = Tl::kTpr, DPT = Tl::kDpt, R = Tl::kRows, BK = Tl::kBk;
-  __shared__ float ks[BK][HD];
-  __shared__ float vs[BK][HD];
+static_assert(MmaTiling<32>::kSmem <= 48 * 1024, "the rings fit static shared memory");
+
+// d += a (16x8, row) * b (8x8, col), bf16 in, float32 accumulators: a0 (g,
+// 2t..2t+1), a1 (g + 8, 2t..2t+1); b0 (k 2t..2t+1, n g); d as m16n8k16
+__device__ __forceinline__ void mma1688_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MmaTiling<HD>::kThreads)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Sk, int H, int K, int causal, int window, float cap,
+                 float scale) {
+  using C = MmaTiling<HD>;
+  constexpr int BM = C::kBM, BN = C::kBN, LD = C::kLd, NT = C::kThreads;
+  constexpr int NN = BN / 8;             // n-blocks of S
+  constexpr int ND = HD / 8;             // n-blocks of O
+  constexpr int KQ = HD < 16 ? 1 : HD / 16;  // k-steps of Q K^T (hd 8: one of k8)
+  constexpr int CH = HD / 8;             // 16-byte copies a K/V row
+  __shared__ __align__(16) bf16 ks[C::kStages][BN * LD];
+  __shared__ __align__(16) bf16 vs[C::kStages][BN * LD];
 
   const int G = H / K;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid % TPR;
-  const int row = blockIdx.x * R + tid / TPR;  // = qi * G + g
-  const int qi = row / G;
-  const int g = row % G;
-  const bool row_ok = qi < Sq;
-
-  // block-uniform key range: every thread runs the same tiles, so the
-  // barriers and full-warp shuffles below are safe
-  const int q_first = (blockIdx.x * R) / G;
-  const int q_last = min(Sq - 1, (blockIdx.x * R + R - 1) / G);
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;  // the longest causal rows first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int q_first = r0 / G;
+  const int q_last = min(Sq - 1, (r0 + BM - 1) / G);
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
   const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+  // this thread's rows: ra (d[0], d[1]) and ra + 8 (d[2], d[3])
+  const int ra = r0 + warp * 16 + (lane >> 2);
+  const int qa = ra / G, qb = (ra + 8) / G;
+  const int wq_first = (r0 + warp * 16) / G;                 // the warp's first query
+  const int wq_last = min(Sq - 1, (r0 + warp * 16 + 15) / G);  // and its last real one
 
-  const size_t q_off = (((size_t)b * Sq + (row_ok ? qi : 0)) * H + (size_t)kvh * G + g) * HD;
-  float qr[DPT], acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = row_ok ? to_f(q[q_off + lane + TPR * i]) : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int idx = tid; idx < BK * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD;
+  auto load_kv = [&](int k0, int st) {
+    for (int c = tid; c < BN * CH; c += NT) {
+      const int j = c / CH, cc = (c % CH) * 8;
       const int key = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (key < k_end) {
-        const size_t off = (((size_t)b * Sk + key) * K + kvh) * HD + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+      const bool ok = key < Sk;
+      const size_t off = ok ? (((size_t)b * Sk + key) * K + kvh) * HD + cc : 0;
+      cp_async16(&ks[st][j * LD + cc], k + off, ok);
+      cp_async16(&vs[st][j * LD + cc], v + off, ok);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_kv(k_begin, 0);
+
+  // Q's A fragments, k-step kk: a0 (row ra, dims 16kk + 2t..+1), a1 (ra + 8,
+  // the same), a2 and a3 the same rows at dims + 8; rows past Sq are zeros
+  uint32_t qf[KQ][4];
+  {
+    const bf16* q_a = q + (((size_t)b * Sq + min(qa, Sq - 1)) * H + (size_t)kvh * G + ra % G) * HD;
+    const bf16* q_b =
+        q + (((size_t)b * Sq + min(qb, Sq - 1)) * H + (size_t)kvh * G + (ra + 8) % G) * HD;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int d = 16 * kk + 2 * t;
+      qf[kk][0] = qa < Sq ? __ldg(reinterpret_cast<const uint32_t*>(q_a + d)) : 0u;
+      qf[kk][1] = qb < Sq ? __ldg(reinterpret_cast<const uint32_t*>(q_b + d)) : 0u;
+      if constexpr (HD >= 16) {
+        qf[kk][2] = qa < Sq ? __ldg(reinterpret_cast<const uint32_t*>(q_a + d + 8)) : 0u;
+        qf[kk][3] = qb < Sq ? __ldg(reinterpret_cast<const uint32_t*>(q_b + d + 8)) : 0u;
+      } else {
+        qf[kk][2] = qf[kk][3] = 0u;
       }
-      ks[j][d] = kx;
-      vs[j][d] = vx;
+    }
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // the softmax in log2 units: the scale times log2(e) in one multiply, 2^x
+  // in one MUFU.EX2, the softcap's division a multiply by scale / cap
+  const float scale_log2 = scale * kLog2e, scale_cap = cap > 0.f ? scale / cap : 0.f;
+  const float masked_log2 = kNegInf * kLog2e;  // the masked score -1e30, in log2 units
+  float m[2] = {masked_log2, masked_log2}, l[2] = {0.f, 0.f};  // m in log2 units
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, k0 = k_begin + it * BN;
+    if (it + 1 < n_tiles) {
+      load_kv(k0 + BN, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const bf16* kt = ks[st];
+    const bf16* vt = vs[st];
 
-    float s[BK];
-    float tmax = kNegInf;
+    // S = Q K^T, 16 rows x 64 keys a warp
+    float sc[NN][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.f;
+    for (int n = 0; n < NN; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    if constexpr (HD == 8) {
+      // matrix i of an x4 load: the 8 keys of n-block n + i, one 16-byte row each
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) part += qr[i] * ks[j][lane + TPR * i];
+      for (int n = 0; n < NN; n += 4) {
+        uint32_t bb[4];
+        ldsm_x4(bb, kt + (n * 8 + lane) * LD);
 #pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      float sc = part * scale;
-      if (cap > 0.f) sc = cap * tanhf(sc / cap);
-      const int dpos = qi - (k0 + j);
-      const bool ok = (!causal || dpos >= 0) && (window <= 0 || dpos < window);
-      s[j] = ok ? sc : kNegInf;
-      if (k0 + j < k_end) tmax = fmaxf(tmax, s[j]);
+        for (int i = 0; i < 4; ++i) mma1688_bf16(sc[n + i], qf[0], bb[i]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk)
+#pragma unroll
+        for (int n = 0; n < NN; n += 2) {
+          uint32_t bb[4];
+          ldsm_x4(bb, kt + (n * 8 + bn_row(lane)) * LD + kk * 16 + bn_col(lane));
+          mma16816(sc[n], qf[kk], bb[0], bb[1]);
+          mma16816(sc[n + 1], qf[kk], bb[2], bb[3]);
+        }
     }
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+
+    // scale, cap and mask in log2 units (sc[n][e]: row e < 2 ? qa : qb, key
+    // k0 + 8n + 2t + (e & 1)); a tile inside every row's range of the warp
+    // skips the mask
+    const bool edge = (causal && k0 + BN - 1 > wq_first) ||
+                      (window > 0 && wq_last - k0 >= window) || k0 + BN > Sk;
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
+    for (int n = 0; n < NN; ++n)
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      if (k0 + j < k_end) {
-        const float p = expf(s[j] - m_new);
-        l += p;
+      for (int e = 0; e < 4; ++e) {
+        float x;
+        if (cap > 0.f)
+          x = cap * tanhf(sc[n][e] * scale_cap) * kLog2e;
+        else
+          x = sc[n][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int qi = e < 2 ? qa : qb;
+          if (key >= Sk) x = -INFINITY;  // not a key: no weight even in a row with none valid
+          else if ((causal && key > qi) || (window > 0 && qi - key >= window)) x = masked_log2;
+        }
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) acc[i] += p * vs[j][lane + TPR * i];
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float alpha = fast_exp2(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * i] *= alpha;
+        acc[n][2 * i + 1] *= alpha;
       }
     }
-    m = m_new;
+    // p = 2^(x - m), summed unrounded into l (this thread's share; the quad
+    // sums at the end), and rounded to bf16 as the A operand of O += P V: two
+    // n-blocks of S are one k-step of 16 keys
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = fast_exp2(sc[n][e] - m[e >> 1]);
+        l[e >> 1] += sc[n][e];
+      }
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(sc[n][0], sc[n][1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(sc[n][2], sc[n][3]);
+    }
+
+    // O += P V, V's B fragments read transposed
+    if constexpr (HD == 8) {
+      // one n-block: matrix i of an x4.trans load holds keys 8i..8i+7 of two
+      // k-steps, {0, 1} for the first, {2, 3} for the second
+#pragma unroll
+      for (int s = 0; s < BN / 16; s += 2) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, vt + (s * 16 + lane) * LD);
+        mma16816(acc[0], pa[s], bb[0], bb[1]);
+        mma16816(acc[0], pa[s + 1], bb[2], bb[3]);
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < BN / 16; ++s)
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, vt + (s * 16 + bt_row(lane)) * LD + n * 8 + bt_col(lane));
+          mma16816(acc[n], pa[s], bb[0], bb[1]);
+          mma16816(acc[n + 1], pa[s], bb[2], bb[3]);
+        }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  if (row_ok) {
-    const float lc = fmaxf(l, 1e-30f);
-    const float inv = 1.f / lc;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) store(&o[q_off + lane + TPR * i], acc[i] * inv);
-    if (lse != nullptr && lane == 0)
-      lse[((size_t)b * H + (size_t)kvh * G + g) * Sq + qi] = m + logf(lc);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ra + 8 * i, qi = i == 0 ? qa : qb;
+    if (qi >= Sq) continue;
+    const int h = kvh * G + r % G;
+    const float lc = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / lc;
+    bf16* orow = o + (((size_t)b * Sq + qi) * H + h) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+          pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    if (lse != nullptr && t == 0) lse[((size_t)b * H + h) * Sq + qi] = m[i] * kLn2 + logf(lc);
   }
 }
 
@@ -970,18 +1121,17 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int B, int Sq, int Sk, int H, int K, int causal, int window,
-                   float cap, float scale, cudaStream_t stream) {
-  const int G = H / K;
-  const long long rows = (long long)G * Sq;
-  const long long nx = (rows + Tiling<HD>::kRows - 1) / Tiling<HD>::kRows;
-  if (nx > 0x7fffffffLL || K > 65535 || B > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)nx, K, B);
-  flash_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Sq, Sk, H, K, causal, window, cap, scale);
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int Sq, int Sk, int H, int K, int causal, int window,
+                       float cap, float scale, cudaStream_t stream) {
+  using C = MmaTiling<HD>;
+  const long long rows = (long long)(H / K) * Sq;  // folded rows, held in int by the kernel
+  if (rows + C::kBM > 0x7fffffffLL || K > 65535 || B > 65535) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)((rows + C::kBM - 1) / C::kBM), K, B);
+  flash_mma_kernel<HD><<<grid, C::kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, Sq, Sk, H, K, causal, window, cap, scale);
   return cudaSuccess;
 }
 
@@ -1076,10 +1226,8 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  // the tensor-core variants (float32 at every head dim, bf16 at 64, 128,
-  // 256) copy 16-byte chunks
-  const bool tc = dtype == 0 || (dtype == 1 && hd >= 64);
-  if (tc && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15)) return (int)cudaErrorInvalidValue;
+  // every variant copies 16-byte chunks
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) return (int)cudaErrorInvalidValue;
 #define FLASH_ARGS q, k, v, o, l, B, Sq, Sk, H, K, causal, window, softcap, scale, s
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -1093,9 +1241,9 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 8: err = launch<bf16, 8>(FLASH_ARGS); break;
-      case 16: err = launch<bf16, 16>(FLASH_ARGS); break;
-      case 32: err = launch<bf16, 32>(FLASH_ARGS); break;
+      case 8: err = launch_mma<8>(FLASH_ARGS); break;
+      case 16: err = launch_mma<16>(FLASH_ARGS); break;
+      case 32: err = launch_mma<32>(FLASH_ARGS); break;
       case 64: err = launch_wg<64>(FLASH_ARGS); break;
       case 128: err = launch_wg<128>(FLASH_ARGS); break;
       case 256: err = launch_wg<256>(FLASH_ARGS); break;

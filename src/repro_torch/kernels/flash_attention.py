@@ -13,13 +13,16 @@ float32 at every head dim runs on the tensor cores in split-TF32
 ``ref.flash_attention_split_ref``; its tiling ``tf32_plan``), bfloat16 at hd
 64, 128 and 256 on Hopper's warpgroup products (``flash_wg_kernel``: TMA loads
 of K and V into mbarrier rings from a producer warpgroup, two consumer
-warpgroups on wgmma; its shared memory, rings and TMA boxes are ``wg_plan``);
-bfloat16 at hd 8, 16 and 32 on the CUDA cores. The tensor-core routes copy 16
-bytes at a time (TMA too needs 16-byte aligned tensors), so there q, k and v
-must start on a 16-byte boundary (a float32 view at an offset of a whole
+warpgroups on wgmma; its shared memory, rings and TMA boxes are ``wg_plan``),
+bfloat16 at hd 8, 16 and 32 on mma.sync (``flash_mma_kernel``: 64 folded rows
+a block against 64-key tiles of a cp.async ring, P kept in registers as the A
+operand of P V; its algorithm step by step: ``ref.flash_attention_mma_ref``;
+its tiling ``mma_plan``). No route is left on the CUDA cores. Every route
+copies 16 bytes at a time (TMA too needs 16-byte aligned tensors), so q, k and
+v must start on a 16-byte boundary (a float32 view at an offset of a whole
 number of 4 floats, a bfloat16 one of 8); the wrapper raises ``ValueError`` if
 not (``check_route``, which also refuses shapes whose folded rows or blocks
-overflow the kernels' 32-bit indices).
+overflow the bf16 kernels' 32-bit indices).
 
 ``flash_attention`` is the serving entry point; ``flash_attention_lse``
 also returns the float32 log-sum-exp of each row, (B,H,Sq), which the
@@ -114,11 +117,36 @@ def tf32_plan(hd):
             "smem_bytes": (q_words + 4 * stage * ld) * 4}
 
 
+#: the bf16 route at hd 8, 16 and 32 (``MmaTiling`` in csrc/flash_attention.cu):
+#: warps a block (16 folded rows each), keys a K/V tile, stages of the
+#: cp.async ring
+MMA_HEAD_DIMS = (8, 16, 32)
+MMA_WARPS = 4
+MMA_KEYS = 64
+MMA_STAGES = 2
+
+
+def mma_plan(hd):
+    """The bf16 mma.sync route's tiling at head dim ``hd``, as ``MmaTiling``
+    lays it out: ``warps`` and ``threads`` a block, ``rows`` (folded query
+    rows a block, 16 a warp), ``keys`` (a K/V tile), ``stages`` of the
+    cp.async ring, ``ld`` (a shared row's bf16 elements: hd + 8, and 8 at hd
+    8, so that the 8 rows of an ldmatrix phase fall in 8 distinct 16-byte
+    bank groups) and ``smem_bytes`` (the K and V rings)."""
+    if hd not in MMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the bf16 mma.sync route takes head_dim "
+                         f"{MMA_HEAD_DIMS}, not {hd}")
+    ld = hd + 8 * (hd > 8)
+    return {"warps": MMA_WARPS, "threads": 32 * MMA_WARPS, "rows": 16 * MMA_WARPS,
+            "keys": MMA_KEYS, "stages": MMA_STAGES, "ld": ld,
+            "smem_bytes": 2 * MMA_STAGES * MMA_KEYS * ld * 2}
+
+
 def check_route(q, k, v):
-    """The checks that need no device: shapes, head dim, dtype, the
-    tensor-core routes' 16-byte alignment (float32 at every head dim,
-    bfloat16 at hd 64, 128 and 256) and the index range of the bf16 route. Raises
-    ValueError or TypeError for what the kernels do not take."""
+    """The checks that need no device: shapes, head dim, dtype, the 16-byte
+    alignment every route's copies need and the index range of the bf16
+    wgmma route. Raises ValueError or TypeError for what the kernels do not
+    take."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if k.shape != (B, Sk, K, hd) or v.shape != k.shape or H % K:
@@ -127,11 +155,10 @@ def check_route(q, k, v):
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: dtype {q.dtype} not in (float32, bfloat16)")
-    wgmma = q.dtype == torch.bfloat16 and hd in WG_HEAD_DIMS
-    tensor_cores = wgmma or q.dtype == torch.float32
-    if tensor_cores and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"flash_attention: {q.dtype} at head_dim {hd} runs on the tensor cores, "
                          "which need q, k and v to start on a 16-byte boundary")
+    wgmma = q.dtype == torch.bfloat16 and hd in WG_HEAD_DIMS
     rows = H // K * Sq
     if wgmma and (rows + WG_ROWS > _INT_MAX or -(-rows // WG_ROWS) * K * B > _INT_MAX):
         raise ValueError(f"flash_attention: {rows} folded rows a kv head at batch {B} overflow "

@@ -150,6 +150,70 @@ def flash_attention_split_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     return out.to(q.dtype), lse
 
 
+def flash_attention_mma_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The bf16 mma.sync flash kernel's algorithm step by step
+    (``flash_mma_kernel`` at hd 8, 16 and 32), at its tiling (``mma_plan``).
+    The G query heads of a kv head are folded into the rows (row = q * G +
+    g); each tile of 64 folded rows walks tiles of 64 keys from its first
+    row's window edge (not aligned) to its last row's causal frontier. Per
+    key tile: S = Q Kᵀ of the bf16 operands in float32, scaled, capped, -1e30
+    where masked and -inf past Sk (the kernel's zero-filled keys); the online
+    softmax in float32 (m, alpha, p = exp(s - m), l summed from the unrounded
+    p); O += P V with P rounded to bf16, in float32. l is clamped at 1e-30.
+    (The kernel takes the exponentials as 2^x of scores in log2 units, the
+    same function; a weight on a bf16 rounding boundary may round the other
+    way there.) Returns (out in bf16, log-sum-exp (B,H,Sq) float32, h =
+    kv_head * G + g)."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G, R = H // K, (H // K) * Sq
+    from .flash_attention import mma_plan  # the wrapper's module imports this one
+
+    plan = mma_plan(hd)  # MmaTiling's kBM and kBN
+    rows, keys = plan["rows"], plan["keys"]
+    dev = q.device
+    bf = torch.bfloat16
+    qf = _fold(q.to(bf), B, K, G, Sq)
+    kf, vf = (torch.nn.functional.pad(t.to(bf).to(F32).permute(0, 2, 1, 3), (0, 0, 0, keys))
+              for t in (k, v))  # zero keys past Sk, so that every tile is whole
+    scale = 1.0 / math.sqrt(hd)
+    neg = torch.tensor(NEG_INF, dtype=F32, device=dev)
+    out = torch.empty((B, K, R, hd), dtype=F32, device=dev)
+    lse = torch.empty((B, K, R), dtype=F32, device=dev)
+    for r0 in range(0, R, rows):
+        r1 = min(R, r0 + rows)
+        qi = torch.arange(r0, r1, device=dev)[:, None] // G
+        q_first, q_last = r0 // G, min(Sq - 1, (r0 + rows - 1) // G)
+        k_end = min(Sk, q_last + 1) if causal else Sk
+        k_begin = max(0, q_first - window + 1) if window else 0
+        m = torch.full((B, K, r1 - r0), NEG_INF, dtype=F32, device=dev)
+        l = torch.zeros((B, K, r1 - r0), dtype=F32, device=dev)
+        acc = torch.zeros((B, K, r1 - r0, hd), dtype=F32, device=dev)
+        for k0 in range(k_begin, k_end, keys):
+            key = torch.arange(k0, k0 + keys, device=dev)[None]
+            s = (qf[:, :, r0:r1] @ kf[:, :, k0:k0 + keys].transpose(-1, -2)) * scale
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            ok = torch.ones((r1 - r0, keys), dtype=torch.bool, device=dev)
+            if causal:
+                ok &= key <= qi
+            if window:
+                ok &= qi - key < window
+            s = torch.where(key >= Sk, float("-inf"), torch.where(ok, s, neg))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p.to(bf).to(F32) @ vf[:, :, k0:k0 + keys]
+            m = m_new
+        lc = l.clamp(min=1e-30)
+        out[:, :, r0:r1] = acc * (1.0 / lc)[..., None]
+        lse[:, :, r0:r1] = m + torch.log(lc)
+    out = out.reshape(B, K, Sq, G, hd).transpose(1, 2).reshape(B, Sq, H, hd)
+    lse = lse.reshape(B, K, Sq, G).permute(0, 1, 3, 2).reshape(B, H, Sq)
+    return out.to(bf), lse
+
+
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0.0):
     """The FlashAttention-2 backward (arXiv 2307.08691, Alg. 2) written out
     in float32 from the forward's output ``o`` and log-sum-exp ``lse``

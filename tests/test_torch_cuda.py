@@ -46,7 +46,12 @@ tolerances above and the log-sum-exp at the forward's, -inf on an empty
 cache; partial results over uneven slot ranges merged by their
 log-sum-exp within 1e-5 of the whole call, and the mean of V where no
 range has a valid slot; a row with no valid slot in a cache of many
-multi-tile splits gets that mean from the splits' sums of V.
+multi-tile splits gets that mean from the splits' sums of V. The bf16
+forward at hd 8, 16, 32 (flash_mma_kernel) against its step-by-step plain
+version (ref.flash_attention_mma_ref): the output within 2^-7 (MMA_TOL: both
+round P and the output to bf16 from float32 sums in other orders, so a value
+on a rounding boundary may round the other way, one bf16 unit in the last
+place), the log-sum-exp within 1e-4.
 """
 import pytest
 import torch
@@ -58,14 +63,15 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,
                                      flash_attention_bwd_split_ref, flash_attention_lse_ref,
-                                     flash_attention_ref, flash_attention_split_ref, ssd_scan_ref,
-                                     ssd_sequential_ref)
+                                     flash_attention_mma_ref, flash_attention_ref,
+                                     flash_attention_split_ref, ssd_scan_ref, ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.transformer import head_logits, plain_head_logits
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+MMA_TOL, MMA_LSE_TOL = 2.0 ** -7, 1e-4
 SSD_DTYPES = [(torch.float32, 2e-4), (torch.bfloat16, 5e-2)]
 # of dx's and dW's elements equal to the plain head's: dx sums 151,936
 # products a row in float32, in another order in each route's GEMM, so ~2 %
@@ -100,7 +106,25 @@ FLASH = [
     (1, 500, 4, 2, 64, True, 100, 0.0),  # a window that cuts inside a key tile
     (2, 200, 8, 4, 128, True, 0, 30.0),  # softcap at hd 128
     (1, 8192, 14, 2, 64, True, 0, 0.0),  # 8192 tokens, causal GQA 7:1
+    # the bf16 route at hd 8-32 (flash_mma_kernel: 64 folded rows a block, 64
+    # keys a tile) at hd 16 and 32 too: GQA 7:1 with softcap, the reduced
+    # configs' shape
+    (2, 100, 7, 1, 16, True, 0, 30.0),
+    (2, 100, 7, 1, 32, True, 0, 30.0),
+    (4, 32, 7, 1, 16, True, 0, 0.0),
+    (4, 32, 7, 1, 32, True, 0, 0.0),
 ]
+
+
+def _mma_close(dtype, hd, q, k, v, kw, out, lse=None):
+    """bf16 at hd 8, 16, 32: the output (and log-sum-exp) against the mma.sync
+    kernel's step-by-step plain version."""
+    if dtype != torch.bfloat16 or hd > 32:
+        return
+    want, want_lse = flash_attention_mma_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=MMA_TOL, rtol=MMA_TOL)
+    if lse is not None:
+        torch.testing.assert_close(lse, want_lse, atol=MMA_LSE_TOL, rtol=MMA_LSE_TOL)
 # flash backward: the cases of test_flash_attention_diff_grads_match_plain_autograd
 FLASH_BWD = [
     (1, 333, 14, 2, 64, True, 0, 0.0),  # qwen2-0.5b: GQA 7:1 at hd 64
@@ -162,6 +186,7 @@ def test_flash_kernel_matches_plain(dev, case, dtype, tol):
     assert flash_attention.launches == before + 1
     want = flash_attention_ref(q, k, v, causal=causal, window=win, softcap=cap)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    _mma_close(dtype, hd, q, k, v, dict(causal=causal, window=win, softcap=cap), got)
 
 
 @pytest.mark.cuda
@@ -383,15 +408,17 @@ def test_flash_lse_matches_plain(dev, case, dtype, tol):
     assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
     torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+    _mma_close(dtype, hd, q, k, v, dict(causal=causal, window=win, softcap=cap), out, lse)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [FLASH[0], FLASH[2], FLASH[7]])
+@pytest.mark.parametrize("case", [FLASH[0], FLASH[2], FLASH[7], FLASH[-4], FLASH[-3]])
 def test_flash_kernel_is_deterministic_in_float32_and_bfloat16(dev, case, dtype):
     """float32 (split-TF32 tensor cores): two key halves merge
-    in a fixed order; bfloat16 at hd 64 and 128 (flash_wg_kernel): every sum
-    in a fixed order, no atomics. Two runs give the same bits."""
+    in a fixed order; bfloat16 at hd 64 and 128 (flash_wg_kernel) and at hd
+    8, 16, 32 (flash_mma_kernel): every sum in a fixed order, no atomics. Two
+    runs give the same bits."""
     B, S, H, K, hd, causal, win, cap = case
     gen = torch.Generator(device=dev).manual_seed(13)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -555,9 +582,9 @@ def test_float32_kernels_match_their_split_plain_versions(dev, case):
                                       (torch.bfloat16, 128), (torch.bfloat16, 256),
                                       (torch.float32, 256)])
 def test_flash_refuses_inputs_off_a_16_byte_boundary(dev, dtype, hd):
-    """The tensor-core routes copy 16 bytes at a time: a contiguous view one
-    element into its buffer is refused with a ValueError that says so; the
-    CUDA-core route (bf16 at hd 16) takes it."""
+    """Every route copies 16 bytes at a time: a contiguous view one element
+    into its buffer is refused with a ValueError that says so, bf16 at hd 16
+    (mma.sync) too."""
     def shifted(d, dt):
         n = 8 * 4 * d
         return torch.randn(n + 1, device=dev).to(dt)[1:].view(1, 8, 4, d)
@@ -565,9 +592,8 @@ def test_flash_refuses_inputs_off_a_16_byte_boundary(dev, dtype, hd):
     q = shifted(hd, dtype)
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, q, q)
-    q = shifted(16, torch.bfloat16)
-    torch.testing.assert_close(flash_attention(q, q, q), flash_attention_ref(q, q, q),
-                               atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(*(shifted(16, torch.bfloat16),) * 3)
 
 
 @pytest.mark.cuda
@@ -865,6 +891,9 @@ FLASH_XQ = [
     (1, 333, 129, 8, 4, 128, True),
     (1, 37, 4097, 14, 2, 64, False),  # few queries against a ragged last key tile
     (2, 300, 77, 8, 2, 128, True),  # Sk under one key tile at hd 128
+    (1, 37, 100, 4, 2, 32, False),  # the bf16 route at hd 8-32 at hd 32 and 8 too
+    (1, 100, 37, 4, 2, 32, True),
+    (2, 129, 65, 7, 1, 8, False),
 ]
 
 
@@ -872,9 +901,9 @@ FLASH_XQ = [
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("case", FLASH_XQ)
 def test_flash_kernel_at_sq_ne_sk_matches_plain(dev, case, dtype, tol):
-    """Every forward route (split-TF32 float32, bf16 tensor cores at hd 64
-    and 128, CUDA cores at bf16 hd 16) with its log-sum-exp, and a second
-    run bit for bit."""
+    """Every forward route (split-TF32 float32, bf16 wgmma at hd 64 and 128,
+    bf16 mma.sync at hd 8, 16, 32, the last also against its step-by-step
+    plain version) with its log-sum-exp, and a second run bit for bit."""
     B, Sq, Sk, H, K, hd, causal = case
     gen = torch.Generator(device=dev).manual_seed(21)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -888,6 +917,7 @@ def test_flash_kernel_at_sq_ne_sk_matches_plain(dev, case, dtype, tol):
     assert torch.equal(o, got) and lse.shape == (B, H, Sq)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+    _mma_close(dtype, hd, q, k, v, dict(causal=causal), o, lse)
 
 
 # the backward at Sq != Sk: FLASH_XQ, each causal and not, and causal at Sk >

@@ -89,22 +89,20 @@ def _shifted(dtype, shape):
 
 @pytest.mark.parametrize("dtype,hd,tensor_cores", [
     (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 32, False), (torch.bfloat16, 256, True),
+    (torch.bfloat16, 32, True), (torch.bfloat16, 256, True),
     (torch.float32, 64, True), (torch.float32, 8, True),
-    (torch.float32, 256, True), (torch.bfloat16, 16, False)])
+    (torch.float32, 256, True), (torch.bfloat16, 16, True)])
 def test_check_route_holds_the_tensor_core_routes_to_16_bytes(dtype, hd, tensor_cores):
-    """bf16 at hd 64, 128 and 256 (TMA and wgmma) and float32 at every head
-    dim (split-TF32) copy 16 bytes at a time, so they need 16-byte aligned
-    q, k, v; the CUDA-core route (bf16 at hd 8, 16, 32) takes any."""
+    """bf16 at hd 64, 128 and 256 (TMA and wgmma), bf16 at hd 8, 16 and 32
+    (cp.async and mma.sync) and float32 at every head dim (split-TF32) copy
+    16 bytes at a time, so they need 16-byte aligned q, k, v: every route is
+    on the tensor cores."""
     q = torch.zeros((1, 8, 4, hd), dtype=dtype)
     kv = torch.zeros((1, 8, 2, hd), dtype=dtype)
     check_route(q, kv, kv)
-    shifted = _shifted(dtype, (1, 8, 2, hd))
-    if tensor_cores:
-        with pytest.raises(ValueError, match="16-byte"):
-            check_route(q, shifted, kv)
-    else:
-        check_route(q, shifted, kv)
+    assert tensor_cores
+    with pytest.raises(ValueError, match="16-byte"):
+        check_route(q, _shifted(dtype, (1, 8, 2, hd)), kv)
 
 
 def test_check_route_refuses_what_no_route_takes():

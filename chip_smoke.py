@@ -357,6 +357,19 @@ Phases, each of which raises on failure (there is no CPU fallback):
      1e-5 of the whole call, the whole call against its plain version,
      the range past every row's last slot -inf. Every cut is printed as
      "reduced".
+Serving replays captured steps (repro_torch.launch.graphs): ServeEngine's
+decode step (phases 5, 7) and the live engine's prefill and decode (13, 15
+(c), 16 (e)) are CUDA graphs, one replay a step, their launch counts exact
+under replay; the MoE archs' steps run eagerly by a named rule. Wherever
+check_model builds a model (phases 4, 6, 4 (b), 15 (a), 16 (c), (d)), a
+"[graph]" line holds 16 replays of its captured decode step bit for bit
+against 16 eager LM.decode_step calls from the same cache (logits and every
+cache leaf) and gives each one's step ms (host clock), device busy ms and
+idle share, kernels a step, the capture's seconds and pool bytes, beside the
+card; an arch kept eager (14 (a), 16 (b)) is named there with its reason.
+Phase 13 also times one decode stage through the eager body beside the
+replayed one; 13, 15 (c) and 16 (e) print compile_s (warm-up and captures)
+and each shape's route.
 Each phase prints its wall. The line before the last is the kernels'
 JSON (each kernel's phase 19 launches on rank 0 under "spmd", null for
 one whose path does not run on the mesh); the last line is {"ok": true,
@@ -414,7 +427,7 @@ from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_r
 from repro_torch.kernels.ops import flash_attention_diff, sdpa_kernel, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.trace import attention_pairs  # noqa: E402
-from repro_torch.launch import dryrun, multihost, paper_repro  # noqa: E402
+from repro_torch.launch import dryrun, graphs, multihost, paper_repro  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.programs import build_program  # noqa: E402
 from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
@@ -1015,13 +1028,14 @@ def path_launches(cfg, prefills, steps) -> dict:
 
 
 def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16, cfg=None,
-                batch=1, params=None, enc_len=None, kv_len=MAX_LEN) -> dict:
+                batch=1, params=None, enc_len=None, kv_len=MAX_LEN, graph=True) -> dict:
     """Phases 4, 6, 14 (a), 15 (a) and 16: the same params and tokens through
     the kernels and through the plain versions; the kernels' launches
     (``path_launches``). ``cfg`` (default: ``arch``'s) may cut the depth;
     ``params`` (default: drawn from a seeded generator) are float32.
     ``enc_len`` is an encoder-decoder's frame count (default the prompt's);
-    ``kv_len`` the cache's context."""
+    ``kv_len`` the cache's context. With ``graph``, then ``graph_check``
+    from the kernels' last cache (after the launches are read)."""
     cfg = cfg or get_config(arch, reduced=reduced)
     lm_k = LM(cfg, impl="cuda", device=device)
     lm_p = LM(cfg, impl="plain", device=device)
@@ -1066,9 +1080,12 @@ def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16, cfg=
             raise AssertionError(f"model: {where} differs")
         else:
             state_err = max(state_err, float((a - b).abs().max()))
-    return {"logits_max_abs_err": worst, "cache_max_abs_err": state_err, "steps": steps,
-            "prompt_len": prompt_len, "batch": batch, "launches": counts,
-            "num_params": count_params(params)}
+    out = {"logits_max_abs_err": worst, "cache_max_abs_err": state_err, "steps": steps,
+           "prompt_len": prompt_len, "batch": batch, "launches": counts,
+           "num_params": count_params(params)}
+    if graph:
+        out["graph"] = graph_check(device, lm_k, params, ck, torch.argmax(lk, -1)[:, None])
+    return out
 
 
 def serve(device, arch=ARCH, reduced=False, prompt_lens=PROMPT_LENS,
@@ -1139,7 +1156,106 @@ def serve(device, arch=ARCH, reduced=False, prompt_lens=PROMPT_LENS,
         "decode_tokens_per_s": decode_tokens / decode_s,
         "prefill_ms_mean": 1e3 * sum(prefill_s) / len(prefill_s),
         "ttft_s": {"p50": float(np.median(ttft)), "max": max(ttft)},
+        "decode_step": {"route": eng._decode.route, "capture_s": eng._decode.capture_s,
+                        "pool_bytes": eng._decode.pool_bytes},
     }
+
+
+#: decode steps held bit for bit between a captured step's replays and
+#: eager ``LM.decode_step`` calls from one cache (``graph_check``)
+GRAPH_STEPS = 16
+
+
+def _host_ms(fn, steps) -> float:
+    """Mean ms a call of fn on the host clock over ``steps`` calls, between
+    two synchronisations (what a serving loop waits for a step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def _busy(fn, steps) -> tuple[float, float]:
+    """(device busy ms, kernels) a call of fn, from torch.profiler over
+    ``steps`` calls: the device's own rows (an operator's row repeats its
+    kernels' time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    return sum(t for t, _ in rows) / 1e3 / steps, sum(n for _, n in rows) / steps
+
+
+def graph_check(device, lm, params, cache, tok) -> dict:
+    """Phases 4, 6, 4 (b), 15 (a), 16 (c), (d): ``GRAPH_STEPS`` replays of the
+    captured decode step (``launch/graphs.py``) from ``cache`` and ``tok``
+    against as many eager greedy ``LM.decode_step`` calls from the same
+    cache: each step's logits and every cache leaf at the end bit-equal, the
+    decode kernel's launches counted at each replay, else raise. Then the
+    eager body and the replay each: step ms on the host clock, device busy
+    ms, idle share and kernels a step (torch.profiler), the capture's
+    seconds and the bytes its pool reserved. Prints a ``[graph]`` line. An
+    arch whose steps stay eager by rule (``graphs.step_route``) is named on
+    its line and not run."""
+    card = card_line()
+    route = graphs.step_route(lm, params)
+    if route != "graph":
+        out = {"arch": lm.cfg.name, "route": route}
+        print(f"[graph] {json.dumps(out)} on {card}", flush=True)
+        return out
+    with torch.no_grad():
+        eager_cache, eager_tok, want = graphs.clone_tree(cache), tok.clone(), []
+        for _ in range(GRAPH_STEPS):
+            logits, eager_cache = lm.decode_step(params, eager_cache, eager_tok,
+                                                 dtype=torch.float32)
+            eager_tok = torch.argmax(logits, -1)[:, None]
+            want.append(logits)
+    # the eager steps above ran this shape in this process: no warm-up
+    step = graphs.decode_step(lm, params, graphs.clone_tree(cache), warmup=False)
+    step.buffers["tok"].copy_(tok)
+    n0 = decode_attention.launches
+    for i in range(GRAPH_STEPS):
+        if not torch.equal(step(), want[i]):
+            raise AssertionError(f"graph {lm.cfg.name}: replay {i}'s logits differ from the "
+                                 f"eager step's")
+    got = dict(_leaves(step.buffers["cache"]))
+    ref = dict(_leaves(eager_cache))
+    differ = [k for k in ref if not torch.equal(got[k], ref[k])]
+    if got.keys() != ref.keys() or differ or not torch.equal(step.buffers["tok"], eager_tok):
+        raise AssertionError(f"graph {lm.cfg.name}: after {GRAPH_STEPS} replays the cache "
+                             f"leaves {differ} (or the token) differ from the eager steps'")
+    sites = path_launches(lm.cfg, 0, 1)["decode_attention"]
+    if decode_attention.launches - n0 != GRAPH_STEPS * sites:
+        raise AssertionError(f"graph {lm.cfg.name}: {decode_attention.launches - n0} decode "
+                             f"launches counted in {GRAPH_STEPS} replays, expected "
+                             f"{GRAPH_STEPS * sites}")
+    body = graphs.decode_body(lm, params)
+    bufs = {"cache": graphs.clone_tree(cache), "tok": tok.clone()}
+
+    def eager():
+        with torch.no_grad():
+            body(bufs)
+
+    out = {"arch": lm.cfg.name, "route": route, "batch": int(tok.shape[0]),
+           "steps_bit_equal": GRAPH_STEPS, "capture_s": step.capture_s,
+           "pool_bytes": step.pool_bytes}
+    for name, fn in (("eager", eager), ("replayed", step)):
+        fn()
+        ms = _host_ms(fn, 10)
+        busy, kernels = _busy(fn, 8)
+        out[name] = {"step_ms": ms, "device_busy_ms": busy,
+                     "device_idle_share": 1.0 - busy / ms if busy else "not measured",
+                     "kernels_per_step": kernels}
+    out["launches_per_step"] = {"eager": out["eager"]["kernels_per_step"], "replayed": 1}
+    print(f"[graph] {json.dumps(out)} on {card}", flush=True)
+    del step, bufs
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_decode(eng, device, steps=8) -> dict:
@@ -2372,6 +2488,25 @@ def live(device, card) -> dict:
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     stage_ms = 1e3 * float(np.median(stage_s))
+    # the same stage through the eager body of the captured step, from a copy
+    # of the same cache: what the stage cost before it was captured
+    body = graphs.decode_body(LM(lm.cfg, device=device), lm.params)
+    bufs = {"cache": graphs.clone_tree(cache), "tok": tok.clone()}
+
+    def eager_stage():
+        with torch.no_grad():
+            for _ in range(8):
+                body(bufs)
+        _sync(device)
+
+    eager_stage()
+    eager_s = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        eager_stage()
+        eager_s.append(time.perf_counter() - t1)
+    eager_ms = 1e3 * float(np.median(eager_s))
+    eager_busy_ms, _ = _busy(eager_stage, 1)
 
     # what a worker thread's first GEMM costs (its cuBLAS handle), which
     # _ModelPool.ensure pays outside the billed window
@@ -2407,6 +2542,11 @@ def live(device, card) -> dict:
         "decode_stage_unloaded_ms": stage_ms,
         "decode_stage_device_busy_ms": busy_ms if busy_ms else "not measured",
         "decode_stage_device_idle_share": 1.0 - busy_ms / stage_ms if busy_ms else "not measured",
+        "decode_stage_eager_ms": eager_ms,
+        "decode_stage_eager_device_busy_ms": eager_busy_ms or "not measured",
+        "decode_stage_eager_device_idle_share": (1.0 - eager_busy_ms / eager_ms
+                                                 if eager_busy_ms else "not measured"),
+        "routes": {f"{a}/{b}": r for (a, b), r in eng.models.routes.items()},
         "fresh_thread_gemm_ms_first_second": gemm_ms,
         "kv_cache_mb_per_query": sum(t.numel() * t.element_size()
                                      for _, t in _leaves(cache)) / 1e6,
@@ -2728,7 +2868,14 @@ def _run_live(device, calibrated: bool, models=None,
 
     online = ({p.name: eng.calibrator.fitted_speed_factor(p) for p in eng.pools}
               if calibrated else None)
+    walls = {"prefill": [], "decode": []}
+    for q in qs:
+        for e in q.stage_trace:
+            walls["prefill" if e.stage == "prefill" else "decode"].append(e.finish - e.start)
     return {"queries": rows, "quote_error_median_abs_log": quote_error("quoted_exec_s"),
+            "stage_s_median": {k: float(np.median(v)) for k, v in walls.items()},
+            "compile_s": {f"{a}/{b}": t for (a, b), t in eng.models.compile_s.items()},
+            "routes": {f"{a}/{b}": r for (a, b), r in eng.models.routes.items()},
             "analytic_quote_error_median_abs_log": quote_error("analytic_exec_s"),
             "offline_speed": offline,
             "online_speed": online, "launches": counts, "wall_s": wall}, eng.models
@@ -3012,7 +3159,7 @@ def slice_arch(device, card, tag, cfg, batch, cases, kv_len=None) -> dict:
         t0 = time.perf_counter()
         kv = kv_len or MAX_LEN
         res = check_model(device, cfg=cfg, batch=batch, prompt_len=prompt_len, params=params,
-                          enc_len=enc_len, kv_len=kv)
+                          enc_len=enc_len, kv_len=kv, graph=(prompt_len, enc_len) == cases[0])
         res.update(enc_len=enc_len, kv_len=kv, seconds=time.perf_counter() - t0)
         out["checks"].append(res)
         print(f"[{tag}] {cfg.name} check: {json.dumps(res)}", flush=True)
@@ -3125,6 +3272,7 @@ def live_slice(device, card) -> dict:
                        for q in qs],
            "launches": counts, "wall_s": wall,
            "compile_s": {f"{a}/{b}": t for (a, b), t in eng.models.compile_s.items()},
+           "routes": {f"{a}/{b}": r for (a, b), r in eng.models.routes.items()},
            "internvl2_cache_slots": int(vlm_cache.shape[-1]),
            "internvl2_oldest_position_kept": int(vlm_cache.min()),
            "decode_stage_s": {a: float(np.median([e.finish - e.start for q in qs

@@ -15,7 +15,11 @@ one card the way tenants share one accelerator: the decode kernel's
 per-device counter buffer (kernels/decode_attention.py) is correct on one
 stream only. Grad mode is thread-local, so every stage runs under
 ``torch.no_grad()`` in its worker and served prefill takes the flash
-kernel, not its autograd Function.
+kernel, not its autograd Function. Each worker thread serves through its
+own captured steps (``launch/graphs.py``; ``live_model``): one CUDA graph
+replay a prefill or a decode step, made in ``_ModelPool.ensure`` outside
+the billed window; the MoE archs run the same steps eagerly
+(``graphs.eager_reason``).
 
 A running query executes its StagePlan chunk-by-chunk through the model
 — a prefill stage, then at most ``decode_chunk_tokens`` decode steps per
@@ -43,6 +47,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..configs import get_config
+from ..launch import graphs
 from ..models.transformer import LM
 from . import sanitize
 from .convergence import ConvergencePlane
@@ -99,56 +104,115 @@ def _sync(device: torch.device) -> None:
         ev.synchronize()
 
 
-def _copy_cache(cache: dict) -> dict:
-    """A copy of every leaf of a decode cache (``LM.decode_step`` writes
-    the K/V and mamba state of the cache it is given in place)."""
-    return {k: _copy_cache(v) if isinstance(v, dict) else v.clone()
-            for k, v in cache.items()}
-
-
 @dataclass(frozen=True)
 class _LiveModel:
     """One arch's entry points. ``prefill(params, toks)`` returns (next
     token (B, 1), decode cache); ``decode(params, cache, tok)`` returns
-    (next token (B, 1), cache) and advances ``cache`` IN PLACE. Greedy
-    sampling is part of each call, so one stage is exactly one prefill,
-    or one ``decode`` per token. Both run under ``torch.no_grad()``."""
+    (next token (B, 1), the advanced cache). Greedy sampling is part of each
+    call, so one stage is exactly one prefill, or one ``decode`` per token.
+
+    Each is the counterpart of the reference's jitted entry point: a
+    ``launch/graphs.py::CapturedStep`` for the call's shape, one per thread
+    (two workers never share static buffers), made at the first call on a
+    thread or by ``capture``. A call copies its inputs into the step's
+    static buffers (unless they are those buffers: a decode fed its own last
+    output) and replays the step's CUDA graph, or on the CPU and on an eager
+    ``route`` calls the same body. The outputs ARE the step's buffers and
+    its graph's outputs, rewritten by the next call on this thread: clone
+    what must outlive it. The inputs are never written. ``params`` must be
+    the tree the steps were made with (a graph holds its addresses).
+    ``route`` is "graph", or why the arch's steps run eagerly
+    (``graphs.step_route``)."""
 
     cfg: Any
     params: dict
     prefill: Callable
     decode: Callable
     device: torch.device
+    route: str
+    capture: Callable  # (batch, prompt_tokens, decode, warmup) -> None
 
 
 def live_model(model: LM, params: dict, kv_len: int) -> _LiveModel:
     """The live entry points of ``model`` with ``params`` (a params tree
     on the model's device), caching ``kv_len`` positions a sequence."""
+    route = graphs.step_route(model, params)
+    local = threading.local()  # this thread's steps, by shape
 
-    @torch.no_grad()
-    def prefill(params, toks):
-        logits, cache = model.prefill(params, toks, kv_len=kv_len, dtype=F32,
-                                      **_prefill_kwargs(model.cfg, toks))
-        return torch.argmax(logits, -1)[:, None], cache
+    def steps() -> dict:
+        if not hasattr(local, "steps"):
+            local.steps = {}
+        return local.steps
 
-    @torch.no_grad()
-    def decode(params, cache, tok):
-        logits, cache = model.decode_step(params, cache, tok, dtype=F32)
-        return torch.argmax(logits, -1)[:, None], cache
+    def prefill_step(batch, prompt_tokens, warmup=True) -> graphs.CapturedStep:
+        key = ("prefill", batch, prompt_tokens)
+        step = steps().get(key)
+        if step is None:
+            def body(bufs):
+                toks = bufs["toks"]
+                logits, cache = model.prefill(params, toks, kv_len=kv_len, dtype=F32,
+                                              **_prefill_kwargs(model.cfg, toks))
+                return torch.argmax(logits, -1)[:, None], cache
 
-    return _LiveModel(cfg=model.cfg, params=params, prefill=prefill,
-                      decode=decode, device=model.device)
+            toks = torch.zeros((batch, prompt_tokens), dtype=torch.long, device=model.device)
+            step = steps()[key] = graphs.CapturedStep(body, {"toks": toks}, route=route,
+                                                      warmup=warmup)
+        return step
+
+    def decode_step(batch, enc_len, warmup=True) -> graphs.CapturedStep:
+        key = ("decode", batch, enc_len)
+        step = steps().get(key)
+        if step is None:
+            cache = model.init_cache(batch, kv_len, dtype=F32, enc_len=enc_len)
+            step = steps()[key] = graphs.decode_step(model, params, cache, warmup=warmup)
+        return step
+
+    def same_params(p):
+        if p is not params:
+            raise ValueError("live_model: called with another params tree than its steps hold")
+
+    def prefill(p, toks):
+        same_params(p)
+        step = prefill_step(*toks.shape)
+        step.buffers["toks"].copy_(toks)
+        return step()
+
+    def decode(p, cache, tok):
+        same_params(p)
+        enc_len = next(iter(cache["cross"].values()))["k"].shape[2] if "cross" in cache else None
+        step = decode_step(tok.shape[0], enc_len)
+        bufs = step.buffers
+        if cache is not bufs["cache"]:
+            graphs.copy_tree(bufs["cache"], cache)
+        if tok is not bufs["tok"]:
+            bufs["tok"].copy_(tok)
+        step()
+        return bufs["tok"], bufs["cache"]
+
+    def capture(batch, prompt_tokens, decode=True, warmup=True):
+        """Make this thread's steps for one query shape: the prefill of
+        (batch, prompt_tokens) tokens and, with ``decode``, the decode step
+        of its cache (an encoder-decoder's frames are its prompt's)."""
+        prefill_step(batch, prompt_tokens, warmup)
+        if decode:
+            decode_step(batch, prompt_tokens if model.cfg.is_encoder_decoder else None, warmup)
+
+    return _LiveModel(cfg=model.cfg, params=params, prefill=prefill, decode=decode,
+                      device=model.device, route=route, capture=capture)
 
 
 class _ModelPool:
-    """Models shared by every live pool, warmed OUTSIDE the billed
-    window: the first ``ensure`` for an (arch, batch) shape runs one
-    throwaway prefill + decode step and waits for it, so no stage
-    wall-clock ever includes building and loading the CUDA kernels (the
-    first call of each wrapper runs ``nvcc``), and each worker thread's
-    first ``ensure`` runs one GEMM, so no stage pays for the thread's
-    cuBLAS handle. Warm-up seconds (build included) are recorded per
-    shape in ``compile_s`` for observability.
+    """Models shared by every live pool, made ready OUTSIDE the billed
+    window: the first ``ensure`` for an (arch, batch) shape makes the
+    calling thread's prefill and decode steps, each run once on scratch
+    buffers (a throwaway prefill + decode step, so no stage wall-clock ever
+    includes building and loading the CUDA kernels: the first call of each
+    wrapper runs ``nvcc``) and then, on a card, captured; a later thread's
+    first ``ensure`` of the shape captures its own steps, with no warm-up.
+    Each worker thread's first ``ensure`` also runs one GEMM, so no stage
+    pays for the thread's cuBLAS handle. The seconds of each shape's
+    warm-up and captures are summed in ``compile_s``, and its route
+    (captured, or why eager) named in ``routes``, for observability.
 
     Weights are float32 and drawn from a ``torch.Generator`` seeded with
     0 on the device; on a CUDA device float32 GEMMs stay full float32
@@ -160,6 +224,7 @@ class _ModelPool:
         "_models": "_lock",
         "_warm": "_lock",
         "compile_s": "_lock",
+        "routes": "_lock",
     }
 
     def __init__(self, prompt_tokens: int, decode_tokens: int,
@@ -174,6 +239,7 @@ class _ModelPool:
         self._models: dict[str, _LiveModel] = {}
         self._warm: set[tuple[str, int]] = set()
         self.compile_s: dict[tuple[str, int], float] = {}
+        self.routes: dict[tuple[str, int], str] = {}
         self._lock = sanitize.ordered_lock(
             "_ModelPool._lock", threading.Lock()
         )
@@ -199,34 +265,41 @@ class _ModelPool:
     def _warm_thread(self) -> None:
         """First call on this thread: a GEMM and a GEMM with a bias, so
         the thread's cuBLAS and cuBLASLt handles exist before any stage
-        is timed."""
+        is timed, and a prompt draw (a first draw pays the generator's set-up)."""
         if self.device.type != "cuda" or getattr(self._thread, "warm", False):
             return
         a = torch.ones((64, 64), dtype=F32, device=self.device)
         torch.addmm(a[0], a, a @ a)
+        _prompt_inputs(2, 1, 1, 0, self.device)
         _sync(self.device)
         self._thread.warm = True
 
     def ensure(self, arch: str, batch: int) -> _LiveModel:
-        """Return the arch's entry points, warmed for this batch."""
+        """Return the arch's entry points, with this thread's steps made
+        for this batch (``_LiveModel.capture``)."""
         self._warm_thread()
+        key = (arch, batch)
+        ready = self._thread.__dict__.setdefault("ready", set())  # this thread's shapes
         with self._lock:
             lm = self._models.get(arch)
             if lm is None:
                 lm = self._models[arch] = self._build(arch)
-            key = (arch, batch)
-            if key in self._warm:
+            if key not in self._warm:
+                t0 = time.monotonic()
+                lm.capture(batch, self.prompt_tokens, decode=bool(self.decode_tokens))
+                _sync(lm.device)
+                self.compile_s[key] = time.monotonic() - t0
+                self.routes[key] = lm.route
+                self._warm.add(key)
+                ready.add(key)
                 return lm
+        if key not in ready:
             t0 = time.monotonic()
-            toks = _prompt_inputs(lm.cfg.vocab_size, batch,
-                                  self.prompt_tokens, 0, lm.device)
-            tok, cache = lm.prefill(lm.params, toks)
-            if self.decode_tokens:
-                tok, cache = lm.decode(lm.params, cache, tok)
-            _sync(lm.device)
-            self.compile_s[key] = time.monotonic() - t0
-            self._warm.add(key)
-            return lm
+            lm.capture(batch, self.prompt_tokens, decode=bool(self.decode_tokens), warmup=False)
+            with self._lock:
+                self.compile_s[key] += time.monotonic() - t0
+            ready.add(key)
+        return lm
 
 
 @dataclass
@@ -238,10 +311,10 @@ class DecodeCheckpoint:
     is shared by every pool, so remaining chunks can resume on any pool.
 
     ``cache`` holds device tensors and is never written after it is
-    saved: ``decode`` advances a cache in place, so a decode stage
-    COPIES the checkpoint's cache when it loads it (copy on load) and
-    saves the copy it advanced. A worker that dies mid-stage therefore
-    leaves the last boundary's state intact for the resume."""
+    saved: a decode stage copies the checkpoint into its thread's static
+    buffers (copy on load), advances those, and saves a clone of them. A
+    worker that dies mid-stage therefore leaves the last boundary's state
+    intact for the resume."""
 
     cache: Any  # the model's decode cache (dict of tensors)
     tok: Any  # last sampled token, (batch, 1) int64
@@ -450,17 +523,22 @@ class LiveExecutor(ClusterExecutor):
             toks = _prompt_inputs(lm.cfg.vocab_size, batch,
                                   q.work.prompt_tokens, q.qid, lm.device)
             tok, cache = lm.prefill(lm.params, toks)
+            # out of the step's graph pool, which the next prefill rewrites
+            ck = DecodeCheckpoint(graphs.clone_tree(cache), tok.clone(), 0)
             _sync(lm.device)
-            eng._save_ckpt(q, DecodeCheckpoint(cache, tok, 0))
+            eng._save_ckpt(q, ck)
             return
         ck = eng._load_ckpt(q)
         chunk = self.cost_model.decode_chunk_tokens or q.work.output_tokens
         n = min(chunk, q.work.output_tokens - ck.decoded)
-        cache, tok = _copy_cache(ck.cache), ck.tok  # copy on load
+        # the first step copies the checkpoint into this thread's static
+        # buffers (copy on load); the rest advance them in place
+        tok, cache = ck.tok, ck.cache
         for _ in range(n):
             tok, cache = lm.decode(lm.params, cache, tok)
+        ck = DecodeCheckpoint(graphs.clone_tree(cache), tok.clone(), ck.decoded + n)
         _sync(lm.device)
-        eng._save_ckpt(q, DecodeCheckpoint(cache, tok, ck.decoded + n))
+        eng._save_ckpt(q, ck)
 
     def _boundary_stop(self, q: Query, token: object) -> bool:
         """Stage-boundary policy, mirroring the simulator's

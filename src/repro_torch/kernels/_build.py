@@ -10,6 +10,7 @@ the CPU never needs the libraries.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 _fns: dict = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_recorder = threading.local()
 
 
 def _nvcc() -> str:
@@ -105,13 +107,40 @@ def count_launch(wrapper, sq_ne_sk: bool = False) -> None:
     """Add one to ``wrapper.launches``, and to ``wrapper.launches_sq_ne_sk``
     too for an attention launch whose queries and keys differ in length
     (seamless's cross-attention, where the encoder's and the decoder's run
-    at Sq == Sk). Locked: the live engine launches from several worker
-    threads, and ``+=`` on an attribute is a read and a write that another
-    thread can come between."""
+    at Sq == Sk). Inside ``recording_launches`` on this thread (a CUDA
+    graph's capture, where nothing runs) the launch is recorded instead, and
+    ``add_launches`` counts it at each replay."""
+    rec = getattr(_recorder, "launches", None)
+    if rec is not None:
+        n = rec.setdefault(wrapper, [0, 0])
+        n[0] += 1
+        n[1] += sq_ne_sk
+        return
+    add_launches({wrapper: (1, int(sq_ne_sk))})
+
+
+def add_launches(launches: dict) -> None:
+    """Count ``{wrapper: (launches, launches at Sq != Sk)}``. Locked: the
+    live engine launches from several worker threads, and ``+=`` on an
+    attribute is a read and a write that another thread can come between."""
     with _count_lock:
-        wrapper.launches += 1
-        if sq_ne_sk:
-            wrapper.launches_sq_ne_sk += 1
+        for wrapper, (n, n_sq_ne_sk) in launches.items():
+            wrapper.launches += n
+            if n_sq_ne_sk:
+                wrapper.launches_sq_ne_sk += n_sq_ne_sk
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches are recorded, not counted:
+    yields {wrapper: [launches, launches at Sq != Sk]} (``launch/graphs.py``
+    captures a step inside it and adds the record at each replay)."""
+    prev = getattr(_recorder, "launches", None)
+    _recorder.launches = rec = {}
+    try:
+        yield rec
+    finally:
+        _recorder.launches = prev
 
 
 def refuse_fake(name: str, *tensors) -> None:

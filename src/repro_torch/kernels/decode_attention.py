@@ -10,7 +10,8 @@ The kernel splits the slots across blocks (whole tiles of ``split_slots(hd)``
 slots each) and the last block of each (batch, KV head) merges the splits'
 partial softmax states, in one launch; the float32 workspace of the
 partials is allocated here, and the counters that find the last block are
-kept per device.
+kept per device (every buffer made stays held, as a captured graph holds its
+address).
 
 With ``return_lse`` the call also returns each head's log-sum-exp (B,H)
 float32 of its scaled and capped scores over the valid slots (-inf for a
@@ -38,18 +39,26 @@ from .ref import decode_attention_ref
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+#: device -> every counter buffer made there, the newest last
 _counters: dict = {}
 
 
 def _counter_buffer(device, n: int) -> torch.Tensor:
     """At least n int32 counters on device, kept between calls: the kernel
     counts each (batch, KV head)'s finished splits in them and leaves them
-    at zero. Calls share them, so they run on one stream, as the port's do."""
-    buf = _counters.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[device] = buf
-    return buf
+    at zero, so replays of a captured graph on the one stream find them zero
+    too. Calls share them, so they run on one stream, as the port's do. A
+    larger call makes a larger buffer, and every buffer made stays held: a
+    captured graph (``launch/graphs.py``) keeps the address it was captured
+    with. None is made inside a capture, where its zero fill would not run
+    until the first replay: raises there."""
+    held = _counters.setdefault(device, [])
+    if not held or held[-1].numel() < n:
+        if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"decode_attention: {n} counters needed inside a CUDA graph "
+                               f"capture; run the step once eagerly first")
+        held.append(torch.zeros(max(n, 1024), dtype=torch.int32, device=device))
+    return held[-1]
 
 
 def split_slots(hd: int) -> int:

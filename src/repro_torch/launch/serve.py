@@ -9,7 +9,11 @@ service levels; admission order is IMMEDIATE > RELAXED (deadline-aware) >
 BEST_EFFORT, i.e. the flexible-SLA queues applied at the slot-admission
 level. On a CUDA device prefill runs the flash-attention kernel (mamba2:
 the SSD-scan kernel) and every decode step of an attention arch the
-decode-attention kernel; on the CPU their plain versions.
+decode-attention kernel; on the CPU their plain versions. The decode step
+is a captured CUDA graph (``launch/graphs.py``), the counterpart of the
+reference's jitted ``_decode``: one replay a step, its cache the engine's
+``cache``; the MoE archs, and the CPU, call the same step eagerly. Prefill
+stays eager, as the reference leaves it un-jitted.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from ..configs import get_config
 from ..core.sla import ServiceLevel
 from ..models.transformer import LM
+from . import graphs
 
 F32 = torch.float32
 
@@ -62,7 +67,11 @@ class ServeEngine:
         self.params = params
         self.slots = slots
         self.max_len = max_len
-        self.cache = self.model.init_cache(slots, max_len, dtype=F32)
+        # warmed up and captured here, on a card: before the first request
+        self._decode = graphs.decode_step(self.model, params,
+                                          self.model.init_cache(slots, max_len, dtype=F32),
+                                          warmup=self.device.type == "cuda")
+        self.cache = self._decode.buffers["cache"]
         self.active: list[Optional[Request]] = [None] * slots
         self.queues = {lvl: [] for lvl in ServiceLevel}
         self.t0 = time.monotonic()
@@ -120,8 +129,10 @@ class ServeEngine:
             [(r.out_tokens[-1] if r and r.out_tokens else 0) for r in self.active],
             dtype=torch.long, device=self.device,
         )[:, None]
-        logits, self.cache = self.model.decode_step(self.params, self.cache, toks, dtype=F32)
-        nxt = torch.argmax(logits, dim=-1).tolist()
+        tok = self._decode.buffers["tok"]
+        tok.copy_(toks)
+        self._decode()  # the logits' argmax, written into tok
+        nxt = tok[:, 0].tolist()
         for s, r in enumerate(self.active):
             if r is None:
                 continue

@@ -96,7 +96,9 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.T
     """(.., hd/2) rotation angles for given absolute positions."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=F32, device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=F32, device=positions.device), exps)
+    # a fill, not torch.tensor: that copies from host memory and waits for the
+    # device, which a CUDA graph's capture (launch/graphs.py) refuses
+    freq = torch.pow(torch.full((), theta, dtype=F32, device=positions.device), exps)
     return positions.to(F32)[..., None] * freq
 
 

@@ -503,7 +503,8 @@ class LM:
         else:
             x = table[tokens.long()].to(dtype)
         if cfg.scale_embeddings:
-            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
+            # a fill, not a copy from the host: a captured step holds it
+            x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(dtype), x], dim=1)
         return shard(x, "batch", "seq", "embed")

@@ -51,7 +51,12 @@ forward at hd 8, 16, 32 (flash_mma_kernel) against its step-by-step plain
 version (ref.flash_attention_mma_ref): the output within 2^-7 (MMA_TOL: both
 round P and the output to bf16 from float32 sums in other orders, so a value
 on a rounding boundary may round the other way, one bf16 unit in the last
-place), the log-sum-exp within 1e-4.
+place), the log-sum-exp within 1e-4. A captured decode step
+(launch/graphs.py) at reduced size: 8 replays bit for bit 8 eager
+LM.decode_step calls (logits and every cache leaf), the decode kernel's
+launches counted at each replay and not at the capture; one thread captures
+while another decodes eagerly on the default stream, and both give the
+bits of an eager run made alone.
 """
 import pytest
 import torch
@@ -1081,3 +1086,130 @@ def test_reduced_training_across_the_registry_kernels_match_plain(dev, arch):
                                              remat=remat, compute_dtype=torch.float32)
         assert torch.equal(loss, lk), remat
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(gk))), remat
+
+
+def _served(dev, arch, batch=2, prompt=20):
+    """(LM, float32 params, the cache and next token of one prefill) of
+    ``arch`` at reduced size on the card, seeded."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+
+    cfg = get_config(arch, reduced=True)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    lm = LM(cfg, device=dev)
+    params = lm.init(gen, dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["enc_embeds"] = torch.randn((batch, prompt, cfg.d_model), generator=gen, device=dev)
+    if cfg.frontend == "vision_patches":
+        kw["frontend_embeds"] = torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                                            generator=gen, device=dev)
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, toks, kv_len=32, dtype=torch.float32, **kw)
+    return lm, params, cache, torch.argmax(logits, -1)[:, None]
+
+
+def _eager_steps(lm, params, cache, tok, steps):
+    """``steps`` greedy eager ``LM.decode_step`` calls from a copy of
+    ``cache``: (each step's logits, the last cache)."""
+    from repro_torch.launch import graphs
+
+    cache, out = graphs.clone_tree(cache), []
+    with torch.no_grad():
+        for _ in range(steps):
+            logits, cache = lm.decode_step(params, cache, tok, dtype=torch.float32)
+            tok = torch.argmax(logits, -1)[:, None]
+            out.append(logits)
+    return out, cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["paper-default", "mamba2-2.7b", "gemma2-2b",
+                                  "seamless-m4t-large-v2", "internvl2-76b"])
+def test_captured_decode_replays_the_eager_steps_bit_for_bit(dev, arch):
+    """A captured decode step (launch/graphs.py), replayed 8 times from a
+    prefill's cache, gives the logits of 8 eager ``LM.decode_step`` calls and
+    their cache, bit for bit; the decode kernel's launches are counted at
+    each replay (one a self-attention layer, two with cross-attention) and
+    none at the capture."""
+    from repro_torch.launch import graphs
+
+    lm, params, cache, tok = _served(dev, arch)
+    want, want_cache = _eager_steps(lm, params, cache, tok, 8)
+    n0 = decode_attention.launches
+    step = graphs.decode_step(lm, params, graphs.clone_tree(cache))
+    assert step.route == "graph" and step.graph is not None
+    sites = lm.cfg.layer_kinds().count("attn") * (2 if lm.cfg.is_encoder_decoder else 1)
+    assert decode_attention.launches == n0 + sites  # the warm-up's, not the capture's
+    step.buffers["tok"].copy_(tok)
+    for i in range(8):
+        assert torch.equal(step(), want[i]), i
+    assert decode_attention.launches == n0 + 9 * sites
+    got = _flat(step.buffers["cache"])
+    assert got.keys() == _flat(want_cache).keys()
+    for k, v in _flat(want_cache).items():
+        assert torch.equal(got[k], v), k
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.cuda
+def test_capture_beside_an_eager_decode_on_another_thread(dev):
+    """The live engine's workers share the default stream: one thread
+    captures a decode step (``capture_error_mode="thread_local"``) while
+    another decodes eagerly on the default stream, over and over. Every
+    eager run equals the eager run made alone, and the captured step's
+    replays equal it too."""
+    import threading
+
+    from repro_torch.launch import graphs
+
+    lm, params, cache, tok = _served(dev, "paper-default")
+    want, want_cache = _eager_steps(lm, params, cache, tok, 8)
+    captured, done, errors, runs = [], threading.Event(), [], []
+    start = threading.Barrier(2)
+
+    def eager():
+        start.wait()
+        try:
+            while not done.is_set() or not runs:
+                got, _ = _eager_steps(lm, params, cache, tok, 8)
+                runs.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+        except RuntimeError as e:
+            errors.append(f"eager: {e}")
+
+    def capture():
+        a = torch.ones((64, 64), device=dev)  # this thread's cuBLAS handles, as
+        torch.addmm(a[0], a, a @ a)           # the live engine's _warm_thread
+        torch.cuda.current_stream().synchronize()
+        start.wait()
+        try:
+            captured.append(graphs.decode_step(lm, params, graphs.clone_tree(cache),
+                                               warmup=False))
+        except RuntimeError as e:
+            errors.append(f"capture: {e}")
+        finally:
+            done.set()
+
+    threads = [threading.Thread(target=eager), threading.Thread(target=capture)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and runs and all(runs), (errors, runs)
+    step = captured[0]
+    step.buffers["tok"].copy_(tok)
+    for i in range(8):
+        assert torch.equal(step(), want[i]), i
+    for k, v in _flat(want_cache).items():
+        assert torch.equal(_flat(step.buffers["cache"])[k], v), k

@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (there is no CPU fallback):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from src/repro_torch/csrc with nvcc, one
+  2. build the five CUDA kernels from src/repro_torch/csrc with nvcc, one
      process each, all at once, and print ptxas's registers and spills of
      every kernel (the float32 flash route: flash_tf32_kernel<hd>; the bf16
      one at hd 64, 128 and 256: flash_wg_kernel<hd>), and on lines of their
@@ -49,7 +49,17 @@ Phases, each of which raises on failure (there is no CPU fallback):
      log-sum-exp, and the backward at hd 256 (G S under one stage, S under
      one key tile, a ragged last tile, a window inside a tile, non-causal,
      2,048 tokens with cut key tiles, Sq != Sk both ways); every kernel run
-     twice on each case, bit for bit;
+     twice on each case, bit for bit; first of all, the gathered MoE decode
+     (moe_decode) on one mixtral layer at full width (x (B,4096), 8
+     experts of d_ff 14336, top-2; float32 weights) at B 1, 4 and 16
+     (several tokens an expert), a mesh rank's 4 experts of 8 and half of
+     d_ff, float32 and bf16 (and B 4 on bf16 weights), twice bit for bit,
+     against its step-by-step plain version (moe_gathered_ref) and the
+     plain loop within MOE_KERNEL_TOL of max |y|; then its timed line at B
+     4 in float32: device ms (a replayed CUDA graph), eager ms, each of its
+     three kernels' µs, the plain loop's ms, the reference's algorithm in
+     PyTorch (the chosen weights copied out, then einsums) as the
+     yardstick, and the bound (the distinct chosen experts' bytes);
   4. paper-default at full width (16 layers, d_model 1024, random weights
      from a seeded torch.Generator): prefill of a 333-token prompt and 16
      teacher-forced decode steps through the kernels and through the plain
@@ -156,15 +166,21 @@ Phases, each of which raises on failure (there is no CPU fallback):
      128; float32 weights from a seeded torch.Generator), one arch at a
      time: (a) as phase 4 at batch 4 (a 333-token prompt, 16
      teacher-forced decode steps, kernels against plain, 4 flash launches
-     a prefill and 4 decode launches a step); (b) one full-width
+     a prefill and 4 decode launches a step, mixtral also 4 moe_decode
+     launches a step; its "[graph]" line: 16 replays of the captured decode
+     step bit for bit 16 eager steps); (b) one full-width
      moe_apply in float32 against float64 copies of its inputs and
      weights on every branch the arch reaches (prefill (4,333,4096);
      decode (4,1,4096), gathered for mixtral and one group for phi3.5;
      mixtral also (17,1,4096), one group): y within 1e-4 of max |y64|,
      aux within 1e-5, two float32 runs bit for bit, and the prefill's
      dropped slots; (c) prefill ms, decode-step ms with 4 slots busy and
-     a torch.profiler profile of decode steps: device busy ms, idle share,
-     top kernels and the MoE FFN's device time and share;
+     a torch.profiler profile of eager decode steps: device busy ms, idle
+     share, top kernels and the MoE FFN's device time and share; the same
+     step captured and replayed: step ms, busy ms, idle share; (d) after
+     both archs, the live engine at LiveConfig's defaults (reduced configs)
+     on mixtral, phi3.5 and jamba, 2 IMMEDIATE queries each: every query
+     done, every route "graph", the launches of every prefill and step;
  15. the Table 1 archs and the H100 calibration input (phase 14's models
      freed first): (a) qwen2-0.5b, internlm2-1.8b and granite-8b (36
      layers, d_model 4096, GQA 32:8, hd 128, d_ff 14336) at full width
@@ -208,7 +224,9 @@ Phases, each of which raises on failure (there is no CPU fallback):
      decode step with and without int8 in turns; (b) jamba-v0.1-52b at
      full width, depth 8 of 32 (one hybrid
      period), batch 2, a 256-token prompt: 7 SSD scans and 1 flash a
-     prefill, 1 decode a step; (c) seamless-m4t-large-v2 at full width and
+     prefill, 1 decode a step, its 16-expert MoE layers' decode routed as
+     one group (captured: its "[graph]" line); (c) seamless-m4t-large-v2 at
+     full width and
      depth (24 + 24 layers), batch 4, with 333 encoder frames for a
      333-token prompt and 512 for 200: 72 flash launches a prefill (24
      encoder, 24 causal, 24 cross), 48 decode launches a step; (d)
@@ -350,7 +368,9 @@ Phases, each of which raises on failure (there is no CPU fallback):
      of its largest magnitude, then the merge check as in (e) at the
      attention layer's shapes (hd 128, 2,048 and 262,208 slots a rank),
      timing the kernel on an empty rank with and without lse;
-     a decode launch an attention layer a rank a step, the last step
+     a decode launch an attention layer a rank a step (and mixtral's
+     gathered MoE decode a launch a layer a rank a step, on the rank's 4
+     experts), the last step
      profiled (gloo's share); (g) the decode
      kernel with its log-sum-exp on a cache cut into uneven slot ranges
      (bf16, qwen2-0.5b's heads): the ranges merged by spmd.lse_merge within
@@ -358,15 +378,16 @@ Phases, each of which raises on failure (there is no CPU fallback):
      the range past every row's last slot -inf. Every cut is printed as
      "reduced".
 Serving replays captured steps (repro_torch.launch.graphs): ServeEngine's
-decode step (phases 5, 7) and the live engine's prefill and decode (13, 15
-(c), 16 (e)) are CUDA graphs, one replay a step, their launch counts exact
-under replay; the MoE archs' steps run eagerly by a named rule. Wherever
-check_model builds a model (phases 4, 6, 4 (b), 15 (a), 16 (c), (d)), a
-"[graph]" line holds 16 replays of its captured decode step bit for bit
-against 16 eager LM.decode_step calls from the same cache (logits and every
-cache leaf) and gives each one's step ms (host clock), device busy ms and
-idle share, kernels a step, the capture's seconds and pool bytes, beside the
-card; an arch kept eager (14 (a), 16 (b)) is named there with its reason.
+decode step (phases 5, 7) and the live engine's prefill and decode (13, 14
+(d), 15 (c), 16 (e)) are CUDA graphs, one replay a step, their launch counts
+exact under replay; the MoE archs' too (their gathered decode reads the
+chosen experts on the card). Wherever check_model builds a model (phases
+4, 6, 4 (b), 14 (a), 15 (a), 16 (b)-(d)), a "[graph]" line holds 16 replays
+of its captured decode step bit for bit against 16 eager LM.decode_step
+calls from the same cache (logits and every cache leaf, the decode and MoE
+kernels' launches counted at each replay) and gives each one's step ms (host
+clock), device busy ms and idle share, kernels a step, the capture's seconds
+and pool bytes, beside the card.
 Phase 13 also times one decode stage through the eager body beside the
 replayed one; 13, 15 (c) and 16 (e) print compile_s (warm-up and captures)
 and each shape's route.
@@ -420,13 +441,15 @@ from repro_torch.kernels.flash_attention import (flash_attention, flash_attentio
 from repro_torch.kernels.flash_attention_bwd import (cached_schedule, dkdv_schedule,  # noqa: E402
                                                      flash_attention_bwd, route as bwd_route,
                                                      tc_plan, tf32_bwd_plan, workspace_numel)
+from repro_torch.kernels.moe_decode import moe_decode  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_bwd_split_ref, flash_attention_lse_ref,
                                      flash_attention_mma_ref, flash_attention_ref,
-                                     flash_attention_split_ref, ssd_scan_ref, ssd_sequential_ref)
+                                     flash_attention_split_ref, moe_gathered_ref, ssd_scan_ref,
+                                     ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, sdpa_kernel, ssd_scan_diff  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
-from repro_torch.kernels.trace import attention_pairs  # noqa: E402
+from repro_torch.kernels.trace import attention_pairs, moe_counts  # noqa: E402
 from repro_torch.launch import dryrun, graphs, multihost, paper_repro  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.programs import build_program  # noqa: E402
@@ -434,7 +457,8 @@ from repro_torch.launch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.launch.serve_sla import serve_traffic  # noqa: E402
 from repro_torch.launch.train import SimulatedFailure, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.layers import _sdpa_dense, moe_apply, moe_capacity, moe_route  # noqa: E402
+from repro_torch.models.layers import (_gathered_loop, _sdpa_dense, moe_apply,  # noqa: E402
+                                       moe_capacity, moe_route, moe_topk)
 from repro_torch.models.params import count_params, init_param, tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import LM, head_logits, plain_head_logits  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
@@ -995,6 +1019,118 @@ def check_kernels(device) -> dict:
     return errs
 
 
+#: phase 3's gathered MoE decode at mixtral's width (d_model 4096, d_ff
+#: 14336, 8 experts, top-2): B tokens, the experts held [e0, e0 + E_l) and
+#: the slice of d_ff held (a (2, 2) mesh rank's share: its 4 experts, or
+#: half of every expert's hidden dim)
+MOE_D, MOE_F, MOE_E, MOE_K = 4096, 14336, 8, 2
+MOE_KERNEL_CASES = [
+    (1, 0, 8, None), (4, 0, 8, None),
+    (16, 0, 8, None),  # 32 pairs on 8 experts: several tokens an expert
+    (4, 4, 4, None), (4, 0, 8, (0, 7168)),
+]
+#: the kernel against its step-by-step plain version and the plain loop,
+#: relative to the output's largest magnitude: float32 sums in other orders;
+#: in bf16 a sum that falls on a rounding boundary moves an output by a bf16
+#: unit or two (tests/test_torch_cuda.py holds the same)
+MOE_KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+MOE_TIME_B = 4  # the timed line's tokens: phase 14's decode batch
+
+
+def _moe_close(name, got, want, rel) -> float:
+    """max |got - want|, within ``rel`` of max |want|; raise otherwise."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+        raise AssertionError(f"{name}: {tuple(got.shape)} not finite or not {tuple(want.shape)}")
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if err > rel * scale:
+        raise AssertionError(f"{name}: max abs err {err} beyond {rel} x {scale}")
+    return err
+
+
+def _moe_route(gen, router, B, dtype):
+    """x (B, d_model) drawn from ``gen`` in ``dtype``, and its top-2 ids and
+    normalised gates through ``router``, as ``layers._moe_gathered`` takes
+    them."""
+    x = torch.randn((B, router.shape[0]), generator=gen, device=router.device).to(dtype)
+    gate, eidx = moe_topk(torch.softmax(x.float() @ router, -1), MOE_K)
+    return x, eidx.contiguous(), (gate / gate.sum(-1, keepdim=True)).to(dtype)
+
+
+def _gathered_einsum(x, eidx, gate, wi, wg, wo):
+    """The reference's ``_moe_gathered`` in PyTorch: the chosen experts'
+    weights copied out ((B, K, D, F) a weight), then three einsums. The
+    timed line's yardstick; no path of the port calls it."""
+    h = torch.einsum("bd,bkdf->bkf", x, wi[eidx])
+    g = torch.einsum("bd,bkdf->bkf", x, wg[eidx])
+    return torch.einsum("bkf,bkfd->bd", F.silu(g) * h * gate[..., None], wo[eidx])
+
+
+def check_moe_kernel(device) -> tuple[dict, dict]:
+    """Phase 3, the gathered MoE decode: one mixtral MoE layer at full width
+    (float32 weights from a seeded generator, 5.6 GB, and a router), each
+    of MOE_KERNEL_CASES in float32 and bf16 (float32 weights, rounded as
+    loaded) and B 4 in bf16 on bf16 weights: the kernel twice bit for bit,
+    against ``moe_gathered_ref`` and the plain loop within MOE_KERNEL_TOL.
+    Then the timed line at B = MOE_TIME_B in float32: the kernel's device
+    ms (a replayed CUDA graph) and eager ms, each of its three kernels' µs,
+    the plain loop's ms (the parent's route, its host read included), the
+    reference's algorithm in PyTorch (``_gathered_einsum``) as the
+    yardstick, and the bound: the distinct chosen experts' bytes, and the
+    pairs' FLOPs on the CUDA cores (``trace.moe_counts``); no one PyTorch
+    call computes the function, so ``library_ms`` is null. Returns (errs,
+    the timed line)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    D, Fd, E = MOE_D, MOE_F, MOE_E
+    wi, wg = (torch.randn((E, D, Fd), generator=gen, device=device) * D ** -0.5
+              for _ in range(2))
+    wo = torch.randn((E, Fd, D), generator=gen, device=device) * Fd ** -0.5
+    router = torch.randn((D, E), generator=gen, device=device) * D ** -0.5
+    errs, checked = {}, 0
+    cases = [(c, dt, False) for dt in (torch.float32, torch.bfloat16) for c in MOE_KERNEL_CASES]
+    for (B, e0, E_l, fs), dtype, bf16_weights in cases + [(MOE_KERNEL_CASES[1], torch.bfloat16,
+                                                           True)]:
+        x, eidx, gate = _moe_route(gen, router, B, dtype)
+        if B == 16 and int(torch.bincount(eidx.reshape(-1), minlength=E).max()) < 2:
+            raise AssertionError("moe_decode: no expert took two tokens at B 16")
+        f0, f1 = fs or (0, Fd)
+        ws = [wi[e0:e0 + E_l, :, f0:f1], wg[e0:e0 + E_l, :, f0:f1], wo[e0:e0 + E_l, f0:f1]]
+        ws = [w.to(torch.bfloat16) if bf16_weights else w.contiguous() for w in ws]
+        name = (f"moe_decode B {B} experts {e0}-{e0 + E_l - 1} d_ff {f0}:{f1} {dtype}"
+                + (" on bf16 weights" if bf16_weights else ""))
+        got = _twice(name, lambda: moe_decode(x, eidx, gate, *ws, e0=e0))
+        _moe_close(f"{name} vs step-by-step plain",
+                   got, moe_gathered_ref(x, eidx, gate, *ws, e0=e0), MOE_KERNEL_TOL[dtype])
+        err = _moe_close(f"{name} vs plain loop", got,
+                         _gathered_loop(x, eidx, gate, *ws, e0=e0), MOE_KERNEL_TOL[dtype])
+        if (B, e0, fs, dtype, bf16_weights) == (MOE_TIME_B, 0, None, torch.float32, False):
+            errs["moe_decode"] = err
+        checked += 1
+        del ws, got
+    torch.cuda.synchronize(device)
+    x, eidx, gate = _moe_route(gen, router, MOE_TIME_B, torch.float32)
+    chosen = eidx.tolist()
+    flops, nbytes = moe_counts(chosen, 0, E, D, Fd, 4, 4)
+    bound_s, bound_by = kernel_bound(flops, nbytes, f32=True, hw=H100)
+    args = [(x, eidx, gate, wi, wg, wo)]
+    timed = {
+        "ms": _graph_ms(lambda *a: moe_decode(*a), args, 10),
+        "eager_ms": _time_ms(lambda *a: moe_decode(*a), args, 20),
+        "kernels_us": _kernel_us(lambda *a: moe_decode(*a), args, calls=10),
+        "plain_ms": _time_ms(lambda *a: _gathered_loop(*a), args, 10),
+        # no one PyTorch call reads experts by ids held on the device
+        "library_ms": None,
+        "yardstick_ms": _time_ms(lambda *a: _gathered_einsum(*a), args, 5),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        "distinct_experts": len({e for row in chosen for e in row}), "pairs": MOE_TIME_B * MOE_K,
+        "shape": f"x ({MOE_TIME_B},{D}) float32, {E} experts of d_ff {Fd} in float32, top-2",
+        "cases_checked": checked,
+    }
+    del wi, wg, wo
+    torch.cuda.empty_cache()
+    return errs, timed
+
+
 def model_inputs(cfg, batch, prompt_len, steps, device, enc_len=None, seed=0):
     """Seeded prompt (batch, prompt_len), teacher-forced tokens (steps,
     batch, 1) and the prefill's frontend/encoder inputs: frame embeddings
@@ -1014,17 +1150,25 @@ def model_inputs(cfg, batch, prompt_len, steps, device, enc_len=None, seed=0):
     return prompt, forced, kw
 
 
-def path_launches(cfg, prefills, steps) -> dict:
+def path_launches(cfg, prefills, steps, batch=1) -> dict:
     """The kernel launches of ``prefills`` prefills and ``steps`` decode
-    steps: a flash launch a prefill for each attention sublayer, and for an
-    encoder-decoder one more for each encoder layer (non-causal) and each
-    cross-attention; an SSD scan a prefill for each mamba sublayer; a decode
-    launch a step for each attention sublayer, two with cross-attention."""
+    steps of ``batch`` rows: a flash launch a prefill for each attention
+    sublayer, and for an encoder-decoder one more for each encoder layer
+    (non-causal) and each cross-attention; an SSD scan a prefill for each
+    mamba sublayer; a decode launch a step for each attention sublayer, two
+    with cross-attention; for an arch with MoE layers ("moe_decode" only
+    there), a gathered MoE decode launch a step for each MoE sublayer where
+    the decode takes that branch (at most 16 rows, an expert count that is
+    not a multiple of 16)."""
     n_attn = cfg.layer_kinds().count("attn")
     cross = 2 if cfg.is_encoder_decoder else 1
-    return {"flash_attention": prefills * (n_attn * cross + cfg.num_encoder_layers),
-            "decode_attention": steps * n_attn * cross,
-            "ssd_scan": prefills * cfg.layer_kinds().count("mamba")}
+    out = {"flash_attention": prefills * (n_attn * cross + cfg.num_encoder_layers),
+           "decode_attention": steps * n_attn * cross,
+           "ssd_scan": prefills * cfg.layer_kinds().count("mamba")}
+    if "moe" in cfg.ffn_kinds():
+        gathered = batch <= 16 and cfg.num_experts % 16 != 0
+        out["moe_decode"] = steps * cfg.ffn_kinds().count("moe") if gathered else 0
+    return out
 
 
 def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16, cfg=None,
@@ -1045,6 +1189,7 @@ def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16, cfg=
     flash_attention.launches = 0
     decode_attention.launches = 0
     ssd_scan.launches = 0
+    moe_decode.launches = 0
     worst = 0.0
     with torch.no_grad():
         lk, ck = lm_k.prefill(params, prompt, kv_len=kv_len, dtype=torch.float32, **kw)
@@ -1061,7 +1206,9 @@ def check_model(device, arch=ARCH, reduced=False, prompt_len=333, steps=16, cfg=
                 lp, cp = lm_p.decode_step(params, cp, forced[step], dtype=torch.float32)
     counts = {"flash_attention": flash_attention.launches,
               "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
-    want = path_launches(cfg, 1, steps)
+    want = path_launches(cfg, 1, steps, batch)
+    if "moe_decode" in want:
+        counts["moe_decode"] = moe_decode.launches
     if counts != want:
         raise AssertionError(f"model: launches {counts}, expected {want}")
     if not torch.equal(ck["lengths"], cp["lengths"]):
@@ -1192,16 +1339,16 @@ def _busy(fn, steps) -> tuple[float, float]:
 
 
 def graph_check(device, lm, params, cache, tok) -> dict:
-    """Phases 4, 6, 4 (b), 15 (a), 16 (c), (d): ``GRAPH_STEPS`` replays of the
-    captured decode step (``launch/graphs.py``) from ``cache`` and ``tok``
-    against as many eager greedy ``LM.decode_step`` calls from the same
-    cache: each step's logits and every cache leaf at the end bit-equal, the
-    decode kernel's launches counted at each replay, else raise. Then the
-    eager body and the replay each: step ms on the host clock, device busy
-    ms, idle share and kernels a step (torch.profiler), the capture's
-    seconds and the bytes its pool reserved. Prints a ``[graph]`` line. An
-    arch whose steps stay eager by rule (``graphs.step_route``) is named on
-    its line and not run."""
+    """Phases 4, 6, 4 (b), 14 (a), 15 (a), 16 (b)-(d): ``GRAPH_STEPS`` replays
+    of the captured decode step (``launch/graphs.py``) from ``cache`` and
+    ``tok`` against as many eager greedy ``LM.decode_step`` calls from the
+    same cache: each step's logits and every cache leaf at the end
+    bit-equal, the decode kernel's and the gathered MoE decode's launches
+    counted at each replay, else raise. Then the eager body and the replay
+    each: step ms on the host clock, device busy ms, idle share and kernels
+    a step (torch.profiler), the capture's seconds and the bytes its pool
+    reserved. Prints a ``[graph]`` line. A model whose steps stay eager by
+    rule (``graphs.step_route``) is named on its line and not run."""
     card = card_line()
     route = graphs.step_route(lm, params)
     if route != "graph":
@@ -1218,7 +1365,7 @@ def graph_check(device, lm, params, cache, tok) -> dict:
     # the eager steps above ran this shape in this process: no warm-up
     step = graphs.decode_step(lm, params, graphs.clone_tree(cache), warmup=False)
     step.buffers["tok"].copy_(tok)
-    n0 = decode_attention.launches
+    n0, m0 = decode_attention.launches, moe_decode.launches
     for i in range(GRAPH_STEPS):
         if not torch.equal(step(), want[i]):
             raise AssertionError(f"graph {lm.cfg.name}: replay {i}'s logits differ from the "
@@ -1229,11 +1376,13 @@ def graph_check(device, lm, params, cache, tok) -> dict:
     if got.keys() != ref.keys() or differ or not torch.equal(step.buffers["tok"], eager_tok):
         raise AssertionError(f"graph {lm.cfg.name}: after {GRAPH_STEPS} replays the cache "
                              f"leaves {differ} (or the token) differ from the eager steps'")
-    sites = path_launches(lm.cfg, 0, 1)["decode_attention"]
-    if decode_attention.launches - n0 != GRAPH_STEPS * sites:
-        raise AssertionError(f"graph {lm.cfg.name}: {decode_attention.launches - n0} decode "
-                             f"launches counted in {GRAPH_STEPS} replays, expected "
-                             f"{GRAPH_STEPS * sites}")
+    sites = path_launches(lm.cfg, 0, 1, int(tok.shape[0]))
+    got_n = {"decode_attention": decode_attention.launches - n0,
+             "moe_decode": moe_decode.launches - m0}
+    want_n = {k: GRAPH_STEPS * sites.get(k, 0) for k in got_n}
+    if got_n != want_n:
+        raise AssertionError(f"graph {lm.cfg.name}: launches {got_n} counted in {GRAPH_STEPS} "
+                             f"replays, expected {want_n}")
     body = graphs.decode_body(lm, params)
     bufs = {"cache": graphs.clone_tree(cache), "tok": tok.clone()}
 
@@ -1242,8 +1391,8 @@ def graph_check(device, lm, params, cache, tok) -> dict:
             body(bufs)
 
     out = {"arch": lm.cfg.name, "route": route, "batch": int(tok.shape[0]),
-           "steps_bit_equal": GRAPH_STEPS, "capture_s": step.capture_s,
-           "pool_bytes": step.pool_bytes}
+           "steps_bit_equal": GRAPH_STEPS, "replay_launches": got_n,
+           "capture_s": step.capture_s, "pool_bytes": step.pool_bytes}
     for name, fn in (("eager", eager), ("replayed", step)):
         fn()
         ms = _host_ms(fn, 10)
@@ -2597,12 +2746,18 @@ def check_moe_f64(device, cfg, params) -> dict:
     return out
 
 
+#: the gathered MoE decode's kernels in a profile (csrc/moe_decode.cu)
+MOE_KERNEL_MARK = "moe_up_kernel", "moe_down_kernel", "moe_combine_kernel"
+
+
 def moe_times(device, cfg, params, steps=8) -> dict:
     """Phase 14 (c): prefill ms of MOE_BATCH x 333 tokens and decode-step ms
     with MOE_BATCH slots busy (host clock around synchronised runs), and a
-    torch.profiler profile of decode steps: the device's busy time a step,
-    its idle share, the top kernels, and the MoE FFN's device time (every
-    ``moe_apply`` call runs inside a ``record_function`` range here)."""
+    torch.profiler profile of eager decode steps: the device's busy time a
+    step, its idle share, the top kernels, and the MoE FFN's device time
+    (every ``moe_apply`` call runs inside a ``record_function`` range here);
+    then the same step captured (``graphs.decode_step``) and replayed: its
+    step ms, device busy ms and idle share."""
     lm = LM(cfg, impl="cuda", device=device)
     prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size,
                                                                (MOE_BATCH, 333)), device=device)
@@ -2629,9 +2784,9 @@ def moe_times(device, cfg, params, steps=8) -> dict:
         torch.cuda.synchronize(device)
         step_ms = 1e3 * (time.perf_counter() - t0) / steps
 
-        def labelled(*args):
+        def labelled(*args, **kw):
             with torch.profiler.record_function("moe_ffn"):
-                return moe_apply(*args)
+                return moe_apply(*args, **kw)
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         transformer.moe_apply = labelled
@@ -2642,15 +2797,23 @@ def moe_times(device, cfg, params, steps=8) -> dict:
                 torch.cuda.synchronize(device)
         finally:
             transformer.moe_apply = moe_apply
+        captured = graphs.decode_step(lm, params, cache, warmup=False)
+        captured.buffers["tok"].copy_(tok)
+        captured()
+        replayed_ms = _host_ms(captured, steps)
+        replayed_busy, _ = _busy(captured, steps)
+        del captured
     events = prof.key_averages()
     rows = [(e.key, e.self_device_time_total / steps, e.count / steps) for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
             and e.key != "moe_ffn"]
     busy_ms = sum(t for _, t, _ in rows) / 1e3
-    # the range's row on the host holds the device time of the kernels
-    # launched inside it
+    # the range's row on the host holds the device time of the aten kernels
+    # launched inside it; the gathered decode's kernels, launched through
+    # ctypes, are not attributed to it, and are added by name
     moe_ms = sum(e.device_time_total for e in events
                  if e.key == "moe_ffn" and e.device_type == torch.autograd.DeviceType.CPU)
+    moe_ms += sum(t for k, t, _ in rows if any(m in k for m in MOE_KERNEL_MARK)) * steps
     moe_ms = moe_ms / steps / 1e3
     top = sorted(rows, key=lambda r: -r[1])[:6]
     return {
@@ -2663,6 +2826,9 @@ def moe_times(device, cfg, params, steps=8) -> dict:
         "moe_ffn_share_of_step": moe_ms / step_ms if moe_ms else "not measured",
         "kernel_launches_per_step": sum(n for _, _, n in rows),
         "top_kernels_us_per_step": [[k[:60], round(t, 3), n] for k, t, n in top],
+        "replayed": {"step_ms": replayed_ms, "device_busy_ms": replayed_busy,
+                     "device_idle_share": (1.0 - replayed_busy / replayed_ms if replayed_busy
+                                           else "not measured")},
         "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
     }
 
@@ -2689,6 +2855,66 @@ def moe(device, arch, card) -> dict:
     del params
     torch.cuda.empty_cache()
     return {"model": model, "f64": f64, "times": times}
+
+
+LIVE_MOE_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b")
+LIVE_MOE_PER_ARCH = 2
+
+
+def live_moe(device, card) -> dict:
+    """Phase 14 (d): the live engine at LiveConfig's defaults (the reduced
+    configs, 32-token prompts, 4 decode tokens in stages of 2) on the MoE
+    archs, LIVE_MOE_PER_ARCH IMMEDIATE queries each: every query done and
+    billed once a stage, each (arch, batch)'s steps captured (``routes``
+    all "graph"), and the kernels' launches those of every warm-up (a
+    prefill and a step), prefill and decode step (``path_launches``: the
+    reduced configs' 4 experts take the gathered decode)."""
+    eng = LiveEngine(LiveConfig(device=str(device)))
+    _zero_launches()
+    t0 = time.perf_counter()
+    qs = [Query(work=QueryWork(arch=a), sla=ServiceLevel.IMMEDIATE, submit_time=0.0)
+          for a in LIVE_MOE_ARCHS for _ in range(LIVE_MOE_PER_ARCH)]
+    for q in qs:
+        eng.submit(q)
+    eng.drain(len(qs), timeout=300.0)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _launches().items() if k != "flash_attention_bwd"}
+    bad = [(q.qid, q.state, q.error) for q in qs if q.state != "done"]
+    if bad:
+        raise AssertionError(f"live moe: queries not done {bad}")
+    for q in qs:
+        idx = [e.index for e in q.stage_trace]
+        billed = sum(e.chip_seconds for e in q.stage_trace)
+        if idx != list(range(len(idx))) or abs(billed - q.chip_seconds) > 1e-9 * max(1.0, billed):
+            raise AssertionError(f"live moe: Q{q.qid} stages {idx}, billed {billed} "
+                                 f"against {q.chip_seconds}")
+    routes = {f"{a}/{b}": r for (a, b), r in eng.models.routes.items()}
+    if set(routes.values()) != {"graph"} or {a for a, _ in eng.models.routes} != set(
+            LIVE_MOE_ARCHS):
+        raise AssertionError(f"live moe: routes {routes}")
+    cfgs = {a: eng.models.config(a) for a in LIVE_MOE_ARCHS}
+    want = {k: 0 for k in counts}
+    for arch, batch in eng.models.compile_s:  # each warm-up: a prefill and a step
+        for k, n in path_launches(cfgs[arch], 1, 1, batch).items():
+            want[k] += n
+    for q in qs:
+        for e in q.stage_trace:
+            for k, n in path_launches(cfgs[q.work.arch], e.stage == "prefill",
+                                      _stage_steps(e.stage)).items():
+                want[k] += n
+    if counts != want or not counts["moe_decode"]:
+        raise AssertionError(f"live moe: launches {counts}, expected {want}")
+    out = {"queries": len(qs), "done": len(qs), "stages": sum(len(q.stage_trace) for q in qs),
+           "routes": routes, "launches": counts, "wall_s": wall,
+           "compile_s": {f"{a}/{b}": t for (a, b), t in eng.models.compile_s.items()},
+           "stage_ms_median": 1e3 * float(np.median([e.finish - e.start for q in qs
+                                                     for e in q.stage_trace])),
+           "card": card}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe d] live engine, reduced MoE archs: {json.dumps(out)}", flush=True)
+    return out
 
 
 DENSE_ARCHS = ("qwen2-0.5b", "internlm2-1.8b", "granite-8b")  # 841 of Table 1's 911
@@ -3350,13 +3576,14 @@ XQ_BF16_RATIO = 2.0
 def _zero_launches():
     flash_attention.launches = flash_attention_bwd.launches = 0
     flash_attention.launches_sq_ne_sk = flash_attention_bwd.launches_sq_ne_sk = 0
-    decode_attention.launches = ssd_scan.launches = 0
+    decode_attention.launches = ssd_scan.launches = moe_decode.launches = 0
 
 
 def _launches() -> dict:
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention_bwd.launches,
-            "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
+            "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches,
+            "moe_decode": moe_decode.launches}
 
 
 def _reckon_gb(params) -> dict:
@@ -3415,7 +3642,7 @@ def _first_loss(name, losses, vocab):
 
 def _expect_launches(name, counts, fwd, bwd):
     want = {"flash_attention": fwd, "flash_attention_bwd": bwd, "decode_attention": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "moe_decode": 0}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
 
@@ -5220,10 +5447,12 @@ def _spmd_f(device, rank, mesh, one_path, seed=0) -> list:
             rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
             rec["launches"].append(_launches())
             logits.append(prog.gather(lg).float().cpu())
-            if rec["launches"][-1] != {"flash_attention": 0, "flash_attention_bwd": 0,
-                                       "decode_attention": attn, "ssd_scan": 0}:
+            want = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": attn,
+                    "ssd_scan": 0, "moe_decode": path_launches(cfg, 0, 1, prog.cell.global_batch)
+                    .get("moe_decode", 0)}
+            if rec["launches"][-1] != want:
                 raise AssertionError(f"spmd (f) {key} rank {rank}: launches "
-                                     f"{rec['launches'][-1]}, expected {attn} decode")
+                                     f"{rec['launches'][-1]}, expected {want}")
         rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         rec["cache_placements"] = sorted({str(t.placements) for _, t in _leaves(cache)})
         pos = {k: v.full_tensor().cpu() for k, v in _leaves(cache) if k[-1] == "pos_ids"}
@@ -5694,7 +5923,18 @@ def main() -> int:
     print(f"[ptxas mma] {json.dumps(mma_regs)}", flush=True)
 
     t0 = time.perf_counter()
+    moe_errs, moe_timing = check_moe_kernel(device)
+    print(f"[kernels moe] moe_decode at mixtral's width: {moe_timing.pop('cases_checked')} "
+          f"cases (B 1, 4, 16; 4 of 8 experts; half of d_ff; float32, bf16, bf16 weights) "
+          f"twice bit for bit, against moe_gathered_ref and the plain loop within "
+          f"{json.dumps({str(k): v for k, v in MOE_KERNEL_TOL.items()})} of max |y|; max abs "
+          f"err at B {MOE_TIME_B} {json.dumps(moe_errs)} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    print(f"[time] moe_decode {json.dumps(moe_timing)} on {card}", flush=True)
+
+    t0 = time.perf_counter()
     errs = check_kernels(device)
+    errs.update(moe_errs)
     print(f"[kernels] {len(FLASH_CASES)} flash (output and log-sum-exp) + "
           f"{len(FLASH_BWD_CASES)} flash backward + {len(FLASH_BWD_XQ_CASES)} flash forward and "
           f"backward at Sq != Sk + {len(DECODE_CASES) + len(RING_CASES)} decode + "
@@ -5763,6 +6003,7 @@ def main() -> int:
     for name, t in timing.items():
         print(f"[time] {name} {json.dumps(t)} on {card}", flush=True)
     print(f"[time] {time.perf_counter() - t0:.1f}s", flush=True)
+    timing["moe_decode"] = moe_timing  # phase 3's timed line
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     hd256 = time_hd256(device)
@@ -5794,11 +6035,15 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f}s); whole run "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
+    moe_runs = {}
     for arch in MOE_ARCHS:
         t0 = time.perf_counter()
-        moe(device, arch, card)
+        moe_runs[arch] = moe(device, arch, card)
         print(f"[moe] {arch} ({time.perf_counter() - t0:.1f}s)", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    live_moe(device, card)
+    print(f"[moe d] ({time.perf_counter() - t0:.1f}s)", flush=True)
 
     t0 = time.perf_counter()
     dense_full(device)
@@ -5904,8 +6149,14 @@ def main() -> int:
         # (phase 11's uninterrupted reduced run; phase 12's "bf16_hd8_reduced")
         "flash_attention_bf16_fwd_hd8": ("src/repro_torch/csrc/flash_attention.cu",
                                          "src/repro/kernels/flash_attention.py:109", "train11"),
+        # the gathered MoE decode: phase 14 (a)'s mixtral run (16 decode steps
+        # of 4 layers through the kernels), the time phase 3's line
+        "moe_decode": ("src/repro_torch/csrc/moe_decode.cu",
+                       "none: src/repro/models/layers.py:362 _moe_gathered (jnp.take and "
+                       "einsum, no Pallas kernel)", MOE_ARCHS[0]),
     }
-    kernel_names = {"flash_attention_bf16_fwd": "flash_wg_kernel",
+    kernel_names = {"moe_decode": "moe_up_kernel, moe_down_kernel, moe_combine_kernel",
+                    "flash_attention_bf16_fwd": "flash_wg_kernel",
                     "flash_attention_bf16_fwd_cross": "flash_wg_kernel",
                     "flash_attention_bf16_fwd_hd256": "flash_wg_kernel",
                     "flash_attention_f32_hd256": "flash_tf32_kernel",
@@ -5942,7 +6193,9 @@ def main() -> int:
                                     ["flash_attention_bwd"]},
                 "train11": {"flash_attention_bwd_bf16_hd8":
                             resumed["launches"]["flash_attention_bwd"],
-                            "flash_attention_bf16_fwd_hd8": resumed["launches"]["flash_attention"]}}
+                            "flash_attention_bf16_fwd_hd8": resumed["launches"]["flash_attention"]},
+                MOE_ARCHS[0]: {"moe_decode":
+                               moe_runs[MOE_ARCHS[0]]["model"]["launches"]["moe_decode"]}}
     # phase 19: each kernel's launches on rank 0 of the (2, 2) mesh, in the
     # run of the path it is on there ((a)'s first bf16 step, (b)'s
     # prefill_32k and decode_32k calls, (d)'s prefill, (e)'s decode_32k
@@ -5974,6 +6227,9 @@ def main() -> int:
     seamless_i = {r["kind"]: r["launches"] for r in r0["i"] if r["arch"] == ENCDEC}
     spmd_launches["flash_attention_cross"] = seamless_i["prefill"]["flash_attention"]
     spmd_launches["decode_attention_cross"] = seamless_i["decode"]["decode_attention"]
+    # (f): mixtral's long_500k decode steps, each rank's experts through
+    # the gathered decode
+    spmd_launches["moe_decode"] = sum(n["moe_decode"] for c in r0["f"] for n in c["launches"])
     # null, not run on the mesh: gemma2 serves there with bf16 params and
     # trains in bf16, so its float32 hd-256 forward never runs; seamless
     # does not train there; jamba only decodes there ((f)), which launches

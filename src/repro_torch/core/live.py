@@ -18,8 +18,8 @@ stream only. Grad mode is thread-local, so every stage runs under
 kernel, not its autograd Function. Each worker thread serves through its
 own captured steps (``launch/graphs.py``; ``live_model``): one CUDA graph
 replay a prefill or a decode step, made in ``_ModelPool.ensure`` outside
-the billed window; the MoE archs run the same steps eagerly
-(``graphs.eager_reason``).
+the billed window (the MoE archs too: their gathered decode reads the
+chosen experts on the card, ``kernels/moe_decode.py``).
 
 A running query executes its StagePlan chunk-by-chunk through the model
 — a prefill stage, then at most ``decode_chunk_tokens`` decode steps per

@@ -25,7 +25,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan")
+KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan", "moe_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -26,6 +26,10 @@ mamba prefill or training forward through the hand-written kernels.
 ``ssd_kernel`` sends the chunked scan to ``ssd_scan_diff``; with an initial
 state (multi-token decode) ``ssd_scan`` raises on a CUDA tensor.
 
+``moe_kernel`` registers itself as the "cuda" implementation of the gathered
+MoE decode's expert products (``models/layers.py::MOE_IMPL``): the
+``moe_decode`` kernel, which reads the chosen experts' ids on the card.
+
 Training differentiability: the forward of ``flash_attention_diff`` is the
 CUDA flash kernel, which also returns each row's log-sum-exp, and its
 backward is the CUDA FlashAttention-2 backward kernel
@@ -56,6 +60,7 @@ from ..parallel import spmd
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention, flash_attention_lse
 from .flash_attention_bwd import flash_attention_bwd
+from .moe_decode import moe_decode
 from .ssd_scan import ssd_scan
 
 
@@ -167,10 +172,19 @@ def ssd_kernel(x, dt, A, B_, C_, chunk, h0):
     return ssd_scan_diff(x.contiguous(), dt, A, B_, C_, chunk, h0)
 
 
+def moe_kernel(x, eidx, gate, wi, wg, wo, *, e0, num_experts, act):
+    """The gathered MoE decode's products through ``moe_decode`` (the top-k
+    ids and gates arrive as slices of the router's sort)."""
+    return moe_decode(x.contiguous(), eidx.contiguous(), gate.contiguous(), wi.contiguous(),
+                      wg.contiguous(), wo.contiguous(), e0=e0, num_experts=num_experts, act=act)
+
+
 _layers.SDPA_IMPL["cuda"] = sdpa_kernel
 _ssd.SSD_IMPL["cuda"] = ssd_kernel
+_layers.MOE_IMPL["cuda"] = moe_kernel
 
 from . import trace as _trace  # noqa: E402,F401  (registers the "trace" route)
 
 __all__ = ["flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
-           "flash_attention_diff", "ssd_scan_diff", "sdpa_kernel", "ssd_kernel"]
+           "moe_decode", "flash_attention_diff", "ssd_scan_diff", "sdpa_kernel", "ssd_kernel",
+           "moe_kernel"]

@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from ..models.layers import NEG_INF, _sdpa_dense, _sdpa_dense_lse, causal_window_mask
+from ..models.layers import NEG_INF, _sdpa_dense, _sdpa_dense_lse, activate, causal_window_mask
 from ..models.ssd import ssd_chunked
 
 F32 = torch.float32
@@ -500,3 +500,41 @@ def ssd_sequential_ref(x, dt, A, B_, C_):
         )
         ys.append(torch.einsum("bhpn,bhn->bhp", h, C_[:, t].to(F32)))
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def moe_gathered_ref(x, eidx, gate, wi, wg, wo, *, e0=0, act="silu"):
+    """The ``moe_decode`` kernel's algorithm step by step (x (B, D), eidx
+    (B, K), gate (B, K) in x's type, wi/wg (E_l, D, F), wo (E_l, F, D)):
+    expert by expert, the pairs p = b K + k that chose it (e = eidx - e0),
+    their products with its weights rounded to x's type dt as loaded, as
+    float32 sums; g and i each rounded to dt, then h = dt(dt(act(g)) * i),
+    hg = dt(h * gate) and the pair's output dt(hg Wo[e]); then each token's
+    K outputs added in k order, rounded to dt after each add (0 for a token
+    whose every choice lies outside [e0, e0 + E_l)). Reads the ids to the
+    host; the kernel does not."""
+    B, D = x.shape
+    K = eidx.shape[1]
+    dt = x.dtype
+
+    def rnd(t):
+        return t.to(dt).to(F32)
+
+    pair_e = (eidx.reshape(B * K) - e0).tolist()
+    xf, gf = x.to(F32), gate.reshape(B * K).to(F32)
+    yp = torch.zeros((B * K, D), dtype=F32, device=x.device)
+    for e in sorted({e for e in pair_e if 0 <= e < wi.shape[0]}):
+        sel = [p for p, pe in enumerate(pair_e) if pe == e]
+        xe = xf[[p // K for p in sel]]  # (n, D)
+        g = rnd(xe @ wg[e].to(dt).to(F32))
+        i = rnd(xe @ wi[e].to(dt).to(F32))
+        h = rnd(rnd(activate(g, act)) * i)
+        hg = rnd(h * gf[sel][:, None])
+        yp[sel] = rnd(hg @ wo[e].to(dt).to(F32))
+    y = torch.zeros((B, D), dtype=F32, device=x.device)
+    for b in range(B):
+        first = True
+        for k in range(K):
+            if 0 <= pair_e[b * K + k] < wi.shape[0]:
+                y[b] = yp[b * K + k] if first else rnd(y[b] + yp[b * K + k])
+                first = False
+    return y.to(dt)

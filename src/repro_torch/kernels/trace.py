@@ -1,5 +1,5 @@
 """The kernels' trace route: "trace" in ``models/layers.py::SDPA_IMPL`` and
-``models/ssd.py::SSD_IMPL``, for the production dry run
+``MOE_IMPL`` and ``models/ssd.py::SSD_IMPL``, for the production dry run
 (``launch/dryrun.py::run_cell``), which sets it on a program's model.
 
 It takes the route ``ops.sdpa_kernel`` / ``ops.ssd_kernel`` take and, in
@@ -11,8 +11,11 @@ and its row sums, the scan's chunk states), and adds the kernel's FLOPs and
 bytes to the running trace (``perf/trace.py::add_kernel``), counted as
 PERF.md's bound column counts them: the products over the (q, k) pairs the
 mask keeps, every input read once and every output written once. A decode
-counts every slot valid (the cell's context fills its cache). Nothing here
-reads a value, so it runs on FakeTensors; ``default_impl`` never picks it.
+counts every slot valid (the cell's context fills its cache). The gathered
+MoE decode counts the pairs and experts of ``layers._chosen``'s rule for a
+traced step (token b's choices are experts (b K + k) mod E), each distinct
+expert's weights read once. Nothing here reads a value, so it runs on
+FakeTensors; ``default_impl`` never picks it.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from ..parallel import spmd
 from ..perf.trace import add_kernel
 from .decode_attention import split_slots
 from .flash_attention_bwd import dkdv_schedule, workspace_numel
+from .moe_decode import plan as moe_plan
 
 F32 = torch.float32
 
@@ -175,5 +179,34 @@ def ssd_trace(x, dt, A, B_, C_, chunk, h0):
     return _ssd_forward(x, B_, chunk)
 
 
+def moe_counts(chosen: list, e0: int, E_l: int, D: int, F: int, x_bytes: int,
+               w_bytes: int) -> tuple:
+    """(FLOPs, bytes) of a gathered MoE decode whose B tokens chose the
+    experts ``chosen`` (B lists of K ids), with the E_l experts from ``e0``
+    held (``F`` of their hidden dim): 6 D F FLOPs a pair whose expert is
+    held, each distinct held expert's three weights read once, x, the gates
+    (x's type) and the int64 ids read, y written."""
+    B, K = len(chosen), len(chosen[0])
+    held = [e for row in chosen for e in row if e0 <= e < e0 + E_l]
+    return (6.0 * len(held) * D * F,
+            3.0 * len(set(held)) * D * F * w_bytes + x_bytes * (2 * B * D + B * K) + 8.0 * B * K)
+
+
+def moe_trace(x, eidx, gate, wi, wg, wo, *, e0, num_experts, act):
+    """``ops.moe_kernel``'s shapes: y (B, D) in x's type and the kernel's
+    float32 workspaces (``moe_decode.plan``)."""
+    B, D = x.shape
+    K = eidx.shape[1]
+    E_l, _, F = wi.shape
+    pl = moe_plan(B, K, D, F, E_l, wi.element_size())
+    up = _empty((pl["up_floats"],), F32, x)  # noqa: F841  (held by the call)
+    down = _empty((pl["down_floats"],), F32, x)  # noqa: F841
+    chosen = _layers._chosen(eidx, num_experts or e0 + E_l)
+    add_kernel("moe_decode", *moe_counts(chosen, e0, E_l, D, F, x.element_size(),
+                                         wi.element_size()))
+    return _empty((B, D), x.dtype, x)
+
+
 _layers.SDPA_IMPL["trace"] = sdpa_trace
+_layers.MOE_IMPL["trace"] = moe_trace
 _ssd.SSD_IMPL["trace"] = ssd_trace

@@ -32,13 +32,15 @@ so its first replay costs what the others do.
 
 Which steps are captured is decided up front by ``step_route``, never by
 catching an error: a step whose body reads the device to the host cannot be
-captured (the MoE archs: ``models/layers.py::_chosen`` reads the chosen
-experts with ``tolist()``, which the reference's jitted step does not), nor
-one over DTensor params (a mesh: the collectives go through the host), nor
-one of a model whose ``impl`` is not the kernels (the plain versions build
-constants from host data). Those, and every step on the CPU, run the same
-body eagerly on the same static buffers: the code the graph holds is the
-code the CPU tests check.
+captured, so a step over DTensor params (a mesh: the collectives go through
+the host) is not, nor one of a model whose ``impl`` is not the kernels (the
+plain versions build constants from host data, and the plain gathered MoE
+decode reads its chosen experts with ``tolist()``). The MoE archs are
+captured like the others: their gathered decode takes the ``moe_decode``
+kernel, which reads the chosen ids on the card, and the one-group and
+prefill branches (``moe_dispatch``) read nothing to the host. The steps
+kept eager, and every step on the CPU, run the same body eagerly on the same
+static buffers: the code the graph holds is the code the CPU tests check.
 
 The kernels count their launches (``kernels/_build.py::count_launch``): a
 capture records each wrapper's launches instead of counting them, as nothing
@@ -48,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import time
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -80,16 +82,6 @@ def copy_tree(dst: dict, src: dict) -> None:
             d.copy_(s)
 
 
-def eager_reason(cfg, params: dict) -> Optional[str]:
-    """Why a serving step of ``cfg`` with ``params`` stays eager on a card,
-    or None when it is captured."""
-    if "moe" in cfg.ffn_kinds():
-        return "eager: the MoE decode reads its chosen experts to the host (models/layers.py::_chosen)"
-    if any(spmd.is_dtensor(t) for t in tree_leaves(params)):
-        return "eager: DTensor params (a mesh)"
-    return None
-
-
 def step_route(model, params: dict) -> str:
     """"graph" where a step of ``model`` (an ``LM``) with ``params`` is
     captured, else the reason it runs eagerly."""
@@ -97,7 +89,9 @@ def step_route(model, params: dict) -> str:
         return "eager: cpu"
     if model.impl != "cuda":
         return f"eager: impl {model.impl!r}, not the kernels"
-    return eager_reason(model.cfg, params) or "graph"
+    if any(spmd.is_dtensor(t) for t in tree_leaves(params)):
+        return "eager: DTensor params (a mesh)"
+    return "graph"
 
 
 class CapturedStep:

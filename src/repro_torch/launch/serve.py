@@ -12,8 +12,8 @@ the SSD-scan kernel) and every decode step of an attention arch the
 decode-attention kernel; on the CPU their plain versions. The decode step
 is a captured CUDA graph (``launch/graphs.py``), the counterpart of the
 reference's jitted ``_decode``: one replay a step, its cache the engine's
-``cache``; the MoE archs, and the CPU, call the same step eagerly. Prefill
-stays eager, as the reference leaves it un-jitted.
+``cache``; the CPU calls the same step eagerly. Prefill stays eager, as the
+reference leaves it un-jitted.
 """
 from __future__ import annotations
 

@@ -70,6 +70,15 @@ def coll_out(x: torch.Tensor) -> torch.Tensor:
 #: where it is called from, never by looking at tensor values.
 SDPA_IMPL: dict = {}
 
+#: the gathered MoE decode's expert products by name (``_moe_gathered``).
+#: Each takes (x (B, D), eidx (B, K) int64, gate (B, K) in x's type, wi, wg
+#: (E_l, D, F_l), wo (E_l, F_l, D); e0, num_experts, act) and returns y (B,
+#: D): the sum over k of gate[b,k] (act(x_b wg[e]) * (x_b wi[e])) wo[e], e =
+#: eidx[b,k] - e0, where a choice outside [e0, e0 + E_l) adds nothing.
+#: "plain" (``_gathered_loop``) lives here; kernels/ops.py registers "cuda"
+#: and kernels/trace.py "trace".
+MOE_IMPL: dict = {}
+
 
 # ---------------------------------------------------------------------------
 # Norms / activations / rope
@@ -408,69 +417,86 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
     return (probs,) + moe_topk(probs, k)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, impl: str = "plain"):
     """Token-choice top-k MoE; returns (y, aux_loss).
 
     The reference's three branches, with its gates: a decode batch of at
     most 16 tokens on an arch whose expert count is not a multiple of 16
     runs each token's products on its chosen experts' weights alone, with
-    no capacity (``_moe_gathered``); any other decode step routes the batch
-    as one group; prefill routes each batch row as a group, with a capacity
-    per expert (``_moe_grouped``)."""
+    no capacity (``_moe_gathered``, whose expert products go through
+    ``MOE_IMPL[impl]``); any other decode step routes the batch as one
+    group; prefill routes each batch row as a group, with a capacity per
+    expert (``_moe_grouped``)."""
     B, S, D = x.shape
+    gathered = S == 1 and B <= 16 and cfg.num_experts % 16 != 0
     if spmd.is_dtensor(x):
-        return spmd.moe_apply(p, x, cfg, gathered=S == 1 and B <= 16 and cfg.num_experts % 16 != 0)
-    if S == 1 and B <= 16 and cfg.num_experts % 16 != 0:
-        return _moe_gathered(p, x, cfg)
+        return spmd.moe_apply(p, x, cfg, gathered=gathered, impl=impl)
+    if gathered:
+        return _moe_gathered(p, x, cfg, impl)
     if S == 1:  # decode: one group over the (small) batch
         y, aux = _moe_grouped(p, x.reshape(1, B, D), cfg)
         return y.reshape(B, S, D), aux
     return _moe_grouped(p, x, cfg)
 
 
-def _moe_gathered(p: dict, x: torch.Tensor, cfg: ModelConfig, experts: Optional[range] = None,
-                  probs: Optional[torch.Tensor] = None):
+def _moe_gathered(p: dict, x: torch.Tensor, cfg: ModelConfig, impl: str,
+                  experts: Optional[range] = None, probs: Optional[torch.Tensor] = None):
     """Dropless per-token expert products. x: (B, 1, D).
 
     The reference copies each token's K experts' weights out as (B, K, D,
-    F) (``jnp.take``) and contracts over k and f at once. Here the chosen
-    experts' ids come to the host once a call, and each (token, choice)
-    pair's products read its expert's weights in place; a token's K
-    outputs are added in k order (the same sums in another order). The
-    copy would write every chosen weight and read it twice.
+    F) (``jnp.take``) and contracts over k and f at once. Here the router's
+    top-k and gates are taken on the device and the products go to
+    ``MOE_IMPL[impl]``, which reads the chosen experts' weights in place:
+    the plain loop (``_gathered_loop``) after reading the ids to the host,
+    the kernel (``kernels/moe_decode.py``) on the card. The copy would
+    write every chosen weight and read it twice.
 
     ``experts``: the expert ids whose weights ``p`` holds (expert
     parallelism: a rank's own), ``p``'s rows in that order; a token's
     choices of other experts are left to their ranks (zero here).
     ``probs``: the router's (B, E), where the caller has them."""
-    B, S, D = x.shape
     dt = x.dtype
     if probs is None:
         probs = moe_probs(x[:, 0], p["router"])
     gate, eidx = moe_topk(probs, cfg.top_k)  # (B, K)
     gate = (gate / torch.sum(gate, dim=-1, keepdim=True)).to(dt)
-    first = 0 if experts is None else experts.start
+    y = MOE_IMPL[impl](x[:, 0], eidx, gate, p["wi"], p["wg"], p["wo"],
+                       e0=0 if experts is None else experts.start,
+                       num_experts=cfg.num_experts, act=cfg.act)
+    return y[:, None], torch.zeros((), dtype=F32, device=x.device)  # no aux loss on decode
+
+
+def _gathered_loop(x, eidx, gate, wi, wg, wo, *, e0: int = 0, num_experts: Optional[int] = None,
+                   act: str = "silu") -> torch.Tensor:
+    """``MOE_IMPL["plain"]``: the chosen ids come to the host once a call
+    (``_chosen``), and each (token, choice) pair's products read its
+    expert's weights in place; a token's K outputs are added in k order.
+    x (B, D); returns y (B, D) in x's type."""
+    D = x.shape[1]
+    dt = x.dtype
     rows = []
-    for b, chosen in enumerate(_chosen(eidx, cfg.num_experts)):
-        xb = x[b]  # (1, D)
+    for b, chosen in enumerate(_chosen(eidx, num_experts or e0 + wi.shape[0])):
+        xb = x[b:b + 1]  # (1, D)
         yb = None
         for k, e in enumerate(chosen):
-            if experts is not None and e not in experts:
+            e -= e0
+            if not 0 <= e < wi.shape[0]:
                 continue
-            e -= first
-            h = activate(xb @ p["wg"][e].to(dt), cfg.act) * (xb @ p["wi"][e].to(dt))
-            yk = (h * gate[b, k]) @ p["wo"][e].to(dt)
+            h = activate(xb @ wg[e].to(dt), act) * (xb @ wi[e].to(dt))
+            yk = (h * gate[b, k]) @ wo[e].to(dt)
             yb = yk if yb is None else yb + yk
         rows.append(yb if yb is not None else torch.zeros((1, D), dtype=dt, device=x.device))
-    y = torch.stack(rows)  # (B, 1, D)
-    return y, torch.zeros((), dtype=F32, device=x.device)  # no aux loss on decode
+    return torch.cat(rows)
+
+
+MOE_IMPL["plain"] = _gathered_loop
 
 
 def _chosen(eidx: torch.Tensor, E: int) -> list:
-    """The chosen experts (B, K) as Python lists: the one device-to-host
-    read. A step traced under ``FakeTensorMode`` (no values: the production
-    dry run) takes token b's choices as experts (b K + k) mod E, the same
-    products a token as any choice."""
+    """The chosen experts (B, K) as Python lists: the plain loop's one
+    device-to-host read. A step traced under ``FakeTensorMode`` (no values:
+    the production dry run) takes token b's choices as experts (b K + k) mod
+    E, the same products a token as any choice."""
     if isinstance(eidx, FakeTensor):
         B, K = eidx.shape
         return [[(b * K + k) % E for k in range(K)] for b in range(B)]

@@ -58,8 +58,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..parallel import spmd
 from ..parallel.sharding import current_ctx, shard, sharding_ctx
 from .config import ModelConfig
-from .layers import (SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, moe_apply, moe_decl,
-                     rms_norm, softcap)
+from .layers import (MOE_IMPL, SDPA_IMPL, attention, attn_decl, mlp_apply, mlp_decl, moe_apply,
+                     moe_decl, rms_norm, softcap)
 from .params import ParamDecl, init_tree, stacked, tree_map
 from .ssd import SSD_IMPL, mamba_apply, mamba_cache_decl, mamba_decl
 
@@ -276,7 +276,7 @@ class LM:
 
     def __init__(self, cfg: ModelConfig, impl: Optional[str] = None,
                  device="cuda", kv_quant: bool = False):
-        # registers the "cuda" SDPA and SSD impls; imported here because the
+        # registers the "cuda" SDPA, SSD and MoE impls; imported here because the
         # kernel modules import models.layers, which imports this package
         from ..kernels import ops  # noqa: F401
 
@@ -284,7 +284,7 @@ class LM:
         self.device = torch.device(device)
         self.kv_quant = kv_quant  # int8 KV cache (serving)
         self.impl = impl if impl is not None else default_impl(self.device)
-        for kind, registry in (("sdpa", SDPA_IMPL), ("ssd", SSD_IMPL)):
+        for kind, registry in (("sdpa", SDPA_IMPL), ("ssd", SSD_IMPL), ("moe", MOE_IMPL)):
             if self.impl not in registry:
                 raise KeyError(f"unknown {kind} impl {self.impl!r}; known: {sorted(registry)}")
         if cfg.is_hybrid:
@@ -422,7 +422,7 @@ class LM:
         if self.has_ffn:
             h = rms_norm(p["ln2"], x, cfg.norm_eps)
             if self.ffns[i] == "moe":
-                f, aux = moe_apply(p["moe"], h, cfg)
+                f, aux = moe_apply(p["moe"], h, cfg, self.impl)
             else:
                 f = mlp_apply(p["mlp"], h, cfg)
             if cfg.post_block_norms:

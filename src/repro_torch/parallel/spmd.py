@@ -597,7 +597,7 @@ def local_region():
 # MoE with expert parallelism
 # ---------------------------------------------------------------------------
 
-def moe_apply(p: dict, x, cfg, *, gathered: bool):
+def moe_apply(p: dict, x, cfg, *, gathered: bool, impl: str):
     """``layers.moe_apply`` of a DTensor x (B, S, D), batch over "data":
     the router's probs on every "model" rank (DTensor ops), then the
     dispatch, the products and the combine on each rank's local rows and
@@ -608,7 +608,9 @@ def moe_apply(p: dict, x, cfg, *, gathered: bool):
     reference's: the gathered per-token products for a small decode batch
     (``gathered``), one routing group over the whole batch for any other
     decode step, one group a row otherwise, with the same capacity; the aux
-    loss is taken from the global probs and counts.
+    loss is taken from the global probs and counts. The gathered products
+    take ``layers.MOE_IMPL[impl]`` on the rank's local experts (their ids
+    offset by the rank's first) or its slice of every expert's hidden dim.
 
     With the ``capacity`` rule on a mesh axis (``moe_cshard``) where the
     experts' weights are whole on it (the experts do not divide it, and
@@ -671,7 +673,7 @@ def moe_apply(p: dict, x, cfg, *, gathered: bool):
               for m, q in enumerate(row_pl)]
     with local_region():
         if gathered:  # no aux loss on decode, as the reference
-            y, aux = layers._moe_gathered(wl, xl, cfg, experts=experts, probs=pr)
+            y, aux = layers._moe_gathered(wl, xl, cfg, impl, experts=experts, probs=pr)
         else:
             y, counts = layers.moe_dispatch(wl, xl, pr, cfg, experts=experts,
                                             capacity_rows=rows)

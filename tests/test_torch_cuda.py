@@ -54,9 +54,14 @@ on a rounding boundary may round the other way, one bf16 unit in the last
 place), the log-sum-exp within 1e-4. A captured decode step
 (launch/graphs.py) at reduced size: 8 replays bit for bit 8 eager
 LM.decode_step calls (logits and every cache leaf), the decode kernel's
-launches counted at each replay and not at the capture; one thread captures
+launches counted at each replay and not at the capture, the MoE archs'
+among them (the gathered decode's kernel launches too); one thread captures
 while another decodes eagerly on the default stream, and both give the
-bits of an eager run made alone.
+bits of an eager run made alone. The gathered MoE decode kernel against its
+step-by-step plain version and the plain loop within 1e-5 of the output's
+scale in float32 and 2^-6 in bf16 (sums in other orders; in bf16 a sum on
+a rounding boundary moves an output by a bf16 unit or two), twice bit for
+bit.
 """
 import pytest
 import torch
@@ -66,10 +71,12 @@ from repro_torch.kernels import flash_attention_bwd as flash_bwd_module
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+from repro_torch.kernels.moe_decode import moe_decode
 from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_bwd_ref,
                                      flash_attention_bwd_split_ref, flash_attention_lse_ref,
                                      flash_attention_mma_ref, flash_attention_ref,
-                                     flash_attention_split_ref, ssd_scan_ref, ssd_sequential_ref)
+                                     flash_attention_split_ref, moe_gathered_ref, ssd_scan_ref,
+                                     ssd_sequential_ref)
 from repro_torch.kernels.ops import flash_attention_diff, ssd_scan_diff
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.transformer import head_logits, plain_head_logits
@@ -627,6 +634,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash_attention_bwd(q, kv, kv, q, q.transpose(1, 2).contiguous().transpose(1, 2), lse)
 
 
+@pytest.mark.cuda
+def test_moe_decode_refuses_what_the_kernel_does_not_take(dev):
+    x, eidx, gate, wi, wg, wo, _ = _moe_inputs(dev, MOE_DECODE[0])
+    with pytest.raises(ValueError, match="activation"):
+        moe_decode(x, eidx, gate, wi, wg, wo, act="gelu")
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_decode(x, eidx, gate, wi.transpose(1, 2).contiguous().transpose(1, 2), wg, wo)
+    with pytest.raises(ValueError, match="16-byte"):  # 4 bytes past an aligned start
+        off = torch.empty(wi.numel() + 1, device=dev)[1:].view(wi.shape)
+        moe_decode(x, eidx, gate, off, wg, wo)
+    with pytest.raises(TypeError):  # bf16 weights under float32 x
+        moe_decode(x, eidx, gate, wi.bfloat16(), wg.bfloat16(), wo.bfloat16())
+
+
 def _ssd_inputs(dev, B, S, H, P, N, dtype, seed=3, single_group=False):
     """x, dt, A, B_, C_ drawn as tests/test_kernels.py draws them; with
     ``single_group`` B_ and C_ are one (B,S,N) group viewed over the heads
@@ -798,7 +819,7 @@ def test_ssd_scan_diff_grads_match_plain_autograd(dev, case, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["flash", "flash_bwd", "decode", "ssd"])
+@pytest.mark.parametrize("which", ["flash", "flash_bwd", "decode", "ssd", "moe"])
 def test_raw_wrappers_refuse_cuda_inputs_that_require_grad(dev, which):
     def t(*shape):
         return torch.zeros(shape, device=dev)
@@ -812,9 +833,13 @@ def test_raw_wrappers_refuse_cuda_inputs_that_require_grad(dev, which):
         pos = torch.zeros((1, 8), dtype=torch.int32, device=dev)
         fn, args = decode_attention, (t(1, 4, 16).requires_grad_(), t(1, 8, 2, 16),
                                       t(1, 8, 2, 16), pos, pos[:, 0].contiguous())
-    else:
+    elif which == "ssd":
         fn, args = (lambda *a: ssd_scan(*a, chunk=8)), (
             t(1, 8, 2, 16), t(1, 8, 2), t(2).requires_grad_(), t(1, 8, 2, 16), t(1, 8, 2, 16))
+    else:
+        ids = torch.zeros((2, 2), dtype=torch.long, device=dev)
+        fn, args = moe_decode, (t(2, 64), ids, t(2, 2), t(4, 64, 128).requires_grad_(),
+                                t(4, 64, 128), t(4, 128, 64))
     with pytest.raises(RuntimeError, match="requires grad"):
         fn(*args)
     with torch.no_grad():
@@ -883,6 +908,80 @@ def test_moe_layer_matches_float64(dev, case):
     assert y.shape == (B, S, cfg.d_model) and bool(torch.isfinite(y).all())
     assert float((y.double() - y64).abs().max()) <= 1e-4 * float(y64.abs().max())
     assert abs(float(aux) - float(aux64)) <= 1e-5
+
+
+# the gathered MoE decode kernel: B tokens, D, F, E experts, the experts
+# held [e0, e0 + E_l), the F slice held, x's type, the weights' type
+MOE_DECODE = [
+    (4, 256, 512, 8, 0, 8, None, torch.float32, torch.float32),
+    (16, 512, 1024, 4, 0, 4, None, torch.float32, torch.float32),  # 8 pairs an expert
+    (1, 64, 128, 4, 0, 4, None, torch.float32, torch.float32),  # reduced mixtral
+    (3, 4096, 1024, 8, 0, 8, None, torch.float32, torch.float32),  # mixtral's D
+    (8, 256, 512, 8, 4, 4, None, torch.float32, torch.float32),  # a rank's 4 experts of 8
+    (8, 256, 512, 8, 0, 8, (128, 384), torch.float32, torch.float32),  # an F slice
+    (4, 256, 512, 8, 0, 8, None, torch.bfloat16, torch.float32),
+    (16, 256, 512, 8, 0, 8, None, torch.bfloat16, torch.bfloat16),
+]
+#: against ``moe_gathered_ref`` and the plain loop, relative to the output's
+#: scale: float32 sums in other orders; in bf16 a sum on a rounding boundary
+#: moves an output by a bf16 unit or two
+MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _moe_inputs(dev, case, seed=5, eidx=None):
+    """x, the top-2 ids and gates of a seeded router, and the weights held
+    (contiguous, as a rank's shard), e0."""
+    from repro_torch.models.layers import moe_topk
+
+    B, D, F, E, e0, E_l, fs, xdt, wdt = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, D), generator=gen, device=dev).to(xdt)
+    probs = torch.softmax(x.float() @ torch.randn((D, E), generator=gen, device=dev), -1)
+    gate, ids = moe_topk(probs, 2)
+    gate = (gate / gate.sum(-1, keepdim=True)).to(xdt)
+    wi, wg = (torch.randn((E, D, F), generator=gen, device=dev) * D ** -0.5 for _ in range(2))
+    wo = torch.randn((E, F, D), generator=gen, device=dev) * F ** -0.5
+    f0, f1 = fs or (0, F)
+    wi, wg = (w[e0:e0 + E_l, :, f0:f1].contiguous().to(wdt) for w in (wi, wg))
+    wo = wo[e0:e0 + E_l, f0:f1].contiguous().to(wdt)
+    return x, (ids if eidx is None else eidx.to(dev)).contiguous(), gate, wi, wg, wo, e0
+
+
+def _moe_check(args, dtype):
+    from repro_torch.models.layers import _gathered_loop
+
+    x, eidx, gate, wi, wg, wo, e0 = args
+    n0 = moe_decode.launches
+    got = moe_decode(x, eidx, gate, wi, wg, wo, e0=e0)
+    again = moe_decode(x, eidx, gate, wi, wg, wo, e0=e0)
+    assert torch.equal(got, again) and moe_decode.launches == n0 + 2
+    assert got.shape == x.shape and got.dtype == x.dtype and bool(torch.isfinite(got).all())
+    for want in (moe_gathered_ref(x, eidx, gate, wi, wg, wo, e0=e0),
+                 _gathered_loop(x, eidx, gate, wi, wg, wo, e0=e0)):
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= MOE_TOL[dtype] * scale
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_DECODE)
+def test_moe_decode_kernel_matches_plain(dev, case):
+    """Against its step-by-step plain version and the plain loop, twice bit
+    for bit; a token whose choices all lie outside a rank's experts gets 0."""
+    args = _moe_inputs(dev, case)
+    got = _moe_check(args, case[7])
+    _, eidx, _, wi, _, _, e0 = args
+    outside = ((eidx < e0) | (eidx >= e0 + wi.shape[0])).all(-1)
+    assert not got[outside].any()
+
+
+@pytest.mark.cuda
+def test_moe_decode_kernel_takes_repeated_ids(dev):
+    """Ids repeated within a token put more pairs on one expert than a
+    thread keeps (np 4 at B 4): the kernel takes further passes over the
+    tile, with the plain versions' result."""
+    eidx = torch.tensor([[2, 2], [2, 0], [2, 2], [3, 2]])
+    _moe_check(_moe_inputs(dev, MOE_DECODE[0], eidx=eidx), torch.float32)
 
 
 # flash at Sq != Sk: B, Sq, Sk, H, K, hd, causal (positions arange(Sq) and
@@ -1090,11 +1189,16 @@ def test_reduced_training_across_the_registry_kernels_match_plain(dev, arch):
 
 def _served(dev, arch, batch=2, prompt=20):
     """(LM, float32 params, the cache and next token of one prefill) of
-    ``arch`` at reduced size on the card, seeded."""
+    ``arch`` at reduced size on the card, seeded; "<arch>@16" gives it 16
+    experts (every reduced MoE config has 4), whose decode routes as one
+    group over the batch."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import LM
 
-    cfg = get_config(arch, reduced=True)
+    name, _, experts = arch.partition("@")
+    cfg = get_config(name, reduced=True)
+    if experts:
+        cfg = cfg.replace(num_experts=int(experts))
     gen = torch.Generator(device=dev).manual_seed(33)
     lm = LM(cfg, device=dev)
     params = lm.init(gen, dtype=torch.float32)
@@ -1126,26 +1230,33 @@ def _eager_steps(lm, params, cache, tok, steps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["paper-default", "mamba2-2.7b", "gemma2-2b",
-                                  "seamless-m4t-large-v2", "internvl2-76b"])
+                                  "seamless-m4t-large-v2", "internvl2-76b", "mixtral-8x7b",
+                                  "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b",
+                                  "phi3.5-moe-42b-a6.6b@16"])
 def test_captured_decode_replays_the_eager_steps_bit_for_bit(dev, arch):
     """A captured decode step (launch/graphs.py), replayed 8 times from a
     prefill's cache, gives the logits of 8 eager ``LM.decode_step`` calls and
     their cache, bit for bit; the decode kernel's launches are counted at
     each replay (one a self-attention layer, two with cross-attention) and
-    none at the capture."""
+    none at the capture, and so are the gathered MoE decode's (one an MoE
+    layer; none where 16 experts route the decode as one group)."""
     from repro_torch.launch import graphs
 
     lm, params, cache, tok = _served(dev, arch)
     want, want_cache = _eager_steps(lm, params, cache, tok, 8)
-    n0 = decode_attention.launches
+    n0, m0 = decode_attention.launches, moe_decode.launches
     step = graphs.decode_step(lm, params, graphs.clone_tree(cache))
     assert step.route == "graph" and step.graph is not None
     sites = lm.cfg.layer_kinds().count("attn") * (2 if lm.cfg.is_encoder_decoder else 1)
-    assert decode_attention.launches == n0 + sites  # the warm-up's, not the capture's
+    moe_sites = lm.cfg.ffn_kinds().count("moe") if lm.cfg.num_experts % 16 else 0
+    assert moe_sites or "moe" not in lm.cfg.ffn_kinds() or arch.endswith("@16")
+    # the warm-up's, not the capture's
+    assert (decode_attention.launches, moe_decode.launches) == (n0 + sites, m0 + moe_sites)
     step.buffers["tok"].copy_(tok)
     for i in range(8):
         assert torch.equal(step(), want[i]), i
     assert decode_attention.launches == n0 + 9 * sites
+    assert moe_decode.launches == m0 + 9 * moe_sites
     got = _flat(step.buffers["cache"])
     assert got.keys() == _flat(want_cache).keys()
     for k, v in _flat(want_cache).items():

@@ -52,19 +52,34 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _config(get, arch):
+    """``arch``'s reduced config from ``get`` (either package's
+    ``get_config``); "<arch>@16" gives it 16 experts, whose decode both
+    packages route as one group over the batch (every reduced MoE config
+    has 4, which take the gathered decode)."""
+    name, _, experts = arch.partition("@")
+    cfg = get(name, reduced=True)
+    return cfg.replace(num_experts=int(experts)) if experts else cfg
+
+
 def _ref(arch):
     """The reference's jitted live entry points for ``arch`` (reduced, batch
     BATCH, PROMPT tokens, STEPS decode tokens), built once a module."""
     if arch not in _REF:
         pool = ref_live._ModelPool(PROMPT, STEPS)
-        _REF[arch] = (pool, pool.ensure(arch, BATCH))
+        get = ref_live.get_config
+        ref_live.get_config = lambda name, reduced=False: _config(get, arch)
+        try:
+            _REF[arch] = (pool, pool.ensure(arch.partition("@")[0], BATCH))
+        finally:
+            ref_live.get_config = get
     return _REF[arch]
 
 
 def _port(arch):
     """(LM, params carried from the reference's, kv_len) on the CPU."""
     pool, ref = _ref(arch)
-    model = LM(get_config(arch, reduced=True), device="cpu")
+    model = LM(_config(get_config, arch), device="cpu")
     params = params_from_jax(jax.tree.map(np.asarray, ref.params), device="cpu")
     return model, params, pool.kv_len
 
@@ -78,12 +93,16 @@ def _same_as_ref(cache, cache_j):
 
 
 @pytest.mark.parametrize("arch", ["paper-default", "mamba2-2.7b", "gemma2-2b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "mixtral-8x7b",
+                                  "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b",
+                                  "phi3.5-moe-42b-a6.6b@16"])
 def test_decode_body_matches_eager_decode_step_and_the_reference(arch):
     """From one prefill's cache, 8 greedy steps of the decode step's body on
     its static buffers give the logits, tokens and cache of 8 eager
     ``LM.decode_step`` calls bit for bit, and the tokens and cache of the
-    reference's jitted decode (``src/repro/core/live.py:134-139``)."""
+    reference's jitted decode (``src/repro/core/live.py:134-139``). The MoE
+    archs (4 experts reduced) take the gathered decode; phi3.5 with 16
+    experts routes its decode as one group over the batch."""
     _, ref = _ref(arch)
     model, params, kv_len = _port(arch)
     toks_j, kw = ref_live._prompt_inputs(ref.cfg, BATCH, PROMPT, seed=3)
@@ -293,18 +312,15 @@ def test_launches_recorded_in_a_capture_count_at_each_replay():
     ("paper-default", True), ("qwen2-0.5b", True), ("internlm2-1.8b", True),
     ("granite-8b", True), ("gemma2-2b", True), ("mamba2-2.7b", True),
     ("seamless-m4t-large-v2", True), ("internvl2-76b", True),
-    ("mixtral-8x7b", False), ("phi3.5-moe-42b-a6.6b", False), ("jamba-v0.1-52b", False)])
+    ("mixtral-8x7b", True), ("phi3.5-moe-42b-a6.6b", True), ("jamba-v0.1-52b", True)])
 def test_step_route_is_decided_by_arch(arch, captured):
-    """On a card the dense, mamba2, encoder-decoder and vision archs' steps
-    are captured; the MoE archs' (jamba for its MoE layers) run eagerly by a
-    named rule, decided before any step runs; the CPU and the plain versions
-    run eagerly too."""
+    """On a card every arch's steps are captured, the MoE archs' too (their
+    gathered decode reads the chosen experts on the card), decided before
+    any step runs; the CPU and the plain versions run eagerly."""
     cfg = get_config(arch, reduced=True)
     params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0), dtype=F32)
     route = graphs.step_route(LM(cfg, device="cuda"), params)
     assert (route == "graph") == captured
-    if not captured:
-        assert route.startswith("eager: the MoE decode") and "_chosen" in route
     assert graphs.step_route(LM(cfg, device="cpu"), params) == "eager: cpu"
     assert graphs.step_route(LM(cfg, impl="plain", device="cuda"), params).startswith(
         "eager: impl 'plain'")

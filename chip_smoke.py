@@ -91,18 +91,25 @@ Phases, each of which raises on failure (there is no CPU fallback):
      a flash forward and a float32 backward (split-TF32: dkdv_tf32_kernel,
      dq_tf32_kernel) a layer;
  10. training, (c): train() of qwen2-0.5b at full width, 20 steps of batch
-     4 x seq 2048 in bfloat16: every loss finite, the first within 5 % of
-     ln 151,936, exactly 24 flash forward and 24 flash backward launches a
-     step; step ms, tokens/s, model FLOP/s against 989 TFLOP/s, peak
-     memory, the checkpoint's seconds, and the device's idle share from a
-     torch.profiler step, with the LM head's GEMMs (the bf16 tensor-core
-     GEMMs with float32 output) picked out of it by their vocab-sized
-     operand: their share of the step and their kernels, none of them a
-     float32 GEMM;
+     4 x seq 2048 in bfloat16, through its captured step (route "graph":
+     the first step eager, then 19 replays of one CUDA graph of forward,
+     backward and update): every loss finite, the first within 5 % of ln
+     151,936, exactly 24 flash forward and 24 flash backward launches a
+     step (a replay's recorded at the capture, the backward's from
+     autograd's thread); the 20 losses and the final state bit for bit 20
+     eager donated steps from the same state on the same batches; step ms,
+     tokens/s, model FLOP/s against 989 TFLOP/s, peak memory, the
+     checkpoint's seconds; an eager step under torch.profiler, with the LM
+     head's GEMMs (the bf16 tensor-core GEMMs with float32 output) picked
+     out of it by their vocab-sized operand: their share of the step and
+     their kernels, none of them a float32 GEMM; and its "[graph] train"
+     line: eager and replayed step ms, the device's busy ms and idle share
+     of each (a profiled replay), the capture's seconds and pool bytes;
  11. training, (d): a crash at step 7 and exact resume at reduced size on
-     the card, losses within 1e-5 of the uninterrupted run, whose launches
-     (bf16 at hd 8: flash_mma_kernel<8> and the split-TF32 backward) are
-     counted;
+     the card, each run through train()'s captured step: losses within
+     1e-5 of the uninterrupted run, whose launches (bf16 at hd 8:
+     flash_mma_kernel<8> and the split-TF32 backward) are counted and whose
+     losses equal 12 eager donated steps bit for bit, step ms each way;
  12. time each kernel at the served shapes with CUDA events, beside its
      bound on an H100, its plain version and one library call where there
      is one (the serving kernels and their library calls as device time:
@@ -214,7 +221,7 @@ Phases, each of which raises on failure (there is no CPU fallback):
      against a 512-slot cross cache at decoder position 199, and the SSD
      scan at jamba's width (x (2,256,128,64), N 16), float32 and bfloat16
      against their plain versions, twice bit for bit; (a) the int8 KV cache
-     on paper-default at full width, depth 8 of 16, batch 4, each of
+     on paper-default at full width, depth 4 of 16, batch 4, each of
      PROMPT_LENS, 16 teacher-forced steps, kernels against plain: after prefill the
      logits and scales within 5e-2, the first layer's int8 codes equal, at
      most 10 % of the codes different (int8 rounding compounds the routes'
@@ -226,10 +233,9 @@ Phases, each of which raises on failure (there is no CPU fallback):
      period), batch 2, a 256-token prompt: 7 SSD scans and 1 flash a
      prefill, 1 decode a step, its 16-expert MoE layers' decode routed as
      one group (captured: its "[graph]" line); (c) seamless-m4t-large-v2 at
-     full width and
-     depth (24 + 24 layers), batch 4, with 333 encoder frames for a
-     333-token prompt and 512 for 200: 72 flash launches a prefill (24
-     encoder, 24 causal, 24 cross), 48 decode launches a step; (d)
+     full width, depth 12 + 12 of 24 + 24, batch 4, with 333 encoder frames
+     for a 333-token prompt and 512 for 200: 36 flash launches a prefill
+     (12 encoder, 12 causal, 12 cross), 24 decode launches a step; (d)
      internvl2-76b at full width, depth 4 of 80, batch 4, 256 patch
      positions and a 77-token prompt against the live engine's context of
      101 (the prefill ring-placed in 229 slots); (b)-(d) logits within
@@ -243,7 +249,9 @@ Phases, each of which raises on failure (there is no CPU fallback):
      launch a layer (and cross-attention) for every prefill and step;
  17. training across the registry, bfloat16 compute on float32 master
      weights from a seeded generator, each run's steps donated
-     (make_train_step(donate=True), train()'s step) on TokenStream batches:
+     (make_train_step(donate=True), train()'s step) on TokenStream batches,
+     as train() runs them (the first eager, then replays of the captured
+     step; its route, capture seconds and pool in each record):
      (a) in phase 3, the flash forward with its log-sum-exp and the flash
      backward at Sq != Sk (seamless's training cross-attention q
      (2,512,16,64) against k/v (2,768,16,64) non-causal; causal at Sk > Sq,
@@ -270,8 +278,9 @@ Phases, each of which raises on failure (there is no CPU fallback):
      mixtral-8x7b at full width, depth 2 of 32, 5 steps at batch 2 x 1024,
      the router aux each step; (e) qwen2-0.5b at 4 x 2048 under each remat
      policy (None, "full", "dots", "coll"), 3 steps from one state and the
-     same batches: the first loss and grad norm within 1e-5 relative
-     across them, step ms and peak memory each; (f) gemma2-2b at full width
+     same batches, every step eager and then captured: the first loss and
+     grad norm within 1e-5 relative across them, step ms and activation
+     peak each way, the graph's pool; (f) gemma2-2b at full width
      (d_model 2304, 8 query heads over 4 at hd 256, d_ff 9216, vocab
      256,000, softcaps 50 and 30), depth 2 of 26 (its local and its global
      layer), 5 steps at 4 x 2048: the first loss within 5 % of ln V, 2
@@ -285,7 +294,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      float32 ones than twice the plain route's, the float32 kernels' loss
      and gradients (2 launches of the split-TF32 hd-256 backward) within
      atol 2e-3 / rtol 1e-3 of the plain ones; the clocks, power and
-     temperature read at the start and end of phases 17 and 19;
+     temperature read at the start and end of phases 17 and 19; (g)
+     mamba2-2.7b at full width, depth 2 of 64, 4 steps at batch 2 x 1024,
+     every step eager and then captured: a ssd_scan launch a layer a step
+     each way (counted at each replay), the losses and the final state bit
+     for bit, step ms each way;
  18. data-parallel training and the sharding layer (qwen2-0.5b at full
      width): (a) one rank on NCCL (launch/multihost.py::initialize through a
      FileStore under build/): the DP step (training/dp_compressed.py) at 4 x
@@ -302,14 +315,19 @@ Phases, each of which raises on failure (there is no CPU fallback):
      params) int8 within 1e-2 of uncompressed, wire bytes int8 < 0.6 x,
      the ranks' params equal after every step; (c) launch/programs.py's
      cells on a (1,1) DeviceMesh at each cell's batch and length, depth cut
-     by depth_supers (printed as "reduced"): train_4k (baseline,
-     remat_coll; 32 microbatches) bit for bit make_train_step, prefill_32k
+     by depth_supers (printed as "reduced"), each through prog.jitted()
+     (its first call eager, its second the capture and a replay, later ones
+     replays; route, capture seconds, pool bytes, ms eager and replayed):
+     train_4k (baseline, remat_coll; 32 microbatches) bit for bit
+     make_train_step, its replay on a copy of the same state bit for bit its
+     eager call, prefill_32k
      (baseline bit for bit LM.prefill, then one torch.profiler pass of it:
      the bf16 flash forward's device ms and share of the device's busy
      time; big_serve's 2 chunks: each chunk's logits and cache bit for bit
      LM.prefill of that chunk, and against 1 chunk the logits and the cache
-     within 2e-2, the GEMMs running at another number of rows) and decode_32k
-     (baseline, kv_int8) bit for bit LM.decode_step, ms and peak memory
+     within 2e-2, the GEMMs running at another number of rows; each
+     program's replay bit for bit its eager call) and decode_32k (baseline,
+     kv_int8) bit for bit LM.decode_step on both calls, ms and peak memory
      each; then gemma2-2b's prefill_32k (depth_supers 1: a local and a
      global layer; 4 of its 32 rows) bit for bit LM.prefill, its wall, peak
      memory, flash launches and a profiled call's device time by kernel,
@@ -379,9 +397,11 @@ Phases, each of which raises on failure (there is no CPU fallback):
      "reduced".
 Serving replays captured steps (repro_torch.launch.graphs): ServeEngine's
 decode step (phases 5, 7) and the live engine's prefill and decode (13, 14
-(d), 15 (c), 16 (e)) are CUDA graphs, one replay a step, their launch counts
-exact under replay; the MoE archs' too (their gathered decode reads the
-chosen experts on the card). Wherever check_model builds a model (phases
+(d), 15 (b)'s dry run, 15 (c), 16 (e)) are CUDA graphs, one replay a step,
+their launch counts exact under replay; the MoE archs' too (their gathered
+decode reads the chosen experts on the card). So is training: train()'s
+step (phases 10, 11, 18 (d)), phase 17's runs, and the cell programs
+through prog.jitted() (18 (c)). Wherever check_model builds a model (phases
 4, 6, 4 (b), 14 (a), 15 (a), 16 (b)-(d)), a "[graph]" line holds 16 replays
 of its captured decode step bit for bit against 16 eager LM.decode_step
 calls from the same cache (logits and every cache leaf, the decode and MoE
@@ -1576,8 +1596,14 @@ def _head_gemms(prof, vocab) -> dict:
 
 
 def train_full(device) -> tuple[dict, dict]:
-    """Phase 10: train() at full width in bfloat16. Returns the run's
-    numbers, and the kernel launches of the run."""
+    """Phase 10: train() at full width in bfloat16, through its captured
+    step (route "graph": the first step eager, then replays). Then the same
+    TRAIN_STEPS steps eagerly from train()'s initial state on its batches
+    (``make_train_step(donate=True)``): every loss and the final state bit
+    for bit. One eager step profiled (the LM head's GEMMs by their operand's
+    shape), and the same step captured and replayed, profiled: the
+    ``[graph]`` line for training. Returns the run's numbers, and the
+    kernel launches of train()'s run."""
     cfg = get_config(TRAIN_ARCH)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     flash_attention.launches = flash_attention_bwd.launches = 0
@@ -1588,6 +1614,8 @@ def train_full(device) -> tuple[dict, dict]:
                 ckpt_dir=str(CKPT_DIR / "full"), ckpt_every=10 * TRAIN_STEPS, log_every=5,
                 device=device, dtype=torch.bfloat16)
     wall = time.perf_counter() - t0
+    if out["route"] != "graph":
+        raise AssertionError(f"train: route {out['route']!r}, expected a captured step")
     counts = {"flash_attention": flash_attention.launches,
               "flash_attention_bwd": flash_attention_bwd.launches,
               "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
@@ -1608,16 +1636,31 @@ def train_full(device) -> tuple[dict, dict]:
     ckpt_s = out["ckpt_s"]
     flops = _model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
 
-    # one step under the profiler: the device's busy time against the step,
-    # donated as train()'s steps are (the in-place update; nothing reads
-    # out["state"] afterwards)
+    # the same steps eagerly: train()'s initial state, optimizer and batches
     model = LM(cfg, device=device)
     fn = training_step.make_train_step(model, OptConfig(warmup_steps=10, total_steps=TRAIN_STEPS),
                                        remat=None, compute_dtype=torch.bfloat16, donate=True)
+    state = training_step.init_state(model, torch.Generator(device=device).manual_seed(0))
+    stream = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=device)
+    eager_losses, eager_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        data = stream.next()
+        ts = time.perf_counter()
+        state, m = fn(state, data)
+        eager_losses.append(float(m["loss"]))
+        eager_ms.append(1e3 * (time.perf_counter() - ts))
+    equal, err = _tree_cmp(out["state"], state)
+    if eager_losses != losses or not equal:
+        raise AssertionError(f"train: the captured steps differ from eager steps (losses "
+                             f"{losses} / {eager_losses}, final state by {err})")
+    del out["state"]
+
+    # one eager step under the profiler: the device's busy time against the
+    # step, and the LM head's GEMMs by their operand's shape
     data = TokenStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1, device=device).next()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
-        _, m = fn(out["state"], data)
+        state, m = fn(state, data)
         float(m["loss"])
         torch.cuda.synchronize(device)
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
@@ -1629,19 +1672,51 @@ def train_full(device) -> tuple[dict, dict]:
     f32 = [k for k in head if any(mark in k.lower() for mark in F32_GEMM_MARKS)]
     if not head or f32:
         raise AssertionError(f"train: the LM head's GEMMs {sorted(head)}; float32 among them {f32}")
-    del out, m, model, fn
+
+    # the same step captured on this state, replayed under the profiler
+    step = graphs.train_step(model, fn, state, data)
+    replay_launches = {w.__name__: n for w, (n, _) in step.launches.items()}
+    if replay_launches != {"flash_attention": cfg.num_layers,
+                           "flash_attention_bwd": cfg.num_layers}:
+        raise AssertionError(f"train: a replay's launches {replay_launches}")
+    step()
+    replay_host_ms = _host_ms(step, 3)
+    replay_busy, replay_kernels = _busy(step, 2)
+    replayed_ms = 1e3 * float(np.median(out["step_s"][1:]))
+    eager_step_ms = float(np.median(eager_ms[1:]))
+    graph_line = {
+        "arch": TRAIN_ARCH, "route": out["route"], "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps_bit_equal": TRAIN_STEPS, "replay_launches": replay_launches,
+        "capture_s": out["capture_s"], "pool_bytes": out["pool_bytes"],
+        "eager": {"step_ms": eager_step_ms, "device_busy_ms": busy_ms,
+                  "device_idle_share": 1.0 - busy_ms / eager_step_ms if busy_ms
+                  else "not measured", "kernels_per_step": sum(n for *_, n in rows)},
+        "replayed": {"step_ms": replayed_ms, "step_ms_host_loop": replay_host_ms,
+                     "device_busy_ms": replay_busy,
+                     "device_idle_share": 1.0 - replay_busy / replayed_ms if replay_busy
+                     else "not measured", "kernels_per_step": replay_kernels},
+    }
+    print(f"[graph] train {json.dumps(graph_line)} on {card_line()}", flush=True)
+    del step, state, m, model, fn
+    gc.collect()
+    torch.cuda.empty_cache()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     return {
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "num_params": n_params,
+        "route": graph_line["route"], "capture_s": graph_line["capture_s"],
+        "pool_bytes": graph_line["pool_bytes"],
         "losses_first_last": [losses[0], losses[-1]], "ln_vocab": math.log(cfg.vocab_size),
+        "bit_equal_to_eager_steps": True,
         "step_ms_median_last10": 1e3 * step_s,
         "step_ms_last10": last10_ms,
+        "eager_step_ms_median": eager_step_ms,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
         "model_flops_per_step": flops, "model_flop_per_s": flops / step_s,
         "mfu_vs_989T_bf16": flops / step_s / H100.peak_flops_bf16,
         "peak_memory_gb": peak / 1e9, "ckpt_s": ckpt_s,
         "device_busy_ms_profiled_step": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / (1e3 * step_s) if busy_ms else "not measured",
+        "device_idle_share": graph_line["replayed"]["device_idle_share"],
+        "replayed_device_busy_ms": replay_busy,
         "kernel_launches_profiled_step": sum(n for _, _, n in rows),
         "top_kernels_ms": [[k[:60], round(t / 1e3, 3), n] for k, t, n in top],
         "head_gemm_ms_profiled_step": head_ms,
@@ -1655,9 +1730,13 @@ def train_full(device) -> tuple[dict, dict]:
 
 def crash_resume(device) -> dict:
     """Phase 11: crash at step 7, resume from step 4's checkpoint, at the
-    reduced size on the card: losses and params equal the uninterrupted run.
-    The uninterrupted run's launches are counted (the reduced qwen2-0.5b's
-    two layers at bf16 hd 8: a flash forward and backward a layer a step)."""
+    reduced size on the card, each run through train()'s captured step
+    (its first step eager, then replays; the resumed run captures anew):
+    losses and params equal the uninterrupted run. The uninterrupted run's
+    launches are counted (the reduced qwen2-0.5b's two layers at bf16 hd 8:
+    a flash forward and backward a layer a step), and its steps are run
+    again eagerly (``make_train_step(donate=True)``): losses bit for bit,
+    step ms each way."""
     kw = dict(reduced=True, steps=12, batch=4, seq=32, ckpt_every=4, log_every=100,
               device=device)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -1672,6 +1751,8 @@ def crash_resume(device) -> dict:
         pass
     resumed = train(TRAIN_ARCH, ckpt_dir=str(CKPT_DIR / "ft"), **kw)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if {ref["route"], resumed["route"]} != {"graph"}:
+        raise AssertionError(f"crash_resume: routes {ref['route']!r}, {resumed['route']!r}")
     if resumed["steps_run"] != 8:
         raise AssertionError(f"crash_resume: resumed for {resumed['steps_run']} steps")
     err = max(abs(a - b) for a, b in zip(ref["losses"][-8:], resumed["losses"]))
@@ -1681,8 +1762,28 @@ def crash_resume(device) -> dict:
                for a, b in zip(tree_leaves(ref["state"]), tree_leaves(resumed["state"])))
     if perr > 1e-5:
         raise AssertionError(f"crash_resume: final states differ by {perr}")
+    cfg = get_config(TRAIN_ARCH, reduced=True)
+    model = LM(cfg, device=device)
+    fn = training_step.make_train_step(model, OptConfig(warmup_steps=10, total_steps=12),
+                                       remat=None, compute_dtype=torch.bfloat16, donate=True)
+    state = training_step.init_state(model, torch.Generator(device=device).manual_seed(0))
+    stream = TokenStream(cfg, 4, 32, seed=0, device=device)
+    eager_losses, eager_ms = [], []
+    for _ in range(12):
+        data = stream.next()
+        ts = time.perf_counter()
+        state, m = fn(state, data)
+        eager_losses.append(float(m["loss"]))
+        eager_ms.append(1e3 * (time.perf_counter() - ts))
+    if eager_losses != ref["losses"]:
+        raise AssertionError(f"crash_resume: captured losses {ref['losses']}, eager "
+                             f"{eager_losses}")
     return {"steps": 12, "resumed_from": 4, "loss_max_abs_err": err, "state_max_abs_err": perr,
-            "losses_last": resumed["losses"][-1], "launches": launches}
+            "losses_last": resumed["losses"][-1], "launches": launches,
+            "route": ref["route"], "capture_s": [ref["capture_s"], resumed["capture_s"]],
+            "replayed_step_ms": 1e3 * float(np.median(ref["step_s"][1:])),
+            "eager_step_ms": float(np.median(eager_ms[1:])),
+            "uninterrupted_bit_equal_to_eager": True}
 
 
 def _time_ms(fn, args_list, iters):
@@ -2969,10 +3070,12 @@ def _fit_report(records: list, table) -> dict:
 
 def dry_run(device, card, train_step_ms) -> dict:
     """Phase 15 (b): a serve record for each Table 1 arch (launch/dryrun.py:
-    a 4096-token prefill at batch 1, float32, through the flash kernel;
+    a 4096-token prefill at batch 1, float32, through the flash kernel, as
+    the live engine serves it: replays of its captured prefill step;
     mixtral and phi3.5 at depths 2 and 4, extrapolated) and the qwen2-0.5b
-    train record from phase 10's last ten steps; then the H100 fit of the
-    six records, nothing skipped."""
+    train record from phase 10's last ten steps (replays of train()'s
+    captured step); then the H100 fit of the six records, nothing
+    skipped."""
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     records, per_cell = [], {}
     for arch in dryrun.TABLE1_ARCHS:
@@ -2980,7 +3083,8 @@ def dry_run(device, card, train_step_ms) -> dict:
         flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
         rec = dryrun.measure_cell(arch, device=device, repeats=DRYRUN_REPEATS)
         depths = [int(d) for d in rec.get("depth_step_s", {})] or [get_config(arch).num_layers]
-        want = sum(depths) * (1 + DRYRUN_REPEATS)  # warm-up + timed calls, a launch a layer
+        # the step's warm-up, an untimed and the timed replays: a launch a layer each
+        want = sum(depths) * (2 + DRYRUN_REPEATS)
         counts = {"flash_attention": flash_attention.launches,
                   "decode_attention": decode_attention.launches, "ssd_scan": ssd_scan.launches}
         if counts != {"flash_attention": want, "decode_attention": 0, "ssd_scan": 0}:
@@ -3001,7 +3105,7 @@ def dry_run(device, card, train_step_ms) -> dict:
                              step_s=float(np.median(train_step_ms)) / 1e3,
                              measured_ms=list(train_step_ms), device=card,
                              source="phase 10: train() at 4 x 2048 tokens, bf16, "
-                                    "its last 10 steps")
+                                    "its last 10 steps (replays of its captured step)")
     dryrun.write_record(rec, DRYRUN_DIR)
     records.append(rec)
     step_s = rec["roofline"]["terms"]["step_s"]
@@ -3156,9 +3260,13 @@ def table1_day() -> dict:
 INT8_BATCH = 4
 #: (a)'s depth: its checks (kernels against plain, the codes that differ,
 #: the cache's bytes) hold at any depth; cut to pay for phase 19 (e)-(g)
-INT8_LAYERS = 8
+#: and for the captured training and programs of phases 10, 17 and 18
+INT8_LAYERS = 4
 JAMBA, JAMBA_LAYERS, JAMBA_BATCH, JAMBA_PROMPT = "jamba-v0.1-52b", 8, 2, 256
-ENCDEC, ENCDEC_BATCH = "seamless-m4t-large-v2", 4
+#: (c): seamless at ENCDEC_LAYERS decoder and encoder layers of 24 + 24 (its
+#: checks, kernels against plain and a launch a layer, hold at any depth;
+#: cut to pay for the captured training and programs of phases 10, 17, 18)
+ENCDEC, ENCDEC_BATCH, ENCDEC_LAYERS = "seamless-m4t-large-v2", 4, 12
 ENCDEC_CASES = ((333, 333), (200, 512))  # (prompt tokens, encoder frames)
 VLM, VLM_LAYERS, VLM_BATCH, VLM_PROMPT = "internvl2-76b", 4, 4, 77
 CROSS_SHAPE = (4, 200, 512, 16, 16, 64)  # seamless's cross-attention: B, S, Se, H, K, hd
@@ -3534,8 +3642,10 @@ def slice_phase(device, card) -> dict:
                               [(JAMBA_PROMPT, None)])
     print(f"[jamba b] ({time.perf_counter() - t0:.1f}s)", flush=True)
     t0 = time.perf_counter()
-    out["seamless"] = slice_arch(device, card, "seamless c", get_config(ENCDEC), ENCDEC_BATCH,
-                                 list(ENCDEC_CASES))
+    out["seamless"] = slice_arch(device, card, "seamless c",
+                                 get_config(ENCDEC).replace(num_layers=ENCDEC_LAYERS,
+                                                            num_encoder_layers=ENCDEC_LAYERS),
+                                 ENCDEC_BATCH, list(ENCDEC_CASES))
     print(f"[seamless c] ({time.perf_counter() - t0:.1f}s)", flush=True)
     t0 = time.perf_counter()
     # the live engine's context: prompt + decode + 8, which leaves the 256
@@ -3596,11 +3706,16 @@ def _reckon_gb(params) -> dict:
             "reckoned_peak_gb": (18 * n + 4 * largest) / 1e9}
 
 
-def _train_steps(device, cfg, batch, seq, steps, remat=None, state=None, seed=0):
+def _train_steps(device, cfg, batch, seq, steps, remat=None, state=None, seed=0,
+                 captured=True):
     """``steps`` donated train steps of ``cfg`` at full width in bfloat16
     (``make_train_step(donate=True)``, the step train() runs) on batches of
-    ``TokenStream``, the launch counters zeroed just before and read just
-    after. Returns (the final state, the run's numbers)."""
+    ``TokenStream``, as train() runs them: the first eagerly, the rest
+    replays of the step captured after it (``graphs.train_step``), or with
+    ``captured=False`` every one eagerly; the launch counters zeroed just
+    before and read just after. Returns (the final state, the run's
+    numbers: each step's ms to its loss read, the capture's seconds and
+    pool, the activation peak over the run)."""
     model = LM(cfg, device=device)
     if state is None:
         state = training_step.init_state(model, torch.Generator(device=device).manual_seed(seed))
@@ -3612,20 +3727,32 @@ def _train_steps(device, cfg, batch, seq, steps, remat=None, state=None, seed=0)
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
     _zero_launches()
-    for _ in range(steps):
+    step = None
+    for i in range(steps):
         data = stream.next()
         t0 = time.perf_counter()
-        state, m = fn(state, data)
+        if step is None:
+            state, m = fn(state, data)
+        else:
+            graphs.copy_tree(step.buffers["batch"], data)
+            m = step()
         losses.append(float(m["loss"]))  # reads the loss: the step's end on the device
         step_ms.append(1e3 * (time.perf_counter() - t0))
         auxes.append(float(m["aux"]))
         norms.append(float(m["grad_norm"]))
+        if step is None and captured and i + 1 < steps:
+            step = graphs.train_step(model, fn, state, data)
     counts = _launches()
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train {cfg.name}: losses {losses}, grad norms {norms}")
+    if captured and step.route != "graph":
+        raise AssertionError(f"train {cfg.name}: route {step.route!r}, expected a graph")
     ms = float(np.median(step_ms[1:]))
     return state, {
         "batch": batch, "seq": seq, "steps": steps, "remat": remat, "losses": losses,
+        "route": step.route if step else "eager: every step",
+        "capture_s": step.capture_s if step else None,
+        "pool_gb": step.pool_bytes / 1e9 if step else None,
         "router_aux": auxes, "grad_norms": norms, "step_ms": step_ms,
         "step_ms_median_after_first": ms, "tokens_per_s": batch * seq / ms * 1e3,
         "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
@@ -3820,24 +3947,34 @@ def moe_train(device, card) -> dict:
 def remat_train(device, card) -> dict:
     """Phase 17 (e): qwen2-0.5b at phase 10's shape (4 x 2048, bf16),
     REMAT_STEPS steps under each remat policy from one state and the same
-    batches: the first step's loss and grad norm within REMAT_TOL across
-    the policies; step ms and the peak of device memory each. Under a
-    policy each layer's forward runs again in the backward pass, so the
-    flash forward launches twice a layer a step."""
+    batches, every step eager and then as train() runs them (the first
+    eager, the rest replays of the captured step): the first step's loss
+    and grad norm within REMAT_TOL across the policies; step ms and the
+    activation peak each way, and the graph's pool. Under a policy each
+    layer's forward runs again in the backward pass, so the flash forward
+    launches twice a layer a step; in a replay the selective policies ask
+    no Python which activations to keep."""
     cfg = get_config(TRAIN_ARCH)
     state0 = training_step.init_state(LM(cfg, device=device),
                                       torch.Generator(device=device).manual_seed(0))
     out = {}
+    n = cfg.num_layers * REMAT_STEPS
     for remat in (None, "full", "dots", "coll"):
-        torch.cuda.empty_cache()
-        state = _clone(state0)
-        state, res = _train_steps(device, cfg, TRAIN_BATCH, TRAIN_SEQ, REMAT_STEPS,
-                                  remat=remat, state=state)
-        n = cfg.num_layers * REMAT_STEPS
-        _expect_launches(f"qwen2 remat {remat}", res["launches"], n if remat is None else 2 * n,
-                         n)
+        runs = {}
+        for way, captured in (("eager", False), ("replayed", True)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            state, runs[way] = _train_steps(device, cfg, TRAIN_BATCH, TRAIN_SEQ, REMAT_STEPS,
+                                            remat=remat, state=_clone(state0),
+                                            captured=captured)
+            _expect_launches(f"qwen2 remat {remat} {way}", runs[way]["launches"],
+                             n if remat is None else 2 * n, n)
+            del state
+        res = runs["replayed"]
+        res["eager"] = {k: runs["eager"][k] for k in (
+            "step_ms", "step_ms_median_after_first", "activation_peak_gb", "losses")}
+        res["replay_bit_equal_to_eager"] = res["losses"] == runs["eager"]["losses"]
         out[str(remat)] = res
-        del state
     first = out["None"]
     for name, res in out.items():
         for key in ("losses", "grad_norms"):
@@ -3851,6 +3988,54 @@ def remat_train(device, card) -> dict:
     torch.cuda.empty_cache()
     print(f"[train17 e] {TRAIN_ARCH} remat policies at {TRAIN_BATCH} x {TRAIN_SEQ}, bfloat16, "
           f"on {card}: {json.dumps(out)}", flush=True)
+    return out
+
+
+#: (g): mamba2-2.7b at full width, depth 2 of 64; batch, tokens, steps
+MAMBA_TRAIN_LAYERS, MAMBA_TRAIN = 2, (2, 1024, 4)
+
+
+def mamba2_train(device, card) -> dict:
+    """Phase 17 (g): mamba2-2.7b at full width (d_model 2560, 80 SSM heads
+    of P 64, N 128, vocab 50,280), depth MAMBA_TRAIN_LAYERS of 64,
+    MAMBA_TRAIN steps at bf16 compute on float32 master weights, every
+    step eager and then as train() runs them (captured after the first):
+    the SSD scan kernel's launches a layer a step each way (in the replays
+    recorded at the capture and counted at each replay; its backward reruns
+    the chunked plain scan, as the reference trains mamba2), the losses and
+    the final state bit for bit, step ms each way."""
+    cfg = get_config(MAMBA).replace(num_layers=MAMBA_TRAIN_LAYERS)
+    B, S, steps = MAMBA_TRAIN
+    state0 = training_step.init_state(LM(cfg, device=device),
+                                      torch.Generator(device=device).manual_seed(0))
+    runs, states = {}, {}
+    for way, captured in (("eager", False), ("replayed", True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        states[way], runs[way] = _train_steps(device, cfg, B, S, steps, state=_clone(state0),
+                                              captured=captured)
+        want = {"flash_attention": 0, "flash_attention_bwd": 0, "decode_attention": 0,
+                "ssd_scan": cfg.num_layers * steps, "moe_decode": 0}
+        if runs[way]["launches"] != want:
+            raise AssertionError(f"mamba2 train {way}: launches {runs[way]['launches']}, "
+                                 f"expected {want}")
+    equal, err = _tree_cmp(states["replayed"], states["eager"])
+    if runs["replayed"]["losses"] != runs["eager"]["losses"] or not equal:
+        raise AssertionError(f"mamba2 train: replays differ from eager steps (losses "
+                             f"{runs['replayed']['losses']} / {runs['eager']['losses']}, "
+                             f"state by {err})")
+    out = runs["replayed"]
+    out["eager"] = {k: runs["eager"][k] for k in (
+        "step_ms", "step_ms_median_after_first", "activation_peak_gb")}
+    out.update(_reckon_gb(states["eager"]["params"]), num_layers=cfg.num_layers,
+               ln_vocab=math.log(cfg.vocab_size), replay_bit_equal_to_eager=True,
+               reduced=f"depth {cfg.num_layers} of {get_config(MAMBA).num_layers}, every "
+                       "width as published")
+    del states, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train17 g] {MAMBA} full width, depth {cfg.num_layers}, bfloat16, on {card}: "
+          f"{json.dumps(out)}", flush=True)
     return out
 
 
@@ -3986,11 +4171,13 @@ def gemma2_train(device, card) -> dict:
 
 def train_phase(device, card) -> dict:
     """Phase 17: training across the registry: seamless (b), internvl2 (c),
-    mixtral (d), the remat policies (e), gemma2-2b at hd 256 (f); the flash
-    backward at Sq != Sk (a) is checked in phase 3 and timed in phase 12."""
+    mixtral (d), the remat policies (e), gemma2-2b at hd 256 (f), mamba2
+    (g), each through the captured step; the flash backward at Sq != Sk (a)
+    is checked in phase 3 and timed in phase 12."""
     out = {}
     for key, fn in (("seamless", encdec_train), ("internvl2", vlm_train),
-                    ("mixtral", moe_train), ("remat", remat_train), ("gemma2", gemma2_train)):
+                    ("mixtral", moe_train), ("remat", remat_train), ("gemma2", gemma2_train),
+                    ("mamba2", mamba2_train)):
         gc.collect()  # what earlier phases left in reference cycles holds device memory
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -4299,20 +4486,34 @@ def _timed(device, fn):
     return out, 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated(device) / 1e9
 
 
+def _capture_rec(jit, *args) -> dict:
+    """The route of a ``prog.jitted()`` callable for ``args``, and the
+    seconds and pool bytes of its one capture."""
+    (step,) = jit.steps.values()
+    return {"route": jit.route(*args), "capture_s": step.capture_s,
+            "pool_bytes": step.pool_bytes}
+
+
 def _program_train(device, prog) -> dict:
+    """A train program through ``prog.jitted()``: its first call (eager) bit
+    for bit the direct donated ``make_train_step`` on a twin of the state;
+    then its second call on a third copy of the initial state and the same
+    batch (the capture, then the first replay) bit for bit the first call,
+    its launches as many, counted at the replay."""
     model, cfg, cell = prog.model, prog.cfg, prog.cell
     state = training_step.init_state(model, torch.Generator(device=device).manual_seed(0))
-    twin = _clone(state)
+    twin, third = _clone(state), _clone(state)
     data = make_batch(np.random.default_rng(0), cfg, batch=cell.global_batch, seq=cell.seq_len,
                       device=device)
     for k, spec in prog.in_specs[1].items():
         if data[k].shape != spec.shape:
             raise AssertionError(f"program {cell.name}: input {k} {data[k].shape} vs {spec.shape}")
-    _zero_launches()
-    (new, m), ms, peak = _timed(device, lambda: prog(state, data))
-    counts = _launches()
+    jit = prog.jitted()
     mb, remat = prog.meta["microbatches"], prog.meta["remat"]
     n = cfg.num_layers * mb
+    _zero_launches()
+    (new, m), ms, peak = _timed(device, lambda: jit(state, data))  # eager: its first
+    counts = _launches()
     _expect_launches(f"program {cell.name}", counts, 2 * n if remat else n, n)
     direct = training_step.make_train_step(model, OptConfig(), microbatches=mb, remat=remat,
                                            donate=True)
@@ -4320,8 +4521,18 @@ def _program_train(device, prog) -> dict:
     equal, err = _tree_cmp(new, ref)
     if not (equal and float(m["loss"]) == float(mr["loss"])):
         raise AssertionError(f"program {cell.name}: differs from make_train_step by {err}")
-    return {"ms": ms, "peak_memory_gb": peak, "loss": float(m["loss"]), "launches": counts,
-            "bit_equal_to_make_train_step": True}
+    del twin, ref
+    _zero_launches()
+    (rnew, rm), ms_capture, _ = _timed(device, lambda: jit(third, data))
+    equal, err = _tree_cmp(rnew, new)
+    if not (equal and float(rm["loss"]) == float(m["loss"])) or _launches() != counts:
+        raise AssertionError(f"program {cell.name}: the replay differs from the eager call by "
+                             f"{err}, launches {_launches()} against {counts}")
+    rec = {"ms": ms, "peak_memory_gb": peak, "loss": float(m["loss"]), "launches": counts,
+           "bit_equal_to_make_train_step": True, "jitted_replay_bit_equal": True,
+           **_capture_rec(jit, third, data), "capture_call_ms": ms_capture}
+    rec["replayed_ms"] = ms_capture - 1e3 * rec["capture_s"]
+    return rec
 
 
 def _flash_share(device, fn) -> dict:
@@ -4369,8 +4580,9 @@ def _program_prefill(device, prog, base) -> tuple[dict, tuple]:
     inputs = sum(t.numel() * t.element_size() for t in tree_leaves(params) + list(data.values()))
     torch.cuda.synchronize(device)
     beside = (torch.cuda.memory_allocated(device) - inputs) / 1e9
+    jit = prog.jitted()
     _zero_launches()
-    (logits, cache), ms, peak = _timed(device, lambda: prog(params, data))
+    (logits, cache), ms, peak = _timed(device, lambda: jit(params, data))  # eager: its first
     counts = _launches()
     _expect_launches(f"program {cell.name}", counts,
                      cfg.num_layers * prog.meta["prefill_microbatches"], 0)
@@ -4414,10 +4626,27 @@ def _program_prefill(device, prog, base) -> tuple[dict, tuple]:
         rec.update(cache_bit_equal=kv_equal, cache_max_abs_diff=kv_err)
         if kv_err > BF16_TOL:
             raise AssertionError(f"program prefill pmb 2: cache differs by {kv_err}")
+    # the second call captures and replays, the third replays: bit for bit the first
+    _zero_launches()
+    got, ms_capture, _ = _timed(device, lambda: jit(params, data))
+    equal, err = _tree_cmp({"l": got[0], "c": got[1]}, {"l": logits, "c": cache})
+    if not equal or _launches() != counts:
+        raise AssertionError(f"program {cell.name}: the replay differs from the eager call by "
+                             f"{err}, launches {_launches()} against {counts}")
+    del got
+    _, ms_replay, _ = _timed(device, lambda: jit(params, data))
+    rec.update(_capture_rec(jit, params, data), capture_call_ms=ms_capture,
+               replayed_ms=ms_replay, jitted_replay_bit_equal=True)
+    del jit
+    torch.cuda.empty_cache()
     return rec, (logits, cache)
 
 
 def _program_decode(device, prog) -> dict:
+    """A decode program through ``prog.jitted()``: the first call (eager),
+    the second (the capture and its first replay) and the third (a replay),
+    each a step of the donated cache, the first two bit for bit
+    ``LM.decode_step`` on a twin of the cache."""
     model, cfg, cell = prog.model, prog.cfg, prog.cell
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(gen, dtype=torch.bfloat16)
@@ -4425,21 +4654,29 @@ def _program_decode(device, prog) -> dict:
     twin = _clone(cache)
     tokens = torch.randint(0, cfg.vocab_size, (cell.global_batch, 1), generator=gen,
                            dtype=torch.int32, device=device)
-    _zero_launches()
-    (logits, new), ms, peak = _timed(device, lambda: prog(params, cache, tokens))
-    counts = _launches()
-    if counts["decode_attention"] != cfg.num_layers or counts["flash_attention"]:
-        raise AssertionError(f"program {cell.name}: launches {counts}")
-    want = model.decode_step(params, twin, tokens)
-    equal, err = _tree_cmp({"l": logits, "c": new}, {"l": want[0], "c": want[1]})
-    if not equal:
-        raise AssertionError(f"program {cell.name}: differs from LM.decode_step by {err}")
+    jit = prog.jitted()
+    rec = {}
+    for call in range(2):
+        _zero_launches()
+        (logits, cache), ms, peak = _timed(device, lambda: jit(params, cache, tokens))
+        counts = _launches()
+        if counts["decode_attention"] != cfg.num_layers or counts["flash_attention"]:
+            raise AssertionError(f"program {cell.name} call {call}: launches {counts}")
+        want, twin = model.decode_step(params, twin, tokens)
+        equal, err = _tree_cmp({"l": logits, "c": cache}, {"l": want, "c": twin})
+        if not equal:
+            raise AssertionError(f"program {cell.name}: jitted call {call} differs from "
+                                 f"LM.decode_step by {err}")
+        if call == 0:
+            rec.update(ms=ms, peak_memory_gb=peak, launches=counts)
+        else:
+            rec.update(_capture_rec(jit, params, cache, tokens), capture_call_ms=ms)
     del twin, want
-    # the next token on the advanced cache: the step without first-call costs
-    _, ms_next, _ = _timed(device, lambda: prog(params, new, tokens))
-    return {"ms": ms, "ms_next_step": ms_next, "peak_memory_gb": peak, "launches": counts,
-            "cache_gb": sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9,
-            "bit_equal_to_decode_step": True}
+    # the next token on the advanced cache: a replay alone
+    _, rec["replayed_ms"], _ = _timed(device, lambda: jit(params, cache, tokens))
+    rec.update(cache_gb=sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9,
+               jitted_bit_equal_to_decode_step=True)
+    return rec
 
 
 def programs(device, mesh) -> list:
@@ -5728,10 +5965,12 @@ def spmd_phase(card, parts=SPMD_PARTS, seed=0) -> dict:
 # ---- phase 19 (h): the "pod" axis, eight gloo ranks on cuda:0 in (2, 2, 2) --
 POD_WORLD = 8
 POD_TIMEOUT = 300
-#: (h): qwen2-0.5b at full width, depth 2 of 24; a bf16 train step of
-#: batch x length, and (name, kind, length, global batch) of a prefill and a
-#: decode, the batch over "pod" x "data" = 4 ways
-POD_DEPTH, POD_TRAIN = 2, (8, 512)
+#: (h): qwen2-0.5b at full width, depth 1 of 24 (its checks, against one
+#: device and the placements, do not depend on it; cut from 2 to pay for the
+#: captured training and programs of phases 10, 17 and 18); a bf16 train
+#: step of batch x length, and (name, kind, length, global batch) of a
+#: prefill and a decode, the batch over "pod" x "data" = 4 ways
+POD_DEPTH, POD_TRAIN = 1, (8, 512)
 POD_CELLS = (("pod_prefill_2k", "prefill", 2048, 4), ("pod_decode_4k", "decode", 4096, 8))
 
 
@@ -6102,8 +6341,8 @@ def main() -> int:
         "flash_attention_diff": ("src/repro_torch/kernels/ops.py",
                                  "src/repro/kernels/ops.py:33", TRAIN_ARCH),
         # phase 16: the launches of the seamless run with 512 encoder frames
-        # (every flash launch of its prefill: 24 encoder, 24 causal, 24 cross)
-        # and of the jamba run
+        # (every flash launch of its prefill: 12 encoder, 12 causal, 12 cross
+        # at (c)'s depth) and of the jamba run
         "flash_attention_cross": ("src/repro_torch/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:109", ENCDEC),
         "decode_attention_cross": ("src/repro_torch/csrc/decode_attention.cu",

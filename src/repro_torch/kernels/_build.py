@@ -34,7 +34,9 @@ NVCC_FLAGS = (
 _fns: dict = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
-_recorder = threading.local()
+#: {stream handle: {wrapper: [launches, launches at Sq != Sk]}}: the streams
+#: being captured and what was launched on each (``recording_launches``)
+_records: dict = {}
 
 
 def _nvcc() -> str:
@@ -103,18 +105,21 @@ def load(name: str, argtypes: list) -> ctypes._CFuncPtr:
         return fn
 
 
-def count_launch(wrapper, sq_ne_sk: bool = False) -> None:
+def count_launch(wrapper, sq_ne_sk: bool = False, stream: int | None = None) -> None:
     """Add one to ``wrapper.launches``, and to ``wrapper.launches_sq_ne_sk``
     too for an attention launch whose queries and keys differ in length
     (seamless's cross-attention, where the encoder's and the decoder's run
-    at Sq == Sk). Inside ``recording_launches`` on this thread (a CUDA
-    graph's capture, where nothing runs) the launch is recorded instead, and
-    ``add_launches`` counts it at each replay."""
-    rec = getattr(_recorder, "launches", None)
+    at Sq == Sk). A launch on ``stream`` (the handle the kernel was launched
+    on) while ``recording_launches(stream)`` is open, a CUDA graph's capture
+    where nothing runs, is recorded instead, whatever thread launched it
+    (autograd runs the backward on a thread of its own, on the forward's
+    stream), and ``add_launches`` counts it at each replay."""
+    rec = _records.get(stream)
     if rec is not None:
-        n = rec.setdefault(wrapper, [0, 0])
-        n[0] += 1
-        n[1] += sq_ne_sk
+        with _count_lock:
+            n = rec.setdefault(wrapper, [0, 0])
+            n[0] += 1
+            n[1] += sq_ne_sk
         return
     add_launches({wrapper: (1, int(sq_ne_sk))})
 
@@ -131,16 +136,22 @@ def add_launches(launches: dict) -> None:
 
 
 @contextlib.contextmanager
-def recording_launches():
-    """Within the block, this thread's launches are recorded, not counted:
-    yields {wrapper: [launches, launches at Sq != Sk]} (``launch/graphs.py``
-    captures a step inside it and adds the record at each replay)."""
-    prev = getattr(_recorder, "launches", None)
-    _recorder.launches = rec = {}
+def recording_launches(stream: int):
+    """Within the block, launches on ``stream`` (a capture's stream handle)
+    are recorded, not counted, from any thread: yields {wrapper: [launches,
+    launches at Sq != Sk]} (``launch/graphs.py`` captures a step inside it
+    and adds the record at each replay). Captures on other streams (the
+    live engine's workers each capture on a stream of their own) keep
+    records of their own."""
+    with _count_lock:
+        if stream in _records:
+            raise RuntimeError(f"recording_launches: stream {stream:#x} is already recorded")
+        _records[stream] = rec = {}
     try:
         yield rec
     finally:
-        _recorder.launches = prev
+        with _count_lock:
+            del _records[stream]
 
 
 def refuse_fake(name: str, *tensors) -> None:

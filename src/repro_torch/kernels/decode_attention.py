@@ -96,6 +96,7 @@ def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0, return
     nsplit = -(-Smax // split_slots(hd))
     work = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32, device=q.device)
     fn = _build.load("decode_attention", _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(
             0 if q.dtype == torch.float32 else 1,
@@ -104,9 +105,9 @@ def decode_attention(q, k, v, pos_ids, lengths, *, window=0, softcap=0.0, return
             work.data_ptr(), work.numel(), _counter_buffer(q.device, B * K).data_ptr(),
             B, H, K, Smax, hd, int(window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            stream,
         )
-        _build.count_launch(decode_attention)
+        _build.count_launch(decode_attention, stream=stream)
     _build.raise_on_error("decode_attention", rc)
     return (o, lse) if return_lse else o
 

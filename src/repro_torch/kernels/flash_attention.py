@@ -190,6 +190,7 @@ def _launch(q, k, v, causal, window, softcap, with_lse):
     if o.numel() == 0:
         return o, lse
     fn = _build.load("flash_attention", _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(
             0 if q.dtype == torch.float32 else 1,
@@ -197,9 +198,9 @@ def _launch(q, k, v, causal, window, softcap, with_lse):
             lse.data_ptr() if with_lse else None,
             B, Sq, Sk, H, K, hd, int(bool(causal)), int(window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            stream,
         )
-        _build.count_launch(flash_attention, sq_ne_sk=Sq != Sk)
+        _build.count_launch(flash_attention, sq_ne_sk=Sq != Sk, stream=stream)
     _build.raise_on_error("flash_attention", rc)
     return o, lse
 

@@ -235,10 +235,14 @@ def cached_schedule(device, *shape):
     """``(schedule, n_items, n_tiles, slots)``: dkdv_schedule(*shape)
     (Sq, Sk, G, causal, window, kv_blocks, hd[, dtype]) on ``device`` as one
     int32 tensor (the items' rows, then the tiles'), kept
-    per device and shape, with its counts."""
+    per device and shape, with its counts. None is made inside a CUDA graph
+    capture, which refuses the copy from the host: raises there."""
     key = (device, *shape)
     got = _schedules.get(key)
     if got is None:
+        if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"flash_attention_bwd: schedule {shape} needed inside a CUDA "
+                               f"graph capture; run the step once eagerly first")
         items, tiles, slots = dkdv_schedule(*shape)
         got = (torch.tensor(items + tiles, dtype=torch.int32, device=device), len(items),
                len(tiles), slots)
@@ -281,6 +285,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
                                                      int(window or 0), B * K, hd, q.dtype)
     work = torch.empty(workspace_numel(slots, B * K, hd), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_attention_bwd", _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(
             0 if q.dtype == torch.float32 else 1,
@@ -289,9 +294,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0, softcap=0
             work.data_ptr() if work.numel() else None, sched.data_ptr(), n_items, n_tiles,
             B, Sq, Sk, H, K, hd, int(bool(causal)), int(window or 0),
             float(softcap or 0.0), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            stream,
         )
-        _build.count_launch(flash_attention_bwd, sq_ne_sk=Sq != Sk)
+        _build.count_launch(flash_attention_bwd, sq_ne_sk=Sq != Sk, stream=stream)
     _build.raise_on_error("flash_attention_bwd", rc)
     return dq, dk, dv
 

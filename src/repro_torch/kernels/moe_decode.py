@@ -130,15 +130,16 @@ def moe_decode(x, eidx, gate, wi, wg, wo, *, e0: int = 0, num_experts=None, act:
     up = torch.empty(pl["up_floats"], dtype=torch.float32, device=x.device)
     down = torch.empty(pl["down_floats"], dtype=torch.float32, device=x.device)
     fn = _build.load("moe_decode", _ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fn(
             0 if x.dtype == torch.float32 else 1, 0 if wi.dtype == torch.float32 else 1,
             pl["np"], x.data_ptr(), eidx.data_ptr(), gate.data_ptr(), wi.data_ptr(),
             wg.data_ptr(), wo.data_ptr(), up.data_ptr(), down.data_ptr(), y.data_ptr(),
             B, K, D, F, E_l, int(e0), pl["s_up"], pl["rows_up"], pl["s_down"],
-            pl["rows_down"], torch.cuda.current_stream(x.device).cuda_stream,
+            pl["rows_down"], stream,
         )
-        _build.count_launch(moe_decode)
+        _build.count_launch(moe_decode, stream=stream)
     _build.raise_on_error("moe_decode", rc)
     return y
 

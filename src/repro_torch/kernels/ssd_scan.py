@@ -71,15 +71,16 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk=128, h0=None):
     work = torch.empty(Bsz * H * (S // chunk) * (P * N + 1), dtype=torch.float32,
                        device=x.device)
     fn = _build.load("ssd_scan", _ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fn(
             0 if x.dtype == torch.float32 else 1,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(), C_.data_ptr(),
             y.data_ptr(), fs.data_ptr(), work.data_ptr(),
             Bsz, S, H, P, N, chunk, *B_.stride()[:3], *C_.stride()[:3],
-            torch.cuda.current_stream(x.device).cuda_stream,
+            stream,
         )
-        _build.count_launch(ssd_scan)
+        _build.count_launch(ssd_scan, stream=stream)
     _build.raise_on_error("ssd_scan", rc)
     return y, fs
 

@@ -30,14 +30,17 @@ are traced counts for ``perf/hw.py::H100``, not measurements.
 cell's step on the card and write the calibration record
 ``core/calibration.py::fit_dryruns`` reads. It runs the cell on the card
 and times it:
-- ``serve``: one prefill (``LM.prefill``, through the flash kernel) at
-  batch 1 of ``tokens`` = 4096 tokens (the reference's ``prefill_32k``
-  cell per chip: 32 x 32,768 tokens over 256 chips), float32 weights from
-  a seeded ``torch.Generator`` as the live engine makes them
+- ``serve``: one prefill at batch 1 of ``tokens`` = 4096 tokens (the
+  reference's ``prefill_32k`` cell per chip: 32 x 32,768 tokens over 256
+  chips) as the live engine serves it: its prefill step
+  (``core/live.py::live_model(...).prefill_step``: ``LM.prefill`` through
+  the flash kernel, captured on the card), float32 weights from a seeded
+  ``torch.Generator`` as the live engine makes them
   (``core/live.py::_ModelPool._build``). One warm-up call, untimed, then
   the median of ``repeats`` (>= 3) calls, each timed by CUDA events.
 - ``train``: the median step of ``launch/train.py::train`` at 4 x 2048
-  tokens in bf16, after ``TRAIN_WARMUP`` untimed steps.
+  tokens in bf16 (replays of its captured step on the card), after
+  ``TRAIN_WARMUP`` untimed steps.
 
 An arch whose float32 weights do not fit on one card (mixtral-8x7b 187 GB,
 phi3.5-moe 167 GB) is measured at depths d and 2d and extrapolated by
@@ -69,6 +72,7 @@ import torch.distributed as dist
 
 from ..configs import cells, get_config, get_shape, runnable
 from ..core.cost_model import _analytic_step
+from ..core.live import live_model
 from ..core.workload import TABLE1
 from ..data.batches import prefill_specs
 from ..models.config import ModelConfig, ShapeCell
@@ -145,7 +149,10 @@ def _timed_ms(fn, device: torch.device, repeats: int) -> list[float]:
 
 def _prefill_ms(cfg: ModelConfig, tokens: int, device: torch.device,
                 repeats: int) -> list[float]:
-    """Prefill calls of ``tokens`` tokens at batch 1 on ``cfg``, timed."""
+    """Prefill calls of ``tokens`` tokens at batch 1 on ``cfg``, timed: the
+    live engine's prefill entry point (``core/live.py::live_model``: the
+    prompt copied into its step's buffer and the step replayed, captured
+    on the card; its warm-up and capture in the untimed first call)."""
     cell = ShapeCell(f"prefill_{tokens}", "prefill", tokens, 1)
     spec = prefill_specs(cfg, cell, dtype=F32)["tokens"]
     lm = LM(cfg, device=device)
@@ -153,15 +160,11 @@ def _prefill_ms(cfg: ModelConfig, tokens: int, device: torch.device,
     gen = torch.Generator(device=device).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, spec.shape, generator=gen, device=device,
                          dtype=spec.dtype)
-
-    @torch.no_grad()
-    def call():
-        lm.prefill(params, toks, kv_len=tokens, dtype=F32)
-
+    served = live_model(lm, params, kv_len=tokens)
     try:
-        return _timed_ms(call, device, repeats)
+        return _timed_ms(lambda: served.prefill(params, toks), device, repeats)
     finally:
-        del lm, params
+        del lm, params, served
         if device.type == "cuda":
             torch.cuda.empty_cache()
 

@@ -1,7 +1,10 @@
-"""Captured serving steps: the counterpart of the reference's ``jax.jit`` of a
-fixed-shape serving step (``src/repro/launch/serve.py``'s
+"""Captured steps: the counterpart of the reference's ``jax.jit`` of a
+fixed-shape step: the serving steps (``src/repro/launch/serve.py``'s
 ``ServeEngine._decode``, ``src/repro/core/live.py``'s prefill and decode
-entry points).
+entry points), the donated train step (``src/repro/launch/train.py``'s
+``jax.jit(step_fn, donate_argnums=(0,))``: ``train_step``) and the cell
+programs (``src/repro/launch/programs.py``'s ``CellProgram.jitted()``:
+``ProgramCall``).
 
 In the reference one decode step is one dispatch of one XLA executable. Here
 a ``CapturedStep`` holds
@@ -21,7 +24,11 @@ Capture: the body runs once eagerly on a copy of the buffers first (its
 ``warmup``), so the kernels are built (``nvcc`` at a wrapper's first call)
 and their ``static cudaFuncSetAttribute`` calls have run, and so the step
 does not advance the real state (a decode step writes its cache in place).
-The capture then runs on a side stream of its own with
+A train step and a program skip it: their first call of a shape runs
+eagerly on the real inputs (the run's first step), and the next captures;
+a copy of a training state would double the state's bytes.
+The capture then runs on the calling thread's capture stream
+(``capture_stream``: one a thread, kept) with
 ``capture_error_mode="thread_local"``: other threads keep launching on the
 default stream meanwhile (the live engine's workers). Replays go to the
 caller's current stream. A capture that fails raises; nothing falls back to
@@ -42,13 +49,20 @@ prefill branches (``moe_dispatch``) read nothing to the host. The steps
 kept eager, and every step on the CPU, run the same body eagerly on the same
 static buffers: the code the graph holds is the code the CPU tests check.
 
+A train step's capture holds its backward pass too: autograd runs it on a
+device thread of its own, on the forward's stream, so the capture stream
+takes its launches and its allocations (the graph's pool), as it takes
+those of the recomputed forward under a remat policy.
+
 The kernels count their launches (``kernels/_build.py::count_launch``): a
-capture records each wrapper's launches instead of counting them, as nothing
-runs there, and every replay adds them, so the counts stay exact.
+capture records each wrapper's launches on its stream instead of counting
+them, as nothing runs there, from whatever thread launched them, and every
+replay adds them, so the counts stay exact.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 import time
 from typing import Callable
 
@@ -59,6 +73,7 @@ from ..models.params import tree_leaves, tree_map
 from ..parallel import spmd
 
 F32 = torch.float32
+_streams = threading.local()  # each thread's capture streams, by device
 
 
 def clone_tree(tree: dict) -> dict:
@@ -82,15 +97,60 @@ def copy_tree(dst: dict, src: dict) -> None:
             d.copy_(s)
 
 
-def step_route(model, params: dict) -> str:
+def write_back(dst: dict, src: dict) -> None:
+    """Copy into ``dst`` each leaf of ``src`` that is not already ``dst``'s
+    tensor: a donated step returns most of its new state in the tensors it
+    was given, and some leaves out of place (the step counter, a decode
+    cache's lengths)."""
+    for k, d in dst.items():
+        s = src[k]
+        if isinstance(d, dict):
+            write_back(d, s)
+        elif s is not d:
+            d.copy_(s)
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """This thread's stream for captures on ``device``, made at its first
+    capture there and kept. cuBLAS and cuBLASLt keep a workspace for each
+    handle and stream they meet, for the life of the process: one made
+    inside a capture comes from that graph's pool and holds the pool's
+    segment after the graph is gone. So the stream's workspaces are made
+    here, outside any capture, by a few products forward and backward (the
+    backward's on autograd's device thread, which has handles of its own),
+    and every capture of the thread reuses the stream."""
+    device = torch.device(device)
+    held = getattr(_streams, "by_device", None)
+    if held is None:
+        held = _streams.by_device = {}
+    stream = held.get(device)
+    if stream is None:
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream), torch.enable_grad():
+            for dt in (F32, torch.bfloat16):
+                a = torch.ones((64, 64), dtype=dt, device=device, requires_grad=True)
+                bias = torch.ones(64, dtype=dt, device=device, requires_grad=True)
+                y = torch.addmm(bias, a, a).float().sum() + torch.bmm(a[None], a[None]).sum()
+                if dt == torch.bfloat16:  # the bf16 LM head's product (no autograd)
+                    y = y + torch.mm(a.detach(), a.detach(), out_dtype=F32).sum()
+                y.backward()
+        stream.synchronize()
+        held[device] = stream
+    return stream
+
+
+def step_route(model, params: dict, collectives: bool = False) -> str:
     """"graph" where a step of ``model`` (an ``LM``) with ``params`` is
-    captured, else the reason it runs eagerly."""
+    captured, else the reason it runs eagerly. ``collectives``: the step
+    calls a process group itself (``train_dp``'s mean of the gradients)."""
+    if collectives:
+        return "eager: collectives of a process group (gloo goes through the host)"
+    if any(spmd.is_dtensor(t) for t in tree_leaves(params)):
+        return "eager: DTensor params (a mesh)"
     if model.device.type != "cuda":
         return "eager: cpu"
     if model.impl != "cuda":
         return f"eager: impl {model.impl!r}, not the kernels"
-    if any(spmd.is_dtensor(t) for t in tree_leaves(params)):
-        return "eager: DTensor params (a mesh)"
     return "graph"
 
 
@@ -127,8 +187,9 @@ class CapturedStep:
     def _capture(self) -> None:
         device = tree_leaves(self.buffers)[0].device
         graph = torch.cuda.CUDAGraph()
+        stream = capture_stream(device)
         before = torch.cuda.memory_reserved(device)
-        with _build.recording_launches() as launches, torch.cuda.stream(torch.cuda.Stream(device)):
+        with _build.recording_launches(stream.cuda_stream) as launches, torch.cuda.stream(stream):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self.out = self.body(self.buffers)
@@ -163,15 +224,15 @@ def _upload(graph, stream) -> None:
 def decode_body(model, params: dict) -> Callable:
     """The body of one greedy decode step over buffers {"cache", "tok"}:
     ``LM.decode_step`` (which writes the new K/V and mamba state into the
-    cache in place), its new ``lengths`` copied into the cache's (the step
-    returns them out of place), the argmax token copied into "tok". Returns
-    the logits (B, V). One call is one reference ``decode``
+    cache in place), what it returns out of place (the new ``lengths``)
+    written back into the cache, the argmax token copied into "tok".
+    Returns the logits (B, V). One call is one reference ``decode``
     (``src/repro/core/live.py:134-139``) with its output fed back."""
 
     def body(bufs):
         cache, tok = bufs["cache"], bufs["tok"]
         logits, out = model.decode_step(params, cache, tok, dtype=F32)
-        cache["lengths"].copy_(out["lengths"])
+        write_back(cache, out)
         tok.copy_(torch.argmax(logits, -1)[:, None])
         return logits
 
@@ -184,3 +245,100 @@ def decode_step(model, params: dict, cache: dict, *, warmup: bool = True) -> Cap
     tok = torch.zeros((cache["lengths"].shape[0], 1), dtype=torch.long, device=model.device)
     return CapturedStep(decode_body(model, params), {"cache": cache, "tok": tok},
                         route=step_route(model, params), warmup=warmup)
+
+
+def train_body(step_fn: Callable) -> Callable:
+    """The body of one train step over buffers {"state", "batch"}:
+    ``step_fn(state, batch)`` (``make_train_step(donate=True)``, which writes
+    the new params and moments into the state's tensors), then whatever it
+    returned out of place (the step counter ``state["step"] + 1``) copied
+    into the state's buffers. Returns the metrics. One call is one step of
+    the reference's jitted, donated ``step_fn``."""
+
+    def body(bufs):
+        state = bufs["state"]
+        new, metrics = step_fn(state, bufs["batch"])
+        write_back(state, new)
+        return metrics
+
+    return body
+
+
+def train_step(model, step_fn: Callable, state: dict, batch: dict) -> CapturedStep:
+    """A ``CapturedStep`` of ``train_body(step_fn)`` over ``state`` (its
+    static state: each call advances it in place) and a copy of ``batch``
+    (its static batch: copy each step's batch into ``buffers["batch"]``).
+    The caller has run ``step_fn`` once eagerly on this state and a batch
+    of this shape (the run's first step): no warm-up. What that step left
+    in the allocator's cache (its activations) is returned to the device
+    before the capture, so the graph's pool does not sit beside it."""
+    route = step_route(model, state["params"])
+    if route == "graph":
+        torch.cuda.empty_cache()
+    return CapturedStep(train_body(step_fn), {"state": state, "batch": clone_tree(batch)},
+                        route=route, warmup=False)
+
+
+class ProgramCall:
+    """``jax.jit(fn, donate_argnums=...)`` of a cell program
+    (``launch/programs.py::CellProgram.jitted``): the first call of each
+    input shape runs ``fn`` eagerly (its warm-up, on the real inputs), the
+    second captures it and every call from then on replays it, where
+    ``step_route`` captures (else every call runs ``fn``). Output ``i`` of
+    ``fn`` is the new value of donated argument ``i`` (train: the state;
+    decode: the cache): the capture call's donated arguments become the
+    graph's buffers and are advanced in place, and are what the call
+    returns there. The arguments of ``hold_argnums`` (the params of a
+    serving program) are read where they lie: another tree is another
+    shape, captured anew. The other arguments are copied into the graph's
+    buffers, as is a donated argument that is not its buffers. The outputs
+    live in the graph's pool, rewritten by the next call of the shape:
+    clone what must outlive it."""
+
+    def __init__(self, fn: Callable, model, *, donate_argnums: tuple, hold_argnums: tuple,
+                 params_of: Callable):
+        self.fn, self.model, self.params_of = fn, model, params_of
+        self.donate, self.hold = tuple(donate_argnums), tuple(hold_argnums)
+        #: {input shape: CapturedStep}, and the shapes run once eagerly
+        self.steps: dict = {}
+        self._warm: set = set()
+
+    def route(self, *args) -> str:
+        return step_route(self.model, self.params_of(args))
+
+    def _key(self, args) -> tuple:
+        return tuple(id(a) if i in self.hold else tuple(
+            (tuple(t.shape), t.dtype) for t in tree_leaves({"a": a}))
+            for i, a in enumerate(args))
+
+    def __call__(self, *args):
+        if self.route(*args) != "graph":
+            return self.fn(*args)
+        key = self._key(args)
+        step = self.steps.get(key)
+        if step is None:
+            if key not in self._warm:
+                self._warm.add(key)
+                return self.fn(*args)
+            step = self.steps[key] = self._capture(args)
+        else:
+            for i, a in enumerate(args):
+                if i not in self.hold and a is not step.buffers[str(i)]:
+                    copy_tree({"a": step.buffers[str(i)]}, {"a": a})
+        return step()
+
+    def _capture(self, args) -> CapturedStep:
+        held = {i: args[i] for i in self.hold}
+        bufs = {str(i): a if i in self.donate else tree_map(torch.clone, {"a": a})["a"]
+                for i, a in enumerate(args) if i not in held}
+        fn, donate, n = self.fn, self.donate, len(args)
+
+        def body(b):
+            out = list(fn(*(held[i] if i in held else b[str(i)] for i in range(n))))
+            for i in donate:
+                write_back({"a": b[str(i)]}, {"a": out[i]})
+                out[i] = b[str(i)]
+            return tuple(out)
+
+        torch.cuda.empty_cache()
+        return CapturedStep(body, bufs, route="graph", warmup=False)

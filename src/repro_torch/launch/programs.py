@@ -5,9 +5,13 @@ function its dry run lowers and its benchmarks jit, with the inputs' specs
 and shardings; a "variant" selects the sharding/remat strategy without
 touching model code. Here the same builder returns the same specs (tensors
 on the "meta" device), the port's ``NamedSharding`` trees and the step as
-an eager function. ``jitted()`` returns that function, and calling the
-program runs it; the reference's ``lower()`` has no counterpart (nothing is
-compiled ahead). A program builds on any mesh, so its shardings can be
+an eager function, which calling the program runs. ``jitted()`` is the
+reference's ``jax.jit(fn, in_shardings, donate_argnums)``: a callable that
+captures the step once per input shape as a CUDA graph and replays it
+(``launch/graphs.py::ProgramCall``; on the CPU and on a mesh larger than
+one device it runs the step eagerly, by ``graphs.step_route``). The
+reference's ``lower()`` has no counterpart (nothing is compiled ahead). A
+program builds on any mesh, so its shardings can be
 read (``launch/multihost.py``), and runs on a ("data", "model") or ("pod",
 "data", "model") DeviceMesh of any size: on a larger one every rank calls
 it with DTensors placed by ``in_shardings`` (``CellProgram.place`` puts
@@ -36,6 +40,7 @@ from ..parallel import spmd
 from ..parallel.sharding import (Rules, distribute_tree, is_trivial, mesh_shape, rules_for,
                                  sharding_ctx, tree_shardings)
 from ..training import step as training_step
+from . import graphs
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -57,10 +62,18 @@ class CellProgram:
     meta: dict = field(default_factory=dict)
 
     def jitted(self) -> Callable:
-        """The step itself: the port runs eagerly. The arguments of
-        ``donate_argnums`` are written in place (the train state, the decode
-        cache)."""
-        return self.fn
+        """The step as the reference jits it: a ``graphs.ProgramCall``, which
+        runs the first call of each input shape eagerly, captures the
+        second and replays from then on, where ``graphs.step_route``
+        captures. The arguments of ``donate_argnums`` are written in place
+        (the train state, the decode cache) and returned; a serving
+        program's params are read where they lie; the outputs are the
+        graph's, rewritten by the next call of the shape."""
+        train = self.kind == "train"
+        return graphs.ProgramCall(
+            self.fn, self.model, donate_argnums=self.donate_argnums,
+            hold_argnums=() if train else (0,),
+            params_of=(lambda a: a[0]["params"]) if train else (lambda a: a[0]))
 
     def __call__(self, *args):
         return self.fn(*args)

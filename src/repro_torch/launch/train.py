@@ -15,7 +15,10 @@ tests/test_torch_train.py):
     ``tree_shardings(state_axes, state_specs, TRAIN_RULES, mesh)``.
 On a CUDA device every attention of the forward pass runs the CUDA flash
 kernel through ``kernels/ops.py::flash_attention_diff`` (mamba2: the SSD
-scan through ``ssd_scan_diff``). A mesh whose axes are all 1 trains as
+scan through ``ssd_scan_diff``), and the reference's jitted, donated step
+is a captured one (``launch/graphs.py::train_step``): each run's first step
+runs eagerly, the rest replay one CUDA graph of the whole step, forward,
+backward and update, from static state and batch buffers. A mesh whose axes are all 1 trains as
 without one, bit for bit; on a larger mesh (every rank of the world runs
 ``train``) the state lives as DTensors placed by TRAIN_RULES (FSDP over
 "data", tensor and expert parallelism over "model"; on a ("pod", "data",
@@ -43,7 +46,7 @@ from ..models.transformer import LM
 from ..optim.adamw import OptConfig
 from ..parallel.sharding import is_trivial, mesh_shape, rules_for, sharding_ctx, tree_shardings
 from ..training import dp_compressed, step as training_step
-from . import multihost
+from . import graphs, multihost
 
 #: the CLI's default checkpoint directory: inside the checkout, gitignored
 DEFAULT_CKPT_DIR = str(Path(__file__).resolve().parents[3] / "build" / "ckpt")
@@ -75,11 +78,18 @@ def train(
     """Train ``arch`` for ``steps`` steps, resuming from the latest
     checkpoint under ``ckpt_dir`` if there is one. Returns the losses, the
     final state, the number of steps run, each step's wall seconds
-    (``step_s``; each ends in a device sync, reading the loss) and the
+    (``step_s``; each ends in a device sync, reading the loss), the
     seconds the loop was held up by checkpoints (``ckpt_s``: each save's
-    copy to the host, and the wait for the last write). The step updates
-    the state in place (``donate``, as the reference donates it to its
-    jitted step), so training holds one copy of it. ``remat`` is the
+    copy to the host, and the wait for the last write), and the step's
+    ``route`` (``graphs.step_route``: "graph", or why eager), its
+    ``capture_s`` and the bytes of the graph's pool (``pool_bytes``; 0 on
+    an eager route). The step updates the state in place (``donate``, as
+    the reference donates it to its jitted step), so training holds one
+    copy of it. The first step of each run (from scratch, after a resume)
+    runs eagerly; the rest go through ``graphs.train_step`` on its static
+    buffers, which the returned ``state`` is: replays of the captured step
+    on the card, the same body eagerly elsewhere. The capture's seconds
+    are in neither step's ``step_s``. ``remat`` is the
     train step's policy (``models/transformer.py::REMAT_POLICIES``); None,
     the reference's, keeps every activation. Every arch of the registry
     trains: a vision frontend's batches carry patch embeddings, an
@@ -136,17 +146,28 @@ def train(
             state = training_step.init_state(model, gen)
         start = 0
 
+    def run_step(s, b):
+        with sharding_ctx(mesh, rules):  # without a mesh, shard() is the identity
+            return step_fn(s, b)
+
     losses, step_s, ckpt_s = [], [], 0.0
+    captured = None
     t0 = time.perf_counter()
     for i in range(start, steps):
         if i == fail_at:
             store.wait()
             raise SimulatedFailure(f"injected failure at step {i}")
+        batch = stream.next()
         ts = time.perf_counter()
-        with sharding_ctx(mesh, rules):  # without a mesh, shard() is the identity
-            state, metrics = step_fn(state, stream.next())
+        if captured is None:
+            state, metrics = run_step(state, batch)
+        else:
+            graphs.copy_tree(captured.buffers["batch"], batch)
+            metrics = captured()
         loss = float(metrics["loss"])
         step_s.append(time.perf_counter() - ts)
+        if captured is None and i + 1 < steps:  # the first step ran: capture the rest
+            captured = graphs.train_step(model, run_step, state, batch)
         losses.append(loss)
         if (i + 1) % log_every == 0:
             print(
@@ -162,7 +183,10 @@ def train(
     store.wait()
     ckpt_s += time.perf_counter() - ts
     return {"final_loss": losses[-1] if losses else None, "losses": losses,
-            "state": state, "steps_run": len(losses), "step_s": step_s, "ckpt_s": ckpt_s}
+            "state": state, "steps_run": len(losses), "step_s": step_s, "ckpt_s": ckpt_s,
+            "route": graphs.step_route(model, state["params"]),
+            "capture_s": captured.capture_s if captured else 0.0,
+            "pool_bytes": captured.pool_bytes if captured else 0}
 
 
 def train_dp(
@@ -183,8 +207,10 @@ def train_dp(
     has initialised): every rank holds the same params, draws its own rows
     of the global ``batch`` (``TokenStream(host_index=rank,
     host_count=world)``) and steps with the grads' mean over the ranks,
-    int8 with error feedback (``compress``) or float32. No checkpoints.
-    Returns this rank's losses, the final state and the bytes it sent."""
+    int8 with error feedback (``compress``) or float32. No checkpoints. The
+    step runs eagerly (``graphs.step_route``: it calls the process group
+    itself). Returns this rank's losses, the final state, the bytes it
+    sent and the step's route."""
     device = torch.device(device)
     topo = multihost.initialize(device=device.type)
     rank, world = topo["process_index"], topo["process_count"]
@@ -207,7 +233,8 @@ def train_dp(
             print(f"[train_dp] step {i+1}/{steps} loss={losses[-1]:.4f} on {world} ranks, "
                   f"{step_fn.wire.bytes / (i + 1) / 2**20:.3f} MiB sent a step a rank")
     return {"losses": losses, "state": state, "wire_bytes": step_fn.wire.bytes,
-            "rank": rank, "world": world}
+            "rank": rank, "world": world,
+            "route": graphs.step_route(model, state["params"], collectives=True)}
 
 
 def main():

@@ -189,8 +189,7 @@ def _sdpa_dense(q, k, v, q_pos, k_pos, window, causal, cap) -> torch.Tensor:
     scores = scores / math.sqrt(hd)
     scores = softcap(scores, cap)
     mask = causal_window_mask(q_pos, k_pos, window, causal)
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, dtype=F32, device=q.device))
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, H, hd)

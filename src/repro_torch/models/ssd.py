@@ -52,7 +52,6 @@ def ssd_chunked(
     Cr = C_.reshape(Bsz, nc, Q, H, N).to(F32)
     Af = A.to(F32)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, :, :, None]
-    neg_inf = torch.tensor(float("-inf"), dtype=F32, device=x.device)
     h = torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device) if h0 is None else h0.to(F32)
 
     ys = []
@@ -65,7 +64,7 @@ def ssd_chunked(
         # keeps out of the forward value but not out of the gradient
         # (0 * inf = NaN)
         diff = cs[:, :, None, :] - cs[:, None, :, :]  # (B,Q,K,H)
-        L = torch.exp(torch.where(tri, diff, neg_inf))
+        L = torch.exp(torch.where(tri, diff, float("-inf")))
         scores = torch.einsum("bqhn,bkhn->bqkh", C_c, B_c)
         M = scores * L * dt_c[:, None, :, :]
         y = torch.einsum("bqkh,bkhp->bqhp", M, x_c)

@@ -618,7 +618,9 @@ class LM:
                                   frontend_embeds=patches, enc_embeds=batch.get("enc_embeds"))
         if drop:
             x = x[:, drop:]
-        aux = torch.as_tensor(aux, dtype=F32, device=x.device)
+        # a fill where aux is a number (no MoE FFN), not a host copy
+        aux = aux.to(F32) if torch.is_tensor(aux) else torch.full((), aux, dtype=F32,
+                                                                   device=x.device)
         name = "embed" if cfg.tie_embeddings else "lm_head"
         if spmd.is_dtensor(params[name]):
             # FSDP: the head's weight gathered once for every CE chunk and its

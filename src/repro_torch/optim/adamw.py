@@ -96,8 +96,9 @@ def update(cfg: OptConfig, params: dict, grads: dict, opt_state: dict,
         step = step.to_local()
     lr = schedule(cfg, step)
     t = (step + 1).to(F32)
-    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=t.device), t)
-    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=t.device), t)
+    # b1^t and b2^t from device fills, not host copies: a captured step holds them
+    bc1 = 1 - torch.full_like(t, cfg.b1).pow_(t)
+    bc2 = 1 - torch.full_like(t, cfg.b2).pow_(t)
 
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),

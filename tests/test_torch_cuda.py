@@ -57,7 +57,13 @@ LM.decode_step calls (logits and every cache leaf), the decode kernel's
 launches counted at each replay and not at the capture, the MoE archs'
 among them (the gathered decode's kernel launches too); one thread captures
 while another decodes eagerly on the default stream, and both give the
-bits of an eager run made alone. The gathered MoE decode kernel against its
+bits of an eager run made alone. A captured reduced train step
+(launch/graphs.py::train_step: qwen2, mamba2, mixtral; qwen2 at 1,536
+tokens, the CE's checkpointed chunks, under every remat policy): 4 replays
+after one eager step bit for bit 5 eager donated steps (metrics and the
+final state), the kernels' launches (the backward's from autograd's
+thread) counted at each replay, as many as an eager step's, and none at
+the capture. The gathered MoE decode kernel against its
 step-by-step plain version and the plain loop within 1e-5 of the output's
 scale in float32 and 2^-6 in bf16 (sums in other orders; in bf16 a sum on
 a rounding boundary moves an output by a bf16 unit or two), twice bit for
@@ -1324,3 +1330,64 @@ def test_capture_beside_an_eager_decode_on_another_thread(dev):
         assert torch.equal(step(), want[i]), i
     for k, v in _flat(want_cache).items():
         assert torch.equal(_flat(step.buffers["cache"])[k], v), k
+
+
+def _launch_counts():
+    from repro_torch.kernels import ssd_scan as ssd_module
+
+    return (flash_attention.launches, flash_attention_bwd.launches, ssd_module.ssd_scan.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,remat,seq", [
+    ("qwen2-0.5b", None, 64), ("mamba2-2.7b", None, 64), ("mixtral-8x7b", None, 64),
+    ("qwen2-0.5b", None, 1536), ("qwen2-0.5b", "full", 1536), ("qwen2-0.5b", "dots", 1536),
+    ("qwen2-0.5b", "coll", 1536)])
+def test_captured_train_step_replays_the_eager_steps_bit_for_bit(dev, arch, remat, seq):
+    """A reduced train step captured (launch/graphs.py::train_step) after one
+    eager step, as train() runs it, then replayed 4 times: each replay's
+    metrics and the final state equal 5 eager donated steps from the same
+    state on the same batches, bit for bit, in bf16 compute. The kernels'
+    launches (the backward's from autograd's own thread, and under a remat
+    policy the forward recomputed there; at 1,536 tokens the CE's
+    checkpointed chunks too) are counted at each replay, as many as an
+    eager step's, and none at the capture."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import TokenStream
+    from repro_torch.launch import graphs
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.training import step
+
+    cfg = get_config(arch, reduced=True)
+    lm = LM(cfg, device=dev)
+    fn = step.make_train_step(lm, OptConfig(warmup_steps=2, total_steps=10), remat=remat,
+                              compute_dtype=torch.bfloat16, donate=True)
+    stream = TokenStream(cfg, 2, seq, seed=1, device=dev)
+    batches = [stream.next() for _ in range(5)]
+    state = step.init_state(lm, torch.Generator(device=dev).manual_seed(0))
+    twin = graphs.clone_tree(state)
+    want = []
+    before = _launch_counts()
+    for b in batches:
+        twin, m = fn(twin, b)
+        want.append(m)
+    per_step = [(a - b) // 5 for a, b in zip(_launch_counts(), before)]
+    assert per_step[0] > 0 and per_step[1] > 0 or per_step[2] > 0, per_step
+
+    state, m = fn(state, batches[0])
+    got = [m]
+    before = _launch_counts()
+    captured = graphs.train_step(lm, fn, state, batches[0])
+    assert captured.route == "graph" and captured.graph is not None
+    assert _launch_counts() == before  # nothing ran at the capture
+    for b in batches[1:]:
+        graphs.copy_tree(captured.buffers["batch"], b)
+        got.append({k: v.clone() for k, v in captured().items()})
+    assert [(a - b) for a, b in zip(_launch_counts(), before)] == [4 * n for n in per_step]
+    for g, w in zip(got, want):
+        assert all(torch.equal(g[k], w[k]) for k in w), (g, w)
+    final = captured.buffers["state"]
+    assert int(final["step"]) == 5
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(final), tree_leaves(twin)))

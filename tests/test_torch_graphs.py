@@ -275,18 +275,19 @@ def test_counter_buffer_never_drops_a_held_buffer():
 
 
 def test_launches_recorded_in_a_capture_count_at_each_replay():
-    """Inside ``recording_launches`` this thread's launches are recorded, not
-    counted, while another thread's count as they happen; a ``CapturedStep``
-    with a graph adds the record at every replay."""
+    """Inside ``recording_launches(stream)`` the launches on that stream are
+    recorded, not counted, while launches on another stream (another
+    thread's, eager on the default stream) count as they happen; a
+    ``CapturedStep`` with a graph adds the record at every replay."""
 
     def wrapper():
         pass
 
     wrapper.launches = wrapper.launches_sq_ne_sk = 0
-    with _build.recording_launches() as rec:
+    with _build.recording_launches(0x7001) as rec:
         for sq_ne_sk in (False, True, False):
-            _build.count_launch(wrapper, sq_ne_sk=sq_ne_sk)
-        other = threading.Thread(target=lambda: _build.count_launch(wrapper))
+            _build.count_launch(wrapper, sq_ne_sk=sq_ne_sk, stream=0x7001)
+        other = threading.Thread(target=lambda: _build.count_launch(wrapper, stream=0x7002))
         other.start()
         other.join(timeout=30)
         assert not other.is_alive()

@@ -6,9 +6,10 @@ registered in both packages' ``SHAPES`` (``monkeypatch.setitem``). The
 programs run on a (1,1) mesh: the port's a ``DeviceMesh`` over a one-rank
 gloo world, the reference's ``make_local_mesh(1, 1)``, jitted.
 
-Tolerances: specs, shardings and shapes are exact, and each port program
-equals the port's direct call (``make_train_step``, ``LM.prefill``,
-``LM.decode_step``) bit for bit. Against the reference: the train step in
+Tolerances: specs, shardings and shapes are exact, and each port program,
+called and through ``jitted()`` (eager on the CPU), equals the port's
+direct call (``make_train_step``, ``LM.prefill``, ``LM.decode_step``) bit
+for bit. Against the reference: the train step in
 float32 (both packages' ``make_train_step`` bound to
 ``compute_dtype=float32`` for the test) within tests/test_torch_train.py's
 bounds (loss rtol 1e-5, first moments atol 1e-5: m = 0.1 x the grads,
@@ -147,9 +148,12 @@ def test_program_matches_reference_and_direct_call(arch, cell, variant, cells, w
     _specs_match(prog, ref)
     model, cfg, c = prog.model, prog.cfg, prog.cell
     rng = np.random.default_rng(0)
+    jit = prog.jitted()  # the reference's jax.jit: on the CPU the step, eagerly
     if prog.kind == "train":
         jstate = jax_step.init_state(ref.model, jax.random.PRNGKey(0))
-        state, twin = _to_torch(jstate), _to_torch(jstate)  # before jstate is donated
+        # before jstate is donated
+        state, twin, third = _to_torch(jstate), _to_torch(jstate), _to_torch(jstate)
+        assert jit.route(third, None) == "eager: cpu"
         toks = rng.integers(0, cfg.vocab_size, (c.global_batch, c.seq_len + 1)).astype(np.int32)
         batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
         with jmesh:
@@ -160,8 +164,10 @@ def test_program_matches_reference_and_direct_call(arch, cell, variant, cells, w
                                       microbatches=prog.meta["microbatches"],
                                       remat=prog.meta["remat"])
         dnew, dm = direct(twin, tb)
-        assert float(m["loss"]) == float(dm["loss"])
+        jnew_, jm_ = jit(third, tb)
+        assert float(m["loss"]) == float(dm["loss"]) == float(jm_["loss"])
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(new), tree_leaves(dnew)))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(new), tree_leaves(jnew_)))
         assert float(m["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
         for a, b in zip(tree_leaves(new["opt"]["m"]), _np_leaves(jnew["opt"]["m"])):
             np.testing.assert_allclose(a.numpy(), b, atol=1e-5)
@@ -173,6 +179,9 @@ def test_program_matches_reference_and_direct_call(arch, cell, variant, cells, w
         with jmesh:
             jlogits, jcache = ref.jitted()(jparams, {"tokens": jnp.asarray(toks)})
         logits, cache = prog(params, {"tokens": torch.from_numpy(toks)})
+        jl, jc = jit(params, {"tokens": torch.from_numpy(toks)})
+        assert torch.equal(jl, logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(jc), tree_leaves(cache)))
         dlogits, dcache = model.prefill(params, torch.from_numpy(toks))
         if prog.meta["prefill_microbatches"] == 1:
             assert torch.equal(logits, dlogits)
@@ -182,14 +191,16 @@ def test_program_matches_reference_and_direct_call(arch, cell, variant, cells, w
     else:
         jcache = _filled_cache(ref.in_specs[1], c.seq_len, seed=1)
         toks = rng.integers(0, cfg.vocab_size, (c.global_batch, 1)).astype(np.int32)
-        cache, twin = _to_torch(jcache), _to_torch(jcache)
+        cache, twin, third = _to_torch(jcache), _to_torch(jcache), _to_torch(jcache)
         with jmesh:
             jlogits, _ = ref.jitted()(jparams, jax.tree.map(jnp.asarray, jcache),
                                       jnp.asarray(toks))
         logits, new = prog(params, cache, torch.from_numpy(toks))
         dlogits, dnew = model.decode_step(params, twin, torch.from_numpy(toks))
-        assert torch.equal(logits, dlogits)
+        jl, jnew_ = jit(params, third, torch.from_numpy(toks))
+        assert torch.equal(logits, dlogits) and torch.equal(jl, logits)
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(new), tree_leaves(dnew)))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(jnew_), tree_leaves(dnew)))
     want = np.asarray(jlogits, np.float32)
     np.testing.assert_allclose(logits.float().numpy(), want,
                                atol=SERVE_TOL * float(np.abs(want).max()))
